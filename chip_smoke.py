@@ -1,27 +1,32 @@
 #!/usr/bin/env python3
 """Smoke test of lightx2v_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # build, kernel phase, slice phase
+    python3 chip_smoke.py                 # build, kernel phase, both paths
     python3 chip_smoke.py --kernels-only  # build and kernel phase only
-    python3 chip_smoke.py --profile out/  # and a profiled run of the slice
+    python3 chip_smoke.py --profile out/  # and a profiled run of each path
 
 1. Prints the card's name and power limit, builds every CUDA kernel of the
    port from ``lightx2v_tpu_torch/csrc`` (one nvcc per source, in parallel)
    and prints the build seconds.
 2. Kernel phase: each kernel runs at the shapes of the Wan2.1-T2V-14B 480P
-   main path, is held against its plain PyTorch version on the same inputs
+   main paths, is held against its plain PyTorch version on the same inputs
    (bars below), and is timed with CUDA events beside its plain version,
-   one PyTorch library call computing the same function (a yardstick only:
-   the port never calls it), and its bound on this card.
-3. Slice phase: one full-width int8 DiT block on a small input against the
+   one PyTorch library call computing the same function where there is one
+   (a yardstick only: the port never calls it), and its bound on this card.
+3. Slice 1: one full-width int8 DiT block on a small input against the
    plain versions on the CPU; then the port's ``WanDistillRunner`` on
    ``configs/deploy/wan_t2v.json`` with synthetic weights made on the card
    (14B int8 DiT, 40 blocks; bf16 UMT5-XXL; full Wan VAE): T5 encode ->
-   4-step distill denoise -> tiled VAE decode of 81x480x832. The launch
-   counters are zeroed just before the run and read just after.
+   4-step distill denoise -> tiled VAE decode of 81x480x832.
+4. Flagship (slice 2): one full-width w4a8 block the same way; then the
+   runner on the same config with the bench flagship's overrides (w4a8 DiT
+   linears, Sparge self-attention with the tuned per-layer table and its
+   dense layer 0, int8 UMT5-XXL, untiled decode).
 
-The line before the last two is ``{"kernels": [...]}``, then the card line,
-then ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
+For each path the launch counters are zeroed just before the run and read
+just after, and must equal the path's exact counts. The line before the
+last two is ``{"kernels": [...]}``, then the card line, then
+``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
 Without a CUDA device, or without the package beside this file, it exits 2.
 """
 
@@ -45,7 +50,15 @@ PEAKS = {
 
 # main-path shapes: latents 16x21x60x104 -> 32,760 tokens, 40 heads of 128
 S, HEADS, HD, DIM, FFN, TXT = 32760, 40, 128, 5120, 13824, 512
+T5_DIM, T5_FFN = 4096, 10240  # UMT5-XXL
+GROUP = 512  # int4 quant group along in-features at these widths
 REPS = 5  # timed calls per kernel (CUDA-event median)
+INT4A8 = "W-int4-group-sym-A-int8-token-dynamic-Tpu"
+INT8 = "W-int8-channel-sym-A-int8-channel-sym-dynamic-Tpu"
+# the bench flagship: the deploy config plus these overrides
+FLAGSHIP = dict(mm_config={"mm_type": INT4A8}, sparge=True, sparge_keep_ratio=0.3,
+                sparge_ckpt=str(ROOT / "configs/sparge/wan_t2v_14b_structured_keep03.npz"),
+                sparse_block_q=2048, sparse_block_k=1024, t5_quantized=True, use_tiling_vae=False)
 
 
 def card_line() -> str:
@@ -241,13 +254,139 @@ def kernel_phase(peaks, reps: int):
     return rows, extra
 
 
+def kernel_phase_flagship(peaks, reps: int):
+    """The four kernels the bench flagship adds, at its shapes."""
+    import numpy as np
+    import torch
+
+    from lightx2v_tpu_torch.ops import sparge
+    from lightx2v_tpu_torch.ops.cuda import block_sparse_attention as bsa
+    from lightx2v_tpu_torch.ops.cuda import w4a8_matmul as w4
+    from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
+
+    peak_bf16, peak_int8, peak_bw = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows, extra = [], []
+    none_int4 = "none (no single PyTorch call computes per-group-scaled int4 x int8)"
+
+    def randn(*shape, dtype=torch.bfloat16, std=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    def packed(n, k):  # synthetic int4 weights as the runner makes them
+        return (torch.randint(0, 256, (n, k // 2), generator=g, device=dev, dtype=torch.uint8),
+                torch.full((n, k // GROUP), 0.02 / 7, device=dev))
+
+    # ---- w4a8_matmul (q/k/v/o and cross q/o at M=32,760; cross k/v at M=512) ----
+    w, ws = packed(DIM, DIM)
+    bvec = randn(DIM, dtype=torch.float32, std=0.02)
+    for m in (S, TXT):
+        x = randn(m, DIM)
+        out = w4.w4a8_matmul(x, w, ws, bvec)
+        torch.cuda.synchronize()
+        ref = w4.w4a8_matmul_plain(x, w, ws, bvec)
+        # bar: identical int8 codes, exact int32 group sums and the same
+        # fp32 order on both sides; only bf16 rounding of rare ties differs
+        err = check_close(f"w4a8_matmul M={m}", out, ref, 2 ** -7, 0.0)
+        del ref, out
+        ms = cuda_ms(lambda: w4.w4a8_matmul(x, w, ws, bvec), reps * 2)
+        plain_ms = cuda_ms(lambda: w4.w4a8_matmul_plain(x, w, ws, bvec), 1)
+        b_ms, b_by = bound(2.0 * m * DIM * DIM, m * DIM * 2 + DIM * DIM // 2 + ws.numel() * 4 + DIM * 4 + m * DIM * 2,
+                           peak_int8, peak_bw)
+        (rows if m == S else extra).append(dict(
+            name="w4a8_matmul", route="cuda", source="lightx2v_tpu_torch/csrc/w4a8_matmul.cu",
+            replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:585",
+            shape=f"x ({m},{DIM}) bf16; w ({DIM},{DIM // 2}) u8 + ({DIM},{DIM // GROUP}) fp32",
+            max_abs_err=err, bar="2^-7*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, library_call=none_int4))
+        del x
+    del w, ws
+
+    # ---- ffn_w4a8 ----
+    x = randn(S, DIM)
+    w0, s0 = packed(FFN, DIM)
+    w2, s2 = packed(DIM, FFN)
+    b0, b2 = randn(FFN, dtype=torch.float32, std=0.02), randn(DIM, dtype=torch.float32, std=0.02)
+    out = w4.ffn_w4a8(x, w0, s0, b0, w2, s2, b2)
+    torch.cuda.synchronize()
+    ref = w4.ffn_w4a8_plain(x, w0, s0, b0, w2, s2, b2)
+    # bar: x codes exact; h is fp32 on both sides but tanh on the card and
+    # in torch may differ by an ulp, flipping a rare h code by one step
+    err = check_close("ffn_w4a8", out, ref, 2e-2, 0.0)
+    del ref, out
+    ms = cuda_ms(lambda: w4.ffn_w4a8(x, w0, s0, b0, w2, s2, b2), reps)
+    plain_ms = cuda_ms(lambda: w4.ffn_w4a8_plain(x, w0, s0, b0, w2, s2, b2), 1)
+    b_ms, b_by = bound(4.0 * S * DIM * FFN, S * DIM * 2 * 2 + DIM * FFN + (s0.numel() + s2.numel() + FFN + DIM) * 4,
+                       peak_int8, peak_bw)
+    rows.append(dict(name="ffn_w4a8", route="cuda", source="lightx2v_tpu_torch/csrc/w4a8_matmul.cu",
+                     replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:439",
+                     shape=f"x ({S},{DIM}) bf16; w0 ({FFN},{DIM // 2}) u8 + ({FFN},{DIM // GROUP}); "
+                           f"w2 ({DIM},{FFN // 2}) u8 + ({DIM},{FFN // GROUP}) fp32",
+                     max_abs_err=err, bar="2e-2*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None, library_call=none_int4))
+    del x, w0, w2
+
+    # ---- w8a8_matmul, k-blocked (UMT5-XXL fc2: K = 10,240 > 8192) ----
+    x = randn(TXT, T5_FFN)
+    w = torch.randint(-127, 128, (T5_DIM, T5_FFN), generator=g, device=dev, dtype=torch.int8)
+    ws = torch.full((T5_DIM,), 0.02 / 127, device=dev)
+    out = wm.w8a8_matmul(x, w, ws)
+    torch.cuda.synchronize()
+    ref = wm.w8a8_matmul_plain(x, w, ws)
+    err = check_close("w8a8_matmul (k-blocked)", out, ref, 2 ** -7, 0.0)
+    del ref, out
+    ms = cuda_ms(lambda: wm.w8a8_matmul(x, w, ws), reps * 2)
+    plain_ms = cuda_ms(lambda: wm.w8a8_matmul_plain(x, w, ws), 2)
+    b_ms, b_by = bound(2.0 * TXT * T5_FFN * T5_DIM, TXT * T5_FFN * 2 + T5_DIM * T5_FFN + T5_DIM * 4 + TXT * T5_DIM * 2,
+                       peak_int8, peak_bw)
+    rows.append(dict(name="w8a8_matmul", route="cuda", source="lightx2v_tpu_torch/csrc/w8a8_matmul.cu",
+                     replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:76",
+                     shape=f"x ({TXT},{T5_FFN}) bf16; w ({T5_DIM},{T5_FFN}) int8; k-block 1024",
+                     max_abs_err=err, bar="2^-7*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None, library_call="none (no single PyTorch call scales per (token, k-block))"))
+    del x, w
+
+    # ---- block_sparse_attention, per-head, on Sparge's own selection ----
+    bq, bk = 2048, 1024
+    q, k, v = randn(1, S, HEADS, HD), randn(1, S, HEADS, HD), randn(1, S, HEADS, HD)
+    sel_ms = cuda_ms(lambda: sparge.sparge_select_blocks(q, k, keep_ratio=0.3, l1=0.3, block_q=bq, block_k=bk), 3)
+    idx, cnt = sparge.sparge_select_blocks(q, k, keep_ratio=0.3, l1=0.3, block_q=bq, block_k=bk)
+    out = bsa.block_sparse_attention(q, k, v, idx, cnt, bq=bq, bk=bk)
+    torch.cuda.synchronize()
+    hs = slice(0, 2)  # the plain version gathers and multiplies per (head, q superblock)
+    ref = bsa.block_sparse_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs], idx[:2], cnt[:2], bq=bq, bk=bk)
+    err = check_close("block_sparse_attention", out[:, :, hs], ref, 2e-2, 1e-3)
+    del ref, out
+    ms = cuda_ms(lambda: bsa.block_sparse_attention(q, k, v, idx, cnt, bq=bq, bk=bk), reps)
+    plain_ms = cuda_ms(lambda: bsa.block_sparse_attention_plain(q, k, v, idx, cnt, bq=bq, bk=bk), 1, warmup=0)
+    # operations of this selection: 4*D per (query row, valid selected key)
+    ic, cc = idx.cpu().numpy(), cnt.cpu().numpy()
+    q_rows = np.minimum(bq, S - np.arange(ic.shape[1]) * bq)
+    k_valid = np.minimum(bk, S - np.arange(-(-S // bk)) * bk)
+    pairs = sum(int(q_rows[i]) * int(k_valid[ic[h, i, :cc[h, i]]].sum()) for h in range(ic.shape[0])
+                for i in range(ic.shape[1]))
+    b_ms, b_by = bound(4.0 * HD * pairs, 4 * S * HEADS * HD * 2 + idx.numel() * 4 + cnt.numel() * 4, peak_bf16, peak_bw)
+    rows.append(dict(name="block_sparse_attention", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
+                     replaces="lightx2v_tpu/ops/pallas/block_sparse_attention.py:134",
+                     shape=f"q,k,v (1,{S},{HEADS},{HD}) bf16; indices {tuple(idx.shape)}, counts {tuple(cnt.shape)} "
+                           f"i32; bq {bq}, bk {bk}; selected {int(cc.sum())} of {cc.size * ic.shape[2]}",
+                     max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     library_call="none (flex_attention needs torch.compile; not timed)",
+                     selection_ms=sel_ms, dense_fraction=pairs / (HEADS * S * S)))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rows, extra
+
+
 # ---------------------------------------------------------------------------
 # slice phase
 
 
-def block_reference_check():
-    """One full-width int8 DiT block (kernel thresholds engaged) on a small
-    input: CUDA kernels vs the plain versions on the CPU, same weights."""
+def block_reference_check(scheme: str = "int8", mm_type: str = INT8):
+    """One full-width quantized DiT block (kernel thresholds engaged) on a
+    small input: CUDA kernels vs the plain versions on the CPU, same
+    weights, dense fused-RoPE flash self-attention."""
     import dataclasses
 
     import torch
@@ -258,7 +397,7 @@ def block_reference_check():
     from lightx2v_tpu_torch.models.wan.weights import init_random_params_on_device, permute_qk_half
 
     arch = dataclasses.replace(WanArch(**PRESETS["wan2.1_14b"]), num_layers=1, rope_fused=True)
-    params = permute_qk_half(init_random_params_on_device(arch, "int8", seed=3, device="cuda"), arch)
+    params = permute_qk_half(init_random_params_on_device(arch, scheme, seed=3, device="cuda"), arch)
     g = torch.Generator(device="cuda").manual_seed(4)
     shape = (16, 2, 8, 12)  # 48 tokens
     lat = torch.randn((1, *shape), generator=g, device="cuda")
@@ -271,22 +410,48 @@ def block_reference_check():
             else [to(v) for v in tree] if isinstance(tree, list)
             else tree.to(dev) if isinstance(tree, torch.Tensor) else tree)
         cos, sin, _ = rope_for_shape(arch, shape, device=dev)
-        return wan_forward(to(params), lat.to(dev), t.to(dev), ctx.to(dev), cos, sin, arch,
-                           mm_type="W-int8-channel-sym-A-int8-channel-sym-dynamic-Tpu")
+        return wan_forward(to(params), lat.to(dev), t.to(dev), ctx.to(dev), cos, sin, arch, mm_type=mm_type)
 
     out = run("cuda")
     torch.cuda.synchronize()
     ref = run("cpu")
-    # bar: the DiT's bf16 activations pass two flash calls and five int8
-    # GEMMs; summation order and rare rounding flips stay at bf16 noise
-    return check_close("one 14B int8 block, card vs CPU plain", out.cpu(), ref, 3e-2, 1e-3)
+    # bar: the DiT's bf16 activations pass two flash calls and the
+    # quantized GEMMs; summation order and rare rounding flips stay at bf16
+    # noise
+    return check_close(f"one 14B {scheme} block, card vs CPU plain", out.cpu(), ref, 3e-2, 1e-3)
 
 
-def slice_phase(profile_dir=None):
+def expected_launches(runner, cfg) -> dict:
+    """The exact launch count of every kernel for one pipeline run."""
+    from lightx2v_tpu_torch.encoders.t5 import T5_LINEARS
+    from lightx2v_tpu_torch.ops.cuda import launch_counts
+
+    L, steps = runner.arch.num_layers, len(cfg["denoising_step_list"])
+    out = {k: 0 for k in launch_counts()}
+    _, _, kw = runner._self_attn_setup()
+    if cfg["mm_config"]["mm_type"] == INT4A8:
+        p = (kw or {}).get("dense_prefix", 0)
+        t5_layers = runner.text_encoder.cfg.num_layers
+        # T5: q/k/v/o/gate/fc1 full-K (K = 4096), fc2 k-blocked (K = 10,240)
+        out.update(w4a8_matmul=8 * L * steps, ffn_w4a8=L * steps, block_sparse_attention=(L - p) * steps,
+                   flash_attention_fused_rope=p * steps, flash_attention=L * steps,
+                   w8a8_matmul_fullk=(len(T5_LINEARS) - 1) * t5_layers, w8a8_matmul=t5_layers)
+    else:
+        out.update(w8a8_matmul_fullk=8 * L * steps, ffn_w8a8=L * steps, flash_attention_fused_rope=L * steps,
+                   flash_attention=L * steps)
+    return out
+
+
+def run_path(name: str, overrides: dict, profile_dir=None):
+    """Synthesize the path's weights on the card, zero the counters, run the
+    pipeline once, and check the counts and the frames."""
+    import gc
+
     import numpy as np
     import torch
 
     from lightx2v_tpu_torch import infer
+    from lightx2v_tpu_torch.ops import sparge
     from lightx2v_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from lightx2v_tpu_torch.utils.config import set_config
 
@@ -294,39 +459,59 @@ def slice_phase(profile_dir=None):
                           config_json=str(ROOT / "configs/deploy/wan_t2v.json"),
                           prompt="a red panda climbing a bamboo tree in the rain", seed=42,
                           release_modules=True))
+    cfg.update(overrides)
+    print(f"[{name}] device memory in use before loading: {torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
     t0 = time.perf_counter()
     runner = infer.init_runner(cfg)
-    print(f"[slice] synthesized weights on the card in {time.perf_counter() - t0:.1f} s", flush=True)
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    frames = runner.run_pipeline(save_video=False)
-    total = time.perf_counter() - t0
-    counts = launch_counts()
-    L, steps = runner.arch.num_layers, len(cfg["denoising_step_list"])
-    expect = {"w8a8_matmul_fullk": 8 * L * steps, "ffn_w8a8": L * steps,
-              "flash_attention_fused_rope": L * steps, "flash_attention": L * steps}
-    print(json.dumps({"launch_counts": counts, "expected": expect}), flush=True)
-    for k_, n in expect.items():
-        if counts.get(k_) != n:
-            raise AssertionError(f"launch count {k_}: {counts.get(k_)} != {n}")
+    print(f"[{name}] synthesized weights on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    expect = expected_launches(runner, cfg)
+    selected = []  # Sparge's per-call selected-block totals, summed on the device
+    select = sparge.sparge_select_blocks
+
+    def counting_select(*a, **kw):
+        idx, cnt = select(*a, **kw)
+        selected.append(cnt.sum())
+        return idx, cnt
+
+    sparge.sparge_select_blocks = counting_select
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        frames = runner.run_pipeline(save_video=False)
+        total = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        sparge.sparge_select_blocks = select
+    print(json.dumps({"path": name, "launch_counts": counts, "expected": expect}), flush=True)
+    if counts != expect:
+        raise AssertionError(f"{name}: launch counts {counts} != {expect}")
     if frames.shape != (81, 480, 832, 3) or not np.isfinite(frames).all():
-        raise AssertionError(f"bad frames: shape {frames.shape}, finite {np.isfinite(frames).all()}")
+        raise AssertionError(f"{name}: bad frames: shape {frames.shape}, finite {np.isfinite(frames).all()}")
     tm = runner.timings
     stats = {"encode_s": tm["encode_s"], "denoise_step_s": [float(x) for x in tm["step_s"]],
-             "dit_s": tm["dit_s"], "decode_s": tm["decode_s"], "e2e_s": total, "steps": steps,
+             "dit_s": tm["dit_s"], "decode_s": tm["decode_s"], "e2e_s": total, "steps": len(tm["step_s"]),
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
              "frames": list(frames.shape), "frames_mean_abs": float(np.abs(frames).mean())}
-    print(json.dumps({"slice": stats}), flush=True)
+    if selected:
+        stats["sparge_calls"] = len(selected)
+        stats["sparge_selected_blocks"] = int(torch.stack(selected).sum())
+    print(json.dumps({name: stats}), flush=True)
     if profile_dir:
-        profile_run(runner, profile_dir)
+        profile_run(runner, profile_dir, name)
+    del runner
+    gc.collect()  # the runner's reference cycles hold its weights until collected
+    torch.cuda.empty_cache()
     return counts
 
 
 def _category(name: str) -> str:
     n = name.lower()
-    for key, cat in (("flash_fwd_kernel", "flash_attention (ours)"), ("gemm_s8_kernel", "int8 GEMM (ours)"),
-                     ("ffn_gemm1", "ffn GEMM1 (ours)"), ("quant_rows", "int8 quantize (ours)"),
+    for key, cat in (("flash_fwd_kernel<false, true>", "block_sparse_attention (ours)"),
+                     ("flash_fwd_kernel", "flash_attention (ours)"), ("gemm_s8_kernel", "int8 GEMM (ours)"),
+                     ("ffn_gemm1", "ffn GEMM1 (ours)"), ("ffn_w4a8_gemm1", "ffn w4a8 GEMM1 (ours)"),
+                     ("w4a8_gemm_kernel", "w4a8 GEMM (ours)"), ("quant_groups", "int8 quantize (ours)"),
+                     ("sort", "sort (torch)"),
                      ("conv", "convolution (cuDNN)"), ("fprop", "convolution (cuDNN)"),
                      ("dgrad", "convolution (cuDNN)"), ("gemm", "matmul (cuBLAS)"), ("sm90", "matmul (cuBLAS)"),
                      ("reduce", "reductions (torch)"), ("elementwise", "elementwise (torch)"),
@@ -336,10 +521,10 @@ def _category(name: str) -> str:
     return "other (torch)"
 
 
-def profile_run(runner, out_dir: str):
+def profile_run(runner, out_dir: str, name: str):
     """One more run of the pipeline under torch.profiler: device time by
     kernel category and the device idle share, written to
-    ``out_dir/profile_slice.json`` (the profiler adds host overhead, so the
+    ``out_dir/profile_<name>.json`` (the profiler adds host overhead, so the
     measured run above is the one timed)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -370,8 +555,8 @@ def profile_run(runner, out_dir: str):
            "stage_s": {k: runner.timings[k] for k in ("encode_s", "dit_s", "decode_s")},
            "top_kernels": sorted(kernels, key=lambda r: -r["device_ms"])[:30]}
     Path(out_dir).mkdir(parents=True, exist_ok=True)
-    (Path(out_dir) / "profile_slice.json").write_text(json.dumps(out, indent=1))
-    print(json.dumps({"profile": {k: out[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+    (Path(out_dir) / f"profile_{name}.json").write_text(json.dumps(out, indent=1))
+    print(json.dumps({f"profile_{name}": {k: out[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
                                                       "by_category_ms", "stage_s")}}), flush=True)
 
 
@@ -379,7 +564,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true")
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="after the slice, run it once more under torch.profiler; write DIR/profile_slice.json")
+                    help="after each path, run it once more under torch.profiler; write DIR/profile_<path>.json")
     args = ap.parse_args()
 
     if not (ROOT / "lightx2v_tpu_torch" / "csrc").is_dir():
@@ -392,7 +577,7 @@ def main():
         sys.exit(2)
     sys.path.insert(0, str(ROOT))
     from lightx2v_tpu_torch.infer import set_numerics
-    from lightx2v_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
+    from lightx2v_tpu_torch.ops.cuda import _build, reset_launch_counts
 
     set_numerics()
     card = card_line()
@@ -403,13 +588,18 @@ def main():
     print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
 
     rows, extra = kernel_phase(peaks_for(card), REPS)
-    print(json.dumps({"other_shapes": extra}), flush=True)
-    launches = {k: 0 for k in launch_counts()}
+    rows2, extra2 = kernel_phase_flagship(peaks_for(card), REPS)
+    rows += rows2
+    print(json.dumps({"other_shapes": extra + extra2}), flush=True)
+    by_path = {}
     if not args.kernels_only:
-        block_reference_check()
-        launches = slice_phase(args.profile)
+        block_reference_check("int8", INT8)
+        by_path["slice"] = run_path("slice", {}, args.profile)
+        block_reference_check("int4", INT4A8)
+        by_path["flagship"] = run_path("flagship", FLAGSHIP, args.profile)
     for r in rows:
-        r["launches"] = launches.get(r["name"], 0)
+        r["launches_by_path"] = {p: c.get(r["name"], 0) for p, c in by_path.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
         r["kernel_ms"] = r["ms"]
     reset_launch_counts()
     print(json.dumps({"kernels": rows}), flush=True)

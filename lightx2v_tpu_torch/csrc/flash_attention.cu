@@ -2,7 +2,11 @@
 //
 // Replaces: lightx2v_tpu/ops/pallas/flash_attention.py:flash_attention
 //           (_flash_bnsd / _flash_body) and :flash_attention_fused_rope
-//           (_flash_rope_kernel). One kernel template, ROPE on or off.
+//           (_flash_rope_kernel), and
+//           lightx2v_tpu/ops/pallas/block_sparse_attention.py:
+//           block_sparse_attention in its per-head form
+//           (_bs_kernel_per_head / _bs_body). One kernel template: dense
+//           with ROPE on or off, or SPARSE.
 //
 // What bounds it on this card: operations. Self-attention at 32,760 tokens
 // x 40 heads does 4*S^2*D*N = 2.2e13 bf16 tensor-core FLOP against 0.35 GB
@@ -26,6 +30,18 @@
 // identity rotation. q/k/v/o are addressed by strides in the caller's
 // (B, S, N, D) layout, so no transposed copies are made. Not yet used:
 // wgmma, TMA, warp specialisation, persistence (later work).
+//
+// SPARSE (Sparge self-attention): each (batch*head, bq-row q superblock)
+// names cnt selected bk-key superblocks in indices[bh, iq, :cnt], in score
+// order, not ascending. A CTA's 128 query rows lie in superblock
+// iq = row0 / bq (bq % 128 == 0) and sweep the bk/64 key tiles of each
+// selected superblock in list order: a dynamic loop over j < cnt replaces
+// the TPU grid's repeat-the-last-index padding, and only selected tiles are
+// loaded. The superblock that straddles the sequence end can come at any j,
+// so every tile is masked by absolute key index against kv_len, and tiles
+// wholly past it contribute nothing. The softmax is the dense kernel's
+// (the TPU's _bs_body is the same). Bound: operations, 4 * D * bq * bk per
+// selected (head, q-superblock, key-superblock) triple.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,6 +67,13 @@ struct Strides {
   long long k_b, k_s, k_n;
   long long v_b, v_s, v_n;
   long long o_b, o_s, o_n;
+};
+
+// per-head block lists: idx (B*N, rows, nnz), cnt (B*N, rows), int32
+struct Sparse {
+  const int* idx;
+  const int* cnt;
+  int rows, nnz, bq, bk;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -134,12 +157,12 @@ __device__ __forceinline__ void rotate_chunk(float (&lo)[8], float (&hi)[8], con
   }
 }
 
-template <bool ROPE>
+template <bool ROPE, bool SPARSE>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                  const float* __restrict__ cos_t, const float* __restrict__ sin_t, int s_rope,
-                 int n_heads, int sq, int sk, int kv_limit, Strides st, float gain) {
+                 int n_heads, int sq, int sk, int kv_limit, Strides st, float gain, Sparse sp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* KVs = Qs + Q_ELEMS;  // [buf][K|V]
@@ -157,12 +180,25 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const __nv_bfloat16* vb = v + b * st.v_b + n * st.v_n;
   __nv_bfloat16* ob = o + b * st.o_b + n * st.o_n;
 
-  const int n_tiles = (kv_limit + BKV - 1) / BKV;
+  // the key tiles this CTA sweeps: t -> first key of tile t
+  int n_tiles = (kv_limit + BKV - 1) / BKV;
+  const int* blocks = nullptr;
+  int tiles_per_blk = 1;
+  if (SPARSE) {
+    const long long row = (long long)bh * sp.rows + q0 / sp.bq;
+    blocks = sp.idx + row * sp.nnz;
+    tiles_per_blk = sp.bk / BKV;
+    n_tiles = __ldg(sp.cnt + row) * tiles_per_blk;
+  }
+  auto tile_key0 = [&](int t) {
+    if (SPARSE) return __ldg(blocks + t / tiles_per_blk) * sp.bk + (t % tiles_per_blk) * BKV;
+    return t * BKV;
+  };
 
   auto load_kv = [&](int t, int buf) {
     __nv_bfloat16* Ks = KVs + buf * 2 * KV_ELEMS;
     __nv_bfloat16* Vs = Ks + KV_ELEMS;
-    const int r0 = t * BKV;
+    const int r0 = tile_key0(t);
 #pragma unroll
     for (int i = 0; i < (BKV * 16) / NTHREADS; ++i) {
       int c = tid + i * NTHREADS;
@@ -245,12 +281,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
     __nv_bfloat16* Ks = KVs + buf * 2 * KV_ELEMS;
     __nv_bfloat16* Vs = Ks + KV_ELEMS;
+    const int key0 = tile_key0(t);
     if (ROPE) {
 #pragma unroll
       for (int i = 0; i < (BKV * 8) / NTHREADS; ++i) {
         int u = tid + i * NTHREADS;
         int r = u >> 3, c8 = (u & 7) * 8;
-        int gr = t * BKV + r;
+        int gr = key0 + r;
         float lo[8], hi[8];
         uint4* plo = reinterpret_cast<uint4*>(Ks + r * LDS + c8);
         uint4* phi = reinterpret_cast<uint4*>(Ks + r * LDS + c8 + HD / 2);
@@ -280,10 +317,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       }
     }
 
-    if ((t + 1) * BKV > kv_limit) {
+    if (key0 + BKV > kv_limit) {
 #pragma unroll
       for (int j = 0; j < BKV / 8; ++j) {
-        int key = t * BKV + j * 8 + 2 * tq;
+        int key = key0 + j * 8 + 2 * tq;
         if (key >= kv_limit) { s[j][0] = NEG_INF; s[j][2] = NEG_INF; }
         if (key + 1 >= kv_limit) { s[j][1] = NEG_INF; s[j][3] = NEG_INF; }
       }
@@ -368,18 +405,18 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
-template <bool ROPE>
+template <bool ROPE, bool SPARSE>
 int launch(const void* q, const void* k, const void* v, void* o, const float* cos_t, const float* sin_t,
            int s_rope, int batch, int n_heads, int sq, int sk, int kv_limit, const Strides& st, float gain,
-           cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<ROPE>;
+           const Sparse& sp, cudaStream_t stream) {
+  auto kern = flash_fwd_kernel<ROPE, SPARSE>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((sq + BQ - 1) / BQ, batch * n_heads);
   kern<<<grid, NTHREADS, SMEM_BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), cos_t, sin_t, s_rope, n_heads, sq,
-      sk, kv_limit, st, gain);
+      sk, kv_limit, st, gain, sp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -392,10 +429,25 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     long long o_b, long long o_s, long long o_n, float gain, int rope,
                                     void* stream) {
   Strides st{q_b, q_s, q_n, k_b, k_s, k_n, v_b, v_s, v_n, o_b, o_s, o_n};
+  Sparse sp{nullptr, nullptr, 0, 0, 1, 1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rope) {
-    return launch<true>(q, k, v, o, static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), s_rope,
-                        batch, n_heads, sq, sk, kv_limit, st, gain, s);
+    return launch<true, false>(q, k, v, o, static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+                               s_rope, batch, n_heads, sq, sk, kv_limit, st, gain, sp, s);
   }
-  return launch<false>(q, k, v, o, nullptr, nullptr, 0, batch, n_heads, sq, sk, kv_limit, st, gain, s);
+  return launch<false, false>(q, k, v, o, nullptr, nullptr, 0, batch, n_heads, sq, sk, kv_limit, st, gain, sp, s);
+}
+
+extern "C" int block_sparse_attention_bf16(const void* q, const void* k, const void* v, void* o, const void* idx,
+                                           const void* cnt, int rows, int nnz, int bq, int bk, int batch,
+                                           int n_heads, int sq, int sk, long long q_b, long long q_s, long long q_n,
+                                           long long k_b, long long k_s, long long k_n, long long v_b, long long v_s,
+                                           long long v_n, long long o_b, long long o_s, long long o_n, float gain,
+                                           void* stream) {
+  if (bq <= 0 || bq % BQ || bk <= 0 || bk % BKV || rows < (sq + bq - 1) / bq)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Strides st{q_b, q_s, q_n, k_b, k_s, k_n, v_b, v_s, v_n, o_b, o_s, o_n};
+  Sparse sp{static_cast<const int*>(idx), static_cast<const int*>(cnt), rows, nnz, bq, bk};
+  return launch<false, true>(q, k, v, o, nullptr, nullptr, 0, batch, n_heads, sq, sk, sk, st, gain, sp,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -2,7 +2,9 @@
 // Hopper (sm_90a).
 //
 // Replaces: lightx2v_tpu/ops/pallas/w8a8_matmul.py:w8a8_matmul_fullk
-//           (_w8a8_fullk_kernel) and :ffn_w8a8 (_ffn_w8a8_kernel), int8 kind.
+//           (_w8a8_fullk_kernel), :w8a8_matmul (_w8a8_kernel, the k-blocked
+//           form with per-(token, k-block) activation scales) and :ffn_w8a8
+//           (_ffn_w8a8_kernel), int8 kind.
 //
 // What bounds it on this card: operations. The 14B q/k/v/o projection
 // (M=32,760, N=K=5120) is 1.7e12 int8 ops against 0.7 GB, and the FFN
@@ -14,8 +16,14 @@
 // mma.sync.m16n8k32.s8.s8.s32; operand tiles stream through a 3-stage
 // cp.async ring in shared memory (rows padded to 80 bytes so ldmatrix is
 // conflict-free). The TPU kernel quantizes x inside the GEMM once per
-// s-block; here that is a separate pass (quant_rows_kernel) that writes
-// int8 codes and one fp32 scale per row, so the GEMM reads x once as int8.
+// s-block; here that is a separate pass (quant_groups_kernel in
+// int8_mma.cuh) that writes int8 codes and one fp32 scale per row, so the
+// GEMM reads x once as int8. The k-blocked form is the same pass with one
+// scale per (row, 1024-wide k-block) feeding the grouped GEMM below, whose
+// fp32 accumulator adds float(int32 partial) * xs[row, kb] block by block in
+// k order, then applies *ws + b: the TPU kernel's order. The UMT5-XXL fc2
+// (M=512, K=10,240, N=4096) takes it: 43 GOP against 42 MB, bound by
+// operations at ~0.022 ms.
 // Rounding follows the TPU kernel: scale = max(absmax, 1e-8) * (1/127),
 // q = clip(rint(x / scale), +-127) with IEEE division and round-half-even.
 // The epilogue is fp32, in the TPU order acc*xs*ws + b, then the optional
@@ -33,10 +41,7 @@
 // against a 4.69 ms operation bound. Not yet used: wgmma, TMA, warp
 // specialisation, persistence (later work).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "int8_mma.cuh"
 
 namespace {
 
@@ -44,89 +49,6 @@ constexpr int NTHREADS = 256;
 constexpr int BK = 64;          // bytes of K per pipeline stage
 constexpr int LDSB = BK + 16;   // padded smem row (80 bytes)
 constexpr int STAGES = 3;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// tanh-GELU evaluated in the TPU kernel's order:
-// 0.5*y*(1 + tanh(0.7978845608028654*(y + 0.044715*y*y*y)))
-__device__ __forceinline__ float gelu_tanh(float y) {
-  float y3 = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, y), y), y);
-  float inner = __fmul_rn(0.7978845608028654f, __fadd_rn(y, y3));
-  return __fmul_rn(__fmul_rn(0.5f, y), __fadd_rn(1.0f, tanhf(inner)));
-}
-
-__device__ __forceinline__ int8_t quant1(float x, float s) {
-  float r = rintf(__fdiv_rn(x, s));
-  r = fminf(fmaxf(r, -127.f), 127.f);
-  return static_cast<int8_t>(static_cast<int>(r));
-}
-
-// ---------------------------------------------------------------------------
-// per-row absmax quantization: x bf16 (M, K) -> q int8 (M, K), scale (M,)
-
-__global__ void __launch_bounds__(128) quant_rows_kernel(const __nv_bfloat16* __restrict__ x,
-                                                          int8_t* __restrict__ q, float* __restrict__ scale,
-                                                          int M, int K) {
-  const int row = blockIdx.x;
-  if (row >= M) return;
-  const __nv_bfloat16* xr = x + (long long)row * K;
-  int8_t* qr = q + (long long)row * K;
-  const int nchunk = K / 8;
-  float amax = 0.f;
-  for (int c = threadIdx.x; c < nchunk; c += blockDim.x) {
-    uint4 u = __ldg(reinterpret_cast<const uint4*>(xr) + c);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
-    }
-  }
-  __shared__ float red[4];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffff, amax, off));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
-  __syncthreads();
-  amax = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
-  const float s = __fmul_rn(fmaxf(amax, 1e-8f), 1.0f / 127.0f);
-  for (int c = threadIdx.x; c < nchunk; c += blockDim.x) {
-    uint4 u = __ldg(reinterpret_cast<const uint4*>(xr) + c);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-    char4 lo, hi;
-    float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
-    float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
-    lo.x = quant1(f0.x, s); lo.y = quant1(f0.y, s); lo.z = quant1(f1.x, s); lo.w = quant1(f1.y, s);
-    hi.x = quant1(f2.x, s); hi.y = quant1(f2.y, s); hi.z = quant1(f3.x, s); hi.w = quant1(f3.y, s);
-    uint2 out;
-    out.x = *reinterpret_cast<uint32_t*>(&lo);
-    out.y = *reinterpret_cast<uint32_t*>(&hi);
-    reinterpret_cast<uint2*>(qr)[c] = out;
-  }
-  if (threadIdx.x == 0) scale[row] = s;
-}
 
 // ---------------------------------------------------------------------------
 // shared GEMM main loop pieces. A (M, K) and B (N, K) are row-major int8;
@@ -392,11 +314,6 @@ __global__ void __launch_bounds__(NTHREADS, 1) ffn_gemm1_kernel(const int8_t* __
   }
 }
 
-template <typename Kern>
-cudaError_t set_smem(Kern kern, int bytes) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 template <int NT>
 int launch_gemm1(const void* xq, const void* w0, const void* xs, const void* ws0, const void* b0, void* hq,
                  void* hs, int M, int H, int K, cudaStream_t stream) {
@@ -414,11 +331,8 @@ int launch_gemm1(const void* xq, const void* w0, const void* xs, const void* ws0
 
 }  // namespace
 
-extern "C" int w8a8_quant_rows(const void* x, void* q, void* scale, int M, int K, void* stream) {
-  if (M == 0) return 0;
-  quant_rows_kernel<<<M, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q), static_cast<float*>(scale), M, K);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int w8a8_quant_groups(const void* x, void* q, void* scale, int M, int K, int group, void* stream) {
+  return launch_quant_groups(x, q, scale, M, K, group, stream);
 }
 
 extern "C" int w8a8_gemm(const void* a, const void* b, const void* a_scale, int G, int group, const void* ws,

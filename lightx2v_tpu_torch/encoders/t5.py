@@ -2,7 +2,9 @@
 ``lightx2v_tpu.encoders.t5``): pre-norm blocks with T5 RMS norm, unscaled
 attention plus a per-layer bidirectional relative-position bias, gated-GELU
 FFN, final norm; rows past each prompt's length are zeroed. Linears are
-bf16 with fp32 accumulation; attention is plain einsum/softmax in fp32."""
+bf16 with fp32 accumulation, or int8 codes with per-channel scales
+(``{"w", "w_scale"}``, the quantized encoder) through the int8 matmul path;
+attention is plain einsum/softmax in fp32."""
 
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from ..models.wan.weights import to_tensor
+from ..ops.linear import resolve_mm
+from ..tools.convert import quantize_tensor
 
 Params = Dict[str, Any]
 
@@ -56,8 +60,16 @@ def t5_norm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return (w.float() * out).to(x.dtype)
 
 
-def _lin(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """(out, in) bias-free linear, fp32 accumulation, cast to x's dtype."""
+INT8_MM = "W-int8-channel-sym-A-int8-channel-sym-dynamic-Tpu"
+
+
+def _lin(w, x: torch.Tensor) -> torch.Tensor:
+    """(out, in) bias-free linear, fp32 accumulation, cast to x's dtype; an
+    int8 ``{"w", "w_scale"}`` dict goes through the int8 matmul path (per
+    token quantized activations: the full-K kernel, or the k-blocked one for
+    K > 8192, at UMT5-XXL widths)."""
+    if isinstance(w, dict):
+        return resolve_mm(INT8_MM)({"w": w["w"], "w_scale": w["w_scale"], "b": None}, x)
     return torch.matmul(x.float(), w.float().t()).to(x.dtype)
 
 
@@ -154,10 +166,17 @@ def init_random_t5_state_dict(cfg: T5Config, seed: int = 0, scale: float = 0.02)
     return sd
 
 
+T5_LINEARS = ("q", "k", "v", "o", "gate", "fc1", "fc2")
+
+
 def init_random_t5_params_on_device(cfg: T5Config = UMT5_XXL, seed: int = 0, scale: float = 0.02,
-                                    device="cuda") -> Params:
-    """bf16 T5 params synthesized directly on ``device`` from a seeded
-    ``torch.Generator`` (the UMT5-XXL host state dict is ~23 GB fp32)."""
+                                    device="cuda", scheme: str = "bf16") -> Params:
+    """T5 params synthesized directly on ``device`` from a seeded
+    ``torch.Generator`` (the UMT5-XXL host state dict is ~23 GB fp32).
+    scheme "int8" makes the seven block linears ``{"w", "w_scale"}`` dicts:
+    int8 codes in -127..127 with per-channel scales scale/127."""
+    if scheme not in ("bf16", "int8"):
+        raise NotImplementedError(f"synthetic T5 scheme {scheme!r} is not ported yet")
     dev = torch.device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     d, da, df = cfg.dim, cfg.dim_attn, cfg.dim_ffn
@@ -165,14 +184,36 @@ def init_random_t5_params_on_device(cfg: T5Config = UMT5_XXL, seed: int = 0, sca
     def nrm(shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).mul_(scale).to(dtype)
 
+    def lin(out, kin):
+        if scheme == "bf16":
+            return nrm((out, kin))
+        return {"w": torch.randint(-127, 128, (out, kin), generator=g, device=dev, dtype=torch.int8),
+                "w_scale": torch.full((out,), scale / 127.0, dtype=torch.float32, device=dev)}
+
     ones = lambda: torch.ones((d,), dtype=torch.float32, device=dev)  # noqa: E731
     blocks: List[Params] = [
-        {"norm1": ones(), "q": nrm((da, d)), "k": nrm((da, d)), "v": nrm((da, d)), "o": nrm((d, da)),
+        {"norm1": ones(), "q": lin(da, d), "k": lin(da, d), "v": lin(da, d), "o": lin(d, da),
          "rel_emb": nrm((cfg.num_buckets, cfg.num_heads), torch.float32), "norm2": ones(),
-         "gate": nrm((df, d)), "fc1": nrm((df, d)), "fc2": nrm((d, df))}
+         "gate": lin(df, d), "fc1": lin(df, d), "fc2": lin(d, df)}
         for _ in range(cfg.num_layers)
     ]
     return {"token_embedding": nrm((cfg.vocab_size, d)), "blocks": blocks, "norm": ones()}
+
+
+def quantize_t5_params(params: Params, scheme: str = "int8") -> Params:
+    """Quantize the seven block linears per output channel (the JAX
+    package's ``quantize_t5_params``): each becomes ``{"w", "w_scale"}``."""
+    if scheme != "int8":
+        raise NotImplementedError(f"T5 quant scheme {scheme!r} is not ported yet (ROADMAP.md, Queue 1 item 12)")
+    blocks = []
+    for blk in params["blocks"]:
+        blk = dict(blk)
+        for name in T5_LINEARS:
+            w = blk[name]
+            q, s = quantize_tensor(w.float().cpu().numpy(), scheme)
+            blk[name] = {"w": torch.from_numpy(q).to(w.device), "w_scale": torch.from_numpy(s).to(w.device)}
+        blocks.append(blk)
+    return dict(params, blocks=blocks)
 
 
 class T5EncoderModel:

@@ -113,16 +113,30 @@ def wan_transformer(blocks, x: torch.Tensor, embed0: torch.Tensor, context: torc
                     mm_type: str = "Default", self_attn_type: str = "flash_attn3",
                     cross_attn_type: str = "flash_attn3",
                     self_attn_kwargs: Optional[dict] = None) -> torch.Tensor:
-    """A Python loop over the blocks."""
+    """A Python loop over the blocks.
+
+    ``self_attn_kwargs["l1_per_layer"]`` gives block i its own Sparge mass
+    budget ``l1``; ``self_attn_kwargs["dense_prefix"]`` = p runs blocks
+    i < p with dense ``flash_attn3`` instead of the sparse self-attention
+    (the tuned table's leading layers that could not be sparsified). As in
+    the JAX package, a dense prefix without a per-layer table runs the
+    sparse blocks at l1 = 0."""
     kw = dict(self_attn_kwargs or {})
-    if "l1_per_layer" in kw or "dense_prefix" in kw:
-        raise NotImplementedError("per-layer sparge budgets and dense_prefix come with the Sparge "
-                                  "slice (ROADMAP.md, Queue 1 item 2)")
+    l1_layers = kw.pop("l1_per_layer", None)
+    dense_prefix = int(kw.pop("dense_prefix", 0) or 0)
+    if dense_prefix and l1_layers is None:
+        l1_layers = [0.0] * len(blocks)
     mm_fn = resolve_mm(mm_type)
     self_attn_fn = partial(attention, self_attn_type, **kw)
+    dense_fn = partial(attention, "flash_attn3")
     cross_attn_fn = partial(attention, cross_attn_type)
-    for block in blocks:
-        x = wan_block(block, x, embed0, context, rope_cos, rope_sin, arch, mm_fn, self_attn_fn, cross_attn_fn)
+    for i, block in enumerate(blocks):
+        attn_fn = self_attn_fn
+        if i < dense_prefix:
+            attn_fn = dense_fn
+        elif l1_layers is not None:
+            attn_fn = partial(self_attn_fn, l1=float(l1_layers[i]))
+        x = wan_block(block, x, embed0, context, rope_cos, rope_sin, arch, mm_fn, attn_fn, cross_attn_fn)
     return x
 
 

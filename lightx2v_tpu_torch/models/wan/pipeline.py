@@ -32,7 +32,7 @@ def rope_for_shape(arch: WanArch, target_shape, sp_pad: int = 1, device="cpu"):
 def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = False,
                     mm_type: str = "Default", self_attn_type: str = "flash_attn3",
                     cross_attn_type: str = "flash_attn3", feature_caching: str = "NoCaching",
-                    device="cpu"):
+                    self_attn_kwargs: Optional[dict] = None, device="cpu"):
     """Build ``denoise(params, state, context, generator, noises=None,
     on_step=None) -> final state`` running every scheduler step.
     ``noises`` (one tensor per step) replaces the generator's re-noise
@@ -50,7 +50,7 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
             lat, t = scheduler.step_pre(state)
             pred = wan_forward(params, lat[None], t, context, rope_cos, rope_sin, arch, mm_type=mm_type,
                                self_attn_type=self_attn_type, cross_attn_type=cross_attn_type,
-                               seq_len=seq_len)[0]
+                               seq_len=seq_len, self_attn_kwargs=self_attn_kwargs)[0]
             state = scheduler.step_post(state, pred, generator,
                                         noise=None if noises is None else noises[i])
             if on_step is not None:

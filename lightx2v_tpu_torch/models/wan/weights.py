@@ -2,8 +2,9 @@
 ``lightx2v_tpu.models.wan.weights``).
 
 A checkpoint is a flat ``name -> array`` dict with the reference's keys
-(numpy arrays of any float dtype, int8 weights plus ``.weight_scale`` as
-``tools/convert.quantize_model`` writes them, or torch tensors). The params
+(numpy arrays of any float dtype, int8 or nibble-packed uint8 (int4)
+weights plus ``.weight_scale`` as ``tools/convert.quantize_model`` writes
+them, or torch tensors). The params
 are a dict of tensors with ``params["blocks"]`` a list of per-block dicts
 (the forward loops over it). Linear weights keep the (out, in) layout;
 norm scales and modulation tables stay fp32.
@@ -16,6 +17,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ...tools.convert import _pick_bk
 from .config import WanArch
 
 Params = Dict[str, Any]
@@ -34,17 +36,25 @@ def to_tensor(a, dtype: Optional[torch.dtype], device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device=device)
 
 
+def _is_packed_int4(w) -> bool:
+    return (w.dtype == torch.uint8) if isinstance(w, torch.Tensor) else (np.asarray(w).dtype == np.uint8)
+
+
 def _is_quantized(w) -> bool:
     return (w.dtype == torch.int8) if isinstance(w, torch.Tensor) else (np.asarray(w).dtype == np.int8)
 
 
 def _linear(wd: Dict[str, Any], prefix: str, compute_dtype=torch.bfloat16, device="cpu") -> Params:
     """torch Linear -> {"w": (out, in), "b": (out,) fp32 or None} plus
-    "w_scale" (out,) fp32 for int8 weights."""
+    "w_scale": (out,) fp32 for int8 weights, (out, groups) fp32 for int4
+    weights packed (out, in/2) uint8."""
     w = wd[f"{prefix}.weight"]
     scale_key = f"{prefix}.weight_scale"
     out: Params = {}
-    if _is_quantized(w) or scale_key in wd:
+    if _is_packed_int4(w) and scale_key in wd:
+        out["w"] = to_tensor(w, None, device).contiguous()
+        out["w_scale"] = to_tensor(wd[scale_key], torch.float32, device).contiguous()
+    elif _is_quantized(w) or scale_key in wd:
         out["w"] = to_tensor(w, None, device).contiguous()
         out["w_scale"] = to_tensor(wd[scale_key], torch.float32, device).reshape(-1).contiguous()
     else:
@@ -194,10 +204,12 @@ def init_random_params_on_device(arch: WanArch, scheme: str = "int8", seed: int 
                                  scale: float = 0.02, device="cuda") -> Params:
     """Synthesize the params directly on ``device`` from a seeded
     ``torch.Generator`` (host numpy at 14B would be a 56 GB fp32 array).
-    Layout as ``load_wan_params`` (+ ``quantize_model`` for "int8"): block
-    linears carry int8 codes plus per-channel ``w_scale`` (scale/127, so
-    weights span +-scale); pre/post weights stay bf16/fp32."""
-    if scheme not in ("int8", "bf16"):
+    Layout as ``load_wan_params`` (+ ``quantize_model`` for "int8"/"int4"):
+    block linears carry int8 codes plus per-channel ``w_scale`` (scale/127,
+    so weights span +-scale), or int4 nibbles packed (out, in/2) as uint8
+    bytes in 0..255 plus per-(channel, group) ``w_scale`` (scale/7, group
+    from ``_pick_bk``); pre/post weights stay bf16/fp32."""
+    if scheme not in ("int8", "int4", "bf16"):
         raise NotImplementedError(f"synthetic scheme {scheme!r} is not ported yet")
     dev = torch.device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -212,6 +224,11 @@ def init_random_params_on_device(arch: WanArch, scheme: str = "int8", seed: int 
     def qlin(out, kin):
         if scheme == "bf16":
             return lin(out, kin)
+        if scheme == "int4":
+            groups = kin // _pick_bk(kin)
+            return {"w": torch.randint(0, 256, (out, kin // 2), generator=g, device=dev, dtype=torch.uint8),
+                    "w_scale": torch.full((out, groups), scale / 7.0, dtype=torch.float32, device=dev),
+                    "b": nrm((out,), torch.float32)}
         return {"w": torch.randint(-127, 128, (out, kin), generator=g, device=dev, dtype=torch.int8),
                 "w_scale": torch.full((out,), scale / 127.0, dtype=torch.float32, device=dev),
                 "b": nrm((out,), torch.float32)}

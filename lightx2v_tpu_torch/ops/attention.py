@@ -3,11 +3,13 @@
 * ``flash_attn2`` / ``flash_attn3`` -> the flash-attention kernel
   (ops/cuda/flash_attention.py), with RoPE fused in when rope tables are
   passed (arch.rope_fused: q/k in half-split pair layout);
+* ``Sparge`` / ``sparge`` / ``sparge_attn`` -> Sparge block selection and
+  the per-head block-sparse kernel (ops/sparge.py);
 * ``torch_sdpa`` / ``xla`` -> plain softmax attention in torch ops.
 
 All functions take q, k, v of shape (B, S, N, D) and return (B, S, N, D) in
 the input dtype; softmax statistics are fp32. Other attention types of the
-JAX package (sage, sparge, radial) are not ported yet.
+JAX package (sage, radial) are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from ..utils.registry import ATTN_REGISTER
 from .cuda.flash_attention import flash_attention, flash_attention_fused_rope
 from .rope import apply_rope_half
+from .sparge import sparge_attention
 
 
 def attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len=None) -> torch.Tensor:
@@ -40,7 +43,13 @@ def _dispatch_flash(q, k, v, kv_len: Optional[int] = None, rope_cos=None, rope_s
     return flash_attention(q, k, v, kv_len=kv_len)
 
 
+def _dispatch_sparge(q, k, v, kv_len: Optional[int] = None, keep_ratio=0.3, l1=0.07, block_q=2048,
+                     block_k=1024, **kw):
+    return sparge_attention(q, k, v, keep_ratio=keep_ratio, l1=l1, block_q=block_q, block_k=block_k)
+
+
 ATTN_REGISTER.register(["flash_attn2", "flash_attn3"], _dispatch_flash)
+ATTN_REGISTER.register(["Sparge", "sparge", "sparge_attn"], _dispatch_sparge)
 ATTN_REGISTER.register(["torch_sdpa", "xla"], lambda q, k, v, kv_len=None, **kw: attn_plain(q, k, v, kv_len))
 
 

@@ -20,7 +20,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("flash_attention", "w8a8_matmul")
+SOURCES = ("flash_attention", "w8a8_matmul", "w4a8_matmul")
 # -Xptxas -v: the build log (printed with verbose=True) lists each kernel's
 # registers, shared memory and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-lineinfo",
@@ -40,7 +40,11 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> Path:
+    """Named by the hash of the source, every shared header in ``csrc`` and
+    the flags, so an edited header rebuilds the libraries that include it."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

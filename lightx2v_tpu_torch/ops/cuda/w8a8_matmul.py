@@ -1,8 +1,9 @@
 """int8 GEMMs with dynamic per-token activation quantization: CUDA kernel
 wrappers and their plain PyTorch versions.
 
-Port of ``lightx2v_tpu/ops/pallas/w8a8_matmul.py``: ``w8a8_matmul_fullk``
-and ``ffn_w8a8`` (int8 kind; kernel source ``csrc/w8a8_matmul.cu``). On a
+Port of ``lightx2v_tpu/ops/pallas/w8a8_matmul.py``: ``w8a8_matmul_fullk``,
+the k-blocked ``w8a8_matmul`` and ``ffn_w8a8`` (int8 kind; kernel source
+``csrc/w8a8_matmul.cu``). On a
 CUDA tensor a wrapper launches its kernels or raises; on a CPU tensor it runs
 the plain version, which repeats the kernel's arithmetic with an exact
 integer dot (int8 products summed in float64, exact far past any K here,
@@ -18,7 +19,7 @@ import torch
 
 from . import _build
 
-LAUNCHES = {"w8a8_matmul_fullk": 0, "ffn_w8a8": 0}
+LAUNCHES = {"w8a8_matmul_fullk": 0, "w8a8_matmul": 0, "ffn_w8a8": 0}
 
 
 def gelu_tanh(y: torch.Tensor) -> torch.Tensor:
@@ -36,13 +37,31 @@ def pick_bh(h: int, bh: int = 512) -> int:
     return bh
 
 
-def quantize_rows_plain(x2: torch.Tensor):
-    """(M, K) -> int8 codes (M, K) and fp32 scales (M,):
-    scale = max(absmax, 1e-8) * (1/127), q = clip(round(x / scale), +-127)."""
-    xf = x2.float()
+def pick_kblock(k: int, bk: int = 1024) -> int:
+    """The k-blocked GEMM's activation-scale block: the largest power of two
+    <= 1024 dividing K (the TPU rule; 1024 at K=10,240). K % 128 == 0."""
+    while bk > 128 and k % bk:
+        bk //= 2
+    if k % bk:
+        raise ValueError(f"the k-blocked int8 GEMM needs K % 128 == 0, got K={k}")
+    return bk
+
+
+def quantize_groups_plain(x2: torch.Tensor, group: int):
+    """(M, K) -> int8 codes (M, K) and fp32 scales (M, K/group), per (row,
+    group): scale = max(absmax, 1e-8) * (1/127), q = clip(round(x / scale),
+    +-127)."""
+    m, k = x2.shape
+    xf = x2.float().reshape(m, k // group, group)
     s = torch.clamp_min(xf.abs().amax(dim=-1), 1e-8) * (1.0 / 127.0)
-    q = torch.clamp(torch.round(xf / s[:, None]), -127, 127).to(torch.int8)
-    return q, s
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return q.reshape(m, k), s
+
+
+def quantize_rows_plain(x2: torch.Tensor):
+    """(M, K) -> int8 codes (M, K) and fp32 scales (M,): one group per row."""
+    q, s = quantize_groups_plain(x2, x2.shape[1])
+    return q, s[:, 0]
 
 
 def int_dot_exact(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -56,6 +75,25 @@ def w8a8_matmul_fullk_plain(x, w, w_scale, bias=None, act: Optional[str] = None)
     q, s = quantize_rows_plain(x.reshape(-1, k))
     y = int_dot_exact(q, w) * s[:, None] * w_scale.float()[None, :]
     y = y + (bias.float()[None, :] if bias is not None else 0.0)
+    if act == "gelu":
+        y = gelu_tanh(y)
+    return y.to(x.dtype).reshape(*lead, n)
+
+
+def w8a8_matmul_plain(x, w, w_scale, bias=None, act: Optional[str] = None) -> torch.Tensor:
+    """k-blocked int8 GEMM: x quantized per (token, k-block), each block's
+    exact int32 partial times its act scale added into fp32 in k order, then
+    *w_scale + bias (``_w8a8_kernel``'s order)."""
+    *lead, k = x.shape
+    n = w.shape[0]
+    bk = pick_kblock(k)
+    x2 = x.reshape(-1, k)
+    q, s = quantize_groups_plain(x2, bk)
+    acc = torch.zeros((x2.shape[0], n), dtype=torch.float32, device=x.device)
+    for i in range(s.shape[1]):
+        blk = slice(i * bk, (i + 1) * bk)
+        acc = acc + int_dot_exact(q[:, blk], w[:, blk]) * s[:, i:i + 1]
+    y = acc * w_scale.float()[None, :] + (bias.float()[None, :] if bias is not None else 0.0)
     if act == "gelu":
         y = gelu_tanh(y)
     return y.to(x.dtype).reshape(*lead, n)
@@ -87,10 +125,10 @@ def _lib():
     lib = _build.load("w8a8_matmul")
     if lib.w8a8_gemm.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.w8a8_quant_rows.argtypes = [p, p, p, i, i, p]
+        lib.w8a8_quant_groups.argtypes = [p, p, p, i, i, i, p]
         lib.w8a8_gemm.argtypes = [p, p, p, i, i, p, p, p, i, i, i, i, p]
         lib.ffn_w8a8_gemm1.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
-        for fn in (lib.w8a8_quant_rows, lib.w8a8_gemm, lib.ffn_w8a8_gemm1):
+        for fn in (lib.w8a8_quant_groups, lib.w8a8_gemm, lib.ffn_w8a8_gemm1):
             fn.restype = ctypes.c_int
     return lib
 
@@ -120,12 +158,15 @@ def _check_w(w: torch.Tensor, ws: torch.Tensor, b, k: int, dev, name: str):
     return b.float().contiguous()
 
 
-def _quant_rows(lib, x2: torch.Tensor, stream):
+def quant_groups(fn, x2: torch.Tensor, group: int, stream):
+    """Launch a library's quant_groups pass: x2 (M, K) bf16 -> int8 codes
+    (M, K) and fp32 scales (M, K/group)."""
     m, k = x2.shape
+    if k % group or group % 8:
+        raise ValueError(f"quantization group {group} must divide K={k} and be a multiple of 8")
     xq = torch.empty((m, k), dtype=torch.int8, device=x2.device)
-    xs = torch.empty((m,), dtype=torch.float32, device=x2.device)
-    _build.check(lib.w8a8_quant_rows(x2.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k, stream),
-                 "w8a8 quant_rows")
+    xs = torch.empty((m, k // group), dtype=torch.float32, device=x2.device)
+    _build.check(fn(x2.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k, group, stream), "quant_groups")
     return xq, xs
 
 
@@ -144,12 +185,39 @@ def w8a8_matmul_fullk(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
     n = w.shape[0]
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    xq, xs = _quant_rows(lib, x2, stream)
+    xq, xs = quant_groups(lib.w8a8_quant_groups, x2, k, stream)
     out = torch.empty((x2.shape[0], n), dtype=torch.bfloat16, device=x.device)
     err = lib.w8a8_gemm(xq.data_ptr(), w.data_ptr(), xs.data_ptr(), 1, k, w_scale.data_ptr(),
                         b.data_ptr(), out.data_ptr(), x2.shape[0], n, k, int(act == "gelu"), stream)
     _build.check(err, "w8a8_matmul_fullk")
     LAUNCHES["w8a8_matmul_fullk"] += 1
+    return out.reshape(*lead, n)
+
+
+def w8a8_matmul(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
+                bias: Optional[torch.Tensor] = None, act: Optional[str] = None) -> torch.Tensor:
+    """k-blocked form for K past the full-K kernel's reach: x (..., K) bf16
+    -> (..., N) bf16 with one int8 act scale per (token, k-block), block from
+    ``pick_kblock``; the grouped GEMM adds each block's int32 partial times
+    its scale in k order, then *w_scale + bias and the optional tanh-GELU.
+    w (N, K) int8, w_scale (N,)."""
+    if act not in (None, "gelu"):
+        raise ValueError(f"unsupported act {act!r}")
+    if x.device.type == "cpu":
+        return w8a8_matmul_plain(x, w, w_scale, bias, act)
+    *lead, k = x.shape
+    bk = pick_kblock(k)
+    x2 = _check_x(x)
+    b = _check_w(w, w_scale, bias, k, x.device, "w")
+    n, m = w.shape[0], x2.shape[0]
+    lib = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    xq, xs = quant_groups(lib.w8a8_quant_groups, x2, bk, stream)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    _build.check(lib.w8a8_gemm(xq.data_ptr(), w.data_ptr(), xs.data_ptr(), k // bk, bk, w_scale.data_ptr(),
+                               b.data_ptr(), out.data_ptr(), m, n, k, int(act == "gelu"), stream),
+                 "w8a8_matmul")
+    LAUNCHES["w8a8_matmul"] += 1
     return out.reshape(*lead, n)
 
 
@@ -169,7 +237,7 @@ def ffn_w8a8(x: torch.Tensor, w0: torch.Tensor, w0_scale: torch.Tensor, b0: Opti
     n, m = w2.shape[0], x2.shape[0]
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    xq, xs = _quant_rows(lib, x2, stream)
+    xq, xs = quant_groups(lib.w8a8_quant_groups, x2, k, stream)
     hq = torch.empty((m, h_dim), dtype=torch.int8, device=x.device)
     hs = torch.empty((m, h_dim // bh), dtype=torch.float32, device=x.device)
     _build.check(lib.ffn_w8a8_gemm1(xq.data_ptr(), w0.data_ptr(), xs.data_ptr(), w0_scale.data_ptr(),

@@ -7,12 +7,19 @@ exactly, so a given shape gets the same activation-scale contract:
 
 * min(N, K) >= 4096 and K <= 8192 (K % 128 == 0): ``w8a8_matmul_fullk``
   (CUDA kernel; its plain version on the CPU);
-* min(N, K) >= 4096 and K > 8192: the k-blocked ``w8a8_matmul``, not
-  ported yet, so it raises;
+* min(N, K) >= 4096 and K > 8192 (K % 128 == 0): the k-blocked
+  ``w8a8_matmul`` (CUDA kernel), one act scale per (token, k-block);
 * smaller dims: per-token quantization in plain torch ops, as the JAX
   package leaves that path to XLA;
 * the FFN runs ``ffn_w8a8`` whole when min(H, K) >= 1024, else GEMM, GELU,
   GEMM.
+
+The int4 scheme (``W-int4-group-sym-A-int8-token-dynamic-Tpu``) follows the
+TPU kernel's contract at every size: nibble-packed weights with
+per-(channel, group) scales times per-(token, group) int8 activations
+through ``w4a8_matmul``, and the FFN through ``ffn_w4a8`` when its scales are
+2-D and min(H, K/2) >= 2048. (The JAX package's CPU fallback runs these
+linears weight-only with bf16 activations instead.)
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.registry import MM_REGISTER
-from .cuda.w8a8_matmul import ffn_w8a8, int_dot_exact, w8a8_matmul_fullk
+from .cuda.w4a8_matmul import ffn_w4a8, w4a8_matmul
+from .cuda.w8a8_matmul import ffn_w8a8, int_dot_exact, w8a8_matmul, w8a8_matmul_fullk
 
 
 def _bias_add(y: torch.Tensor, b: Optional[torch.Tensor], out_dtype) -> torch.Tensor:
@@ -68,9 +76,7 @@ def _mm_w8a8(params: Dict, x: torch.Tensor, act: Optional[str] = None) -> torch.
     if min(n, k) >= 4096:
         if k % 128 == 0 and k <= 8192:
             return w8a8_matmul_fullk(x, w, params["w_scale"], params.get("b"), act=act)
-        raise NotImplementedError(
-            f"int8 linear with K={k} needs the k-blocked w8a8_matmul kernel, which is not "
-            "ported yet (ROADMAP.md, Queue 2: w8a8_matmul)")
+        return w8a8_matmul(x, w, params["w_scale"], params.get("b"), act=act)
     *lead, _ = x.shape
     q, x_scale = quantize_per_token_int8(x.reshape(-1, k))
     y = int_dot_exact(q, w) * x_scale * params["w_scale"].float()
@@ -95,6 +101,19 @@ for _alias in [
     MM_REGISTER.register(_alias, _mm_int8)
 
 
+def _mm_int4_a8(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """int4 weights (nibble-packed, per-(channel, group) scales) x dynamic
+    per-(token, group) int8 activations, at every size."""
+    return w4a8_matmul(x, params["w"], params["w_scale"], params.get("b"))
+
+
+for _alias in [
+    "W-int4-group-sym-A-int8-token-dynamic-Tpu",
+    "W-nvfp4-A-nvfp4-dynamic-Tpu",
+]:
+    MM_REGISTER.register(_alias, _mm_int4_a8)
+
+
 def mm_gelu(mm_fn, params: Dict, x: torch.Tensor) -> torch.Tensor:
     """matmul + tanh-GELU (fused into the GEMM epilogue on the int8 path)."""
     if mm_fn is _mm_int8:
@@ -105,10 +124,14 @@ def mm_gelu(mm_fn, params: Dict, x: torch.Tensor) -> torch.Tensor:
 
 def mm_ffn(mm_fn, p0: Dict, p2: Dict, x: torch.Tensor) -> torch.Tensor:
     """Whole FFN (mm -> gelu -> mm): one ``ffn_w8a8`` call on the int8 path
-    at min(H, K) >= 1024, else two GEMMs around the GELU."""
+    at min(H, K) >= 1024, one ``ffn_w4a8`` call on the int4 path with 2-D
+    scales at min(H, K/2) >= 2048 (w0's stored shape), else two GEMMs around
+    the GELU."""
     n, k = p0["w"].shape[-2:]
     if mm_fn is _mm_int8 and min(n, k) >= 1024:
         return ffn_w8a8(x, p0["w"], p0["w_scale"], p0.get("b"), p2["w"], p2["w_scale"], p2.get("b"))
+    if mm_fn is _mm_int4_a8 and p0["w_scale"].ndim == 2 and min(n, k) >= 2048:
+        return ffn_w4a8(x, p0["w"], p0["w_scale"], p0.get("b"), p2["w"], p2["w_scale"], p2.get("b"))
     h = mm_gelu(mm_fn, p0, x)
     return mm_fn(p2, h)
 

@@ -9,8 +9,13 @@ gets the JAX runner's small synthetic stack built from the same host numpy
 dicts (small DiT, small T5, small VAE), so the two packages run identical
 weights. A config at a published Wan width gets a full-size stack made on
 the device from seeded ``torch.Generator``s: the DiT (int8 codes plus
-per-channel scales under an int8 mm_type), a bf16 UMT5-XXL when text_dim is
-4096, and the full Wan VAE.
+per-channel scales under an int8 mm_type, nibble-packed int4 plus
+per-(channel, group) scales under an int4 one), a UMT5-XXL when text_dim is
+4096 (bf16, or int8 with ``t5_quantized``), and the full Wan VAE.
+
+``sparge: true`` runs the video self-attention as Sparge with the
+per-layer budgets of ``sparge_ckpt`` (or ``sparge_l1_per_layer``), the
+table's leading failed layers dense (``_self_attn_setup``).
 """
 
 from __future__ import annotations
@@ -22,13 +27,14 @@ import numpy as np
 import torch
 
 from ..encoders.t5 import (UMT5_XXL, T5Config, T5EncoderModel, init_random_t5_params_on_device,
-                           init_random_t5_state_dict, load_t5_params)
+                           init_random_t5_state_dict, load_t5_params, quantize_t5_params)
 from ..models.wan.config import arch_from_config, is_published_width
 from ..models.wan.pipeline import make_denoise_fn
 from ..models.wan.weights import (init_random_params_on_device, init_random_weight_dict, load_wan_params,
                                   permute_qk_half)
 from ..schedulers.step_distill import WanStepDistillScheduler
 from ..tools.convert import quantize_model
+from ..utils.logging_utils import logger
 from ..utils.registry import RUNNER_REGISTER
 from ..vae.wan_vae import WanVAEConfig, init_random_vae_state_dict, load_wan_vae_params, vae_decode, vae_decode_tiled
 from .base_runner import DefaultRunner
@@ -62,6 +68,10 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
 
 
+# mm_type -> the weight scheme its synthetic weights are made in
+_SCHEMES = {"int8": "int8", "int4": "int4", "nvfp4": "int4"}
+
+
 @RUNNER_REGISTER.register("wan2.1")
 class WanRunner(DefaultRunner):
 
@@ -82,14 +92,14 @@ class WanRunner(DefaultRunner):
         self.arch = arch_from_config(self.config)
         mm_cfg = self.config.get("mm_config") or {}
         self.mm_type = mm_cfg.get("mm_type", "Default")
-        int8 = self.mm_type.startswith("W-int8-")
+        parts = self.mm_type.split("-")
+        scheme = _SCHEMES.get(parts[1]) if self.mm_type.startswith("W-") and len(parts) > 1 else None
         if is_published_width(self.arch):
-            params = init_random_params_on_device(self.arch, "int8" if int8 else "bf16", seed=0,
-                                                  device=self.device)
+            params = init_random_params_on_device(self.arch, scheme or "bf16", seed=0, device=self.device)
         else:
             wd = init_random_weight_dict(self.arch, seed=0, scale=0.02)
-            if int8:
-                wd = quantize_model(wd, "int8")
+            if scheme:
+                wd = quantize_model(wd, scheme)
             params = load_wan_params(wd, self.arch, device=self.device)
         if self.arch.rope_fused:
             params = permute_qk_half(params, self.arch)
@@ -98,12 +108,19 @@ class WanRunner(DefaultRunner):
     def load_text_encoder(self):
         self._require_synthetic()
         text_len = int(self.config.get("text_len", 512))
+        scheme = "bf16"
+        if self.config.get("t5_quantized"):
+            scheme = "int8" if "int8" in str(self.config.get("t5_quant_scheme", "int8")) else "fp8"
+            if scheme != "int8":
+                raise _not_ported("the fp8 T5", "Queue 1 item 12")
         if self.arch.text_dim == UMT5_XXL.dim:
             cfg = UMT5_XXL
-            params = init_random_t5_params_on_device(cfg, seed=1, device=self.device)
+            params = init_random_t5_params_on_device(cfg, seed=1, device=self.device, scheme=scheme)
         elif self.arch.text_dim == SMALL_T5.dim:
             cfg = SMALL_T5
             params = load_t5_params(init_random_t5_state_dict(cfg, seed=1), cfg, device=self.device)
+            if scheme == "int8":
+                params = quantize_t5_params(params, scheme)
         else:
             raise ValueError(f"synthetic text encoders exist for text_dim 256 and 4096, got {self.arch.text_dim}")
         enc = T5EncoderModel(text_len, cfg=cfg, params=params)
@@ -165,15 +182,12 @@ class WanRunner(DefaultRunner):
         self.scheduler = scheduler
         lat_gen, noise_gen = self._generators()
         state = scheduler.prepare(target_shape, lat_gen, device=self.device)
-        attn = self.config.get("attention_impl") or self.config.get("self_attn_1_type", "flash_attn3")
-        if self.config.get("sparge"):
-            raise _not_ported("Sparge attention", "Queue 1 item 2")
-        cross_attn = self.config.get("cross_attn_1_type", attn)
+        attn, cross_attn, self_attn_kwargs = self._self_attn_setup()
         denoise = make_denoise_fn(self.arch, scheduler, target_shape,
                                   enable_cfg=bool(self.config.get("enable_cfg", True)), mm_type=self.mm_type,
                                   self_attn_type=attn, cross_attn_type=cross_attn,
                                   feature_caching=self.config.get("feature_caching", "NoCaching"),
-                                  device=self.device)
+                                  self_attn_kwargs=self_attn_kwargs, device=self.device)
         steps = []
 
         def on_step(i):
@@ -185,6 +199,48 @@ class WanRunner(DefaultRunner):
                         noises=noises, on_step=on_step)
         self.timings["step_s"] = list(np.diff([t0] + steps))
         return state["latents"]
+
+    def _self_attn_setup(self):
+        """(self_attn_type, cross_attn_type, self_attn_kwargs) from the
+        config. ``sparge`` turns the self-attention into Sparge (keep ratio,
+        l1, superblocks), with per-layer l1 from ``sparge_l1_per_layer`` or
+        the ``l1`` array of the ``sparge_ckpt`` table; the table's leading
+        run of failed layers (``passed``) runs dense unless
+        ``sparge_dense_prefix`` says otherwise. Cross-attention stays flash."""
+        cfg = self.config
+        attn = cfg.get("attention_impl") or cfg.get("self_attn_1_type", "flash_attn3")
+        if cfg.get("sparge"):
+            attn = "sparge"
+        cross_attn = cfg.get("cross_attn_1_type", attn)
+        if cross_attn in ("radial_attn", "sparge"):
+            cross_attn = "flash_attn3"
+        if attn != "sparge":
+            return attn, cross_attn, None
+        kw = {"keep_ratio": float(cfg.get("sparge_keep_ratio", 0.3)), "l1": float(cfg.get("sparge_l1", 0.07)),
+              "block_q": int(cfg.get("sparse_block_q", 2048)), "block_k": int(cfg.get("sparse_block_k", 1024))}
+        per_layer = cfg.get("sparge_l1_per_layer")
+        passed = None
+        if not per_layer and cfg.get("sparge_ckpt"):
+            table = np.load(cfg["sparge_ckpt"])
+            per_layer = table["l1"]
+            if "passed" in table:
+                passed = np.asarray(table["passed"], bool)
+        if per_layer is not None:
+            per_layer = [float(x) for x in per_layer]
+            if len(per_layer) != self.arch.num_layers:
+                raise ValueError(f"sparge l1 table has {len(per_layer)} entries, model has "
+                                 f"{self.arch.num_layers} layers")
+            kw["l1_per_layer"] = per_layer
+        dense_prefix = cfg.get("sparge_dense_prefix")
+        if dense_prefix is None and passed is not None:
+            # the leading run of failed layers
+            dense_prefix = int(np.argmax(passed)) if passed.any() else len(passed)
+            if not passed[dense_prefix:].all():
+                logger.warning("sparge table has non-leading failed layers; only a leading dense prefix is "
+                               "supported, mid-stack failures run at their table l1")
+        if dense_prefix:
+            kw["dense_prefix"] = int(dense_prefix)
+        return attn, cross_attn, kw
 
     def _crop_to_request(self, frames: np.ndarray) -> np.ndarray:
         crop = self.config.get("crop_output")

@@ -116,10 +116,12 @@ class CacheTape:
 
 
 def _tail(x: torch.Tensor, n: int = CACHE_T) -> torch.Tensor:
-    """Last n frames of x, left-padded with zeros if x is shorter."""
+    """Last n frames of x, left-padded with zeros if x is shorter. A copy:
+    a view would keep all of x (a conv's whole input stream) alive in the
+    tape until the next chunk."""
     t = x.shape[2]
     if t >= n:
-        return x[:, :, t - n:]
+        return x[:, :, t - n:].clone()
     return F.pad(x, (0, 0, 0, 0, n - t, 0))
 
 

@@ -150,10 +150,20 @@ def test_mm_int8_large_dims_use_fullk_contract():
 
 
 def test_mm_int8_kblocked_not_ported_raises():
-    w = torch.zeros((4096, 8320), dtype=torch.int8)
-    p = {"w": w, "w_scale": torch.ones(4096), "b": None}
-    with pytest.raises(NotImplementedError, match="w8a8_matmul"):
-        tlin.resolve_mm("W-int8-channel-sym-A-int8-channel-sym-dynamic-Tpu")(p, torch.zeros((1, 8320)))
+    """K = 8320 (> 8192, not a multiple of 1024) now takes the k-blocked
+    w8a8_matmul with 128-wide k-blocks; the fp8 scheme beside it is still
+    not ported and raises."""
+    from lightx2v_tpu_torch.ops.cuda.w8a8_matmul import pick_kblock, w8a8_matmul_plain
+
+    rng = np.random.default_rng(11)
+    w = torch.from_numpy(rng.integers(-127, 128, (4096, 8320)).astype(np.int8))
+    p = {"w": w, "w_scale": torch.full((4096,), 1e-4), "b": None}
+    x = torch.from_numpy(rng.standard_normal((1, 8320)).astype(np.float32)).to(torch.bfloat16)
+    out = tlin.resolve_mm("W-int8-channel-sym-A-int8-channel-sym-dynamic-Tpu")(p, x)
+    assert pick_kblock(8320) == 128
+    torch.testing.assert_close(out, w8a8_matmul_plain(x, w, p["w_scale"]), rtol=0, atol=0)
+    with pytest.raises(NotImplementedError):
+        tlin.resolve_mm("W-fp8-channel-sym-A-fp8-channel-sym-dynamic-Tpu")
 
 
 def test_mm_ffn_dispatch():
@@ -178,8 +188,11 @@ def test_mm_ffn_dispatch():
 
 
 def test_unported_mm_type_raises():
+    """Weight-only int4 (bf16 activations, the int4_matmul kernel) is not
+    ported; int4 x int8 is."""
     with pytest.raises(NotImplementedError):
-        tlin.resolve_mm("W-int4-group-sym-A-int8-token-dynamic-Tpu")
+        tlin.resolve_mm("W-int4-group-sym-A-bf16-Tpu")
+    assert tlin.resolve_mm("W-int4-group-sym-A-int8-token-dynamic-Tpu") is not None
 
 
 def test_attention_dispatch_plain_and_rope():
@@ -197,5 +210,6 @@ def test_attention_dispatch_plain_and_rope():
     ref = jattn.attention("xla", jq, jk, jv, kv_len=30)
     out = tattn.attention("xla", tq, tk, tv, kv_len=30)
     np.testing.assert_allclose(_f(out), _f(ref), rtol=1e-2, atol=1e-2)
-    with pytest.raises(NotImplementedError):
-        tattn.attention("sparge", tq, tk, tv)
+    for name in ("radial_attn", "sage_attn2"):
+        with pytest.raises(NotImplementedError):
+            tattn.attention(name, tq, tk, tv)
