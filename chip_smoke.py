@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of lightx2v_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # build, kernel phase, both paths
-    python3 chip_smoke.py --kernels-only  # build and kernel phase only
+    python3 chip_smoke.py                 # build, kernel phases, every path
+    python3 chip_smoke.py --kernels-only  # build and kernel phases only
     python3 chip_smoke.py --profile out/  # and a profiled run of each path
 
 1. Prints the card's name and power limit, builds every CUDA kernel of the
@@ -22,6 +22,23 @@
    runner on the same config with the bench flagship's overrides (w4a8 DiT
    linears, Sparge self-attention with the tuned per-layer table and its
    dense layer 0, int8 UMT5-XXL, untiled decode).
+
+5. Base (slice 3, this script's main path): one full-width block with
+   weight-only int4 linears and sage self-attention the same way; then the
+   port's ``WanRunner`` (``wan2.1``) on ``configs/bench/lightx2v_1.json`` at
+   the 14B widths with ``W-int4-group-sym-A-bf16-Tpu`` linears: bf16
+   UMT5-XXL on the prompt and the negative prompt -> UniPC with
+   classifier-free guidance as one forward at batch 2, cut to 3 steps (the
+   file's 40 would take minutes; 3 run both predictor and both corrector
+   orders) -> untiled decode.
+6. Radial: the slice-1 config with ``radial_attn`` self-attention and a
+   2-entry step list, once in the block-sparse execution (128 x 128 blocks)
+   and once in ``two_pass`` (query tiles of min(sparse_block_q, 256) rows,
+   so ``sparse_block_q`` 256 gives the plan's 195-row tiles).
+
+The kernel phases also print the radial comparison at the main shape (dense
+flash, block-sparse at 128 x 128 and 256 x 128, two_pass) and hold two merged
+half-key partials against one dense call.
 
 For each path the launch counters are zeroed just before the run and read
 just after, and must equal the path's exact counts. The line before the
@@ -54,11 +71,22 @@ T5_DIM, T5_FFN = 4096, 10240  # UMT5-XXL
 GROUP = 512  # int4 quant group along in-features at these widths
 REPS = 5  # timed calls per kernel (CUDA-event median)
 INT4A8 = "W-int4-group-sym-A-int8-token-dynamic-Tpu"
+INT4W = "W-int4-group-sym-A-bf16-Tpu"
 INT8 = "W-int8-channel-sym-A-int8-channel-sym-dynamic-Tpu"
+FRAMES = 21  # latent frames of 1560 tokens
+DEPLOY_JSON = "configs/deploy/wan_t2v.json"
+BASE_JSON = "configs/bench/lightx2v_1.json"
 # the bench flagship: the deploy config plus these overrides
 FLAGSHIP = dict(mm_config={"mm_type": INT4A8}, sparge=True, sparge_keep_ratio=0.3,
                 sparge_ckpt=str(ROOT / "configs/sparge/wan_t2v_14b_structured_keep03.npz"),
                 sparse_block_q=2048, sparse_block_k=1024, t5_quantized=True, use_tiling_vae=False)
+# the base model: the upstream baseline bench config at the 14B widths, weight-only int4, 3 of its 40 steps
+BASE = dict(dim=DIM, ffn_dim=FFN, num_heads=HEADS, num_layers=40, text_len=TXT, mm_config={"mm_type": INT4W},
+            infer_steps=3, negative_prompt="blurry, low quality, distorted, static frame")
+# radial attention on the slice-1 config, two steps, in its two executions
+RADIAL_BSR = dict(self_attn_1_type="radial_attn", sparse_block_q=128, sparse_block_k=128,
+                  denoising_step_list=[1000, 500], radial_sparsity_type="bsr")
+RADIAL_TWO_PASS = dict(RADIAL_BSR, sparse_block_q=256, radial_sparsity_type="two_pass")
 
 
 def card_line() -> str:
@@ -379,14 +407,207 @@ def kernel_phase_flagship(peaks, reps: int):
     return rows, extra
 
 
+def kernel_phase_base(peaks, reps: int):
+    """The four kernels of the base and radial paths, at their shapes, and
+    the radial comparison at the main shape."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from lightx2v_tpu_torch.ops import radial
+    from lightx2v_tpu_torch.ops.cuda import block_sparse_attention as bsa
+    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+    from lightx2v_tpu_torch.ops.cuda import int4_matmul as i4
+    from lightx2v_tpu_torch.ops.cuda import sage_attention as sa
+    from lightx2v_tpu_torch.parallel.ring import merge_partials
+
+    peak_bf16, peak_int8, peak_bw = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    rows, extra = [], []
+    hs = slice(0, 2)  # the attention plain versions materialize S x S per head
+
+    def randn(*shape, dtype=torch.bfloat16, std=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    def library(fn, n):
+        """ms of a PyTorch library call, or None where this build lacks it."""
+        try:
+            return cuda_ms(fn, n)
+        except (RuntimeError, AttributeError, NotImplementedError) as e:
+            print(f"[library] not timed: {type(e).__name__}: {str(e)[:200]}", flush=True)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            return None
+
+    # ---- sage_attention (base path: self-attention of both CFG branches) ----
+    q, k, v = randn(2, S, HEADS, HD), randn(2, S, HEADS, HD), randn(2, S, HEADS, HD)
+    out = sa.sage_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = sa.sage_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs])
+    # bar: identical int32 logits on both sides; P rounded to bf16 at
+    # different running maxima (online vs one-pass softmax), summation order
+    err = check_close("sage_attention", out[:, :, hs], ref, 2e-2, 1e-3)
+    del ref, out
+    ms = cuda_ms(lambda: sa.sage_attention(q, k, v), reps)
+    plain_ms = cuda_ms(lambda: sa.sage_attention_plain(q, k, v), 1, warmup=0)
+    lib_ms = library(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                            v.transpose(1, 2)), reps)
+    pairs = 2.0 * HEADS * S * S
+    t_ops = 2.0 * HD * pairs / peak_int8 + 2.0 * HD * pairs / peak_bf16  # int8 QK^T, then bf16 P.V
+    t_bytes = 4 * q.numel() * 2 / peak_bw
+    rows.append(dict(name="sage_attention", route="cuda", source="lightx2v_tpu_torch/csrc/sage_attention.cu",
+                     replaces="lightx2v_tpu/ops/pallas/sage_attention.py:120",
+                     shape=f"q,k,v (2,{S},{HEADS},{HD}) bf16",
+                     max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms,
+                     bound_ms=max(t_ops, t_bytes) * 1e3, bound_by="operations" if t_ops >= t_bytes else "bytes",
+                     library_ms=lib_ms, library_call="F.scaled_dot_product_attention (bf16)"))
+    del q, k, v
+
+    # ---- int4_matmul (base path: every block linear; M = 65,520, and 1,024 for cross k/v) ----
+    def int4_lib(x2, w, ws):
+        return torch.matmul(x2, i4.unpack_int4(w, ws).to(torch.bfloat16).t())
+
+    for m, n, kin in ((2 * S, DIM, DIM), (2 * S, FFN, DIM), (2 * S, DIM, FFN), (2 * TXT, DIM, DIM)):
+        x = randn(m, kin)
+        w = torch.randint(0, 256, (n, kin // 2), generator=g, device=dev, dtype=torch.uint8)
+        ws = torch.rand((n, kin // GROUP), generator=g, device=dev) * (0.02 / 7) + 0.01 / 7
+        bvec = randn(n, dtype=torch.float32, std=0.02)
+        out = i4.int4_matmul(x, w, ws, bvec)
+        torch.cuda.synchronize()
+        ref = i4.int4_matmul_plain(x, w, ws, bvec)
+        # bar: exact bf16 x int4 products and the same per-group fp32
+        # rescale; additions inside a group in another order move a bf16
+        # rounding now and then (one ulp at the top of the range)
+        err = check_close(f"int4_matmul M={m} N={n} K={kin}", out, ref, 2 ** -7, 0.0)
+        del ref, out
+        ms = cuda_ms(lambda: i4.int4_matmul(x, w, ws, bvec), reps)
+        plain_ms = cuda_ms(lambda: i4.int4_matmul_plain(x, w, ws, bvec), 1)
+        lib_ms = library(lambda: int4_lib(x, w, ws), reps)
+        b_ms, b_by = bound(2.0 * m * n * kin, m * kin * 2 + n * kin // 2 + ws.numel() * 4 + n * 4 + m * n * 2,
+                           peak_bf16, peak_bw)
+        (rows if (m, n, kin) == (2 * S, DIM, DIM) else extra).append(dict(
+            name="int4_matmul", route="cuda", source="lightx2v_tpu_torch/csrc/int4_matmul.cu",
+            replaces="lightx2v_tpu/ops/pallas/int4_matmul.py:102",
+            shape=f"x ({m},{kin}) bf16; w ({n},{kin // 2}) u8 + ({n},{kin // GROUP}) fp32",
+            max_abs_err=err, bar="2^-7*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, library_call="dequantize to bf16 in torch + torch.matmul"))
+        del x, w, ws
+
+    # ---- flash_attention_with_lse (two-pass radial: near pass, then one frame of the far pass) ----
+    plan = radial._two_pass_plan(S, S, FRAMES, 0.5, "wan", 256)
+    tpf, bq, near, far = plan
+    nt, nwin = far.shape[1], far.shape[2]
+
+    def lse_lib(q, k, v):
+        return torch.ops.aten._scaled_dot_product_flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                                  v.transpose(1, 2))[:2]
+
+    for b_, sq_, sk_ in ((FRAMES, tpf, 4 * tpf), (nt, bq, nwin * bq)):
+        q, k, v = randn(b_, sq_, HEADS, HD), randn(b_, sk_, HEADS, HD), randn(b_, sk_, HEADS, HD)
+        out, lse = fa.flash_attention_with_lse(q, k, v)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_attention_with_lse_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs])
+        err = check_close(f"flash_attention_with_lse out ({b_},{sq_},{sk_})", out[:, :, hs], ref, 2e-2, 1e-3)
+        # bar for lse: the same fp32 sums in another order
+        lse_err = check_close(f"flash_attention_with_lse lse ({b_},{sq_},{sk_})", lse[:, :, hs], ref_lse, 0.0, 1e-3)
+        del ref, out
+        ms = cuda_ms(lambda: fa.flash_attention_with_lse(q, k, v), reps)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_with_lse_plain(q, k, v), 1, warmup=0)
+        lib_ms = library(lambda: lse_lib(q, k, v), reps)
+        b_ms, b_by = bound(4.0 * b_ * HEADS * sq_ * sk_ * HD,
+                           (2 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4, peak_bf16, peak_bw)
+        (rows if b_ == FRAMES else extra).append(dict(
+            name="flash_attention_with_lse", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
+            replaces="lightx2v_tpu/ops/pallas/flash_attention.py:432",
+            shape=f"q ({b_},{sq_},{HEADS},{HD}); k,v ({b_},{sk_},{HEADS},{HD}) bf16; lse ({b_},{sq_},{HEADS}) fp32",
+            max_abs_err=err, lse_max_abs_err=lse_err, bar="out 2e-2*max|ref| + 1e-3, lse 1e-3 (2 heads)", ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            library_call="aten._scaled_dot_product_flash_attention (output and logsumexp)"))
+        del q, k, v, lse
+
+    # ---- block_sparse_attention, shared mask (radial, 128 x 128 blocks) ----
+    q, k, v = randn(1, S, HEADS, HD), randn(1, S, HEADS, HD), randn(1, S, HEADS, HD)
+    mm = radial.MaskMap(S, FRAMES)
+    fine = mm.query_mask(S, 0.5, "wan")
+    idx, cnt = mm.block_tables(S, 0.5, "wan", 128, 128, dev)
+    out = bsa.block_sparse_attention(q, k, v, idx, cnt, bq=128, bk=128)
+    torch.cuda.synchronize()
+    ref = bsa.block_sparse_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs], idx, cnt, bq=128, bk=128)
+    err = check_close("block_sparse_attention_shared", out[:, :, hs], ref, 2e-2, 1e-3)
+    del ref, out
+    ms = cuda_ms(lambda: bsa.block_sparse_attention(q, k, v, idx, cnt, bq=128, bk=128), reps)
+    plain_ms = cuda_ms(lambda: bsa.block_sparse_attention_plain(q, k, v, idx, cnt, bq=128, bk=128), 1, warmup=0)
+    tok = torch.from_numpy(fine).to(dev).repeat_interleave(128, 0).repeat_interleave(128, 1)[:S, :S].contiguous()
+    lib_ms = library(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                                            attn_mask=tok), 2)
+    del tok
+
+    def mask_pairs(mask, bq_, bk_):
+        q_rows = np.minimum(bq_, S - np.arange(mask.shape[0]) * bq_).clip(0)
+        k_valid = np.minimum(bk_, S - np.arange(mask.shape[1]) * bk_).clip(0)
+        return float(q_rows @ mask.astype(np.float64) @ k_valid)
+
+    pairs = mask_pairs(fine, 128, 128)
+    b_ms, b_by = bound(4.0 * HD * HEADS * pairs, 4 * S * HEADS * HD * 2 + idx.numel() * 4 + cnt.numel() * 4,
+                       peak_bf16, peak_bw)
+    rows.append(dict(name="block_sparse_attention_shared", route="cuda",
+                     source="lightx2v_tpu_torch/csrc/flash_attention.cu",
+                     replaces="lightx2v_tpu/ops/pallas/block_sparse_attention.py:206",
+                     shape=f"q,k,v (1,{S},{HEADS},{HD}) bf16; indices {tuple(idx.shape)}, counts {tuple(cnt.shape)} i32 "
+                           f"shared by all heads; bq 128, bk 128; {int(fine.sum())} of {fine.size} blocks",
+                     max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=lib_ms,
+                     library_call="F.scaled_dot_product_attention with the expanded boolean mask",
+                     dense_fraction=pairs / (float(S) * S)))
+
+    # ---- the radial comparison at the main shape ----
+    idx2, cnt2 = mm.block_tables(S, 0.5, "wan", 256, 128, dev)
+    coarse = radial.coarsen_block_mask(fine, 2, 1)
+    before = fa.LAUNCHES["flash_attention_with_lse"]
+    two = radial.radial_attention(q, k, v, mm, sparsity_type="two_pass", block_q=256, block_k=128)
+    torch.cuda.synchronize()
+    lse_calls = fa.LAUNCHES["flash_attention_with_lse"] - before
+    if lse_calls != 1 + FRAMES or not torch.isfinite(two.float()).all():
+        raise AssertionError(f"two_pass: {lse_calls} LSE launches (expected {1 + FRAMES}) or non-finite output")
+    del two
+    near_pairs = float(FRAMES) * tpf * 4 * tpf
+    far_pairs = float(FRAMES) * nt * bq * nwin * bq
+    comparison = {
+        "shape": f"q,k,v (1,{S},{HEADS},{HD}) bf16, {FRAMES} frames, decay 0.5",
+        "dense_flash_ms": cuda_ms(lambda: fa.flash_attention(q, k, v), reps),
+        "bsr_128x128_ms": ms, "bsr_128x128_key_pair_fraction": pairs / (float(S) * S),
+        "bsr_256x128_ms": cuda_ms(lambda: bsa.block_sparse_attention(q, k, v, idx2, cnt2, bq=256, bk=128), reps),
+        "bsr_256x128_key_pair_fraction": mask_pairs(coarse, 256, 128) / (float(S) * S),
+        "two_pass_ms": cuda_ms(lambda: radial.radial_attention(q, k, v, mm, sparsity_type="two_pass", block_q=256,
+                                                               block_k=128), reps),
+        "two_pass_key_pair_fraction": (near_pairs + far_pairs) / (float(S) * S),
+        "two_pass_lse_launches": lse_calls}
+    print(json.dumps({"radial_comparison": comparison}), flush=True)
+
+    # ---- merge_partials: two half-key partials merged vs one dense call ----
+    half = S // 2
+    oa, la = fa.flash_attention_with_lse(q, k[:, :half], v[:, :half])
+    ob, lb = fa.flash_attention_with_lse(q, k[:, half:], v[:, half:])
+    merged, lse_m = merge_partials(oa, la, ob, lb)
+    dense, lse_d = fa.flash_attention_with_lse(q, k, v)
+    torch.cuda.synchronize()
+    # bar: each partial is rounded to bf16 before the fp32 merge, then once more
+    check_close("merge_partials of two half-key partials vs one dense call", merged, dense, 2e-2, 1e-3)
+    check_close("merged lse vs dense lse", lse_m, lse_d, 0.0, 1e-3)
+    del q, k, v, oa, ob, merged, dense
+    torch.cuda.empty_cache()
+    return rows, extra
+
+
 # ---------------------------------------------------------------------------
 # slice phase
 
 
-def block_reference_check(scheme: str = "int8", mm_type: str = INT8):
+def block_reference_check(scheme: str = "int8", mm_type: str = INT8, self_attn_type: str = "flash_attn3"):
     """One full-width quantized DiT block (kernel thresholds engaged) on a
     small input: CUDA kernels vs the plain versions on the CPU, same
-    weights, dense fused-RoPE flash self-attention."""
+    weights, dense fused-RoPE flash self-attention (or ``self_attn_type``)."""
     import dataclasses
 
     import torch
@@ -410,7 +631,8 @@ def block_reference_check(scheme: str = "int8", mm_type: str = INT8):
             else [to(v) for v in tree] if isinstance(tree, list)
             else tree.to(dev) if isinstance(tree, torch.Tensor) else tree)
         cos, sin, _ = rope_for_shape(arch, shape, device=dev)
-        return wan_forward(to(params), lat.to(dev), t.to(dev), ctx.to(dev), cos, sin, arch, mm_type=mm_type)
+        return wan_forward(to(params), lat.to(dev), t.to(dev), ctx.to(dev), cos, sin, arch, mm_type=mm_type,
+                           self_attn_type=self_attn_type)
 
     out = run("cuda")
     torch.cuda.synchronize()
@@ -418,31 +640,56 @@ def block_reference_check(scheme: str = "int8", mm_type: str = INT8):
     # bar: the DiT's bf16 activations pass two flash calls and the
     # quantized GEMMs; summation order and rare rounding flips stay at bf16
     # noise
-    return check_close(f"one 14B {scheme} block, card vs CPU plain", out.cpu(), ref, 3e-2, 1e-3)
+    return check_close(f"one 14B {scheme} block ({mm_type}, {self_attn_type}), card vs CPU plain", out.cpu(), ref,
+                       3e-2, 1e-3)
 
 
 def expected_launches(runner, cfg) -> dict:
     """The exact launch count of every kernel for one pipeline run."""
     from lightx2v_tpu_torch.encoders.t5 import T5_LINEARS
+    from lightx2v_tpu_torch.ops import radial
     from lightx2v_tpu_torch.ops.cuda import launch_counts
 
-    L, steps = runner.arch.num_layers, len(cfg["denoising_step_list"])
+    L = runner.arch.num_layers
+    steps = len(cfg["denoising_step_list"]) if cfg["model_cls"] == "wan2.1_distill" else int(cfg["infer_steps"])
     out = {k: 0 for k in launch_counts()}
-    _, _, kw = runner._self_attn_setup()
-    if cfg["mm_config"]["mm_type"] == INT4A8:
-        p = (kw or {}).get("dense_prefix", 0)
-        t5_layers = runner.text_encoder.cfg.num_layers
-        # T5: q/k/v/o/gate/fc1 full-K (K = 4096), fc2 k-blocked (K = 10,240)
-        out.update(w4a8_matmul=8 * L * steps, ffn_w4a8=L * steps, block_sparse_attention=(L - p) * steps,
-                   flash_attention_fused_rope=p * steps, flash_attention=L * steps,
-                   w8a8_matmul_fullk=(len(T5_LINEARS) - 1) * t5_layers, w8a8_matmul=t5_layers)
+    calls = L * steps  # one per block and forward (CFG doubles the batch, not the calls)
+    mm_type = cfg["mm_config"]["mm_type"]
+    # per block: q/k/v/o of both attentions, and the FFN (fused, or two GEMMs around a torch GELU)
+    if mm_type == INT4A8:
+        out.update(w4a8_matmul=8 * calls, ffn_w4a8=calls)
+    elif mm_type == INT4W:
+        out.update(int4_matmul=10 * calls)
     else:
-        out.update(w8a8_matmul_fullk=8 * L * steps, ffn_w8a8=L * steps, flash_attention_fused_rope=L * steps,
-                   flash_attention=L * steps)
+        out.update(w8a8_matmul_fullk=8 * calls, ffn_w8a8=calls)
+    if cfg.get("t5_quantized"):
+        # T5: q/k/v/o/gate/fc1 full-K (K = 4096), fc2 k-blocked (K = 10,240)
+        t5_layers = runner.text_encoder.cfg.num_layers
+        out["w8a8_matmul_fullk"] += (len(T5_LINEARS) - 1) * t5_layers
+        out["w8a8_matmul"] += t5_layers
+    out["flash_attention"] = calls  # cross-attention
+    attn, _, kw = runner._self_attn_setup()
+    if attn == "sparge":
+        p = (kw or {}).get("dense_prefix", 0)
+        out.update(block_sparse_attention=(L - p) * steps, flash_attention_fused_rope=p * steps)
+    elif attn == "sage_attn2":
+        out["sage_attention"] = calls
+    elif attn == "radial_attn":
+        if cfg.get("radial_sparsity_type") == "two_pass":
+            plan = radial._two_pass_plan(S, S, FRAMES, float(cfg.get("decay_factor", 0.5)), "wan",
+                                         min(int(cfg["sparse_block_q"]), 256))
+            if plan is None:
+                raise AssertionError("two_pass has no plan at this shape")
+            out["flash_attention_with_lse"] = (1 + FRAMES) * calls  # the near pass, then one far call per frame
+        else:
+            out["block_sparse_attention_shared"] = calls
+    else:
+        out["flash_attention_fused_rope"] = calls
     return out
 
 
-def run_path(name: str, overrides: dict, profile_dir=None):
+def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan2.1_distill",
+             config_json: str = DEPLOY_JSON):
     """Synthesize the path's weights on the card, zero the counters, run the
     pipeline once, and check the counts and the frames."""
     import gc
@@ -455,8 +702,8 @@ def run_path(name: str, overrides: dict, profile_dir=None):
     from lightx2v_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from lightx2v_tpu_torch.utils.config import set_config
 
-    cfg = set_config(dict(model_cls="wan2.1_distill", task="t2v", device="cuda", synthetic_weights=True,
-                          config_json=str(ROOT / "configs/deploy/wan_t2v.json"),
+    cfg = set_config(dict(model_cls=model_cls, task="t2v", device="cuda", synthetic_weights=True,
+                          config_json=str(ROOT / config_json),
                           prompt="a red panda climbing a bamboo tree in the rain", seed=42,
                           release_modules=True))
     cfg.update(overrides)
@@ -508,7 +755,9 @@ def run_path(name: str, overrides: dict, profile_dir=None):
 def _category(name: str) -> str:
     n = name.lower()
     for key, cat in (("flash_fwd_kernel<false, true>", "block_sparse_attention (ours)"),
-                     ("flash_fwd_kernel", "flash_attention (ours)"), ("gemm_s8_kernel", "int8 GEMM (ours)"),
+                     ("flash_fwd_kernel", "flash_attention (ours)"), ("sage_fwd_kernel", "sage attention (ours)"),
+                     ("sage_quant_rows", "sage row quantize (ours)"), ("int4_gemm_kernel", "int4 GEMM (ours)"),
+                     ("gemm_s8_kernel", "int8 GEMM (ours)"),
                      ("ffn_gemm1", "ffn GEMM1 (ours)"), ("ffn_w4a8_gemm1", "ffn w4a8 GEMM1 (ours)"),
                      ("w4a8_gemm_kernel", "w4a8 GEMM (ours)"), ("quant_groups", "int8 quantize (ours)"),
                      ("sort", "sort (torch)"),
@@ -589,14 +838,19 @@ def main():
 
     rows, extra = kernel_phase(peaks_for(card), REPS)
     rows2, extra2 = kernel_phase_flagship(peaks_for(card), REPS)
-    rows += rows2
-    print(json.dumps({"other_shapes": extra + extra2}), flush=True)
+    rows3, extra3 = kernel_phase_base(peaks_for(card), REPS)
+    rows += rows2 + rows3
+    print(json.dumps({"other_shapes": extra + extra2 + extra3}), flush=True)
     by_path = {}
     if not args.kernels_only:
         block_reference_check("int8", INT8)
         by_path["slice"] = run_path("slice", {}, args.profile)
         block_reference_check("int4", INT4A8)
         by_path["flagship"] = run_path("flagship", FLAGSHIP, args.profile)
+        block_reference_check("int4", INT4W, "sage_attn2")
+        by_path["base"] = run_path("base", BASE, args.profile, model_cls="wan2.1", config_json=BASE_JSON)
+        by_path["radial_bsr"] = run_path("radial_bsr", RADIAL_BSR, args.profile)
+        by_path["radial_two_pass"] = run_path("radial_two_pass", RADIAL_TWO_PASS, args.profile)
     for r in rows:
         r["launches_by_path"] = {p: c.get(r["name"], 0) for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

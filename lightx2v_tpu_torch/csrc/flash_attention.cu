@@ -5,8 +5,10 @@
 //           (_flash_rope_kernel), and
 //           lightx2v_tpu/ops/pallas/block_sparse_attention.py:
 //           block_sparse_attention in its per-head form
-//           (_bs_kernel_per_head / _bs_body). One kernel template: dense
-//           with ROPE on or off, or SPARSE.
+//           (_bs_kernel_per_head / _bs_body) and its shared-mask form
+//           (_bs_kernel), and :flash_attention_with_lse (_flash_kernel_lse).
+//           One kernel template: dense with ROPE on or off (optionally
+//           writing the row log-sum-exp), or SPARSE.
 //
 // What bounds it on this card: operations. Self-attention at 32,760 tokens
 // x 40 heads does 4*S^2*D*N = 2.2e13 bf16 tensor-core FLOP against 0.35 GB
@@ -41,7 +43,19 @@
 // so every tile is masked by absolute key index against kv_len, and tiles
 // wholly past it contribute nothing. The softmax is the dense kernel's
 // (the TPU's _bs_body is the same). Bound: operations, 4 * D * bq * bk per
-// selected (head, q-superblock, key-superblock) triple.
+// selected (head, q-superblock, key-superblock) triple. With sp.shared the
+// tables are (rows, nnz) / (rows,) and every (batch, head) reads the same
+// row: one flag on the row lookup, no per-head copy of the table (radial
+// attention's static mask, lists ascending with a repeated tail that
+// j < cnt never reaches).
+//
+// LSE (flash_attention_with_lse, the two-pass radial and ring building
+// block): when lse != nullptr the epilogue also writes, per real query row,
+// m * ln2 + log(max(l, 1e-30)) in fp32 at lse[b, row, head] (natural log; m
+// is the running max in the exp2 domain). A row whose keys are all masked
+// has m = -inf and gets -inf, as the TPU kernel. The TPU kernel removes its
+// zero pad rows' mass in closed form ("phantom" mode); here keys are masked
+// by absolute index instead, which gives the same sums.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,11 +83,12 @@ struct Strides {
   long long o_b, o_s, o_n;
 };
 
-// per-head block lists: idx (B*N, rows, nnz), cnt (B*N, rows), int32
+// block lists, int32: per head idx (B*N, rows, nnz), cnt (B*N, rows); or,
+// with shared != 0, one idx (rows, nnz), cnt (rows,) for every (batch, head)
 struct Sparse {
   const int* idx;
   const int* cnt;
-  int rows, nnz, bq, bk;
+  int rows, nnz, bq, bk, shared;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -162,7 +177,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                  const float* __restrict__ cos_t, const float* __restrict__ sin_t, int s_rope,
-                 int n_heads, int sq, int sk, int kv_limit, Strides st, float gain, Sparse sp) {
+                 int n_heads, int sq, int sk, int kv_limit, Strides st, float gain, Sparse sp,
+                 float* __restrict__ lse) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* KVs = Qs + Q_ELEMS;  // [buf][K|V]
@@ -185,7 +201,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int* blocks = nullptr;
   int tiles_per_blk = 1;
   if (SPARSE) {
-    const long long row = (long long)bh * sp.rows + q0 / sp.bq;
+    const long long row = (sp.shared ? 0LL : (long long)bh * sp.rows) + q0 / sp.bq;
     blocks = sp.idx + row * sp.nnz;
     tiles_per_blk = sp.bk / BKV;
     n_tiles = __ldg(sp.cnt + row) * tiles_per_blk;
@@ -394,6 +410,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   for (int h = 0; h < 2; ++h) {
     int row = row0 + h * 8;
     if (row < sq) {
+      if (lse != nullptr && tq == 0)
+        lse[((long long)b * sq + row) * n_heads + n] = m_run[h] * 0.6931471805599453f + logf(l_run[h]);
       __nv_bfloat16* orow = ob + row * st.o_s;
 #pragma unroll
       for (int i = 0; i < HD / 8; ++i) {
@@ -408,7 +426,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 template <bool ROPE, bool SPARSE>
 int launch(const void* q, const void* k, const void* v, void* o, const float* cos_t, const float* sin_t,
            int s_rope, int batch, int n_heads, int sq, int sk, int kv_limit, const Strides& st, float gain,
-           const Sparse& sp, cudaStream_t stream) {
+           const Sparse& sp, float* lse, cudaStream_t stream) {
   auto kern = flash_fwd_kernel<ROPE, SPARSE>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -416,7 +434,7 @@ int launch(const void* q, const void* k, const void* v, void* o, const float* co
   kern<<<grid, NTHREADS, SMEM_BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), cos_t, sin_t, s_rope, n_heads, sq,
-      sk, kv_limit, st, gain, sp);
+      sk, kv_limit, st, gain, sp, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -429,17 +447,31 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     long long o_b, long long o_s, long long o_n, float gain, int rope,
                                     void* stream) {
   Strides st{q_b, q_s, q_n, k_b, k_s, k_n, v_b, v_s, v_n, o_b, o_s, o_n};
-  Sparse sp{nullptr, nullptr, 0, 0, 1, 1};
+  Sparse sp{nullptr, nullptr, 0, 0, 1, 1, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rope) {
     return launch<true, false>(q, k, v, o, static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-                               s_rope, batch, n_heads, sq, sk, kv_limit, st, gain, sp, s);
+                               s_rope, batch, n_heads, sq, sk, kv_limit, st, gain, sp, nullptr, s);
   }
-  return launch<false, false>(q, k, v, o, nullptr, nullptr, 0, batch, n_heads, sq, sk, kv_limit, st, gain, sp, s);
+  return launch<false, false>(q, k, v, o, nullptr, nullptr, 0, batch, n_heads, sq, sk, kv_limit, st, gain, sp,
+                              nullptr, s);
+}
+
+// dense attention that also writes lse (batch, sq, n_heads) fp32, contiguous
+extern "C" int flash_attention_lse_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+                                        int n_heads, int sq, int sk, int kv_limit, long long q_b, long long q_s,
+                                        long long q_n, long long k_b, long long k_s, long long k_n, long long v_b,
+                                        long long v_s, long long v_n, long long o_b, long long o_s, long long o_n,
+                                        float gain, void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  Strides st{q_b, q_s, q_n, k_b, k_s, k_n, v_b, v_s, v_n, o_b, o_s, o_n};
+  Sparse sp{nullptr, nullptr, 0, 0, 1, 1, 0};
+  return launch<false, false>(q, k, v, o, nullptr, nullptr, 0, batch, n_heads, sq, sk, kv_limit, st, gain, sp,
+                              static_cast<float*>(lse), static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int block_sparse_attention_bf16(const void* q, const void* k, const void* v, void* o, const void* idx,
-                                           const void* cnt, int rows, int nnz, int bq, int bk, int batch,
+                                           const void* cnt, int shared, int rows, int nnz, int bq, int bk, int batch,
                                            int n_heads, int sq, int sk, long long q_b, long long q_s, long long q_n,
                                            long long k_b, long long k_s, long long k_n, long long v_b, long long v_s,
                                            long long v_n, long long o_b, long long o_s, long long o_n, float gain,
@@ -447,7 +479,7 @@ extern "C" int block_sparse_attention_bf16(const void* q, const void* k, const v
   if (bq <= 0 || bq % BQ || bk <= 0 || bk % BKV || rows < (sq + bq - 1) / bq)
     return static_cast<int>(cudaErrorInvalidValue);
   Strides st{q_b, q_s, q_n, k_b, k_s, k_n, v_b, v_s, v_n, o_b, o_s, o_n};
-  Sparse sp{static_cast<const int*>(idx), static_cast<const int*>(cnt), rows, nnz, bq, bk};
-  return launch<false, true>(q, k, v, o, nullptr, nullptr, 0, batch, n_heads, sq, sk, sk, st, gain, sp,
+  Sparse sp{static_cast<const int*>(idx), static_cast<const int*>(cnt), rows, nnz, bq, bk, shared};
+  return launch<false, true>(q, k, v, o, nullptr, nullptr, 0, batch, n_heads, sq, sk, sk, st, gain, sp, nullptr,
                              static_cast<cudaStream_t>(stream));
 }

@@ -185,3 +185,15 @@ def wan_forward(params: Params, latents: torch.Tensor, t: torch.Tensor, context:
     x = wan_transformer(params["blocks"], x, embed0, ctx, rope_cos, rope_sin, arch, mm_type,
                         self_attn_type, cross_attn_type, self_attn_kwargs)
     return wan_post_process(params, x, embed, grid, s_tokens, arch)
+
+
+def wan_forward_cfg(params: Params, latents: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
+                    context_null: torch.Tensor, guide_scale: float, rope_cos: torch.Tensor,
+                    rope_sin: torch.Tensor, arch: WanArch, **kw) -> torch.Tensor:
+    """Classifier-free guidance as one batched forward (B doubles: cond
+    rows, then uncond rows): ``uncond + guide_scale * (cond - uncond)``."""
+    b = latents.shape[0]
+    out = wan_forward(params, torch.cat([latents, latents]), torch.cat([t, t]),
+                      torch.cat([context, context_null]), rope_cos, rope_sin, arch, **kw)
+    cond, uncond = out[:b], out[b:]
+    return uncond + guide_scale * (cond - uncond)

@@ -1,6 +1,8 @@
 """Denoise loop (counterpart of ``lightx2v_tpu.models.wan.pipeline``): a
 Python loop over the scheduler's steps, each step_pre -> wan_forward ->
-step_post. This slice covers ``NoCaching`` without CFG."""
+step_post, with classifier-free guidance as one batched forward when
+``enable_cfg``. Feature caching modes other than ``NoCaching`` are not ported
+yet."""
 
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import torch
 
 from ...ops.rope import build_wan_rope_grid
 from .config import WanArch
-from .model import wan_forward
+from .model import wan_forward, wan_forward_cfg
 
 
 def rope_for_shape(arch: WanArch, target_shape, sp_pad: int = 1, device="cpu"):
@@ -30,27 +32,34 @@ def rope_for_shape(arch: WanArch, target_shape, sp_pad: int = 1, device="cpu"):
 
 
 def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = False,
-                    mm_type: str = "Default", self_attn_type: str = "flash_attn3",
+                    guide_scale: float = 5.0, mm_type: str = "Default", self_attn_type: str = "flash_attn3",
                     cross_attn_type: str = "flash_attn3", feature_caching: str = "NoCaching",
                     self_attn_kwargs: Optional[dict] = None, device="cpu"):
     """Build ``denoise(params, state, context, generator, noises=None,
-    on_step=None) -> final state`` running every scheduler step.
-    ``noises`` (one tensor per step) replaces the generator's re-noise
-    draws; ``on_step(i)`` is called after each step."""
-    if enable_cfg:
-        raise NotImplementedError("CFG denoising is not ported yet (ROADMAP.md, Queue 1 item 10)")
+    on_step=None, context_null=None) -> final state`` running every
+    scheduler step. ``noises`` (one tensor per step) replaces the generator's
+    re-noise draws; ``on_step(i)`` is called after each step. With
+    ``enable_cfg`` each step is one forward at batch 2 (cond, uncond) on
+    ``context`` and ``context_null``."""
     if feature_caching != "NoCaching":
         raise NotImplementedError(f"feature caching {feature_caching!r} is not ported yet "
                                   "(ROADMAP.md, Queue 1 item 11)")
     rope_cos, rope_sin, seq_len = rope_for_shape(arch, target_shape, device=device)
 
     def denoise(params, state, context: torch.Tensor, generator: Optional[torch.Generator] = None,
-                noises=None, on_step: Optional[Callable[[int], None]] = None):
+                noises=None, on_step: Optional[Callable[[int], None]] = None,
+                context_null: Optional[torch.Tensor] = None):
+        if enable_cfg and context_null is None:
+            raise ValueError("enable_cfg needs context_null (the negative prompt's encoding)")
+        kw = dict(mm_type=mm_type, self_attn_type=self_attn_type, cross_attn_type=cross_attn_type,
+                  seq_len=seq_len, self_attn_kwargs=self_attn_kwargs)
         for i in range(scheduler.num_steps()):
             lat, t = scheduler.step_pre(state)
-            pred = wan_forward(params, lat[None], t, context, rope_cos, rope_sin, arch, mm_type=mm_type,
-                               self_attn_type=self_attn_type, cross_attn_type=cross_attn_type,
-                               seq_len=seq_len, self_attn_kwargs=self_attn_kwargs)[0]
+            if enable_cfg:
+                pred = wan_forward_cfg(params, lat[None], t, context, context_null, guide_scale, rope_cos,
+                                       rope_sin, arch, **kw)[0]
+            else:
+                pred = wan_forward(params, lat[None], t, context, rope_cos, rope_sin, arch, **kw)[0]
             state = scheduler.step_post(state, pred, generator,
                                         noise=None if noises is None else noises[i])
             if on_step is not None:

@@ -5,11 +5,13 @@
   passed (arch.rope_fused: q/k in half-split pair layout);
 * ``Sparge`` / ``sparge`` / ``sparge_attn`` -> Sparge block selection and
   the per-head block-sparse kernel (ops/sparge.py);
+* ``sage_attn2`` -> the int8-QK kernel (ops/cuda/sage_attention.py);
+* ``radial_attn`` -> radial attention (ops/radial.py): the radial block mask
+  through the shared-mask block-sparse kernel, or the two-pass execution;
 * ``torch_sdpa`` / ``xla`` -> plain softmax attention in torch ops.
 
 All functions take q, k, v of shape (B, S, N, D) and return (B, S, N, D) in
-the input dtype; softmax statistics are fp32. Other attention types of the
-JAX package (sage, radial) are not ported yet.
+the input dtype; softmax statistics are fp32.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import torch
 
 from ..utils.registry import ATTN_REGISTER
 from .cuda.flash_attention import flash_attention, flash_attention_fused_rope
+from .cuda.sage_attention import sage_attention
+from .radial import radial_attention
 from .rope import apply_rope_half
 from .sparge import sparge_attention
 
@@ -48,7 +52,19 @@ def _dispatch_sparge(q, k, v, kv_len: Optional[int] = None, keep_ratio=0.3, l1=0
     return sparge_attention(q, k, v, keep_ratio=keep_ratio, l1=l1, block_q=block_q, block_k=block_k)
 
 
+def _dispatch_sage(q, k, v, kv_len: Optional[int] = None, **kw):
+    return sage_attention(q, k, v, kv_len=kv_len)
+
+
+def _dispatch_radial(q, k, v, kv_len: Optional[int] = None, mask_map=None, sparsity_type="radial",
+                     decay_factor=1.0, block_q=2048, block_k=1024, **kw):
+    return radial_attention(q, k, v, mask_map=mask_map, sparsity_type=sparsity_type,
+                            decay_factor=decay_factor, block_q=block_q, block_k=block_k)
+
+
 ATTN_REGISTER.register(["flash_attn2", "flash_attn3"], _dispatch_flash)
+ATTN_REGISTER.register("sage_attn2", _dispatch_sage)
+ATTN_REGISTER.register("radial_attn", _dispatch_radial)
 ATTN_REGISTER.register(["Sparge", "sparge", "sparge_attn"], _dispatch_sparge)
 ATTN_REGISTER.register(["torch_sdpa", "xla"], lambda q, k, v, kv_len=None, **kw: attn_plain(q, k, v, kv_len))
 

@@ -7,10 +7,10 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import block_sparse_attention, flash_attention, w4a8_matmul, w8a8_matmul
+from . import block_sparse_attention, flash_attention, int4_matmul, sage_attention, w4a8_matmul, w8a8_matmul
 
 _COUNTERS = (flash_attention.LAUNCHES, block_sparse_attention.LAUNCHES, w8a8_matmul.LAUNCHES,
-             w4a8_matmul.LAUNCHES)
+             w4a8_matmul.LAUNCHES, sage_attention.LAUNCHES, int4_matmul.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -20,7 +20,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("flash_attention", "w8a8_matmul", "w4a8_matmul")
+SOURCES = ("flash_attention", "w8a8_matmul", "w4a8_matmul", "sage_attention", "int4_matmul")
 # -Xptxas -v: the build log (printed with verbose=True) lists each kernel's
 # registers, shared memory and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-lineinfo",

@@ -1,11 +1,15 @@
-"""Per-head block-sparse flash attention: CUDA kernel wrapper and its plain
-PyTorch version.
+"""Block-sparse flash attention: CUDA kernel wrapper and its plain PyTorch
+version.
 
 Port of ``lightx2v_tpu/ops/pallas/block_sparse_attention.py:
-block_sparse_attention`` in its per-head form (indices (B*N, nq, nnz),
-counts (B*N, nq)); the kernel is the SPARSE instantiation of
-``csrc/flash_attention.cu``. Row i of the tables covers q tokens
-[i*bq, (i+1)*bq); entry j < counts[bh, i] names a bk-token key superblock.
+block_sparse_attention`` in both forms: per head (indices (B*N, nq, nnz),
+counts (B*N, nq): Sparge's selection) and shared (indices (nq, nnz), counts
+(nq,) read by every (batch, head): radial attention's static mask, whose
+padding entries repeat the last block and are never reached since only
+j < counts[i] is swept). The kernel is the SPARSE instantiation of
+``csrc/flash_attention.cu``; the shared form is one flag on its row lookup,
+so the table is not copied per head. Row i of the tables covers q tokens
+[i*bq, (i+1)*bq); entry j < counts[..., i] names a bk-token key superblock.
 Public functions keep the JAX (B, S, N, D) layout. On a CUDA tensor the
 wrapper launches the kernel or raises; on a CPU tensor it runs the plain
 version, which repeats the kernel's arithmetic over the selected keys (q
@@ -21,9 +25,10 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import HEAD_DIM, LOG2E, _check
+from .flash_attention import HEAD_DIM, LOG2E, _check_qkv
 
-LAUNCHES = {"block_sparse_attention": 0}
+# the per-head and the shared-mask form count apart
+LAUNCHES = {"block_sparse_attention": 0, "block_sparse_attention_shared": 0}
 
 
 def clamp_blocks(sq: int, sk: int, bq: int, bk: int):
@@ -39,6 +44,8 @@ def block_sparse_attention_plain(q, k, v, indices, counts, bq: int = 128, bk: in
     qs = (q.float() * ((1.0 / math.sqrt(d)) * LOG2E)).to(torch.bfloat16)
     out = torch.zeros((b, sq, n, d), dtype=torch.bfloat16, device=q.device)
     idx, cnt = indices.cpu(), counts.cpu()
+    if idx.dim() == 2:  # shared mask: every (batch, head) reads the same rows
+        idx, cnt = idx[None].expand(b * n, -1, -1), cnt[None].expand(b * n, -1)
     for bh in range(b * n):
         bi, ni = divmod(bh, n)
         for iq in range(-(-sq // bq)):
@@ -59,7 +66,7 @@ def _lib():
     lib = _build.load("flash_attention")
     fn = lib.block_sparse_attention_bf16
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 12
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -68,33 +75,34 @@ def _lib():
 def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, indices: torch.Tensor,
                            counts: torch.Tensor, bq: int = 128, bk: int = 128) -> torch.Tensor:
     """q/k/v (B, S, N, 128) bf16 -> (B, S, N, 128); indices (B*N, nq, nnz)
-    and counts (B*N, nq) int32 at (bq x bk) granularity, clamped as the TPU
-    wrapper does. Keys past S are masked."""
+    and counts (B*N, nq) int32, or (nq, nnz) and (nq,) shared by every
+    (batch, head), at (bq x bk) granularity, clamped as the TPU wrapper
+    does. Keys past S are masked."""
     if q.device.type == "cpu":
         return block_sparse_attention_plain(q, k, v, indices, counts, bq, bk)
     dev = q.device
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _check(t, name, dev)
+    _check_qkv(q, k, v)
     b, sq, n, d = q.shape
     sk = k.shape[1]
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2] != n:
-        raise ValueError(f"shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     bq, bk = clamp_blocks(sq, sk, bq, bk)
     nq = -(-sq // bq)
+    shared = indices.dim() == 2
     if (indices.device != dev or counts.device != dev or indices.dtype != torch.int32
-            or counts.dtype != torch.int32 or indices.dim() != 3 or indices.shape[0] != b * n
-            or indices.shape[1] < nq or counts.shape != indices.shape[:2]
+            or counts.dtype != torch.int32 or indices.dim() not in (2, 3)
+            or (not shared and indices.shape[0] != b * n)
+            or indices.shape[-2] < nq or counts.shape != indices.shape[:-1]
             or not indices.is_contiguous() or not counts.is_contiguous()):
-        raise ValueError(f"indices/counts must be contiguous int32 ({b * n}, >={nq}, nnz) / ({b * n}, >={nq}) "
-                         f"on {dev}, got {tuple(indices.shape)} {indices.dtype} / {tuple(counts.shape)}")
+        raise ValueError(f"indices/counts must be contiguous int32 ({b * n}, >={nq}, nnz) / ({b * n}, >={nq}), or "
+                         f"(>={nq}, nnz) / (>={nq},) shared, on {dev}, got {tuple(indices.shape)} "
+                         f"{indices.dtype} / {tuple(counts.shape)}")
     if bq % 128 or bk % 64:
         raise ValueError(f"superblocks must be multiples of 128 queries and 64 keys, got ({bq}, {bk})")
     out = torch.empty((b, sq, n, d), dtype=torch.bfloat16, device=dev)
     gain = (1.0 / math.sqrt(HEAD_DIM)) * LOG2E
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), indices.data_ptr(), counts.data_ptr(),
-                 indices.shape[1], indices.shape[2], bq, bk, b, n, sq, sk,
+                 int(shared), indices.shape[-2], indices.shape[-1], bq, bk, b, n, sq, sk,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], gain, stream)
     _build.check(err, "block_sparse_attention")
-    LAUNCHES["block_sparse_attention"] += 1
+    LAUNCHES["block_sparse_attention_shared" if shared else "block_sparse_attention"] += 1
     return out

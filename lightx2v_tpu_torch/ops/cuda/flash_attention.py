@@ -1,7 +1,8 @@
 """Flash attention: CUDA kernel wrappers and their plain PyTorch versions.
 
-Port of ``lightx2v_tpu/ops/pallas/flash_attention.py``: ``flash_attention``
-and ``flash_attention_fused_rope`` (kernel source ``csrc/flash_attention.cu``).
+Port of ``lightx2v_tpu/ops/pallas/flash_attention.py``: ``flash_attention``,
+``flash_attention_fused_rope`` and ``flash_attention_with_lse`` (kernel
+source ``csrc/flash_attention.cu``).
 Public functions keep the JAX (B, S, N, D) layout. On a CUDA tensor the
 wrapper launches the kernel or raises; on a CPU tensor it runs the plain
 version, which repeats the kernel's arithmetic (q scaled by scale*log2(e)
@@ -19,9 +20,10 @@ import torch
 from . import _build
 
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 HEAD_DIM = 128
 
-LAUNCHES = {"flash_attention": 0, "flash_attention_fused_rope": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_fused_rope": 0, "flash_attention_with_lse": 0}
 
 
 def _kv_limit(kv_len, sk: int) -> int:
@@ -53,12 +55,16 @@ def _rotate_half_plain(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, s_
     return torch.cat([lo, hi], dim=-1) * gain
 
 
-def _attend_plain(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_limit: int) -> torch.Tensor:
-    """qs: (B, Sq, N, D) bf16 already scaled into the exp2 domain."""
+def _attend_plain(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_limit: int,
+                  lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """qs: (B, Sq, N, D) bf16 already scaled into the exp2 domain. ``lse``
+    (B, Sq, N) fp32, when given, receives m*ln2 + log(max(l, 1e-30))."""
     b, sq, n, d = qs.shape
     sk = k.shape[1]
     out = torch.empty((b, sq, n, d), dtype=torch.bfloat16, device=qs.device)
     if kv_limit <= 0:
+        if lse is not None:
+            lse.fill_(float("-inf"))
         return out.zero_()
     kf = k[:, :kv_limit].float().permute(0, 2, 3, 1)  # (B, N, D, Sk')
     vf = v[:, :kv_limit].float().permute(0, 2, 1, 3)  # (B, N, Sk', D)
@@ -71,6 +77,8 @@ def _attend_plain(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_limit: 
         l = p.sum(dim=-1, keepdim=True)
         o = torch.matmul(p.to(torch.bfloat16).float(), vf) / torch.clamp_min(l, 1e-30)
         out[:, r0:r0 + rows] = o.permute(0, 2, 1, 3).to(torch.bfloat16)
+        if lse is not None:
+            lse[:, r0:r0 + rows] = (m * LN2 + torch.log(torch.clamp_min(l, 1e-30)))[..., 0].permute(0, 2, 1)
     return out
 
 
@@ -78,6 +86,17 @@ def flash_attention_plain(q, k, v, kv_len=None) -> torch.Tensor:
     gain = (1.0 / math.sqrt(q.shape[-1])) * LOG2E
     qs = (q.float() * gain).to(torch.bfloat16)
     return _attend_plain(qs, k, v, _kv_limit(kv_len, k.shape[1]))
+
+
+def flash_attention_with_lse_plain(q, k, v, kv_len=None):
+    """(out, lse): ``flash_attention_plain`` plus the natural-log row
+    log-sum-exp of the scaled logits. Keys are masked by index; the TPU
+    kernel's closed-form removal of its zero pad rows' mass gives the same
+    sums."""
+    gain = (1.0 / math.sqrt(q.shape[-1])) * LOG2E
+    qs = (q.float() * gain).to(torch.bfloat16)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    return _attend_plain(qs, k, v, _kv_limit(kv_len, k.shape[1]), lse), lse
 
 
 def flash_attention_fused_rope_plain(q, k, v, cos, sin, kv_len=None) -> torch.Tensor:
@@ -94,12 +113,12 @@ def flash_attention_fused_rope_plain(q, k, v, cos, sin, kv_len=None) -> torch.Te
 
 def _lib():
     lib = _build.load("flash_attention")
-    fn = lib.flash_attention_bf16
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.flash_attention_bf16.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.flash_attention_bf16.argtypes = [p] * 6 + [i] * 6 + [ll] * 12 + [ctypes.c_float, i, p]
+        lib.flash_attention_lse_bf16.argtypes = [p] * 5 + [i] * 5 + [ll] * 12 + [ctypes.c_float, p]
+        lib.flash_attention_bf16.restype = lib.flash_attention_lse_bf16.restype = ctypes.c_int
+    return lib
 
 
 def _check(t: torch.Tensor, name: str, dev: torch.device):
@@ -114,14 +133,19 @@ def _check(t: torch.Tensor, name: str, dev: torch.device):
                          f"got strides {t.stride()}")
 
 
-def _launch(q, k, v, cos, sin, kv_len, rope: bool) -> torch.Tensor:
+def _check_qkv(q, k, v):
     dev = q.device
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _check(t, name, dev)
+    if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(f"shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+
+
+def _launch(q, k, v, cos, sin, kv_len, rope: bool) -> torch.Tensor:
+    dev = q.device
+    _check_qkv(q, k, v)
     b, sq, n, d = q.shape
     sk = k.shape[1]
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2] != n:
-        raise ValueError(f"shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     s_rope = 0
     cptr = sptr = None
     if rope:
@@ -135,10 +159,9 @@ def _launch(q, k, v, cos, sin, kv_len, rope: bool) -> torch.Tensor:
     out = torch.empty((b, sq, n, d), dtype=torch.bfloat16, device=dev)
     gain = (1.0 / math.sqrt(d)) * LOG2E
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), cptr, sptr, s_rope,
-                 b, n, sq, sk, _kv_limit(kv_len, sk),
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-                 gain, int(rope), stream)
+    err = _lib().flash_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), cptr, sptr, s_rope,
+                                      b, n, sq, sk, _kv_limit(kv_len, sk), *q.stride()[:3], *k.stride()[:3],
+                                      *v.stride()[:3], *out.stride()[:3], gain, int(rope), stream)
     _build.check(err, "flash_attention_fused_rope" if rope else "flash_attention")
     LAUNCHES["flash_attention_fused_rope" if rope else "flash_attention"] += 1
     return out
@@ -162,3 +185,25 @@ def flash_attention_fused_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     if q.device.type == "cpu":
         return flash_attention_fused_rope_plain(q, k, v, cos, sin, kv_len)
     return _launch(q, k, v, cos, sin, kv_len, rope=True)
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             kv_len: Optional[int] = None):
+    """``flash_attention`` that also returns lse (B, Sq, N) fp32, the
+    natural-log row log-sum-exp of the scaled logits (-inf for a row whose
+    keys are all masked): the partial that ``merge_partials`` combines."""
+    if q.device.type == "cpu":
+        return flash_attention_with_lse_plain(q, k, v, kv_len)
+    _check_qkv(q, k, v)
+    b, sq, n, d = q.shape
+    sk = k.shape[1]
+    out = torch.empty((b, sq, n, d), dtype=torch.bfloat16, device=q.device)
+    lse = torch.empty((b, sq, n), dtype=torch.float32, device=q.device)
+    gain = (1.0 / math.sqrt(d)) * LOG2E
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib().flash_attention_lse_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                                          b, n, sq, sk, _kv_limit(kv_len, sk), *q.stride()[:3], *k.stride()[:3],
+                                          *v.stride()[:3], *out.stride()[:3], gain, stream)
+    _build.check(err, "flash_attention_with_lse")
+    LAUNCHES["flash_attention_with_lse"] += 1
+    return out, lse

@@ -20,17 +20,15 @@ from typing import Optional
 import torch
 
 from . import _build
+from .int4_matmul import unpack_int4_values
 from .w8a8_matmul import _check_x, gelu_tanh, int_dot_exact, quant_groups, quantize_groups_plain
 
 LAUNCHES = {"w4a8_matmul": 0, "ffn_w4a8": 0}
 
 
-def unpack_int4_plain(packed: torch.Tensor, groups: int) -> torch.Tensor:
-    """(N, K/2) uint8 nibbles -> (N, K) int8 values (nibble - 8): within each
-    group, byte j holds column j (low nibble) and column j + group/2."""
-    n, half = packed.shape
-    pb = packed.reshape(n, groups, half // groups).to(torch.int16)
-    return torch.cat([(pb & 15) - 8, (pb >> 4) - 8], dim=-1).reshape(n, 2 * half).to(torch.int8)
+# (N, K/2) uint8 nibbles -> (N, K) int8 values (nibble - 8): within each
+# group, byte j holds column j (low nibble) and column j + group/2
+unpack_int4_plain = unpack_int4_values
 
 
 def _grouped_dot(q, xs, w8, ws, group: int) -> torch.Tensor:

@@ -20,6 +20,11 @@ per-(channel, group) scales times per-(token, group) int8 activations
 through ``w4a8_matmul``, and the FFN through ``ffn_w4a8`` when its scales are
 2-D and min(H, K/2) >= 2048. (The JAX package's CPU fallback runs these
 linears weight-only with bf16 activations instead.)
+
+The weight-only int4 scheme (``W-int4-group-sym-A-bf16-Tpu`` and its aliases)
+runs ``int4_matmul`` at every size, as the JAX package does on its
+accelerator: the same packed weights and 2-D scales, bf16 activations, the
+bias added after the kernel's rounding. Its FFN is GEMM, GELU, GEMM.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.registry import MM_REGISTER
+from .cuda.int4_matmul import int4_matmul
 from .cuda.w4a8_matmul import ffn_w4a8, w4a8_matmul
 from .cuda.w8a8_matmul import ffn_w8a8, int_dot_exact, w8a8_matmul, w8a8_matmul_fullk
 
@@ -112,6 +118,19 @@ for _alias in [
     "W-nvfp4-A-nvfp4-dynamic-Tpu",
 ]:
     MM_REGISTER.register(_alias, _mm_int4_a8)
+
+
+def _mm_int4(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Weight-only int4 (per-(channel, group) scales), bf16 activations."""
+    return int4_matmul(x, params["w"], params["w_scale"], params.get("b"))
+
+
+for _alias in [
+    "W-int4-group-sym-A-bf16-Tpu",
+    "W-int4-group128-sym-A-bf16",
+    "W-nvfp4-A-bf16-Tpu",
+]:
+    MM_REGISTER.register(_alias, _mm_int4)
 
 
 def mm_gelu(mm_fn, params: Dict, x: torch.Tensor) -> torch.Tensor:

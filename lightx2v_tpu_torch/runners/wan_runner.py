@@ -1,8 +1,9 @@
 """Wan2.1 runners (counterpart of ``lightx2v_tpu.runners.wan_runner``), t2v
 with resident weights.
 
-``wan2.1_distill`` is the 4-step step-distill model without CFG. ``wan2.1``
-(UniPC with CFG) is registered but its scheduler is not ported yet.
+``wan2.1`` is the base model: UniPC with classifier-free guidance as one
+batched forward. ``wan2.1_distill`` is the 4-step step-distill model without
+CFG.
 
 Synthetic weights (``synthetic_weights``): a config that names no ``dim``
 gets the JAX runner's small synthetic stack built from the same host numpy
@@ -16,6 +17,10 @@ per-(channel, group) scales under an int4 one), a UMT5-XXL when text_dim is
 ``sparge: true`` runs the video self-attention as Sparge with the
 per-layer budgets of ``sparge_ckpt`` (or ``sparge_l1_per_layer``), the
 table's leading failed layers dense (``_self_attn_setup``).
+``self_attn_1_type: "radial_attn"`` runs radial attention at
+(``sparse_block_q`` x ``sparse_block_k``) superblocks; the optional
+``radial_sparsity_type`` (``"bsr"`` or ``"two_pass"``) is passed on as
+``radial_attention``'s ``sparsity_type``.
 """
 
 from __future__ import annotations
@@ -32,7 +37,9 @@ from ..models.wan.config import arch_from_config, is_published_width
 from ..models.wan.pipeline import make_denoise_fn
 from ..models.wan.weights import (init_random_params_on_device, init_random_weight_dict, load_wan_params,
                                   permute_qk_half)
+from ..ops.radial import MaskMap
 from ..schedulers.step_distill import WanStepDistillScheduler
+from ..schedulers.unipc import WanUniPCScheduler
 from ..tools.convert import quantize_model
 from ..utils.logging_utils import logger
 from ..utils.registry import RUNNER_REGISTER
@@ -74,6 +81,7 @@ _SCHEMES = {"int8": "int8", "int4": "int4", "nvfp4": "int4"}
 
 @RUNNER_REGISTER.register("wan2.1")
 class WanRunner(DefaultRunner):
+    scheduler_cls = WanUniPCScheduler
 
     def _require_synthetic(self):
         if not self.config.get("synthetic_weights"):
@@ -155,7 +163,7 @@ class WanRunner(DefaultRunner):
         return self.config["target_shape"]
 
     def init_scheduler(self):
-        raise _not_ported("the UniPC scheduler", "Queue 1 item 10")
+        return self.scheduler_cls(self.config)
 
     def run_input_encoder(self) -> Dict[str, Any]:
         if self.config.get("use_prompt_enhancer"):
@@ -183,8 +191,20 @@ class WanRunner(DefaultRunner):
         lat_gen, noise_gen = self._generators()
         state = scheduler.prepare(target_shape, lat_gen, device=self.device)
         attn, cross_attn, self_attn_kwargs = self._self_attn_setup()
-        denoise = make_denoise_fn(self.arch, scheduler, target_shape,
-                                  enable_cfg=bool(self.config.get("enable_cfg", True)), mm_type=self.mm_type,
+        if attn == "radial_attn":
+            pt, ph, pw = self.arch.patch_size
+            gf = target_shape[1] // pt
+            vid_tokens = gf * (target_shape[2] // ph) * (target_shape[3] // pw)
+            self_attn_kwargs = {"mask_map": MaskMap(video_token_num=vid_tokens, num_frame=gf),
+                                "decay_factor": float(self.config.get("decay_factor", 0.5)),
+                                "block_q": int(self.config.get("sparse_block_q", 2048)),
+                                "block_k": int(self.config.get("sparse_block_k", 1024))}
+            if self.config.get("radial_sparsity_type"):
+                self_attn_kwargs["sparsity_type"] = str(self.config["radial_sparsity_type"])
+        enable_cfg = bool(self.config.get("enable_cfg", True))
+        denoise = make_denoise_fn(self.arch, scheduler, target_shape, enable_cfg=enable_cfg,
+                                  guide_scale=float(self.config.get("sample_guide_scale", 5.0)),
+                                  mm_type=self.mm_type,
                                   self_attn_type=attn, cross_attn_type=cross_attn,
                                   feature_caching=self.config.get("feature_caching", "NoCaching"),
                                   self_attn_kwargs=self_attn_kwargs, device=self.device)
@@ -195,8 +215,9 @@ class WanRunner(DefaultRunner):
             steps.append(time.perf_counter())
 
         t0 = time.perf_counter()
-        state = denoise(self.model, state, encoder_out["text_encoder_output"]["context"], noise_gen,
-                        noises=noises, on_step=on_step)
+        teo = encoder_out["text_encoder_output"]
+        state = denoise(self.model, state, teo["context"], noise_gen, noises=noises, on_step=on_step,
+                        context_null=teo["context_null"] if enable_cfg else None)
         self.timings["step_s"] = list(np.diff([t0] + steps))
         return state["latents"]
 

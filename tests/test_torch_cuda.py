@@ -228,3 +228,136 @@ def test_new_wrappers_launch_kernels_on_cuda(dev, monkeypatch):
     torch.cuda.synchronize()
     c = launch_counts()
     assert (c["w4a8_matmul"], c["ffn_w4a8"], c["w8a8_matmul"], c["block_sparse_attention"]) == (1, 1, 1, 1), c
+
+
+@pytest.mark.parametrize("b,sq,sk,kv_len", [(1, 256, 256, None), (8, 195, 1505, None), (21, 156, 624, None),
+                                            (2, 70, 200, 150), (1, 130, 129, None)])
+def test_flash_lse_kernel_vs_plain(dev, b, sq, sk, kv_len):
+    """Ragged odd lengths, Sq below two CTA tiles, a batch axis of 8 and 21
+    (the two-pass radial passes' form), kv_len."""
+    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(sq + sk)
+    q, k, v = (torch.randn((b, s, 3, 128), generator=g, device=dev).to(torch.bfloat16) for s in (sq, sk, sk))
+    before = fa.LAUNCHES["flash_attention_with_lse"]
+    out, lse = fa.flash_attention_with_lse(q, k, v, kv_len=kv_len)
+    assert fa.LAUNCHES["flash_attention_with_lse"] == before + 1
+    ref, ref_lse = fa.flash_attention_with_lse_plain(q, k, v, kv_len)
+    _close(out, ref, 2e-2, 2e-3)
+    # bar: fp32 sums in another order
+    assert lse.shape == (b, sq, 3) and float((lse - ref_lse).abs().max()) <= 1e-3
+    assert torch.equal(out, fa.flash_attention(q, k, v, kv_len=kv_len))
+
+
+def test_flash_lse_all_keys_masked(dev):
+    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+
+    q = torch.randn((1, 40, 2, 128), device=dev).to(torch.bfloat16)
+    out, lse = fa.flash_attention_with_lse(q, q, q, kv_len=0)
+    torch.cuda.synchronize()
+    assert not out.any() and torch.isinf(lse).all() and (lse < 0).all()
+
+
+@pytest.mark.parametrize("s,bq,bk", [(600, 128, 128), (1000, 256, 128), (2100, 1024, 512)])
+def test_block_sparse_shared_kernel_vs_plain(dev, s, bq, bk):
+    """2-D tables read by every (batch, head), ascending lists whose tail
+    repeats the last block, B = 2; equal to the per-head kernel on the table
+    repeated per head."""
+    import numpy as np
+
+    from lightx2v_tpu_torch.ops.cuda import block_sparse_attention as bsa
+    from lightx2v_tpu_torch.ops.radial import mask_to_indices
+
+    g = torch.Generator(device=dev).manual_seed(s)
+    q, k, v = (torch.randn((2, s, 3, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    bq_, bk_ = bsa.clamp_blocks(s, s, bq, bk)
+    nq, nk = -(-s // bq_), -(-s // bk_)
+    mask = np.random.default_rng(s).random((nq, nk)) < 0.4
+    mask[np.arange(nq), np.minimum(np.arange(nq) * bq_ // bk_, nk - 1)] = True
+    idx_np, cnt_np = mask_to_indices(mask)
+    assert idx_np.shape[1] > cnt_np.min()  # some row has repeated tail entries
+    idx, cnt = torch.from_numpy(idx_np).to(dev), torch.from_numpy(cnt_np).to(dev)
+    before = dict(bsa.LAUNCHES)
+    out = bsa.block_sparse_attention(q, k, v, idx, cnt, bq=bq, bk=bk)
+    assert bsa.LAUNCHES["block_sparse_attention_shared"] == before["block_sparse_attention_shared"] + 1
+    assert bsa.LAUNCHES["block_sparse_attention"] == before["block_sparse_attention"]
+    _close(out, bsa.block_sparse_attention_plain(q, k, v, idx, cnt, bq=bq, bk=bk), 2e-2, 2e-3)
+    per_head = bsa.block_sparse_attention(q, k, v, idx[None].repeat(6, 1, 1).contiguous(),
+                                          cnt[None].repeat(6, 1).contiguous(), bq=bq, bk=bk)
+    assert torch.equal(out, per_head)
+
+
+@pytest.mark.parametrize("b,sq,sk,kv_len", [(1, 256, 256, None), (2, 200, 200, None), (1, 200, 200, 150),
+                                            (2, 77, 333, None), (1, 300, 64, 40)])
+def test_sage_kernel_vs_plain(dev, b, sq, sk, kv_len):
+    from lightx2v_tpu_torch.ops.cuda import sage_attention as sa
+
+    g = torch.Generator(device=dev).manual_seed(sq + sk)
+    q, k, v = (torch.randn((b, s, 3, 128), generator=g, device=dev).to(torch.bfloat16) for s in (sq, sk, sk))
+    before = sa.LAUNCHES["sage_attention"]
+    out = sa.sage_attention(q, k, v, kv_len=kv_len)
+    assert sa.LAUNCHES["sage_attention"] == before + 1
+    # bar: identical int32 logits; bf16 P rounded at different running maxima, summation order
+    _close(out, sa.sage_attention_plain(q, k, v, kv_len), 2e-2, 2e-3)
+
+
+def test_sage_quantize_pass_is_exact(dev):
+    """The row quantization pre-pass gives the plain version's codes and
+    scales bit for bit, on a strided view too."""
+    from lightx2v_tpu_torch.ops.cuda import sage_attention as sa
+
+    qkv = torch.randn((2, 130, 3, 2, 128), device=dev).to(torch.bfloat16)
+    qkv[0, 7, 1] = 0.0
+    x = qkv[:, :, 1]
+    codes, scales = sa._quant_rows(sa._lib(), x, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    ref_codes, ref_scales = sa.quant_rows_plain(x)
+    assert torch.equal(codes, ref_codes) and torch.equal(scales, ref_scales[..., 0])
+
+
+@pytest.mark.parametrize("m,n,k,group,bias", [(200, 256, 1024, 512, True), (37, 384, 768, 256, False),
+                                              (512, 136, 256, 128, True), (1000, 5120, 5120, 512, True)])
+def test_int4_kernel_vs_plain(dev, m, n, k, group, bias):
+    from lightx2v_tpu_torch.ops.cuda import int4_matmul as i4
+
+    g = torch.Generator(device=dev).manual_seed(m + n + k)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    w, ws = _packed(g, dev, n, k, group)
+    b = torch.randn((n,), generator=g, device=dev) * 0.1 if bias else None
+    before = i4.LAUNCHES["int4_matmul"]
+    out = i4.int4_matmul(x, w, ws, b)
+    assert i4.LAUNCHES["int4_matmul"] == before + 1
+    # bar: exact bf16 x int4 products; fp32 additions inside a group in
+    # another order move a bf16 rounding now and then (one ulp at the top)
+    _close(out, i4.int4_matmul_plain(x, w, ws, b), 2 ** -7, 0.0)
+
+
+def test_int4_kernel_refuses_small_groups(dev):
+    from lightx2v_tpu_torch.ops.cuda import int4_matmul as i4
+
+    x = torch.zeros((4, 192), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        i4.int4_matmul(x, torch.zeros((64, 96), dtype=torch.uint8, device=dev), torch.ones((64, 1), device=dev))
+
+
+def test_radial_executions_on_cuda(dev, monkeypatch):
+    """radial_attention on the card: the block-sparse execution launches the
+    shared-mask kernel once, two_pass launches the LSE kernel 1 + F times,
+    and both agree with their plain versions on the CPU."""
+    from lightx2v_tpu_torch.ops import radial
+    from lightx2v_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    f, tpf = 6, 512
+    s = f * tpf
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn((1, s, 2, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    assert radial._two_pass_plan(s, s, f, 0.5, "wan", 256) is not None
+    for kind, key, n in (("radial", "block_sparse_attention_shared", 1), ("two_pass", "flash_attention_with_lse",
+                                                                           1 + f)):
+        reset_launch_counts()
+        out = radial.radial_attention(q, k, v, radial.MaskMap(s, f), sparsity_type=kind, block_q=128, block_k=128)
+        counts = launch_counts()
+        assert counts.pop(key) == n and not any(counts.values()), (kind, counts)
+        ref = radial.radial_attention(q.cpu(), k.cpu(), v.cpu(), radial.MaskMap(s, f), sparsity_type=kind,
+                                      block_q=128, block_k=128)
+        _close(out.cpu(), ref, 2e-2, 2e-3)

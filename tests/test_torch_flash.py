@@ -76,6 +76,38 @@ def test_cross_attention_shape():
     np.testing.assert_allclose(_np(out), _np(ref), **TOL)
 
 
+@pytest.mark.parametrize("b,sq,sk,kv_len", [(1, 256, 256, None), (3, 195, 330, None), (2, 70, 200, 150),
+                                            (1, 130, 129, None)])
+def test_flash_attention_with_lse_vs_pallas(b, sq, sk, kv_len):
+    """Out and the natural-log row log-sum-exp, at block multiples, ragged
+    odd lengths (Sq below two tiles, the two-pass radial far pass's form), a
+    batch axis and a static kv_len. lse bar: fp32 sums in another order,
+    1e-3 absolute."""
+    rng = np.random.default_rng(sq + sk)
+    mk = lambda s: (rng.standard_normal((b, s, 2, 128)) * 1.5).astype(np.float32)  # noqa: E731
+    q, k, v = mk(sq), mk(sk), mk(sk)
+    ref, ref_lse = jflash.flash_attention_with_lse(_j(q), _j(k), _j(v), kv_len=kv_len, bq=128, bk=128,
+                                                   interpret=True)
+    out, lse = tflash.flash_attention_with_lse(_t(q), _t(k), _t(v), kv_len=kv_len)
+    assert out.shape == (b, sq, 2, 128) and out.dtype == torch.bfloat16
+    assert lse.shape == (b, sq, 2) and lse.dtype == torch.float32
+    np.testing.assert_allclose(_np(out), _np(ref), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), rtol=0, atol=1e-3)
+    # and it is the log-sum-exp of the scaled logits of the bf16-rounded inputs
+    kv = sk if kv_len is None else kv_len
+    logits = torch.einsum("bqnd,bknd->bqnk", _t(q).double(), _t(k).double()[:, :kv]) / np.sqrt(128.0)
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(logits, dim=-1).numpy(), rtol=0, atol=3e-2)
+    assert torch.equal(out, tflash.flash_attention(_t(q), _t(k), _t(v), kv_len=kv_len))
+
+
+def test_flash_attention_with_lse_all_keys_masked():
+    """kv_len 0: zero output and lse -inf (the TPU kernel's
+    m*ln2 + log(1e-30) with m = -inf)."""
+    q, k, v = _qkv(10, 20)
+    out, lse = tflash.flash_attention_with_lse(_t(q), _t(k), _t(v), kv_len=0)
+    assert not out.any() and torch.isinf(lse).all() and (lse < 0).all()
+
+
 def test_cuda_wrapper_rejects_bad_input_before_launch():
     """On a CUDA-typed request the wrapper validates; head dims other than
     128 are refused (checked on the meta device, no card needed)."""

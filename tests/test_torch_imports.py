@@ -22,7 +22,9 @@ def test_every_module_imports_without_jax():
     mods = _port_modules()
     assert "lightx2v_tpu_torch.ops.cuda.flash_attention" in mods and "lightx2v_tpu_torch.infer" in mods
     assert {"lightx2v_tpu_torch.ops.sparge", "lightx2v_tpu_torch.ops.cuda.w4a8_matmul",
-            "lightx2v_tpu_torch.ops.cuda.block_sparse_attention"} <= set(mods)
+            "lightx2v_tpu_torch.ops.cuda.block_sparse_attention", "lightx2v_tpu_torch.ops.cuda.sage_attention",
+            "lightx2v_tpu_torch.ops.cuda.int4_matmul", "lightx2v_tpu_torch.ops.radial",
+            "lightx2v_tpu_torch.parallel.ring", "lightx2v_tpu_torch.schedulers.unipc"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

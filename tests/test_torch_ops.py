@@ -188,11 +188,13 @@ def test_mm_ffn_dispatch():
 
 
 def test_unported_mm_type_raises():
-    """Weight-only int4 (bf16 activations, the int4_matmul kernel) is not
-    ported; int4 x int8 is."""
+    """The mxfp6 scheme is not ported; both int4 schemes (weight-only with
+    bf16 activations, and int4 x int8) are, as different functions."""
     with pytest.raises(NotImplementedError):
-        tlin.resolve_mm("W-int4-group-sym-A-bf16-Tpu")
+        tlin.resolve_mm("W-mxfp6-A-bf16-Tpu")
     assert tlin.resolve_mm("W-int4-group-sym-A-int8-token-dynamic-Tpu") is not None
+    assert tlin.resolve_mm("W-int4-group-sym-A-bf16-Tpu") not in (
+        None, tlin.resolve_mm("W-int4-group-sym-A-int8-token-dynamic-Tpu"))
 
 
 def test_attention_dispatch_plain_and_rope():
@@ -210,6 +212,9 @@ def test_attention_dispatch_plain_and_rope():
     ref = jattn.attention("xla", jq, jk, jv, kv_len=30)
     out = tattn.attention("xla", tq, tk, tv, kv_len=30)
     np.testing.assert_allclose(_f(out), _f(ref), rtol=1e-2, atol=1e-2)
+    with pytest.raises(NotImplementedError):
+        tattn.attention("xla_chunked", tq, tk, tv)
+    # sage and radial dispatch (radial without a mask map is dense flash)
     for name in ("radial_attn", "sage_attn2"):
-        with pytest.raises(NotImplementedError):
-            tattn.attention(name, tq, tk, tv)
+        out = tattn.attention(name, tq, tk, tv)
+        np.testing.assert_allclose(_f(out), _f(tattn.attention("flash_attn3", tq, tk, tv)), rtol=0, atol=3e-2)
