@@ -4,6 +4,8 @@
     python3 chip_smoke.py                 # build, kernel phases, every path
     python3 chip_smoke.py --kernels-only  # build and kernel phases only
     python3 chip_smoke.py --profile out/  # and a profiled run of each path
+    python3 chip_smoke.py --kernels-only --kernel int4_matmul  # one kernel's phase
+    python3 chip_smoke.py --path base     # the kernel phases and one path
 
 1. Prints the card's name and power limit, builds every CUDA kernel of the
    port from ``lightx2v_tpu_torch/csrc`` (one nvcc per source, in parallel)
@@ -87,6 +89,7 @@ BASE = dict(dim=DIM, ffn_dim=FFN, num_heads=HEADS, num_layers=40, text_len=TXT, 
 RADIAL_BSR = dict(self_attn_1_type="radial_attn", sparse_block_q=128, sparse_block_k=128,
                   denoising_step_list=[1000, 500], radial_sparsity_type="bsr")
 RADIAL_TWO_PASS = dict(RADIAL_BSR, sparse_block_q=256, radial_sparsity_type="two_pass")
+PATHS = ("slice", "flagship", "base", "radial_bsr", "radial_two_pass")
 
 
 def card_line() -> str:
@@ -144,7 +147,7 @@ def check_close(name: str, out, ref, rtol: float, atol: float) -> float:
 # kernel phase
 
 
-def kernel_phase(peaks, reps: int):
+def kernel_phase(peaks, reps: int, want):
     import torch
     import torch.nn.functional as F
 
@@ -160,56 +163,62 @@ def kernel_phase(peaks, reps: int):
     def randn(*shape, dtype=torch.bfloat16, std=1.0):
         return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
 
+    if want("flash_attention_fused_rope") or want("flash_attention"):
+        q = randn(1, S, HEADS, HD)
     # ---- flash attention with fused RoPE (self-attention) ----
-    q, k, v = randn(1, S, HEADS, HD), randn(1, S, HEADS, HD), randn(1, S, HEADS, HD)
-    cos_np, sin_np = build_wan_rope_grid(HD, 21, 30, 52)
-    cos = torch.from_numpy(cos_np).to(dev)
-    sin = torch.from_numpy(sin_np).to(dev)
-    out = fa.flash_attention_fused_rope(q, k, v, cos, sin)
-    torch.cuda.synchronize()
-    hs = slice(0, 2)  # the plain version materializes S x S per head
-    ref = fa.flash_attention_fused_rope_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs], cos, sin)
-    # bar: bf16 output; P rounded to bf16 at different running maxima
-    # (online vs one-pass softmax) and a different summation order
-    err = check_close("flash_attention_fused_rope", out[:, :, hs], ref, 2e-2, 1e-3)
-    del ref
-    ms = cuda_ms(lambda: fa.flash_attention_fused_rope(q, k, v, cos, sin), reps)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_fused_rope_plain(q, k, v, cos, sin), 1, warmup=0)
+    if want("flash_attention_fused_rope"):
+        k, v = randn(1, S, HEADS, HD), randn(1, S, HEADS, HD)
+        cos_np, sin_np = build_wan_rope_grid(HD, 21, 30, 52)
+        cos = torch.from_numpy(cos_np).to(dev)
+        sin = torch.from_numpy(sin_np).to(dev)
+        out = fa.flash_attention_fused_rope(q, k, v, cos, sin)
+        torch.cuda.synchronize()
+        hs = slice(0, 2)  # the plain version materializes S x S per head
+        ref = fa.flash_attention_fused_rope_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs], cos, sin)
+        # bar: bf16 output; P rounded to bf16 at different running maxima
+        # (online vs one-pass softmax) and a different summation order
+        err = check_close("flash_attention_fused_rope", out[:, :, hs], ref, 2e-2, 1e-3)
+        del ref
+        ms = cuda_ms(lambda: fa.flash_attention_fused_rope(q, k, v, cos, sin), reps)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_fused_rope_plain(q, k, v, cos, sin), 1, warmup=0)
 
-    def lib_rope():
-        qr, kr = apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin)
-        return F.scaled_dot_product_attention(qr.transpose(1, 2), kr.transpose(1, 2), v.transpose(1, 2))
+        def lib_rope():
+            qr, kr = apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin)
+            return F.scaled_dot_product_attention(qr.transpose(1, 2), kr.transpose(1, 2), v.transpose(1, 2))
 
-    lib_ms = cuda_ms(lib_rope, reps)
-    b_ms, b_by = bound(4.0 * HEADS * S * S * HD, 4 * S * HEADS * HD * 2 + 2 * S * HD // 2 * 4, peak_bf16, peak_bw)
-    rows.append(dict(name="flash_attention_fused_rope", route="cuda",
-                     source="lightx2v_tpu_torch/csrc/flash_attention.cu",
-                     replaces="lightx2v_tpu/ops/pallas/flash_attention.py:243",
-                     shape=f"q,k,v (1,{S},{HEADS},{HD}) bf16; cos,sin ({S},64) fp32",
-                     max_abs_err=err, bar="2e-2*max|ref| + 1e-3", ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                     library_call="apply_rope_half x2 + F.scaled_dot_product_attention"))
-    del out
+        lib_ms = cuda_ms(lib_rope, reps)
+        b_ms, b_by = bound(4.0 * HEADS * S * S * HD, 4 * S * HEADS * HD * 2 + 2 * S * HD // 2 * 4, peak_bf16, peak_bw)
+        rows.append(dict(name="flash_attention_fused_rope", route="cuda",
+                         source="lightx2v_tpu_torch/csrc/flash_attention.cu",
+                         replaces="lightx2v_tpu/ops/pallas/flash_attention.py:243",
+                         shape=f"q,k,v (1,{S},{HEADS},{HD}) bf16; cos,sin ({S},64) fp32",
+                         max_abs_err=err, bar="2e-2*max|ref| + 1e-3", ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                         library_call="apply_rope_half x2 + F.scaled_dot_product_attention"))
+        del out, k, v
 
     # ---- flash attention (cross-attention over 512 text tokens) ----
-    kc, vc = randn(1, TXT, HEADS, HD), randn(1, TXT, HEADS, HD)
-    out = fa.flash_attention(q, kc, vc)
-    torch.cuda.synchronize()
-    ref = fa.flash_attention_plain(q, kc, vc)
-    err = check_close("flash_attention", out, ref, 2e-2, 1e-3)
-    del ref, out
-    ms = cuda_ms(lambda: fa.flash_attention(q, kc, vc), reps)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, kc, vc), 2)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), kc.transpose(1, 2),
-                                                            vc.transpose(1, 2)), reps)
-    b_ms, b_by = bound(4.0 * HEADS * S * TXT * HD, (2 * S + 2 * TXT) * HEADS * HD * 2, peak_bf16, peak_bw)
-    rows.append(dict(name="flash_attention", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
-                     replaces="lightx2v_tpu/ops/pallas/flash_attention.py:409",
-                     shape=f"q (1,{S},{HEADS},{HD}); k,v (1,{TXT},{HEADS},{HD}) bf16",
-                     max_abs_err=err, bar="2e-2*max|ref| + 1e-3", ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                     library_call="F.scaled_dot_product_attention"))
-    del q, k, v, kc, vc
+    if want("flash_attention"):
+        kc, vc = randn(1, TXT, HEADS, HD), randn(1, TXT, HEADS, HD)
+        out = fa.flash_attention(q, kc, vc)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q, kc, vc)
+        err = check_close("flash_attention", out, ref, 2e-2, 1e-3)
+        del ref, out
+        ms = cuda_ms(lambda: fa.flash_attention(q, kc, vc), reps)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, kc, vc), 2)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), kc.transpose(1, 2),
+                                                                vc.transpose(1, 2)), reps)
+        b_ms, b_by = bound(4.0 * HEADS * S * TXT * HD, (2 * S + 2 * TXT) * HEADS * HD * 2, peak_bf16, peak_bw)
+        rows.append(dict(name="flash_attention", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
+                         replaces="lightx2v_tpu/ops/pallas/flash_attention.py:409",
+                         shape=f"q (1,{S},{HEADS},{HD}); k,v (1,{TXT},{HEADS},{HD}) bf16",
+                         max_abs_err=err, bar="2e-2*max|ref| + 1e-3", ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                         library_call="F.scaled_dot_product_attention"))
+        del kc, vc
+    if want("flash_attention_fused_rope") or want("flash_attention"):
+        del q
 
     # ---- w8a8_matmul_fullk (q/k/v/o at M=32,760; cross k/v at M=512) ----
     def quant_lib(x2):
@@ -221,68 +230,70 @@ def kernel_phase(peaks, reps: int):
         acc = torch._int_mm(xq, w.t())
         return (acc.float() * s[:, None] * ws[None] + b[None]).to(torch.bfloat16)
 
-    w = torch.randint(-127, 128, (DIM, DIM), generator=g, device=dev, dtype=torch.int8)
-    ws = torch.full((DIM,), 0.02 / 127, device=dev)
-    bvec = randn(DIM, dtype=torch.float32, std=0.02)
-    for m in (S, TXT):
-        x = randn(m, DIM)
-        out = wm.w8a8_matmul_fullk(x, w, ws, bvec)
-        torch.cuda.synchronize()
-        ref = wm.w8a8_matmul_fullk_plain(x, w, ws, bvec)
-        # bar: the integer codes and the int32 sums are exact on both
-        # sides; only the bf16 rounding of rare fp32 ties can differ
-        err = check_close(f"w8a8_matmul_fullk M={m}", out, ref, 2 ** -7, 0.0)
-        del ref, out
-        ms = cuda_ms(lambda: wm.w8a8_matmul_fullk(x, w, ws, bvec), reps * 2)
-        plain_ms = cuda_ms(lambda: wm.w8a8_matmul_fullk_plain(x, w, ws, bvec), 2)
-        lib_ms = cuda_ms(lambda: w8a8_lib(x, w, ws, bvec), reps * 2)
-        b_ms, b_by = bound(2.0 * m * DIM * DIM, m * DIM * 2 + DIM * DIM + 2 * DIM * 4 + m * DIM * 2,
-                           peak_int8, peak_bw)
-        (rows if m == S else extra).append(dict(name="w8a8_matmul_fullk", route="cuda",
-                         source="lightx2v_tpu_torch/csrc/w8a8_matmul.cu",
-                         replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:182",
-                         shape=f"x ({m},{DIM}) bf16; w ({DIM},{DIM}) int8",
-                         max_abs_err=err, bar="2^-7*max|ref|", ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                         library_call="torch quantize + torch._int_mm + torch scaling"))
-        del x
-    del w
+    if want("w8a8_matmul_fullk"):
+        w = torch.randint(-127, 128, (DIM, DIM), generator=g, device=dev, dtype=torch.int8)
+        ws = torch.full((DIM,), 0.02 / 127, device=dev)
+        bvec = randn(DIM, dtype=torch.float32, std=0.02)
+        for m in (S, TXT):
+            x = randn(m, DIM)
+            out = wm.w8a8_matmul_fullk(x, w, ws, bvec)
+            torch.cuda.synchronize()
+            ref = wm.w8a8_matmul_fullk_plain(x, w, ws, bvec)
+            # bar: the integer codes and the int32 sums are exact on both
+            # sides; only the bf16 rounding of rare fp32 ties can differ
+            err = check_close(f"w8a8_matmul_fullk M={m}", out, ref, 2 ** -7, 0.0)
+            del ref, out
+            ms = cuda_ms(lambda: wm.w8a8_matmul_fullk(x, w, ws, bvec), reps * 2)
+            plain_ms = cuda_ms(lambda: wm.w8a8_matmul_fullk_plain(x, w, ws, bvec), 2)
+            lib_ms = cuda_ms(lambda: w8a8_lib(x, w, ws, bvec), reps * 2)
+            b_ms, b_by = bound(2.0 * m * DIM * DIM, m * DIM * 2 + DIM * DIM + 2 * DIM * 4 + m * DIM * 2,
+                               peak_int8, peak_bw)
+            (rows if m == S else extra).append(dict(name="w8a8_matmul_fullk", route="cuda",
+                             source="lightx2v_tpu_torch/csrc/w8a8_matmul.cu",
+                             replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:182",
+                             shape=f"x ({m},{DIM}) bf16; w ({DIM},{DIM}) int8",
+                             max_abs_err=err, bar="2^-7*max|ref|", ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                             library_call="torch quantize + torch._int_mm + torch scaling"))
+            del x
+        del w
 
     # ---- ffn_w8a8 ----
-    x = randn(S, DIM)
-    w0 = torch.randint(-127, 128, (FFN, DIM), generator=g, device=dev, dtype=torch.int8)
-    w2 = torch.randint(-127, 128, (DIM, FFN), generator=g, device=dev, dtype=torch.int8)
-    s0, s2 = torch.full((FFN,), 0.02 / 127, device=dev), torch.full((DIM,), 0.02 / 127, device=dev)
-    b0, b2 = randn(FFN, dtype=torch.float32, std=0.02), randn(DIM, dtype=torch.float32, std=0.02)
-    out = wm.ffn_w8a8(x, w0, s0, b0, w2, s2, b2)
-    torch.cuda.synchronize()
-    ref = wm.ffn_w8a8_plain(x, w0, s0, b0, w2, s2, b2)
-    # bar: x codes exact; h is fp32 on both sides but tanh on the card and
-    # in torch may differ by an ulp, flipping a rare h code by one step
-    err = check_close("ffn_w8a8", out, ref, 2e-2, 0.0)
-    del ref, out
-    ms = cuda_ms(lambda: wm.ffn_w8a8(x, w0, s0, b0, w2, s2, b2), reps)
-    plain_ms = cuda_ms(lambda: wm.ffn_w8a8_plain(x, w0, s0, b0, w2, s2, b2), 1)
+    if want("ffn_w8a8"):
+        x = randn(S, DIM)
+        w0 = torch.randint(-127, 128, (FFN, DIM), generator=g, device=dev, dtype=torch.int8)
+        w2 = torch.randint(-127, 128, (DIM, FFN), generator=g, device=dev, dtype=torch.int8)
+        s0, s2 = torch.full((FFN,), 0.02 / 127, device=dev), torch.full((DIM,), 0.02 / 127, device=dev)
+        b0, b2 = randn(FFN, dtype=torch.float32, std=0.02), randn(DIM, dtype=torch.float32, std=0.02)
+        out = wm.ffn_w8a8(x, w0, s0, b0, w2, s2, b2)
+        torch.cuda.synchronize()
+        ref = wm.ffn_w8a8_plain(x, w0, s0, b0, w2, s2, b2)
+        # bar: x codes exact; h is fp32 on both sides but tanh on the card and
+        # in torch may differ by an ulp, flipping a rare h code by one step
+        err = check_close("ffn_w8a8", out, ref, 2e-2, 0.0)
+        del ref, out
+        ms = cuda_ms(lambda: wm.ffn_w8a8(x, w0, s0, b0, w2, s2, b2), reps)
+        plain_ms = cuda_ms(lambda: wm.ffn_w8a8_plain(x, w0, s0, b0, w2, s2, b2), 1)
 
-    def ffn_lib():
-        h = w8a8_lib(x, w0, s0, b0).float()
-        h = wm.gelu_tanh(h).to(torch.bfloat16)
-        return w8a8_lib(h, w2, s2, b2)
+        def ffn_lib():
+            h = w8a8_lib(x, w0, s0, b0).float()
+            h = wm.gelu_tanh(h).to(torch.bfloat16)
+            return w8a8_lib(h, w2, s2, b2)
 
-    lib_ms = cuda_ms(ffn_lib, reps)
-    b_ms, b_by = bound(2.0 * S * (DIM * FFN + FFN * DIM), S * DIM * 2 * 2 + 2 * DIM * FFN, peak_int8, peak_bw)
-    rows.append(dict(name="ffn_w8a8", route="cuda", source="lightx2v_tpu_torch/csrc/w8a8_matmul.cu",
-                     replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:301",
-                     shape=f"x ({S},{DIM}) bf16; w0 ({FFN},{DIM}), w2 ({DIM},{FFN}) int8",
-                     max_abs_err=err, bar="2e-2*max|ref|", ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                     library_call="two (torch quantize + torch._int_mm), per-token h scales"))
-    del x, w0, w2
+        lib_ms = cuda_ms(ffn_lib, reps)
+        b_ms, b_by = bound(2.0 * S * (DIM * FFN + FFN * DIM), S * DIM * 2 * 2 + 2 * DIM * FFN, peak_int8, peak_bw)
+        rows.append(dict(name="ffn_w8a8", route="cuda", source="lightx2v_tpu_torch/csrc/w8a8_matmul.cu",
+                         replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:301",
+                         shape=f"x ({S},{DIM}) bf16; w0 ({FFN},{DIM}), w2 ({DIM},{FFN}) int8",
+                         max_abs_err=err, bar="2e-2*max|ref|", ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                         library_call="two (torch quantize + torch._int_mm), per-token h scales"))
+        del x, w0, w2
     torch.cuda.empty_cache()
     return rows, extra
 
 
-def kernel_phase_flagship(peaks, reps: int):
+def kernel_phase_flagship(peaks, reps: int, want):
     """The four kernels the bench flagship adds, at its shapes."""
     import numpy as np
     import torch
@@ -306,108 +317,112 @@ def kernel_phase_flagship(peaks, reps: int):
                 torch.full((n, k // GROUP), 0.02 / 7, device=dev))
 
     # ---- w4a8_matmul (q/k/v/o and cross q/o at M=32,760; cross k/v at M=512) ----
-    w, ws = packed(DIM, DIM)
-    bvec = randn(DIM, dtype=torch.float32, std=0.02)
-    for m in (S, TXT):
-        x = randn(m, DIM)
-        out = w4.w4a8_matmul(x, w, ws, bvec)
-        torch.cuda.synchronize()
-        ref = w4.w4a8_matmul_plain(x, w, ws, bvec)
-        # bar: identical int8 codes, exact int32 group sums and the same
-        # fp32 order on both sides; only bf16 rounding of rare ties differs
-        err = check_close(f"w4a8_matmul M={m}", out, ref, 2 ** -7, 0.0)
-        del ref, out
-        ms = cuda_ms(lambda: w4.w4a8_matmul(x, w, ws, bvec), reps * 2)
-        plain_ms = cuda_ms(lambda: w4.w4a8_matmul_plain(x, w, ws, bvec), 1)
-        b_ms, b_by = bound(2.0 * m * DIM * DIM, m * DIM * 2 + DIM * DIM // 2 + ws.numel() * 4 + DIM * 4 + m * DIM * 2,
-                           peak_int8, peak_bw)
-        (rows if m == S else extra).append(dict(
-            name="w4a8_matmul", route="cuda", source="lightx2v_tpu_torch/csrc/w4a8_matmul.cu",
-            replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:585",
-            shape=f"x ({m},{DIM}) bf16; w ({DIM},{DIM // 2}) u8 + ({DIM},{DIM // GROUP}) fp32",
-            max_abs_err=err, bar="2^-7*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, library_call=none_int4))
-        del x
-    del w, ws
+    if want("w4a8_matmul"):
+        w, ws = packed(DIM, DIM)
+        bvec = randn(DIM, dtype=torch.float32, std=0.02)
+        for m in (S, TXT):
+            x = randn(m, DIM)
+            out = w4.w4a8_matmul(x, w, ws, bvec)
+            torch.cuda.synchronize()
+            ref = w4.w4a8_matmul_plain(x, w, ws, bvec)
+            # bar: identical int8 codes, exact int32 group sums and the same
+            # fp32 order on both sides; only bf16 rounding of rare ties differs
+            err = check_close(f"w4a8_matmul M={m}", out, ref, 2 ** -7, 0.0)
+            del ref, out
+            ms = cuda_ms(lambda: w4.w4a8_matmul(x, w, ws, bvec), reps * 2)
+            plain_ms = cuda_ms(lambda: w4.w4a8_matmul_plain(x, w, ws, bvec), 1)
+            b_ms, b_by = bound(2.0 * m * DIM * DIM, m * DIM * 2 + DIM * DIM // 2 + ws.numel() * 4 + DIM * 4 + m * DIM * 2,
+                               peak_int8, peak_bw)
+            (rows if m == S else extra).append(dict(
+                name="w4a8_matmul", route="cuda", source="lightx2v_tpu_torch/csrc/w4a8_matmul.cu",
+                replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:585",
+                shape=f"x ({m},{DIM}) bf16; w ({DIM},{DIM // 2}) u8 + ({DIM},{DIM // GROUP}) fp32",
+                max_abs_err=err, bar="2^-7*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, library_call=none_int4))
+            del x
+        del w, ws
 
     # ---- ffn_w4a8 ----
-    x = randn(S, DIM)
-    w0, s0 = packed(FFN, DIM)
-    w2, s2 = packed(DIM, FFN)
-    b0, b2 = randn(FFN, dtype=torch.float32, std=0.02), randn(DIM, dtype=torch.float32, std=0.02)
-    out = w4.ffn_w4a8(x, w0, s0, b0, w2, s2, b2)
-    torch.cuda.synchronize()
-    ref = w4.ffn_w4a8_plain(x, w0, s0, b0, w2, s2, b2)
-    # bar: x codes exact; h is fp32 on both sides but tanh on the card and
-    # in torch may differ by an ulp, flipping a rare h code by one step
-    err = check_close("ffn_w4a8", out, ref, 2e-2, 0.0)
-    del ref, out
-    ms = cuda_ms(lambda: w4.ffn_w4a8(x, w0, s0, b0, w2, s2, b2), reps)
-    plain_ms = cuda_ms(lambda: w4.ffn_w4a8_plain(x, w0, s0, b0, w2, s2, b2), 1)
-    b_ms, b_by = bound(4.0 * S * DIM * FFN, S * DIM * 2 * 2 + DIM * FFN + (s0.numel() + s2.numel() + FFN + DIM) * 4,
-                       peak_int8, peak_bw)
-    rows.append(dict(name="ffn_w4a8", route="cuda", source="lightx2v_tpu_torch/csrc/w4a8_matmul.cu",
-                     replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:439",
-                     shape=f"x ({S},{DIM}) bf16; w0 ({FFN},{DIM // 2}) u8 + ({FFN},{DIM // GROUP}); "
-                           f"w2 ({DIM},{FFN // 2}) u8 + ({DIM},{FFN // GROUP}) fp32",
-                     max_abs_err=err, bar="2e-2*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None, library_call=none_int4))
-    del x, w0, w2
+    if want("ffn_w4a8"):
+        x = randn(S, DIM)
+        w0, s0 = packed(FFN, DIM)
+        w2, s2 = packed(DIM, FFN)
+        b0, b2 = randn(FFN, dtype=torch.float32, std=0.02), randn(DIM, dtype=torch.float32, std=0.02)
+        out = w4.ffn_w4a8(x, w0, s0, b0, w2, s2, b2)
+        torch.cuda.synchronize()
+        ref = w4.ffn_w4a8_plain(x, w0, s0, b0, w2, s2, b2)
+        # bar: x codes exact; h is fp32 on both sides but tanh on the card and
+        # in torch may differ by an ulp, flipping a rare h code by one step
+        err = check_close("ffn_w4a8", out, ref, 2e-2, 0.0)
+        del ref, out
+        ms = cuda_ms(lambda: w4.ffn_w4a8(x, w0, s0, b0, w2, s2, b2), reps)
+        plain_ms = cuda_ms(lambda: w4.ffn_w4a8_plain(x, w0, s0, b0, w2, s2, b2), 1)
+        b_ms, b_by = bound(4.0 * S * DIM * FFN, S * DIM * 2 * 2 + DIM * FFN + (s0.numel() + s2.numel() + FFN + DIM) * 4,
+                           peak_int8, peak_bw)
+        rows.append(dict(name="ffn_w4a8", route="cuda", source="lightx2v_tpu_torch/csrc/w4a8_matmul.cu",
+                         replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:439",
+                         shape=f"x ({S},{DIM}) bf16; w0 ({FFN},{DIM // 2}) u8 + ({FFN},{DIM // GROUP}); "
+                               f"w2 ({DIM},{FFN // 2}) u8 + ({DIM},{FFN // GROUP}) fp32",
+                         max_abs_err=err, bar="2e-2*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None, library_call=none_int4))
+        del x, w0, w2
 
     # ---- w8a8_matmul, k-blocked (UMT5-XXL fc2: K = 10,240 > 8192) ----
-    x = randn(TXT, T5_FFN)
-    w = torch.randint(-127, 128, (T5_DIM, T5_FFN), generator=g, device=dev, dtype=torch.int8)
-    ws = torch.full((T5_DIM,), 0.02 / 127, device=dev)
-    out = wm.w8a8_matmul(x, w, ws)
-    torch.cuda.synchronize()
-    ref = wm.w8a8_matmul_plain(x, w, ws)
-    err = check_close("w8a8_matmul (k-blocked)", out, ref, 2 ** -7, 0.0)
-    del ref, out
-    ms = cuda_ms(lambda: wm.w8a8_matmul(x, w, ws), reps * 2)
-    plain_ms = cuda_ms(lambda: wm.w8a8_matmul_plain(x, w, ws), 2)
-    b_ms, b_by = bound(2.0 * TXT * T5_FFN * T5_DIM, TXT * T5_FFN * 2 + T5_DIM * T5_FFN + T5_DIM * 4 + TXT * T5_DIM * 2,
-                       peak_int8, peak_bw)
-    rows.append(dict(name="w8a8_matmul", route="cuda", source="lightx2v_tpu_torch/csrc/w8a8_matmul.cu",
-                     replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:76",
-                     shape=f"x ({TXT},{T5_FFN}) bf16; w ({T5_DIM},{T5_FFN}) int8; k-block 1024",
-                     max_abs_err=err, bar="2^-7*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None, library_call="none (no single PyTorch call scales per (token, k-block))"))
-    del x, w
+    if want("w8a8_matmul"):
+        x = randn(TXT, T5_FFN)
+        w = torch.randint(-127, 128, (T5_DIM, T5_FFN), generator=g, device=dev, dtype=torch.int8)
+        ws = torch.full((T5_DIM,), 0.02 / 127, device=dev)
+        out = wm.w8a8_matmul(x, w, ws)
+        torch.cuda.synchronize()
+        ref = wm.w8a8_matmul_plain(x, w, ws)
+        err = check_close("w8a8_matmul (k-blocked)", out, ref, 2 ** -7, 0.0)
+        del ref, out
+        ms = cuda_ms(lambda: wm.w8a8_matmul(x, w, ws), reps * 2)
+        plain_ms = cuda_ms(lambda: wm.w8a8_matmul_plain(x, w, ws), 2)
+        b_ms, b_by = bound(2.0 * TXT * T5_FFN * T5_DIM, TXT * T5_FFN * 2 + T5_DIM * T5_FFN + T5_DIM * 4 + TXT * T5_DIM * 2,
+                           peak_int8, peak_bw)
+        rows.append(dict(name="w8a8_matmul", route="cuda", source="lightx2v_tpu_torch/csrc/w8a8_matmul.cu",
+                         replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:76",
+                         shape=f"x ({TXT},{T5_FFN}) bf16; w ({T5_DIM},{T5_FFN}) int8; k-block 1024",
+                         max_abs_err=err, bar="2^-7*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None, library_call="none (no single PyTorch call scales per (token, k-block))"))
+        del x, w
 
     # ---- block_sparse_attention, per-head, on Sparge's own selection ----
-    bq, bk = 2048, 1024
-    q, k, v = randn(1, S, HEADS, HD), randn(1, S, HEADS, HD), randn(1, S, HEADS, HD)
-    sel_ms = cuda_ms(lambda: sparge.sparge_select_blocks(q, k, keep_ratio=0.3, l1=0.3, block_q=bq, block_k=bk), 3)
-    idx, cnt = sparge.sparge_select_blocks(q, k, keep_ratio=0.3, l1=0.3, block_q=bq, block_k=bk)
-    out = bsa.block_sparse_attention(q, k, v, idx, cnt, bq=bq, bk=bk)
-    torch.cuda.synchronize()
-    hs = slice(0, 2)  # the plain version gathers and multiplies per (head, q superblock)
-    ref = bsa.block_sparse_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs], idx[:2], cnt[:2], bq=bq, bk=bk)
-    err = check_close("block_sparse_attention", out[:, :, hs], ref, 2e-2, 1e-3)
-    del ref, out
-    ms = cuda_ms(lambda: bsa.block_sparse_attention(q, k, v, idx, cnt, bq=bq, bk=bk), reps)
-    plain_ms = cuda_ms(lambda: bsa.block_sparse_attention_plain(q, k, v, idx, cnt, bq=bq, bk=bk), 1, warmup=0)
-    # operations of this selection: 4*D per (query row, valid selected key)
-    ic, cc = idx.cpu().numpy(), cnt.cpu().numpy()
-    q_rows = np.minimum(bq, S - np.arange(ic.shape[1]) * bq)
-    k_valid = np.minimum(bk, S - np.arange(-(-S // bk)) * bk)
-    pairs = sum(int(q_rows[i]) * int(k_valid[ic[h, i, :cc[h, i]]].sum()) for h in range(ic.shape[0])
-                for i in range(ic.shape[1]))
-    b_ms, b_by = bound(4.0 * HD * pairs, 4 * S * HEADS * HD * 2 + idx.numel() * 4 + cnt.numel() * 4, peak_bf16, peak_bw)
-    rows.append(dict(name="block_sparse_attention", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
-                     replaces="lightx2v_tpu/ops/pallas/block_sparse_attention.py:134",
-                     shape=f"q,k,v (1,{S},{HEADS},{HD}) bf16; indices {tuple(idx.shape)}, counts {tuple(cnt.shape)} "
-                           f"i32; bq {bq}, bk {bk}; selected {int(cc.sum())} of {cc.size * ic.shape[2]}",
-                     max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     library_call="none (flex_attention needs torch.compile; not timed)",
-                     selection_ms=sel_ms, dense_fraction=pairs / (HEADS * S * S)))
-    del q, k, v
+    if want("block_sparse_attention"):
+        bq, bk = 2048, 1024
+        q, k, v = randn(1, S, HEADS, HD), randn(1, S, HEADS, HD), randn(1, S, HEADS, HD)
+        sel_ms = cuda_ms(lambda: sparge.sparge_select_blocks(q, k, keep_ratio=0.3, l1=0.3, block_q=bq, block_k=bk), 3)
+        idx, cnt = sparge.sparge_select_blocks(q, k, keep_ratio=0.3, l1=0.3, block_q=bq, block_k=bk)
+        out = bsa.block_sparse_attention(q, k, v, idx, cnt, bq=bq, bk=bk)
+        torch.cuda.synchronize()
+        hs = slice(0, 2)  # the plain version gathers and multiplies per (head, q superblock)
+        ref = bsa.block_sparse_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs], idx[:2], cnt[:2], bq=bq, bk=bk)
+        err = check_close("block_sparse_attention", out[:, :, hs], ref, 2e-2, 1e-3)
+        del ref, out
+        ms = cuda_ms(lambda: bsa.block_sparse_attention(q, k, v, idx, cnt, bq=bq, bk=bk), reps)
+        plain_ms = cuda_ms(lambda: bsa.block_sparse_attention_plain(q, k, v, idx, cnt, bq=bq, bk=bk), 1, warmup=0)
+        # operations of this selection: 4*D per (query row, valid selected key)
+        ic, cc = idx.cpu().numpy(), cnt.cpu().numpy()
+        q_rows = np.minimum(bq, S - np.arange(ic.shape[1]) * bq)
+        k_valid = np.minimum(bk, S - np.arange(-(-S // bk)) * bk)
+        pairs = sum(int(q_rows[i]) * int(k_valid[ic[h, i, :cc[h, i]]].sum()) for h in range(ic.shape[0])
+                    for i in range(ic.shape[1]))
+        b_ms, b_by = bound(4.0 * HD * pairs, 4 * S * HEADS * HD * 2 + idx.numel() * 4 + cnt.numel() * 4, peak_bf16, peak_bw)
+        rows.append(dict(name="block_sparse_attention", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
+                         replaces="lightx2v_tpu/ops/pallas/block_sparse_attention.py:134",
+                         shape=f"q,k,v (1,{S},{HEADS},{HD}) bf16; indices {tuple(idx.shape)}, counts {tuple(cnt.shape)} "
+                               f"i32; bq {bq}, bk {bk}; selected {int(cc.sum())} of {cc.size * ic.shape[2]}",
+                         max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                         library_call="none (flex_attention needs torch.compile; not timed)",
+                         selection_ms=sel_ms, dense_fraction=pairs / (HEADS * S * S)))
+        del q, k, v
     torch.cuda.empty_cache()
     return rows, extra
 
 
-def kernel_phase_base(peaks, reps: int):
+def kernel_phase_base(peaks, reps: int, want):
     """The four kernels of the base and radial paths, at their shapes, and
     the radial comparison at the main shape."""
     import numpy as np
@@ -441,161 +456,165 @@ def kernel_phase_base(peaks, reps: int):
             return None
 
     # ---- sage_attention (base path: self-attention of both CFG branches) ----
-    q, k, v = randn(2, S, HEADS, HD), randn(2, S, HEADS, HD), randn(2, S, HEADS, HD)
-    out = sa.sage_attention(q, k, v)
-    torch.cuda.synchronize()
-    ref = sa.sage_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs])
-    # bar: identical int32 logits on both sides; P rounded to bf16 at
-    # different running maxima (online vs one-pass softmax), summation order
-    err = check_close("sage_attention", out[:, :, hs], ref, 2e-2, 1e-3)
-    del ref, out
-    ms = cuda_ms(lambda: sa.sage_attention(q, k, v), reps)
-    plain_ms = cuda_ms(lambda: sa.sage_attention_plain(q, k, v), 1, warmup=0)
-    lib_ms = library(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                                            v.transpose(1, 2)), reps)
-    pairs = 2.0 * HEADS * S * S
-    t_ops = 2.0 * HD * pairs / peak_int8 + 2.0 * HD * pairs / peak_bf16  # int8 QK^T, then bf16 P.V
-    t_bytes = 4 * q.numel() * 2 / peak_bw
-    rows.append(dict(name="sage_attention", route="cuda", source="lightx2v_tpu_torch/csrc/sage_attention.cu",
-                     replaces="lightx2v_tpu/ops/pallas/sage_attention.py:120",
-                     shape=f"q,k,v (2,{S},{HEADS},{HD}) bf16",
-                     max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms,
-                     bound_ms=max(t_ops, t_bytes) * 1e3, bound_by="operations" if t_ops >= t_bytes else "bytes",
-                     library_ms=lib_ms, library_call="F.scaled_dot_product_attention (bf16)"))
-    del q, k, v
+    if want("sage_attention"):
+        q, k, v = randn(2, S, HEADS, HD), randn(2, S, HEADS, HD), randn(2, S, HEADS, HD)
+        out = sa.sage_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = sa.sage_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs])
+        # bar: identical int32 logits on both sides; P rounded to bf16 at
+        # different running maxima (online vs one-pass softmax), summation order
+        err = check_close("sage_attention", out[:, :, hs], ref, 2e-2, 1e-3)
+        del ref, out
+        ms = cuda_ms(lambda: sa.sage_attention(q, k, v), reps)
+        plain_ms = cuda_ms(lambda: sa.sage_attention_plain(q, k, v), 1, warmup=0)
+        lib_ms = library(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                                v.transpose(1, 2)), reps)
+        pairs = 2.0 * HEADS * S * S
+        t_ops = 2.0 * HD * pairs / peak_int8 + 2.0 * HD * pairs / peak_bf16  # int8 QK^T, then bf16 P.V
+        t_bytes = 4 * q.numel() * 2 / peak_bw
+        rows.append(dict(name="sage_attention", route="cuda", source="lightx2v_tpu_torch/csrc/sage_attention.cu",
+                         replaces="lightx2v_tpu/ops/pallas/sage_attention.py:120",
+                         shape=f"q,k,v (2,{S},{HEADS},{HD}) bf16",
+                         max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms,
+                         bound_ms=max(t_ops, t_bytes) * 1e3, bound_by="operations" if t_ops >= t_bytes else "bytes",
+                         library_ms=lib_ms, library_call="F.scaled_dot_product_attention (bf16)"))
+        del q, k, v
 
     # ---- int4_matmul (base path: every block linear; M = 65,520, and 1,024 for cross k/v) ----
-    def int4_lib(x2, w, ws):
-        return torch.matmul(x2, i4.unpack_int4(w, ws).to(torch.bfloat16).t())
+    if want("int4_matmul"):
+        def int4_lib(x2, w, ws):
+            return torch.matmul(x2, i4.unpack_int4(w, ws).to(torch.bfloat16).t())
 
-    for m, n, kin in ((2 * S, DIM, DIM), (2 * S, FFN, DIM), (2 * S, DIM, FFN), (2 * TXT, DIM, DIM)):
-        x = randn(m, kin)
-        w = torch.randint(0, 256, (n, kin // 2), generator=g, device=dev, dtype=torch.uint8)
-        ws = torch.rand((n, kin // GROUP), generator=g, device=dev) * (0.02 / 7) + 0.01 / 7
-        bvec = randn(n, dtype=torch.float32, std=0.02)
-        out = i4.int4_matmul(x, w, ws, bvec)
-        torch.cuda.synchronize()
-        ref = i4.int4_matmul_plain(x, w, ws, bvec)
-        # bar: exact bf16 x int4 products and the same per-group fp32
-        # rescale; additions inside a group in another order move a bf16
-        # rounding now and then (one ulp at the top of the range)
-        err = check_close(f"int4_matmul M={m} N={n} K={kin}", out, ref, 2 ** -7, 0.0)
-        del ref, out
-        ms = cuda_ms(lambda: i4.int4_matmul(x, w, ws, bvec), reps)
-        plain_ms = cuda_ms(lambda: i4.int4_matmul_plain(x, w, ws, bvec), 1)
-        lib_ms = library(lambda: int4_lib(x, w, ws), reps)
-        b_ms, b_by = bound(2.0 * m * n * kin, m * kin * 2 + n * kin // 2 + ws.numel() * 4 + n * 4 + m * n * 2,
-                           peak_bf16, peak_bw)
-        (rows if (m, n, kin) == (2 * S, DIM, DIM) else extra).append(dict(
-            name="int4_matmul", route="cuda", source="lightx2v_tpu_torch/csrc/int4_matmul.cu",
-            replaces="lightx2v_tpu/ops/pallas/int4_matmul.py:102",
-            shape=f"x ({m},{kin}) bf16; w ({n},{kin // 2}) u8 + ({n},{kin // GROUP}) fp32",
-            max_abs_err=err, bar="2^-7*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms, library_call="dequantize to bf16 in torch + torch.matmul"))
-        del x, w, ws
+        for m, n, kin in ((2 * S, DIM, DIM), (2 * S, FFN, DIM), (2 * S, DIM, FFN), (2 * TXT, DIM, DIM)):
+            x = randn(m, kin)
+            w = torch.randint(0, 256, (n, kin // 2), generator=g, device=dev, dtype=torch.uint8)
+            ws = torch.rand((n, kin // GROUP), generator=g, device=dev) * (0.02 / 7) + 0.01 / 7
+            bvec = randn(n, dtype=torch.float32, std=0.02)
+            out = i4.int4_matmul(x, w, ws, bvec)
+            torch.cuda.synchronize()
+            ref = i4.int4_matmul_plain(x, w, ws, bvec)
+            # bar: exact bf16 x int4 products and the same per-group fp32
+            # rescale; additions inside a group in another order move a bf16
+            # rounding now and then (one ulp at the top of the range)
+            err = check_close(f"int4_matmul M={m} N={n} K={kin}", out, ref, 2 ** -7, 0.0)
+            del ref, out
+            ms = cuda_ms(lambda: i4.int4_matmul(x, w, ws, bvec), reps)
+            plain_ms = cuda_ms(lambda: i4.int4_matmul_plain(x, w, ws, bvec), 1)
+            lib_ms = library(lambda: int4_lib(x, w, ws), reps)
+            b_ms, b_by = bound(2.0 * m * n * kin, m * kin * 2 + n * kin // 2 + ws.numel() * 4 + n * 4 + m * n * 2,
+                               peak_bf16, peak_bw)
+            (rows if (m, n, kin) == (2 * S, DIM, DIM) else extra).append(dict(
+                name="int4_matmul", route="cuda", source="lightx2v_tpu_torch/csrc/int4_matmul.cu",
+                replaces="lightx2v_tpu/ops/pallas/int4_matmul.py:102",
+                shape=f"x ({m},{kin}) bf16; w ({n},{kin // 2}) u8 + ({n},{kin // GROUP}) fp32",
+                max_abs_err=err, bar="2^-7*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, library_call="dequantize to bf16 in torch + torch.matmul"))
+            del x, w, ws
 
     # ---- flash_attention_with_lse (two-pass radial: near pass, then one frame of the far pass) ----
     plan = radial._two_pass_plan(S, S, FRAMES, 0.5, "wan", 256)
     tpf, bq, near, far = plan
     nt, nwin = far.shape[1], far.shape[2]
 
-    def lse_lib(q, k, v):
-        return torch.ops.aten._scaled_dot_product_flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                                                  v.transpose(1, 2))[:2]
+    if want("flash_attention_with_lse"):
+        def lse_lib(q, k, v):
+            return torch.ops.aten._scaled_dot_product_flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                                      v.transpose(1, 2))[:2]
 
-    for b_, sq_, sk_ in ((FRAMES, tpf, 4 * tpf), (nt, bq, nwin * bq)):
-        q, k, v = randn(b_, sq_, HEADS, HD), randn(b_, sk_, HEADS, HD), randn(b_, sk_, HEADS, HD)
-        out, lse = fa.flash_attention_with_lse(q, k, v)
-        torch.cuda.synchronize()
-        ref, ref_lse = fa.flash_attention_with_lse_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs])
-        err = check_close(f"flash_attention_with_lse out ({b_},{sq_},{sk_})", out[:, :, hs], ref, 2e-2, 1e-3)
-        # bar for lse: the same fp32 sums in another order
-        lse_err = check_close(f"flash_attention_with_lse lse ({b_},{sq_},{sk_})", lse[:, :, hs], ref_lse, 0.0, 1e-3)
-        del ref, out
-        ms = cuda_ms(lambda: fa.flash_attention_with_lse(q, k, v), reps)
-        plain_ms = cuda_ms(lambda: fa.flash_attention_with_lse_plain(q, k, v), 1, warmup=0)
-        lib_ms = library(lambda: lse_lib(q, k, v), reps)
-        b_ms, b_by = bound(4.0 * b_ * HEADS * sq_ * sk_ * HD,
-                           (2 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4, peak_bf16, peak_bw)
-        (rows if b_ == FRAMES else extra).append(dict(
-            name="flash_attention_with_lse", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
-            replaces="lightx2v_tpu/ops/pallas/flash_attention.py:432",
-            shape=f"q ({b_},{sq_},{HEADS},{HD}); k,v ({b_},{sk_},{HEADS},{HD}) bf16; lse ({b_},{sq_},{HEADS}) fp32",
-            max_abs_err=err, lse_max_abs_err=lse_err, bar="out 2e-2*max|ref| + 1e-3, lse 1e-3 (2 heads)", ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            library_call="aten._scaled_dot_product_flash_attention (output and logsumexp)"))
-        del q, k, v, lse
+        for b_, sq_, sk_ in ((FRAMES, tpf, 4 * tpf), (nt, bq, nwin * bq)):
+            q, k, v = randn(b_, sq_, HEADS, HD), randn(b_, sk_, HEADS, HD), randn(b_, sk_, HEADS, HD)
+            out, lse = fa.flash_attention_with_lse(q, k, v)
+            torch.cuda.synchronize()
+            ref, ref_lse = fa.flash_attention_with_lse_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs])
+            err = check_close(f"flash_attention_with_lse out ({b_},{sq_},{sk_})", out[:, :, hs], ref, 2e-2, 1e-3)
+            # bar for lse: the same fp32 sums in another order
+            lse_err = check_close(f"flash_attention_with_lse lse ({b_},{sq_},{sk_})", lse[:, :, hs], ref_lse, 0.0, 1e-3)
+            del ref, out
+            ms = cuda_ms(lambda: fa.flash_attention_with_lse(q, k, v), reps)
+            plain_ms = cuda_ms(lambda: fa.flash_attention_with_lse_plain(q, k, v), 1, warmup=0)
+            lib_ms = library(lambda: lse_lib(q, k, v), reps)
+            b_ms, b_by = bound(4.0 * b_ * HEADS * sq_ * sk_ * HD,
+                               (2 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4, peak_bf16, peak_bw)
+            (rows if b_ == FRAMES else extra).append(dict(
+                name="flash_attention_with_lse", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
+                replaces="lightx2v_tpu/ops/pallas/flash_attention.py:432",
+                shape=f"q ({b_},{sq_},{HEADS},{HD}); k,v ({b_},{sk_},{HEADS},{HD}) bf16; lse ({b_},{sq_},{HEADS}) fp32",
+                max_abs_err=err, lse_max_abs_err=lse_err, bar="out 2e-2*max|ref| + 1e-3, lse 1e-3 (2 heads)", ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                library_call="aten._scaled_dot_product_flash_attention (output and logsumexp)"))
+            del q, k, v, lse
 
     # ---- block_sparse_attention, shared mask (radial, 128 x 128 blocks) ----
-    q, k, v = randn(1, S, HEADS, HD), randn(1, S, HEADS, HD), randn(1, S, HEADS, HD)
-    mm = radial.MaskMap(S, FRAMES)
-    fine = mm.query_mask(S, 0.5, "wan")
-    idx, cnt = mm.block_tables(S, 0.5, "wan", 128, 128, dev)
-    out = bsa.block_sparse_attention(q, k, v, idx, cnt, bq=128, bk=128)
-    torch.cuda.synchronize()
-    ref = bsa.block_sparse_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs], idx, cnt, bq=128, bk=128)
-    err = check_close("block_sparse_attention_shared", out[:, :, hs], ref, 2e-2, 1e-3)
-    del ref, out
-    ms = cuda_ms(lambda: bsa.block_sparse_attention(q, k, v, idx, cnt, bq=128, bk=128), reps)
-    plain_ms = cuda_ms(lambda: bsa.block_sparse_attention_plain(q, k, v, idx, cnt, bq=128, bk=128), 1, warmup=0)
-    tok = torch.from_numpy(fine).to(dev).repeat_interleave(128, 0).repeat_interleave(128, 1)[:S, :S].contiguous()
-    lib_ms = library(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                                            attn_mask=tok), 2)
-    del tok
+    if want("block_sparse_attention_shared"):
+        q, k, v = randn(1, S, HEADS, HD), randn(1, S, HEADS, HD), randn(1, S, HEADS, HD)
+        mm = radial.MaskMap(S, FRAMES)
+        fine = mm.query_mask(S, 0.5, "wan")
+        idx, cnt = mm.block_tables(S, 0.5, "wan", 128, 128, dev)
+        out = bsa.block_sparse_attention(q, k, v, idx, cnt, bq=128, bk=128)
+        torch.cuda.synchronize()
+        ref = bsa.block_sparse_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs], idx, cnt, bq=128, bk=128)
+        err = check_close("block_sparse_attention_shared", out[:, :, hs], ref, 2e-2, 1e-3)
+        del ref, out
+        ms = cuda_ms(lambda: bsa.block_sparse_attention(q, k, v, idx, cnt, bq=128, bk=128), reps)
+        plain_ms = cuda_ms(lambda: bsa.block_sparse_attention_plain(q, k, v, idx, cnt, bq=128, bk=128), 1, warmup=0)
+        tok = torch.from_numpy(fine).to(dev).repeat_interleave(128, 0).repeat_interleave(128, 1)[:S, :S].contiguous()
+        lib_ms = library(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                                                attn_mask=tok), 2)
+        del tok
 
-    def mask_pairs(mask, bq_, bk_):
-        q_rows = np.minimum(bq_, S - np.arange(mask.shape[0]) * bq_).clip(0)
-        k_valid = np.minimum(bk_, S - np.arange(mask.shape[1]) * bk_).clip(0)
-        return float(q_rows @ mask.astype(np.float64) @ k_valid)
+        def mask_pairs(mask, bq_, bk_):
+            q_rows = np.minimum(bq_, S - np.arange(mask.shape[0]) * bq_).clip(0)
+            k_valid = np.minimum(bk_, S - np.arange(mask.shape[1]) * bk_).clip(0)
+            return float(q_rows @ mask.astype(np.float64) @ k_valid)
 
-    pairs = mask_pairs(fine, 128, 128)
-    b_ms, b_by = bound(4.0 * HD * HEADS * pairs, 4 * S * HEADS * HD * 2 + idx.numel() * 4 + cnt.numel() * 4,
-                       peak_bf16, peak_bw)
-    rows.append(dict(name="block_sparse_attention_shared", route="cuda",
-                     source="lightx2v_tpu_torch/csrc/flash_attention.cu",
-                     replaces="lightx2v_tpu/ops/pallas/block_sparse_attention.py:206",
-                     shape=f"q,k,v (1,{S},{HEADS},{HD}) bf16; indices {tuple(idx.shape)}, counts {tuple(cnt.shape)} i32 "
-                           f"shared by all heads; bq 128, bk 128; {int(fine.sum())} of {fine.size} blocks",
-                     max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                     bound_by=b_by, library_ms=lib_ms,
-                     library_call="F.scaled_dot_product_attention with the expanded boolean mask",
-                     dense_fraction=pairs / (float(S) * S)))
+        pairs = mask_pairs(fine, 128, 128)
+        b_ms, b_by = bound(4.0 * HD * HEADS * pairs, 4 * S * HEADS * HD * 2 + idx.numel() * 4 + cnt.numel() * 4,
+                           peak_bf16, peak_bw)
+        rows.append(dict(name="block_sparse_attention_shared", route="cuda",
+                         source="lightx2v_tpu_torch/csrc/flash_attention.cu",
+                         replaces="lightx2v_tpu/ops/pallas/block_sparse_attention.py:206",
+                         shape=f"q,k,v (1,{S},{HEADS},{HD}) bf16; indices {tuple(idx.shape)}, counts {tuple(cnt.shape)} i32 "
+                               f"shared by all heads; bq 128, bk 128; {int(fine.sum())} of {fine.size} blocks",
+                         max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms,
+                         library_call="F.scaled_dot_product_attention with the expanded boolean mask",
+                         dense_fraction=pairs / (float(S) * S)))
 
-    # ---- the radial comparison at the main shape ----
-    idx2, cnt2 = mm.block_tables(S, 0.5, "wan", 256, 128, dev)
-    coarse = radial.coarsen_block_mask(fine, 2, 1)
-    before = fa.LAUNCHES["flash_attention_with_lse"]
-    two = radial.radial_attention(q, k, v, mm, sparsity_type="two_pass", block_q=256, block_k=128)
-    torch.cuda.synchronize()
-    lse_calls = fa.LAUNCHES["flash_attention_with_lse"] - before
-    if lse_calls != 1 + FRAMES or not torch.isfinite(two.float()).all():
-        raise AssertionError(f"two_pass: {lse_calls} LSE launches (expected {1 + FRAMES}) or non-finite output")
-    del two
-    near_pairs = float(FRAMES) * tpf * 4 * tpf
-    far_pairs = float(FRAMES) * nt * bq * nwin * bq
-    comparison = {
-        "shape": f"q,k,v (1,{S},{HEADS},{HD}) bf16, {FRAMES} frames, decay 0.5",
-        "dense_flash_ms": cuda_ms(lambda: fa.flash_attention(q, k, v), reps),
-        "bsr_128x128_ms": ms, "bsr_128x128_key_pair_fraction": pairs / (float(S) * S),
-        "bsr_256x128_ms": cuda_ms(lambda: bsa.block_sparse_attention(q, k, v, idx2, cnt2, bq=256, bk=128), reps),
-        "bsr_256x128_key_pair_fraction": mask_pairs(coarse, 256, 128) / (float(S) * S),
-        "two_pass_ms": cuda_ms(lambda: radial.radial_attention(q, k, v, mm, sparsity_type="two_pass", block_q=256,
-                                                               block_k=128), reps),
-        "two_pass_key_pair_fraction": (near_pairs + far_pairs) / (float(S) * S),
-        "two_pass_lse_launches": lse_calls}
-    print(json.dumps({"radial_comparison": comparison}), flush=True)
+        # ---- the radial comparison at the main shape ----
+        idx2, cnt2 = mm.block_tables(S, 0.5, "wan", 256, 128, dev)
+        coarse = radial.coarsen_block_mask(fine, 2, 1)
+        before = fa.LAUNCHES["flash_attention_with_lse"]
+        two = radial.radial_attention(q, k, v, mm, sparsity_type="two_pass", block_q=256, block_k=128)
+        torch.cuda.synchronize()
+        lse_calls = fa.LAUNCHES["flash_attention_with_lse"] - before
+        if lse_calls != 1 + FRAMES or not torch.isfinite(two.float()).all():
+            raise AssertionError(f"two_pass: {lse_calls} LSE launches (expected {1 + FRAMES}) or non-finite output")
+        del two
+        near_pairs = float(FRAMES) * tpf * 4 * tpf
+        far_pairs = float(FRAMES) * nt * bq * nwin * bq
+        comparison = {
+            "shape": f"q,k,v (1,{S},{HEADS},{HD}) bf16, {FRAMES} frames, decay 0.5",
+            "dense_flash_ms": cuda_ms(lambda: fa.flash_attention(q, k, v), reps),
+            "bsr_128x128_ms": ms, "bsr_128x128_key_pair_fraction": pairs / (float(S) * S),
+            "bsr_256x128_ms": cuda_ms(lambda: bsa.block_sparse_attention(q, k, v, idx2, cnt2, bq=256, bk=128), reps),
+            "bsr_256x128_key_pair_fraction": mask_pairs(coarse, 256, 128) / (float(S) * S),
+            "two_pass_ms": cuda_ms(lambda: radial.radial_attention(q, k, v, mm, sparsity_type="two_pass", block_q=256,
+                                                                   block_k=128), reps),
+            "two_pass_key_pair_fraction": (near_pairs + far_pairs) / (float(S) * S),
+            "two_pass_lse_launches": lse_calls}
+        print(json.dumps({"radial_comparison": comparison}), flush=True)
 
-    # ---- merge_partials: two half-key partials merged vs one dense call ----
-    half = S // 2
-    oa, la = fa.flash_attention_with_lse(q, k[:, :half], v[:, :half])
-    ob, lb = fa.flash_attention_with_lse(q, k[:, half:], v[:, half:])
-    merged, lse_m = merge_partials(oa, la, ob, lb)
-    dense, lse_d = fa.flash_attention_with_lse(q, k, v)
-    torch.cuda.synchronize()
-    # bar: each partial is rounded to bf16 before the fp32 merge, then once more
-    check_close("merge_partials of two half-key partials vs one dense call", merged, dense, 2e-2, 1e-3)
-    check_close("merged lse vs dense lse", lse_m, lse_d, 0.0, 1e-3)
-    del q, k, v, oa, ob, merged, dense
+        # ---- merge_partials: two half-key partials merged vs one dense call ----
+        half = S // 2
+        oa, la = fa.flash_attention_with_lse(q, k[:, :half], v[:, :half])
+        ob, lb = fa.flash_attention_with_lse(q, k[:, half:], v[:, half:])
+        merged, lse_m = merge_partials(oa, la, ob, lb)
+        dense, lse_d = fa.flash_attention_with_lse(q, k, v)
+        torch.cuda.synchronize()
+        # bar: each partial is rounded to bf16 before the fp32 merge, then once more
+        check_close("merge_partials of two half-key partials vs one dense call", merged, dense, 2e-2, 1e-3)
+        check_close("merged lse vs dense lse", lse_m, lse_d, 0.0, 1e-3)
+        del q, k, v, oa, ob, merged, dense
     torch.cuda.empty_cache()
     return rows, extra
 
@@ -756,7 +775,7 @@ def _category(name: str) -> str:
     n = name.lower()
     for key, cat in (("flash_fwd_kernel<false, true>", "block_sparse_attention (ours)"),
                      ("flash_fwd_kernel", "flash_attention (ours)"), ("sage_fwd_kernel", "sage attention (ours)"),
-                     ("sage_quant_rows", "sage row quantize (ours)"), ("int4_gemm_kernel", "int4 GEMM (ours)"),
+                     ("sage_quant_rows", "sage row quantize (ours)"), ("int4_wgmma_kernel", "int4 GEMM (ours)"),
                      ("gemm_s8_kernel", "int8 GEMM (ours)"),
                      ("ffn_gemm1", "ffn GEMM1 (ours)"), ("ffn_w4a8_gemm1", "ffn w4a8 GEMM1 (ours)"),
                      ("w4a8_gemm_kernel", "w4a8 GEMM (ours)"), ("quant_groups", "int8 quantize (ours)"),
@@ -812,6 +831,10 @@ def profile_run(runner, out_dir: str, name: str):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true")
+    ap.add_argument("--kernel", metavar="NAME", action="append", default=[],
+                    help="run only this kernel's phase (repeatable; a launch-counter name, e.g. int4_matmul)")
+    ap.add_argument("--path", action="append", default=[], choices=PATHS,
+                    help="run only this path (repeatable)")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="after each path, run it once more under torch.profiler; write DIR/profile_<path>.json")
     args = ap.parse_args()
@@ -826,8 +849,11 @@ def main():
         sys.exit(2)
     sys.path.insert(0, str(ROOT))
     from lightx2v_tpu_torch.infer import set_numerics
-    from lightx2v_tpu_torch.ops.cuda import _build, reset_launch_counts
+    from lightx2v_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
 
+    unknown = sorted(set(args.kernel) - set(launch_counts()))
+    if unknown:
+        ap.error(f"unknown kernel {unknown}; one of {sorted(launch_counts())}")
     set_numerics()
     card = card_line()
     print(card, flush=True)
@@ -836,20 +862,28 @@ def main():
     _build.build(verbose=True)
     print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
 
-    rows, extra = kernel_phase(peaks_for(card), REPS)
-    rows2, extra2 = kernel_phase_flagship(peaks_for(card), REPS)
-    rows3, extra3 = kernel_phase_base(peaks_for(card), REPS)
+    def want(name: str) -> bool:
+        return not args.kernel or name in args.kernel
+
+    rows, extra = kernel_phase(peaks_for(card), REPS, want)
+    rows2, extra2 = kernel_phase_flagship(peaks_for(card), REPS, want)
+    rows3, extra3 = kernel_phase_base(peaks_for(card), REPS, want)
     rows += rows2 + rows3
     print(json.dumps({"other_shapes": extra + extra2 + extra3}), flush=True)
     by_path = {}
-    if not args.kernels_only:
+    paths = [] if args.kernels_only else args.path or list(PATHS)
+    if "slice" in paths:
         block_reference_check("int8", INT8)
         by_path["slice"] = run_path("slice", {}, args.profile)
+    if "flagship" in paths:
         block_reference_check("int4", INT4A8)
         by_path["flagship"] = run_path("flagship", FLAGSHIP, args.profile)
+    if "base" in paths:
         block_reference_check("int4", INT4W, "sage_attn2")
         by_path["base"] = run_path("base", BASE, args.profile, model_cls="wan2.1", config_json=BASE_JSON)
+    if "radial_bsr" in paths:
         by_path["radial_bsr"] = run_path("radial_bsr", RADIAL_BSR, args.profile)
+    if "radial_two_pass" in paths:
         by_path["radial_two_pass"] = run_path("radial_two_pass", RADIAL_TWO_PASS, args.profile)
     for r in rows:
         r["launches_by_path"] = {p: c.get(r["name"], 0) for p, c in by_path.items()}

@@ -1,8 +1,8 @@
 // Weight-only int4 GEMM for Hopper (sm_90a): bf16 activations x nibble-packed
 // int4 weights with per-(output channel, group) fp32 scales, bf16 out.
 //
-// Replaces: lightx2v_tpu/ops/pallas/int4_matmul.py:int4_matmul
-//           (_int4_kernel).
+// Replaces: lightx2v_tpu/ops/pallas/int4_matmul.py:102 (int4_matmul, whose
+//           _int4_kernel is the pallas_call at :131).
 //
 // What it computes: out[m, n] = bf16( sum_g ( sum_{k in g} x[m, k] * w[n, k] )
 // * scale[n, g] ), the inner sum a bf16 x bf16 product with fp32
@@ -15,64 +15,126 @@
 // its high nibble, both stored +8.
 //
 // What bounds it on this card: operations. At M = 65,520 (two CFG branches
-// of 32,760 tokens) a 5120 x 5120 projection is 3.4e12 bf16 FLOP against
-// 1.4 GB of x, packed w and out; the FFN GEMMs 9.3e12 each.
+// of 32,760 tokens) a 5120 x 5120 projection is 3.4e12 bf16 FLOP (3.47 ms at
+// 989 TFLOP/s) against 1.4 GB of x, packed w and out (0.4 ms); the FFN GEMMs
+// 9.3e12 each.
 //
-// What the design does about it: the products run on the bf16 tensor cores
-// (mma.sync.m16n8k16). The packed weight tile goes to shared memory as it is
-// (a quarter of bf16's bytes) and is never unpacked there: ldmatrix hands
-// each thread four packed bytes of one weight row, i.e. four consecutive
-// low-half columns and the four matching high-half columns, and the nibbles
-// become bf16 pairs in registers (nibble | 0x4300 is the bf16 128 + nibble;
-// minus 136 gives nibble - 8 exactly, two values per instruction). The mma's
-// k slots are a permutation of the tile's columns (slots 2t, 2t+1, 2t+8,
-// 2t+9 of thread t take columns 4t..4t+3), which is free because the x
-// fragment is read with the same permutation: one 8-byte shared load of four
-// consecutive bf16 per row instead of ldmatrix. A pipeline stage is 64 packed
-// bytes of each weight row (128 columns: 64 of the group's low half and the
-// matching 64 of its high half) and the two 64-column slices of the x rows,
-// three stages deep on cp.async. The scales vary along K, so the fp32 mma
-// accumulator holds one group only: after the group's last stage it is
-// added, times scale[n, g], into a second fp32 accumulator and cleared.
-// Not yet used: wgmma, TMA, warp specialisation, persistence (later work).
+// What the design does about it: the products run on wgmma, the only path to
+// the card's full bf16 rate, with the operands swapped: the CTA computes the
+// transposed tile out^T[n, m] = w[n, :] . x[m, :]^T, 128 weight rows by 128
+// tokens, as two warpgroups of 64 weight rows that each issue
+// wgmma.m64n128k16 with A in registers and B in shared memory.
+//  - A, the weights, is the operand that needs converting, and registers are
+//    where it is converted: the packed tile sits in shared memory as it came
+//    (a quarter of bf16's bytes) and each thread turns its fragment's nibbles
+//    into bf16 pairs (nibble | 0x4300 is the bf16 128 + nibble; minus 136
+//    gives nibble - 8 exactly, two values per instruction). Thread t of a
+//    warp needs columns 2t, 2t+1, 2t+8, 2t+9 of a 16-column k-step for its
+//    two rows; for the low-half k-step s of a stage those are packed bytes
+//    16s+2t, 16s+2t+1, 16s+2t+8, 16s+2t+9, whose high nibbles are the same
+//    columns of the matching high-half k-step. So two 16-bit shared loads per
+//    row feed two k-steps in the natural k order, and x needs no permutation.
+//  - B, the x tile, is K-major in the 128-byte swizzle (64 bf16 of a token
+//    row make one swizzle row, 16-byte chunk c of row r stored at chunk
+//    c ^ (r % 8)), read by the tensor cores through a descriptor; both
+//    warpgroups read the same tile.
+//  - The scales vary along K, so the wgmma accumulator holds one group: at
+//    each group boundary the warpgroup waits for its products
+//    (wgmma.wait_group 0), adds the partial times scale[n, g] into a second
+//    fp32 accumulator and starts the next group with scale-d 0. A thread
+//    owns two weight rows, so that is two scales a thread per group. 64 + 64
+//    fp32 registers a thread: a 256-token tile would need 256.
+//  - A stage is 128 columns of one group (the 64 low-half and the matching
+//    64 high-half columns of 128 tokens, and 64 packed bytes of each of 128
+//    weight rows), five stages deep on cp.async with zero fill past M and N.
+//    The copies are generic-proxy writes and wgmma reads through the async
+//    proxy, hence fence.proxy.async after each wait. A stage's eight k-steps
+//    go out as two batches of four; wgmma.wait_group 1 keeps one batch in
+//    flight while the next fragments are unpacked, and a slot is refilled
+//    two stages after its last batch was issued.
+//  - The epilogue stages the bf16 tile through shared memory (the ring is
+//    free by then) and writes token rows with 16-byte stores.
+// Not yet used: TMA, warp specialisation, clusters, persistence (later work).
 
 #include "int8_mma.cuh"
 
 namespace {
 
-constexpr int NTHREADS = 256;
-constexpr int BM = 128, BN = 128, WN = 4;
-constexpr int MT = BM / 2 / 16;   // 4 m-tiles per warp (2 warps down)
-constexpr int NT = BN / WN / 8;   // 4 n-tiles per warp (4 warps across)
-constexpr int BKP = 64;           // packed bytes of a weight row per stage (128 columns)
-constexpr int LDA = BKP * 2 + 32; // x slice row: 64 bf16 + pad (160 bytes): 8-byte fragment loads are conflict-free
-constexpr int LDB = BKP + 16;     // packed row + pad (80 bytes): ldmatrix is conflict-free
-constexpr int STAGES = 3;
-constexpr int STAGE_BYTES = 2 * BM * LDA + BN * LDB;
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;
+constexpr int NTHREADS = 256;                       // two warpgroups
+constexpr int BN = 128;                             // weight rows per CTA, 64 per warpgroup
+constexpr int BM = 128;                             // tokens per CTA: the wgmma N
+constexpr int BKP = 64;                             // packed bytes of a weight row per stage (128 columns)
+constexpr int LDW = BKP + 16;                       // packed row + pad (80 bytes): fragment loads are conflict-free
+constexpr int XTILE = BM * 128;                     // one 64-column x slice of the stage, swizzled (16 KB)
+constexpr int STAGE_BYTES = 2 * XTILE + BN * LDW;   // 43,008: keeps every slice 1024-byte aligned
+constexpr int STAGES = 5;
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + slack to align the ring to 1024 bytes
+constexpr int LDO = BN * 2 + 16;                    // epilogue row: 128 bf16 + pad (272 bytes)
+static_assert(STAGE_BYTES % 1024 == 0, "swizzle atoms must stay 1024-byte aligned");
+static_assert(BM * LDO <= STAGES * STAGE_BYTES, "epilogue tile must fit in the ring");
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two nibbles (0..15), one in the low byte of each 16-bit half of x -> two
-// bf16 values nibble - 8
-__device__ __forceinline__ uint32_t nib2_to_bf16x2(uint32_t x) {
-  uint32_t biased = x | 0x43004300u;  // bf16 (128 + nibble) twice
-  uint32_t off = 0x43084308u;         // bf16 136 twice
+// two nibbles (0..15) in bytes b0 and b1 of `nib` (selector 0x4140) or b2 and
+// b3 (0x4342) -> two bf16 values nibble - 8
+__device__ __forceinline__ uint32_t nib2_to_bf16x2(uint32_t nib, uint32_t sel) {
+  uint32_t biased = __byte_perm(nib, 0x43434343u, sel);  // bf16 (128 + nibble) twice
+  uint32_t off = 0x43084308u;                            // bf16 136 twice
   __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&biased), *reinterpret_cast<__nv_bfloat162*>(&off));
   return *reinterpret_cast<uint32_t*>(&r);
 }
 
-// one stage: x rows [m0, m0+BM) at the two 64-column slices of packed chunk
-// kt, weight rows [n0, n0+BN) at packed bytes [kt*64, kt*64+64)
-__device__ __forceinline__ void load_stage(unsigned char* sAlo, unsigned char* sAhi, unsigned char* sB,
-                                           const __nv_bfloat16* __restrict__ A, const uint8_t* __restrict__ Bp, int M,
-                                           int N, int K, int group, int m0, int n0, int kt, int tid) {
+// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
+// 1024 bytes apart (the leading offset is unused in this layout)
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// keeps the compiler from moving accumulator reads above the wait that
+// completes them (the asm emits nothing, but it counts as a use: ptxas
+// inserts a wait before any use of registers a wgmma in flight still writes)
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128, fp32) = (scale_d ? d : 0) + a (64 x 16 bf16, registers) . b (16 x 128 bf16, descriptor)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// one stage into `st`: the two 64-column slices of packed chunk kt for x rows
+// [m0, m0+BM) (low half at st, high half at st + XTILE, each swizzled), and
+// packed bytes [kt*64, kt*64+64) of weight rows [n0, n0+BN) at st + 2*XTILE
+__device__ __forceinline__ void load_stage(unsigned char* st, const __nv_bfloat16* __restrict__ A,
+                                           const uint8_t* __restrict__ Bp, int M, int N, int K, int group, int m0,
+                                           int n0, int kt, int tid) {
   const int half = group >> 1;
   const int pc0 = kt * BKP;
   const int g = pc0 / half;
@@ -81,148 +143,159 @@ __device__ __forceinline__ void load_stage(unsigned char* sAlo, unsigned char* s
 #pragma unroll
   for (int i = 0; i < (BM * 8) / NTHREADS; ++i) {
     int c = tid + i * NTHREADS;
-    int r = c >> 3, kc = (c & 7) * 8;  // 8 bf16 = 16 bytes
+    int r = c >> 3, kc = c & 7;  // 16-byte chunk kc (8 bf16) of token row r
     bool ok = m0 + r < M;
     const __nv_bfloat16* row = A + (long long)(m0 + r) * K;
-    cp_async16(sAlo + r * LDA + kc * 2, ok ? row + klo + kc : A, ok);
-    cp_async16(sAhi + r * LDA + kc * 2, ok ? row + khi + kc : A, ok);
+    int off = r * 128 + ((kc ^ (r & 7)) << 4);
+    cp_async16(st + off, ok ? row + klo + kc * 8 : A, ok);
+    cp_async16(st + XTILE + off, ok ? row + khi + kc * 8 : A, ok);
   }
+  unsigned char* sw = st + 2 * XTILE;
 #pragma unroll
   for (int i = 0; i < (BN * 4) / NTHREADS; ++i) {
     int c = tid + i * NTHREADS;
     int r = c >> 2, kc = (c & 3) * 16;
     bool ok = n0 + r < N;
-    cp_async16(sB + r * LDB + kc, ok ? Bp + (long long)(n0 + r) * (K / 2) + pc0 + kc : Bp, ok);
+    cp_async16(sw + r * LDW + kc, ok ? Bp + (long long)(n0 + r) * (K / 2) + pc0 + kc : Bp, ok);
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1) int4_gemm_kernel(const __nv_bfloat16* __restrict__ A,
-                                                                const uint8_t* __restrict__ Bp,
-                                                                const float* __restrict__ ws,
-                                                                const float* __restrict__ bias,
-                                                                __nv_bfloat16* __restrict__ out, int M, int N, int K,
-                                                                int group) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// A fragments of k-steps s = 2h and 2h + 1, low and high half, for this
+// thread's weight rows (ra, ra + 8): f[2j] is the low-half k-step 2h + j,
+// f[2j + 1] the matching high-half one
+__device__ __forceinline__ void unpack_frags(const unsigned char* ra, const unsigned char* rb, int h, int t,
+                                             uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int b = 16 * (2 * h + j) + 2 * t;
+    uint32_t wa = __byte_perm(*reinterpret_cast<const uint16_t*>(ra + b), *reinterpret_cast<const uint16_t*>(ra + b + 8),
+                              0x5410);
+    uint32_t wb = __byte_perm(*reinterpret_cast<const uint16_t*>(rb + b), *reinterpret_cast<const uint16_t*>(rb + b + 8),
+                              0x5410);
+    uint32_t la = wa & 0x0F0F0F0Fu, ha = (wa >> 4) & 0x0F0F0F0Fu;
+    uint32_t lb = wb & 0x0F0F0F0Fu, hb = (wb >> 4) & 0x0F0F0F0Fu;
+    // registers: (row, cols 2t..2t+1), (row + 8, same), (row, cols 2t+8..2t+9), (row + 8, same)
+    f[2 * j][0] = nib2_to_bf16x2(la, 0x4140);
+    f[2 * j][1] = nib2_to_bf16x2(lb, 0x4140);
+    f[2 * j][2] = nib2_to_bf16x2(la, 0x4342);
+    f[2 * j][3] = nib2_to_bf16x2(lb, 0x4342);
+    f[2 * j + 1][0] = nib2_to_bf16x2(ha, 0x4140);
+    f[2 * j + 1][1] = nib2_to_bf16x2(hb, 0x4140);
+    f[2 * j + 1][2] = nib2_to_bf16x2(ha, 0x4342);
+    f[2 * j + 1][3] = nib2_to_bf16x2(hb, 0x4342);
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1) int4_wgmma_kernel(const __nv_bfloat16* __restrict__ A,
+                                                                 const uint8_t* __restrict__ Bp,
+                                                                 const float* __restrict__ ws,
+                                                                 const float* __restrict__ bias,
+                                                                 __nv_bfloat16* __restrict__ out, int M, int N, int K,
+                                                                 int group) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / WN, wn = warp % WN;
+  const int g = lane >> 2, t = lane & 3;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int wr0 = wm * MT * 16, wc0 = wn * NT * 8;
-  const int g = lane >> 2, tq = lane & 3;
+  const int r0 = (warp >> 2) * 64 + (warp & 3) * 16 + g;  // this thread's weight rows r0 and r0 + 8 of the tile
+  const int na = n0 + r0, nb = na + 8;
   const int KT = K / (2 * BKP);
   const int spg = group / (2 * BKP);  // stages per quant group
   const int G = K / group;
 
-  float acc[MT][NT][4];
-  float facc[MT][NT][4];
+  float acc[64], sum[64];
 #pragma unroll
-  for (int a = 0; a < MT; ++a)
-#pragma unroll
-    for (int b = 0; b < NT; ++b)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) { acc[a][b][c] = 0.f; facc[a][b][c] = 0.f; }
+  for (int i = 0; i < 64; ++i) { acc[i] = 0.f; sum[i] = 0.f; }
 
-  auto sAlo = [&](int st) { return smem + st * STAGE_BYTES; };
-  auto sAhi = [&](int st) { return smem + st * STAGE_BYTES + BM * LDA; };
-  auto sB = [&](int st) { return smem + st * STAGE_BYTES + 2 * BM * LDA; };
+  auto stage = [&](int st) { return smem + st * STAGE_BYTES; };
 
 #pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < KT) load_stage(sAlo(st), sAhi(st), sB(st), A, Bp, M, N, K, group, m0, n0, st, tid);
+  for (int st = 0; st < STAGES - 2; ++st) {
+    if (st < KT) load_stage(stage(st), A, Bp, M, N, K, group, m0, n0, st, tid);
     cp_async_commit();
   }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    int nk = kt + STAGES - 1;
-    if (nk < KT)
-      load_stage(sAlo(nk % STAGES), sAhi(nk % STAGES), sB(nk % STAGES), A, Bp, M, N, K, group, m0, n0, nk, tid);
-    cp_async_commit();
+  // one quant group per outer iteration; acc is touched outside the wgmma
+  // only after the group's wait_group 0, so no copy of it lands where a
+  // batch is still in flight (ptxas would insert a wait there)
+  for (int grp = 0, kt = 0; grp < G; ++grp) {
+    const float sa = na < N ? __ldg(ws + (long long)na * G + grp) : 0.f;  // scale[n, g] of rows na and nb
+    const float sb = nb < N ? __ldg(ws + (long long)nb * G + grp) : 0.f;
+    for (int sg = 0; sg < spg; ++sg, ++kt) {
+      cp_async_wait<STAGES - 3>();
+      fence_proxy_async();
+      __syncthreads();
+      // the slot of stage kt - 2: its last batch was waited for in the previous stage
+      const int nk = kt + STAGES - 2;
+      if (nk < KT) load_stage(stage(nk % STAGES), A, Bp, M, N, K, group, m0, n0, nk, tid);
+      cp_async_commit();
 
-    const unsigned char* a_lo = sAlo(kt % STAGES);
-    const unsigned char* a_hi = sAhi(kt % STAGES);
-    const unsigned char* b_s = sB(kt % STAGES);
+      const unsigned char* st = stage(kt % STAGES);
+      const unsigned char* ra = st + 2 * XTILE + r0 * LDW;
+      const uint64_t desc = make_desc(smem_u32(st));
 #pragma unroll
-    for (int ks = 0; ks < BKP / 32; ++ks) {
-      // packed bytes [ks*32, ks*32+32) of this warp's NT*8 weight rows
-      uint32_t bq[NT / 2][4];
+      for (int h = 0; h < 2; ++h) {
+        uint32_t f[4][4];
+        unpack_frags(ra, ra + 8 * LDW, h, t, f);
+        wgmma_fence();
 #pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        ldmatrix_x4(bq[np], b_s + (wc0 + np * 16 + (lane & 7) + (lane >> 4) * 8) * LDB + ks * 32 +
-                                ((lane >> 3) & 1) * 16);
-      }
-#pragma unroll
-      for (int cc = 0; cc < 2; ++cc) {      // 16-byte chunk: 16 low-half and 16 high-half columns
-#pragma unroll
-        for (int hi = 0; hi < 2; ++hi) {
-          const unsigned char* sA = hi ? a_hi : a_lo;
-          const int col = (ks * 2 + cc) * 16 + 4 * tq;  // this thread's four columns of the slice
-          uint32_t af[MT][4];
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            uint2 r0 = *reinterpret_cast<const uint2*>(sA + (wr0 + mt * 16 + g) * LDA + col * 2);
-            uint2 r1 = *reinterpret_cast<const uint2*>(sA + (wr0 + mt * 16 + g + 8) * LDA + col * 2);
-            af[mt][0] = r0.x; af[mt][1] = r1.x; af[mt][2] = r0.y; af[mt][3] = r1.y;
-          }
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            uint32_t r = bq[nt >> 1][(nt & 1) * 2 + cc];
-            uint32_t nib = (hi ? (r >> 4) : r) & 0x0F0F0F0Fu;
-            uint32_t b0 = nib2_to_bf16x2(__byte_perm(nib, 0u, 0x4140));
-            uint32_t b1 = nib2_to_bf16x2(__byte_perm(nib, 0u, 0x4342));
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], af[mt], b0, b1);
-          }
+        for (int j = 0; j < 4; ++j) {
+          // k-step 2h + j/2 of the low (j even) or high (j odd) slice: +32 bytes a k-step inside the swizzle row
+          const uint64_t d = desc + static_cast<uint64_t>(((j & 1) * XTILE + (2 * h + (j >> 1)) * 32) >> 4);
+          wgmma_m64n128k16(acc, f[j], d, (sg == 0 && h == 0 && j == 0) ? 0 : 1);
         }
+        wgmma_commit();
+        wgmma_wait<1>();
       }
     }
-
-    if ((kt + 1) % spg == 0) {
-      const int grp = kt / spg;
+    // the group is done: fold its partial into the sum
+    wgmma_wait<0>();
+    fence_acc(acc);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        int c = n0 + wc0 + nt * 8 + 2 * tq;
-        float w0 = c < N ? __ldg(ws + (long long)c * G + grp) : 0.f;
-        float w1 = c + 1 < N ? __ldg(ws + (long long)(c + 1) * G + grp) : 0.f;
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          facc[mt][nt][0] = __fadd_rn(facc[mt][nt][0], __fmul_rn(acc[mt][nt][0], w0));
-          facc[mt][nt][1] = __fadd_rn(facc[mt][nt][1], __fmul_rn(acc[mt][nt][1], w1));
-          facc[mt][nt][2] = __fadd_rn(facc[mt][nt][2], __fmul_rn(acc[mt][nt][2], w0));
-          facc[mt][nt][3] = __fadd_rn(facc[mt][nt][3], __fmul_rn(acc[mt][nt][3], w1));
-          acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-        }
-      }
+    for (int j = 0; j < 16; ++j) {
+      sum[4 * j + 0] = __fadd_rn(sum[4 * j + 0], __fmul_rn(acc[4 * j + 0], sa));
+      sum[4 * j + 1] = __fadd_rn(sum[4 * j + 1], __fmul_rn(acc[4 * j + 1], sa));
+      sum[4 * j + 2] = __fadd_rn(sum[4 * j + 2], __fmul_rn(acc[4 * j + 2], sb));
+      sum[4 * j + 3] = __fadd_rn(sum[4 * j + 3], __fmul_rn(acc[4 * j + 3], sb));
     }
   }
   cp_async_wait<0>();
+  __syncthreads();  // every warpgroup is done with the ring
 
-  // out = bf16(facc); with a bias, bf16(float(bf16(facc)) + bias)
+  // out = bf16(sum); with a bias, bf16(float(bf16(sum)) + bias). Thread
+  // value 4j + e is (row r0 + 8 * (e >> 1), token 8j + 2t + (e & 1)); the
+  // tile goes to shared memory as [token][row]
+  float ba = 0.f, bb = 0.f;
+  if (bias != nullptr) {
+    ba = na < N ? __ldg(bias + na) : 0.f;
+    bb = nb < N ? __ldg(bias + nb) : 0.f;
+  }
+  __nv_bfloat16* so = reinterpret_cast<__nv_bfloat16*>(smem);
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    int c = n0 + wc0 + nt * 8 + 2 * tq;
-    float b0 = 0.f, b1 = 0.f;
-    if (bias != nullptr) {
-      b0 = c < N ? __ldg(bias + c) : 0.f;
-      b1 = c + 1 < N ? __ldg(bias + c + 1) : 0.f;
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      __nv_bfloat16 y = __float2bfloat16_rn(sum[4 * j + e]);
+      if (bias != nullptr) y = __float2bfloat16_rn(__fadd_rn(__bfloat162float(y), (e >> 1) ? bb : ba));
+      so[(8 * j + 2 * t + (e & 1)) * (LDO / 2) + r0 + 8 * (e >> 1)] = y;
     }
+  }
+  __syncthreads();
+  const bool vec = (N & 7) == 0;
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
+  for (int i = 0; i < (BM * BN / 8) / NTHREADS; ++i) {
+    int c = tid + i * NTHREADS;
+    int r = c >> 4, ch = c & 15;  // token row r, 8-column chunk ch
+    int m = m0 + r, n = n0 + ch * 8;
+    if (m >= M || n >= N) continue;
+    uint4 v = *reinterpret_cast<const uint4*>(smem + r * LDO + ch * 16);
+    __nv_bfloat16* dst = out + (long long)m * N + n;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        int r = m0 + wr0 + mt * 16 + g + h * 8;
-        if (r >= M) continue;
-        __nv_bfloat162 y = __floats2bfloat162_rn(facc[mt][nt][h * 2], facc[mt][nt][h * 2 + 1]);
-        if (bias != nullptr) {
-          float2 yf = __bfloat1622float2(y);
-          y = __floats2bfloat162_rn(__fadd_rn(yf.x, b0), __fadd_rn(yf.y, b1));
-        }
-        __nv_bfloat16* orow = out + (long long)r * N;
-        if (c + 1 < N) {
-          *reinterpret_cast<__nv_bfloat162*>(orow + c) = y;
-        } else if (c < N) {
-          orow[c] = __low2bfloat16(y);
-        }
-      }
+      for (int q = 0; q < 8; ++q)
+        if (n + q < N) dst[q] = e[q];
     }
   }
 }
@@ -235,10 +308,10 @@ extern "C" int int4_gemm(const void* a, const void* bp, const void* ws, const vo
                          int K, int group, void* stream) {
   if (M == 0) return 0;
   if (group <= 0 || group % (2 * BKP) || K % group || (N & 1)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = set_smem(int4_gemm_kernel, SMEM_BYTES);
+  cudaError_t err = set_smem(int4_wgmma_kernel, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  int4_gemm_kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  int4_wgmma_kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const uint8_t*>(bp), static_cast<const float*>(ws),
       static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), M, N, K, group);
   return static_cast<int>(cudaGetLastError());

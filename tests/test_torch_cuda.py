@@ -316,7 +316,11 @@ def test_sage_quantize_pass_is_exact(dev):
 
 
 @pytest.mark.parametrize("m,n,k,group,bias", [(200, 256, 1024, 512, True), (37, 384, 768, 256, False),
-                                              (512, 136, 256, 128, True), (1000, 5120, 5120, 512, True)])
+                                              (512, 136, 256, 128, True), (1000, 5120, 5120, 512, True),
+                                              # below one 128-token tile; N not a multiple of 64;
+                                              # 27 groups; a single 128-column stage
+                                              (1, 256, 1024, 512, True), (63, 200, 512, 128, False),
+                                              (300, 256, 13824, 512, True), (130, 200, 128, 128, True)])
 def test_int4_kernel_vs_plain(dev, m, n, k, group, bias):
     from lightx2v_tpu_torch.ops.cuda import int4_matmul as i4
 
