@@ -17,12 +17,14 @@
 // What bounds it on this card: operations. At M = 65,520 (two CFG branches
 // of 32,760 tokens) a 5120 x 5120 projection is 3.4e12 bf16 FLOP (3.47 ms at
 // 989 TFLOP/s) against 1.4 GB of x, packed w and out (0.4 ms); the FFN GEMMs
-// 9.3e12 each.
+// 9.3e12 each. Below the tensor cores sit two other limits: the x tiles that
+// every CTA pulls from L2 (a 128-token tile is reused by only 128 weight
+// rows) and the instructions that unpack the weights.
 //
 // What the design does about it: the products run on wgmma, the only path to
 // the card's full bf16 rate, with the operands swapped: the CTA computes the
 // transposed tile out^T[n, m] = w[n, :] . x[m, :]^T, 128 weight rows by 128
-// tokens, as two warpgroups of 64 weight rows that each issue
+// tokens, as two consumer warpgroups of 64 weight rows that each issue
 // wgmma.m64n128k16 with A in registers and B in shared memory.
 //  - A, the weights, is the operand that needs converting, and registers are
 //    where it is converted: the packed tile sits in shared memory as it came
@@ -35,38 +37,48 @@
 //    columns of the matching high-half k-step. So two 16-bit shared loads per
 //    row feed two k-steps in the natural k order, and x needs no permutation.
 //  - B, the x tile, is K-major in the 128-byte swizzle (64 bf16 of a token
-//    row make one swizzle row, 16-byte chunk c of row r stored at chunk
-//    c ^ (r % 8)), read by the tensor cores through a descriptor; both
-//    warpgroups read the same tile.
+//    row make one swizzle row), read by the tensor cores through a
+//    descriptor; both warpgroups read the same tile.
 //  - The scales vary along K, so the wgmma accumulator holds one group: at
 //    each group boundary the warpgroup waits for its products
 //    (wgmma.wait_group 0), adds the partial times scale[n, g] into a second
 //    fp32 accumulator and starts the next group with scale-d 0. A thread
 //    owns two weight rows, so that is two scales a thread per group. 64 + 64
 //    fp32 registers a thread: a 256-token tile would need 256.
-//  - A stage is 128 columns of one group (the 64 low-half and the matching
-//    64 high-half columns of 128 tokens, and 64 packed bytes of each of 128
-//    weight rows), five stages deep on cp.async with zero fill past M and N.
-//    The copies are generic-proxy writes and wgmma reads through the async
-//    proxy, hence fence.proxy.async after each wait. A stage's eight k-steps
-//    go out as two batches of four; wgmma.wait_group 1 keeps one batch in
-//    flight while the next fragments are unpacked, and a slot is refilled
-//    two stages after its last batch was issued.
+//  - Loads: a producer warpgroup, one thread of which issues TMA copies into
+//    a five-stage ring of mbarriers. With 384 threads ptxas caps a thread at
+//    168 registers, where the two accumulators and the fragments do not fit,
+//    so the producer hands most of its registers to the two consumer
+//    warpgroups (setmaxnreg: 40 against 232 a thread). Issuing the copies
+//    from a consumer thread instead makes ptxas serialise every wgmma.
+//    A stage is 128 columns of one group: two 64-column boxes of x,
+//    128B-swizzled, the layout the descriptor reads, and one box of 64
+//    packed bytes of 128 weight rows, 64B-swizzled so the fragment loads are
+//    conflict-free. TMA zero-fills past M and N. The consumers never meet at
+//    a CTA barrier inside the loop, so one warpgroup's group-boundary drain
+//    overlaps the other's products. A stage's eight k-steps go out as two
+//    batches of four; wgmma.wait_group 1 keeps one batch in flight while the
+//    next fragments are unpacked, and each warp hands a stage back to the
+//    producer once the batch after its last one has been issued.
 //  - The epilogue stages the bf16 tile through shared memory (the ring is
 //    free by then) and writes token rows with 16-byte stores.
-// Not yet used: TMA, warp specialisation, clusters, persistence (later work).
+// Not yet used: clusters with multicast x tiles, persistent CTAs (later work).
+
+#include <cuda.h>
+#include <cudaTypedefs.h>
 
 #include "int8_mma.cuh"
 
 namespace {
 
-constexpr int NTHREADS = 256;                       // two warpgroups
+constexpr int NTHREADS = 384;                       // a producer warpgroup, then two consumer warpgroups
+constexpr int CONSUMERS = 256;
 constexpr int BN = 128;                             // weight rows per CTA, 64 per warpgroup
 constexpr int BM = 128;                             // tokens per CTA: the wgmma N
 constexpr int BKP = 64;                             // packed bytes of a weight row per stage (128 columns)
-constexpr int LDW = BKP + 16;                       // packed row + pad (80 bytes): fragment loads are conflict-free
-constexpr int XTILE = BM * 128;                     // one 64-column x slice of the stage, swizzled (16 KB)
-constexpr int STAGE_BYTES = 2 * XTILE + BN * LDW;   // 43,008: keeps every slice 1024-byte aligned
+constexpr int XTILE = BM * 128;                     // one 64-column x box (16 KB)
+constexpr int WTILE = BN * BKP;                     // the packed weight box (8 KB)
+constexpr int STAGE_BYTES = 2 * XTILE + WTILE;      // 40,960: keeps every box 1024-byte aligned
 constexpr int STAGES = 5;
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + slack to align the ring to 1024 bytes
 constexpr int LDO = BN * 2 + 16;                    // epilogue row: 128 bf16 + pad (272 bytes)
@@ -95,7 +107,6 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
 // keeps the compiler from moving accumulator reads above the wait that
 // completes them (the asm emits nothing, but it counts as a use: ptxas
@@ -129,45 +140,43 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
-// one stage into `st`: the two 64-column slices of packed chunk kt for x rows
-// [m0, m0+BM) (low half at st, high half at st + XTILE, each swizzled), and
-// packed bytes [kt*64, kt*64+64) of weight rows [n0, n0+BN) at st + 2*XTILE
-__device__ __forceinline__ void load_stage(unsigned char* st, const __nv_bfloat16* __restrict__ A,
-                                           const uint8_t* __restrict__ Bp, int M, int N, int K, int group, int m0,
-                                           int n0, int kt, int tid) {
-  const int half = group >> 1;
-  const int pc0 = kt * BKP;
-  const int g = pc0 / half;
-  const int klo = g * group + (pc0 - g * half);
-  const int khi = klo + half;
-#pragma unroll
-  for (int i = 0; i < (BM * 8) / NTHREADS; ++i) {
-    int c = tid + i * NTHREADS;
-    int r = c >> 3, kc = c & 7;  // 16-byte chunk kc (8 bf16) of token row r
-    bool ok = m0 + r < M;
-    const __nv_bfloat16* row = A + (long long)(m0 + r) * K;
-    int off = r * 128 + ((kc ^ (r & 7)) << 4);
-    cp_async16(st + off, ok ? row + klo + kc * 8 : A, ok);
-    cp_async16(st + XTILE + off, ok ? row + khi + kc * 8 : A, ok);
-  }
-  unsigned char* sw = st + 2 * XTILE;
-#pragma unroll
-  for (int i = 0; i < (BN * 4) / NTHREADS; ++i) {
-    int c = tid + i * NTHREADS;
-    int r = c >> 2, kc = (c & 3) * 16;
-    bool ok = n0 + r < N;
-    cp_async16(sw + r * LDW + kc, ok ? Bp + (long long)(n0 + r) * (K / 2) + pc0 + kc : Bp, ok);
+// ---- mbarriers and TMA ----
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
   }
 }
-
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
 // A fragments of k-steps s = 2h and 2h + 1, low and high half, for this
-// thread's weight rows (ra, ra + 8): f[2j] is the low-half k-step 2h + j,
+// thread's weight rows (ra, ra + 8), whose 16-byte chunks sit at chunk
+// c ^ swz (the 64-byte swizzle): f[2j] is the low-half k-step 2h + j,
 // f[2j + 1] the matching high-half one
-__device__ __forceinline__ void unpack_frags(const unsigned char* ra, const unsigned char* rb, int h, int t,
+__device__ __forceinline__ void unpack_frags(const unsigned char* ra, const unsigned char* rb, int swz, int h, int t,
                                              uint32_t (&f)[4][4]) {
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
-    const int b = 16 * (2 * h + j) + 2 * t;
+    const int b = (((2 * h + j) ^ swz) << 4) + 2 * t;
     uint32_t wa = __byte_perm(*reinterpret_cast<const uint16_t*>(ra + b), *reinterpret_cast<const uint16_t*>(ra + b + 8),
                               0x5410);
     uint32_t wb = __byte_perm(*reinterpret_cast<const uint16_t*>(rb + b), *reinterpret_cast<const uint16_t*>(rb + b + 8),
@@ -186,34 +195,62 @@ __device__ __forceinline__ void unpack_frags(const unsigned char* ra, const unsi
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1) int4_wgmma_kernel(const __nv_bfloat16* __restrict__ A,
-                                                                 const uint8_t* __restrict__ Bp,
-                                                                 const float* __restrict__ ws,
-                                                                 const float* __restrict__ bias,
-                                                                 __nv_bfloat16* __restrict__ out, int M, int N, int K,
-                                                                 int group) {
+// xmap: x (M, K) bf16, boxes of 128 tokens x 64 columns, 128B swizzle;
+// wmap: w (N, K/2) bytes, boxes of 128 rows x 64 bytes, 64B swizzle
+__global__ void __launch_bounds__(NTHREADS, 1)
+    int4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                      const float* __restrict__ ws, const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+                      int M, int N, int K, int group) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int r0 = (warp >> 2) * 64 + (warp & 3) * 16 + g;  // this thread's weight rows r0 and r0 + 8 of the tile
-  const int na = n0 + r0, nb = na + 8;
   const int KT = K / (2 * BKP);
   const int spg = group / (2 * BKP);  // stages per quant group
   const int G = K / group;
+  auto stage = [&](int st) { return smem + st * STAGE_BYTES; };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS / 32);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < NTHREADS - CONSUMERS) {
+    // producer warpgroup: hands most of its registers to the consumers; one
+    // thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      const int half = group >> 1;
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        const int pc0 = kt * BKP;
+        const int grp = pc0 / half;
+        const int klo = grp * group + (pc0 - grp * half);
+        unsigned char* st = stage(s);
+        mbar_expect_tx(&full[s], STAGE_BYTES);
+        tma_load(st, &xmap, &full[s], klo, m0);
+        tma_load(st + XTILE, &xmap, &full[s], klo + half, m0);
+        tma_load(st + 2 * XTILE, &wmap, &full[s], pc0, n0);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int tid = threadIdx.x - (NTHREADS - CONSUMERS), lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (warp >> 2) * 64 + (warp & 3) * 16 + g;  // this thread's weight rows r0 and r0 + 8 of the tile
+  const int na = n0 + r0, nb = na + 8;
+  const int swz = (g >> 1) & 3;  // 64B swizzle of rows r0 and r0 + 8
 
   float acc[64], sum[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) { acc[i] = 0.f; sum[i] = 0.f; }
 
-  auto stage = [&](int st) { return smem + st * STAGE_BYTES; };
-
-#pragma unroll
-  for (int st = 0; st < STAGES - 2; ++st) {
-    if (st < KT) load_stage(stage(st), A, Bp, M, N, K, group, m0, n0, st, tid);
-    cp_async_commit();
-  }
   // one quant group per outer iteration; acc is touched outside the wgmma
   // only after the group's wait_group 0, so no copy of it lands where a
   // batch is still in flight (ptxas would insert a wait there)
@@ -221,30 +258,26 @@ __global__ void __launch_bounds__(NTHREADS, 1) int4_wgmma_kernel(const __nv_bflo
     const float sa = na < N ? __ldg(ws + (long long)na * G + grp) : 0.f;  // scale[n, g] of rows na and nb
     const float sb = nb < N ? __ldg(ws + (long long)nb * G + grp) : 0.f;
     for (int sg = 0; sg < spg; ++sg, ++kt) {
-      cp_async_wait<STAGES - 3>();
-      fence_proxy_async();
-      __syncthreads();
-      // the slot of stage kt - 2: its last batch was waited for in the previous stage
-      const int nk = kt + STAGES - 2;
-      if (nk < KT) load_stage(stage(nk % STAGES), A, Bp, M, N, K, group, m0, n0, nk, tid);
-      cp_async_commit();
-
-      const unsigned char* st = stage(kt % STAGES);
-      const unsigned char* ra = st + 2 * XTILE + r0 * LDW;
+      const int s = kt % STAGES;
+      mbar_wait(&full[s], (kt / STAGES) & 1);
+      const unsigned char* st = stage(s);
+      const unsigned char* ra = st + 2 * XTILE + r0 * BKP;
       const uint64_t desc = make_desc(smem_u32(st));
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         uint32_t f[4][4];
-        unpack_frags(ra, ra + 8 * LDW, h, t, f);
+        unpack_frags(ra, ra + 8 * BKP, swz, h, t, f);
         wgmma_fence();
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          // k-step 2h + j/2 of the low (j even) or high (j odd) slice: +32 bytes a k-step inside the swizzle row
+          // k-step 2h + j/2 of the low (j even) or high (j odd) box: +32 bytes a k-step inside the swizzle row
           const uint64_t d = desc + static_cast<uint64_t>(((j & 1) * XTILE + (2 * h + (j >> 1)) * 32) >> 4);
           wgmma_m64n128k16(acc, f[j], d, (sg == 0 && h == 0 && j == 0) ? 0 : 1);
         }
         wgmma_commit();
         wgmma_wait<1>();
+        // the batch before this one, stage kt - 1's last, is done: hand its slot back
+        if (h == 0 && kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
       }
     }
     // the group is done: fold its partial into the sum
@@ -258,8 +291,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) int4_wgmma_kernel(const __nv_bflo
       sum[4 * j + 3] = __fadd_rn(sum[4 * j + 3], __fmul_rn(acc[4 * j + 3], sb));
     }
   }
-  cp_async_wait<0>();
-  __syncthreads();  // every warpgroup is done with the ring
+  // both consumer warpgroups are done with the ring (every load has landed)
+  asm volatile("fence.proxy.async.shared::cta;\nbar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
 
   // out = bf16(sum); with a bias, bf16(float(bf16(sum)) + bias). Thread
   // value 4j + e is (row r0 + 8 * (e >> 1), token 8j + 2t + (e & 1)); the
@@ -279,11 +312,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) int4_wgmma_kernel(const __nv_bflo
       so[(8 * j + 2 * t + (e & 1)) * (LDO / 2) + r0 + 8 * (e >> 1)] = y;
     }
   }
-  __syncthreads();
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
   const bool vec = (N & 7) == 0;
 #pragma unroll
-  for (int i = 0; i < (BM * BN / 8) / NTHREADS; ++i) {
-    int c = tid + i * NTHREADS;
+  for (int i = 0; i < (BM * BN / 8) / CONSUMERS; ++i) {
+    int c = tid + i * CONSUMERS;
     int r = c >> 4, ch = c & 15;  // token row r, 8-column chunk ch
     int m = m0 + r, n = n0 + ch * 8;
     if (m >= M || n >= N) continue;
@@ -300,19 +333,56 @@ __global__ void __launch_bounds__(NTHREADS, 1) int4_wgmma_kernel(const __nv_bflo
   }
 }
 
+// cuTensorMapEncodeTiled through the runtime, so the library needs no -lcuda
+PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// a 2-D tensor map of `rows` x `cols` elements (row pitch `pitch` bytes),
+// boxes of box_rows x box_cols
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rows, int cols, long long pitch,
+              int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  PFN_cuTensorMapEncodeTiled_v12000 enc = encode_fn();
+  if (enc == nullptr) return false;
+  cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
+  cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  cuuint32_t estr[2] = {1, 1};
+  return enc(map, type, 2, const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
 // a (M, K) bf16, bp (N, K/2) packed uint8, ws (N, K/group) fp32, bias (N,)
-// fp32 or null -> out (M, N) bf16. group % 128 == 0, K % group == 0, N even.
+// fp32 or null -> out (M, N) bf16. group % 128 == 0, K % group == 0, N even;
+// a and bp 16-byte aligned.
 extern "C" int int4_gemm(const void* a, const void* bp, const void* ws, const void* bias, void* out, int M, int N,
                          int K, int group, void* stream) {
   if (M == 0) return 0;
-  if (group <= 0 || group % (2 * BKP) || K % group || (N & 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (group <= 0 || group % (2 * BKP) || K % group || (N & 1) || (reinterpret_cast<uintptr_t>(a) & 15) ||
+      (reinterpret_cast<uintptr_t>(bp) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap, wmap;
+  if (!make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, M, K, 2LL * K, BM, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, bp, N, K / 2, K / 2, BN, BKP, CU_TENSOR_MAP_SWIZZLE_64B))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = set_smem(int4_wgmma_kernel, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   int4_wgmma_kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(a), static_cast<const uint8_t*>(bp), static_cast<const float*>(ws),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), M, N, K, group);
+      xmap, wmap, static_cast<const float*>(ws), static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), M,
+      N, K, group);
   return static_cast<int>(cudaGetLastError());
 }

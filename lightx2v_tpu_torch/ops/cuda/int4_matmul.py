@@ -96,7 +96,11 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
             raise ValueError(f"bias must be ({n},) on {dev}")
         bias = bias.float().contiguous()
         bptr = bias.data_ptr()
+    if packed.data_ptr() % 16:
+        raise ValueError("w must start on a 16-byte boundary (the kernel loads it with TMA)")
     x2 = x.reshape(-1, k).contiguous()
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()
     out = torch.empty((x2.shape[0], n), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(_lib().int4_gemm(x2.data_ptr(), packed.data_ptr(), scale.data_ptr(), bptr, out.data_ptr(),
