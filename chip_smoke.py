@@ -6,6 +6,7 @@
     python3 chip_smoke.py --profile out/  # and a profiled run of each path
     python3 chip_smoke.py --kernels-only --kernel int4_matmul  # one kernel's phase
     python3 chip_smoke.py --path base     # the kernel phases and one path
+    python3 chip_smoke.py --path fp8_distill   # the kernel phases and the fp8 path
 
 1. Prints the card's name and power limit, builds every CUDA kernel of the
    port from ``lightx2v_tpu_torch/csrc`` (one nvcc per source, in parallel)
@@ -37,10 +38,20 @@
    2-entry step list, once in the block-sparse execution (128 x 128 blocks)
    and once in ``two_pass`` (query tiles of min(sparse_block_q, 256) rows,
    so ``sparse_block_q`` 256 gives the plan's 195-row tiles).
+7. fp8 distill (slice 4): one full-width fp8 block the same way; then the
+   distill runner on ``configs/bench/lightx2v_3_distill.json`` (the
+   reference's LightX2V_3-Distill row: fp8 e4m3 DiT linears, fused-RoPE
+   flash, its 4 distill steps, tiled decode) at the 14B widths with the fp8
+   UMT5-XXL (``t5_quantized``, ``t5_quant_scheme: "fp8"``).
 
 The kernel phases also print the radial comparison at the main shape (dense
-flash, block-sparse at 128 x 128 and 256 x 128, two_pass) and hold two merged
-half-key partials against one dense call.
+flash, block-sparse at 128 x 128 and 256 x 128, two_pass), hold two merged
+half-key partials against one dense call, and print the fp8 full-K kernel's
+error and time with its tensor-core partial folded into fp32 every 0, 128
+and 512 K values (``fp8_fullk_fold``). The fp8 rows' library yardstick is
+the torch quantize pass plus ``torch._scaled_mm`` with row-wise scales; the
+per-head block-sparse row's is ``torch.compile(flex_attention)`` on the same
+block mask (None, with the reason printed, where it does not compile).
 
 For each path the launch counters are zeroed just before the run and read
 just after, and must equal the path's exact counts. The line before the
@@ -75,9 +86,11 @@ REPS = 5  # timed calls per kernel (CUDA-event median)
 INT4A8 = "W-int4-group-sym-A-int8-token-dynamic-Tpu"
 INT4W = "W-int4-group-sym-A-bf16-Tpu"
 INT8 = "W-int8-channel-sym-A-int8-channel-sym-dynamic-Tpu"
+FP8 = "W-fp8-channel-sym-A-fp8-channel-sym-dynamic-Tpu"
 FRAMES = 21  # latent frames of 1560 tokens
 DEPLOY_JSON = "configs/deploy/wan_t2v.json"
 BASE_JSON = "configs/bench/lightx2v_1.json"
+FP8_JSON = "configs/bench/lightx2v_3_distill.json"
 # the bench flagship: the deploy config plus these overrides
 FLAGSHIP = dict(mm_config={"mm_type": INT4A8}, sparge=True, sparge_keep_ratio=0.3,
                 sparge_ckpt=str(ROOT / "configs/sparge/wan_t2v_14b_structured_keep03.npz"),
@@ -89,7 +102,11 @@ BASE = dict(dim=DIM, ffn_dim=FFN, num_heads=HEADS, num_layers=40, text_len=TXT, 
 RADIAL_BSR = dict(self_attn_1_type="radial_attn", sparse_block_q=128, sparse_block_k=128,
                   denoising_step_list=[1000, 500], radial_sparsity_type="bsr")
 RADIAL_TWO_PASS = dict(RADIAL_BSR, sparse_block_q=256, radial_sparsity_type="two_pass")
-PATHS = ("slice", "flagship", "base", "radial_bsr", "radial_two_pass")
+# the reference's LightX2V_3-Distill row (fp8 DiT, fused-RoPE flash, its 4 distill steps, tiled decode) at the
+# 14B widths, with the fp8 UMT5-XXL
+FP8_DISTILL = dict(dim=DIM, ffn_dim=FFN, num_heads=HEADS, num_layers=40, text_len=TXT, t5_quantized=True,
+                   t5_quant_scheme="fp8")
+PATHS = ("slice", "flagship", "base", "radial_bsr", "radial_two_pass", "fp8_distill")
 
 
 def card_line() -> str:
@@ -127,6 +144,21 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 def bound(flops: float, nbytes: float, peak_ops: float, peak_bw: float):
     t_ops, t_bytes = flops / peak_ops, nbytes / peak_bw
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def library(fn, n, make=False):
+    """ms of a PyTorch library call (a yardstick only), or None where this
+    build lacks it or cannot compile it; the reason is printed. With
+    ``make``, ``fn()`` first builds the callable to time."""
+    import torch
+
+    try:
+        return cuda_ms(fn() if make else fn, n)
+    except Exception as e:  # noqa: BLE001 -- a yardstick that does not run is reported, not fatal
+        print(f"[library] not timed: {type(e).__name__}: {str(e)[:300]}", flush=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return None
 
 
 def check_close(name: str, out, ref, rtol: float, atol: float) -> float:
@@ -409,17 +441,49 @@ def kernel_phase_flagship(peaks, reps: int, want):
         pairs = sum(int(q_rows[i]) * int(k_valid[ic[h, i, :cc[h, i]]].sum()) for h in range(ic.shape[0])
                     for i in range(ic.shape[1]))
         b_ms, b_by = bound(4.0 * HD * pairs, 4 * S * HEADS * HD * 2 + idx.numel() * 4 + cnt.numel() * 4, peak_bf16, peak_bw)
+        lib_ms = library(lambda: flex_attention_call(q, k, v, idx, cnt, bq, bk, out_check=hs), 2, make=True)
         rows.append(dict(name="block_sparse_attention", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
                          replaces="lightx2v_tpu/ops/pallas/block_sparse_attention.py:134",
                          shape=f"q,k,v (1,{S},{HEADS},{HD}) bf16; indices {tuple(idx.shape)}, counts {tuple(cnt.shape)} "
                                f"i32; bq {bq}, bk {bk}; selected {int(cc.sum())} of {cc.size * ic.shape[2]}",
                          max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                         library_call="none (flex_attention needs torch.compile; not timed)",
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                         library_call="torch.compile(flex_attention) with the same per-head block mask",
                          selection_ms=sel_ms, dense_fraction=pairs / (HEADS * S * S)))
         del q, k, v
     torch.cuda.empty_cache()
     return rows, extra
+
+
+def flex_attention_call(q, k, v, idx, cnt, bq: int, bk: int, out_check=None):
+    """A callable of torch.compile(flex_attention) over the per-head block
+    table (idx (H, nq, n), cnt (H, nq)) as a BlockMask of (bq, bk) blocks:
+    the library yardstick of the per-head block-sparse kernel. Compiled and
+    checked against the kernel on the heads ``out_check`` at its first call."""
+    import torch
+    from torch.nn.attention.flex_attention import BlockMask, flex_attention
+
+    from lightx2v_tpu_torch.ops.cuda import block_sparse_attention as bsa
+
+    h, nq, n = idx.shape
+    nk = -(-k.shape[1] // bk)
+    kv_idx = torch.zeros((1, h, nq, nk), dtype=torch.int32, device=q.device)
+    kv_idx[..., :n] = idx
+    mask = BlockMask.from_kv_blocks(cnt[None].to(torch.int32).contiguous(), kv_idx, BLOCK_SIZE=(bq, bk),
+                                    seq_lengths=(q.shape[1], k.shape[1]))
+    flex = torch.compile(flex_attention, dynamic=False)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def call():
+        return flex(qt, kt, vt, block_mask=mask)
+
+    if out_check is not None:
+        ref = bsa.block_sparse_attention(q, k, v, idx, cnt, bq=bq, bk=bk)[:, :, out_check]
+        got = call().transpose(1, 2)[:, :, out_check]
+        torch.cuda.synchronize()
+        print(json.dumps({"flex_attention_vs_kernel_max_abs_diff": float((got.float() - ref.float()).abs().max())}),
+              flush=True)
+    return call
 
 
 def kernel_phase_base(peaks, reps: int, want):
@@ -444,16 +508,6 @@ def kernel_phase_base(peaks, reps: int, want):
 
     def randn(*shape, dtype=torch.bfloat16, std=1.0):
         return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
-
-    def library(fn, n):
-        """ms of a PyTorch library call, or None where this build lacks it."""
-        try:
-            return cuda_ms(fn, n)
-        except (RuntimeError, AttributeError, NotImplementedError) as e:
-            print(f"[library] not timed: {type(e).__name__}: {str(e)[:200]}", flush=True)
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            return None
 
     # ---- sage_attention (base path: self-attention of both CFG branches) ----
     if want("sage_attention"):
@@ -619,14 +673,142 @@ def kernel_phase_base(peaks, reps: int, want):
     return rows, extra
 
 
+def kernel_phase_fp8(peaks, reps: int, want):
+    """The fp8 (e4m3) kind of the three 8-bit kernels, at the fp8 distill
+    path's shapes. fp8's dense peak on these cards equals int8's."""
+    import torch
+
+    from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
+
+    _, peak_fp8, peak_bw = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    rows, extra = [], []
+
+    def randn(*shape, dtype=torch.bfloat16, std=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    def fp8_w(n, k):  # synthetic e4m3 weights as the runner makes them
+        w = (torch.randn((n, k), generator=g, device=dev) * 100).clamp_(-448, 448).to(torch.float8_e4m3fn)
+        return w, torch.full((n,), 0.02 / 100, device=dev)
+
+    def quant_lib(x2):
+        s = torch.clamp_min(x2.float().abs().amax(-1), 1e-8) * (1.0 / 448.0)
+        return (x2.float() / s[:, None]).to(torch.float8_e4m3fn), s
+
+    def fp8_lib(x2, w, ws, b=None):
+        """quantize in torch + torch._scaled_mm with row-wise scales, bf16 out"""
+        xq, s = quant_lib(x2)
+        return torch._scaled_mm(xq, w.t(), scale_a=s[:, None].contiguous(), scale_b=ws[None, :].contiguous(),
+                                bias=None if b is None else b.to(torch.bfloat16), out_dtype=torch.bfloat16)
+
+    lib_call = "torch quantize + torch._scaled_mm (row-wise scales, bf16 out)"
+
+    # ---- w8a8_matmul_fullk, fp8 (q/k/v/o at M=32,760; cross k/v and the T5 at M=512) ----
+    if want("w8a8_matmul_fullk_fp8"):
+        w, ws = fp8_w(DIM, DIM)
+        bvec = randn(DIM, dtype=torch.float32, std=0.02)
+        for m in (S, TXT):
+            x = randn(m, DIM)
+            ref = wm.w8a8_matmul_fullk_plain(x, w, ws, bvec, kind="fp8")
+            folds = {}  # max error and ms with the tensor-core partial folded every `fold` K values
+            default = wm.FP8_FOLD_K
+            for fold in (0, 128, 512):
+                wm.FP8_FOLD_K = fold
+                out = wm.w8a8_matmul_fullk(x, w, ws, bvec, kind="fp8")
+                torch.cuda.synchronize()
+                folds[fold] = dict(max_abs_err=float((out.float() - ref.float()).abs().max()),
+                                   ms=cuda_ms(lambda: wm.w8a8_matmul_fullk(x, w, ws, bvec, kind="fp8"), reps))
+            wm.FP8_FOLD_K = default
+            print(json.dumps({"fp8_fullk_fold": {"M": m, "K": DIM, "default": default, **{str(f): v for f, v in
+                                                                                            folds.items()}}}),
+                  flush=True)
+            out = wm.w8a8_matmul_fullk(x, w, ws, bvec, kind="fp8")
+            torch.cuda.synchronize()
+            # bar: the same e4m3 codes and scales; exact products summed in
+            # fp32 by the tensor cores against one rounding of the exact sum
+            err = check_close(f"w8a8_matmul_fullk_fp8 M={m}", out, ref, 2 ** -7, 0.0)
+            del ref, out
+            ms = cuda_ms(lambda: wm.w8a8_matmul_fullk(x, w, ws, bvec, kind="fp8"), reps * 2)
+            plain_ms = cuda_ms(lambda: wm.w8a8_matmul_fullk_plain(x, w, ws, bvec, kind="fp8"), 2)
+            lib_ms = library(lambda: fp8_lib(x, w, ws, bvec), reps * 2)
+            b_ms, b_by = bound(2.0 * m * DIM * DIM, m * DIM * 2 + DIM * DIM + 2 * DIM * 4 + m * DIM * 2,
+                               peak_fp8, peak_bw)
+            (rows if m == S else extra).append(dict(
+                name="w8a8_matmul_fullk_fp8", route="cuda", source="lightx2v_tpu_torch/csrc/w8a8_matmul.cu",
+                replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:182", shape=f"x ({m},{DIM}) bf16; w ({DIM},{DIM}) e4m3",
+                max_abs_err=err, bar="2^-7*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, library_call=lib_call, fold_k=wm.FP8_FOLD_K))
+            del x
+        del w
+
+    # ---- ffn_w8a8, fp8 ----
+    if want("ffn_w8a8_fp8"):
+        x = randn(S, DIM)
+        w0, s0 = fp8_w(FFN, DIM)
+        w2, s2 = fp8_w(DIM, FFN)
+        b0, b2 = randn(FFN, dtype=torch.float32, std=0.02), randn(DIM, dtype=torch.float32, std=0.02)
+        out = wm.ffn_w8a8(x, w0, s0, b0, w2, s2, b2, kind="fp8")
+        torch.cuda.synchronize()
+        ref = wm.ffn_w8a8_plain(x, w0, s0, b0, w2, s2, b2, kind="fp8")
+        # bar: x codes exact; h is fp32 on both sides but tanh on the card and
+        # in torch may differ by an ulp, moving a rare h code by one step
+        err = check_close("ffn_w8a8_fp8", out, ref, 2e-2, 0.0)
+        del ref, out
+        ms = cuda_ms(lambda: wm.ffn_w8a8(x, w0, s0, b0, w2, s2, b2, kind="fp8"), reps)
+        plain_ms = cuda_ms(lambda: wm.ffn_w8a8_plain(x, w0, s0, b0, w2, s2, b2, kind="fp8"), 1)
+
+        def ffn_lib():
+            h = wm.gelu_tanh(fp8_lib(x, w0, s0, b0).float()).to(torch.bfloat16)
+            return fp8_lib(h, w2, s2, b2)
+
+        lib_ms = library(ffn_lib, reps)
+        b_ms, b_by = bound(4.0 * S * DIM * FFN, S * DIM * 2 * 2 + 2 * DIM * FFN + (2 * FFN + 2 * DIM) * 4,
+                           peak_fp8, peak_bw)
+        rows.append(dict(name="ffn_w8a8_fp8", route="cuda", source="lightx2v_tpu_torch/csrc/w8a8_matmul.cu",
+                         replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:301",
+                         shape=f"x ({S},{DIM}) bf16; w0 ({FFN},{DIM}), w2 ({DIM},{FFN}) e4m3",
+                         max_abs_err=err, bar="2e-2*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms, library_call="two (torch quantize + torch._scaled_mm) around a torch "
+                                                         "GELU, per-token h scales"))
+        del x, w0, w2
+
+    # ---- w8a8_matmul (k-blocked), fp8 (UMT5-XXL fc2: K = 10,240 > 8192) ----
+    if want("w8a8_matmul_fp8"):
+        x = randn(TXT, T5_FFN)
+        w, ws = fp8_w(T5_DIM, T5_FFN)
+        out = wm.w8a8_matmul(x, w, ws, kind="fp8")
+        torch.cuda.synchronize()
+        ref = wm.w8a8_matmul_plain(x, w, ws, kind="fp8")
+        err = check_close("w8a8_matmul_fp8 (k-blocked)", out, ref, 2 ** -7, 0.0)
+        del ref, out
+        ms = cuda_ms(lambda: wm.w8a8_matmul(x, w, ws, kind="fp8"), reps * 2)
+        plain_ms = cuda_ms(lambda: wm.w8a8_matmul_plain(x, w, ws, kind="fp8"), 2)
+        lib_ms = library(lambda: fp8_lib(x, w, ws), reps * 2)
+        b_ms, b_by = bound(2.0 * TXT * T5_FFN * T5_DIM, TXT * T5_FFN * 2 + T5_DIM * T5_FFN + T5_DIM * 4 + TXT * T5_DIM * 2,
+                           peak_fp8, peak_bw)
+        rows.append(dict(name="w8a8_matmul_fp8", route="cuda", source="lightx2v_tpu_torch/csrc/w8a8_matmul.cu",
+                         replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:76",
+                         shape=f"x ({TXT},{T5_FFN}) bf16; w ({T5_DIM},{T5_FFN}) e4m3; k-block 1024",
+                         max_abs_err=err, bar="2^-7*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms, library_call=lib_call + "; per-token scales, not per (token, k-block)"))
+        del x, w
+    torch.cuda.empty_cache()
+    return rows, extra
+
+
 # ---------------------------------------------------------------------------
 # slice phase
 
 
-def block_reference_check(scheme: str = "int8", mm_type: str = INT8, self_attn_type: str = "flash_attn3"):
+def block_reference_check(scheme: str = "int8", mm_type: str = INT8, self_attn_type: str = "flash_attn3",
+                          rtol: float = 3e-2, perturbation: bool = False):
     """One full-width quantized DiT block (kernel thresholds engaged) on a
     small input: CUDA kernels vs the plain versions on the CPU, same
-    weights, dense fused-RoPE flash self-attention (or ``self_attn_type``)."""
+    weights, dense fused-RoPE flash self-attention (or ``self_attn_type``).
+    With ``perturbation`` it also prints how far the CPU block moves when one
+    bf16 ulp is added to 1% of the context entries: the block's sensitivity
+    to bf16-level noise, which the card-vs-CPU difference is made of."""
     import dataclasses
 
     import torch
@@ -650,17 +832,25 @@ def block_reference_check(scheme: str = "int8", mm_type: str = INT8, self_attn_t
             else [to(v) for v in tree] if isinstance(tree, list)
             else tree.to(dev) if isinstance(tree, torch.Tensor) else tree)
         cos, sin, _ = rope_for_shape(arch, shape, device=dev)
-        return wan_forward(to(params), lat.to(dev), t.to(dev), ctx.to(dev), cos, sin, arch, mm_type=mm_type,
+        return wan_forward(to(params), lat.to(dev), t.to(dev), context.to(dev), cos, sin, arch, mm_type=mm_type,
                            self_attn_type=self_attn_type)
 
+    context = ctx
     out = run("cuda")
     torch.cuda.synchronize()
     ref = run("cpu")
+    if perturbation:
+        flip = torch.rand(ctx.shape, generator=g, device="cuda") < 0.01
+        context = torch.where(flip, (ctx.float() * (1 + 2 ** -7)).to(torch.bfloat16), ctx)
+        moved = float((run("cpu") - ref).abs().max())
+        print(json.dumps({"block_perturbation": {"scheme": scheme, "max_abs_moved": moved,
+                                                 "share_of_max": moved / float(ref.abs().max())}}), flush=True)
     # bar: the DiT's bf16 activations pass two flash calls and the
     # quantized GEMMs; summation order and rare rounding flips stay at bf16
-    # noise
+    # noise (rtol 3e-2), which each quantized GEMM then amplifies where it
+    # moves an activation across a code boundary (see the fp8 call)
     return check_close(f"one 14B {scheme} block ({mm_type}, {self_attn_type}), card vs CPU plain", out.cpu(), ref,
-                       3e-2, 1e-3)
+                       rtol, 1e-3)
 
 
 def expected_launches(runner, cfg) -> dict:
@@ -679,13 +869,16 @@ def expected_launches(runner, cfg) -> dict:
         out.update(w4a8_matmul=8 * calls, ffn_w4a8=calls)
     elif mm_type == INT4W:
         out.update(int4_matmul=10 * calls)
+    elif mm_type == FP8:
+        out.update(w8a8_matmul_fullk_fp8=8 * calls, ffn_w8a8_fp8=calls)
     else:
         out.update(w8a8_matmul_fullk=8 * calls, ffn_w8a8=calls)
     if cfg.get("t5_quantized"):
-        # T5: q/k/v/o/gate/fc1 full-K (K = 4096), fc2 k-blocked (K = 10,240)
+        # T5: q/k/v/o/gate/fc1 full-K (K = 4096), fc2 k-blocked (K = 10,240), in the T5's kind
         t5_layers = runner.text_encoder.cfg.num_layers
-        out["w8a8_matmul_fullk"] += (len(T5_LINEARS) - 1) * t5_layers
-        out["w8a8_matmul"] += t5_layers
+        sfx = "" if "int8" in str(cfg.get("t5_quant_scheme", "int8")) else "_fp8"
+        out["w8a8_matmul_fullk" + sfx] += (len(T5_LINEARS) - 1) * t5_layers
+        out["w8a8_matmul" + sfx] += t5_layers
     out["flash_attention"] = calls  # cross-attention
     attn, _, kw = runner._self_attn_setup()
     if attn == "sparge":
@@ -776,9 +969,10 @@ def _category(name: str) -> str:
     for key, cat in (("flash_fwd_kernel<false, true>", "block_sparse_attention (ours)"),
                      ("flash_fwd_kernel", "flash_attention (ours)"), ("sage_fwd_kernel", "sage attention (ours)"),
                      ("sage_quant_rows", "sage row quantize (ours)"), ("int4_wgmma_kernel", "int4 GEMM (ours)"),
-                     ("gemm_s8_kernel", "int8 GEMM (ours)"),
+                     ("gemm_8bit_kernel<true", "fp8 GEMM (ours)"), ("gemm_8bit_kernel", "int8 GEMM (ours)"),
+                     ("ffn_gemm1_kernel<true", "fp8 FFN GEMM1 (ours)"),
                      ("ffn_gemm1", "ffn GEMM1 (ours)"), ("ffn_w4a8_gemm1", "ffn w4a8 GEMM1 (ours)"),
-                     ("w4a8_gemm_kernel", "w4a8 GEMM (ours)"), ("quant_groups", "int8 quantize (ours)"),
+                     ("w4a8_gemm_kernel", "w4a8 GEMM (ours)"), ("quant_groups", "8-bit quantize (ours)"),
                      ("sort", "sort (torch)"),
                      ("conv", "convolution (cuDNN)"), ("fprop", "convolution (cuDNN)"),
                      ("dgrad", "convolution (cuDNN)"), ("gemm", "matmul (cuBLAS)"), ("sm90", "matmul (cuBLAS)"),
@@ -868,12 +1062,13 @@ def main():
     rows, extra = kernel_phase(peaks_for(card), REPS, want)
     rows2, extra2 = kernel_phase_flagship(peaks_for(card), REPS, want)
     rows3, extra3 = kernel_phase_base(peaks_for(card), REPS, want)
-    rows += rows2 + rows3
-    print(json.dumps({"other_shapes": extra + extra2 + extra3}), flush=True)
+    rows4, extra4 = kernel_phase_fp8(peaks_for(card), REPS, want)
+    rows += rows2 + rows3 + rows4
+    print(json.dumps({"other_shapes": extra + extra2 + extra3 + extra4}), flush=True)
     by_path = {}
     paths = [] if args.kernels_only else args.path or list(PATHS)
     if "slice" in paths:
-        block_reference_check("int8", INT8)
+        block_reference_check("int8", INT8, perturbation=True)
         by_path["slice"] = run_path("slice", {}, args.profile)
     if "flagship" in paths:
         block_reference_check("int4", INT4A8)
@@ -885,6 +1080,13 @@ def main():
         by_path["radial_bsr"] = run_path("radial_bsr", RADIAL_BSR, args.profile)
     if "radial_two_pass" in paths:
         by_path["radial_two_pass"] = run_path("radial_two_pass", RADIAL_TWO_PASS, args.profile)
+    if "fp8_distill" in paths:
+        # bar 6e-2: a flip moves an e4m3 code by up to 1/8 of its value and an
+        # int8 code by 1/127 of its row's max, so the fp8 block amplifies the
+        # same bf16 noise ~3x the int8 block (the block_perturbation lines of
+        # the two checks; PERF.md, PR 6)
+        block_reference_check("fp8", FP8, rtol=6e-2, perturbation=True)
+        by_path["fp8_distill"] = run_path("fp8_distill", FP8_DISTILL, args.profile, config_json=FP8_JSON)
     for r in rows:
         r["launches_by_path"] = {p: c.get(r["name"], 0) for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

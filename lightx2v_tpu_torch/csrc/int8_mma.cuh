@@ -1,7 +1,8 @@
-// Pieces shared by the int8 tensor-core kernels (w8a8_matmul.cu,
-// w4a8_matmul.cu): cp.async and ldmatrix wrappers, the int8
-// mma.sync.m16n8k32 product, tanh-GELU in the TPU kernels' evaluation order,
-// and the dynamic per-(row, group) int8 activation quantization pass.
+// Pieces shared by the 8-bit tensor-core kernels (w8a8_matmul.cu,
+// w4a8_matmul.cu): cp.async and ldmatrix wrappers, the mma.sync.m16n8k32
+// products on int8 (int32 sums) and on e4m3 (fp32 sums), tanh-GELU in the
+// TPU kernels' evaluation order, and the dynamic per-(row, group) activation
+// quantization pass to int8 or e4m3 codes.
 //
 // Each .cu that includes this file gets its own copy (anonymous namespace),
 // so every shared library stays self-contained.
@@ -9,6 +10,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -40,6 +42,26 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The same product on e4m3 operands with fp32 accumulators (sm_89 and
+// later): the operand and accumulator fragments have the s8 layout.
+__device__ __forceinline__ void mma_e4m3(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// one name for both, chosen by the accumulator type
+__device__ __forceinline__ void mma8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  mma_s8(c, a, b0, b1);
+}
+__device__ __forceinline__ void mma8(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  mma_e4m3(c, a, b0, b1);
+}
+__device__ __forceinline__ float acc_to_float(int a) { return __int2float_rn(a); }
+__device__ __forceinline__ float acc_to_float(float a) { return a; }
+
 // tanh-GELU evaluated in the TPU kernel's order:
 // 0.5*y*(1 + tanh(0.7978845608028654*(y + 0.044715*y*y*y)))
 __device__ __forceinline__ float gelu_tanh(float y) {
@@ -54,21 +76,47 @@ __device__ __forceinline__ int8_t quant1(float x, float s) {
   return static_cast<int8_t>(static_cast<int>(r));
 }
 
-// ---------------------------------------------------------------------------
-// per-(row, group) absmax quantization: x bf16 (M, K) -> q int8 (M, K) and
-// scale (M, K / group) fp32, one 128-thread block per (row, group).
-// scale = max(absmax, 1e-8) * (1/127), q = clip(rint(x / scale), +-127) with
-// IEEE division and round-half-even, as the TPU kernels. group == K gives
-// the per-token contract. group % 8 == 0.
+// The two code kinds: scale = max(absmax, 1e-8) * INV_MAX, and a pair of
+// codes (first value in the low byte) from x / scale with IEEE division.
+// int8 rounds half to even and clips at +-127; e4m3 rounds to nearest even
+// and saturates at +-448 (cvt.rn.satfinite, the rounding of torch's cast;
+// x / scale <= 448 up to one fp32 ulp, so saturation never decides a code).
+template <bool FP8>
+struct Codes;
+template <>
+struct Codes<false> {
+  using Acc = int;
+  static constexpr float INV_MAX = 1.0f / 127.0f;
+  __device__ static __forceinline__ uint16_t pair(float a, float b, float s) {
+    return static_cast<uint16_t>(static_cast<uint8_t>(quant1(a, s)) |
+                                 (static_cast<uint16_t>(static_cast<uint8_t>(quant1(b, s))) << 8));
+  }
+};
+template <>
+struct Codes<true> {
+  using Acc = float;
+  static constexpr float INV_MAX = 1.0f / 448.0f;
+  __device__ static __forceinline__ uint16_t pair(float a, float b, float s) {
+    return static_cast<uint16_t>(
+        __nv_cvt_float2_to_fp8x2(make_float2(__fdiv_rn(a, s), __fdiv_rn(b, s)), __NV_SATFINITE, __NV_E4M3));
+  }
+};
 
+// ---------------------------------------------------------------------------
+// per-(row, group) absmax quantization: x bf16 (M, K) -> q (M, K) int8 or
+// e4m3 codes and scale (M, K / group) fp32, one 128-thread block per (row,
+// group), with the codes of Codes<FP8> (the TPU kernels' rounding). group ==
+// K gives the per-token contract. group % 8 == 0.
+
+template <bool FP8>
 __global__ void __launch_bounds__(128) quant_groups_kernel(const __nv_bfloat16* __restrict__ x,
-                                                            int8_t* __restrict__ q, float* __restrict__ scale,
+                                                            uint8_t* __restrict__ q, float* __restrict__ scale,
                                                             int M, int K, int group) {
   const int row = blockIdx.x, grp = blockIdx.y;
   if (row >= M) return;
   const long long off = (long long)row * K + (long long)grp * group;
   const __nv_bfloat16* xr = x + off;
-  int8_t* qr = q + off;
+  uint8_t* qr = q + off;
   const int nchunk = group / 8;
   float amax = 0.f;
   for (int c = threadIdx.x; c < nchunk; c += blockDim.x) {
@@ -86,29 +134,28 @@ __global__ void __launch_bounds__(128) quant_groups_kernel(const __nv_bfloat16* 
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
   __syncthreads();
   amax = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
-  const float s = __fmul_rn(fmaxf(amax, 1e-8f), 1.0f / 127.0f);
+  const float s = __fmul_rn(fmaxf(amax, 1e-8f), Codes<FP8>::INV_MAX);
   for (int c = threadIdx.x; c < nchunk; c += blockDim.x) {
     uint4 u = __ldg(reinterpret_cast<const uint4*>(xr) + c);
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-    char4 lo, hi;
-    float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
-    float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
-    lo.x = quant1(f0.x, s); lo.y = quant1(f0.y, s); lo.z = quant1(f1.x, s); lo.w = quant1(f1.y, s);
-    hi.x = quant1(f2.x, s); hi.y = quant1(f2.y, s); hi.z = quant1(f3.x, s); hi.w = quant1(f3.y, s);
-    uint2 out;
-    out.x = *reinterpret_cast<uint32_t*>(&lo);
-    out.y = *reinterpret_cast<uint32_t*>(&hi);
-    reinterpret_cast<uint2*>(qr)[c] = out;
+    uint32_t p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 f = __bfloat1622float2(h[i]);
+      p[i] = Codes<FP8>::pair(f.x, f.y, s);
+    }
+    reinterpret_cast<uint2*>(qr)[c] = make_uint2(p[0] | (p[1] << 16), p[2] | (p[3] << 16));
   }
   if (threadIdx.x == 0) scale[(long long)row * (K / group) + grp] = s;
 }
 
-inline int launch_quant_groups(const void* x, void* q, void* scale, int M, int K, int group, void* stream) {
+template <bool FP8 = false>
+int launch_quant_groups(const void* x, void* q, void* scale, int M, int K, int group, void* stream) {
   if (M == 0) return 0;
   if (group <= 0 || K % group || group % 8) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(M, K / group);
-  quant_groups_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q), static_cast<float*>(scale), M, K, group);
+  quant_groups_kernel<FP8><<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<uint8_t*>(q), static_cast<float*>(scale), M, K, group);
   return static_cast<int>(cudaGetLastError());
 }
 

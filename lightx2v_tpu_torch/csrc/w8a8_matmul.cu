@@ -1,45 +1,59 @@
-// int8 x int8 GEMMs with dynamic per-token activation quantization for
-// Hopper (sm_90a).
+// 8-bit GEMMs with dynamic per-token activation quantization for Hopper
+// (sm_90a), in two kinds: int8 x int8 with int32 sums, and e4m3 x e4m3
+// (fp8) with fp32 sums.
 //
 // Replaces: lightx2v_tpu/ops/pallas/w8a8_matmul.py:w8a8_matmul_fullk
 //           (_w8a8_fullk_kernel), :w8a8_matmul (_w8a8_kernel, the k-blocked
 //           form with per-(token, k-block) activation scales) and :ffn_w8a8
-//           (_ffn_w8a8_kernel), int8 kind.
+//           (_ffn_w8a8_kernel), both kinds (the Pallas kernels' ``kind``
+//           argument, "int8" or "fp8").
 //
-// What bounds it on this card: operations. The 14B q/k/v/o projection
-// (M=32,760, N=K=5120) is 1.7e12 int8 ops against 0.7 GB, and the FFN
-// (K=5120, H=13,824) 9.3e12 ops against ~1.7 GB with the int8 hidden round
-// trip; both sit far above the H100's ridge of ~590 int8 ops per byte. The
-// cross-attention k/v projections (M=512) are weight-read bound.
+// What bounds it on this card: operations, for both kinds (1979 TOP/s int8
+// and 1979 TFLOP/s dense fp8, the same bytes). The 14B q/k/v/o projection
+// (M=32,760, N=K=5120) is 1.7e12 ops against 0.7 GB, and the FFN
+// (K=5120, H=13,824) 9.3e12 ops against ~1.7 GB with the 8-bit hidden round
+// trip; both sit far above the H100's ridge of ~590 ops per byte. The
+// cross-attention k/v projections (M=512) and the UMT5-XXL linears (M=512)
+// are near the ridge.
 //
-// What the design does about it: products run on the int8 tensor cores with
-// mma.sync.m16n8k32.s8.s8.s32; operand tiles stream through a 3-stage
-// cp.async ring in shared memory (rows padded to 80 bytes so ldmatrix is
-// conflict-free). The TPU kernel quantizes x inside the GEMM once per
-// s-block; here that is a separate pass (quant_groups_kernel in
-// int8_mma.cuh) that writes int8 codes and one fp32 scale per row, so the
-// GEMM reads x once as int8. The k-blocked form is the same pass with one
-// scale per (row, 1024-wide k-block) feeding the grouped GEMM below, whose
-// fp32 accumulator adds float(int32 partial) * xs[row, kb] block by block in
-// k order, then applies *ws + b: the TPU kernel's order. The UMT5-XXL fc2
-// (M=512, K=10,240, N=4096) takes it: 43 GOP against 42 MB, bound by
-// operations at ~0.022 ms.
-// Rounding follows the TPU kernel: scale = max(absmax, 1e-8) * (1/127),
-// q = clip(rint(x / scale), +-127) with IEEE division and round-half-even.
-// The epilogue is fp32, in the TPU order acc*xs*ws + b, then the optional
-// tanh-GELU, stored as bf16.
+// What the design does about it: products run on the tensor cores with
+// mma.sync.m16n8k32 (.s8.s8.s32, or .f32.e4m3.e4m3.f32, whose operand and
+// accumulator fragments have the same layout); operand tiles stream through
+// a 3-stage cp.async ring in shared memory (rows padded to 80 bytes so
+// ldmatrix is conflict-free). Every kernel is a template on the kind
+// (Codes<FP8> in int8_mma.cuh), so both kinds share one schedule. The TPU
+// kernel quantizes x inside the GEMM once per s-block; here that is a
+// separate pass (quant_groups_kernel in int8_mma.cuh) that writes 8-bit codes
+// and one fp32 scale per row, so the GEMM reads x once at one byte a value.
+// The k-blocked form is the same pass with one scale per (row, 1024-wide
+// k-block) feeding the grouped GEMM below, whose fp32 accumulator adds
+// float(partial) * xs[row, kb] block by block in k order, then applies
+// *ws + b: the TPU kernel's order. The UMT5-XXL fc2 (M=512, K=10,240,
+// N=4096) takes it: 43 GOP against 42 MB, bound by operations at ~0.022 ms.
+// Rounding follows the TPU kernel: scale = max(absmax, 1e-8) * (1/127) or
+// * (1/448); int8 codes are clip(rint(x / scale), +-127), e4m3 codes are
+// x / scale rounded to nearest even (cvt.rn.satfinite), both with IEEE
+// division. The epilogue is fp32, in the TPU order acc*xs*ws + b, then the
+// optional tanh-GELU, stored as bf16.
+//
+// Accumulation: an int32 partial is exact. An e4m3 partial is summed by the
+// tensor cores in fp32 registers; the host may ask the grouped GEMM to fold
+// the partial into the fp32 sum every `fold` values of K (a partial then
+// starts from zero), which bounds what the tensor cores' own accumulation
+// can lose over a long K (the full-K form sums K = 5120 otherwise in one
+// accumulator). ops/cuda/w8a8_matmul.py picks the interval.
 //
 // The fused FFN cannot keep the TPU's (512, 5120) fp32 accumulator (100 MB
 // VMEM there, 227 KB of shared memory here), so it is two GEMMs around an
-// int8 hidden: ffn_gemm1_kernel's CTA N-tile is exactly one bh-wide hidden
+// 8-bit hidden: ffn_gemm1_kernel's CTA N-tile is exactly one bh-wide hidden
 // group (bh = 512 at H = 13,824), so its epilogue can apply *xs*ws0 + b0,
 // tanh-GELU in fp32, the per-(token, bh) absmax and the requantization,
-// writing int8 h and fp32 hs (S, H/bh). The second GEMM (gemm_s8_kernel with
-// groups) rescales each bh-group's int32 partial by hs[row, g] into an fp32
-// accumulator, then applies *ws2 + b2. h never exists in fp32 or bf16 in
-// device memory; the int8 round trip costs ~0.9 GB (~0.27 ms at 3.35 TB/s)
-// against a 4.69 ms operation bound. Not yet used: wgmma, TMA, warp
-// specialisation, persistence (later work).
+// writing 8-bit h and fp32 hs (S, H/bh). The second GEMM (the grouped GEMM)
+// rescales each bh-group's partial by hs[row, g] into an fp32 accumulator,
+// then applies *ws2 + b2. h never exists in fp32 or bf16 in device memory;
+// the 8-bit round trip costs ~0.9 GB (~0.27 ms at 3.35 TB/s) against a
+// 4.69 ms operation bound. Not yet used: wgmma, TMA, warp specialisation,
+// persistence (later work).
 
 #include "int8_mma.cuh"
 
@@ -51,12 +65,12 @@ constexpr int LDSB = BK + 16;   // padded smem row (80 bytes)
 constexpr int STAGES = 3;
 
 // ---------------------------------------------------------------------------
-// shared GEMM main loop pieces. A (M, K) and B (N, K) are row-major int8;
+// shared GEMM main loop pieces. A (M, K) and B (N, K) are row-major 8-bit codes;
 // the CTA owns rows [m0, m0+BM) of A and [n0, n0+BN) of B.
 
 template <int BM, int BN>
-__device__ __forceinline__ void load_stage(int8_t* sA, int8_t* sB, const int8_t* __restrict__ A,
-                                           const int8_t* __restrict__ B, int M, int N, int K, int m0, int n0,
+__device__ __forceinline__ void load_stage(uint8_t* sA, uint8_t* sB, const uint8_t* __restrict__ A,
+                                           const uint8_t* __restrict__ B, int M, int N, int K, int m0, int n0,
                                            int k0, int tid) {
 #pragma unroll
   for (int i = 0; i < (BM * 4 + NTHREADS - 1) / NTHREADS; ++i) {
@@ -81,9 +95,9 @@ __device__ __forceinline__ void load_stage(int8_t* sA, int8_t* sB, const int8_t*
 }
 
 // one BK-deep stage: warp tile (MT*16) x (NT*8) at (wr0, wc0) in the CTA tile
-template <int MT, int NT>
-__device__ __forceinline__ void mma_stage(const int8_t* sA, const int8_t* sB, int wr0, int wc0, int lane,
-                                          int (&acc)[MT][NT][4]) {
+template <int MT, int NT, typename Acc>
+__device__ __forceinline__ void mma_stage(const uint8_t* sA, const uint8_t* sB, int wr0, int wc0, int lane,
+                                          Acc (&acc)[MT][NT][4]) {
 #pragma unroll
   for (int ks = 0; ks < BK / 32; ++ks) {
     uint32_t af[MT][4];
@@ -97,29 +111,34 @@ __device__ __forceinline__ void mma_stage(const int8_t* sA, const int8_t* sB, in
       ldmatrix_x4(bfr, sB + (wc0 + np * 16 + (lane & 7) + (lane >> 4) * 8) * LDSB + ks * 32 + ((lane >> 3) & 1) * 16);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        mma_s8(acc[mt][2 * np], af[mt], bfr[0], bfr[1]);
-        mma_s8(acc[mt][2 * np + 1], af[mt], bfr[2], bfr[3]);
+        mma8(acc[mt][2 * np], af[mt], bfr[0], bfr[1]);
+        mma8(acc[mt][2 * np + 1], af[mt], bfr[2], bfr[3]);
       }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// out (M, N) bf16 = act( (sum_g float(int32 partial_g) * a_scale[m, g]) * ws[n] + bias[n] )
-// group_tiles BK-tiles per group; G = 1 gives the plain per-token contract.
+// out (M, N) bf16 = act( (sum_g float(partial_g) * a_scale[m, g]) * ws[n] + bias[n] )
+// group_tiles BK-tiles per scale group; G = 1 gives the plain per-token
+// contract. The partial is folded into the fp32 sum every fold_tiles tiles
+// (a divisor of group_tiles; equal to it for int8, whose partial is exact).
 
 constexpr int G_BM = 128, G_BN = 128, G_WM = 2, G_WN = 4;
 constexpr int G_MT = G_BM / G_WM / 16;  // 4
 constexpr int G_NT = G_BN / G_WN / 8;   // 4
 constexpr int G_SMEM = STAGES * (G_BM + G_BN) * LDSB;
 
-template <bool GELU>
-__global__ void __launch_bounds__(NTHREADS) gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
-                                                           const float* __restrict__ a_scale, int G, int group_tiles,
-                                                           const float* __restrict__ ws,
-                                                           const float* __restrict__ bias,
-                                                           __nv_bfloat16* __restrict__ out, int M, int N, int K) {
-  extern __shared__ __align__(16) int8_t smem[];
+template <bool FP8, bool GELU>
+__global__ void __launch_bounds__(NTHREADS) gemm_8bit_kernel(const uint8_t* __restrict__ A,
+                                                             const uint8_t* __restrict__ B,
+                                                             const float* __restrict__ a_scale, int G,
+                                                             int group_tiles, int fold_tiles,
+                                                             const float* __restrict__ ws,
+                                                             const float* __restrict__ bias,
+                                                             __nv_bfloat16* __restrict__ out, int M, int N, int K) {
+  using Acc = typename Codes<FP8>::Acc;
+  extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / G_WN, wn = warp % G_WN;
   const int n0 = blockIdx.x * G_BN, m0 = blockIdx.y * G_BM;
@@ -127,7 +146,7 @@ __global__ void __launch_bounds__(NTHREADS) gemm_s8_kernel(const int8_t* __restr
   const int g = lane >> 2, tq = lane & 3;
   const int KT = (K + BK - 1) / BK;
 
-  int acc[G_MT][G_NT][4];
+  Acc acc[G_MT][G_NT][4];
   float facc[G_MT][G_NT][4];
 #pragma unroll
   for (int a = 0; a < G_MT; ++a)
@@ -151,7 +170,7 @@ __global__ void __launch_bounds__(NTHREADS) gemm_s8_kernel(const int8_t* __restr
     if (nk < KT) load_stage<G_BM, G_BN>(sA(nk % STAGES), sB(nk % STAGES), A, B, M, N, K, m0, n0, nk * BK, tid);
     cp_async_commit();
     mma_stage<G_MT, G_NT>(sA(kt % STAGES), sB(kt % STAGES), wr0, wc0, lane, acc);
-    if ((kt + 1) % group_tiles == 0 || kt + 1 == KT) {
+    if ((kt + 1) % fold_tiles == 0 || kt + 1 == KT) {
       const int grp = kt / group_tiles;
 #pragma unroll
       for (int mt = 0; mt < G_MT; ++mt) {
@@ -164,7 +183,7 @@ __global__ void __launch_bounds__(NTHREADS) gemm_s8_kernel(const int8_t* __restr
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               facc[mt][nt][h * 2 + e] =
-                  __fadd_rn(facc[mt][nt][h * 2 + e], __fmul_rn(__int2float_rn(acc[mt][nt][h * 2 + e]), sc));
+                  __fadd_rn(facc[mt][nt][h * 2 + e], __fmul_rn(acc_to_float(acc[mt][nt][h * 2 + e]), sc));
               acc[mt][nt][h * 2 + e] = 0;
             }
           }
@@ -200,7 +219,7 @@ __global__ void __launch_bounds__(NTHREADS) gemm_s8_kernel(const int8_t* __restr
 }
 
 // ---------------------------------------------------------------------------
-// FFN first GEMM: hq (M, H) int8 and hs (M, H/bh) from
+// FFN first GEMM: hq (M, H) 8-bit codes and hs (M, H/bh) from
 // gelu(float(xq . w0) * xs * ws0 + b0), requantized per (row, bh group).
 // The CTA tile is 64 rows x one bh group (8 warps side by side, NT*8 columns
 // each), so the group absmax never leaves the CTA.
@@ -211,15 +230,17 @@ struct Gemm1Cfg {
   static constexpr int SMEM = STAGES * (BM + BN) * LDSB;
 };
 
-template <int NT>
-__global__ void __launch_bounds__(NTHREADS, 1) ffn_gemm1_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
+template <bool FP8, int NT>
+__global__ void __launch_bounds__(NTHREADS, 1) ffn_gemm1_kernel(const uint8_t* __restrict__ A,
+                                                                const uint8_t* __restrict__ B,
                                                                 const float* __restrict__ xs,
                                                                 const float* __restrict__ ws0,
                                                                 const float* __restrict__ b0,
-                                                                int8_t* __restrict__ hq, float* __restrict__ hs,
+                                                                uint8_t* __restrict__ hq, float* __restrict__ hs,
                                                                 int M, int H, int K) {
   using C = Gemm1Cfg<NT>;
-  extern __shared__ __align__(16) int8_t smem[];
+  using Acc = typename Codes<FP8>::Acc;
+  extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float red[8][C::BM];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n0 = blockIdx.x * C::BN, m0 = blockIdx.y * C::BM;
@@ -228,7 +249,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) ffn_gemm1_kernel(const int8_t* __
   const int KT = (K + BK - 1) / BK;
   const int n_groups = H / C::BN;
 
-  int acc[C::MT][NT][4];
+  Acc acc[C::MT][NT][4];
 #pragma unroll
   for (int a = 0; a < C::MT; ++a)
 #pragma unroll
@@ -269,7 +290,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) ffn_gemm1_kernel(const int8_t* __
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           int c = n0 + wc0 + nt * 8 + 2 * tq + e;
-          float y = __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][h * 2 + e]), sx), __ldg(ws0 + c));
+          float y = __fmul_rn(__fmul_rn(acc_to_float(acc[mt][nt][h * 2 + e]), sx), __ldg(ws0 + c));
           y = gelu_tanh(__fadd_rn(y, __ldg(b0 + c)));
           hf[mt][nt][h * 2 + e] = y;
           amax[mt][h] = fmaxf(amax[mt][h], fabsf(y));
@@ -298,76 +319,93 @@ __global__ void __launch_bounds__(NTHREADS, 1) ffn_gemm1_kernel(const int8_t* __
       float a = red[0][lr];
 #pragma unroll
       for (int w = 1; w < 8; ++w) a = fmaxf(a, red[w][lr]);
-      const float s = __fmul_rn(fmaxf(a, 1e-8f), 1.0f / 127.0f);
+      const float s = __fmul_rn(fmaxf(a, 1e-8f), Codes<FP8>::INV_MAX);
       if (r >= M) continue;
       if (warp == 0 && tq == 0) hs[(long long)r * n_groups + blockIdx.x] = s;
-      int8_t* hrow = hq + (long long)r * H;
+      uint8_t* hrow = hq + (long long)r * H;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         int c = n0 + wc0 + nt * 8 + 2 * tq;
-        char2 pair;
-        pair.x = quant1(hf[mt][nt][h * 2], s);
-        pair.y = quant1(hf[mt][nt][h * 2 + 1], s);
-        *reinterpret_cast<char2*>(hrow + c) = pair;
+        *reinterpret_cast<uint16_t*>(hrow + c) = Codes<FP8>::pair(hf[mt][nt][h * 2], hf[mt][nt][h * 2 + 1], s);
       }
     }
   }
 }
 
-template <int NT>
+template <bool FP8, int NT>
 int launch_gemm1(const void* xq, const void* w0, const void* xs, const void* ws0, const void* b0, void* hq,
                  void* hs, int M, int H, int K, cudaStream_t stream) {
   using C = Gemm1Cfg<NT>;
-  auto kern = ffn_gemm1_kernel<NT>;
+  auto kern = ffn_gemm1_kernel<FP8, NT>;
   cudaError_t err = set_smem(kern, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(H / C::BN, (M + C::BM - 1) / C::BM);
   kern<<<grid, NTHREADS, C::SMEM, stream>>>(
-      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w0), static_cast<const float*>(xs),
-      static_cast<const float*>(ws0), static_cast<const float*>(b0), static_cast<int8_t*>(hq),
+      static_cast<const uint8_t*>(xq), static_cast<const uint8_t*>(w0), static_cast<const float*>(xs),
+      static_cast<const float*>(ws0), static_cast<const float*>(b0), static_cast<uint8_t*>(hq),
       static_cast<float*>(hs), M, H, K);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int w8a8_quant_groups(const void* x, void* q, void* scale, int M, int K, int group, void* stream) {
-  return launch_quant_groups(x, q, scale, M, K, group, stream);
+template <bool FP8>
+int launch_gemm1_bh(const void* xq, const void* w0, const void* xs, const void* ws0, const void* b0, void* hq,
+                    void* hs, int M, int H, int K, int bh, cudaStream_t s) {
+  switch (bh) {
+    case 512: return launch_gemm1<FP8, 8>(xq, w0, xs, ws0, b0, hq, hs, M, H, K, s);
+    case 256: return launch_gemm1<FP8, 4>(xq, w0, xs, ws0, b0, hq, hs, M, H, K, s);
+    case 128: return launch_gemm1<FP8, 2>(xq, w0, xs, ws0, b0, hq, hs, M, H, K, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-extern "C" int w8a8_gemm(const void* a, const void* b, const void* a_scale, int G, int group, const void* ws,
-                         const void* bias, void* out, int M, int N, int K, int gelu, void* stream) {
-  if (M == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int group_tiles = (G == 1) ? (K + BK - 1) / BK : group / BK;
+template <bool FP8, bool GELU>
+int launch_gemm(const void* a, const void* b, const void* a_scale, int G, int group_tiles, int fold_tiles,
+                const void* ws, const void* bias, void* out, int M, int N, int K, cudaStream_t s) {
+  auto kern = gemm_8bit_kernel<FP8, GELU>;
+  cudaError_t err = set_smem(kern, G_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((N + G_BN - 1) / G_BN, (M + G_BM - 1) / G_BM);
-  cudaError_t err;
-  if (gelu) {
-    err = set_smem(gemm_s8_kernel<true>, G_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    gemm_s8_kernel<true><<<grid, NTHREADS, G_SMEM, s>>>(
-        static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), static_cast<const float*>(a_scale), G,
-        group_tiles, static_cast<const float*>(ws), static_cast<const float*>(bias),
-        static_cast<__nv_bfloat16*>(out), M, N, K);
-  } else {
-    err = set_smem(gemm_s8_kernel<false>, G_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    gemm_s8_kernel<false><<<grid, NTHREADS, G_SMEM, s>>>(
-        static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), static_cast<const float*>(a_scale), G,
-        group_tiles, static_cast<const float*>(ws), static_cast<const float*>(bias),
-        static_cast<__nv_bfloat16*>(out), M, N, K);
-  }
+  kern<<<grid, NTHREADS, G_SMEM, s>>>(static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b),
+                                      static_cast<const float*>(a_scale), G, group_tiles, fold_tiles,
+                                      static_cast<const float*>(ws), static_cast<const float*>(bias),
+                                      static_cast<__nv_bfloat16*>(out), M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
+int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
+
+}  // namespace
+
+// kind: 0 = int8, 1 = e4m3. Codes are one byte a value either way.
+extern "C" int w8a8_quant_groups(const void* x, void* q, void* scale, int M, int K, int group, int kind,
+                                 void* stream) {
+  return kind ? launch_quant_groups<true>(x, q, scale, M, K, group, stream)
+              : launch_quant_groups<false>(x, q, scale, M, K, group, stream);
+}
+
+// G scale groups of `group` values along K (G = 1: one scale per row over
+// all of K). fold (e4m3 only; 0 = never): fold the tensor-core partial into
+// the fp32 sum every `fold` values of K, a multiple of BK = 64.
+extern "C" int w8a8_gemm(const void* a, const void* b, const void* a_scale, int G, int group, const void* ws,
+                         const void* bias, void* out, int M, int N, int K, int gelu, int kind, int fold,
+                         void* stream) {
+  if (M == 0) return 0;
+  if (fold % BK || fold < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int group_tiles = (G == 1) ? (K + BK - 1) / BK : group / BK;
+  const int fold_tiles = (kind && fold) ? gcd(group_tiles, fold / BK) : group_tiles;
+  if (kind) {
+    return gelu ? launch_gemm<true, true>(a, b, a_scale, G, group_tiles, fold_tiles, ws, bias, out, M, N, K, s)
+                : launch_gemm<true, false>(a, b, a_scale, G, group_tiles, fold_tiles, ws, bias, out, M, N, K, s);
+  }
+  return gelu ? launch_gemm<false, true>(a, b, a_scale, G, group_tiles, fold_tiles, ws, bias, out, M, N, K, s)
+              : launch_gemm<false, false>(a, b, a_scale, G, group_tiles, fold_tiles, ws, bias, out, M, N, K, s);
+}
+
 extern "C" int ffn_w8a8_gemm1(const void* xq, const void* w0, const void* xs, const void* ws0, const void* b0,
-                              void* hq, void* hs, int M, int H, int K, int bh, void* stream) {
+                              void* hq, void* hs, int M, int H, int K, int bh, int kind, void* stream) {
   if (M == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bh) {
-    case 512: return launch_gemm1<8>(xq, w0, xs, ws0, b0, hq, hs, M, H, K, s);
-    case 256: return launch_gemm1<4>(xq, w0, xs, ws0, b0, hq, hs, M, H, K, s);
-    case 128: return launch_gemm1<2>(xq, w0, xs, ws0, b0, hq, hs, M, H, K, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return kind ? launch_gemm1_bh<true>(xq, w0, xs, ws0, b0, hq, hs, M, H, K, bh, s)
+              : launch_gemm1_bh<false>(xq, w0, xs, ws0, b0, hq, hs, M, H, K, bh, s);
 }

@@ -2,9 +2,9 @@
 ``lightx2v_tpu.encoders.t5``): pre-norm blocks with T5 RMS norm, unscaled
 attention plus a per-layer bidirectional relative-position bias, gated-GELU
 FFN, final norm; rows past each prompt's length are zeroed. Linears are
-bf16 with fp32 accumulation, or int8 codes with per-channel scales
-(``{"w", "w_scale"}``, the quantized encoder) through the int8 matmul path;
-attention is plain einsum/softmax in fp32."""
+bf16 GEMMs with fp32 accumulation, or int8 or e4m3 codes with per-channel
+scales (``{"w", "w_scale"}``, the quantized encoder) through the int8 or
+fp8 matmul path; attention is plain einsum/softmax in fp32."""
 
 from __future__ import annotations
 
@@ -16,8 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from ..models.wan.weights import to_tensor
-from ..ops.linear import resolve_mm
-from ..tools.convert import quantize_tensor
+from ..ops.linear import nt_dot_f32, resolve_mm
+from ..tools.convert import fp8_bits_to_tensor, quantize_tensor
 
 Params = Dict[str, Any]
 
@@ -60,17 +60,21 @@ def t5_norm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return (w.float() * out).to(x.dtype)
 
 
-INT8_MM = "W-int8-channel-sym-A-int8-channel-sym-dynamic-Tpu"
+def _quant_mm(kind: str) -> str:
+    return f"W-{kind}-channel-sym-A-{kind}-channel-sym-dynamic-Tpu"
 
 
 def _lin(w, x: torch.Tensor) -> torch.Tensor:
-    """(out, in) bias-free linear, fp32 accumulation, cast to x's dtype; an
-    int8 ``{"w", "w_scale"}`` dict goes through the int8 matmul path (per
-    token quantized activations: the full-K kernel, or the k-blocked one for
-    K > 8192, at UMT5-XXL widths)."""
+    """(out, in) bias-free linear, fp32 accumulation (``nt_dot_f32``: bf16
+    operands on the card's tensor cores), rounded once to x's dtype; an int8
+    or e4m3 ``{"w", "w_scale"}`` dict
+    goes through that kind's matmul path, chosen by the weight's dtype as in
+    the JAX package (per-token quantized activations: the full-K kernel, or
+    the k-blocked one for K > 8192, at UMT5-XXL widths)."""
     if isinstance(w, dict):
-        return resolve_mm(INT8_MM)({"w": w["w"], "w_scale": w["w_scale"], "b": None}, x)
-    return torch.matmul(x.float(), w.float().t()).to(x.dtype)
+        kind = "int8" if w["w"].dtype == torch.int8 else "fp8"
+        return resolve_mm(_quant_mm(kind))({"w": w["w"], "w_scale": w["w_scale"], "b": None}, x)
+    return nt_dot_f32(x, w).to(x.dtype)
 
 
 def t5_block(block: Params, x: torch.Tensor, bias_mask: torch.Tensor, bucket_ids: torch.Tensor,
@@ -174,8 +178,10 @@ def init_random_t5_params_on_device(cfg: T5Config = UMT5_XXL, seed: int = 0, sca
     """T5 params synthesized directly on ``device`` from a seeded
     ``torch.Generator`` (the UMT5-XXL host state dict is ~23 GB fp32).
     scheme "int8" makes the seven block linears ``{"w", "w_scale"}`` dicts:
-    int8 codes in -127..127 with per-channel scales scale/127."""
-    if scheme not in ("bf16", "int8"):
+    int8 codes in -127..127 with per-channel scales scale/127; "fp8" e4m3
+    codes of normal * 100 clipped to +-448 with scales scale/100 (the JAX
+    synthesizer's layout and clip)."""
+    if scheme not in ("bf16", "int8", "fp8"):
         raise NotImplementedError(f"synthetic T5 scheme {scheme!r} is not ported yet")
     dev = torch.device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -187,6 +193,10 @@ def init_random_t5_params_on_device(cfg: T5Config = UMT5_XXL, seed: int = 0, sca
     def lin(out, kin):
         if scheme == "bf16":
             return nrm((out, kin))
+        if scheme == "fp8":
+            w = torch.randn((out, kin), generator=g, device=dev, dtype=torch.float32).mul_(100.0)
+            return {"w": w.clamp_(-448.0, 448.0).to(torch.float8_e4m3fn),
+                    "w_scale": torch.full((out,), scale / 100.0, dtype=torch.float32, device=dev)}
         return {"w": torch.randint(-127, 128, (out, kin), generator=g, device=dev, dtype=torch.int8),
                 "w_scale": torch.full((out,), scale / 127.0, dtype=torch.float32, device=dev)}
 
@@ -201,9 +211,10 @@ def init_random_t5_params_on_device(cfg: T5Config = UMT5_XXL, seed: int = 0, sca
 
 
 def quantize_t5_params(params: Params, scheme: str = "int8") -> Params:
-    """Quantize the seven block linears per output channel (the JAX
-    package's ``quantize_t5_params``): each becomes ``{"w", "w_scale"}``."""
-    if scheme != "int8":
+    """Quantize the seven block linears per output channel to int8 or e4m3
+    codes (the JAX package's ``quantize_t5_params``): each becomes
+    ``{"w", "w_scale"}``."""
+    if scheme not in ("int8", "fp8"):
         raise NotImplementedError(f"T5 quant scheme {scheme!r} is not ported yet (ROADMAP.md, Queue 1 item 12)")
     blocks = []
     for blk in params["blocks"]:
@@ -211,7 +222,8 @@ def quantize_t5_params(params: Params, scheme: str = "int8") -> Params:
         for name in T5_LINEARS:
             w = blk[name]
             q, s = quantize_tensor(w.float().cpu().numpy(), scheme)
-            blk[name] = {"w": torch.from_numpy(q).to(w.device), "w_scale": torch.from_numpy(s).to(w.device)}
+            q = fp8_bits_to_tensor(q) if scheme == "fp8" else torch.from_numpy(q)
+            blk[name] = {"w": q.to(w.device), "w_scale": torch.from_numpy(s).to(w.device)}
         blocks.append(blk)
     return dict(params, blocks=blocks)
 

@@ -2,9 +2,9 @@
 ``lightx2v_tpu.models.wan.weights``).
 
 A checkpoint is a flat ``name -> array`` dict with the reference's keys
-(numpy arrays of any float dtype, int8 or nibble-packed uint8 (int4)
-weights plus ``.weight_scale`` as ``tools/convert.quantize_model`` writes
-them, or torch tensors). The params
+(numpy arrays of any float dtype, int8, float8_e4m3fn or nibble-packed
+uint8 (int4) weights plus ``.weight_scale`` as ``tools/convert.quantize_model``
+writes them, or torch tensors). The params
 are a dict of tensors with ``params["blocks"]`` a list of per-block dicts
 (the forward loops over it). Linear weights keep the (out, in) layout;
 norm scales and modulation tables stay fp32.
@@ -23,16 +23,27 @@ from .config import WanArch
 Params = Dict[str, Any]
 
 
+def _is_fp8_array(arr: np.ndarray) -> bool:
+    """An ``ml_dtypes`` float8_e4m3fn array (as the JAX package's
+    ``quantize_model(wd, "fp8")`` writes), recognised by name: the port does
+    not import ``ml_dtypes``."""
+    return arr.dtype.name == "float8_e4m3fn"
+
+
 def to_tensor(a, dtype: Optional[torch.dtype], device) -> torch.Tensor:
     """numpy (incl. bf16-typed arrays) or torch -> tensor on ``device``.
-    Integer arrays keep their dtype when ``dtype`` is None."""
+    Integer and float8_e4m3fn arrays keep their dtype when ``dtype`` is None
+    (an e4m3 array crosses as its bytes, viewed as torch.float8_e4m3fn)."""
     if isinstance(a, torch.Tensor):
         t = a
     else:
         arr = np.asarray(a)
-        if arr.dtype.kind not in "iubf":  # e.g. bfloat16-typed numpy arrays
-            arr = arr.astype(np.float32)
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if _is_fp8_array(arr):
+            t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint8)).view(torch.float8_e4m3fn)
+        else:
+            if arr.dtype.kind not in "iubf":  # e.g. bfloat16-typed numpy arrays
+                arr = arr.astype(np.float32)
+            t = torch.from_numpy(np.ascontiguousarray(arr))
     return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device=device)
 
 
@@ -41,13 +52,17 @@ def _is_packed_int4(w) -> bool:
 
 
 def _is_quantized(w) -> bool:
-    return (w.dtype == torch.int8) if isinstance(w, torch.Tensor) else (np.asarray(w).dtype == np.int8)
+    """int8 or e4m3 codes (per-channel scales beside them)."""
+    if isinstance(w, torch.Tensor):
+        return w.dtype in (torch.int8, torch.float8_e4m3fn)
+    arr = np.asarray(w)
+    return arr.dtype == np.int8 or _is_fp8_array(arr)
 
 
 def _linear(wd: Dict[str, Any], prefix: str, compute_dtype=torch.bfloat16, device="cpu") -> Params:
     """torch Linear -> {"w": (out, in), "b": (out,) fp32 or None} plus
-    "w_scale": (out,) fp32 for int8 weights, (out, groups) fp32 for int4
-    weights packed (out, in/2) uint8."""
+    "w_scale": (out,) fp32 for int8 or float8_e4m3fn weights, (out, groups)
+    fp32 for int4 weights packed (out, in/2) uint8."""
     w = wd[f"{prefix}.weight"]
     scale_key = f"{prefix}.weight_scale"
     out: Params = {}
@@ -138,7 +153,10 @@ def permute_qk_half(params: Params, arch: WanArch) -> Params:
         sa = dict(blk["self_attn"])
         for name in ("q", "k"):
             lin = dict(sa[name])
-            lin["w"] = lin["w"][perm].contiguous()
+            w = lin["w"]
+            # e4m3 rows move as their bytes (a gather needs no float8 kernel)
+            lin["w"] = (w.view(torch.uint8)[perm].view(w.dtype) if w.dtype == torch.float8_e4m3fn
+                        else w[perm]).contiguous()
             if lin.get("b") is not None:
                 lin["b"] = lin["b"][perm].contiguous()
             if "w_scale" in lin:
@@ -204,12 +222,15 @@ def init_random_params_on_device(arch: WanArch, scheme: str = "int8", seed: int 
                                  scale: float = 0.02, device="cuda") -> Params:
     """Synthesize the params directly on ``device`` from a seeded
     ``torch.Generator`` (host numpy at 14B would be a 56 GB fp32 array).
-    Layout as ``load_wan_params`` (+ ``quantize_model`` for "int8"/"int4"):
-    block linears carry int8 codes plus per-channel ``w_scale`` (scale/127,
-    so weights span +-scale), or int4 nibbles packed (out, in/2) as uint8
-    bytes in 0..255 plus per-(channel, group) ``w_scale`` (scale/7, group
-    from ``_pick_bk``); pre/post weights stay bf16/fp32."""
-    if scheme not in ("int8", "int4", "bf16"):
+    Layout as ``load_wan_params`` (+ ``quantize_model`` for
+    "int8"/"fp8"/"int4"): block linears carry int8 codes plus per-channel
+    ``w_scale`` (scale/127, so weights span +-scale), e4m3 codes of
+    normal * 100 clipped to +-448 plus ``w_scale`` scale/100 (the JAX
+    synthesizer's layout; it does not clip, and its cast turns the tail past
+    464 into NaN), or int4 nibbles packed (out, in/2) as uint8 bytes in
+    0..255 plus per-(channel, group) ``w_scale`` (scale/7, group from
+    ``_pick_bk``); pre/post weights stay bf16/fp32."""
+    if scheme not in ("int8", "fp8", "int4", "bf16"):
         raise NotImplementedError(f"synthetic scheme {scheme!r} is not ported yet")
     dev = torch.device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -228,6 +249,11 @@ def init_random_params_on_device(arch: WanArch, scheme: str = "int8", seed: int 
             groups = kin // _pick_bk(kin)
             return {"w": torch.randint(0, 256, (out, kin // 2), generator=g, device=dev, dtype=torch.uint8),
                     "w_scale": torch.full((out, groups), scale / 7.0, dtype=torch.float32, device=dev),
+                    "b": nrm((out,), torch.float32)}
+        if scheme == "fp8":
+            w = torch.randn((out, kin), generator=g, device=dev, dtype=torch.float32).mul_(100.0)
+            return {"w": w.clamp_(-448.0, 448.0).to(torch.float8_e4m3fn),
+                    "w_scale": torch.full((out,), scale / 100.0, dtype=torch.float32, device=dev),
                     "b": nrm((out,), torch.float32)}
         return {"w": torch.randint(-127, 128, (out, kin), generator=g, device=dev, dtype=torch.int8),
                 "w_scale": torch.full((out,), scale / 127.0, dtype=torch.float32, device=dev),

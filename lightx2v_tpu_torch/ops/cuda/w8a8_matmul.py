@@ -1,13 +1,20 @@
-"""int8 GEMMs with dynamic per-token activation quantization: CUDA kernel
-wrappers and their plain PyTorch versions.
+"""8-bit GEMMs with dynamic per-token activation quantization, int8 or fp8
+(e4m3): CUDA kernel wrappers and their plain PyTorch versions.
 
 Port of ``lightx2v_tpu/ops/pallas/w8a8_matmul.py``: ``w8a8_matmul_fullk``,
-the k-blocked ``w8a8_matmul`` and ``ffn_w8a8`` (int8 kind; kernel source
-``csrc/w8a8_matmul.cu``). On a
-CUDA tensor a wrapper launches its kernels or raises; on a CPU tensor it runs
-the plain version, which repeats the kernel's arithmetic with an exact
-integer dot (int8 products summed in float64, exact far past any K here,
-then rounded to fp32 as the kernel's int32 -> fp32 conversion does).
+the k-blocked ``w8a8_matmul`` and ``ffn_w8a8``, each with the Pallas
+kernels' ``kind`` argument, ``"int8"`` (the default) or ``"fp8"`` (kernel
+source ``csrc/w8a8_matmul.cu``). On a CUDA tensor a wrapper launches its
+kernels or raises; on a CPU tensor it runs the plain version, which repeats
+the kernel's arithmetic with an exact dot of the codes, rounded once to fp32.
+
+The activation scale is max(absmax, 1e-8) * (1/127) for int8 codes
+(clip(round(x / s), +-127)) and * (1/448) for e4m3 codes ((x / s) cast to
+``torch.float8_e4m3fn``, round to nearest even). Both kinds are bound by
+operations on the H100 at the main-path shapes (1979 TOP/s int8, 1979
+TFLOP/s dense fp8; ``csrc/w8a8_matmul.cu`` says why). Each kind counts its
+launches under its own key (``w8a8_matmul_fullk`` / ``..._fp8``), so a run
+shows which kind it went through.
 """
 
 from __future__ import annotations
@@ -19,7 +26,21 @@ import torch
 
 from . import _build
 
-LAUNCHES = {"w8a8_matmul_fullk": 0, "w8a8_matmul": 0, "ffn_w8a8": 0}
+KINDS = ("int8", "fp8")
+LAUNCHES = {f"{name}{suffix}": 0 for suffix in ("", "_fp8") for name in ("w8a8_matmul_fullk", "w8a8_matmul",
+                                                                          "ffn_w8a8")}
+# The e4m3 GEMMs fold the tensor cores' fp32 partial into a separate fp32
+# sum every FP8_FOLD_K values of K (0: one partial over all of K, as the
+# Pallas kernel's single dot).
+FP8_FOLD_K = 0
+_QMAX = {"int8": 127.0, "fp8": 448.0}
+_CODE_DTYPE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+def _launch_key(name: str, kind: str) -> str:
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    return name if kind == "int8" else f"{name}_fp8"
 
 
 def gelu_tanh(y: torch.Tensor) -> torch.Tensor:
@@ -43,36 +64,51 @@ def pick_kblock(k: int, bk: int = 1024) -> int:
     while bk > 128 and k % bk:
         bk //= 2
     if k % bk:
-        raise ValueError(f"the k-blocked int8 GEMM needs K % 128 == 0, got K={k}")
+        raise ValueError(f"the k-blocked 8-bit GEMM needs K % 128 == 0, got K={k}")
     return bk
 
 
-def quantize_groups_plain(x2: torch.Tensor, group: int):
-    """(M, K) -> int8 codes (M, K) and fp32 scales (M, K/group), per (row,
-    group): scale = max(absmax, 1e-8) * (1/127), q = clip(round(x / scale),
-    +-127)."""
+def codes(v: torch.Tensor, kind: str = "int8") -> torch.Tensor:
+    """fp32 values already divided by their scale -> 8-bit codes: int8
+    clip(round half to even, +-127), or e4m3 by torch's cast (round to
+    nearest even; the values never pass 448 by more than an fp32 ulp)."""
+    if kind == "int8":
+        return torch.clamp(torch.round(v), -127, 127).to(torch.int8)
+    return v.to(torch.float8_e4m3fn)
+
+
+def quantize_groups_plain(x2: torch.Tensor, group: int, kind: str = "int8"):
+    """(M, K) -> codes (M, K) and fp32 scales (M, K/group), per (row,
+    group): scale = max(absmax, 1e-8) * (1/127) (int8) or * (1/448) (fp8),
+    codes of x / scale."""
     m, k = x2.shape
     xf = x2.float().reshape(m, k // group, group)
-    s = torch.clamp_min(xf.abs().amax(dim=-1), 1e-8) * (1.0 / 127.0)
-    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
-    return q.reshape(m, k), s
+    s = torch.clamp_min(xf.abs().amax(dim=-1), 1e-8) * (1.0 / _QMAX[kind])
+    return codes(xf / s[..., None], kind).reshape(m, k), s
 
 
-def quantize_rows_plain(x2: torch.Tensor):
-    """(M, K) -> int8 codes (M, K) and fp32 scales (M,): one group per row."""
-    q, s = quantize_groups_plain(x2, x2.shape[1])
+def quantize_rows_plain(x2: torch.Tensor, kind: str = "int8"):
+    """(M, K) -> codes (M, K) and fp32 scales (M,): one group per row."""
+    q, s = quantize_groups_plain(x2, x2.shape[1], kind)
     return q, s[:, 0]
 
 
 def int_dot_exact(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """q (M, K) int8 @ w (N, K)^T as the exact integer sum, rounded to fp32."""
+    """q (M, K) @ w (N, K)^T for int8 or e4m3 codes: the exact sum in
+    float64, rounded once to fp32.
+
+    Exact for int8 (|sum| <= K * 127^2). Exact for e4m3 too: a code has at
+    most 4 significant bits, so a product has at most 8 and is a multiple of
+    2^-18 (the smallest subnormal, 2^-9, squared) below 2^18 (448^2); a sum
+    of up to 13,824 < 2^14 of them is a multiple of 2^-18 below 2^32, which
+    50 bits hold, inside float64's 53."""
     return torch.matmul(q.double(), w.double().t()).float()
 
 
-def w8a8_matmul_fullk_plain(x, w, w_scale, bias=None, act: Optional[str] = None) -> torch.Tensor:
+def w8a8_matmul_fullk_plain(x, w, w_scale, bias=None, act: Optional[str] = None, kind: str = "int8") -> torch.Tensor:
     *lead, k = x.shape
     n = w.shape[0]
-    q, s = quantize_rows_plain(x.reshape(-1, k))
+    q, s = quantize_rows_plain(x.reshape(-1, k), kind)
     y = int_dot_exact(q, w) * s[:, None] * w_scale.float()[None, :]
     y = y + (bias.float()[None, :] if bias is not None else 0.0)
     if act == "gelu":
@@ -80,15 +116,15 @@ def w8a8_matmul_fullk_plain(x, w, w_scale, bias=None, act: Optional[str] = None)
     return y.to(x.dtype).reshape(*lead, n)
 
 
-def w8a8_matmul_plain(x, w, w_scale, bias=None, act: Optional[str] = None) -> torch.Tensor:
-    """k-blocked int8 GEMM: x quantized per (token, k-block), each block's
-    exact int32 partial times its act scale added into fp32 in k order, then
+def w8a8_matmul_plain(x, w, w_scale, bias=None, act: Optional[str] = None, kind: str = "int8") -> torch.Tensor:
+    """k-blocked 8-bit GEMM: x quantized per (token, k-block), each block's
+    exact partial times its act scale added into fp32 in k order, then
     *w_scale + bias (``_w8a8_kernel``'s order)."""
     *lead, k = x.shape
     n = w.shape[0]
     bk = pick_kblock(k)
     x2 = x.reshape(-1, k)
-    q, s = quantize_groups_plain(x2, bk)
+    q, s = quantize_groups_plain(x2, bk, kind)
     acc = torch.zeros((x2.shape[0], n), dtype=torch.float32, device=x.device)
     for i in range(s.shape[1]):
         blk = slice(i * bk, (i + 1) * bk)
@@ -99,17 +135,17 @@ def w8a8_matmul_plain(x, w, w_scale, bias=None, act: Optional[str] = None) -> to
     return y.to(x.dtype).reshape(*lead, n)
 
 
-def ffn_w8a8_plain(x, w0, w0_scale, b0, w2, w2_scale, b2) -> torch.Tensor:
+def ffn_w8a8_plain(x, w0, w0_scale, b0, w2, w2_scale, b2, kind: str = "int8") -> torch.Tensor:
     *lead, k = x.shape
     h_dim, n = w0.shape[0], w2.shape[0]
     bh = pick_bh(h_dim)
-    q, xs = quantize_rows_plain(x.reshape(-1, k))
+    q, xs = quantize_rows_plain(x.reshape(-1, k), kind)
     h = int_dot_exact(q, w0) * xs[:, None] * w0_scale.float()[None, :]
     h = gelu_tanh(h + (b0.float()[None, :] if b0 is not None else 0.0))
     m, g = h.shape[0], h_dim // bh
     hg = h.reshape(m, g, bh)
-    hs = torch.clamp_min(hg.abs().amax(dim=-1), 1e-8) * (1.0 / 127.0)  # (M, G)
-    hq = torch.clamp(torch.round(hg / hs[..., None]), -127, 127).to(torch.int8)
+    hs = torch.clamp_min(hg.abs().amax(dim=-1), 1e-8) * (1.0 / _QMAX[kind])  # (M, G)
+    hq = codes(hg / hs[..., None], kind)
     acc = torch.zeros((m, n), dtype=torch.float32, device=x.device)
     for i in range(g):
         acc = acc + int_dot_exact(hq[:, i], w2[:, i * bh:(i + 1) * bh]) * hs[:, i:i + 1]
@@ -125,9 +161,9 @@ def _lib():
     lib = _build.load("w8a8_matmul")
     if lib.w8a8_gemm.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.w8a8_quant_groups.argtypes = [p, p, p, i, i, i, p]
-        lib.w8a8_gemm.argtypes = [p, p, p, i, i, p, p, p, i, i, i, i, p]
-        lib.ffn_w8a8_gemm1.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+        lib.w8a8_quant_groups.argtypes = [p, p, p, i, i, i, i, p]
+        lib.w8a8_gemm.argtypes = [p, p, p, i, i, p, p, p, i, i, i, i, i, i, p]
+        lib.ffn_w8a8_gemm1.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
         for fn in (lib.w8a8_quant_groups, lib.w8a8_gemm, lib.ffn_w8a8_gemm1):
             fn.restype = ctypes.c_int
     return lib
@@ -142,11 +178,13 @@ def _check_x(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, k).contiguous()
 
 
-def _check_w(w: torch.Tensor, ws: torch.Tensor, b, k: int, dev, name: str):
+def _check_w(w: torch.Tensor, ws: torch.Tensor, b, k: int, dev, name: str, kind: str = "int8"):
     if w.device != dev or ws.device != dev:
         raise ValueError(f"{name} is on {w.device}, expected {dev}")
-    if w.dtype != torch.int8 or w.dim() != 2 or w.shape[1] != k or not w.is_contiguous():
-        raise ValueError(f"{name} must be contiguous int8 (N, {k}), got {w.dtype} {tuple(w.shape)}")
+    want = _CODE_DTYPE[kind]
+    if w.dtype != want or w.dim() != 2 or w.shape[1] != k or not w.is_contiguous():
+        raise ValueError(f"{name} must be contiguous {want} (N, {k}) for kind {kind!r}, "
+                         f"got {w.dtype} {tuple(w.shape)}")
     if w.shape[0] % 2:
         raise ValueError(f"{name}: N must be even, got {w.shape[0]}")
     if ws.dtype != torch.float32 or ws.shape != (w.shape[0],) or not ws.is_contiguous():
@@ -158,94 +196,106 @@ def _check_w(w: torch.Tensor, ws: torch.Tensor, b, k: int, dev, name: str):
     return b.float().contiguous()
 
 
-def quant_groups(fn, x2: torch.Tensor, group: int, stream):
-    """Launch a library's quant_groups pass: x2 (M, K) bf16 -> int8 codes
-    (M, K) and fp32 scales (M, K/group)."""
+def quant_groups(fn, x2: torch.Tensor, group: int, stream, *kind_arg: int, dtype=torch.int8):
+    """Launch a library's quant_groups pass: x2 (M, K) bf16 -> 8-bit codes
+    (M, K) of ``dtype`` and fp32 scales (M, K/group). ``kind_arg`` is the
+    kind code of a pass that takes one (w8a8's: 0 int8, 1 e4m3)."""
     m, k = x2.shape
     if k % group or group % 8:
         raise ValueError(f"quantization group {group} must divide K={k} and be a multiple of 8")
-    xq = torch.empty((m, k), dtype=torch.int8, device=x2.device)
+    xq = torch.empty((m, k), dtype=dtype, device=x2.device)
     xs = torch.empty((m, k // group), dtype=torch.float32, device=x2.device)
-    _build.check(fn(x2.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k, group, stream), "quant_groups")
+    _build.check(fn(x2.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k, group, *kind_arg, stream), "quant_groups")
     return xq, xs
 
 
+def _quant(lib, x2, group, kind, stream):
+    return quant_groups(lib.w8a8_quant_groups, x2, group, stream, int(kind == "fp8"), dtype=_CODE_DTYPE[kind])
+
+
+def _gemm(lib, a, w, a_scale, groups, group, w_scale, b, out, m, n, k, act, kind, stream, what):
+    fp8 = kind == "fp8"
+    _build.check(lib.w8a8_gemm(a.data_ptr(), w.data_ptr(), a_scale.data_ptr(), groups, group, w_scale.data_ptr(),
+                               b.data_ptr(), out.data_ptr(), m, n, k, int(act == "gelu"), int(fp8),
+                               FP8_FOLD_K if fp8 else 0, stream), what)
+
+
 def w8a8_matmul_fullk(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
-                      bias: Optional[torch.Tensor] = None, act: Optional[str] = None) -> torch.Tensor:
-    """x (..., K) bf16 -> (..., N) bf16: per-token int8 quantization of x over
-    all of K, int8 x int8 -> int32, then acc*xs*ws + b and the optional
-    tanh-GELU (``act="gelu"``). w (N, K) int8, w_scale (N,) fp32."""
+                      bias: Optional[torch.Tensor] = None, act: Optional[str] = None,
+                      kind: str = "int8") -> torch.Tensor:
+    """x (..., K) bf16 -> (..., N) bf16: per-token quantization of x over all
+    of K to ``kind`` codes, an 8-bit GEMM (int32 or fp32 sums), then
+    acc*xs*ws + b and the optional tanh-GELU (``act="gelu"``). w (N, K) int8
+    or float8_e4m3fn (matching ``kind``), w_scale (N,) fp32."""
+    key = _launch_key("w8a8_matmul_fullk", kind)
     if act not in (None, "gelu"):
         raise ValueError(f"unsupported act {act!r}")
     if x.device.type == "cpu":
-        return w8a8_matmul_fullk_plain(x, w, w_scale, bias, act)
+        return w8a8_matmul_fullk_plain(x, w, w_scale, bias, act, kind)
     *lead, k = x.shape
     x2 = _check_x(x)
-    b = _check_w(w, w_scale, bias, k, x.device, "w")
-    n = w.shape[0]
+    b = _check_w(w, w_scale, bias, k, x.device, "w", kind)
+    n, m = w.shape[0], x2.shape[0]
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    xq, xs = quant_groups(lib.w8a8_quant_groups, x2, k, stream)
-    out = torch.empty((x2.shape[0], n), dtype=torch.bfloat16, device=x.device)
-    err = lib.w8a8_gemm(xq.data_ptr(), w.data_ptr(), xs.data_ptr(), 1, k, w_scale.data_ptr(),
-                        b.data_ptr(), out.data_ptr(), x2.shape[0], n, k, int(act == "gelu"), stream)
-    _build.check(err, "w8a8_matmul_fullk")
-    LAUNCHES["w8a8_matmul_fullk"] += 1
+    xq, xs = _quant(lib, x2, k, kind, stream)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    _gemm(lib, xq, w, xs, 1, k, w_scale, b, out, m, n, k, act, kind, stream, key)
+    LAUNCHES[key] += 1
     return out.reshape(*lead, n)
 
 
 def w8a8_matmul(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
-                bias: Optional[torch.Tensor] = None, act: Optional[str] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None, act: Optional[str] = None, kind: str = "int8") -> torch.Tensor:
     """k-blocked form for K past the full-K kernel's reach: x (..., K) bf16
-    -> (..., N) bf16 with one int8 act scale per (token, k-block), block from
-    ``pick_kblock``; the grouped GEMM adds each block's int32 partial times
-    its scale in k order, then *w_scale + bias and the optional tanh-GELU.
-    w (N, K) int8, w_scale (N,)."""
+    -> (..., N) bf16 with one act scale per (token, k-block), block from
+    ``pick_kblock``; the grouped GEMM adds each block's partial times its
+    scale in k order, then *w_scale + bias and the optional tanh-GELU.
+    w (N, K) int8 or float8_e4m3fn (matching ``kind``), w_scale (N,)."""
+    key = _launch_key("w8a8_matmul", kind)
     if act not in (None, "gelu"):
         raise ValueError(f"unsupported act {act!r}")
     if x.device.type == "cpu":
-        return w8a8_matmul_plain(x, w, w_scale, bias, act)
+        return w8a8_matmul_plain(x, w, w_scale, bias, act, kind)
     *lead, k = x.shape
     bk = pick_kblock(k)
     x2 = _check_x(x)
-    b = _check_w(w, w_scale, bias, k, x.device, "w")
+    b = _check_w(w, w_scale, bias, k, x.device, "w", kind)
     n, m = w.shape[0], x2.shape[0]
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    xq, xs = quant_groups(lib.w8a8_quant_groups, x2, bk, stream)
+    xq, xs = _quant(lib, x2, bk, kind, stream)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    _build.check(lib.w8a8_gemm(xq.data_ptr(), w.data_ptr(), xs.data_ptr(), k // bk, bk, w_scale.data_ptr(),
-                               b.data_ptr(), out.data_ptr(), m, n, k, int(act == "gelu"), stream),
-                 "w8a8_matmul")
-    LAUNCHES["w8a8_matmul"] += 1
+    _gemm(lib, xq, w, xs, k // bk, bk, w_scale, b, out, m, n, k, act, kind, stream, key)
+    LAUNCHES[key] += 1
     return out.reshape(*lead, n)
 
 
 def ffn_w8a8(x: torch.Tensor, w0: torch.Tensor, w0_scale: torch.Tensor, b0: Optional[torch.Tensor],
-             w2: torch.Tensor, w2_scale: torch.Tensor, b2: Optional[torch.Tensor]) -> torch.Tensor:
+             w2: torch.Tensor, w2_scale: torch.Tensor, b2: Optional[torch.Tensor], kind: str = "int8") -> torch.Tensor:
     """Whole quantized FFN: x (..., K) -> gelu(x @ w0^T) @ w2^T -> (..., N).
     The hidden is kept in fp32 through the GELU and requantized per
-    (token, bh) group, bh from ``pick_bh``. w0 (H, K), w2 (N, H) int8."""
+    (token, bh) group to ``kind`` codes, bh from ``pick_bh``. w0 (H, K),
+    w2 (N, H) int8 or float8_e4m3fn (matching ``kind``)."""
+    key = _launch_key("ffn_w8a8", kind)
     if x.device.type == "cpu":
-        return ffn_w8a8_plain(x, w0, w0_scale, b0, w2, w2_scale, b2)
+        return ffn_w8a8_plain(x, w0, w0_scale, b0, w2, w2_scale, b2, kind)
     *lead, k = x.shape
     x2 = _check_x(x)
     h_dim = w0.shape[0]
     bh = pick_bh(h_dim)
-    b0c = _check_w(w0, w0_scale, b0, k, x.device, "w0")
-    b2c = _check_w(w2, w2_scale, b2, h_dim, x.device, "w2")
+    b0c = _check_w(w0, w0_scale, b0, k, x.device, "w0", kind)
+    b2c = _check_w(w2, w2_scale, b2, h_dim, x.device, "w2", kind)
     n, m = w2.shape[0], x2.shape[0]
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    xq, xs = quant_groups(lib.w8a8_quant_groups, x2, k, stream)
-    hq = torch.empty((m, h_dim), dtype=torch.int8, device=x.device)
+    xq, xs = _quant(lib, x2, k, kind, stream)
+    hq = torch.empty((m, h_dim), dtype=_CODE_DTYPE[kind], device=x.device)
     hs = torch.empty((m, h_dim // bh), dtype=torch.float32, device=x.device)
     _build.check(lib.ffn_w8a8_gemm1(xq.data_ptr(), w0.data_ptr(), xs.data_ptr(), w0_scale.data_ptr(),
                                     b0c.data_ptr(), hq.data_ptr(), hs.data_ptr(), m, h_dim, k, bh,
-                                    stream), "ffn_w8a8 gemm1")
+                                    int(kind == "fp8"), stream), f"{key} gemm1")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    _build.check(lib.w8a8_gemm(hq.data_ptr(), w2.data_ptr(), hs.data_ptr(), h_dim // bh, bh,
-                               w2_scale.data_ptr(), b2c.data_ptr(), out.data_ptr(), m, n, h_dim, 0,
-                               stream), "ffn_w8a8 gemm2")
-    LAUNCHES["ffn_w8a8"] += 1
+    _gemm(lib, hq, w2, hs, h_dim // bh, bh, w2_scale, b2c, out, m, n, h_dim, None, kind, stream, f"{key} gemm2")
+    LAUNCHES[key] += 1
     return out.reshape(*lead, n)

@@ -2,7 +2,16 @@
 
 Each scheme is a function ``apply(params, x) -> y`` resolved through
 MM_REGISTER under the same mm_type strings as the JAX package. Weights keep
-the checkpoint's (out, in) layout. The int8 schemes mirror the JAX dispatch
+the checkpoint's (out, in) layout.
+
+``Default`` is the JAX package's ``_nt_dot(x, w.astype(x.dtype), f32)``:
+on the card, bf16 operands on the tensor cores with an fp32 result
+(``torch.mm(..., out_dtype=torch.float32)``), no fp32 copy of x or w; the
+bias is added in fp32 and the sum rounded once to x's dtype. The CPU has no
+such kernel and widens both operands to fp32 instead: the same exact
+products and fp32 sums. ``Default-Force-FP32`` stays an fp32 GEMM.
+
+The int8 and fp8 (e4m3) per-channel schemes mirror the JAX dispatch
 exactly, so a given shape gets the same activation-scale contract:
 
 * min(N, K) >= 4096 and K <= 8192 (K % 128 == 0): ``w8a8_matmul_fullk``
@@ -10,7 +19,9 @@ exactly, so a given shape gets the same activation-scale contract:
 * min(N, K) >= 4096 and K > 8192 (K % 128 == 0): the k-blocked
   ``w8a8_matmul`` (CUDA kernel), one act scale per (token, k-block);
 * smaller dims: per-token quantization in plain torch ops, as the JAX
-  package leaves that path to XLA;
+  package leaves that path to XLA (int8: absmax / 127, fp8: absmax / 448 --
+  a division here, the kernels multiply by the reciprocal), then an exact
+  dot of the codes;
 * the FFN runs ``ffn_w8a8`` whole when min(H, K) >= 1024, else GEMM, GELU,
   GEMM.
 
@@ -46,22 +57,28 @@ def _bias_add(y: torch.Tensor, b: Optional[torch.Tensor], out_dtype) -> torch.Te
     return y.to(out_dtype)
 
 
-def _nt_dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., in) @ w (out, in)^T in fp32 (exact products of the inputs'
-    values, fp32 accumulation)."""
-    return torch.matmul(x.float(), w.float().t())
+def nt_dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., in) @ w (out, in)^T with fp32 accumulation and an fp32
+    result. Off the CPU the operands stay in x's dtype (bf16 on the tensor
+    cores); the CPU widens them to fp32, which gives the same exact products
+    and fp32 sums."""
+    w = w.to(x.dtype)
+    if x.device.type == "cpu" or x.dtype == torch.float32:
+        return torch.matmul(x.float(), w.float().t())
+    *lead, k = x.shape
+    return torch.mm(x.reshape(-1, k), w.t(), out_dtype=torch.float32).reshape(*lead, w.shape[0])
 
 
 @MM_REGISTER.register("Default")
 def mm_default(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    """GEMM in the activation dtype with fp32 accumulation."""
-    w = params["w"].to(x.dtype)
-    return _bias_add(_nt_dot_f32(x, w), params.get("b"), x.dtype)
+    """GEMM in the activation dtype with fp32 accumulation, the bias added
+    in fp32 before the one rounding to x's dtype."""
+    return _bias_add(nt_dot_f32(x, params["w"]), params.get("b"), x.dtype)
 
 
 @MM_REGISTER.register("Default-Force-FP32")
 def mm_fp32(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    y = _nt_dot_f32(x, params["w"])
+    y = torch.matmul(x.float(), params["w"].float().t())
     if params.get("b") is not None:
         y = y + params["b"].float()
     return y
@@ -76,15 +93,27 @@ def quantize_per_token_int8(x: torch.Tensor):
     return q, scale
 
 
-def _mm_w8a8(params: Dict, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
+def quantize_per_token_fp8(x: torch.Tensor):
+    """Dynamic symmetric per-token e4m3 quantization (the JAX package's XLA
+    path: scale = max(absmax, 1e-8) / 448, codes (x / scale) cast to
+    float8_e4m3fn)."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-8) / 448.0
+    return (xf / scale).to(torch.float8_e4m3fn), scale
+
+
+_QUANTIZE_PER_TOKEN = {"int8": quantize_per_token_int8, "fp8": quantize_per_token_fp8}
+
+
+def _mm_w8a8(params: Dict, x: torch.Tensor, kind: str, act: Optional[str] = None) -> torch.Tensor:
     w = params["w"]
     n, k = w.shape[-2:]
     if min(n, k) >= 4096:
         if k % 128 == 0 and k <= 8192:
-            return w8a8_matmul_fullk(x, w, params["w_scale"], params.get("b"), act=act)
-        return w8a8_matmul(x, w, params["w_scale"], params.get("b"), act=act)
+            return w8a8_matmul_fullk(x, w, params["w_scale"], params.get("b"), act=act, kind=kind)
+        return w8a8_matmul(x, w, params["w_scale"], params.get("b"), act=act, kind=kind)
     *lead, _ = x.shape
-    q, x_scale = quantize_per_token_int8(x.reshape(-1, k))
+    q, x_scale = _QUANTIZE_PER_TOKEN[kind](x.reshape(-1, k))
     y = int_dot_exact(q, w) * x_scale * params["w_scale"].float()
     y = y.reshape(*lead, n)
     if act == "gelu":
@@ -95,8 +124,14 @@ def _mm_w8a8(params: Dict, x: torch.Tensor, act: Optional[str] = None) -> torch.
 
 
 def _mm_int8(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    return _mm_w8a8(params, x)
+    return _mm_w8a8(params, x, "int8")
 
+
+def _mm_fp8(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    return _mm_w8a8(params, x, "fp8")
+
+
+_W8A8_KIND = {_mm_int8: "int8", _mm_fp8: "fp8"}
 
 for _alias in [
     "W-int8-channel-sym-A-int8-channel-sym-dynamic-Vllm",
@@ -105,6 +140,16 @@ for _alias in [
     "W-int8-channel-sym-A-int8-channel-sym-dynamic-Tpu",
 ]:
     MM_REGISTER.register(_alias, _mm_int8)
+
+for _alias in [
+    "W-fp8-channel-sym-A-fp8-channel-sym-dynamic-Vllm",
+    "W-fp8-channel-sym-A-fp8-channel-sym-dynamic-Q8F",
+    "W-fp8-channel-sym-A-fp8-channel-sym-dynamic-Vllm-ActSgl",
+    "W-fp8-channel-sym-A-fp8-channel-sym-dynamic-Sgl-ActVllm",
+    "W-fp8-channel-sym-A-fp8-channel-sym-dynamic-Sgl",
+    "W-fp8-channel-sym-A-fp8-channel-sym-dynamic-Tpu",
+]:
+    MM_REGISTER.register(_alias, _mm_fp8)
 
 
 def _mm_int4_a8(params: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -134,21 +179,24 @@ for _alias in [
 
 
 def mm_gelu(mm_fn, params: Dict, x: torch.Tensor) -> torch.Tensor:
-    """matmul + tanh-GELU (fused into the GEMM epilogue on the int8 path)."""
-    if mm_fn is _mm_int8:
-        return _mm_w8a8(params, x, act="gelu")
+    """matmul + tanh-GELU (fused into the GEMM epilogue on the int8 and fp8
+    paths)."""
+    kind = _W8A8_KIND.get(mm_fn)
+    if kind:
+        return _mm_w8a8(params, x, kind, act="gelu")
     h = mm_fn(params, x)
     return F.gelu(h.float(), approximate="tanh").to(h.dtype)
 
 
 def mm_ffn(mm_fn, p0: Dict, p2: Dict, x: torch.Tensor) -> torch.Tensor:
-    """Whole FFN (mm -> gelu -> mm): one ``ffn_w8a8`` call on the int8 path
-    at min(H, K) >= 1024, one ``ffn_w4a8`` call on the int4 path with 2-D
-    scales at min(H, K/2) >= 2048 (w0's stored shape), else two GEMMs around
-    the GELU."""
+    """Whole FFN (mm -> gelu -> mm): one ``ffn_w8a8`` call on the int8 and
+    fp8 paths at min(H, K) >= 1024, one ``ffn_w4a8`` call on the int4 path
+    with 2-D scales at min(H, K/2) >= 2048 (w0's stored shape), else two
+    GEMMs around the GELU."""
     n, k = p0["w"].shape[-2:]
-    if mm_fn is _mm_int8 and min(n, k) >= 1024:
-        return ffn_w8a8(x, p0["w"], p0["w_scale"], p0.get("b"), p2["w"], p2["w_scale"], p2.get("b"))
+    kind = _W8A8_KIND.get(mm_fn)
+    if kind and min(n, k) >= 1024:
+        return ffn_w8a8(x, p0["w"], p0["w_scale"], p0.get("b"), p2["w"], p2["w_scale"], p2.get("b"), kind=kind)
     if mm_fn is _mm_int4_a8 and p0["w_scale"].ndim == 2 and min(n, k) >= 2048:
         return ffn_w4a8(x, p0["w"], p0["w_scale"], p0.get("b"), p2["w"], p2["w_scale"], p2.get("b"))
     h = mm_gelu(mm_fn, p0, x)

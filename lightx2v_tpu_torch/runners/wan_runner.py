@@ -10,9 +10,15 @@ gets the JAX runner's small synthetic stack built from the same host numpy
 dicts (small DiT, small T5, small VAE), so the two packages run identical
 weights. A config at a published Wan width gets a full-size stack made on
 the device from seeded ``torch.Generator``s: the DiT (int8 codes plus
-per-channel scales under an int8 mm_type, nibble-packed int4 plus
-per-(channel, group) scales under an int4 one), a UMT5-XXL when text_dim is
-4096 (bf16, or int8 with ``t5_quantized``), and the full Wan VAE.
+per-channel scales under an int8 mm_type, e4m3 codes plus per-channel
+scales under an fp8 one, nibble-packed int4 plus per-(channel, group)
+scales under an int4 one), a UMT5-XXL when text_dim is 4096 (bf16, or int8
+or fp8 with ``t5_quantized`` and ``t5_quant_scheme``), and the full Wan VAE.
+
+Config keys whose feature is not ported raise ``NotImplementedError`` naming
+their ROADMAP.md item rather than run as if absent: ``changing_resolution``,
+``do_mm_calib``, ``weight_streaming`` (and offload), ``vae_int8``,
+``tiny_vae``.
 
 ``sparge: true`` runs the video self-attention as Sparge with the
 per-layer budgets of ``sparge_ckpt`` (or ``sparge_l1_per_layer``), the
@@ -76,7 +82,7 @@ def _not_ported(what: str, item: str):
 
 
 # mm_type -> the weight scheme its synthetic weights are made in
-_SCHEMES = {"int8": "int8", "int4": "int4", "nvfp4": "int4"}
+_SCHEMES = {"int8": "int8", "fp8": "fp8", "int4": "int4", "nvfp4": "int4"}
 
 
 @RUNNER_REGISTER.register("wan2.1")
@@ -94,6 +100,12 @@ class WanRunner(DefaultRunner):
             raise _not_ported("i2v", "Queue 1 item 9")
         if self.config.get("cpu_offload") or self.config.get("lazy_load") or self.config.get("mesh_shape"):
             raise _not_ported("offload, streaming and multi-device runs", "Queue 1 items 13-14")
+        if self.config.get("weight_streaming"):
+            raise _not_ported("weight_streaming (the streamed DiT)", "Queue 1 item 13")
+        if self.config.get("changing_resolution"):
+            raise _not_ported("changing_resolution", "Queue 1 item 10")
+        if self.config.get("do_mm_calib"):
+            raise _not_ported("do_mm_calib (activation calibration)", "Queue 1 item 12")
         if "dim" not in self.config:
             for k, v in dict(dim=384, ffn_dim=768, num_heads=6, num_layers=4, freq_dim=256, text_dim=256).items():
                 self.config.setdefault(k, v)
@@ -119,15 +131,13 @@ class WanRunner(DefaultRunner):
         scheme = "bf16"
         if self.config.get("t5_quantized"):
             scheme = "int8" if "int8" in str(self.config.get("t5_quant_scheme", "int8")) else "fp8"
-            if scheme != "int8":
-                raise _not_ported("the fp8 T5", "Queue 1 item 12")
         if self.arch.text_dim == UMT5_XXL.dim:
             cfg = UMT5_XXL
             params = init_random_t5_params_on_device(cfg, seed=1, device=self.device, scheme=scheme)
         elif self.arch.text_dim == SMALL_T5.dim:
             cfg = SMALL_T5
             params = load_t5_params(init_random_t5_state_dict(cfg, seed=1), cfg, device=self.device)
-            if scheme == "int8":
+            if scheme != "bf16":
                 params = quantize_t5_params(params, scheme)
         else:
             raise ValueError(f"synthetic text encoders exist for text_dim 256 and 4096, got {self.arch.text_dim}")
@@ -139,6 +149,8 @@ class WanRunner(DefaultRunner):
         self._require_synthetic()
         if self.config.get("tiny_vae"):
             raise _not_ported("the tiny VAE", "Queue 1 item 17")
+        if self.config.get("vae_int8"):
+            raise _not_ported("vae_int8 (the int8 VAE decoder)", "Queue 1 item 7")
         self.vae_cfg = WanVAEConfig() if is_published_width(self.arch) else SMALL_VAE
         return load_wan_vae_params(init_random_vae_state_dict(self.vae_cfg, seed=2), self.vae_cfg,
                                    device=self.device)

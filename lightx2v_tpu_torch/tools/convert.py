@@ -1,13 +1,22 @@
-"""Weight quantization of a flat checkpoint dict (the int8 and int4 parts of
-``lightx2v_tpu.tools.convert``; numpy only): per-output-channel int8, and
-nibble-packed int4 with per-(channel, group) scales."""
+"""Weight quantization of a flat checkpoint dict (the int8, fp8 and int4
+parts of ``lightx2v_tpu.tools.convert``; numpy in, numpy out):
+per-output-channel int8 or e4m3, and nibble-packed int4 with per-(channel,
+group) scales.
+
+numpy has no float8 dtype, and the port does not import ``ml_dtypes``: an
+fp8 weight is returned as uint8 **bit patterns** of float8_e4m3fn codes
+(``fp8_bits_to_tensor`` views them as ``torch.float8_e4m3fn``). The codes
+are cast by torch, which rounds to nearest even like ``ml_dtypes``; the two
+casts differ only past 448 (torch saturates, ``ml_dtypes`` gives NaN from
+464 up), where a per-channel scale of absmax / 448 never reaches."""
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..utils.logging_utils import logger
 
@@ -41,29 +50,49 @@ def quantize_int4(w: np.ndarray, bk: Optional[int] = None) -> Tuple[np.ndarray, 
     return (lo | (hi << 4)).reshape(out, kin // 2), scale.astype(np.float32)
 
 
+def fp8_bits(x: np.ndarray) -> np.ndarray:
+    """fp32 values -> uint8 bit patterns of their float8_e4m3fn codes
+    (torch's cast: round to nearest even, saturating at +-448)."""
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.float8_e4m3fn)
+    return t.view(torch.uint8).numpy()
+
+
+def fp8_bits_to_tensor(bits: np.ndarray) -> torch.Tensor:
+    """uint8 bit patterns -> a float8_e4m3fn tensor (no copy)."""
+    return torch.from_numpy(np.ascontiguousarray(bits, np.uint8)).view(torch.float8_e4m3fn)
+
+
 def quantize_tensor(w: np.ndarray, scheme: str = "int8") -> Tuple[np.ndarray, np.ndarray]:
-    """int8: per-output-channel symmetric, scale = max(absmax, 1e-8) / 127.
+    """Per-output-channel symmetric quantization of w (out, in).
+    int8: scale = max(absmax, 1e-8) / 127, codes clip(round(w / scale)).
+    fp8: scale = max(absmax, 1e-8) / 448, codes w / scale cast to e4m3,
+    returned as uint8 bit patterns (``fp8_bits``).
     int4: ``quantize_int4``."""
     wf = np.asarray(w, np.float32)
     if scheme == "int4":
         return quantize_int4(wf)
-    if scheme != "int8":
+    if scheme not in ("int8", "fp8"):
         raise NotImplementedError(f"quant scheme {scheme!r} is not ported yet (ROADMAP.md, Queue 1 item 12)")
     absmax = np.abs(wf).max(axis=1)
+    if scheme == "fp8":
+        scale = np.maximum(absmax, 1e-8) / 448.0
+        return fp8_bits(wf / scale[:, None]), scale
     scale = np.maximum(absmax, 1e-8) / 127.0
     q = np.clip(np.round(wf / scale[:, None]), -127, 127).astype(np.int8)
     return q, scale
 
 
-def quantize_model(weights: Dict[str, np.ndarray], scheme: str = "int8") -> Dict[str, np.ndarray]:
+def quantize_model(weights: Dict[str, np.ndarray], scheme: str = "int8") -> Dict[str, Any]:
     """Quantize every 2-D matmul weight not matched by ``_SKIP_QUANT``; adds
-    ``<name>.weight_scale`` beside each."""
-    out: Dict[str, np.ndarray] = {}
+    ``<name>.weight_scale`` beside each. fp8 weights come back as
+    float8_e4m3fn torch tensors (numpy has no fp8 dtype), all else as numpy
+    arrays."""
+    out: Dict[str, Any] = {}
     n_q = 0
     for name, w in weights.items():
         if w.ndim == 2 and not _SKIP_QUANT.search(name):
             q, scale = quantize_tensor(w, scheme)
-            out[name] = q
+            out[name] = fp8_bits_to_tensor(q) if scheme == "fp8" else q
             out[name.replace(".weight", ".weight_scale") if name.endswith(".weight") else name + "_scale"] = scale
             n_q += 1
         else:

@@ -365,3 +365,128 @@ def test_radial_executions_on_cuda(dev, monkeypatch):
         ref = radial.radial_attention(q.cpu(), k.cpu(), v.cpu(), radial.MaskMap(s, f), sparsity_type=kind,
                                       block_q=128, block_k=128)
         _close(out.cpu(), ref, 2e-2, 2e-3)
+
+
+def _fp8_w(g, dev, n, k):
+    """e4m3 codes as the synthesizers make them: normal * 100, clipped."""
+    return (torch.randn((n, k), generator=g, device=dev) * 100).clamp_(-448, 448).to(torch.float8_e4m3fn)
+
+
+@pytest.mark.parametrize("m,n,k,act", [(200, 200, 256, None), (37, 384, 4096, "gelu"), (512, 136, 96, None),
+                                       # below one 128-row tile, ragged N, one 64-wide stage
+                                       (5, 66, 64, None), (300, 256, 5120, None)])
+def test_fullk_fp8_kernel_vs_plain(dev, m, n, k, act):
+    from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
+
+    g = torch.Generator(device=dev).manual_seed(m + n + k)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    w = _fp8_w(g, dev, n, k)
+    ws = torch.rand((n,), generator=g, device=dev) * 1e-4
+    b = torch.randn((n,), generator=g, device=dev) * 0.1
+    before = wm.LAUNCHES["w8a8_matmul_fullk_fp8"]
+    out = wm.w8a8_matmul_fullk(x, w, ws, b, act=act, kind="fp8")
+    assert wm.LAUNCHES["w8a8_matmul_fullk_fp8"] == before + 1
+    # bar: same e4m3 codes and scales; exact products summed in fp32 on the
+    # tensor cores against one rounding of the exact sum; bf16 ties aside
+    _close(out, wm.w8a8_matmul_fullk_plain(x, w, ws, b, act=act, kind="fp8"), 2 ** -7, 0.0)
+
+
+def test_fp8_quantize_pass_is_exact(dev):
+    """The e4m3 quantize pass gives the plain version's codes and scales bit
+    for bit (IEEE division, round to nearest even), a zero row included."""
+    from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
+
+    x = torch.randn((70, 1024), device=dev).to(torch.bfloat16) * 3
+    x[5] = 0
+    for group in (1024, 128):
+        q, s = wm._quant(wm._lib(), x, group, "fp8", torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        rq, rs = wm.quantize_groups_plain(x, group, "fp8")
+        assert torch.equal(q.view(torch.uint8), rq.view(torch.uint8)) and torch.equal(s, rs)
+
+
+@pytest.mark.parametrize("h", [384, 8960, 13824])
+def test_ffn_fp8_kernel_vs_plain(dev, h):
+    from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
+
+    g = torch.Generator(device=dev).manual_seed(h)
+    m, k, n = 70, 256, 128
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    w0, w2 = _fp8_w(g, dev, h, k), _fp8_w(g, dev, n, h)
+    s0, s2 = torch.full((h,), 0.02 / 100, device=dev), torch.full((n,), 0.02 / 100, device=dev)
+    b0, b2 = torch.randn((h,), generator=g, device=dev) * 0.02, torch.randn((n,), generator=g, device=dev) * 0.02
+    before = wm.LAUNCHES["ffn_w8a8_fp8"]
+    out = wm.ffn_w8a8(x, w0, s0, b0, w2, s2, b2, kind="fp8")
+    assert wm.LAUNCHES["ffn_w8a8_fp8"] == before + 1
+    # bar: a tanh ulp can move a rare hidden code by one step
+    _close(out, wm.ffn_w8a8_plain(x, w0, s0, b0, w2, s2, b2, kind="fp8"), 2e-2, 0.0)
+
+
+@pytest.mark.parametrize("m,n,k,act", [(37, 136, 10240, None), (200, 256, 2560, "gelu"), (8, 64, 128, None)])
+def test_kblocked_fp8_kernel_vs_plain(dev, m, n, k, act):
+    """k-blocks of 1024 and 512, and K = 128: a single k-block."""
+    from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
+
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    w = _fp8_w(g, dev, n, k)
+    ws = torch.rand((n,), generator=g, device=dev) * 1e-4
+    before = wm.LAUNCHES["w8a8_matmul_fp8"]
+    out = wm.w8a8_matmul(x, w, ws, act=act, kind="fp8")
+    assert wm.LAUNCHES["w8a8_matmul_fp8"] == before + 1
+    _close(out, wm.w8a8_matmul_plain(x, w, ws, act=act, kind="fp8"), 2 ** -7, 0.0)
+
+
+def test_8bit_wrappers_refuse_the_other_kind(dev):
+    from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
+
+    x = torch.zeros((4, 256), dtype=torch.bfloat16, device=dev)
+    ws = torch.ones(64, device=dev)
+    w8 = torch.zeros((64, 256), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="float8_e4m3fn"):
+        wm.w8a8_matmul_fullk(x, w8, ws, kind="fp8")
+    with pytest.raises(ValueError, match="int8"):
+        wm.w8a8_matmul(x, w8.to(torch.float8_e4m3fn), ws)
+
+
+def test_fp8_linear_dispatch_uses_kernels(dev, monkeypatch):
+    """The fp8 scheme on the card: full-K, k-blocked and the fused FFN each
+    launch their fp8 kernel, no int8 one, and no plain version."""
+    from lightx2v_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
+    from lightx2v_tpu_torch.ops.linear import mm_ffn, resolve_mm
+
+    def refuse(*a, **kw):
+        raise AssertionError("plain version called on CUDA")
+
+    for name in ("w8a8_matmul_plain", "w8a8_matmul_fullk_plain", "ffn_w8a8_plain"):
+        monkeypatch.setattr(wm, name, refuse)
+    g = torch.Generator(device=dev).manual_seed(1)
+    mm = resolve_mm("W-fp8-channel-sym-A-fp8-channel-sym-dynamic-Vllm")
+    x = torch.randn((1, 3, 4096), generator=g, device=dev).to(torch.bfloat16)
+    reset_launch_counts()
+    ones = lambda n: torch.full((n,), 1e-4, device=dev)  # noqa: E731
+    y = mm({"w": _fp8_w(g, dev, 4096, 4096), "w_scale": ones(4096), "b": None}, x)
+    mm({"w": _fp8_w(g, dev, 4096, 10240), "w_scale": ones(4096), "b": None},
+       torch.randn((1, 3, 10240), generator=g, device=dev).to(torch.bfloat16))
+    mm_ffn(mm, {"w": _fp8_w(g, dev, 1024, 4096), "w_scale": ones(1024), "b": None},
+           {"w": _fp8_w(g, dev, 4096, 1024), "w_scale": ones(4096), "b": None}, x)
+    torch.cuda.synchronize()
+    c = {k: v for k, v in launch_counts().items() if v}
+    assert y.shape == (1, 3, 4096) and torch.isfinite(y.float()).all()
+    assert c == {"w8a8_matmul_fullk_fp8": 1, "w8a8_matmul_fp8": 1, "ffn_w8a8_fp8": 1}, c
+
+
+def test_mm_default_bf16_on_card(dev):
+    """``Default`` on the card (bf16 operands, fp32 result from torch.mm)
+    against its CPU branch (operands widened to fp32) on the same inputs."""
+    from lightx2v_tpu_torch.ops.linear import resolve_mm
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((3, 70, 512), generator=g).to(torch.bfloat16)
+    p = {"w": (torch.randn((384, 512), generator=g) * 0.05).to(torch.bfloat16), "b": torch.randn(384, generator=g)}
+    mm = resolve_mm("Default")
+    y = mm({k: v.to(dev) for k, v in p.items()}, x.to(dev))
+    assert y.dtype == torch.bfloat16
+    # bar: the same exact products summed in fp32 in another order, then one bf16 rounding
+    _close(y.cpu(), mm(p, x), 2 ** -7, 0.0)

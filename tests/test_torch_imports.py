@@ -24,7 +24,8 @@ def test_every_module_imports_without_jax():
     assert {"lightx2v_tpu_torch.ops.sparge", "lightx2v_tpu_torch.ops.cuda.w4a8_matmul",
             "lightx2v_tpu_torch.ops.cuda.block_sparse_attention", "lightx2v_tpu_torch.ops.cuda.sage_attention",
             "lightx2v_tpu_torch.ops.cuda.int4_matmul", "lightx2v_tpu_torch.ops.radial",
-            "lightx2v_tpu_torch.parallel.ring", "lightx2v_tpu_torch.schedulers.unipc"} <= set(mods)
+            "lightx2v_tpu_torch.parallel.ring", "lightx2v_tpu_torch.schedulers.unipc",
+            "lightx2v_tpu_torch.tools.convert"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -37,6 +38,19 @@ def test_every_module_imports_without_jax():
     res = subprocess.run([sys.executable, "-S", "-c", f"import sys; sys.path[:0] = {sys.path!r}\n" + code],
                          cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_sources_import_no_jax_ml_dtypes_or_jax_package():
+    """No import statement in the port or in chip_smoke.py names jax,
+    ml_dtypes or lightx2v_tpu, at module level or inside a function (the
+    fp8 weights cross by dtype name and bytes, not through ml_dtypes)."""
+    import re
+
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ml_dtypes|lightx2v_tpu)(\.|\s|$)", re.M)
+    files = [ROOT / "chip_smoke.py", *sorted((ROOT / "lightx2v_tpu_torch").rglob("*.py"))]
+    assert len(files) > 40
+    bad = [str(f.relative_to(ROOT)) for f in files if pat.search(f.read_text())]
+    assert not bad, bad
 
 
 def test_cuda_device_without_gpu_raises(monkeypatch):
