@@ -46,9 +46,7 @@
 
 The kernel phases also print the radial comparison at the main shape (dense
 flash, block-sparse at 128 x 128 and 256 x 128, two_pass), hold two merged
-half-key partials against one dense call, and print the fp8 full-K kernel's
-error and time with its tensor-core partial folded into fp32 every 0, 128
-and 512 K values (``fp8_fullk_fold``). The fp8 rows' library yardstick is
+half-key partials against one dense call. The fp8 rows' library yardstick is
 the torch quantize pass plus ``torch._scaled_mm`` with row-wise scales; the
 per-head block-sparse row's is ``torch.compile(flex_attention)`` on the same
 block mask (None, with the reason printed, where it does not compile).
@@ -710,21 +708,9 @@ def kernel_phase_fp8(peaks, reps: int, want):
         bvec = randn(DIM, dtype=torch.float32, std=0.02)
         for m in (S, TXT):
             x = randn(m, DIM)
-            ref = wm.w8a8_matmul_fullk_plain(x, w, ws, bvec, kind="fp8")
-            folds = {}  # max error and ms with the tensor-core partial folded every `fold` K values
-            default = wm.FP8_FOLD_K
-            for fold in (0, 128, 512):
-                wm.FP8_FOLD_K = fold
-                out = wm.w8a8_matmul_fullk(x, w, ws, bvec, kind="fp8")
-                torch.cuda.synchronize()
-                folds[fold] = dict(max_abs_err=float((out.float() - ref.float()).abs().max()),
-                                   ms=cuda_ms(lambda: wm.w8a8_matmul_fullk(x, w, ws, bvec, kind="fp8"), reps))
-            wm.FP8_FOLD_K = default
-            print(json.dumps({"fp8_fullk_fold": {"M": m, "K": DIM, "default": default, **{str(f): v for f, v in
-                                                                                            folds.items()}}}),
-                  flush=True)
             out = wm.w8a8_matmul_fullk(x, w, ws, bvec, kind="fp8")
             torch.cuda.synchronize()
+            ref = wm.w8a8_matmul_fullk_plain(x, w, ws, bvec, kind="fp8")
             # bar: the same e4m3 codes and scales; exact products summed in
             # fp32 by the tensor cores against one rounding of the exact sum
             err = check_close(f"w8a8_matmul_fullk_fp8 M={m}", out, ref, 2 ** -7, 0.0)
@@ -738,7 +724,7 @@ def kernel_phase_fp8(peaks, reps: int, want):
                 name="w8a8_matmul_fullk_fp8", route="cuda", source="lightx2v_tpu_torch/csrc/w8a8_matmul.cu",
                 replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:182", shape=f"x ({m},{DIM}) bf16; w ({DIM},{DIM}) e4m3",
                 max_abs_err=err, bar="2^-7*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, library_call=lib_call, fold_k=wm.FP8_FOLD_K))
+                library_ms=lib_ms, library_call=lib_call))
             del x
         del w
 

@@ -37,11 +37,12 @@
 // optional tanh-GELU, stored as bf16.
 //
 // Accumulation: an int32 partial is exact. An e4m3 partial is summed by the
-// tensor cores in fp32 registers; the host may ask the grouped GEMM to fold
-// the partial into the fp32 sum every `fold` values of K (a partial then
-// starts from zero), which bounds what the tensor cores' own accumulation
-// can lose over a long K (the full-K form sums K = 5120 otherwise in one
-// accumulator). ops/cuda/w8a8_matmul.py picks the interval.
+// tensor cores in fp32 registers over a whole scale group (all of K = 5120 in
+// the full-K form). Folding it into a separate fp32 sum every 128 or 512 K
+// values, tried at 32,760 x 5120 x 5120 on the H100, left the largest
+// difference from the plain version (the exact sum) at one bf16 ulp, as
+// without it, and cost 17% or 3% of the time (PERF.md, PR 6), so the
+// kernels do not fold.
 //
 // The fused FFN cannot keep the TPU's (512, 5120) fp32 accumulator (100 MB
 // VMEM there, 227 KB of shared memory here), so it is two GEMMs around an
@@ -121,8 +122,7 @@ __device__ __forceinline__ void mma_stage(const uint8_t* sA, const uint8_t* sB, 
 // ---------------------------------------------------------------------------
 // out (M, N) bf16 = act( (sum_g float(partial_g) * a_scale[m, g]) * ws[n] + bias[n] )
 // group_tiles BK-tiles per scale group; G = 1 gives the plain per-token
-// contract. The partial is folded into the fp32 sum every fold_tiles tiles
-// (a divisor of group_tiles; equal to it for int8, whose partial is exact).
+// contract.
 
 constexpr int G_BM = 128, G_BN = 128, G_WM = 2, G_WN = 4;
 constexpr int G_MT = G_BM / G_WM / 16;  // 4
@@ -133,8 +133,7 @@ template <bool FP8, bool GELU>
 __global__ void __launch_bounds__(NTHREADS) gemm_8bit_kernel(const uint8_t* __restrict__ A,
                                                              const uint8_t* __restrict__ B,
                                                              const float* __restrict__ a_scale, int G,
-                                                             int group_tiles, int fold_tiles,
-                                                             const float* __restrict__ ws,
+                                                             int group_tiles, const float* __restrict__ ws,
                                                              const float* __restrict__ bias,
                                                              __nv_bfloat16* __restrict__ out, int M, int N, int K) {
   using Acc = typename Codes<FP8>::Acc;
@@ -170,7 +169,7 @@ __global__ void __launch_bounds__(NTHREADS) gemm_8bit_kernel(const uint8_t* __re
     if (nk < KT) load_stage<G_BM, G_BN>(sA(nk % STAGES), sB(nk % STAGES), A, B, M, N, K, m0, n0, nk * BK, tid);
     cp_async_commit();
     mma_stage<G_MT, G_NT>(sA(kt % STAGES), sB(kt % STAGES), wr0, wc0, lane, acc);
-    if ((kt + 1) % fold_tiles == 0 || kt + 1 == KT) {
+    if ((kt + 1) % group_tiles == 0 || kt + 1 == KT) {
       const int grp = kt / group_tiles;
 #pragma unroll
       for (int mt = 0; mt < G_MT; ++mt) {
@@ -359,20 +358,18 @@ int launch_gemm1_bh(const void* xq, const void* w0, const void* xs, const void* 
 }
 
 template <bool FP8, bool GELU>
-int launch_gemm(const void* a, const void* b, const void* a_scale, int G, int group_tiles, int fold_tiles,
-                const void* ws, const void* bias, void* out, int M, int N, int K, cudaStream_t s) {
+int launch_gemm(const void* a, const void* b, const void* a_scale, int G, int group_tiles, const void* ws,
+                const void* bias, void* out, int M, int N, int K, cudaStream_t s) {
   auto kern = gemm_8bit_kernel<FP8, GELU>;
   cudaError_t err = set_smem(kern, G_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((N + G_BN - 1) / G_BN, (M + G_BM - 1) / G_BM);
   kern<<<grid, NTHREADS, G_SMEM, s>>>(static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b),
-                                      static_cast<const float*>(a_scale), G, group_tiles, fold_tiles,
+                                      static_cast<const float*>(a_scale), G, group_tiles,
                                       static_cast<const float*>(ws), static_cast<const float*>(bias),
                                       static_cast<__nv_bfloat16*>(out), M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
-
-int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
 
 }  // namespace
 
@@ -384,22 +381,18 @@ extern "C" int w8a8_quant_groups(const void* x, void* q, void* scale, int M, int
 }
 
 // G scale groups of `group` values along K (G = 1: one scale per row over
-// all of K). fold (e4m3 only; 0 = never): fold the tensor-core partial into
-// the fp32 sum every `fold` values of K, a multiple of BK = 64.
+// all of K).
 extern "C" int w8a8_gemm(const void* a, const void* b, const void* a_scale, int G, int group, const void* ws,
-                         const void* bias, void* out, int M, int N, int K, int gelu, int kind, int fold,
-                         void* stream) {
+                         const void* bias, void* out, int M, int N, int K, int gelu, int kind, void* stream) {
   if (M == 0) return 0;
-  if (fold % BK || fold < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int group_tiles = (G == 1) ? (K + BK - 1) / BK : group / BK;
-  const int fold_tiles = (kind && fold) ? gcd(group_tiles, fold / BK) : group_tiles;
   if (kind) {
-    return gelu ? launch_gemm<true, true>(a, b, a_scale, G, group_tiles, fold_tiles, ws, bias, out, M, N, K, s)
-                : launch_gemm<true, false>(a, b, a_scale, G, group_tiles, fold_tiles, ws, bias, out, M, N, K, s);
+    return gelu ? launch_gemm<true, true>(a, b, a_scale, G, group_tiles, ws, bias, out, M, N, K, s)
+                : launch_gemm<true, false>(a, b, a_scale, G, group_tiles, ws, bias, out, M, N, K, s);
   }
-  return gelu ? launch_gemm<false, true>(a, b, a_scale, G, group_tiles, fold_tiles, ws, bias, out, M, N, K, s)
-              : launch_gemm<false, false>(a, b, a_scale, G, group_tiles, fold_tiles, ws, bias, out, M, N, K, s);
+  return gelu ? launch_gemm<false, true>(a, b, a_scale, G, group_tiles, ws, bias, out, M, N, K, s)
+              : launch_gemm<false, false>(a, b, a_scale, G, group_tiles, ws, bias, out, M, N, K, s);
 }
 
 extern "C" int ffn_w8a8_gemm1(const void* xq, const void* w0, const void* xs, const void* ws0, const void* b0,

@@ -29,10 +29,6 @@ from . import _build
 KINDS = ("int8", "fp8")
 LAUNCHES = {f"{name}{suffix}": 0 for suffix in ("", "_fp8") for name in ("w8a8_matmul_fullk", "w8a8_matmul",
                                                                           "ffn_w8a8")}
-# The e4m3 GEMMs fold the tensor cores' fp32 partial into a separate fp32
-# sum every FP8_FOLD_K values of K (0: one partial over all of K, as the
-# Pallas kernel's single dot).
-FP8_FOLD_K = 0
 _QMAX = {"int8": 127.0, "fp8": 448.0}
 _CODE_DTYPE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 
@@ -162,7 +158,7 @@ def _lib():
     if lib.w8a8_gemm.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.w8a8_quant_groups.argtypes = [p, p, p, i, i, i, i, p]
-        lib.w8a8_gemm.argtypes = [p, p, p, i, i, p, p, p, i, i, i, i, i, i, p]
+        lib.w8a8_gemm.argtypes = [p, p, p, i, i, p, p, p, i, i, i, i, i, p]
         lib.ffn_w8a8_gemm1.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
         for fn in (lib.w8a8_quant_groups, lib.w8a8_gemm, lib.ffn_w8a8_gemm1):
             fn.restype = ctypes.c_int
@@ -214,10 +210,9 @@ def _quant(lib, x2, group, kind, stream):
 
 
 def _gemm(lib, a, w, a_scale, groups, group, w_scale, b, out, m, n, k, act, kind, stream, what):
-    fp8 = kind == "fp8"
     _build.check(lib.w8a8_gemm(a.data_ptr(), w.data_ptr(), a_scale.data_ptr(), groups, group, w_scale.data_ptr(),
-                               b.data_ptr(), out.data_ptr(), m, n, k, int(act == "gelu"), int(fp8),
-                               FP8_FOLD_K if fp8 else 0, stream), what)
+                               b.data_ptr(), out.data_ptr(), m, n, k, int(act == "gelu"), int(kind == "fp8"),
+                               stream), what)
 
 
 def w8a8_matmul_fullk(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
