@@ -374,7 +374,7 @@ int launch_gemm(const void* a, const void* b, const void* a_scale, int G, int gr
 }  // namespace
 
 // kind: 0 = int8, 1 = e4m3. Codes are one byte a value either way.
-extern "C" int w8a8_quant_groups(const void* x, void* q, void* scale, int M, int K, int group, int kind,
+extern "C" int w8a8_quant_groups(int kind, const void* x, void* q, void* scale, int M, int K, int group,
                                  void* stream) {
   return kind ? launch_quant_groups<true>(x, q, scale, M, K, group, stream)
               : launch_quant_groups<false>(x, q, scale, M, K, group, stream);

@@ -20,6 +20,7 @@ shows which kind it went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -157,7 +158,7 @@ def _lib():
     lib = _build.load("w8a8_matmul")
     if lib.w8a8_gemm.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.w8a8_quant_groups.argtypes = [p, p, p, i, i, i, i, p]
+        lib.w8a8_quant_groups.argtypes = [i, p, p, p, i, i, i, p]
         lib.w8a8_gemm.argtypes = [p, p, p, i, i, p, p, p, i, i, i, i, i, p]
         lib.ffn_w8a8_gemm1.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
         for fn in (lib.w8a8_quant_groups, lib.w8a8_gemm, lib.ffn_w8a8_gemm1):
@@ -192,21 +193,21 @@ def _check_w(w: torch.Tensor, ws: torch.Tensor, b, k: int, dev, name: str, kind:
     return b.float().contiguous()
 
 
-def quant_groups(fn, x2: torch.Tensor, group: int, stream, *kind_arg: int, dtype=torch.int8):
+def quant_groups(fn, x2: torch.Tensor, group: int, stream, dtype=torch.int8):
     """Launch a library's quant_groups pass: x2 (M, K) bf16 -> 8-bit codes
-    (M, K) of ``dtype`` and fp32 scales (M, K/group). ``kind_arg`` is the
-    kind code of a pass that takes one (w8a8's: 0 int8, 1 e4m3)."""
+    (M, K) of ``dtype`` and fp32 scales (M, K/group)."""
     m, k = x2.shape
     if k % group or group % 8:
         raise ValueError(f"quantization group {group} must divide K={k} and be a multiple of 8")
     xq = torch.empty((m, k), dtype=dtype, device=x2.device)
     xs = torch.empty((m, k // group), dtype=torch.float32, device=x2.device)
-    _build.check(fn(x2.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k, group, *kind_arg, stream), "quant_groups")
+    _build.check(fn(x2.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k, group, stream), "quant_groups")
     return xq, xs
 
 
 def _quant(lib, x2, group, kind, stream):
-    return quant_groups(lib.w8a8_quant_groups, x2, group, stream, int(kind == "fp8"), dtype=_CODE_DTYPE[kind])
+    fn = functools.partial(lib.w8a8_quant_groups, int(kind == "fp8"))
+    return quant_groups(fn, x2, group, stream, dtype=_CODE_DTYPE[kind])
 
 
 def _gemm(lib, a, w, a_scale, groups, group, w_scale, b, out, m, n, k, act, kind, stream, what):

@@ -1,11 +1,13 @@
 """Weight quantization of a flat checkpoint dict (the int8, fp8 and int4
-parts of ``lightx2v_tpu.tools.convert``; numpy in, numpy out):
-per-output-channel int8 or e4m3, and nibble-packed int4 with per-(channel,
-group) scales.
+parts of ``lightx2v_tpu.tools.convert``): per-output-channel int8 or e4m3,
+and nibble-packed int4 with per-(channel, group) scales. ``quantize_tensor``
+takes and returns numpy arrays.
 
 numpy has no float8 dtype, and the port does not import ``ml_dtypes``: an
-fp8 weight is returned as uint8 **bit patterns** of float8_e4m3fn codes
-(``fp8_bits_to_tensor`` views them as ``torch.float8_e4m3fn``). The codes
+fp8 weight comes out of ``quantize_tensor`` as uint8 **bit patterns** of
+float8_e4m3fn codes (``fp8_bits_to_tensor`` views them as
+``torch.float8_e4m3fn``, which is what ``quantize_model`` stores, so that
+the loader cannot take them for packed int4 bytes). The codes
 are cast by torch, which rounds to nearest even like ``ml_dtypes``; the two
 casts differ only past 448 (torch saturates, ``ml_dtypes`` gives NaN from
 464 up), where a per-channel scale of absmax / 448 never reaches."""
