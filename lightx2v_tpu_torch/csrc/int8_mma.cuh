@@ -43,7 +43,10 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
 }
 
 // The same product on e4m3 operands with fp32 accumulators (sm_89 and
-// later): the operand and accumulator fragments have the s8 layout.
+// later): the operand and accumulator fragments have the s8 layout. On
+// sm_90 ptxas lowers it to an e4m3 -> f16 unpack of the fragments and two
+// HMMA.16816.F32, the fp16 rate (cuobjdump -sass); only wgmma reaches
+// Hopper's fp8 rate.
 __device__ __forceinline__ void mma_e4m3(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
