@@ -193,7 +193,7 @@ def kernel_phase(peaks, reps: int, want):
     def randn(*shape, dtype=torch.bfloat16, std=1.0):
         return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
 
-    if want("flash_attention_fused_rope") or want("flash_attention"):
+    if want("flash_attention_fused_rope") or want("flash_attention") or want("rope_rotate"):
         q = randn(1, S, HEADS, HD)
     # ---- flash attention with fused RoPE (self-attention) ----
     if want("flash_attention_fused_rope"):
@@ -225,7 +225,35 @@ def kernel_phase(peaks, reps: int, want):
                          max_abs_err=err, bar="2e-2*max|ref| + 1e-3", ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                          library_call="apply_rope_half x2 + F.scaled_dot_product_attention"))
-        del out, k, v
+        del out
+
+    # ---- the RoPE pass of flash_attention_fused_rope (once per call) ----
+    if want("flash_attention_fused_rope") or want("rope_rotate"):
+        if not want("flash_attention_fused_rope"):
+            k = randn(1, S, HEADS, HD)
+            cos_np, sin_np = build_wan_rope_grid(HD, 21, 30, 52)
+            cos, sin = torch.from_numpy(cos_np).to(dev), torch.from_numpy(sin_np).to(dev)
+        gain = fa._gain(HD)
+        qr, kr = fa.rope_rotate(q, k, cos, sin, gain)
+        qp, kp = fa.rope_rotate_plain(q, k, cos, sin, gain)
+        torch.cuda.synchronize()
+        if not (torch.equal(qr, qp) and torch.equal(kr, kp)):
+            raise AssertionError("rope_rotate: not bit-identical to its plain version")
+        print("[check] rope_rotate: bit-identical to rope_rotate_plain", flush=True)
+        del qr, kr, qp, kp
+        ms = cuda_ms(lambda: fa.rope_rotate(q, k, cos, sin, gain), reps * 2)
+        print(f"[rope_rotate] RoPE pass {ms:.4f} ms at (1,{S},{HEADS},{HD})", flush=True)
+        plain_ms = cuda_ms(lambda: fa.rope_rotate_plain(q, k, cos, sin, gain), reps)
+        b_ms, b_by = bound(0.0, 4 * S * HEADS * HD * 2 + 2 * S * HD // 2 * 4, peak_bf16, peak_bw)
+        rows.append(dict(name="rope_rotate", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
+                         replaces="lightx2v_tpu/ops/pallas/flash_attention.py:301",
+                         shape=f"q,k (1,{S},{HEADS},{HD}) bf16; cos,sin ({S},64) fp32",
+                         max_abs_err=0.0, bar="bit-identical", ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                         library_call="none (no single PyTorch call applies RoPE)"))
+        del k
+    if want("flash_attention_fused_rope"):
+        del v
 
     # ---- flash attention (cross-attention over 512 text tokens) ----
     if want("flash_attention"):
@@ -247,7 +275,27 @@ def kernel_phase(peaks, reps: int, want):
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                          library_call="F.scaled_dot_product_attention"))
         del kc, vc
-    if want("flash_attention_fused_rope") or want("flash_attention"):
+
+        # ---- the dense kernel at the self-attention shape, without RoPE ----
+        ks, vs = randn(1, S, HEADS, HD), randn(1, S, HEADS, HD)
+        hs = slice(0, 2)
+        out = fa.flash_attention(q, ks, vs)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q[:, :, hs], ks[:, :, hs], vs[:, :, hs])
+        err = check_close("flash_attention self-attention shape", out[:, :, hs], ref, 2e-2, 1e-3)
+        del ref, out
+        ms = cuda_ms(lambda: fa.flash_attention(q, ks, vs), reps)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), ks.transpose(1, 2),
+                                                                vs.transpose(1, 2)), reps)
+        b_ms, b_by = bound(4.0 * HEADS * S * S * HD, 4 * S * HEADS * HD * 2, peak_bf16, peak_bw)
+        extra.append(dict(name="flash_attention", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
+                          replaces="lightx2v_tpu/ops/pallas/flash_attention.py:409",
+                          shape=f"q,k,v (1,{S},{HEADS},{HD}) bf16 (self-attention, no RoPE)",
+                          max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=None,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                          library_call="F.scaled_dot_product_attention"))
+        del ks, vs
+    if want("flash_attention_fused_rope") or want("flash_attention") or want("rope_rotate"):
         del q
 
     # ---- w8a8_matmul_fullk (q/k/v/o at M=32,760; cross k/v at M=512) ----
@@ -883,6 +931,7 @@ def expected_launches(runner, cfg) -> dict:
             out["block_sparse_attention_shared"] = calls
     else:
         out["flash_attention_fused_rope"] = calls
+    out["rope_rotate"] = out["flash_attention_fused_rope"]  # one RoPE pass a fused-RoPE call
     return out
 
 
@@ -952,8 +1001,9 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
 
 def _category(name: str) -> str:
     n = name.lower()
-    for key, cat in (("flash_fwd_kernel<false, true>", "block_sparse_attention (ours)"),
-                     ("flash_fwd_kernel", "flash_attention (ours)"), ("sage_fwd_kernel", "sage attention (ours)"),
+    for key, cat in (("sparse_fwd_kernel", "block_sparse_attention (ours)"),
+                     ("flash_wgmma_kernel", "flash_attention (ours)"), ("rope_rotate_kernel", "flash_attention (ours)"),
+                     ("sage_fwd_kernel", "sage attention (ours)"),
                      ("sage_quant_rows", "sage row quantize (ours)"), ("int4_wgmma_kernel", "int4 GEMM (ours)"),
                      ("gemm_8bit_kernel<true", "fp8 GEMM (ours)"), ("gemm_8bit_kernel", "int8 GEMM (ours)"),
                      ("ffn_gemm1_kernel<true", "fp8 FFN GEMM1 (ours)"),

@@ -64,10 +64,7 @@
 //    free by then) and writes token rows with 16-byte stores.
 // Not yet used: clusters with multicast x tiles, persistent CTAs (later work).
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
-#include "int8_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -94,28 +91,6 @@ __device__ __forceinline__ uint32_t nib2_to_bf16x2(uint32_t nib, uint32_t sel) {
   return *reinterpret_cast<uint32_t*>(&r);
 }
 
-// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
-// 1024 bytes apart (the leading offset is unused in this layout)
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator reads above the wait that
-// completes them (the asm emits nothing, but it counts as a use: ptxas
-// inserts a wait before any use of registers a wgmma in flight still writes)
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // d (64 x 128, fp32) = (scale_d ? d : 0) + a (64 x 16 bf16, registers) . b (16 x 128 bf16, descriptor)
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
   asm volatile(
@@ -140,34 +115,6 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
-// ---- mbarriers and TMA ----
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  }
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
 // A fragments of k-steps s = 2h and 2h + 1, low and high half, for this
 // thread's weight rows (ra, ra + 8), whose 16-byte chunks sit at chunk
 // c ^ swz (the 64-byte swizzle): f[2j] is the low-half k-step 2h + j,
@@ -333,34 +280,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
-// cuTensorMapEncodeTiled through the runtime, so the library needs no -lcuda
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
 // a 2-D tensor map of `rows` x `cols` elements (row pitch `pitch` bytes),
 // boxes of box_rows x box_cols
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rows, int cols, long long pitch,
-              int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
-  PFN_cuTensorMapEncodeTiled_v12000 enc = encode_fn();
-  if (enc == nullptr) return false;
-  cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
-  cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
-  cuuint32_t estr[2] = {1, 1};
-  return enc(map, type, 2, const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+bool make_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rows, int cols, long long pitch,
+                 int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  return make_map(map, type, base, 2, dims, strides, box, swizzle);
 }
 
 }  // namespace
@@ -375,8 +302,8 @@ extern "C" int int4_gemm(const void* a, const void* bp, const void* ws, const vo
       (reinterpret_cast<uintptr_t>(bp) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap xmap, wmap;
-  if (!make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, M, K, 2LL * K, BM, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, bp, N, K / 2, K / 2, BN, BKP, CU_TENSOR_MAP_SWIZZLE_64B))
+  if (!make_map_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, M, K, 2LL * K, BM, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, bp, N, K / 2, K / 2, BN, BKP, CU_TENSOR_MAP_SWIZZLE_64B))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = set_smem(int4_wgmma_kernel, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);

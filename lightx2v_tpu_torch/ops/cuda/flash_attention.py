@@ -2,7 +2,9 @@
 
 Port of ``lightx2v_tpu/ops/pallas/flash_attention.py``: ``flash_attention``,
 ``flash_attention_fused_rope`` and ``flash_attention_with_lse`` (kernel
-source ``csrc/flash_attention.cu``).
+source ``csrc/flash_attention.cu``). All three launch one dense kernel;
+``flash_attention_fused_rope`` first rotates q and k once in the RoPE pass
+``rope_rotate`` (its own kernel and counter).
 Public functions keep the JAX (B, S, N, D) layout. On a CUDA tensor the
 wrapper launches the kernel or raises; on a CPU tensor it runs the plain
 version, which repeats the kernel's arithmetic (q scaled by scale*log2(e)
@@ -23,7 +25,7 @@ LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 HEAD_DIM = 128
 
-LAUNCHES = {"flash_attention": 0, "flash_attention_fused_rope": 0, "flash_attention_with_lse": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_fused_rope": 0, "flash_attention_with_lse": 0, "rope_rotate": 0}
 
 
 def _kv_limit(kv_len, sk: int) -> int:
@@ -107,17 +109,29 @@ def flash_attention_fused_rope_plain(q, k, v, cos, sin, kv_len=None) -> torch.Te
     return _attend_plain(qs, kr, v, _kv_limit(kv_len, k.shape[1]))
 
 
+def _s_rope(cos, q) -> int:
+    return min(cos.shape[0], q.shape[1])
+
+
+def rope_rotate_plain(q, k, cos, sin, gain: float):
+    """(bf16(rotate(q) * gain), bf16(rotate(k))), both rotated by the first
+    min(S_rope, Sq) table rows: the RoPE pass of the card path."""
+    s_rope = _s_rope(cos, q)
+    return (_rotate_half_plain(q, cos, sin, s_rope, gain).to(torch.bfloat16),
+            _rotate_half_plain(k, cos, sin, s_rope, 1.0).to(torch.bfloat16))
+
+
 # ---------------------------------------------------------------------------
-# CUDA kernel
+# CUDA kernels
 
 
 def _lib():
     lib = _build.load("flash_attention")
     if lib.flash_attention_bf16.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flash_attention_bf16.argtypes = [p] * 6 + [i] * 6 + [ll] * 12 + [ctypes.c_float, i, p]
-        lib.flash_attention_lse_bf16.argtypes = [p] * 5 + [i] * 5 + [ll] * 12 + [ctypes.c_float, p]
-        lib.flash_attention_bf16.restype = lib.flash_attention_lse_bf16.restype = ctypes.c_int
+        lib.flash_attention_bf16.argtypes = [p] * 5 + [i] * 5 + [ll] * 12 + [ctypes.c_float, p]
+        lib.rope_rotate_bf16.argtypes = [p] * 4 + [i] * 5 + [ll] * 6 + [p] * 2 + [ctypes.c_float, p]
+        lib.flash_attention_bf16.restype = lib.rope_rotate_bf16.restype = ctypes.c_int
     return lib
 
 
@@ -141,30 +155,53 @@ def _check_qkv(q, k, v):
         raise ValueError(f"shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
 
 
-def _launch(q, k, v, cos, sin, kv_len, rope: bool) -> torch.Tensor:
-    dev = q.device
-    _check_qkv(q, k, v)
+def _launch(q, k, v, kv_len, gain: float, name: str, lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The dense kernel on q/k/v (already checked); q is scaled by ``gain``
+    in the kernel (1.0: left as it is)."""
     b, sq, n, d = q.shape
     sk = k.shape[1]
-    s_rope = 0
-    cptr = sptr = None
-    if rope:
-        if (cos.device != dev or sin.device != dev or cos.dtype != torch.float32
-                or sin.dtype != torch.float32 or cos.shape != sin.shape
-                or cos.dim() != 2 or cos.shape[1] != d // 2
-                or not cos.is_contiguous() or not sin.is_contiguous()):
-            raise ValueError("rope tables must be contiguous fp32 (S_rope, D/2) on the q device")
-        s_rope = min(cos.shape[0], sq)
-        cptr, sptr = cos.data_ptr(), sin.data_ptr()
-    out = torch.empty((b, sq, n, d), dtype=torch.bfloat16, device=dev)
-    gain = (1.0 / math.sqrt(d)) * LOG2E
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().flash_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), cptr, sptr, s_rope,
-                                      b, n, sq, sk, _kv_limit(kv_len, sk), *q.stride()[:3], *k.stride()[:3],
-                                      *v.stride()[:3], *out.stride()[:3], gain, int(rope), stream)
-    _build.check(err, "flash_attention_fused_rope" if rope else "flash_attention")
-    LAUNCHES["flash_attention_fused_rope" if rope else "flash_attention"] += 1
+    out = torch.empty((b, sq, n, d), dtype=torch.bfloat16, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib().flash_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                      None if lse is None else lse.data_ptr(), b, n, sq, sk, _kv_limit(kv_len, sk),
+                                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], gain,
+                                      stream)
+    _build.check(err, name)
+    LAUNCHES[name] += 1
     return out
+
+
+def _gain(d: int) -> float:
+    return (1.0 / math.sqrt(d)) * LOG2E
+
+
+def rope_rotate(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, gain: float):
+    """The RoPE pass: q/k (B, S, N, 128) bf16 by stride -> contiguous
+    (bf16(rotate(q) * gain), bf16(rotate(k))) by the (S_rope, 64) fp32
+    tables; positions at or past min(S_rope, Sq) keep the identity
+    rotation. Bit-identical to ``rope_rotate_plain``."""
+    if q.device.type == "cpu":
+        return rope_rotate_plain(q, k, cos, sin, gain)
+    dev = q.device
+    _check(q, "q", dev)
+    _check(k, "k", dev)
+    if (cos.device != dev or sin.device != dev or cos.dtype != torch.float32
+            or sin.dtype != torch.float32 or cos.shape != sin.shape
+            or cos.dim() != 2 or cos.shape[1] != HEAD_DIM // 2
+            or not cos.is_contiguous() or not sin.is_contiguous()):
+        raise ValueError("rope tables must be contiguous fp32 (S_rope, D/2) on the q device")
+    if k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(f"shape mismatch q {tuple(q.shape)} k {tuple(k.shape)}")
+    b, sq, n, _ = q.shape
+    qo = torch.empty(q.shape, dtype=torch.bfloat16, device=dev)
+    ko = torch.empty(k.shape, dtype=torch.bfloat16, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().rope_rotate_bf16(q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(), _s_rope(cos, q), b, n,
+                                  sq, k.shape[1], *q.stride()[:3], *k.stride()[:3], qo.data_ptr(), ko.data_ptr(),
+                                  gain, stream)
+    _build.check(err, "rope_rotate")
+    LAUNCHES["rope_rotate"] += 1
+    return qo, ko
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -173,18 +210,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``kv_len`` are masked."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_len)
-    return _launch(q, k, v, None, None, kv_len, rope=False)
+    _check_qkv(q, k, v)
+    return _launch(q, k, v, kv_len, _gain(q.shape[-1]), "flash_attention")
 
 
 def flash_attention_fused_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                cos: torch.Tensor, sin: torch.Tensor,
                                kv_len: Optional[int] = None) -> torch.Tensor:
     """As ``flash_attention`` with q and k (half-split pair layout) rotated
-    in-kernel by the (S_rope, D/2) cos/sin tables; positions past S_rope
-    keep the identity rotation."""
+    by the (S_rope, D/2) cos/sin tables; positions past S_rope keep the
+    identity rotation. On the card the RoPE pass writes rotated, scaled
+    copies of q and k (2 * B * S * N * D bf16 of scratch, freed on return)
+    and the dense kernel runs on them with gain 1."""
     if q.device.type == "cpu":
         return flash_attention_fused_rope_plain(q, k, v, cos, sin, kv_len)
-    return _launch(q, k, v, cos, sin, kv_len, rope=True)
+    _check_qkv(q, k, v)
+    qr, kr = rope_rotate(q, k, cos, sin, _gain(q.shape[-1]))
+    return _launch(qr, kr, v, kv_len, 1.0, "flash_attention_fused_rope")
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -195,15 +237,5 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_with_lse_plain(q, k, v, kv_len)
     _check_qkv(q, k, v)
-    b, sq, n, d = q.shape
-    sk = k.shape[1]
-    out = torch.empty((b, sq, n, d), dtype=torch.bfloat16, device=q.device)
-    lse = torch.empty((b, sq, n), dtype=torch.float32, device=q.device)
-    gain = (1.0 / math.sqrt(d)) * LOG2E
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib().flash_attention_lse_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                                          b, n, sq, sk, _kv_limit(kv_len, sk), *q.stride()[:3], *k.stride()[:3],
-                                          *v.stride()[:3], *out.stride()[:3], gain, stream)
-    _build.check(err, "flash_attention_with_lse")
-    LAUNCHES["flash_attention_with_lse"] += 1
-    return out, lse
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, kv_len, _gain(q.shape[-1]), "flash_attention_with_lse", lse), lse

@@ -25,18 +25,38 @@ def _close(out, ref, rtol, atol):
     assert err <= atol + rtol * float(ref.float().abs().max()), err
 
 
-@pytest.mark.parametrize("sq,sk,kv_len", [(200, 200, None), (256, 256, None), (200, 200, 150), (300, 64, None),
-                                          (7, 513, 300)])
-def test_flash_kernel_vs_plain(dev, sq, sk, kv_len):
+@pytest.mark.parametrize("b,sq,sk,kv_len", [(2, 200, 200, None), (2, 256, 256, None), (2, 200, 200, 150),
+                                            (2, 300, 64, None), (2, 7, 513, 300), (1, 1000, 512, None),
+                                            (2, 120, 200, None), (2, 200, 390, 130), (21, 156, 624, None)])
+def test_flash_kernel_vs_plain(dev, b, sq, sk, kv_len):
+    """Ragged sq (7, 120 below one 128-row tile, 200), sk below one 128-key
+    tile, not a multiple of it and 512 (the cross-attention shape, narrowed),
+    kv_len inside the first and the second key tile, batch 1, 2 and 21."""
     from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(sq + sk)
-    q, k, v = (torch.randn((2, s, 3, 128), generator=g, device=dev).to(torch.bfloat16) for s in (sq, sk, sk))
+    q, k, v = (torch.randn((b, s, 3, 128), generator=g, device=dev).to(torch.bfloat16) for s in (sq, sk, sk))
     before = fa.LAUNCHES["flash_attention"]
     out = fa.flash_attention(q, k, v, kv_len=kv_len)
     assert fa.LAUNCHES["flash_attention"] == before + 1
     # bar: bf16 P rounded at different running maxima, summation order
     _close(out, fa.flash_attention_plain(q, k, v, kv_len), 2e-2, 2e-3)
+
+
+@pytest.mark.parametrize("pattern", ["column", "key"])
+def test_flash_kernel_structured_v(dev, pattern):
+    """One 128-key tile with V holding its column index (or its key index):
+    a wrong transpose flag or stride in the P.V product gives another
+    pattern, not noise."""
+    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k = (torch.randn((1, 128, 2, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    idx = torch.arange(128, device=dev, dtype=torch.float32)
+    v = (idx[None, None, None, :] if pattern == "column" else idx[None, :, None, None]).expand(1, 128, 2, 128)
+    v = v.to(torch.bfloat16).contiguous()
+    out = fa.flash_attention(q, k, v)
+    _close(out, fa.flash_attention_plain(q, k, v), 2e-2, 2e-3)
 
 
 def test_flash_kernel_strided_views(dev):
@@ -54,8 +74,33 @@ def test_flash_rope_kernel_vs_plain(dev):
 
     cos, sin = (torch.from_numpy(a).to(dev) for a in build_wan_rope_grid(128, 3, 7, 7))  # 147 < 200
     q, k, v = (torch.randn((1, 200, 2, 128), device=dev).to(torch.bfloat16) for _ in range(3))
-    _close(fa.flash_attention_fused_rope(q, k, v, cos, sin), fa.flash_attention_fused_rope_plain(q, k, v, cos, sin),
-           2e-2, 2e-3)
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention_fused_rope(q, k, v, cos, sin)
+    assert fa.LAUNCHES["flash_attention_fused_rope"] == before["flash_attention_fused_rope"] + 1
+    assert fa.LAUNCHES["rope_rotate"] == before["rope_rotate"] + 1
+    _close(out, fa.flash_attention_fused_rope_plain(q, k, v, cos, sin), 2e-2, 2e-3)
+
+
+@pytest.mark.parametrize("sq,sk,grid", [(200, 200, (3, 7, 7)), (300, 260, (2, 10, 10)), (64, 64, (1, 8, 8))])
+def test_rope_rotate_pass_is_exact(dev, sq, sk, grid):
+    """The RoPE pass against its plain version on the same card tensors, bit
+    for bit: tables shorter than sq (147 < 200, 200 < 300) and as long; q a
+    strided view of a fused buffer."""
+    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+    from lightx2v_tpu_torch.ops.rope import build_wan_rope_grid
+
+    cos, sin = (torch.from_numpy(a).to(dev) for a in build_wan_rope_grid(128, *grid))
+    g = torch.Generator(device=dev).manual_seed(sq)
+    q = torch.randn((2, sq, 2, 3, 128), generator=g, device=dev).to(torch.bfloat16)[:, :, 0]
+    k = torch.randn((2, sk, 3, 128), generator=g, device=dev).to(torch.bfloat16)
+    gain = fa._gain(128)
+    before = fa.LAUNCHES["rope_rotate"]
+    qr, kr = fa.rope_rotate(q, k, cos, sin, gain)
+    assert fa.LAUNCHES["rope_rotate"] == before + 1
+    qp, kp = fa.rope_rotate_plain(q, k, cos, sin, gain)
+    torch.cuda.synchronize()
+    assert qr.is_contiguous() and kr.is_contiguous()
+    assert torch.equal(qr, qp) and torch.equal(kr, kp)
 
 
 def test_flash_refuses_bad_input(dev):

@@ -117,3 +117,21 @@ def test_cuda_wrapper_rejects_bad_input_before_launch():
     q = torch.empty((1, 8, 2, 128), dtype=torch.float32, device="meta")
     with pytest.raises(TypeError):
         tflash._check(q, "q", q.device)
+
+
+@pytest.mark.parametrize("kv_len", [None, 170])
+def test_fused_rope_is_rope_pass_then_dense(kv_len):
+    """The card path's decomposition: the RoPE pass (q rotated and scaled,
+    k rotated, both rounded to bf16) followed by the dense attention with
+    gain 1 is the fused-RoPE function, bit for bit; the table (147 rows) is
+    shorter than the 260 tokens."""
+    from lightx2v_tpu.ops.rope import build_wan_rope_grid
+
+    q, k, v = (_t(a) for a in _qkv(260, 260, seed=4))
+    cos, sin = (torch.from_numpy(a) for a in build_wan_rope_grid(128, 3, 7, 7))
+    gain = tflash._gain(128)
+    qr, kr = tflash.rope_rotate(q, k, cos, sin, gain)
+    assert qr.dtype == kr.dtype == torch.bfloat16 and qr.shape == q.shape and kr.shape == k.shape
+    assert torch.equal(kr[:, 147:], k[:, 147:])  # identity rotation past the table
+    fused = tflash.flash_attention_fused_rope_plain(q, k, v, cos, sin, kv_len)
+    assert torch.equal(fused, tflash._attend_plain(qr, kr, v, tflash._kv_limit(kv_len, 260)))
