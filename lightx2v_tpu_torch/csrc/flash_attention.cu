@@ -31,22 +31,33 @@
 // log(max(l, 1e-30)) in natural log (-inf for a row with no key). Keys at
 // or past kv_len are masked by absolute index, and whole tiles past it are
 // skipped (they carry no mass); the TPU kernel removes its zero pad rows'
-// mass in closed form ("phantom" mode), which gives the same sums.
+// mass in closed form ("phantom" mode), which gives the same sums. The dense
+// kernel takes exp2 as ex2.approx.ftz (a P below 2^-126 becomes 0, as on the
+// TPU, which has no subnormals) and the output as acc times the correctly
+// rounded 1 / l (within an fp32 ulp of the quotient).
 //
 // What the dense design does about it (flash_wgmma_kernel):
 //  - Every product runs on wgmma, the only path to the card's full bf16
-//    rate. A CTA owns 128 query rows of one (batch, head): a producer
-//    warpgroup, one thread of which issues TMA copies, and two consumer
-//    warpgroups of 64 rows each (setmaxnreg 24 / 240: ptxas otherwise caps
-//    384 threads at 168 registers, and a consumer holds S (64 fp32), O (64)
-//    and P (32) at once).
-//  - q/k/v/o are addressed through 4-D tensor maps (D, N, S, B) over the
-//    caller's strided (B, S, N, D) layout, so no transposed copy is made;
-//    TMA zero-fills rows past sq and sk and clips the output store at sq.
-//    Q arrives once as two 64-column boxes (128-byte swizzle); K and V
-//    arrive as 128-key tiles of two boxes each into a 2-stage ring with a
-//    barrier for K and one for V (the S product starts before V lands):
-//    32 KB + 2 x 64 KB of shared memory.
+//    rate. A CTA has a producer warpgroup and two consumer warpgroups of 64
+//    query rows each (setmaxnreg 24 / 240: ptxas otherwise caps 384 threads
+//    at 168 registers, and a consumer holds S (64 fp32), O (64) and P (32)
+//    at once; a 32 / 240 split, 512 registers a lane on each SM
+//    sub-partition, never gets its registers and hangs).
+//  - Persistent: one CTA an SM walks work tiles of 128 query rows of one
+//    (batch, head), consecutive tiles of a head on neighbouring CTAs so that
+//    K and V are shared in L2. Two Q buffers: the next tile's Q lands while
+//    this one's O is stored.
+//  - Producer warp 0, one thread: TMA through 4-D tensor maps (D, N, S, B)
+//    over the caller's strided (B, S, N, D) layout, so no transposed copy is
+//    made; TMA zero-fills rows past sq and sk and clips the output store at
+//    sq. Q arrives as two 64-column boxes (128-byte swizzle), K and V as
+//    128-key tiles of two boxes each into a 2-stage ring with a full and an
+//    empty barrier for K and for V apart: a K tile is handed back as soon as
+//    its S product is done, so the next one loads while P.V runs. 2 x 32 KB
+//    of Q + 2 x 64 KB of K/V. Producer warps 1-3 scale each Q tile in place
+//    (q * gain in fp32, re-rounded to bf16; skipped when the gain is 1), off
+//    the consumers' path: cross-attention runs only 4 key tiles per work
+//    tile, so per-tile work weighs there.
 //  - S = Q.K^T: per 16-wide d step one wgmma.m64n128k16 with both operands
 //    K-major in shared memory (+32 bytes a step inside a swizzle row, the
 //    next box every 4 steps).
@@ -55,15 +66,16 @@
 //    P packs to bf16 with no shuffle); V is MN-major (d contiguous in a key
 //    row), read with the transpose-B flag, as two m64n64k16 a 16-key step,
 //    one per 64-wide d box, so that B spans one swizzle atom along N.
-//  - Step A of the design landed: each consumer warpgroup runs S ->
-//    wait -> softmax -> rescale O -> P.V -> wait per tile, so O is never
-//    touched while a product that writes it is in flight (ptxas would
-//    serialise the pipeline: C7517); the two warpgroups overlap each other
-//    and the producer keeps the ring full. q is scaled in place in shared
-//    memory (skipped when the gain is 1).
+//  - Schedule: O is never touched while a product that writes it is in
+//    flight (ptxas would serialise the pipeline). From 8 key tiles on, a
+//    warpgroup issues S of tile t and P.V of tile t - 1 together and runs the
+//    softmax of tile t while P.V runs (wgmma.wait_group 1, then 0); below
+//    that (cross-attention's 4 tiles) it runs S -> softmax -> P.V per tile,
+//    which measured faster there. The two warpgroups overlap each other.
 //  - The epilogue stages bf16 O in the warpgroup's own Q rows (free once its
 //    last S product is done), in the swizzle the TMA store reads, and one
-//    thread stores each 64 x 64 box.
+//    thread stores each 64 x 64 box (direct 4-byte stores from the
+//    fragments measured slower).
 //
 // RoPE (flash_attention_fused_rope) is rotated once per call, not once per
 // CTA as the TPU kernel's grid order (b*n, nq, nk) does: rope_rotate_kernel
@@ -230,45 +242,62 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32], const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// 2^x on the special-function unit, subnormal results flushed to zero
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 template <int D>
 struct Dense {
   static_assert(D % 64 == 0, "head dim in 64-column boxes");
   static constexpr int THREADS = 384;      // a producer warpgroup, then two consumer warpgroups
   static constexpr int CONSUMERS = 256;
-  static constexpr int BM = 128;           // query rows per CTA, 64 per consumer warpgroup
+  static constexpr int BM = 128;           // query rows per work tile, 64 per consumer warpgroup
   static constexpr int BN = 128;           // keys per tile
   static constexpr int STAGES = 2;
+  // below this many key tiles a warpgroup runs its tiles one after another;
+  // from it on, a tile's softmax overlaps the previous tile's P.V (at the
+  // main shapes: 4 key tiles faster unpipelined, 49 and more pipelined)
+  static constexpr int OVERLAP_MIN_TILES = 8;
   static constexpr int BOXES = D / 64;     // 64-column (128-byte) boxes of a row
   static constexpr int BOX = 128 * 128;    // one box of 128 rows
   static constexpr int Q_BYTES = BOXES * BOX;
   static constexpr int KV_BYTES = BOXES * BOX;  // one K or V tile
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
-  static constexpr int SMEM = Q_BYTES + STAGES * STAGE_BYTES + 1024;  // + slack to align to 1024 bytes
+  // two Q buffers: the next work tile's Q lands while this one's O is stored
+  static constexpr int SMEM = 2 * Q_BYTES + STAGES * STAGE_BYTES + 1024;  // + slack to align to 1024 bytes
 };
 
 // qmap/kmap/vmap: (D, N, S, B) boxes of 64 x 1 x 128 x 1; omap the same with
-// 64-row boxes. lse (B, sq, N) fp32 or null.
+// 64-row boxes. lse (B, sq, N) fp32 or null. Work tile w is query tile
+// w % n_qt of (batch, head) w / n_qt; CTA c takes w = c, c + gridDim.x, ...
 template <int D>
 __global__ void __launch_bounds__(Dense<D>::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
-                   float* __restrict__ lse, int n_heads, int sq, int kv_limit, float gain) {
+                   float* __restrict__ lse, int n_heads, int sq, int kv_limit, float gain, int n_qt, int n_work) {
   using C = Dense<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t q_full, k_full[C::STAGES], v_full[C::STAGES], kv_empty[C::STAGES];
+  __shared__ __align__(8) uint64_t q_full[2], q_ready[2], q_empty[2], k_full[C::STAGES], v_full[C::STAGES], k_empty[C::STAGES],
+      v_empty[C::STAGES];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* qs = smem;
-  auto k_tile = [&](int st) { return smem + C::Q_BYTES + st * C::STAGE_BYTES; };  // V at + KV_BYTES
-  const int q0 = blockIdx.x * C::BM;
-  const int b = blockIdx.y / n_heads, n = blockIdx.y % n_heads;
+  auto q_buf = [&](int i) { return smem + i * C::Q_BYTES; };
+  auto k_tile = [&](int st) { return smem + 2 * C::Q_BYTES + st * C::STAGE_BYTES; };  // V at + KV_BYTES
   const int n_tiles = (kv_limit + C::BN - 1) / C::BN;
 
   if (threadIdx.x == 0) {
-    mbar_init(&q_full, 1);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_ready[i], 3);  // one arrive per scaling warp
+      mbar_init(&q_empty[i], 2);  // one arrive per consumer warpgroup
+    }
     for (int s = 0; s < C::STAGES; ++s) {
       mbar_init(&k_full[s], 1);
       mbar_init(&v_full[s], 1);
-      mbar_init(&kv_empty[s], C::CONSUMERS / 32);  // one arrive per consumer warp
+      mbar_init(&k_empty[s], C::CONSUMERS / 32);  // one arrive per consumer warp
+      mbar_init(&v_empty[s], C::CONSUMERS / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -276,20 +305,48 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_consta
 
   if (threadIdx.x < C::THREADS - C::CONSUMERS) {
     // producer warpgroup: hands most of its registers to the consumers; one
-    // thread keeps the ring full
+    // thread keeps the Q buffers and the K/V ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(&q_full, C::Q_BYTES);
-      for (int x = 0; x < C::BOXES; ++x) tma_load_4d(qs + x * C::BOX, &qmap, &q_full, 64 * x, n, q0, b);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % C::STAGES;
-        mbar_wait(&kv_empty[s], ((t / C::STAGES) & 1) ^ 1);
-        unsigned char* kt = k_tile(s);
-        mbar_expect_tx(&k_full[s], C::KV_BYTES);
-        for (int x = 0; x < C::BOXES; ++x) tma_load_4d(kt + x * C::BOX, &kmap, &k_full[s], 64 * x, n, t * C::BN, b);
-        mbar_expect_tx(&v_full[s], C::KV_BYTES);
-        for (int x = 0; x < C::BOXES; ++x)
-          tma_load_4d(kt + C::KV_BYTES + x * C::BOX, &vmap, &v_full[s], 64 * x, n, t * C::BN, b);
+      int gt = 0;  // key tiles loaded so far, over all work tiles
+      for (int it = 0, w = blockIdx.x; w < n_work; ++it, w += gridDim.x) {
+        const int qb = it & 1, q0 = (w % n_qt) * C::BM, bh = w / n_qt, b = bh / n_heads, n = bh % n_heads;
+        mbar_wait(&q_empty[qb], ((it >> 1) & 1) ^ 1);
+        mbar_expect_tx(&q_full[qb], C::Q_BYTES);
+        for (int x = 0; x < C::BOXES; ++x) tma_load_4d(q_buf(qb) + x * C::BOX, &qmap, &q_full[qb], 64 * x, n, q0, b);
+        for (int t = 0; t < n_tiles; ++t, ++gt) {
+          const int s = gt % C::STAGES;
+          unsigned char* kt = k_tile(s);
+          mbar_wait(&k_empty[s], ((gt / C::STAGES) & 1) ^ 1);
+          mbar_expect_tx(&k_full[s], C::KV_BYTES);
+          for (int x = 0; x < C::BOXES; ++x) tma_load_4d(kt + x * C::BOX, &kmap, &k_full[s], 64 * x, n, t * C::BN, b);
+          mbar_wait(&v_empty[s], ((gt / C::STAGES) & 1) ^ 1);
+          mbar_expect_tx(&v_full[s], C::KV_BYTES);
+          for (int x = 0; x < C::BOXES; ++x)
+            tma_load_4d(kt + C::KV_BYTES + x * C::BOX, &vmap, &v_full[s], 64 * x, n, t * C::BN, b);
+        }
+      }
+    } else if (threadIdx.x >= 32) {
+      // warps 1-3: q * gain in fp32, re-rounded to bf16, in place once the Q
+      // tile lands (elementwise, so the swizzle does not matter); then
+      // visible to the tensor cores' reads
+      const int lane = threadIdx.x & 31;
+      for (int it = 0, w = blockIdx.x; w < n_work; ++it, w += gridDim.x) {
+        const int qb = it & 1;
+        mbar_wait(&q_full[qb], (it >> 1) & 1);
+        if (gain != 1.f) {
+          for (int i = threadIdx.x - 32; i < C::Q_BYTES / 16; i += 96) {
+            uint4* p = reinterpret_cast<uint4*>(q_buf(qb)) + i;
+            float f[8];
+            unpack8(*p, f);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) f[j] = __fmul_rn(f[j], gain);
+            *p = pack8(f);
+          }
+          fence_proxy_async();
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&q_ready[qb]);
       }
     }
     return;
@@ -298,56 +355,37 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_consta
   const int tid = threadIdx.x - (C::THREADS - C::CONSUMERS);
   const int wg = tid >> 7, wtid = tid & 127, warp = wtid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
-  unsigned char* qwg = qs + wg * 64 * 128;  // this warpgroup's 64 rows of each Q box
-  const uint32_t qaddr = smem_u32(qwg);
-
-  mbar_wait(&q_full, 0);
-  if (gain != 1.f) {
-    // q * gain in fp32, re-rounded to bf16, in place (elementwise, so the
-    // swizzle does not matter); then visible to the tensor cores' reads
-    for (int i = wtid; i < C::BOXES * 64 * 8; i += 128) {
-      uint4* p = reinterpret_cast<uint4*>(qwg + (i >> 9) * C::BOX + (i & 511) * 16);
-      float f[8];
-      unpack8(*p, f);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) f[j] = __fmul_rn(f[j], gain);
-      *p = pack8(f);
-    }
-    fence_proxy_async();
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-  }
+  const int rloc = warp * 16 + g;  // this thread's rows rloc and rloc + 8 of its warpgroup's 64
 
   float o[C::BOXES][32];
-#pragma unroll
-  for (int x = 0; x < C::BOXES; ++x)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[x][i] = 0.f;
   float sc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) sc[i] = 0.f;
-  // this thread's rows g and g + 8 of its warp's 16: value 4j + e of an
-  // accumulator is (row g + 8 * (e >> 1), column 8j + 2 * tq + (e & 1))
-  float m_run[2] = {NEG_INF, NEG_INF};
-  float l_run[2] = {0.f, 0.f};
+  uint32_t pa[C::BN / 16][4];
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f}, alpha[2] = {1.f, 1.f};
+  // value 4j + e of an accumulator is (row rloc + 8 * (e >> 1), column 8j + 2 * tq + (e & 1))
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % C::STAGES;
-    const uint32_t ph = (t / C::STAGES) & 1;
-    const uint32_t kaddr = smem_u32(k_tile(s)), vaddr = kaddr + C::KV_BYTES;
-
-    // S = q k^T for this warpgroup's 64 rows x 128 keys
-    mbar_wait(&k_full[s], ph);
-    wgmma_fence();
+  // S = q k^T for this warpgroup's 64 rows x 128 keys of stage s
+  auto issue_s = [&](uint32_t qaddr, int s) {
+    const uint32_t kaddr = smem_u32(k_tile(s));
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk >> 2) * C::BOX + (kk & 3) * 32;
       wgmma_ss_m64n128k16(sc, make_desc(qaddr + off), make_desc(kaddr + off), kk > 0);
     }
     wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(sc);
-
-    const int key0 = t * C::BN;
+  };
+  // O += bf16(P) . V of stage s, 16 keys a step
+  auto issue_pv = [&](int s) {
+    const uint32_t vaddr = smem_u32(k_tile(s)) + C::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < C::BN / 16; ++kk)
+#pragma unroll
+      for (int x = 0; x < C::BOXES; ++x)
+        wgmma_rs_m64n64k16_tb(o[x], pa[kk], make_desc(vaddr + x * C::BOX + kk * 16 * 128));
+    wgmma_commit();
+  };
+  // online softmax of the tile at key0 (exp2 domain), in place in sc; the
+  // row's other columns sit in the quad
+  auto softmax = [&](int key0) {
     if (key0 + C::BN > kv_limit) {
 #pragma unroll
       for (int j = 0; j < C::BN / 8; ++j) {
@@ -356,45 +394,42 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_consta
         if (key + 1 >= kv_limit) { sc[4 * j + 1] = NEG_INF; sc[4 * j + 3] = NEG_INF; }
       }
     }
-
-    // online softmax (exp2 domain); the row's other columns sit in the quad
     float tmax[2] = {NEG_INF, NEG_INF};
 #pragma unroll
     for (int j = 0; j < C::BN / 8; ++j) {
       tmax[0] = fmaxf(tmax[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
       tmax[1] = fmaxf(tmax[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
-    float alpha[2], msafe[2];
+    float msafe[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffff, tmax[h], 1));
       tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffff, tmax[h], 2));
       const float m_new = fmaxf(m_run[h], tmax[h]);
       msafe[h] = (m_new == NEG_INF) ? 0.f : m_new;
-      alpha[h] = exp2f(m_run[h] - msafe[h]);
+      alpha[h] = ex2_ftz(m_run[h] - msafe[h]);
       m_run[h] = m_new;
     }
     float psum[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < C::BN / 8; ++j) {
-      sc[4 * j] = exp2f(sc[4 * j] - msafe[0]);
-      sc[4 * j + 1] = exp2f(sc[4 * j + 1] - msafe[0]);
-      sc[4 * j + 2] = exp2f(sc[4 * j + 2] - msafe[1]);
-      sc[4 * j + 3] = exp2f(sc[4 * j + 3] - msafe[1]);
+      sc[4 * j] = ex2_ftz(sc[4 * j] - msafe[0]);
+      sc[4 * j + 1] = ex2_ftz(sc[4 * j + 1] - msafe[0]);
+      sc[4 * j + 2] = ex2_ftz(sc[4 * j + 2] - msafe[1]);
+      sc[4 * j + 3] = ex2_ftz(sc[4 * j + 3] - msafe[1]);
       psum[0] += sc[4 * j] + sc[4 * j + 1];
       psum[1] += sc[4 * j + 2] + sc[4 * j + 3];
     }
     l_run[0] = l_run[0] * alpha[0] + psum[0];
     l_run[1] = l_run[1] * alpha[1] + psum[1];
-    // no product that writes O is in flight here
+  };
+  // rescale O (no product that writes it may be in flight) and pack P: the A
+  // fragment of step kk is the accumulator's columns 16kk..16kk+15 as they lie
+  auto rescale_pack = [&]() {
 #pragma unroll
     for (int x = 0; x < C::BOXES; ++x)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[x][i] *= alpha[(i >> 1) & 1];
-
-    // O += bf16(P) . V, 16 keys a step: the A fragment of step kk is the
-    // accumulator's columns 16kk..16kk+15, packed as they lie
-    uint32_t pa[C::BN / 16][4];
 #pragma unroll
     for (int kk = 0; kk < C::BN / 16; ++kk) {
       pa[kk][0] = pack_bf16x2(sc[8 * kk], sc[8 * kk + 1]);
@@ -402,53 +437,133 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_consta
       pa[kk][2] = pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
       pa[kk][3] = pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
     }
-    mbar_wait(&v_full[s], ph);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < C::BN / 16; ++kk)
-#pragma unroll
-      for (int x = 0; x < C::BOXES; ++x)
-        wgmma_rs_m64n64k16_tb(o[x], pa[kk], make_desc(vaddr + x * C::BOX + kk * 16 * 128));
-    wgmma_commit();
-    wgmma_wait<0>();
-#pragma unroll
-    for (int x = 0; x < C::BOXES; ++x) fence_acc(o[x]);
-    // this warp is done with the stage's K and V
-    if (lane == 0) mbar_arrive(&kv_empty[s]);
-  }
+  };
+  // this warp is done with the stage's K (or V)
+  auto release_k = [&](int s) {
+    if (lane == 0) mbar_arrive(&k_empty[s]);
+  };
+  auto release_v = [&](int s) {
+    if (lane == 0) mbar_arrive(&v_empty[s]);
+  };
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l_run[h] += __shfl_xor_sync(0xffffffff, l_run[h], 1);
-    l_run[h] += __shfl_xor_sync(0xffffffff, l_run[h], 2);
-    l_run[h] = fmaxf(l_run[h], 1e-30f);
-  }
-  const int rloc = warp * 16 + g;  // row in the warpgroup's 64 (and rloc + 8)
-  const int row0 = q0 + wg * 64 + rloc;
-  if (lse != nullptr && tq == 0) {
+  for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+  int gt = 0;  // key tiles consumed so far, over all work tiles
+  for (int it = 0, w = blockIdx.x; w < n_work; ++it, w += gridDim.x) {
+    const int qb = it & 1, q0 = (w % n_qt) * C::BM, bh = w / n_qt, b = bh / n_heads, n = bh % n_heads;
+    unsigned char* qwg = q_buf(qb) + wg * 64 * 128;  // this warpgroup's 64 rows of each Q box
+    const uint32_t qaddr = smem_u32(qwg);
+    mbar_wait(&q_ready[qb], (it >> 1) & 1);
+#pragma unroll
+    for (int x = 0; x < C::BOXES; ++x)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[x][i] = 0.f;
+    m_run[0] = m_run[1] = NEG_INF;
+    l_run[0] = l_run[1] = 0.f;
+
+    if (n_tiles < C::OVERLAP_MIN_TILES) {
+      // S -> wait -> softmax -> rescale -> P.V -> wait, per tile
+      for (int t = 0; t < n_tiles; ++t, ++gt) {
+        const int s = gt % C::STAGES;
+        const uint32_t ph = (gt / C::STAGES) & 1;
+        mbar_wait(&k_full[s], ph);
+        wgmma_fence();
+        issue_s(qaddr, s);
+        wgmma_wait<0>();
+        fence_acc(sc);
+        release_k(s);
+        softmax(t * C::BN);
+        rescale_pack();
+        mbar_wait(&v_full[s], ph);
+        wgmma_fence();
+        issue_pv(s);
+        wgmma_wait<0>();
+#pragma unroll
+        for (int x = 0; x < C::BOXES; ++x) fence_acc(o[x]);
+        release_v(s);
+      }
+    } else if (n_tiles > 0) {
+      // the softmax of tile t runs while the tensor cores do P.V of tile
+      // t - 1. ptxas schedules within a basic block and puts a wgmma wait
+      // first in its block, so the wait for P.V sits behind the (looping)
+      // wait for the next V tile, which ends the softmax's block.
+      auto ph = [](int i) { return static_cast<uint32_t>((i / C::STAGES) & 1); };
+      {
+        const int s = gt % C::STAGES;
+        mbar_wait(&k_full[s], ph(gt));
+        wgmma_fence();
+        issue_s(qaddr, s);
+        wgmma_wait<0>();
+        fence_acc(sc);
+        release_k(s);
+        softmax(0);
+        mbar_wait(&v_full[s], ph(gt));
+        rescale_pack();
+      }
+      for (int t = 1; t < n_tiles; ++t, ++gt) {
+        const int sp = gt % C::STAGES, sn = (gt + 1) % C::STAGES;
+        mbar_wait(&k_full[sn], ph(gt + 1));
+        wgmma_fence();
+        issue_s(qaddr, sn);
+        issue_pv(sp);
+        wgmma_wait<1>();  // S of tile t is done; P.V of tile t - 1 may still run
+        fence_acc(sc);
+        release_k(sn);
+        softmax(t * C::BN);
+        mbar_wait(&v_full[sn], ph(gt + 1));
+        wgmma_wait<0>();
+#pragma unroll
+        for (int x = 0; x < C::BOXES; ++x) fence_acc(o[x]);
+        release_v(sp);
+        rescale_pack();
+      }
+      const int s = gt % C::STAGES;
+      wgmma_fence();
+      issue_pv(s);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int x = 0; x < C::BOXES; ++x) fence_acc(o[x]);
+      release_v(s);
+      ++gt;
+    }
+
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = row0 + 8 * h;
-      if (row < sq) lse[((long long)b * sq + row) * n_heads + n] = m_run[h] * LN2 + logf(l_run[h]);
+      l_run[h] += __shfl_xor_sync(0xffffffff, l_run[h], 1);
+      l_run[h] += __shfl_xor_sync(0xffffffff, l_run[h], 2);
+      l_run[h] = fmaxf(l_run[h], 1e-30f);
     }
-  }
-  // bf16 O into this warpgroup's Q rows, 128-byte swizzled as the TMA store
-  // reads them: 16-byte chunk c of row r sits at chunk c ^ (r % 8), and
-  // rloc % 8 == g (conflict-free: the 8 rows of a store hit 8 chunks)
-#pragma unroll
-  for (int x = 0; x < C::BOXES; ++x)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
+    const int row0 = q0 + wg * 64 + rloc;
+    if (lse != nullptr && tq == 0) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        unsigned char* p = qwg + x * C::BOX + (rloc + 8 * h) * 128 + ((j ^ g) << 4) + tq * 4;
-        *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(o[x][4 * j + 2 * h] / l_run[h], o[x][4 * j + 2 * h + 1] / l_run[h]);
+        const int row = row0 + 8 * h;
+        if (row < sq) lse[((long long)b * sq + row) * n_heads + n] = m_run[h] * LN2 + logf(l_run[h]);
       }
-  fence_proxy_async();
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-  if (wtid == 0 && q0 + wg * 64 < sq) {
-    for (int x = 0; x < C::BOXES; ++x) tma_store_4d(&omap, qwg + x * C::BOX, 64 * x, n, q0 + wg * 64, b);
-    tma_store_wait();
+    }
+    const float inv[2] = {__frcp_rn(l_run[0]), __frcp_rn(l_run[1])};
+    // bf16 O into this warpgroup's Q rows (its last S product is done),
+    // 128-byte swizzled as the TMA store reads them: 16-byte chunk c of row r
+    // sits at chunk c ^ (r % 8), and rloc % 8 == g (conflict-free: the 8 rows
+    // of a store hit 8 chunks)
+#pragma unroll
+    for (int x = 0; x < C::BOXES; ++x)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          unsigned char* p = qwg + x * C::BOX + (rloc + 8 * h) * 128 + ((j ^ g) << 4) + tq * 4;
+          *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(o[x][4 * j + 2 * h] * inv[h], o[x][4 * j + 2 * h + 1] * inv[h]);
+        }
+    fence_proxy_async();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    if (wtid == 0) {
+      if (q0 + wg * 64 < sq) {
+        for (int x = 0; x < C::BOXES; ++x) tma_store_4d(&omap, qwg + x * C::BOX, 64 * x, n, q0 + wg * 64, b);
+        tma_store_wait();
+      }
+      mbar_arrive(&q_empty[qb]);  // the producer may load this buffer again
+    }
   }
 }
 
@@ -464,6 +579,16 @@ bool bsnd_map(CUtensorMap* map, const void* p, int batch, int rows, int n_heads,
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
 template <int D>
 int launch_dense(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int n_heads, int sq,
                  int sk, int kv_limit, const long long (&st)[12], float gain, cudaStream_t stream) {
@@ -476,10 +601,15 @@ int launch_dense(const void* q, const void* k, const void* v, void* o, float* ls
       !bsnd_map<D>(&vm, v, batch, rows_k, n_heads, st[6], st[7], st[8], C::BN) ||
       !bsnd_map<D>(&om, o, batch, sq, n_heads, st[9], st[10], st[11], C::BM / 2))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int n_qt = (sq + C::BM - 1) / C::BM;
+  const long long n_work = (long long)n_qt * batch * n_heads;
+  if (n_work > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  // persistent: one CTA an SM, each walking work tiles c, c + grid, ...
+  const int grid = static_cast<int>(n_work < sm_count() ? n_work : sm_count());
   cudaError_t err = set_smem(flash_wgmma_kernel<D>, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((sq + C::BM - 1) / C::BM, batch * n_heads);
-  flash_wgmma_kernel<D><<<grid, C::THREADS, C::SMEM, stream>>>(qm, km, vm, om, lse, n_heads, sq, kv_limit, gain);
+  flash_wgmma_kernel<D><<<grid, C::THREADS, C::SMEM, stream>>>(qm, km, vm, om, lse, n_heads, sq, kv_limit, gain, n_qt,
+                                                               static_cast<int>(n_work));
   return static_cast<int>(cudaGetLastError());
 }
 
