@@ -73,8 +73,10 @@
 //    that (cross-attention's 4 tiles) it runs S -> softmax -> P.V per tile,
 //    which measured faster there. The two warpgroups overlap each other.
 //  - The epilogue stages bf16 O in the warpgroup's own Q rows (free once its
-//    last S product is done), in the swizzle the TMA store reads, and one
-//    thread stores each 64 x 64 box (direct 4-byte stores from the
+//    last S product is done), in the swizzle the TMA store reads, and each
+//    consumer warp arrives on a barrier; producer warp 3, between scaling Q
+//    tiles, stores the 128 x 128 tile and hands the buffer back once TMA has
+//    read it, so no consumer waits on a store (direct 4-byte stores from the
 //    fragments measured slower).
 //
 // RoPE (flash_attention_fused_rope) is rotated once per call, not once per
@@ -270,8 +272,8 @@ struct Dense {
   static constexpr int SMEM = 2 * Q_BYTES + STAGES * STAGE_BYTES + 1024;  // + slack to align to 1024 bytes
 };
 
-// qmap/kmap/vmap: (D, N, S, B) boxes of 64 x 1 x 128 x 1; omap the same with
-// 64-row boxes. lse (B, sq, N) fp32 or null. Work tile w is query tile
+// qmap/kmap/vmap/omap: (D, N, S, B) boxes of 64 x 1 x 128 x 1. lse (B, sq, N)
+// fp32 or null. Work tile w is query tile
 // w % n_qt of (batch, head) w / n_qt; CTA c takes w = c, c + gridDim.x, ...
 template <int D>
 __global__ void __launch_bounds__(Dense<D>::THREADS, 1)
@@ -280,8 +282,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_consta
                    float* __restrict__ lse, int n_heads, int sq, int kv_limit, float gain, int n_qt, int n_work) {
   using C = Dense<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t q_full[2], q_ready[2], q_empty[2], k_full[C::STAGES], v_full[C::STAGES], k_empty[C::STAGES],
-      v_empty[C::STAGES];
+  __shared__ __align__(8) uint64_t q_full[2], q_ready[2], o_full[2], q_empty[2], k_full[C::STAGES], v_full[C::STAGES],
+      k_empty[C::STAGES], v_empty[C::STAGES];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   auto q_buf = [&](int i) { return smem + i * C::Q_BYTES; };
   auto k_tile = [&](int st) { return smem + 2 * C::Q_BYTES + st * C::STAGE_BYTES; };  // V at + KV_BYTES
@@ -290,8 +292,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_consta
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
       mbar_init(&q_full[i], 1);
-      mbar_init(&q_ready[i], 3);  // one arrive per scaling warp
-      mbar_init(&q_empty[i], 2);  // one arrive per consumer warpgroup
+      mbar_init(&q_ready[i], 3);                  // one arrive per scaling warp
+      mbar_init(&o_full[i], C::CONSUMERS / 32);  // one arrive per consumer warp
+      mbar_init(&q_empty[i], 1);                  // the storing thread, once O is read
     }
     for (int s = 0; s < C::STAGES; ++s) {
       mbar_init(&k_full[s], 1);
@@ -329,9 +332,23 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_consta
     } else if (threadIdx.x >= 32) {
       // warps 1-3: q * gain in fp32, re-rounded to bf16, in place once the Q
       // tile lands (elementwise, so the swizzle does not matter); then
-      // visible to the tensor cores' reads
+      // visible to the tensor cores' reads. Warp 3 then stores the previous
+      // work tile's O (staged by the consumers in its Q buffer) and hands
+      // that buffer back once it has been read.
       const int lane = threadIdx.x & 31;
-      for (int it = 0, w = blockIdx.x; w < n_work; ++it, w += gridDim.x) {
+      const bool storer = threadIdx.x >= 96;
+      auto store = [&](int it, int w) {
+        const int qb = it & 1, q0 = (w % n_qt) * C::BM, bh = w / n_qt, b = bh / n_heads, n = bh % n_heads;
+        if (lane == 0) {
+          mbar_wait(&o_full[qb], (it >> 1) & 1);
+          for (int x = 0; x < C::BOXES; ++x) tma_store_4d(&omap, q_buf(qb) + x * C::BOX, 64 * x, n, q0, b);
+          tma_store_wait();
+          mbar_arrive(&q_empty[qb]);
+        }
+        __syncwarp();
+      };
+      int it = 0;
+      for (int w = blockIdx.x; w < n_work; ++it, w += gridDim.x) {
         const int qb = it & 1;
         mbar_wait(&q_full[qb], (it >> 1) & 1);
         if (gain != 1.f) {
@@ -347,13 +364,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_consta
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(&q_ready[qb]);
+        if (storer && it > 0) store(it - 1, w - gridDim.x);
       }
+      if (storer && it > 0) store(it - 1, blockIdx.x + (it - 1) * gridDim.x);
     }
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
   const int tid = threadIdx.x - (C::THREADS - C::CONSUMERS);
-  const int wg = tid >> 7, wtid = tid & 127, warp = wtid >> 5, lane = tid & 31;
+  const int wg = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int rloc = warp * 16 + g;  // this thread's rows rloc and rloc + 8 of its warpgroup's 64
 
@@ -556,14 +575,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_consta
           *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(o[x][4 * j + 2 * h] * inv[h], o[x][4 * j + 2 * h + 1] * inv[h]);
         }
     fence_proxy_async();
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-    if (wtid == 0) {
-      if (q0 + wg * 64 < sq) {
-        for (int x = 0; x < C::BOXES; ++x) tma_store_4d(&omap, qwg + x * C::BOX, 64 * x, n, q0 + wg * 64, b);
-        tma_store_wait();
-      }
-      mbar_arrive(&q_empty[qb]);  // the producer may load this buffer again
-    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&o_full[qb]);  // the storing thread takes it from here
   }
 }
 
@@ -599,7 +612,7 @@ int launch_dense(const void* q, const void* k, const void* v, void* o, float* ls
   if (!bsnd_map<D>(&qm, q, batch, sq, n_heads, st[0], st[1], st[2], C::BM) ||
       !bsnd_map<D>(&km, k, batch, rows_k, n_heads, st[3], st[4], st[5], C::BN) ||
       !bsnd_map<D>(&vm, v, batch, rows_k, n_heads, st[6], st[7], st[8], C::BN) ||
-      !bsnd_map<D>(&om, o, batch, sq, n_heads, st[9], st[10], st[11], C::BM / 2))
+      !bsnd_map<D>(&om, o, batch, sq, n_heads, st[9], st[10], st[11], C::BM))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_qt = (sq + C::BM - 1) / C::BM;
   const long long n_work = (long long)n_qt * batch * n_heads;
