@@ -49,10 +49,11 @@ flash, block-sparse at 128 x 128 and 256 x 128, two_pass), hold two merged
 half-key partials against one dense call, time the dense flash kernel at the
 self-attention shape without RoPE (an ``other_shapes`` line, SDPA its
 yardstick), and hold the RoPE pass of the fused-RoPE flash (``rope_rotate``,
-its own kernel row and counter) bit for bit against its plain version. The fp8 rows' library yardstick is
-the torch quantize pass plus ``torch._scaled_mm`` with row-wise scales; the
-per-head block-sparse row's is ``torch.compile(flex_attention)`` on the same
-block mask (None, with the reason printed, where it does not compile).
+its own kernel row and counter) bit for bit against its plain version. The
+fp8 rows' library yardstick is the torch quantize pass plus
+``torch._scaled_mm`` with row-wise scales; the per-head block-sparse row's is
+``torch.compile(flex_attention)`` on the same block mask (None, with the
+reason printed, where it does not compile).
 
 For each path the launch counters are zeroed just before the run and read
 just after, and must equal the path's exact counts. The line before the

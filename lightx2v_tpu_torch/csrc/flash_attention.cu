@@ -66,12 +66,14 @@
 //    P packs to bf16 with no shuffle); V is MN-major (d contiguous in a key
 //    row), read with the transpose-B flag, as two m64n64k16 a 16-key step,
 //    one per 64-wide d box, so that B spans one swizzle atom along N.
-//  - Schedule: O is never touched while a product that writes it is in
-//    flight (ptxas would serialise the pipeline). From 8 key tiles on, a
-//    warpgroup issues S of tile t and P.V of tile t - 1 together and runs the
-//    softmax of tile t while P.V runs (wgmma.wait_group 1, then 0); below
-//    that (cross-attention's 4 tiles) it runs S -> softmax -> P.V per tile,
-//    which measured faster there. The two warpgroups overlap each other.
+//  - Schedule: a warpgroup issues S of tile t and P.V of tile t - 1
+//    together and runs the softmax of tile t while P.V runs
+//    (wgmma.wait_group 1, then 0); the two warpgroups overlap each other. O
+//    is never touched while a product that writes it is in flight (ptxas
+//    would serialise the pipeline). ptxas schedules within a basic block and
+//    puts a wgmma wait first in its block: the wait for P.V sits behind the
+//    (looping) wait for the next V tile, which ends the softmax's block, or
+//    ptxas hoists it above the softmax and nothing overlaps.
 //  - The epilogue stages bf16 O in the warpgroup's own Q rows (free once its
 //    last S product is done), in the swizzle the TMA store reads, and each
 //    consumer warp arrives on a barrier; producer warp 3, between scaling Q
@@ -259,10 +261,6 @@ struct Dense {
   static constexpr int BM = 128;           // query rows per work tile, 64 per consumer warpgroup
   static constexpr int BN = 128;           // keys per tile
   static constexpr int STAGES = 2;
-  // below this many key tiles a warpgroup runs its tiles one after another;
-  // from it on, a tile's softmax overlaps the previous tile's P.V (at the
-  // main shapes: 4 key tiles faster unpipelined, 49 and more pipelined)
-  static constexpr int OVERLAP_MIN_TILES = 8;
   static constexpr int BOXES = D / 64;     // 64-column (128-byte) boxes of a row
   static constexpr int BOX = 128 * 128;    // one box of 128 rows
   static constexpr int Q_BYTES = BOXES * BOX;
@@ -480,32 +478,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_consta
     m_run[0] = m_run[1] = NEG_INF;
     l_run[0] = l_run[1] = 0.f;
 
-    if (n_tiles < C::OVERLAP_MIN_TILES) {
-      // S -> wait -> softmax -> rescale -> P.V -> wait, per tile
-      for (int t = 0; t < n_tiles; ++t, ++gt) {
-        const int s = gt % C::STAGES;
-        const uint32_t ph = (gt / C::STAGES) & 1;
-        mbar_wait(&k_full[s], ph);
-        wgmma_fence();
-        issue_s(qaddr, s);
-        wgmma_wait<0>();
-        fence_acc(sc);
-        release_k(s);
-        softmax(t * C::BN);
-        rescale_pack();
-        mbar_wait(&v_full[s], ph);
-        wgmma_fence();
-        issue_pv(s);
-        wgmma_wait<0>();
-#pragma unroll
-        for (int x = 0; x < C::BOXES; ++x) fence_acc(o[x]);
-        release_v(s);
-      }
-    } else if (n_tiles > 0) {
-      // the softmax of tile t runs while the tensor cores do P.V of tile
-      // t - 1. ptxas schedules within a basic block and puts a wgmma wait
-      // first in its block, so the wait for P.V sits behind the (looping)
-      // wait for the next V tile, which ends the softmax's block.
+    if (n_tiles > 0) {
+      // the softmax of tile t runs while the tensor cores do P.V of tile t - 1
       auto ph = [](int i) { return static_cast<uint32_t>((i / C::STAGES) & 1); };
       {
         const int s = gt % C::STAGES;
@@ -596,7 +570,8 @@ int sm_count() {
   static int n = 0;
   if (n == 0) {
     int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
       n = 132;
   }
   return n;
