@@ -80,6 +80,9 @@
 //    tiles, stores the 128 x 128 tile and hands the buffer back once TMA has
 //    read it, so no consumer waits on a store (direct 4-byte stores from the
 //    fragments measured slower).
+//  - What landed: first step A (one CTA a work tile, S -> wait -> softmax ->
+//    P.V -> wait per tile, the consumers scaling Q and storing O), then
+//    step B, the persistent, pipelined form above, which replaced it.
 //
 // RoPE (flash_attention_fused_rope) is rotated once per call, not once per
 // CTA as the TPU kernel's grid order (b*n, nq, nk) does: rope_rotate_kernel
@@ -88,7 +91,8 @@
 // explicit roundings; bit-identical to it), positions past S_rope keeping
 // the identity rotation, and the dense kernel runs on (q', k', v) with gain
 // 1. Rotating every key tile inside each of a head's 256 query-tile CTAs
-// cost 36 ms of 112 at the main shape; the pass moves ~1.3 GB once.
+// cost 36 ms of 112 at the main shape on an H100; the pass moves ~1.3 GB
+// once.
 //
 // SPARSE (Sparge self-attention and radial's shared mask; sparse_fwd_kernel
 // on mma.sync.m16n8k16, not yet moved onto wgmma): each (batch*head, bq-row
