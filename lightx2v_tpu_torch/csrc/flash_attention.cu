@@ -80,9 +80,9 @@
 //    tiles, stores the 128 x 128 tile and hands the buffer back once TMA has
 //    read it, so no consumer waits on a store (direct 4-byte stores from the
 //    fragments measured slower).
-//  - What landed: first step A (one CTA a work tile, S -> wait -> softmax ->
-//    P.V -> wait per tile, the consumers scaling Q and storing O), then
-//    step B, the persistent, pipelined form above, which replaced it.
+//  - A first form (one CTA a work tile, S -> wait -> softmax -> P.V ->
+//    wait per tile, the consumers scaling Q and storing O) was replaced by
+//    the persistent, pipelined form above.
 //
 // RoPE (flash_attention_fused_rope) is rotated once per call, not once per
 // CTA as the TPU kernel's grid order (b*n, nq, nk) does: rope_rotate_kernel
