@@ -177,6 +177,63 @@ def check_close(name: str, out, ref, rtol: float, atol: float) -> float:
     return err
 
 
+def fullk_parts(wm, x, w, ws, b, kind: str, reps: int) -> dict:
+    """The full-K 8-bit GEMM's two kernels timed apart, the quantize pass
+    and the GEMM on its codes, beside the bare PyTorch GEMM on the same
+    codes (a yardstick for the GEMM alone): ``torch._int_mm`` (int32 out, no
+    scaling) or ``torch._scaled_mm`` with row-wise scales, bf16 out,
+    ``use_fast_accum=False``."""
+    import torch
+
+    lib, stream = wm._lib(), torch.cuda.current_stream().cuda_stream
+    (m, k), n = x.shape, w.shape[0]
+    quant_ms = cuda_ms(lambda: wm._quant(lib, x, k, kind, stream), reps)
+    xq, xs = wm._quant(lib, x, k, kind, stream)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    gemm_ms = cuda_ms(lambda: wm._gemm(lib, xq, w, xs, 1, k, ws, b, out, m, n, k, None, kind, stream, "gemm"), reps)
+    if kind == "int8":
+        call = "torch._int_mm (int32 out)"
+        lib_ms = library(lambda: torch._int_mm(xq, w.t()), reps)
+    else:
+        call = "torch._scaled_mm (row-wise scales, bf16 out, use_fast_accum=False)"
+        sa, sb = xs.contiguous(), ws[None, :].contiguous()
+        lib_ms = library(lambda: torch._scaled_mm(xq, w.t(), scale_a=sa, scale_b=sb, out_dtype=torch.bfloat16,
+                                                  use_fast_accum=False), reps)
+    parts = dict(quantize_ms=quant_ms, gemm_ms=gemm_ms, library_gemm_ms=lib_ms, library_gemm_call=call)
+    print(f"[parts] 8-bit full-K {kind} M={m}: {json.dumps(parts)}", flush=True)
+    return parts
+
+
+def ffn_parts(wm, x, w0, s0, b0, w2, s2, b2, kind: str, reps: int) -> dict:
+    """The 8-bit FFN's three kernels timed apart: the quantize pass, GEMM1
+    (GELU and the hidden requantization in its epilogue) and GEMM2 (the
+    grouped GEMM over the hidden's bh groups)."""
+    import torch
+
+    from lightx2v_tpu_torch.ops.cuda import _build
+
+    lib, stream = wm._lib(), torch.cuda.current_stream().cuda_stream
+    (m, k), h, n = x.shape, w0.shape[0], w2.shape[0]
+    bh = wm.pick_bh(h)
+    quant_ms = cuda_ms(lambda: wm._quant(lib, x, k, kind, stream), reps)
+    xq, xs = wm._quant(lib, x, k, kind, stream)
+    hq = torch.empty((m, h), dtype=wm._CODE_DTYPE[kind], device=x.device)
+    hs = torch.empty((m, h // bh), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+
+    def gemm1():
+        _build.check(lib.ffn_w8a8_gemm1(xq.data_ptr(), w0.data_ptr(), xs.data_ptr(), s0.data_ptr(), b0.data_ptr(),
+                                        hq.data_ptr(), hs.data_ptr(), m, h, k, bh, int(kind == "fp8"), stream),
+                     "ffn gemm1")
+
+    gemm1_ms = cuda_ms(gemm1, reps)
+    gemm2_ms = cuda_ms(lambda: wm._gemm(lib, hq, w2, hs, h // bh, bh, s2, b2, out, m, n, h, None, kind, stream,
+                                        "ffn gemm2"), reps)
+    parts = dict(quantize_ms=quant_ms, gemm1_ms=gemm1_ms, gemm2_ms=gemm2_ms)
+    print(f"[parts] 8-bit FFN {kind}: {json.dumps(parts)}", flush=True)
+    return parts
+
+
 # ---------------------------------------------------------------------------
 # kernel phase
 
@@ -336,7 +393,8 @@ def kernel_phase(peaks, reps: int, want):
                              shape=f"x ({m},{DIM}) bf16; w ({DIM},{DIM}) int8",
                              max_abs_err=err, bar="2^-7*max|ref|", ms=ms, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                             library_call="torch quantize + torch._int_mm + torch scaling"))
+                             library_call="torch quantize + torch._int_mm + torch scaling",
+                             **fullk_parts(wm, x, w, ws, bvec, "int8", reps * 2)))
             del x
         del w
 
@@ -369,7 +427,8 @@ def kernel_phase(peaks, reps: int, want):
                          shape=f"x ({S},{DIM}) bf16; w0 ({FFN},{DIM}), w2 ({DIM},{FFN}) int8",
                          max_abs_err=err, bar="2e-2*max|ref|", ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                         library_call="two (torch quantize + torch._int_mm), per-token h scales"))
+                         library_call="two (torch quantize + torch._int_mm), per-token h scales",
+                         **ffn_parts(wm, x, w0, s0, b0, w2, s2, b2, "int8", reps)))
         del x, w0, w2
     torch.cuda.empty_cache()
     return rows, extra
@@ -767,6 +826,17 @@ def kernel_phase_fp8(peaks, reps: int, want):
             # fp32 by the tensor cores against one rounding of the exact sum
             err = check_close(f"w8a8_matmul_fullk_fp8 M={m}", out, ref, 2 ** -7, 0.0)
             del ref, out
+            one_signed = {}
+            if m == S:
+                # one-signed x and codes: truncated wgmma partial sums would
+                # add up here (the source note's promotion interval); same bar
+                xo, wo = x.abs(), w.view(torch.uint8).bitwise_and(0x7F).view(torch.float8_e4m3fn)
+                out = wm.w8a8_matmul_fullk(xo, wo, ws, bvec, kind="fp8")
+                torch.cuda.synchronize()
+                ref = wm.w8a8_matmul_fullk_plain(xo, wo, ws, bvec, kind="fp8")
+                one_signed["one_signed_max_abs_err"] = check_close(
+                    f"w8a8_matmul_fullk_fp8 M={m} one-signed", out, ref, 2 ** -7, 0.0)
+                del xo, wo, ref, out
             ms = cuda_ms(lambda: wm.w8a8_matmul_fullk(x, w, ws, bvec, kind="fp8"), reps * 2)
             plain_ms = cuda_ms(lambda: wm.w8a8_matmul_fullk_plain(x, w, ws, bvec, kind="fp8"), 2)
             lib_ms = library(lambda: fp8_lib(x, w, ws, bvec), reps * 2)
@@ -776,7 +846,8 @@ def kernel_phase_fp8(peaks, reps: int, want):
                 name="w8a8_matmul_fullk_fp8", route="cuda", source="lightx2v_tpu_torch/csrc/w8a8_matmul.cu",
                 replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:182", shape=f"x ({m},{DIM}) bf16; w ({DIM},{DIM}) e4m3",
                 max_abs_err=err, bar="2^-7*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, library_call=lib_call))
+                library_ms=lib_ms, library_call=lib_call, **one_signed,
+                **fullk_parts(wm, x, w, ws, bvec, "fp8", reps * 2)))
             del x
         del w
 
@@ -808,7 +879,8 @@ def kernel_phase_fp8(peaks, reps: int, want):
                          shape=f"x ({S},{DIM}) bf16; w0 ({FFN},{DIM}), w2 ({DIM},{FFN}) e4m3",
                          max_abs_err=err, bar="2e-2*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms, library_call="two (torch quantize + torch._scaled_mm) around a torch "
-                                                         "GELU, per-token h scales"))
+                                                         "GELU, per-token h scales",
+                         **ffn_parts(wm, x, w0, s0, b0, w2, s2, b2, "fp8", reps)))
         del x, w0, w2
 
     # ---- w8a8_matmul (k-blocked), fp8 (UMT5-XXL fc2: K = 10,240 > 8192) ----
@@ -1009,7 +1081,7 @@ def _category(name: str) -> str:
                      ("flash_wgmma_kernel", "flash_attention (ours)"), ("rope_rotate_kernel", "flash_attention (ours)"),
                      ("sage_fwd_kernel", "sage attention (ours)"),
                      ("sage_quant_rows", "sage row quantize (ours)"), ("int4_wgmma_kernel", "int4 GEMM (ours)"),
-                     ("gemm_8bit_kernel<true", "fp8 GEMM (ours)"), ("gemm_8bit_kernel", "int8 GEMM (ours)"),
+                     ("w8a8_wgmma_kernel<true", "fp8 GEMM (ours)"), ("w8a8_wgmma_kernel", "int8 GEMM (ours)"),
                      ("ffn_gemm1_kernel<true", "fp8 FFN GEMM1 (ours)"),
                      ("ffn_gemm1", "ffn GEMM1 (ours)"), ("ffn_w4a8_gemm1", "ffn w4a8 GEMM1 (ours)"),
                      ("w4a8_gemm_kernel", "w4a8 GEMM (ours)"), ("quant_groups", "8-bit quantize (ours)"),

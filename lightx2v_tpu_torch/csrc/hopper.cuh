@@ -1,8 +1,8 @@
 // Hopper (sm_90a) pieces shared by the wgmma kernels (int4_matmul.cu,
-// flash_attention.cu): the wgmma fences and the shared-memory descriptor of
-// the 128-byte swizzle, mbarriers, TMA copies in both directions, and the
-// driver's cuTensorMapEncodeTiled reached through the runtime (so no library
-// needs -lcuda).
+// flash_attention.cu, w8a8_matmul.cu): the wgmma fences and the shared-memory
+// descriptor of the 128-byte swizzle, mbarriers, TMA copies in both
+// directions, and the driver's cuTensorMapEncodeTiled reached through the
+// runtime (so no library needs -lcuda).
 //
 // Each .cu that includes this file gets its own copy (anonymous namespace).
 
@@ -39,6 +39,11 @@ template <int N>
 __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // ---- mbarriers ----
@@ -120,6 +125,16 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int 
   const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
   return enc(map, type, rank, const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
              swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a 2-D tensor map of `rows` x `cols` elements (row pitch `pitch` bytes),
+// boxes of box_rows x box_cols
+bool make_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rows, int cols, long long pitch,
+                 int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  return make_map(map, type, base, 2, dims, strides, box, swizzle);
 }
 
 }  // namespace

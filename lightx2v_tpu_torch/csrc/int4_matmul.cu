@@ -280,16 +280,6 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
-// a 2-D tensor map of `rows` x `cols` elements (row pitch `pitch` bytes),
-// boxes of box_rows x box_cols
-bool make_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rows, int cols, long long pitch,
-                 int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
-  return make_map(map, type, base, 2, dims, strides, box, swizzle);
-}
-
 }  // namespace
 
 // a (M, K) bf16, bp (N, K/2) packed uint8, ws (N, K/group) fp32, bias (N,)

@@ -16,58 +16,365 @@
 // cross-attention k/v projections (M=512) and the UMT5-XXL linears (M=512)
 // are near the ridge.
 //
-// What the design does about it: products run on the tensor cores with
-// mma.sync.m16n8k32 (.s8.s8.s32, or .f32.e4m3.e4m3.f32, whose operand and
-// accumulator fragments have the same layout); operand tiles stream through
-// a 3-stage cp.async ring in shared memory (rows padded to 80 bytes so
-// ldmatrix is conflict-free). Every kernel is a template on the kind
-// (Codes<FP8> in int8_mma.cuh), so both kinds share one schedule. The TPU
-// kernel quantizes x inside the GEMM once per s-block; here that is a
-// separate pass (quant_groups_kernel in int8_mma.cuh) that writes 8-bit codes
-// and one fp32 scale per row, so the GEMM reads x once at one byte a value.
-// The k-blocked form is the same pass with one scale per (row, 1024-wide
-// k-block) feeding the grouped GEMM below, whose fp32 accumulator adds
-// float(partial) * xs[row, kb] block by block in k order, then applies
-// *ws + b: the TPU kernel's order. The UMT5-XXL fc2 (M=512, K=10,240,
-// N=4096) takes it: 43 GOP against 42 MB, bound by operations at ~0.022 ms.
-// Rounding follows the TPU kernel: scale = max(absmax, 1e-8) * (1/127) or
-// * (1/448); int8 codes are clip(rint(x / scale), +-127), e4m3 codes are
-// x / scale rounded to nearest even (cvt.rn.satfinite), both with IEEE
-// division. The epilogue is fp32, in the TPU order acc*xs*ws + b, then the
-// optional tanh-GELU, stored as bf16.
+// Quantization: the TPU kernel quantizes x inside the GEMM once per s-block;
+// here that is a separate pass (quant_groups_kernel in int8_mma.cuh) that
+// writes 8-bit codes and one fp32 scale per row (per (row, k-block) for the
+// k-blocked form), so the GEMM reads x once at one byte a value. Rounding
+// follows the TPU kernel: scale = max(absmax, 1e-8) * (1/127) or * (1/448);
+// int8 codes are clip(rint(x / scale), +-127), e4m3 codes are x / scale
+// rounded to nearest even (cvt.rn.satfinite), both with IEEE division.
 //
-// Accumulation: an int32 partial is exact. An e4m3 partial is summed by the
-// tensor cores in fp32 registers over a whole scale group (all of K = 5120 in
-// the full-K form). Folding it into a separate fp32 sum every 128 or 512 K
-// values, tried at 32,760 x 5120 x 5120 on the H100, left the largest
-// difference from the plain version (the exact sum) at one bf16 ulp, as
-// without it, and cost 17% or 3% of the time (PERF.md, PR 6), so the
-// kernels do not fold.
+// The GEMM (w8a8_wgmma_kernel, behind the w8a8_gemm entry point: the full-K
+// form, the k-blocked form and the FFN's second GEMM, both kinds):
+//  - Products run on wgmma.m64nNk32 (.s32.s8.s8 or .f32.e4m3.e4m3), the only
+//    path to the card's 8-bit rate. 8-bit wgmma has no transpose, so both
+//    operands are K-major in shared memory, as they are stored: A the (M, K)
+//    codes, B the weights (N, K).
+//  - A CTA is a producer warpgroup and two consumer warpgroups of 64 token
+//    rows each (setmaxnreg 40 / 232). One producer thread issues TMA copies
+//    (UINT8 tensor maps, boxes of 128 bytes of K by 128 token rows or BN
+//    weight rows, 128-byte swizzle: the layout make_desc describes, 8 rows of
+//    128 bytes per 1024-byte atom) into a ring of stages with full and empty
+//    mbarriers. TMA zero-fills past M, N and K. A stage is 128 values of K,
+//    four k32 steps; each step moves the descriptors' start 32 bytes inside
+//    the swizzle row.
+//  - A warpgroup keeps one stage's batch of four products in flight
+//    (wgmma.wait_group 1) while it issues the next, and hands a stage back
+//    once the batch after it has been issued. The consumers never meet at a
+//    barrier inside the loop.
+//  - The fold: wgmma cannot scale its accumulator. In the grouped form (G >
+//    1: the k-blocked form, the FFN's second GEMM) the warpgroup waits at
+//    each group boundary (wgmma.wait_group 0), adds float(acc) *
+//    a_scale[row, g] into an fp32 register sum and starts the next group with
+//    scale-d 0; the other warpgroup's products run meanwhile. The sum doubles
+//    the registers, so the folding kernel's tile is 128 x 128 (m64n128 a
+//    warpgroup, 64 + 64 registers a thread, six 32 KB stages). Without a fold
+//    (int8 with G = 1: int32 sums are exact) a warpgroup holds m64n256, 128
+//    registers, and the tile is 128 x 256 (four 48 KB stages).
+//  - fp8 accumulation: e4m3 wgmma does not add in full fp32 (the partial
+//    sum keeps about 14 bits, truncated), so fp8 partials are promoted into
+//    the fp32 sum every FP8_FOLD_K = 256 values of K (8 k32 steps): a fold
+//    with scale 1, the row scale applied in the epilogue as without it. The
+//    second warpgroup's promotion points sit half an interval later, so the
+//    two drain at different times. Measured on an H100 at M = 32,760, N = K
+//    = 5120 against the exact sum (tools/w8a8_fold.py), as max |error| over
+//    the bar 2^-7 * max |ref|: without promotion 11.6 on one-signed inputs
+//    (x = |randn|, positive codes) and 0.88 on signed ones; promoting every
+//    2048 / 1024 / 512 / 256 / 128 values, 4.5 / 2.7 / 1.34 / 0.90 / 0.90
+//    one-signed and 0.44 signed, where 0.90 is one bf16 ulp of the largest
+//    output: the floor. The GEMM takes 1.33 ms without promotion, 1.88 at
+//    256 and 2.36 at 128. The FFN's second GEMM (K = 13,824, 27 groups of
+//    512) measured 1.38 at 512 and 0.69 at 256 and 128 one-signed.
+//  - An earlier form of this GEMM on mma.sync.m16n8k32.e4m3 needed no
+//    promotion: sm_90 runs that instruction as two HMMA.16816.F32, which add
+//    in full fp32. wgmma does not.
+//  - Epilogue: acc * xs * ws + b in fp32 in the TPU order (sum * ws + b after
+//    a fold), the optional tanh-GELU, bf16 staged through shared memory (the
+//    ring, free by then) and written with 16-byte stores.
+//  - At M = 512 (cross-attention k/v, the UMT5-XXL linears) the grid is 4
+//    token tiles by 20 (or 40) weight tiles, fewer CTAs than the 132 SMs:
+//    one partial wave, each CTA walking all of K.
 //
 // The fused FFN cannot keep the TPU's (512, 5120) fp32 accumulator (100 MB
 // VMEM there, 227 KB of shared memory here), so it is two GEMMs around an
 // 8-bit hidden: ffn_gemm1_kernel's CTA N-tile is exactly one bh-wide hidden
 // group (bh = 512 at H = 13,824), so its epilogue can apply *xs*ws0 + b0,
 // tanh-GELU in fp32, the per-(token, bh) absmax and the requantization,
-// writing 8-bit h and fp32 hs (S, H/bh). The second GEMM (the grouped GEMM)
-// rescales each bh-group's partial by hs[row, g] into an fp32 accumulator,
-// then applies *ws2 + b2. h never exists in fp32 or bf16 in device memory;
-// the 8-bit round trip costs ~0.9 GB (~0.27 ms at 3.35 TB/s) against a
-// 4.69 ms operation bound. Not yet used: wgmma, TMA, warp specialisation,
-// persistence (later work).
+// writing 8-bit h and fp32 hs (S, H/bh). The second GEMM is the grouped
+// form above with hs as a_scale, then *ws2 + b2. h never exists in fp32 or
+// bf16 in device memory; the 8-bit round trip costs ~0.9 GB (~0.27 ms at
+// 3.35 TB/s) against a 4.69 ms operation bound. ffn_gemm1_kernel still runs
+// mma.sync.m16n8k32 on a 3-stage cp.async ring (rows padded to 80 bytes so
+// ldmatrix is conflict-free); on sm_90 its e4m3 product runs at the fp16
+// rate (int8_mma.cuh).
 
-#include "int8_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+// fp8 wgmma partials are promoted into the fp32 sum every FP8_FOLD_K values
+// of K (the note above)
+constexpr int FP8_FOLD_K = 256;
+
+// ---------------------------------------------------------------------------
+// wgmma.m64nNk32 on 8-bit operands, both K-major in shared memory:
+// d (64 x N) = (scale_d ? d : 0) + a (64 x 32) . b (32 x N)
+
+#define W8_D64 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+  "}"
+#define W8_D128 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
+  "}"
+#define W8_F(x) "+f"(x)
+#define W8_R(x) "+r"(x)
+#define W8_OP8(C, d, o) C(d[o]), C(d[o + 1]), C(d[o + 2]), C(d[o + 3]), C(d[o + 4]), C(d[o + 5]), C(d[o + 6]), C(d[o + 7])
+#define W8_OP64(C, d) \
+  W8_OP8(C, d, 0), W8_OP8(C, d, 8), W8_OP8(C, d, 16), W8_OP8(C, d, 24), W8_OP8(C, d, 32), W8_OP8(C, d, 40), \
+      W8_OP8(C, d, 48), W8_OP8(C, d, 56)
+#define W8_OP128(C, d) \
+  W8_OP64(C, d), W8_OP8(C, d, 64), W8_OP8(C, d, 72), W8_OP8(C, d, 80), W8_OP8(C, d, 88), W8_OP8(C, d, 96), \
+      W8_OP8(C, d, 104), W8_OP8(C, d, 112), W8_OP8(C, d, 120)
+
+template <int N>
+struct Wgmma8;
+template <>
+struct Wgmma8<128> {
+  __device__ static __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 " W8_D64 ", %64, %65, p, 1, 1;\n}\n"
+        : W8_OP64(W8_F, d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  __device__ static __forceinline__ void mma(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " W8_D64 ", %64, %65, p;\n}\n"
+        : W8_OP64(W8_R, d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+template <>
+struct Wgmma8<256> {
+  __device__ static __forceinline__ void mma(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.f32.e4m3.e4m3 " W8_D128 ", %128, %129, p, 1, 1;\n}\n"
+        : W8_OP128(W8_F, d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  __device__ static __forceinline__ void mma(int (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " W8_D128 ", %128, %129, p;\n}\n"
+        : W8_OP128(W8_R, d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+// ---------------------------------------------------------------------------
+// out (M, N) bf16 = act( (sum_g float(partial_g) * a_scale[m, g]) * ws[n] + bias[n] ),
+// G scale groups of `group` values of K (G = 1: one scale per row). FOLD
+// folds every `fold` values of K (a divisor of the group) into an fp32 sum;
+// without it the one partial is scaled in the epilogue.
+
+template <bool FOLD>
+struct Tile {
+  static constexpr int THREADS = 384;  // a producer warpgroup, then two consumer warpgroups
+  static constexpr int CONSUMERS = 256;
+  static constexpr int BM = 128;               // token rows, 64 per consumer warpgroup
+  static constexpr int BN = FOLD ? 128 : 256;  // weight rows: the wgmma N
+  static constexpr int BK = 128;               // values (bytes) of K a stage: one swizzle row
+  static constexpr int A_BYTES = BM * BK;
+  static constexpr int STAGE_BYTES = A_BYTES + BN * BK;
+  static constexpr int STAGES = FOLD ? 6 : 4;
+  static constexpr int NACC = BN / 2;      // accumulator registers a thread
+  static constexpr int LDO = BN * 2 + 16;  // epilogue row: BN bf16 + pad
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;  // + slack to align the ring to 1024 bytes
+  static_assert(STAGE_BYTES % 1024 == 0, "swizzle atoms must stay 1024-byte aligned");
+  static_assert(BM * LDO <= STAGES * STAGE_BYTES, "epilogue tile must fit in the ring");
+};
+
+// amap: codes (M, K), boxes of 128 bytes x 128 rows; bmap: w (N, K), boxes
+// of 128 bytes x BN rows; both 128B-swizzled
+template <bool FP8, bool GELU, bool FOLD>
+__global__ void __launch_bounds__(384, 1)
+    w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+                      const float* __restrict__ a_scale, int G, int group, int fold, const float* __restrict__ ws,
+                      const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int M, int N, int K) {
+  using T = Tile<FOLD>;
+  using Acc = typename Codes<FP8>::Acc;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[T::STAGES], empty[T::STAGES];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int n0 = blockIdx.x * T::BN, m0 = blockIdx.y * T::BM;
+  const int KT = (K + T::BK - 1) / T::BK;
+  auto stage = [&](int s) { return smem + s * T::STAGE_BYTES; };  // the A box, then the B box
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], T::CONSUMERS / 32);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < T::THREADS - T::CONSUMERS) {
+    // producer warpgroup: hands most of its registers to the consumers; one
+    // thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % T::STAGES;
+        mbar_wait(&empty[s], ((kt / T::STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], T::STAGE_BYTES);
+        tma_load(stage(s), &amap, &full[s], kt * T::BK, m0);
+        tma_load(stage(s) + T::A_BYTES, &bmap, &full[s], kt * T::BK, n0);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int tid = threadIdx.x - (T::THREADS - T::CONSUMERS), lane = tid & 31, wg = tid >> 7;
+  const int g = lane >> 2, t = lane & 3;
+  const int rl = wg * 64 + ((tid >> 5) & 3) * 16 + g;  // this thread's tile rows rl and rl + 8
+  const int ra = m0 + rl, rb = ra + 8;
+  // value 4j + e of an accumulator is (row rl + 8 * (e >> 1), column 8j + 2t + (e & 1))
+
+  Acc acc[T::NACC];
+  float sum[T::NACC];  // the fp32 sum of the folds (unused without FOLD)
+#pragma unroll
+  for (int i = 0; i < T::NACC; ++i) {
+    acc[i] = 0;
+    sum[i] = 0.f;
+  }
+
+  // one fold interval per outer iteration (all of K without FOLD); acc is
+  // touched outside the wgmma only after the interval's wait_group 0. An
+  // interval ends at a scale-group boundary or, for fp8, at a promotion
+  // point; the second warpgroup's promotion points sit half an interval
+  // later, so the two drain and fold at different times.
+  const int group_tiles = G > 1 ? group / T::BK : KT;
+  const int fold_tiles = FOLD ? fold / T::BK : KT;
+  const int off = (FOLD && FP8 && wg) ? fold_tiles / 2 : 0;
+  for (int f0 = 0, kt = 0; f0 < KT;) {
+    const int f1 = min(min(KT, (f0 / group_tiles + 1) * group_tiles), ((f0 + off) / fold_tiles + 1) * fold_tiles - off);
+    for (; kt < f1; ++kt) {
+      const int s = kt % T::STAGES;
+      mbar_wait(&full[s], (kt / T::STAGES) & 1);
+      const uint32_t a_addr = smem_u32(stage(s)) + wg * 64 * T::BK;
+      const uint32_t b_addr = smem_u32(stage(s)) + T::A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < T::BK / 32; ++kk)
+        Wgmma8<T::BN>::mma(acc, make_desc(a_addr + kk * 32), make_desc(b_addr + kk * 32),
+                           (kk == 0 && kt == f0) ? 0 : 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      // the batch of stage kt - 1 is done: hand its slot back
+      if (kt > f0 && lane == 0) mbar_arrive(&empty[(kt - 1) % T::STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(&empty[(kt - 1) % T::STAGES]);
+    if constexpr (FOLD) {
+      if (G > 1) {  // sum += partial * a_scale[row, g] of the group this interval lies in
+        const int grp = f0 / group_tiles;
+        const float sa = ra < M ? __ldg(a_scale + (long long)ra * G + grp) : 0.f;
+        const float sb = rb < M ? __ldg(a_scale + (long long)rb * G + grp) : 0.f;
+#pragma unroll
+        for (int j = 0; j < T::NACC / 4; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sum[4 * j + e] = __fadd_rn(sum[4 * j + e], __fmul_rn(acc_to_float(acc[4 * j + e]), (e >> 1) ? sb : sa));
+        }
+      } else {  // a promotion: the row scale comes in the epilogue
+#pragma unroll
+        for (int i = 0; i < T::NACC; ++i) sum[i] = __fadd_rn(sum[i], acc_to_float(acc[i]));
+      }
+    }
+    f0 = f1;
+  }
+  // both consumer warpgroups are done with the ring (every load has landed)
+  asm volatile("fence.proxy.async.shared::cta;\nbar.sync 1, %0;\n" ::"n"(T::CONSUMERS) : "memory");
+
+  // y = acc * xs * ws + b (with G > 1, sum * 1 * ws + b), the optional
+  // GELU, staged in shared memory as [token row][column] bf16
+  const float xa = (FOLD && G > 1) ? 1.f : (ra < M ? __ldg(a_scale + ra) : 0.f);
+  const float xb = (FOLD && G > 1) ? 1.f : (rb < M ? __ldg(a_scale + rb) : 0.f);
+  __nv_bfloat16* so = reinterpret_cast<__nv_bfloat16*>(smem);
+#pragma unroll
+  for (int j = 0; j < T::NACC / 4; ++j) {
+    const int c = n0 + 8 * j + 2 * t;
+    const float w0 = c < N ? __ldg(ws + c) : 0.f, w1 = c + 1 < N ? __ldg(ws + c + 1) : 0.f;
+    const float b0 = c < N ? __ldg(bias + c) : 0.f, b1 = c + 1 < N ? __ldg(bias + c + 1) : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 4 * j + 2 * h;
+      const float v0 = __fmul_rn(FOLD ? sum[i] : acc_to_float(acc[i]), h ? xb : xa);
+      const float v1 = __fmul_rn(FOLD ? sum[i + 1] : acc_to_float(acc[i + 1]), h ? xb : xa);
+      float y0 = __fadd_rn(__fmul_rn(v0, w0), b0), y1 = __fadd_rn(__fmul_rn(v1, w1), b1);
+      if (GELU) {
+        y0 = gelu_tanh(y0);
+        y1 = gelu_tanh(y1);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(so + (rl + 8 * h) * (T::LDO / 2) + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(y0, y1);
+    }
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(T::CONSUMERS) : "memory");
+  const bool vec = (N & 7) == 0;
+  constexpr int CHUNKS = T::BN / 8;  // 16-byte chunks of a row
+#pragma unroll 4
+  for (int i = 0; i < T::BM * CHUNKS / T::CONSUMERS; ++i) {
+    const int cidx = tid + i * T::CONSUMERS;
+    const int r = cidx / CHUNKS, ch = cidx % CHUNKS;
+    const int m = m0 + r, n = n0 + ch * 8;
+    if (m >= M || n >= N) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(smem + r * T::LDO + ch * 16);
+    __nv_bfloat16* dst = out + (long long)m * N + n;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (n + q < N) dst[q] = e[q];
+    }
+  }
+}
+
+template <bool FP8, bool GELU, bool FOLD>
+int launch_gemm(const void* a, const void* b, const void* a_scale, int G, int group, int fold, const void* ws,
+                const void* bias, void* out, int M, int N, int K, cudaStream_t s) {
+  using T = Tile<FOLD>;
+  CUtensorMap amap, bmap;
+  if (!make_map_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, M, K, K, T::BM, T::BK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map_2d(&bmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, b, N, K, K, T::BN, T::BK, CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = w8a8_wgmma_kernel<FP8, GELU, FOLD>;
+  cudaError_t err = set_smem(kern, T::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
+  kern<<<grid, T::THREADS, T::SMEM, s>>>(amap, bmap, static_cast<const float*>(a_scale), G, group, fold,
+                                         static_cast<const float*>(ws), static_cast<const float*>(bias),
+                                         static_cast<__nv_bfloat16*>(out), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool FP8>
+int launch_gemm_kind(const void* a, const void* b, const void* a_scale, int G, int group, int fold, const void* ws,
+                     const void* bias, void* out, int M, int N, int K, int gelu, cudaStream_t s) {
+  if (fold == 0)
+    return gelu ? launch_gemm<FP8, true, false>(a, b, a_scale, G, group, 0, ws, bias, out, M, N, K, s)
+                : launch_gemm<FP8, false, false>(a, b, a_scale, G, group, 0, ws, bias, out, M, N, K, s);
+  return gelu ? launch_gemm<FP8, true, true>(a, b, a_scale, G, group, fold, ws, bias, out, M, N, K, s)
+              : launch_gemm<FP8, false, true>(a, b, a_scale, G, group, fold, ws, bias, out, M, N, K, s);
+}
+
+// ---------------------------------------------------------------------------
+// FFN first GEMM on mma.sync: main loop pieces. A (M, K) and B (N, K) are
+// row-major 8-bit codes; the CTA owns rows [m0, m0+BM) of A and [n0, n0+BN)
+// of B.
 
 constexpr int NTHREADS = 256;
 constexpr int BK = 64;          // bytes of K per pipeline stage
 constexpr int LDSB = BK + 16;   // padded smem row (80 bytes)
 constexpr int STAGES = 3;
-
-// ---------------------------------------------------------------------------
-// shared GEMM main loop pieces. A (M, K) and B (N, K) are row-major 8-bit codes;
-// the CTA owns rows [m0, m0+BM) of A and [n0, n0+BN) of B.
 
 template <int BM, int BN>
 __device__ __forceinline__ void load_stage(uint8_t* sA, uint8_t* sB, const uint8_t* __restrict__ A,
@@ -114,104 +421,6 @@ __device__ __forceinline__ void mma_stage(const uint8_t* sA, const uint8_t* sB, 
       for (int mt = 0; mt < MT; ++mt) {
         mma8(acc[mt][2 * np], af[mt], bfr[0], bfr[1]);
         mma8(acc[mt][2 * np + 1], af[mt], bfr[2], bfr[3]);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// out (M, N) bf16 = act( (sum_g float(partial_g) * a_scale[m, g]) * ws[n] + bias[n] )
-// group_tiles BK-tiles per scale group; G = 1 gives the plain per-token
-// contract.
-
-constexpr int G_BM = 128, G_BN = 128, G_WM = 2, G_WN = 4;
-constexpr int G_MT = G_BM / G_WM / 16;  // 4
-constexpr int G_NT = G_BN / G_WN / 8;   // 4
-constexpr int G_SMEM = STAGES * (G_BM + G_BN) * LDSB;
-
-template <bool FP8, bool GELU>
-__global__ void __launch_bounds__(NTHREADS) gemm_8bit_kernel(const uint8_t* __restrict__ A,
-                                                             const uint8_t* __restrict__ B,
-                                                             const float* __restrict__ a_scale, int G,
-                                                             int group_tiles, const float* __restrict__ ws,
-                                                             const float* __restrict__ bias,
-                                                             __nv_bfloat16* __restrict__ out, int M, int N, int K) {
-  using Acc = typename Codes<FP8>::Acc;
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / G_WN, wn = warp % G_WN;
-  const int n0 = blockIdx.x * G_BN, m0 = blockIdx.y * G_BM;
-  const int wr0 = wm * G_MT * 16, wc0 = wn * G_NT * 8;
-  const int g = lane >> 2, tq = lane & 3;
-  const int KT = (K + BK - 1) / BK;
-
-  Acc acc[G_MT][G_NT][4];
-  float facc[G_MT][G_NT][4];
-#pragma unroll
-  for (int a = 0; a < G_MT; ++a)
-#pragma unroll
-    for (int b = 0; b < G_NT; ++b)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) { acc[a][b][c] = 0; facc[a][b][c] = 0.f; }
-
-  auto sA = [&](int st) { return smem + st * (G_BM + G_BN) * LDSB; };
-  auto sB = [&](int st) { return smem + st * (G_BM + G_BN) * LDSB + G_BM * LDSB; };
-
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < KT) load_stage<G_BM, G_BN>(sA(st), sB(st), A, B, M, N, K, m0, n0, st * BK, tid);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    int nk = kt + STAGES - 1;
-    if (nk < KT) load_stage<G_BM, G_BN>(sA(nk % STAGES), sB(nk % STAGES), A, B, M, N, K, m0, n0, nk * BK, tid);
-    cp_async_commit();
-    mma_stage<G_MT, G_NT>(sA(kt % STAGES), sB(kt % STAGES), wr0, wc0, lane, acc);
-    if ((kt + 1) % group_tiles == 0 || kt + 1 == KT) {
-      const int grp = kt / group_tiles;
-#pragma unroll
-      for (int mt = 0; mt < G_MT; ++mt) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          int r = m0 + wr0 + mt * 16 + g + h * 8;
-          float sc = r < M ? __ldg(a_scale + (long long)r * G + grp) : 0.f;
-#pragma unroll
-          for (int nt = 0; nt < G_NT; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              facc[mt][nt][h * 2 + e] =
-                  __fadd_rn(facc[mt][nt][h * 2 + e], __fmul_rn(acc_to_float(acc[mt][nt][h * 2 + e]), sc));
-              acc[mt][nt][h * 2 + e] = 0;
-            }
-          }
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int nt = 0; nt < G_NT; ++nt) {
-    int c = n0 + wc0 + nt * 8 + 2 * tq;
-    float w0 = c < N ? __ldg(ws + c) : 0.f, w1 = c + 1 < N ? __ldg(ws + c + 1) : 0.f;
-    float b0 = c < N ? __ldg(bias + c) : 0.f, b1 = c + 1 < N ? __ldg(bias + c + 1) : 0.f;
-#pragma unroll
-    for (int mt = 0; mt < G_MT; ++mt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        int r = m0 + wr0 + mt * 16 + g + h * 8;
-        if (r >= M) continue;
-        float y0 = __fadd_rn(__fmul_rn(facc[mt][nt][h * 2], w0), b0);
-        float y1 = __fadd_rn(__fmul_rn(facc[mt][nt][h * 2 + 1], w1), b1);
-        if (GELU) { y0 = gelu_tanh(y0); y1 = gelu_tanh(y1); }
-        __nv_bfloat16* orow = out + (long long)r * N;
-        if (c + 1 < N) {
-          *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(y0, y1);
-        } else if (c < N) {
-          orow[c] = __float2bfloat16_rn(y0);
-        }
       }
     }
   }
@@ -357,19 +566,6 @@ int launch_gemm1_bh(const void* xq, const void* w0, const void* xs, const void* 
   }
 }
 
-template <bool FP8, bool GELU>
-int launch_gemm(const void* a, const void* b, const void* a_scale, int G, int group_tiles, const void* ws,
-                const void* bias, void* out, int M, int N, int K, cudaStream_t s) {
-  auto kern = gemm_8bit_kernel<FP8, GELU>;
-  cudaError_t err = set_smem(kern, G_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((N + G_BN - 1) / G_BN, (M + G_BM - 1) / G_BM);
-  kern<<<grid, NTHREADS, G_SMEM, s>>>(static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b),
-                                      static_cast<const float*>(a_scale), G, group_tiles,
-                                      static_cast<const float*>(ws), static_cast<const float*>(bias),
-                                      static_cast<__nv_bfloat16*>(out), M, N, K);
-  return static_cast<int>(cudaGetLastError());
-}
 
 }  // namespace
 
@@ -380,19 +576,31 @@ extern "C" int w8a8_quant_groups(int kind, const void* x, void* q, void* scale, 
               : launch_quant_groups<false>(x, q, scale, M, K, group, stream);
 }
 
+// w8a8_gemm with the fold interval given: `fold` values of K (a multiple of
+// 128 dividing the group when G > 1) per fold into the fp32 sum, or 0 for no
+// fold (G = 1 only; the 128 x 256 tile). a and b 16-byte aligned, K % 16 == 0.
+extern "C" int w8a8_gemm_fold(const void* a, const void* b, const void* a_scale, int G, int group, const void* ws,
+                              const void* bias, void* out, int M, int N, int K, int gelu, int kind, int fold,
+                              void* stream) {
+  if (M == 0) return 0;
+  const bool grouped = G > 1;
+  if (K <= 0 || K % 16 || (reinterpret_cast<uintptr_t>(a) & 15) || (reinterpret_cast<uintptr_t>(b) & 15) ||
+      (grouped && (group % 128 || (long long)G * group != K)) || fold < 0 || fold % 128 ||
+      (fold == 0 && grouped) || (grouped && group % fold))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return kind ? launch_gemm_kind<true>(a, b, a_scale, G, group, fold, ws, bias, out, M, N, K, gelu, s)
+              : launch_gemm_kind<false>(a, b, a_scale, G, group, fold, ws, bias, out, M, N, K, gelu, s);
+}
+
 // G scale groups of `group` values along K (G = 1: one scale per row over
-// all of K).
+// all of K): int8 folds at each group boundary, fp8 also every FP8_FOLD_K
+// values.
 extern "C" int w8a8_gemm(const void* a, const void* b, const void* a_scale, int G, int group, const void* ws,
                          const void* bias, void* out, int M, int N, int K, int gelu, int kind, void* stream) {
-  if (M == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int group_tiles = (G == 1) ? (K + BK - 1) / BK : group / BK;
-  if (kind) {
-    return gelu ? launch_gemm<true, true>(a, b, a_scale, G, group_tiles, ws, bias, out, M, N, K, s)
-                : launch_gemm<true, false>(a, b, a_scale, G, group_tiles, ws, bias, out, M, N, K, s);
-  }
-  return gelu ? launch_gemm<false, true>(a, b, a_scale, G, group_tiles, ws, bias, out, M, N, K, s)
-              : launch_gemm<false, false>(a, b, a_scale, G, group_tiles, ws, bias, out, M, N, K, s);
+  int fold = G > 1 ? group : 0;
+  if (kind && FP8_FOLD_K > 0 && (fold == 0 || fold > FP8_FOLD_K)) fold = FP8_FOLD_K;
+  return w8a8_gemm_fold(a, b, a_scale, G, group, ws, bias, out, M, N, K, gelu, kind, fold, stream);
 }
 
 extern "C" int ffn_w8a8_gemm1(const void* xq, const void* w0, const void* xs, const void* ws0, const void* b0,

@@ -160,8 +160,9 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.w8a8_quant_groups.argtypes = [i, p, p, p, i, i, i, p]
         lib.w8a8_gemm.argtypes = [p, p, p, i, i, p, p, p, i, i, i, i, i, p]
+        lib.w8a8_gemm_fold.argtypes = [p, p, p, i, i, p, p, p, i, i, i, i, i, i, p]
         lib.ffn_w8a8_gemm1.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
-        for fn in (lib.w8a8_quant_groups, lib.w8a8_gemm, lib.ffn_w8a8_gemm1):
+        for fn in (lib.w8a8_quant_groups, lib.w8a8_gemm, lib.w8a8_gemm_fold, lib.ffn_w8a8_gemm1):
             fn.restype = ctypes.c_int
     return lib
 
@@ -184,6 +185,8 @@ def _check_w(w: torch.Tensor, ws: torch.Tensor, b, k: int, dev, name: str, kind:
                          f"got {w.dtype} {tuple(w.shape)}")
     if w.shape[0] % 2:
         raise ValueError(f"{name}: N must be even, got {w.shape[0]}")
+    if w.data_ptr() % 16:
+        raise ValueError(f"{name} must start at a 16-byte aligned address (TMA reads it), got {w.data_ptr():#x}")
     if ws.dtype != torch.float32 or ws.shape != (w.shape[0],) or not ws.is_contiguous():
         raise ValueError(f"{name} scale must be contiguous fp32 ({w.shape[0]},)")
     if b is None:

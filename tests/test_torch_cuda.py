@@ -110,13 +110,27 @@ def test_flash_refuses_bad_input(dev):
         fa.flash_attention(*(torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.bfloat16) for _ in range(3)))
 
 
-@pytest.mark.parametrize("m,n,k,act", [(200, 200, 256, None), (37, 384, 4096, "gelu"), (512, 136, 96, None)])
-def test_fullk_kernel_vs_plain(dev, m, n, k, act):
+def _x(g, dev, m, k, one_signed=False):
+    x = torch.randn((m, k), generator=g, device=dev)
+    return (x.abs() if one_signed else x).to(torch.bfloat16)
+
+
+def _int8_w(g, dev, n, k, one_signed=False):
+    return torch.randint(0 if one_signed else -127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+
+
+# one_signed: x = |randn| and positive codes, where truncated partial sums
+# would add up rather than cancel
+@pytest.mark.parametrize("m,n,k,act,one_signed", [(200, 200, 256, None, False), (37, 384, 4096, "gelu", False),
+                                                  (512, 136, 96, None, False), (300, 256, 5120, None, True),
+                                                  # ragged on all three axes: 128-row, 256-column, 128-deep tiles
+                                                  (300, 266, 416, "gelu", False)])
+def test_fullk_kernel_vs_plain(dev, m, n, k, act, one_signed):
     from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
 
     g = torch.Generator(device=dev).manual_seed(m + n + k)
-    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-    w = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+    x = _x(g, dev, m, k, one_signed)
+    w = _int8_w(g, dev, n, k, one_signed)
     ws = torch.rand((n,), generator=g, device=dev) * 1e-3
     b = torch.randn((n,), generator=g, device=dev) * 0.1
     # bar: same codes, exact int32 sums, same fp32 epilogue; bf16 ties aside
@@ -193,14 +207,17 @@ def test_ffn_w4a8_kernel_vs_plain(dev, m, k, h, n):
     _close(w4.ffn_w4a8(x, w0, s0, b0, w2, s2, b2), w4.ffn_w4a8_plain(x, w0, s0, b0, w2, s2, b2), 2e-2, 0.0)
 
 
-@pytest.mark.parametrize("m,n,k,act", [(37, 136, 10240, None), (200, 256, 2560, "gelu"), (8, 64, 8320, None)])
-def test_kblocked_w8a8_kernel_vs_plain(dev, m, n, k, act):
-    """k-blocks of 1024, 512 and 128 (K = 8320 = 65 * 128)."""
+@pytest.mark.parametrize("m,n,k,act,one_signed", [(37, 136, 10240, None, False), (200, 256, 2560, "gelu", False),
+                                                  (8, 64, 8320, None, False), (200, 256, 13824, None, True),
+                                                  (130, 266, 1152, "gelu", False)])
+def test_kblocked_w8a8_kernel_vs_plain(dev, m, n, k, act, one_signed):
+    """k-blocks of 1024, 512 and 128 (K = 8320 = 65 * 128); 27 blocks of 512
+    at K = 13,824 (the FFN's second GEMM's grouping); ragged M and N."""
     from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
 
     g = torch.Generator(device=dev).manual_seed(m + k)
-    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-    w = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+    x = _x(g, dev, m, k, one_signed)
+    w = _int8_w(g, dev, n, k, one_signed)
     ws = torch.rand((n,), generator=g, device=dev) * 1e-3
     _close(wm.w8a8_matmul(x, w, ws, act=act), wm.w8a8_matmul_plain(x, w, ws, act=act), 2 ** -7, 0.0)
 
@@ -412,20 +429,23 @@ def test_radial_executions_on_cuda(dev, monkeypatch):
         _close(out.cpu(), ref, 2e-2, 2e-3)
 
 
-def _fp8_w(g, dev, n, k):
+def _fp8_w(g, dev, n, k, one_signed=False):
     """e4m3 codes as the synthesizers make them: normal * 100, clipped."""
-    return (torch.randn((n, k), generator=g, device=dev) * 100).clamp_(-448, 448).to(torch.float8_e4m3fn)
+    w = torch.randn((n, k), generator=g, device=dev) * 100
+    return (w.abs() if one_signed else w).clamp_(-448, 448).to(torch.float8_e4m3fn)
 
 
-@pytest.mark.parametrize("m,n,k,act", [(200, 200, 256, None), (37, 384, 4096, "gelu"), (512, 136, 96, None),
-                                       # below one 128-row tile, ragged N, one 64-wide stage
-                                       (5, 66, 64, None), (300, 256, 5120, None)])
-def test_fullk_fp8_kernel_vs_plain(dev, m, n, k, act):
+@pytest.mark.parametrize("m,n,k,act,one_signed", [(200, 200, 256, None, False), (37, 384, 4096, "gelu", False),
+                                                  (512, 136, 96, None, False),
+                                                  # below one 128-row tile, ragged N, K below one stage
+                                                  (5, 66, 64, None, False), (300, 256, 5120, None, False),
+                                                  (300, 256, 5120, None, True), (300, 392, 416, "gelu", False)])
+def test_fullk_fp8_kernel_vs_plain(dev, m, n, k, act, one_signed):
     from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
 
     g = torch.Generator(device=dev).manual_seed(m + n + k)
-    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-    w = _fp8_w(g, dev, n, k)
+    x = _x(g, dev, m, k, one_signed)
+    w = _fp8_w(g, dev, n, k, one_signed)
     ws = torch.rand((n,), generator=g, device=dev) * 1e-4
     b = torch.randn((n,), generator=g, device=dev) * 0.1
     before = wm.LAUNCHES["w8a8_matmul_fullk_fp8"]
@@ -467,14 +487,17 @@ def test_ffn_fp8_kernel_vs_plain(dev, h):
     _close(out, wm.ffn_w8a8_plain(x, w0, s0, b0, w2, s2, b2, kind="fp8"), 2e-2, 0.0)
 
 
-@pytest.mark.parametrize("m,n,k,act", [(37, 136, 10240, None), (200, 256, 2560, "gelu"), (8, 64, 128, None)])
-def test_kblocked_fp8_kernel_vs_plain(dev, m, n, k, act):
-    """k-blocks of 1024 and 512, and K = 128: a single k-block."""
+@pytest.mark.parametrize("m,n,k,act,one_signed", [(37, 136, 10240, None, False), (200, 256, 2560, "gelu", False),
+                                                  (8, 64, 128, None, False), (200, 256, 13824, None, True),
+                                                  (130, 266, 1152, "gelu", False)])
+def test_kblocked_fp8_kernel_vs_plain(dev, m, n, k, act, one_signed):
+    """k-blocks of 1024 and 512, and K = 128: a single k-block; 27 blocks of
+    512 at K = 13,824 (the FFN's second GEMM's grouping); ragged M and N."""
     from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
 
     g = torch.Generator(device=dev).manual_seed(m + k)
-    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-    w = _fp8_w(g, dev, n, k)
+    x = _x(g, dev, m, k, one_signed)
+    w = _fp8_w(g, dev, n, k, one_signed)
     ws = torch.rand((n,), generator=g, device=dev) * 1e-4
     before = wm.LAUNCHES["w8a8_matmul_fp8"]
     out = wm.w8a8_matmul(x, w, ws, act=act, kind="fp8")
@@ -492,6 +515,22 @@ def test_8bit_wrappers_refuse_the_other_kind(dev):
         wm.w8a8_matmul_fullk(x, w8, ws, kind="fp8")
     with pytest.raises(ValueError, match="int8"):
         wm.w8a8_matmul(x, w8.to(torch.float8_e4m3fn), ws)
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_8bit_wrappers_refuse_misaligned_weights(dev, kind):
+    """TMA reads the weights: a base pointer off 16 bytes raises, it is never
+    run through the plain version."""
+    from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
+
+    x = torch.zeros((4, 256), dtype=torch.bfloat16, device=dev)
+    buf = torch.zeros(64 * 256 + 1, dtype=wm._CODE_DTYPE[kind], device=dev)
+    w = buf[1:].view(64, 256)
+    assert w.is_contiguous() and w.data_ptr() % 16
+    before = dict(wm.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wm.w8a8_matmul_fullk(x, w, torch.ones(64, device=dev), kind=kind)
+    assert wm.LAUNCHES == before
 
 
 def test_fp8_linear_dispatch_uses_kernels(dev, monkeypatch):
