@@ -47,10 +47,18 @@
 //    each group boundary (wgmma.wait_group 0), adds float(acc) *
 //    a_scale[row, g] into an fp32 register sum and starts the next group with
 //    scale-d 0; the other warpgroup's products run meanwhile. The sum doubles
-//    the registers, so the folding kernel's tile is 128 x 128 (m64n128 a
-//    warpgroup, 64 + 64 registers a thread, six 32 KB stages). Without a fold
-//    (int8 with G = 1: int32 sums are exact) a warpgroup holds m64n256, 128
-//    registers, and the tile is 128 x 256 (four 48 KB stages).
+//    the registers, so the folding kernel's tile is 128 x 192 (m64n192 a
+//    warpgroup, 96 + 96 registers a thread, five 40 KB stages). Without a
+//    fold (int8 with G = 1: int32 sums are exact) a warpgroup holds m64n256,
+//    128 registers, and the tile is 128 x 256 (four 48 KB stages).
+//  - What bounds the tile: shared memory. At the full rate a warpgroup's
+//    m64nNk32 reads 2 KB of A and N * 32 bytes of B a step and the ring takes
+//    the stage's TMA writes: about 127 bytes a clock at 128 x 256, 138 at
+//    128 x 192 and 160 at 128 x 128, against the SM's 128. 128 x 128 took
+//    1.64 ms where 128 x 256 took 1.33 at the fp8 main shape (one fold at
+//    the end), and 128 x 192 beat 128 x 128 by 8-13% at every folding shape;
+//    a 2-CTA cluster that multicast the weight tile (a third fewer L2 bytes,
+//    the same shared-memory bytes) ran 1.4-1.7x slower (PERF.md).
 //  - fp8 accumulation: e4m3 wgmma does not add in full fp32 (the partial
 //    sum keeps about 14 bits, truncated), so fp8 partials are promoted into
 //    the fp32 sum every FP8_FOLD_K = 256 values of K (8 k32 steps): a fold
@@ -100,12 +108,14 @@ constexpr int FP8_FOLD_K = 256;
 // wgmma.m64nNk32 on 8-bit operands, both K-major in shared memory:
 // d (64 x N) = (scale_d ? d : 0) + a (64 x 32) . b (32 x N)
 
-#define W8_D64 \
+#define W8_D96 \
   "{" \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
   "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
-  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95" \
   "}"
 #define W8_D128 \
   "{" \
@@ -124,26 +134,25 @@ constexpr int FP8_FOLD_K = 256;
 #define W8_OP64(C, d) \
   W8_OP8(C, d, 0), W8_OP8(C, d, 8), W8_OP8(C, d, 16), W8_OP8(C, d, 24), W8_OP8(C, d, 32), W8_OP8(C, d, 40), \
       W8_OP8(C, d, 48), W8_OP8(C, d, 56)
-#define W8_OP128(C, d) \
-  W8_OP64(C, d), W8_OP8(C, d, 64), W8_OP8(C, d, 72), W8_OP8(C, d, 80), W8_OP8(C, d, 88), W8_OP8(C, d, 96), \
-      W8_OP8(C, d, 104), W8_OP8(C, d, 112), W8_OP8(C, d, 120)
+#define W8_OP96(C, d) W8_OP64(C, d), W8_OP8(C, d, 64), W8_OP8(C, d, 72), W8_OP8(C, d, 80), W8_OP8(C, d, 88)
+#define W8_OP128(C, d) W8_OP96(C, d), W8_OP8(C, d, 96), W8_OP8(C, d, 104), W8_OP8(C, d, 112), W8_OP8(C, d, 120)
 
 template <int N>
 struct Wgmma8;
 template <>
-struct Wgmma8<128> {
-  __device__ static __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+struct Wgmma8<192> {
+  __device__ static __forceinline__ void mma(float (&d)[96], uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 " W8_D64 ", %64, %65, p, 1, 1;\n}\n"
-        : W8_OP64(W8_F, d)
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k32.f32.e4m3.e4m3 " W8_D96 ", %96, %97, p, 1, 1;\n}\n"
+        : W8_OP96(W8_F, d)
         : "l"(da), "l"(db), "r"(scale_d));
   }
-  __device__ static __forceinline__ void mma(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  __device__ static __forceinline__ void mma(int (&d)[96], uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " W8_D64 ", %64, %65, p;\n}\n"
-        : W8_OP64(W8_R, d)
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 " W8_D96 ", %96, %97, p;\n}\n"
+        : W8_OP96(W8_R, d)
         : "l"(da), "l"(db), "r"(scale_d));
   }
 };
@@ -176,11 +185,11 @@ struct Tile {
   static constexpr int THREADS = 384;  // a producer warpgroup, then two consumer warpgroups
   static constexpr int CONSUMERS = 256;
   static constexpr int BM = 128;               // token rows, 64 per consumer warpgroup
-  static constexpr int BN = FOLD ? 128 : 256;  // weight rows: the wgmma N
+  static constexpr int BN = FOLD ? 192 : 256;  // weight rows: the wgmma N
   static constexpr int BK = 128;               // values (bytes) of K a stage: one swizzle row
   static constexpr int A_BYTES = BM * BK;
   static constexpr int STAGE_BYTES = A_BYTES + BN * BK;
-  static constexpr int STAGES = FOLD ? 6 : 4;
+  static constexpr int STAGES = FOLD ? 5 : 4;
   static constexpr int NACC = BN / 2;      // accumulator registers a thread
   static constexpr int LDO = BN * 2 + 16;  // epilogue row: BN bf16 + pad
   static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;  // + slack to align the ring to 1024 bytes
