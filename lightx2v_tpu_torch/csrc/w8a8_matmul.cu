@@ -31,13 +31,14 @@
 //    operands are K-major in shared memory, as they are stored: A the (M, K)
 //    codes, B the weights (N, K).
 //  - A CTA is a producer warpgroup and two consumer warpgroups of 64 token
-//    rows each (setmaxnreg 40 / 232). One producer thread issues TMA copies
-//    (UINT8 tensor maps, boxes of 128 bytes of K by 128 token rows or BN
-//    weight rows, 128-byte swizzle: the layout make_desc describes, 8 rows of
-//    128 bytes per 1024-byte atom) into a ring of stages with full and empty
-//    mbarriers. TMA zero-fills past M, N and K. A stage is 128 values of K,
-//    four k32 steps; each step moves the descriptors' start 32 bytes inside
-//    the swizzle row.
+//    rows each (setmaxnreg 24 / 240; at 40 / 232 the folding int8 kernel
+//    spilled). One producer thread issues TMA copies (UINT8 tensor maps,
+//    boxes of 128 bytes of K by 128 token rows or BN weight rows, 128-byte
+//    swizzle: the layout make_desc describes, 8 rows of 128 bytes per
+//    1024-byte atom) into a ring of stages with full and empty mbarriers.
+//    TMA zero-fills past M, N and K. A stage is 128 values of K, four k32
+//    steps; each step moves the descriptors' start 32 bytes inside the
+//    swizzle row.
 //  - A warpgroup keeps one stage's batch of four products in flight
 //    (wgmma.wait_group 1) while it issues the next, and hands a stage back
 //    once the batch after it has been issued. The consumers never meet at a
@@ -77,8 +78,12 @@
 //    promotion: sm_90 runs that instruction as two HMMA.16816.F32, which add
 //    in full fp32. wgmma does not.
 //  - Epilogue: acc * xs * ws + b in fp32 in the TPU order (sum * ws + b after
-//    a fold), the optional tanh-GELU, bf16 staged through shared memory (the
-//    ring, free by then) and written with 16-byte stores.
+//    a fold), the optional tanh-GELU, bf16 staged through a 64 x 64 buffer
+//    of the warpgroup's own and written with 16-byte stores.
+//  - Persistent: one CTA an SM walks the output tiles, weight tile fastest,
+//    so the CTAs in flight share the weight tiles in L2. The ring runs on
+//    from tile to tile: the producer loads the next tile's first stages
+//    while the consumers store the last one.
 //  - At M = 512 (cross-attention k/v, the UMT5-XXL linears) the grid is 4
 //    token tiles by 20 (or 40) weight tiles, fewer CTAs than the 132 SMs:
 //    one partial wave, each CTA walking all of K.
@@ -130,7 +135,8 @@ constexpr int FP8_FOLD_K = 256;
   "}"
 #define W8_F(x) "+f"(x)
 #define W8_R(x) "+r"(x)
-#define W8_OP8(C, d, o) C(d[o]), C(d[o + 1]), C(d[o + 2]), C(d[o + 3]), C(d[o + 4]), C(d[o + 5]), C(d[o + 6]), C(d[o + 7])
+#define W8_OP8(C, d, o) \
+  C(d[o]), C(d[o + 1]), C(d[o + 2]), C(d[o + 3]), C(d[o + 4]), C(d[o + 5]), C(d[o + 6]), C(d[o + 7])
 #define W8_OP64(C, d) \
   W8_OP8(C, d, 0), W8_OP8(C, d, 8), W8_OP8(C, d, 16), W8_OP8(C, d, 24), W8_OP8(C, d, 32), W8_OP8(C, d, 40), \
       W8_OP8(C, d, 48), W8_OP8(C, d, 56)
@@ -190,15 +196,21 @@ struct Tile {
   static constexpr int A_BYTES = BM * BK;
   static constexpr int STAGE_BYTES = A_BYTES + BN * BK;
   static constexpr int STAGES = FOLD ? 5 : 4;
-  static constexpr int NACC = BN / 2;      // accumulator registers a thread
-  static constexpr int LDO = BN * 2 + 16;  // epilogue row: BN bf16 + pad
-  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;  // + slack to align the ring to 1024 bytes
+  static constexpr int NACC = BN / 2;  // accumulator registers a thread
+  static constexpr int EP_LD = 64 * 2 + 16;    // a staged output row: 64 bf16 + pad (conflict-free)
+  static constexpr int EP_BYTES = 64 * EP_LD;  // a warpgroup's 64 rows x 64 columns
+  // the ring, a staging buffer per consumer warpgroup, slack to align the ring to 1024 bytes
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * EP_BYTES + 1024;
   static_assert(STAGE_BYTES % 1024 == 0, "swizzle atoms must stay 1024-byte aligned");
-  static_assert(BM * LDO <= STAGES * STAGE_BYTES, "epilogue tile must fit in the ring");
+  static_assert(BN % 64 == 0, "the epilogue stages 64 columns at a time");
 };
 
 // amap: codes (M, K), boxes of 128 bytes x 128 rows; bmap: w (N, K), boxes
-// of 128 bytes x BN rows; both 128B-swizzled
+// of 128 bytes x BN rows; both 128B-swizzled. Persistent: CTA c takes
+// output tiles c, c + gridDim.x, ..., tile w at token tile w / n_tiles_n and
+// weight tile w % n_tiles_n, so the CTAs in flight share their weight tiles
+// in L2; the ring runs on across tiles, and the producer loads the next
+// tile's first stages while the consumers store the last one.
 template <bool FP8, bool GELU, bool FOLD>
 __global__ void __launch_bounds__(384, 1)
     w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
@@ -209,8 +221,8 @@ __global__ void __launch_bounds__(384, 1)
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[T::STAGES], empty[T::STAGES];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const int n0 = blockIdx.x * T::BN, m0 = blockIdx.y * T::BM;
   const int KT = (K + T::BK - 1) / T::BK;
+  const int n_tiles_n = (N + T::BN - 1) / T::BN, n_tiles = n_tiles_n * ((M + T::BM - 1) / T::BM);
   auto stage = [&](int s) { return smem + s * T::STAGE_BYTES; };  // the A box, then the B box
 
   if (threadIdx.x == 0) {
@@ -225,124 +237,134 @@ __global__ void __launch_bounds__(384, 1)
   if (threadIdx.x < T::THREADS - T::CONSUMERS) {
     // producer warpgroup: hands most of its registers to the consumers; one
     // thread keeps the ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0) {
-      for (int kt = 0; kt < KT; ++kt) {
-        const int s = kt % T::STAGES;
-        mbar_wait(&empty[s], ((kt / T::STAGES) & 1) ^ 1);
-        mbar_expect_tx(&full[s], T::STAGE_BYTES);
-        tma_load(stage(s), &amap, &full[s], kt * T::BK, m0);
-        tma_load(stage(s) + T::A_BYTES, &bmap, &full[s], kt * T::BK, n0);
+      for (int w = blockIdx.x, q = 0; w < n_tiles; w += gridDim.x) {
+        const int m0 = w / n_tiles_n * T::BM, n0 = w % n_tiles_n * T::BN;
+        for (int kt = 0; kt < KT; ++kt, ++q) {  // q: stages loaded so far, over all tiles
+          const int s = q % T::STAGES;
+          mbar_wait(&empty[s], ((q / T::STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], T::STAGE_BYTES);
+          tma_load(stage(s), &amap, &full[s], kt * T::BK, m0);
+          tma_load(stage(s) + T::A_BYTES, &bmap, &full[s], kt * T::BK, n0);
+        }
       }
     }
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
   const int tid = threadIdx.x - (T::THREADS - T::CONSUMERS), lane = tid & 31, wg = tid >> 7;
   const int g = lane >> 2, t = lane & 3;
-  const int rl = wg * 64 + ((tid >> 5) & 3) * 16 + g;  // this thread's tile rows rl and rl + 8
-  const int ra = m0 + rl, rb = ra + 8;
-  // value 4j + e of an accumulator is (row rl + 8 * (e >> 1), column 8j + 2t + (e & 1))
+  const int wrow = ((tid >> 5) & 3) * 16 + g;  // this thread's rows wrow and wrow + 8 of its warpgroup's 64
+  // value 4j + e of an accumulator is (row wrow + 8 * (e >> 1), column 8j + 2t + (e & 1))
+  const int tw = tid & 127;
+  unsigned char* ep = smem + T::STAGES * T::STAGE_BYTES + wg * T::EP_BYTES;  // this warpgroup's staging
 
   Acc acc[T::NACC];
   float sum[T::NACC];  // the fp32 sum of the folds (unused without FOLD)
 #pragma unroll
-  for (int i = 0; i < T::NACC; ++i) {
-    acc[i] = 0;
-    sum[i] = 0.f;
-  }
+  for (int i = 0; i < T::NACC; ++i) acc[i] = 0;
 
-  // one fold interval per outer iteration (all of K without FOLD); acc is
-  // touched outside the wgmma only after the interval's wait_group 0. An
-  // interval ends at a scale-group boundary or, for fp8, at a promotion
-  // point; the second warpgroup's promotion points sit half an interval
-  // later, so the two drain and fold at different times.
   const int group_tiles = G > 1 ? group / T::BK : KT;
   const int fold_tiles = FOLD ? fold / T::BK : KT;
   const int off = (FOLD && FP8 && wg) ? fold_tiles / 2 : 0;
-  for (int f0 = 0, kt = 0; f0 < KT;) {
-    const int f1 = min(min(KT, (f0 / group_tiles + 1) * group_tiles), ((f0 + off) / fold_tiles + 1) * fold_tiles - off);
-    for (; kt < f1; ++kt) {
-      const int s = kt % T::STAGES;
-      mbar_wait(&full[s], (kt / T::STAGES) & 1);
-      const uint32_t a_addr = smem_u32(stage(s)) + wg * 64 * T::BK;
-      const uint32_t b_addr = smem_u32(stage(s)) + T::A_BYTES;
-      wgmma_fence();
+  // q: stages consumed before this tile, over all tiles
+  for (int w = blockIdx.x, q = 0; w < n_tiles; w += gridDim.x, q += KT) {
+    const int m0 = w / n_tiles_n * T::BM, n0 = w % n_tiles_n * T::BN;
+    const int ra = m0 + wg * 64 + wrow, rb = ra + 8;
 #pragma unroll
-      for (int kk = 0; kk < T::BK / 32; ++kk)
-        Wgmma8<T::BN>::mma(acc, make_desc(a_addr + kk * 32), make_desc(b_addr + kk * 32),
-                           (kk == 0 && kt == f0) ? 0 : 1);
-      wgmma_commit();
-      wgmma_wait<1>();
-      // the batch of stage kt - 1 is done: hand its slot back
-      if (kt > f0 && lane == 0) mbar_arrive(&empty[(kt - 1) % T::STAGES]);
-    }
-    wgmma_wait<0>();
-    fence_acc(acc);
-    if (lane == 0) mbar_arrive(&empty[(kt - 1) % T::STAGES]);
-    if constexpr (FOLD) {
-      if (G > 1) {  // sum += partial * a_scale[row, g] of the group this interval lies in
-        const int grp = f0 / group_tiles;
-        const float sa = ra < M ? __ldg(a_scale + (long long)ra * G + grp) : 0.f;
-        const float sb = rb < M ? __ldg(a_scale + (long long)rb * G + grp) : 0.f;
-#pragma unroll
-        for (int j = 0; j < T::NACC / 4; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            sum[4 * j + e] = __fadd_rn(sum[4 * j + e], __fmul_rn(acc_to_float(acc[4 * j + e]), (e >> 1) ? sb : sa));
-        }
-      } else {  // a promotion: the row scale comes in the epilogue
-#pragma unroll
-        for (int i = 0; i < T::NACC; ++i) sum[i] = __fadd_rn(sum[i], acc_to_float(acc[i]));
-      }
-    }
-    f0 = f1;
-  }
-  // both consumer warpgroups are done with the ring (every load has landed)
-  asm volatile("fence.proxy.async.shared::cta;\nbar.sync 1, %0;\n" ::"n"(T::CONSUMERS) : "memory");
+    for (int i = 0; i < T::NACC; ++i) sum[i] = 0.f;
 
-  // y = acc * xs * ws + b (with G > 1, sum * 1 * ws + b), the optional
-  // GELU, staged in shared memory as [token row][column] bf16
-  const float xa = (FOLD && G > 1) ? 1.f : (ra < M ? __ldg(a_scale + ra) : 0.f);
-  const float xb = (FOLD && G > 1) ? 1.f : (rb < M ? __ldg(a_scale + rb) : 0.f);
-  __nv_bfloat16* so = reinterpret_cast<__nv_bfloat16*>(smem);
+    // one fold interval per outer iteration (all of K without FOLD); acc is
+    // touched outside the wgmma only after the interval's wait_group 0. An
+    // interval ends at a scale-group boundary or, for fp8, at a promotion
+    // point; the second warpgroup's promotion points sit half an interval
+    // later, so the two drain and fold at different times.
+    for (int f0 = 0, kt = 0; f0 < KT;) {
+      const int next_group = (f0 / group_tiles + 1) * group_tiles;
+      const int next_promotion = ((f0 + off) / fold_tiles + 1) * fold_tiles - off;
+      const int f1 = min(KT, min(next_group, next_promotion));
+      for (; kt < f1; ++kt) {
+        const int s = (q + kt) % T::STAGES;
+        mbar_wait(&full[s], ((q + kt) / T::STAGES) & 1);
+        const uint32_t a_addr = smem_u32(stage(s)) + wg * 64 * T::BK;
+        const uint32_t b_addr = smem_u32(stage(s)) + T::A_BYTES;
+        wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < T::NACC / 4; ++j) {
-    const int c = n0 + 8 * j + 2 * t;
-    const float w0 = c < N ? __ldg(ws + c) : 0.f, w1 = c + 1 < N ? __ldg(ws + c + 1) : 0.f;
-    const float b0 = c < N ? __ldg(bias + c) : 0.f, b1 = c + 1 < N ? __ldg(bias + c + 1) : 0.f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = 4 * j + 2 * h;
-      const float v0 = __fmul_rn(FOLD ? sum[i] : acc_to_float(acc[i]), h ? xb : xa);
-      const float v1 = __fmul_rn(FOLD ? sum[i + 1] : acc_to_float(acc[i + 1]), h ? xb : xa);
-      float y0 = __fadd_rn(__fmul_rn(v0, w0), b0), y1 = __fadd_rn(__fmul_rn(v1, w1), b1);
-      if (GELU) {
-        y0 = gelu_tanh(y0);
-        y1 = gelu_tanh(y1);
+        for (int kk = 0; kk < T::BK / 32; ++kk)
+          Wgmma8<T::BN>::mma(acc, make_desc(a_addr + kk * 32), make_desc(b_addr + kk * 32),
+                             (kk == 0 && kt == f0) ? 0 : 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+        // the batch of stage kt - 1 is done: hand its slot back
+        if (kt > f0 && lane == 0) mbar_arrive(&empty[(q + kt - 1) % T::STAGES]);
       }
-      *reinterpret_cast<__nv_bfloat162*>(so + (rl + 8 * h) * (T::LDO / 2) + 8 * j + 2 * t) =
-          __floats2bfloat162_rn(y0, y1);
-    }
-  }
-  asm volatile("bar.sync 1, %0;\n" ::"n"(T::CONSUMERS) : "memory");
-  const bool vec = (N & 7) == 0;
-  constexpr int CHUNKS = T::BN / 8;  // 16-byte chunks of a row
-#pragma unroll 4
-  for (int i = 0; i < T::BM * CHUNKS / T::CONSUMERS; ++i) {
-    const int cidx = tid + i * T::CONSUMERS;
-    const int r = cidx / CHUNKS, ch = cidx % CHUNKS;
-    const int m = m0 + r, n = n0 + ch * 8;
-    if (m >= M || n >= N) continue;
-    const uint4 v = *reinterpret_cast<const uint4*>(smem + r * T::LDO + ch * 16);
-    __nv_bfloat16* dst = out + (long long)m * N + n;
-    if (vec) {
-      *reinterpret_cast<uint4*>(dst) = v;
-    } else {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (lane == 0) mbar_arrive(&empty[(q + kt - 1) % T::STAGES]);
+      if constexpr (FOLD) {
+        if (G > 1) {  // sum += partial * a_scale[row, g] of the group this interval lies in
+          const int grp = f0 / group_tiles;
+          const float sa = ra < M ? __ldg(a_scale + (long long)ra * G + grp) : 0.f;
+          const float sb = rb < M ? __ldg(a_scale + (long long)rb * G + grp) : 0.f;
 #pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (n + q < N) dst[q] = e[q];
+          for (int j = 0; j < T::NACC / 4; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sum[4 * j + e] = __fadd_rn(sum[4 * j + e], __fmul_rn(acc_to_float(acc[4 * j + e]), (e >> 1) ? sb : sa));
+          }
+        } else {  // a promotion: the row scale comes in the epilogue
+#pragma unroll
+          for (int i = 0; i < T::NACC; ++i) sum[i] = __fadd_rn(sum[i], acc_to_float(acc[i]));
+        }
+      }
+      f0 = f1;
+    }
+    // y = acc * xs * ws + b (with G > 1, sum * 1 * ws + b), the optional
+    // GELU, staged 64 columns at a time in this warpgroup's buffer as [row][column]
+    // bf16, then written with 16-byte stores
+    const float xa = (FOLD && G > 1) ? 1.f : (ra < M ? __ldg(a_scale + ra) : 0.f);
+    const float xb = (FOLD && G > 1) ? 1.f : (rb < M ? __ldg(a_scale + rb) : 0.f);
+    const bool vec = (N & 7) == 0;
+#pragma unroll
+    for (int c0 = 0; c0 < T::BN; c0 += 64) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j = c0 / 8 + jj, c = n0 + 8 * j + 2 * t;
+        const float w0 = c < N ? __ldg(ws + c) : 0.f, w1 = c + 1 < N ? __ldg(ws + c + 1) : 0.f;
+        const float b0 = c < N ? __ldg(bias + c) : 0.f, b1 = c + 1 < N ? __ldg(bias + c + 1) : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h;
+          const float v0 = __fmul_rn(FOLD ? sum[i] : acc_to_float(acc[i]), h ? xb : xa);
+          const float v1 = __fmul_rn(FOLD ? sum[i + 1] : acc_to_float(acc[i + 1]), h ? xb : xa);
+          float y0 = __fadd_rn(__fmul_rn(v0, w0), b0), y1 = __fadd_rn(__fmul_rn(v1, w1), b1);
+          if (GELU) {
+            y0 = gelu_tanh(y0);
+            y1 = gelu_tanh(y1);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(ep + (wrow + 8 * h) * T::EP_LD + (8 * jj + 2 * t) * 2) =
+              __floats2bfloat162_rn(y0, y1);
+        }
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // 64 rows x 8 chunks of 16 bytes
+        const int r = (tw >> 3) + 16 * i, ch = tw & 7;
+        const int m = m0 + wg * 64 + r, n = n0 + c0 + ch * 8;
+        if (m >= M || n >= N) continue;
+        const uint4 v = *reinterpret_cast<const uint4*>(ep + r * T::EP_LD + ch * 16);
+        __nv_bfloat16* dst = out + (long long)m * N + n;
+        if (vec) {
+          *reinterpret_cast<uint4*>(dst) = v;
+        } else {
+          const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            if (n + k < N) dst[k] = e[k];
+        }
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
     }
   }
 }
@@ -358,8 +380,10 @@ int launch_gemm(const void* a, const void* b, const void* a_scale, int G, int gr
   auto kern = w8a8_wgmma_kernel<FP8, GELU, FOLD>;
   cudaError_t err = set_smem(kern, T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
-  kern<<<grid, T::THREADS, T::SMEM, s>>>(amap, bmap, static_cast<const float*>(a_scale), G, group, fold,
+  static int sms = 0;  // one CTA an SM
+  if (sms == 0 && cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0) != cudaSuccess) sms = 132;
+  const int tiles = ((N + T::BN - 1) / T::BN) * ((M + T::BM - 1) / T::BM);
+  kern<<<min(tiles, sms), T::THREADS, T::SMEM, s>>>(amap, bmap, static_cast<const float*>(a_scale), G, group, fold,
                                          static_cast<const float*>(ws), static_cast<const float*>(bias),
                                          static_cast<__nv_bfloat16*>(out), M, N, K);
   return static_cast<int>(cudaGetLastError());
