@@ -143,6 +143,18 @@ constexpr int FP8_FOLD_K = 256;
 #define W8_OP96(C, d) W8_OP64(C, d), W8_OP8(C, d, 64), W8_OP8(C, d, 72), W8_OP8(C, d, 80), W8_OP8(C, d, 88)
 #define W8_OP128(C, d) W8_OP96(C, d), W8_OP8(C, d, 96), W8_OP8(C, d, 104), W8_OP8(C, d, 112), W8_OP8(C, d, 120)
 
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 template <int N>
 struct Wgmma8;
 template <>
@@ -258,7 +270,8 @@ __global__ void __launch_bounds__(384, 1)
   const int wrow = ((tid >> 5) & 3) * 16 + g;  // this thread's rows wrow and wrow + 8 of its warpgroup's 64
   // value 4j + e of an accumulator is (row wrow + 8 * (e >> 1), column 8j + 2t + (e & 1))
   const int tw = tid & 127;
-  unsigned char* ep = smem + T::STAGES * T::STAGE_BYTES + wg * T::EP_BYTES;  // this warpgroup's staging
+  // 32-bit shared-memory addresses: the ring, this warpgroup's staging buffer
+  const uint32_t ring = smem_u32(smem), ep = ring + T::STAGES * T::STAGE_BYTES + wg * T::EP_BYTES;
 
   Acc acc[T::NACC];
   float sum[T::NACC];  // the fp32 sum of the folds (unused without FOLD)
@@ -287,8 +300,8 @@ __global__ void __launch_bounds__(384, 1)
       for (; kt < f1; ++kt) {
         const int s = (q + kt) % T::STAGES;
         mbar_wait(&full[s], ((q + kt) / T::STAGES) & 1);
-        const uint32_t a_addr = smem_u32(stage(s)) + wg * 64 * T::BK;
-        const uint32_t b_addr = smem_u32(stage(s)) + T::A_BYTES;
+        const uint32_t a_addr = ring + s * T::STAGE_BYTES + wg * 64 * T::BK;
+        const uint32_t b_addr = ring + s * T::STAGE_BYTES + T::A_BYTES;
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < T::BK / 32; ++kk)
@@ -343,8 +356,8 @@ __global__ void __launch_bounds__(384, 1)
             y0 = gelu_tanh(y0);
             y1 = gelu_tanh(y1);
           }
-          *reinterpret_cast<__nv_bfloat162*>(ep + (wrow + 8 * h) * T::EP_LD + (8 * jj + 2 * t) * 2) =
-              __floats2bfloat162_rn(y0, y1);
+          const __nv_bfloat162 y = __floats2bfloat162_rn(y0, y1);
+          st_shared_b32(ep + (wrow + 8 * h) * T::EP_LD + (8 * jj + 2 * t) * 2, *reinterpret_cast<const uint32_t*>(&y));
         }
       }
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
@@ -353,7 +366,7 @@ __global__ void __launch_bounds__(384, 1)
         const int r = (tw >> 3) + 16 * i, ch = tw & 7;
         const int m = m0 + wg * 64 + r, n = n0 + c0 + ch * 8;
         if (m >= M || n >= N) continue;
-        const uint4 v = *reinterpret_cast<const uint4*>(ep + r * T::EP_LD + ch * 16);
+        const uint4 v = ld_shared_v4(ep + r * T::EP_LD + ch * 16);
         __nv_bfloat16* dst = out + (long long)m * N + n;
         if (vec) {
           *reinterpret_cast<uint4*>(dst) = v;
