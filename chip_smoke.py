@@ -53,7 +53,12 @@ its own kernel row and counter) bit for bit against its plain version. The
 fp8 rows' library yardstick is the torch quantize pass plus
 ``torch._scaled_mm`` with row-wise scales; the per-head block-sparse row's is
 ``torch.compile(flex_attention)`` on the same block mask (None, with the
-reason printed, where it does not compile).
+reason printed, where it does not compile). The 8-bit rows are also timed in
+parts (``[parts]`` lines, and keys of their kernel rows): the quantize pass
+and the GEMM of rows 3/3f beside the bare ``torch._int_mm`` /
+``torch._scaled_mm`` on the same codes, and the FFN's GEMM1 and GEMM2 of
+rows 4/4f; row 3f is also held against its plain version on one-signed
+inputs at the main shape.
 
 For each path the launch counters are zeroed just before the run and read
 just after, and must equal the path's exact counts. The line before the

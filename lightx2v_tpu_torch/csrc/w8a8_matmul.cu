@@ -80,10 +80,13 @@
 //  - Epilogue: acc * xs * ws + b in fp32 in the TPU order (sum * ws + b after
 //    a fold), the optional tanh-GELU, bf16 staged through a 64 x 64 buffer
 //    of the warpgroup's own and written with 16-byte stores.
-//  - Persistent: one CTA an SM walks the output tiles, weight tile fastest,
-//    so the CTAs in flight share the weight tiles in L2. The ring runs on
-//    from tile to tile: the producer loads the next tile's first stages
-//    while the consumers store the last one.
+//  - Persistent: one CTA an SM walks the output tiles, weight tile fastest:
+//    the CTAs in flight cover a few token tiles, each read from device
+//    memory once, and every weight tile, which stay in L2 where they fit
+//    (26 MB at N = K = 5120). The ring runs on from tile to tile: the
+//    producer loads the next tile's first stages while the consumers store
+//    the last one (8% off the int8 GEMM at the main shape; a tie where the
+//    kernel folds).
 //  - At M = 512 (cross-attention k/v, the UMT5-XXL linears) the grid is 4
 //    token tiles by 20 (or 40) weight tiles, fewer CTAs than the 132 SMs:
 //    one partial wave, each CTA walking all of K.
@@ -220,9 +223,8 @@ struct Tile {
 // amap: codes (M, K), boxes of 128 bytes x 128 rows; bmap: w (N, K), boxes
 // of 128 bytes x BN rows; both 128B-swizzled. Persistent: CTA c takes
 // output tiles c, c + gridDim.x, ..., tile w at token tile w / n_tiles_n and
-// weight tile w % n_tiles_n, so the CTAs in flight share their weight tiles
-// in L2; the ring runs on across tiles, and the producer loads the next
-// tile's first stages while the consumers store the last one.
+// weight tile w % n_tiles_n; the ring runs on across tiles, and the producer
+// loads the next tile's first stages while the consumers store the last one.
 template <bool FP8, bool GELU, bool FOLD>
 __global__ void __launch_bounds__(384, 1)
     w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
