@@ -150,6 +150,37 @@ def test_kblocked_fp8_matches_pallas(m, n, k, bias):
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), rtol=ULP2, atol=1e-6)
 
 
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("k,blocked", [(5120, False), (13824, True)])
+def test_one_signed_matches_pallas(k, blocked, kind):
+    """One-signed x and positive codes, where every partial sum grows, at
+    the main path's K: full-K at 5120, k-blocked at 13,824 (27 blocks of
+    512, the FFN's second GEMM's grouping). The plain versions, which the
+    card tests hold the kernels against on such inputs, agree with the
+    Pallas kernels."""
+    from lightx2v_tpu.ops.pallas.w8a8_matmul import w8a8_matmul as jkb
+
+    rng = np.random.default_rng(k)
+    m, n = 16, 128
+    x = np.abs(_x(rng, (m, k)))
+    wf = np.abs(rng.standard_normal((n, k)).astype(np.float32)) * 0.05
+    qmax = 448.0 if kind == "fp8" else 127.0
+    ws = (wf.max(axis=1) / qmax).astype(np.float32)
+    w = (wf / ws[:, None]).astype(ml_dtypes.float8_e4m3fn) if kind == "fp8" else \
+        np.clip(np.round(wf / ws[:, None]), 0, 127).astype(np.int8)
+    jx, tx = _jt(x)
+    if blocked:
+        assert tw.pick_kblock(k) == 512
+        ref = jkb(jx, jnp.asarray(w), jnp.asarray(ws), None, kind=kind, bm=16, bn=128, bk=512, interpret=True)
+        out = tw.w8a8_matmul(tx, _tw(w), torch.from_numpy(ws), kind=kind)
+    else:
+        ref = jfullk(jx, jnp.asarray(w), jnp.asarray(ws), None, kind=kind, bm=16, bn=128, interpret=True)
+        out = tw.w8a8_matmul_fullk(tx, _tw(w), torch.from_numpy(ws), kind=kind)
+    ref = np.asarray(ref, np.float32)
+    assert ref.min() > 0
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=ULP2, atol=1e-6)
+
+
 def test_fp8_quantization_codes_match_pallas_contract():
     """Per-row e4m3 codes and scales: max(absmax, 1e-8) * (1/448), x / s
     rounded to nearest even (ml_dtypes' cast on the same fp32 values), an
