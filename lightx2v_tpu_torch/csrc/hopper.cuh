@@ -1,8 +1,8 @@
 // Hopper (sm_90a) pieces shared by the wgmma kernels (int4_matmul.cu,
 // flash_attention.cu, w8a8_matmul.cu): the wgmma fences and the shared-memory
 // descriptor of the 128-byte swizzle, mbarriers, TMA copies in both
-// directions, and the driver's cuTensorMapEncodeTiled reached through the
-// runtime (so no library needs -lcuda).
+// directions, tensor maps, and cuTensorMapEncodeTiled looked up through the
+// CUDA runtime's entry-point query (so no library needs -lcuda).
 //
 // Each .cu that includes this file gets its own copy (anonymous namespace).
 
