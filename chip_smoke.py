@@ -58,7 +58,10 @@ parts (``[parts]`` lines, and keys of their kernel rows): the quantize pass
 and the GEMM of rows 3/3f beside the bare ``torch._int_mm`` /
 ``torch._scaled_mm`` on the same codes, and the FFN's GEMM1 and GEMM2 of
 rows 4/4f; row 3f is also held against its plain version on one-signed
-inputs at the main shape.
+inputs at the main shape. Row 10 (``sage_attention``) is timed in parts too,
+its quantize pass and its attention kernel, beside the port's own bf16
+``flash_attention`` on the same q, k, v, and held against its plain version
+on one-signed q and k at the main shape.
 
 For each path the launch counters are zeroed just before the run and read
 just after, and must equal the path's exact counts. The line before the
@@ -236,6 +239,23 @@ def ffn_parts(wm, x, w0, s0, b0, w2, s2, b2, kind: str, reps: int) -> dict:
                                         "ffn gemm2"), reps)
     parts = dict(quantize_ms=quant_ms, gemm1_ms=gemm1_ms, gemm2_ms=gemm2_ms)
     print(f"[parts] 8-bit FFN {kind}: {json.dumps(parts)}", flush=True)
+    return parts
+
+
+def sage_parts(sa, fa, q, k, v, reps: int) -> dict:
+    """Row 10's two kernels timed apart, the quantize pre-pass (q and k) and
+    the attention kernel on its codes, beside the port's own bf16 dense
+    flash kernel on the same q, k, v (does int8 Q.K^T pay on this card?)."""
+    import torch
+
+    lib, stream = sa._lib(), torch.cuda.current_stream().cuda_stream
+    quant_ms = cuda_ms(lambda: (sa._quant_rows(lib, q, stream), sa._quant_rows(lib, k, stream)), reps)
+    q8, qs = sa._quant_rows(lib, q, stream)
+    k8, ks = sa._quant_rows(lib, k, stream)
+    attend_ms = cuda_ms(lambda: sa._attend(lib, q8, qs, k8, ks, v, None, stream), reps)
+    flash_ms = cuda_ms(lambda: fa.flash_attention(q, k, v), reps)
+    parts = dict(quantize_ms=quant_ms, attention_ms=attend_ms, flash_attention_ms=flash_ms)
+    print(f"[parts] sage_attention (2, {S}, {HEADS}, {HD}): {json.dumps(parts)}", flush=True)
     return parts
 
 
@@ -634,6 +654,7 @@ def kernel_phase_base(peaks, reps: int, want):
         err = check_close("sage_attention", out[:, :, hs], ref, 2e-2, 1e-3)
         del ref, out
         ms = cuda_ms(lambda: sa.sage_attention(q, k, v), reps)
+        parts = sage_parts(sa, fa, q, k, v, reps)
         plain_ms = cuda_ms(lambda: sa.sage_attention_plain(q, k, v), 1, warmup=0)
         lib_ms = library(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                                                 v.transpose(1, 2)), reps)
@@ -645,8 +666,15 @@ def kernel_phase_base(peaks, reps: int, want):
                          shape=f"q,k,v (2,{S},{HEADS},{HD}) bf16",
                          max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms,
                          bound_ms=max(t_ops, t_bytes) * 1e3, bound_by="operations" if t_ops >= t_bytes else "bytes",
-                         library_ms=lib_ms, library_call="F.scaled_dot_product_attention (bf16)"))
-        del q, k, v
+                         library_ms=lib_ms, library_call="F.scaled_dot_product_attention (bf16)", **parts))
+        # one-signed q and k at the main shape: logits of one sign and large
+        # int32 sums (the int -> float conversion), the same bar on 2 heads
+        q, k = q.abs() * 3, k.abs() * 3
+        out = sa.sage_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = sa.sage_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs])
+        rows[-1]["max_abs_err_one_signed"] = check_close("sage_attention one-signed", out[:, :, hs], ref, 2e-2, 1e-3)
+        del q, k, v, out, ref
 
     # ---- int4_matmul (base path: every block linear; M = 65,520, and 1,024 for cross k/v) ----
     if want("int4_matmul"):
@@ -1084,7 +1112,7 @@ def _category(name: str) -> str:
     n = name.lower()
     for key, cat in (("sparse_fwd_kernel", "block_sparse_attention (ours)"),
                      ("flash_wgmma_kernel", "flash_attention (ours)"), ("rope_rotate_kernel", "flash_attention (ours)"),
-                     ("sage_fwd_kernel", "sage attention (ours)"),
+                     ("sage_wgmma_kernel", "sage attention (ours)"),
                      ("sage_quant_rows", "sage row quantize (ours)"), ("int4_wgmma_kernel", "int4 GEMM (ours)"),
                      ("w8a8_wgmma_kernel<true", "fp8 GEMM (ours)"), ("w8a8_wgmma_kernel", "int8 GEMM (ours)"),
                      ("ffn_gemm1_kernel<true", "fp8 FFN GEMM1 (ours)"),

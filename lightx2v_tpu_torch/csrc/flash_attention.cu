@@ -36,7 +36,9 @@
 // TPU, which has no subnormals) and the output as acc times the correctly
 // rounded 1 / l (within an fp32 ulp of the quotient).
 //
-// What the dense design does about it (flash_wgmma_kernel):
+// What the dense design does about it (flash_wgmma_kernel, whose body is
+// attention_wgmma<D, false> in flash_wgmma.cuh: sage_attention.cu runs the
+// same body with an int8 S product, attention_wgmma<128, true>):
 //  - Every product runs on wgmma, the only path to the card's full bf16
 //    rate. A CTA has a producer warpgroup and two consumer warpgroups of 64
 //    query rows each (setmaxnreg 24 / 240: ptxas otherwise caps 384 threads
@@ -110,38 +112,11 @@
 // head) reads the same row (radial attention's static mask, lists ascending
 // with a repeated tail that j < cnt never reaches).
 
-#include "hopper.cuh"
-
-#define NEG_INF (-INFINITY)
+#include "flash_wgmma.cuh"
 
 namespace {
 
 constexpr int HD = 128;
-constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
-  uint4 u;
-  u.x = pack_bf16x2(f[0], f[1]);
-  u.y = pack_bf16x2(f[2], f[3]);
-  u.z = pack_bf16x2(f[4], f[5]);
-  u.w = pack_bf16x2(f[6], f[7]);
-  return u;
-}
 
 // ---------------------------------------------------------------------------
 // the RoPE pass
@@ -204,387 +179,21 @@ rope_rotate_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 }
 
 // ---------------------------------------------------------------------------
-// dense attention on wgmma
-
-// S (64 x 128, fp32) = (scale_d ? S : 0) + A (64 x 16) . B (16 x 128), both
-// operands K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// O (64 x 64, fp32) += A (64 x 16 bf16, registers) . B (16 x 64), B MN-major
-// in shared memory (the transpose-B flag)
-__device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// 2^x on the special-function unit, subnormal results flushed to zero
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+// dense attention on wgmma: the body is attention_wgmma in flash_wgmma.cuh
 
 template <int D>
-struct Dense {
-  static_assert(D % 64 == 0, "head dim in 64-column boxes");
-  static constexpr int THREADS = 384;      // a producer warpgroup, then two consumer warpgroups
-  static constexpr int CONSUMERS = 256;
-  static constexpr int BM = 128;           // query rows per work tile, 64 per consumer warpgroup
-  static constexpr int BN = 128;           // keys per tile
-  static constexpr int STAGES = 2;
-  static constexpr int BOXES = D / 64;     // 64-column (128-byte) boxes of a row
-  static constexpr int BOX = 128 * 128;    // one box of 128 rows
-  static constexpr int Q_BYTES = BOXES * BOX;
-  static constexpr int KV_BYTES = BOXES * BOX;  // one K or V tile
-  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
-  // two Q buffers: the next work tile's Q lands while this one's O is stored
-  static constexpr int SMEM = 2 * Q_BYTES + STAGES * STAGE_BYTES + 1024;  // + slack to align to 1024 bytes
-};
-
-// qmap/kmap/vmap/omap: (D, N, S, B) boxes of 64 x 1 x 128 x 1. lse (B, sq, N)
-// fp32 or null. Work tile w is query tile
-// w % n_qt of (batch, head) w / n_qt; CTA c takes w = c, c + gridDim.x, ...
-template <int D>
-__global__ void __launch_bounds__(Dense<D>::THREADS, 1)
+__global__ void __launch_bounds__(Dense<D, false>::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
                    float* __restrict__ lse, int n_heads, int sq, int kv_limit, float gain, int n_qt, int n_work) {
-  using C = Dense<D>;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t q_full[2], q_ready[2], o_full[2], q_empty[2], k_full[C::STAGES], v_full[C::STAGES],
-      k_empty[C::STAGES], v_empty[C::STAGES];
-  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  auto q_buf = [&](int i) { return smem + i * C::Q_BYTES; };
-  auto k_tile = [&](int st) { return smem + 2 * C::Q_BYTES + st * C::STAGE_BYTES; };  // V at + KV_BYTES
-  const int n_tiles = (kv_limit + C::BN - 1) / C::BN;
-
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
-      mbar_init(&q_full[i], 1);
-      mbar_init(&q_ready[i], 3);                  // one arrive per scaling warp
-      mbar_init(&o_full[i], C::CONSUMERS / 32);  // one arrive per consumer warp
-      mbar_init(&q_empty[i], 1);                  // the storing thread, once O is read
-    }
-    for (int s = 0; s < C::STAGES; ++s) {
-      mbar_init(&k_full[s], 1);
-      mbar_init(&v_full[s], 1);
-      mbar_init(&k_empty[s], C::CONSUMERS / 32);  // one arrive per consumer warp
-      mbar_init(&v_empty[s], C::CONSUMERS / 32);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (threadIdx.x < C::THREADS - C::CONSUMERS) {
-    // producer warpgroup: hands most of its registers to the consumers; one
-    // thread keeps the Q buffers and the K/V ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x == 0) {
-      int gt = 0;  // key tiles loaded so far, over all work tiles
-      for (int it = 0, w = blockIdx.x; w < n_work; ++it, w += gridDim.x) {
-        const int qb = it & 1, q0 = (w % n_qt) * C::BM, bh = w / n_qt, b = bh / n_heads, n = bh % n_heads;
-        mbar_wait(&q_empty[qb], ((it >> 1) & 1) ^ 1);
-        mbar_expect_tx(&q_full[qb], C::Q_BYTES);
-        for (int x = 0; x < C::BOXES; ++x) tma_load_4d(q_buf(qb) + x * C::BOX, &qmap, &q_full[qb], 64 * x, n, q0, b);
-        for (int t = 0; t < n_tiles; ++t, ++gt) {
-          const int s = gt % C::STAGES;
-          unsigned char* kt = k_tile(s);
-          mbar_wait(&k_empty[s], ((gt / C::STAGES) & 1) ^ 1);
-          mbar_expect_tx(&k_full[s], C::KV_BYTES);
-          for (int x = 0; x < C::BOXES; ++x) tma_load_4d(kt + x * C::BOX, &kmap, &k_full[s], 64 * x, n, t * C::BN, b);
-          mbar_wait(&v_empty[s], ((gt / C::STAGES) & 1) ^ 1);
-          mbar_expect_tx(&v_full[s], C::KV_BYTES);
-          for (int x = 0; x < C::BOXES; ++x)
-            tma_load_4d(kt + C::KV_BYTES + x * C::BOX, &vmap, &v_full[s], 64 * x, n, t * C::BN, b);
-        }
-      }
-    } else if (threadIdx.x >= 32) {
-      // warps 1-3: q * gain in fp32, re-rounded to bf16, in place once the Q
-      // tile lands (elementwise, so the swizzle does not matter); then
-      // visible to the tensor cores' reads. Warp 3 then stores the previous
-      // work tile's O (staged by the consumers in its Q buffer) and hands
-      // that buffer back once it has been read.
-      const int lane = threadIdx.x & 31;
-      const bool storer = threadIdx.x >= 96;
-      auto store = [&](int it, int w) {
-        const int qb = it & 1, q0 = (w % n_qt) * C::BM, bh = w / n_qt, b = bh / n_heads, n = bh % n_heads;
-        if (lane == 0) {
-          mbar_wait(&o_full[qb], (it >> 1) & 1);
-          for (int x = 0; x < C::BOXES; ++x) tma_store_4d(&omap, q_buf(qb) + x * C::BOX, 64 * x, n, q0, b);
-          tma_store_wait();
-          mbar_arrive(&q_empty[qb]);
-        }
-        __syncwarp();
-      };
-      int it = 0;
-      for (int w = blockIdx.x; w < n_work; ++it, w += gridDim.x) {
-        const int qb = it & 1;
-        mbar_wait(&q_full[qb], (it >> 1) & 1);
-        if (gain != 1.f) {
-          for (int i = threadIdx.x - 32; i < C::Q_BYTES / 16; i += 96) {
-            uint4* p = reinterpret_cast<uint4*>(q_buf(qb)) + i;
-            float f[8];
-            unpack8(*p, f);
-#pragma unroll
-            for (int j = 0; j < 8; ++j) f[j] = __fmul_rn(f[j], gain);
-            *p = pack8(f);
-          }
-          fence_proxy_async();
-        }
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&q_ready[qb]);
-        if (storer && it > 0) store(it - 1, w - gridDim.x);
-      }
-      if (storer && it > 0) store(it - 1, blockIdx.x + (it - 1) * gridDim.x);
-    }
-    return;
-  }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-  const int tid = threadIdx.x - (C::THREADS - C::CONSUMERS);
-  const int wg = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int rloc = warp * 16 + g;  // this thread's rows rloc and rloc + 8 of its warpgroup's 64
-
-  float o[C::BOXES][32];
-  float sc[64];
-  uint32_t pa[C::BN / 16][4];
-  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f}, alpha[2] = {1.f, 1.f};
-  // value 4j + e of an accumulator is (row rloc + 8 * (e >> 1), column 8j + 2 * tq + (e & 1))
-
-  // S = q k^T for this warpgroup's 64 rows x 128 keys of stage s
-  auto issue_s = [&](uint32_t qaddr, int s) {
-    const uint32_t kaddr = smem_u32(k_tile(s));
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk >> 2) * C::BOX + (kk & 3) * 32;
-      wgmma_ss_m64n128k16(sc, make_desc(qaddr + off), make_desc(kaddr + off), kk > 0);
-    }
-    wgmma_commit();
-  };
-  // O += bf16(P) . V of stage s, 16 keys a step
-  auto issue_pv = [&](int s) {
-    const uint32_t vaddr = smem_u32(k_tile(s)) + C::KV_BYTES;
-#pragma unroll
-    for (int kk = 0; kk < C::BN / 16; ++kk)
-#pragma unroll
-      for (int x = 0; x < C::BOXES; ++x)
-        wgmma_rs_m64n64k16_tb(o[x], pa[kk], make_desc(vaddr + x * C::BOX + kk * 16 * 128));
-    wgmma_commit();
-  };
-  // online softmax of the tile at key0 (exp2 domain), in place in sc; the
-  // row's other columns sit in the quad
-  auto softmax = [&](int key0) {
-    if (key0 + C::BN > kv_limit) {
-#pragma unroll
-      for (int j = 0; j < C::BN / 8; ++j) {
-        const int key = key0 + 8 * j + 2 * tq;
-        if (key >= kv_limit) { sc[4 * j] = NEG_INF; sc[4 * j + 2] = NEG_INF; }
-        if (key + 1 >= kv_limit) { sc[4 * j + 1] = NEG_INF; sc[4 * j + 3] = NEG_INF; }
-      }
-    }
-    float tmax[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int j = 0; j < C::BN / 8; ++j) {
-      tmax[0] = fmaxf(tmax[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
-      tmax[1] = fmaxf(tmax[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-    }
-    float msafe[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffff, tmax[h], 1));
-      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffff, tmax[h], 2));
-      const float m_new = fmaxf(m_run[h], tmax[h]);
-      msafe[h] = (m_new == NEG_INF) ? 0.f : m_new;
-      alpha[h] = ex2_ftz(m_run[h] - msafe[h]);
-      m_run[h] = m_new;
-    }
-    float psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < C::BN / 8; ++j) {
-      sc[4 * j] = ex2_ftz(sc[4 * j] - msafe[0]);
-      sc[4 * j + 1] = ex2_ftz(sc[4 * j + 1] - msafe[0]);
-      sc[4 * j + 2] = ex2_ftz(sc[4 * j + 2] - msafe[1]);
-      sc[4 * j + 3] = ex2_ftz(sc[4 * j + 3] - msafe[1]);
-      psum[0] += sc[4 * j] + sc[4 * j + 1];
-      psum[1] += sc[4 * j + 2] + sc[4 * j + 3];
-    }
-    l_run[0] = l_run[0] * alpha[0] + psum[0];
-    l_run[1] = l_run[1] * alpha[1] + psum[1];
-  };
-  // rescale O (no product that writes it may be in flight) and pack P: the A
-  // fragment of step kk is the accumulator's columns 16kk..16kk+15 as they lie
-  auto rescale_pack = [&]() {
-#pragma unroll
-    for (int x = 0; x < C::BOXES; ++x)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[x][i] *= alpha[(i >> 1) & 1];
-#pragma unroll
-    for (int kk = 0; kk < C::BN / 16; ++kk) {
-      pa[kk][0] = pack_bf16x2(sc[8 * kk], sc[8 * kk + 1]);
-      pa[kk][1] = pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
-      pa[kk][2] = pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
-      pa[kk][3] = pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
-    }
-  };
-  // this warp is done with the stage's K (or V)
-  auto release_k = [&](int s) {
-    if (lane == 0) mbar_arrive(&k_empty[s]);
-  };
-  auto release_v = [&](int s) {
-    if (lane == 0) mbar_arrive(&v_empty[s]);
-  };
-
-#pragma unroll
-  for (int i = 0; i < 64; ++i) sc[i] = 0.f;
-  int gt = 0;  // key tiles consumed so far, over all work tiles
-  for (int it = 0, w = blockIdx.x; w < n_work; ++it, w += gridDim.x) {
-    const int qb = it & 1, q0 = (w % n_qt) * C::BM, bh = w / n_qt, b = bh / n_heads, n = bh % n_heads;
-    unsigned char* qwg = q_buf(qb) + wg * 64 * 128;  // this warpgroup's 64 rows of each Q box
-    const uint32_t qaddr = smem_u32(qwg);
-    mbar_wait(&q_ready[qb], (it >> 1) & 1);
-#pragma unroll
-    for (int x = 0; x < C::BOXES; ++x)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[x][i] = 0.f;
-    m_run[0] = m_run[1] = NEG_INF;
-    l_run[0] = l_run[1] = 0.f;
-
-    if (n_tiles > 0) {
-      // the softmax of tile t runs while the tensor cores do P.V of tile t - 1
-      auto ph = [](int i) { return static_cast<uint32_t>((i / C::STAGES) & 1); };
-      {
-        const int s = gt % C::STAGES;
-        mbar_wait(&k_full[s], ph(gt));
-        wgmma_fence();
-        issue_s(qaddr, s);
-        wgmma_wait<0>();
-        fence_acc(sc);
-        release_k(s);
-        softmax(0);
-        mbar_wait(&v_full[s], ph(gt));
-        rescale_pack();
-      }
-      for (int t = 1; t < n_tiles; ++t, ++gt) {
-        const int sp = gt % C::STAGES, sn = (gt + 1) % C::STAGES;
-        mbar_wait(&k_full[sn], ph(gt + 1));
-        wgmma_fence();
-        issue_s(qaddr, sn);
-        issue_pv(sp);
-        wgmma_wait<1>();  // S of tile t is done; P.V of tile t - 1 may still run
-        fence_acc(sc);
-        release_k(sn);
-        softmax(t * C::BN);
-        mbar_wait(&v_full[sn], ph(gt + 1));
-        wgmma_wait<0>();
-#pragma unroll
-        for (int x = 0; x < C::BOXES; ++x) fence_acc(o[x]);
-        release_v(sp);
-        rescale_pack();
-      }
-      const int s = gt % C::STAGES;
-      wgmma_fence();
-      issue_pv(s);
-      wgmma_wait<0>();
-#pragma unroll
-      for (int x = 0; x < C::BOXES; ++x) fence_acc(o[x]);
-      release_v(s);
-      ++gt;
-    }
-
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      l_run[h] += __shfl_xor_sync(0xffffffff, l_run[h], 1);
-      l_run[h] += __shfl_xor_sync(0xffffffff, l_run[h], 2);
-      l_run[h] = fmaxf(l_run[h], 1e-30f);
-    }
-    const int row0 = q0 + wg * 64 + rloc;
-    if (lse != nullptr && tq == 0) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = row0 + 8 * h;
-        if (row < sq) lse[((long long)b * sq + row) * n_heads + n] = m_run[h] * LN2 + logf(l_run[h]);
-      }
-    }
-    const float inv[2] = {__frcp_rn(l_run[0]), __frcp_rn(l_run[1])};
-    // bf16 O into this warpgroup's Q rows (its last S product is done),
-    // 128-byte swizzled as the TMA store reads them: 16-byte chunk c of row r
-    // sits at chunk c ^ (r % 8), and rloc % 8 == g (conflict-free: the 8 rows
-    // of a store hit 8 chunks)
-#pragma unroll
-    for (int x = 0; x < C::BOXES; ++x)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          unsigned char* p = qwg + x * C::BOX + (rloc + 8 * h) * 128 + ((j ^ g) << 4) + tq * 4;
-          *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(o[x][4 * j + 2 * h] * inv[h], o[x][4 * j + 2 * h + 1] * inv[h]);
-        }
-    fence_proxy_async();
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&o_full[qb]);  // the storing thread takes it from here
-  }
-}
-
-// a 4-D map (D, N, rows, B) over a strided (B, rows, N, D) bf16 tensor
-template <int D>
-bool bsnd_map(CUtensorMap* map, const void* p, int batch, int rows, int n_heads, long long s_b, long long s_s,
-              long long s_n, int box_rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(n_heads),
-                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_n * 2), static_cast<cuuint64_t>(s_s * 2),
-                                 static_cast<cuuint64_t>(s_b * 2)};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
-  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      n = 132;
-  }
-  return n;
+  attention_wgmma<D, false>(&qmap, &kmap, &vmap, &omap, nullptr, nullptr, lse, n_heads, sq, kv_limit, gain, n_qt,
+                            n_work);
 }
 
 template <int D>
 int launch_dense(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int n_heads, int sq,
                  int sk, int kv_limit, const long long (&st)[12], float gain, cudaStream_t stream) {
-  using C = Dense<D>;
+  using C = Dense<D, false>;
   if (batch == 0 || n_heads == 0 || sq == 0) return 0;
   CUtensorMap qm, km, vm, om;
   const int rows_k = sk > 0 ? sk : 1;  // no key tile is loaded when sk == 0

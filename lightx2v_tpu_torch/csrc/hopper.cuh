@@ -1,5 +1,6 @@
 // Hopper (sm_90a) pieces shared by the wgmma kernels (int4_matmul.cu,
-// flash_attention.cu, w8a8_matmul.cu): the wgmma fences and the shared-memory
+// flash_attention.cu and sage_attention.cu through flash_wgmma.cuh,
+// w8a8_matmul.cu): the wgmma fences and the shared-memory
 // descriptor of the 128-byte swizzle, mbarriers, TMA copies in both
 // directions, tensor maps, and cuTensorMapEncodeTiled looked up through the
 // CUDA runtime's entry-point query (so no library needs -lcuda).

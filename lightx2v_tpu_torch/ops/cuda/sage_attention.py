@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .flash_attention import HEAD_DIM, LOG2E, _check_qkv, _kv_limit
+from .flash_attention import HEAD_DIM, LOG2E, _check, _check_qkv, _kv_limit
 
 LAUNCHES = {"sage_attention": 0}
 
@@ -64,19 +64,43 @@ def _lib():
     lib = _build.load("sage_attention")
     if lib.sage_attention_fwd.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.sage_quant_rows.argtypes = [p, p, p, i, i, i, ll, ll, ll, p]
-        lib.sage_attention_fwd.argtypes = [p] * 6 + [i] * 5 + [ll] * 6 + [ctypes.c_float, p]
+        lib.sage_quant_rows.argtypes = [p, p, p, i, i, i, i, ll, ll, ll, p]
+        lib.sage_attention_fwd.argtypes = [p, p, i, p, p, i, p, p] + [i] * 5 + [ll] * 6 + [ctypes.c_float, p]
         lib.sage_quant_rows.restype = lib.sage_attention_fwd.restype = ctypes.c_int
     return lib
 
 
 def _quant_rows(lib, x: torch.Tensor, stream):
+    """The row quantization pre-pass: codes (B, S, N, D) int8 and scales
+    (B, N, pitch) fp32, head-major so that a key tile's scales are
+    contiguous; the pitch is S rounded up to 4 (16-byte rows, as TMA reads
+    them) and the columns past S are never read."""
     b, s, n, d = x.shape
     codes = torch.empty((b, s, n, d), dtype=torch.int8, device=x.device)
-    scales = torch.empty((b, s, n), dtype=torch.float32, device=x.device)
-    _build.check(lib.sage_quant_rows(x.data_ptr(), codes.data_ptr(), scales.data_ptr(), b, s, n,
+    scales = torch.empty((b, n, -(-s // 4) * 4), dtype=torch.float32, device=x.device)
+    _build.check(lib.sage_quant_rows(x.data_ptr(), codes.data_ptr(), scales.data_ptr(), b, s, n, scales.shape[2],
                                      *x.stride()[:3], stream), "sage_attention quantize")
     return codes, scales
+
+
+def _attend(lib, q8, qs, k8, ks, v, kv_len, stream, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The attention kernel on the pre-pass's codes and scales, into ``out``
+    (checked as v is) or a new tensor."""
+    b, sq, n, d = q8.shape
+    sk = k8.shape[1]
+    if out is None:
+        out = torch.empty((b, sq, n, d), dtype=torch.bfloat16, device=q8.device)
+    else:
+        _check(out, "out", q8.device)
+        if out.shape != q8.shape:
+            raise ValueError(f"out must be {tuple(q8.shape)}, got {tuple(out.shape)}")
+    gain = (1.0 / math.sqrt(HEAD_DIM)) * LOG2E
+    err = lib.sage_attention_fwd(q8.data_ptr(), qs.data_ptr(), qs.shape[2], k8.data_ptr(), ks.data_ptr(),
+                                 ks.shape[2], v.data_ptr(), out.data_ptr(), b, n, sq, sk, _kv_limit(kv_len, sk),
+                                 *v.stride()[:3], *out.stride()[:3], gain, stream)
+    _build.check(err, "sage_attention")
+    LAUNCHES["sage_attention"] += 1
+    return out
 
 
 def sage_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -86,17 +110,8 @@ def sage_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return sage_attention_plain(q, k, v, kv_len)
     _check_qkv(q, k, v)
-    b, sq, n, d = q.shape
-    sk = k.shape[1]
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     q8, qs = _quant_rows(lib, q, stream)
     k8, ks = _quant_rows(lib, k, stream)
-    out = torch.empty((b, sq, n, d), dtype=torch.bfloat16, device=q.device)
-    gain = (1.0 / math.sqrt(HEAD_DIM)) * LOG2E
-    err = lib.sage_attention_fwd(q8.data_ptr(), qs.data_ptr(), k8.data_ptr(), ks.data_ptr(), v.data_ptr(),
-                                 out.data_ptr(), b, n, sq, sk, _kv_limit(kv_len, sk), *v.stride()[:3],
-                                 *out.stride()[:3], gain, stream)
-    _build.check(err, "sage_attention")
-    LAUNCHES["sage_attention"] += 1
-    return out
+    return _attend(lib, q8, qs, k8, ks, v, kv_len, stream)

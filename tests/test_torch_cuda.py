@@ -349,23 +349,59 @@ def test_block_sparse_shared_kernel_vs_plain(dev, s, bq, bk):
     assert torch.equal(out, per_head)
 
 
-@pytest.mark.parametrize("b,sq,sk,kv_len", [(1, 256, 256, None), (2, 200, 200, None), (1, 200, 200, 150),
-                                            (2, 77, 333, None), (1, 300, 64, 40)])
-def test_sage_kernel_vs_plain(dev, b, sq, sk, kv_len):
+@pytest.mark.parametrize("b,sq,sk,kv_len,inputs", [
+    (1, 256, 256, None, "randn"), (2, 200, 200, None, "randn"), (1, 200, 200, 150, "randn"),
+    (2, 77, 333, None, "randn"), (1, 300, 64, 40, "randn"), (2, 333, 700, 450, "randn"),
+    (1, 256, 640, None, "one_signed"), (2, 200, 300, None, "zero_q_row"), (2, 260, 390, 300, "fused"),
+    (1, 130, 130, None, "misaligned_v")])
+def test_sage_kernel_vs_plain(dev, b, sq, sk, kv_len, inputs):
+    """Ragged sq (77, 200, 300, 333) and sk (64, 333, 700), kv_len inside
+    the first and in the middle of the fourth 128-key tile; ``one_signed``:
+    q, k = |randn| * 3 with rows of one value, whose codes are all 127, so
+    that int32 sums reach their top, 128 * 127^2 (the exact int -> float
+    conversion); ``zero_q_row``: q rows of zeros (all logits 0); ``fused``:
+    q, k, v and out as strided views of fused (B, S, 3, N, 128) buffers;
+    ``misaligned_v``: a v whose base is off 16 bytes is refused with an
+    error, before any launch."""
     from lightx2v_tpu_torch.ops.cuda import sage_attention as sa
 
     g = torch.Generator(device=dev).manual_seed(sq + sk)
     q, k, v = (torch.randn((b, s, 3, 128), generator=g, device=dev).to(torch.bfloat16) for s in (sq, sk, sk))
     before = sa.LAUNCHES["sage_attention"]
-    out = sa.sage_attention(q, k, v, kv_len=kv_len)
+    if inputs == "misaligned_v":
+        buf = torch.zeros(v.numel() + 1, dtype=torch.bfloat16, device=dev)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            sa.sage_attention(q, k, buf[1:].view(v.shape))
+        assert sa.LAUNCHES["sage_attention"] == before
+        return
+    if inputs == "one_signed":
+        q, k = q.abs() * 3, k.abs() * 3
+        q[:, :5], k[:, 3:9] = 3.0, 2.5
+    if inputs == "zero_q_row":
+        q[:, 5] = 0.0
+        q[1, 77, 2] = 0.0
+    if inputs == "fused":
+        qkv = torch.randn((b, sq, 3, 3, 128), generator=g, device=dev).to(torch.bfloat16)
+        kvo = torch.randn((b, sk, 3, 3, 128), generator=g, device=dev).to(torch.bfloat16)
+        q, k, v = qkv[:, :, 0], kvo[:, :, 0], kvo[:, :, 1]
+        keep = qkv[:, :, :2].clone()
+        lib, stream = sa._lib(), torch.cuda.current_stream().cuda_stream
+        out = sa._attend(lib, *sa._quant_rows(lib, q, stream), *sa._quant_rows(lib, k, stream), v, kv_len, stream,
+                         out=qkv[:, :, 2])
+        assert out.data_ptr() == qkv[:, :, 2].data_ptr()
+    else:
+        out = sa.sage_attention(q, k, v, kv_len=kv_len)
     assert sa.LAUNCHES["sage_attention"] == before + 1
     # bar: identical int32 logits; bf16 P rounded at different running maxima, summation order
     _close(out, sa.sage_attention_plain(q, k, v, kv_len), 2e-2, 2e-3)
+    if inputs == "fused":  # the store stayed inside out's own slots
+        assert torch.equal(qkv[:, :, :2], keep)
 
 
 def test_sage_quantize_pass_is_exact(dev):
     """The row quantization pre-pass gives the plain version's codes and
-    scales bit for bit, on a strided view too."""
+    scales bit for bit, on a strided view too; the scales lie head-major,
+    (B, N, pitch) with the pitch S rounded up to 4."""
     from lightx2v_tpu_torch.ops.cuda import sage_attention as sa
 
     qkv = torch.randn((2, 130, 3, 2, 128), device=dev).to(torch.bfloat16)
@@ -374,7 +410,8 @@ def test_sage_quantize_pass_is_exact(dev):
     codes, scales = sa._quant_rows(sa._lib(), x, torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     ref_codes, ref_scales = sa.quant_rows_plain(x)
-    assert torch.equal(codes, ref_codes) and torch.equal(scales, ref_scales[..., 0])
+    assert scales.shape == (2, 2, 132)
+    assert torch.equal(codes, ref_codes) and torch.equal(scales[..., :130], ref_scales[..., 0].transpose(1, 2))
 
 
 @pytest.mark.parametrize("m,n,k,group,bias", [(200, 256, 1024, 512, True), (37, 384, 768, 256, False),
