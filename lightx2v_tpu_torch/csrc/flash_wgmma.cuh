@@ -103,14 +103,6 @@ __device__ __forceinline__ float ex2_ftz(float x) {
   return y;
 }
 
-// float(s), exactly, for |s| < 2^22: s added to the mantissa of 1.5 * 2^23
-// (whose ulp is 1 across [2^23, 2^24)), then 1.5 * 2^23 taken off: the bits
-// of I2F, from an integer add and an FADD. I2F runs at 16 a clock per SM,
-// the rate of the softmax's ex2, an eighth of the FP32 pipe's.
-__device__ __forceinline__ float small_int_to_float(int s) {
-  return __fadd_rn(__int_as_float(s + 0x4B400000), -12582912.0f);
-}
-
 // Q and K codes are bf16 (INT8 false) or int8 with one fp32 scale a row
 // (INT8 true); V and O are bf16 either way.
 template <int D, bool INT8>
@@ -123,7 +115,7 @@ struct Dense {
   static constexpr int STAGES = 2;
   // the consumer warpgroups take turns to issue their products (int8 only:
   // the bf16 kernel keeps its own measured schedule)
-  static constexpr bool PINGPONG = false;
+  static constexpr bool PINGPONG = INT8;
   static constexpr int BOX = 128 * 128;    // one box: 128 rows of 128 bytes
   static constexpr int QK_COLS = INT8 ? 128 : 64;  // q/k values in a box row
   static constexpr int QK_BOXES = D / QK_COLS;     // boxes of a q or k row
@@ -292,7 +284,7 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
         const float2 k2 = *reinterpret_cast<const float2*>(ks + 8 * j + 2 * tq);
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          sc[4 * j + e] = __fmul_rn(__fmul_rn(small_int_to_float(si[4 * j + e]), qa[e >> 1]), (e & 1) ? k2.y : k2.x);
+          sc[4 * j + e] = __fmul_rn(__int2float_rn(si[4 * j + e]), (e & 1) ? k2.y : k2.x);
       }
     } else {
       fence_acc(sc);
@@ -331,6 +323,7 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
     for (int h = 0; h < 2; ++h) {
       tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffff, tmax[h], 1));
       tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffff, tmax[h], 2));
+      if constexpr (INT8) tmax[h] = __fmul_rn(tmax[h], qa[h]);
       const float m_new = fmaxf(m_run[h], tmax[h]);
       msafe[h] = (m_new == NEG_INF) ? 0.f : m_new;
       alpha[h] = ex2_ftz(m_run[h] - msafe[h]);
@@ -339,10 +332,17 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
     float psum[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < C::BN / 8; ++j) {
-      sc[4 * j] = ex2_ftz(sc[4 * j] - msafe[0]);
-      sc[4 * j + 1] = ex2_ftz(sc[4 * j + 1] - msafe[0]);
-      sc[4 * j + 2] = ex2_ftz(sc[4 * j + 2] - msafe[1]);
-      sc[4 * j + 3] = ex2_ftz(sc[4 * j + 3] - msafe[1]);
+      if constexpr (INT8) {
+        sc[4 * j] = ex2_ftz(__fmaf_rn(sc[4 * j], qa[0], -msafe[0]));
+        sc[4 * j + 1] = ex2_ftz(__fmaf_rn(sc[4 * j + 1], qa[0], -msafe[0]));
+        sc[4 * j + 2] = ex2_ftz(__fmaf_rn(sc[4 * j + 2], qa[1], -msafe[1]));
+        sc[4 * j + 3] = ex2_ftz(__fmaf_rn(sc[4 * j + 3], qa[1], -msafe[1]));
+      } else {
+        sc[4 * j] = ex2_ftz(sc[4 * j] - msafe[0]);
+        sc[4 * j + 1] = ex2_ftz(sc[4 * j + 1] - msafe[0]);
+        sc[4 * j + 2] = ex2_ftz(sc[4 * j + 2] - msafe[1]);
+        sc[4 * j + 3] = ex2_ftz(sc[4 * j + 3] - msafe[1]);
+      }
       psum[0] += sc[4 * j] + sc[4 * j + 1];
       psum[1] += sc[4 * j + 2] + sc[4 * j + 3];
     }
@@ -354,10 +354,14 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
   // lie. (int8) A warp whose 16 rows kept their maxima (alpha == 1, most
   // tiles once a row has seen a few) skips the rescale: it would multiply by 1
   auto rescale_pack = [&]() {
+    bool rescale = true;
+    if constexpr (INT8) rescale = __any_sync(0xffffffff, alpha[0] != 1.f || alpha[1] != 1.f);
+    if (rescale) {
 #pragma unroll
-    for (int x = 0; x < C::V_BOXES; ++x)
+      for (int x = 0; x < C::V_BOXES; ++x)
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[x][i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < 32; ++i) o[x][i] *= alpha[(i >> 1) & 1];
+    }
 #pragma unroll
     for (int kk = 0; kk < C::BN / 16; ++kk) {
       pa[kk][0] = pack_bf16x2(sc[8 * kk], sc[8 * kk + 1]);

@@ -7,8 +7,9 @@
 // What it computes: q and k are quantized to int8 per token row over the 128
 // features (sc = max(absmax, 1e-6) * (1/127), code = clip(rint(x / sc),
 // +-127), from the raw bf16 values); the logits are the exact int32 product
-// of the codes times (q_sc * scale * log2e) times k_sc, in that order in
-// fp32; the softmax runs in the exp2 domain in fp32 with an online max/sum;
+// of the codes times (q_sc * scale * log2e) and k_sc in fp32 (the TPU
+// kernel's order of roundings is changed below, well inside the bar); the
+// softmax runs in the exp2 domain in fp32 with an online max/sum;
 // P is rounded to bf16 and P.V runs in bf16 with fp32 accumulation; the
 // output is acc / max(l, 1e-30). Keys at or past kv_len are masked by their
 // index (the TPU kernel instead subtracts its zero pad rows' mass in closed
@@ -18,23 +19,26 @@
 // tokens, 40 heads is 2*B*N*S^2*D int8 ops (QK^T, 11.1 ms at 1979 TOP/s)
 // plus the same count of bf16 FLOP (P.V, 22.2 ms at 989 TFLOP/s) against
 // 0.7 GB of q/k/v/o. Under the tensor cores sit 8.6e10 logits, each
-// converted from int32, scaled twice, exponentiated (about 20 ms of the
-// SM's ex2 units) and packed.
+// converted from int32, scaled, exponentiated (about 20 ms of the SM's ex2
+// units) and packed.
 //
 // The design:
 //  - Row quantization is a pre-pass (sage_quant_rows_kernel, one warp a
 //    token row): codes (B, S, N, 128) int8, which is K-major along d as
 //    8-bit wgmma needs (it has no transpose), and scales head-major,
 //    (B, N, pitch) fp32 with the pitch S rounded up to 4 (16-byte rows for
-//    TMA), so that a tile's 128 scales are 512 contiguous bytes. Done once
-//    per call, not once per CTA that sweeps a head's keys.
+//    TMA), so that a tile's 128 scales are 512 contiguous bytes (in the
+//    (B, S, N) layout they lie N * 4 bytes apart, and a TMA box's inner
+//    extent must be a multiple of 16 bytes). Done once per call, not once
+//    per CTA that sweeps a head's keys: 1.4 ms of a 66 ms call.
 //  - The attention kernel is attention_wgmma<128, true> (flash_wgmma.cuh),
 //    the dense flash kernel's body with its S product made int8: the
 //    persistent walk over 128-row work tiles, a producer warp feeding TMA
 //    into a 2-stage K/V ring with full and empty barriers, two consumer
-//    warpgroups of 64 rows (setmaxnreg 24 / 240), S of tile t and P.V of
-//    tile t - 1 in flight together, P kept in registers as the A operand of
-//    P.V, O staged in the Q buffer and stored by TMA from a producer warp.
+//    warpgroups of 64 rows (setmaxnreg 24 / 240; 168 registers at launch,
+//    no spills), S of tile t and P.V of tile t - 1 in flight together, P
+//    kept in registers as the A operand of P.V, O staged in the Q buffer
+//    and stored by TMA from a producer warp.
 //  - Q and K codes arrive through 4-D UINT8 maps (128, N, S, B), boxes of
 //    128 bytes x 128 rows with the 128-byte swizzle: one box is a whole
 //    tile, and each of the four k32 steps of
@@ -43,19 +47,29 @@
 //    past S): the q scales with the Q tile on its barrier, the k scales in
 //    the K stage on k_full. V and O keep the dense kernel's bf16 maps over
 //    the caller's strided layout.
-//  - Per logit: float(s) as __int_as_float(s + 0x4B400000) - 12582912 (an
-//    integer add and an FADD). Exact: |s| <= 128 * 127 * 127 = 2,064,512
-//    < 2^22, so 1.5 * 2^23 + s stays in [2^23, 2^24), where the ulp is 1;
-//    I2F would give the same bits at an eighth of the FP32 rate, on the
-//    same 16-a-clock footing as the ex2s. Then (float(s) * qa) * ks with
-//    qa = q_sc * gain, in the TPU kernel's order, each product rounded.
+//  - Per logit: y = float(s) * k_sc, then the softmax's ex2(fma(y, qa,
+//    -m)) with qa = q_sc * gain > 0, whose row maximum is qa * max(y). The
+//    TPU kernel rounds (float(s) * qa) * k_sc and then the difference with
+//    m; this differs by a few fp32 ulps of the logit (~1e-6 relative in P,
+//    against a bar of 2e-2 * max|out|) and saves an instruction a logit. float(s) is exact (|s| <= 128 * 127^2 < 2^24) and
+//    ptxas emits it as one I2FP.F32.S32: it measured 1.5-2.5% faster than
+//    the integer-add form (s + 0x4B400000 as a float, less 1.5 * 2^23).
+//  - The two consumer warpgroups take turns to issue their products (named
+//    barriers 1 and 2), so that one's conversion and softmax (about 750
+//    instructions a warp a tile) run under the other's products; a warp
+//    whose 16 rows kept their maxima skips the rescale of O.
 //  - Shared memory: a Q buffer is sized for the larger of an int8 Q tile
 //    (16 KB) and the bf16 O tile it stages (32 KB); two of them, two stages
 //    of K (16 KB) + V (32 KB) + k scales (0.5 KB, padded to 1 KB), two
 //    512-byte q-scale buffers: 164 KB.
+//  - Tried and dropped (each against the kept form in one call, in turns;
+//    NVIDIA H100 80GB HBM3): a third stage (71.5 against 71.0-71.2 ms), and
+//    descriptors formed by adding offsets to one base (67.2-67.5 against
+//    66.9-67.1). The bf16 form keeps its schedule: the turn-taking and the
+//    rescale skip apply to the int8 form only.
 //  - The mma.sync kernel it replaces (8 warps, 64-key tiles through a
-//    cp.async ring, int8 QK^T on mma.sync.m16n8k32) took 134.95 ms at the
-//    main shape.
+//    cp.async ring) took 134.95 ms at the main shape; this one at step A
+//    (no turns, the TPU's rounding order) 81.4 ms, and now about 66 ms.
 
 #include "flash_wgmma.cuh"
 
