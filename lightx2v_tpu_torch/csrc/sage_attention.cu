@@ -170,7 +170,7 @@ extern "C" int sage_attention_fwd(const void* q8, const void* qsc, int q_pitch, 
   if (!codes_map(&qm, q8, batch, sq, n_heads) || !codes_map(&km, k8, batch, rows_k, n_heads) ||
       !bsnd_map<HD>(&vm, v, batch, rows_k, n_heads, v_b, v_s, v_n, C::BN) ||
       !bsnd_map<HD>(&om, o, batch, sq, n_heads, o_b, o_s, o_n, C::BM) || !scales_map(&qsm, qsc, bn, sq, q_pitch) ||
-      !scales_map(&ksm, ksc, bn, rows_k, k_pitch > 0 ? k_pitch : 4))
+      !scales_map(&ksm, ksc, bn, rows_k, k_pitch))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_qt = (sq + C::BM - 1) / C::BM;
   const long long n_work = (long long)n_qt * bn;

@@ -11,6 +11,7 @@ before P.V; output ``acc / max(l, 1e-30)``. Public functions keep the JAX
 (B, S, N, D) layout. On a CUDA tensor the wrapper launches the kernels or
 raises; on a CPU tensor it runs the plain version, which repeats that
 arithmetic with the same int32 logits (an exact integer dot), so only the
+logits' last roundings (the kernel applies q's scale in its exp2 FMA), the
 softmax's running maxima and the summation order differ from the kernel.
 Keys at or past ``kv_len`` are masked by index; the TPU kernel's closed-form
 removal of its zero pad rows' mass gives the same sums.
