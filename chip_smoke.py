@@ -577,7 +577,7 @@ def kernel_phase_flagship(peaks, reps: int, want):
         b_ms, b_by = bound(4.0 * HD * pairs, 4 * S * HEADS * HD * 2 + idx.numel() * 4 + cnt.numel() * 4, peak_bf16, peak_bw)
         lib_ms = library(lambda: flex_attention_call(q, k, v, idx, cnt, bq, bk, out_check=hs), 2, make=True)
         rows.append(dict(name="block_sparse_attention", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
-                         replaces="lightx2v_tpu/ops/pallas/block_sparse_attention.py:134",
+                         replaces="lightx2v_tpu/ops/pallas/block_sparse_attention.py:206",
                          shape=f"q,k,v (1,{S},{HEADS},{HD}) bf16; indices {tuple(idx.shape)}, counts {tuple(cnt.shape)} "
                                f"i32; bq {bq}, bk {bk}; selected {int(cc.sum())} of {cc.size * ic.shape[2]}",
                          max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms,
@@ -1110,7 +1110,7 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
 
 def _category(name: str) -> str:
     n = name.lower()
-    for key, cat in (("sparse_fwd_kernel", "block_sparse_attention (ours)"),
+    for key, cat in (("sparse_wgmma_kernel", "block_sparse_attention (ours)"),
                      ("flash_wgmma_kernel", "flash_attention (ours)"), ("rope_rotate_kernel", "flash_attention (ours)"),
                      ("sage_wgmma_kernel", "sage attention (ours)"),
                      ("sage_quant_rows", "sage row quantize (ours)"), ("int4_wgmma_kernel", "int4 GEMM (ours)"),

@@ -13,7 +13,8 @@
 //    log-sum-exp (flash_attention, flash_attention_with_lse, and
 //    flash_attention_fused_rope after the RoPE pass).
 //  - rope_rotate_kernel: the RoPE pass of flash_attention_fused_rope.
-//  - sparse_fwd_kernel: block-sparse attention (both forms).
+//  - sparse_wgmma_kernel: block-sparse attention (both forms), the same
+//    body walking each work tile's list of selected key superblocks.
 //
 // What bounds it on this card: operations. Self-attention at 32,760 tokens
 // x 40 heads does 4*S^2*D*N = 2.2e13 bf16 tensor-core FLOP (22.2 ms at 989
@@ -38,7 +39,8 @@
 //
 // What the dense design does about it (flash_wgmma_kernel, whose body is
 // attention_wgmma<D, false> in flash_wgmma.cuh: sage_attention.cu runs the
-// same body with an int8 S product, attention_wgmma<128, true>):
+// same body with an int8 S product, attention_wgmma<128, true>, and the
+// sparse kernel below with a key list, attention_wgmma<128, false, true>):
 //  - Every product runs on wgmma, the only path to the card's full bf16
 //    rate. A CTA has a producer warpgroup and two consumer warpgroups of 64
 //    query rows each (setmaxnreg 24 / 240: ptxas otherwise caps 384 threads
@@ -96,21 +98,48 @@
 // cost 36 ms of 112 at the main shape on an H100; the pass moves ~1.3 GB
 // once.
 //
-// SPARSE (Sparge self-attention and radial's shared mask; sparse_fwd_kernel
-// on mma.sync.m16n8k16, not yet moved onto wgmma): each (batch*head, bq-row
-// q superblock) names cnt selected bk-key superblocks in indices[bh, iq,
-// :cnt], in score order, not ascending. A CTA of 8 warps owns 128 query rows
-// in superblock iq = row0 / bq (bq % 128 == 0), keeps them in registers as
-// mma fragments and sweeps the bk/64 key tiles of each selected superblock
-// in list order through a double-buffered cp.async ring (rows padded to 272
-// bytes so ldmatrix is conflict-free): a dynamic loop over j < cnt replaces
-// the TPU grid's repeat-the-last-index padding, and only selected tiles are
-// loaded. The superblock that straddles the sequence end can come at any j,
-// so every tile is masked by absolute key index. Bound: operations,
-// 4 * D * bq * bk per selected (head, q-superblock, key-superblock) triple.
-// With sp.shared the tables are (rows, nnz) / (rows,) and every (batch,
-// head) reads the same row (radial attention's static mask, lists ascending
-// with a repeated tail that j < cnt never reaches).
+// SPARSE (Sparge self-attention per head, radial's mask shared by every
+// head; sparse_wgmma_kernel = attention_wgmma<128, false, true>): each
+// (batch*head, bq-row q superblock) names cnt selected bk-key superblocks
+// in indices[bh, iq, :cnt] (bq % 128 == 0, bk % 64 == 0), in score order,
+// not ascending; with `shared` the tables are (rows, nnz) / (rows,) and
+// every (batch, head) reads the same row (radial's static mask, lists
+// ascending with a repeated tail that j < cnt never reaches). Bound:
+// operations, 4 * D per (query row, selected key below S), the same count
+// of bf16 FLOP as the dense kernel over the selected key pairs only; the
+// bytes (q, k, v, o once, the tables) are the dense call's.
+//  - What the sparse walk changes, and nothing else: a work tile (128 query
+//    rows, one table row iq = q0 / bq) sweeps cnt * tpb key tiles (tpb =
+//    ceil(bk / 128)), tile t at key idx[row][t / tpb] * bk + (t % tpb) *
+//    128, in list order, instead of tiles 0 .. ceil(S / 128). A dynamic
+//    count replaces the TPU grid's repeat-the-last-index padding, and only
+//    selected tiles are loaded. The producer thread reads the table (each
+//    tile's block index before it waits for the stage, so the load hides
+//    behind the wait) and writes the stage's first key and mask limit into
+//    two 4-byte slots before it arms the stage's k_full; the consumers read
+//    the pair once k_full completes, before they hand K back. Chosen over
+//    each consumer reading the table itself: it keeps the lookup and the
+//    tile arithmetic (counters, no division) off the 256 consumer threads'
+//    path. Both sides read the work tile's count from the table, so they
+//    agree on the ring's phases tile for tile.
+//  - The mask: every tile is masked by absolute key index against
+//    min(S, superblock end). The superblock end matters only when bk % 128
+//    == 64 (the half tile): the last 128-key tile of such a superblock
+//    covers 64 keys of the next superblock, which were not selected (or
+//    lie past S, where TMA zero-fills), and the mask gives them no mass. A
+//    tile wholly past S carries none either, and a row with count 0
+//    sweeps no tile and stores zeros (acc 0 times 1 / max(0, 1e-30)).
+//  - The walk is the dense kernel's static stride: consecutive query tiles
+//    of one (batch, head) on neighbouring CTAs. A 2048-row Sparge
+//    superblock puts 16 work tiles on the same key list, so K and V come
+//    from L2. Work tiles cost cnt * tpb key tiles each, and a CTA's share
+//    averages over the ~78 work tiles it walks at the flagship shape.
+//  - The first S of a work tile and its last P.V overlap nothing, as in the
+//    dense kernel: at 8 key tiles (the flagship's sparsest rows) that
+//    weighs more than at the dense self-attention's 256.
+// A first form (on mma.sync.m16n8k16: 8 warps of 16 query rows,
+// 64-key tiles through a 2-deep cp.async ring, a __syncthreads per tile,
+// one CTA per (128 query rows, batch*head)) was replaced by this one.
 
 #include "flash_wgmma.cuh"
 
@@ -215,240 +244,14 @@ int launch_dense(const void* q, const void* k, const void* v, void* o, float* ls
 }
 
 // ---------------------------------------------------------------------------
-// block-sparse attention on mma.sync
+// block-sparse attention: the same body, walking each work tile's key list
 
-constexpr int SP_BQ = 128;
-constexpr int SP_BKV = 64;
-constexpr int SP_THREADS = 256;
-constexpr int LDS = HD + 8;
-constexpr int SP_Q_ELEMS = SP_BQ * LDS;
-constexpr int SP_KV_ELEMS = SP_BKV * LDS;
-constexpr int SP_SMEM = (SP_Q_ELEMS + 4 * SP_KV_ELEMS) * 2;
-
-struct Strides {
-  long long q_b, q_s, q_n;
-  long long k_b, k_s, k_n;
-  long long v_b, v_s, v_n;
-  long long o_b, o_s, o_n;
-};
-
-// block lists, int32: per head idx (B*N, rows, nnz), cnt (B*N, rows); or,
-// with shared != 0, one idx (rows, nnz), cnt (rows,) for every (batch, head)
-struct Sparse {
-  const int* idx;
-  const int* cnt;
-  int rows, nnz, bq, bk, shared;
-};
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void __launch_bounds__(SP_THREADS, 1)
-sparse_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int n_heads, int sq, int sk,
-                  Strides st, float gain, Sparse sp) {
-  extern __shared__ __align__(16) unsigned char sp_smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(sp_smem);
-  __nv_bfloat16* KVs = Qs + SP_Q_ELEMS;  // [buf][K|V]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q0 = blockIdx.x * SP_BQ;
-  const int bh = blockIdx.y;
-  const int b = bh / n_heads;
-  const int n = bh % n_heads;
-
-  const __nv_bfloat16* qb = q + b * st.q_b + n * st.q_n;
-  const __nv_bfloat16* kb = k + b * st.k_b + n * st.k_n;
-  const __nv_bfloat16* vb = v + b * st.v_b + n * st.v_n;
-  __nv_bfloat16* ob = o + b * st.o_b + n * st.o_n;
-
-  // the key tiles this CTA sweeps: t -> first key of tile t
-  const long long brow = (sp.shared ? 0LL : (long long)bh * sp.rows) + q0 / sp.bq;
-  const int* blocks = sp.idx + brow * sp.nnz;
-  const int tiles_per_blk = sp.bk / SP_BKV;
-  const int n_tiles = __ldg(sp.cnt + brow) * tiles_per_blk;
-  auto tile_key0 = [&](int t) { return __ldg(blocks + t / tiles_per_blk) * sp.bk + (t % tiles_per_blk) * SP_BKV; };
-
-  auto load_kv = [&](int t, int buf) {
-    __nv_bfloat16* Ks = KVs + buf * 2 * SP_KV_ELEMS;
-    __nv_bfloat16* Vs = Ks + SP_KV_ELEMS;
-    const int r0 = tile_key0(t);
-#pragma unroll
-    for (int i = 0; i < (SP_BKV * 16) / SP_THREADS; ++i) {
-      int c = tid + i * SP_THREADS;
-      int r = c >> 4, col = (c & 15) * 8;
-      int gr = r0 + r;
-      bool ok = gr < sk;
-      const __nv_bfloat16* ks = ok ? kb + gr * st.k_s + col : kb;
-      const __nv_bfloat16* vs = ok ? vb + gr * st.v_s + col : vb;
-      cp_async16(Ks + r * LDS + col, ks, ok);
-      cp_async16(Vs + r * LDS + col, vs, ok);
-    }
-  };
-
-  if (n_tiles > 0) load_kv(0, 0);
-  cp_async_commit();
-
-  // q tile: scale in fp32, re-round to bf16, park in smem
-#pragma unroll
-  for (int i = 0; i < (SP_BQ * 16) / SP_THREADS; ++i) {
-    int c = tid + i * SP_THREADS;
-    int r = c >> 4, col = (c & 15) * 8;
-    int gr = q0 + r;
-    float f[8];
-    if (gr < sq) {
-      unpack8(__ldg(reinterpret_cast<const uint4*>(qb + gr * st.q_s + col)), f);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) f[j] = 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) f[j] = __fmul_rn(f[j], gain);
-    *reinterpret_cast<uint4*>(Qs + r * LDS + col) = pack8(f);
-  }
-  __syncthreads();
-
-  uint32_t qf[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS + kk * 16 + (lane >> 4) * 8);
-  }
-
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int i = 0; i < HD / 8; ++i) {
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  }
-  float m_run[2] = {NEG_INF, NEG_INF};
-  float l_run[2] = {0.f, 0.f};
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) load_kv(t + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    __nv_bfloat16* Ks = KVs + buf * 2 * SP_KV_ELEMS;
-    __nv_bfloat16* Vs = Ks + SP_KV_ELEMS;
-    const int key0 = tile_key0(t);
-
-    // S = q k^T for this warp's 16 rows x 64 keys
-    float s[SP_BKV / 8][4];
-#pragma unroll
-    for (int j = 0; j < SP_BKV / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-      for (int jp = 0; jp < SP_BKV / 16; ++jp) {
-        uint32_t bfr[4];
-        ldmatrix_x4(bfr, Ks + (jp * 16 + (lane & 7) + (lane >> 4) * 8) * LDS + kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * jp], qf[kk], bfr[0], bfr[1]);
-        mma_bf16(s[2 * jp + 1], qf[kk], bfr[2], bfr[3]);
-      }
-    }
-
-    if (key0 + SP_BKV > sk) {
-#pragma unroll
-      for (int j = 0; j < SP_BKV / 8; ++j) {
-        int key = key0 + j * 8 + 2 * tq;
-        if (key >= sk) { s[j][0] = NEG_INF; s[j][2] = NEG_INF; }
-        if (key + 1 >= sk) { s[j][1] = NEG_INF; s[j][3] = NEG_INF; }
-      }
-    }
-
-    // online softmax (exp2 domain); row g uses s[..][0..1], row g+8 uses [2..3]
-    float tmax[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int j = 0; j < SP_BKV / 8; ++j) {
-      tmax[0] = fmaxf(tmax[0], fmaxf(s[j][0], s[j][1]));
-      tmax[1] = fmaxf(tmax[1], fmaxf(s[j][2], s[j][3]));
-    }
-    float alpha[2], msafe[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffff, tmax[h], 1));
-      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffff, tmax[h], 2));
-      float m_new = fmaxf(m_run[h], tmax[h]);
-      msafe[h] = (m_new == NEG_INF) ? 0.f : m_new;
-      alpha[h] = exp2f(m_run[h] - msafe[h]);
-      m_run[h] = m_new;
-    }
-    float psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < SP_BKV / 8; ++j) {
-      s[j][0] = exp2f(s[j][0] - msafe[0]);
-      s[j][1] = exp2f(s[j][1] - msafe[0]);
-      s[j][2] = exp2f(s[j][2] - msafe[1]);
-      s[j][3] = exp2f(s[j][3] - msafe[1]);
-      psum[0] += s[j][0] + s[j][1];
-      psum[1] += s[j][2] + s[j][3];
-    }
-    l_run[0] = l_run[0] * alpha[0] + psum[0];
-    l_run[1] = l_run[1] * alpha[1] + psum[1];
-#pragma unroll
-    for (int i = 0; i < HD / 8; ++i) {
-      acc[i][0] *= alpha[0];
-      acc[i][1] *= alpha[0];
-      acc[i][2] *= alpha[1];
-      acc[i][3] *= alpha[1];
-    }
-
-    // acc += bf16(P) . V
-#pragma unroll
-    for (int kk = 0; kk < SP_BKV / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        uint32_t bfr[4];
-        ldmatrix_x4_trans(bfr, Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS + dp * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dp], pa, bfr[0], bfr[1]);
-        mma_bf16(acc[2 * dp + 1], pa, bfr[2], bfr[3]);
-      }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l_run[h] += __shfl_xor_sync(0xffffffff, l_run[h], 1);
-    l_run[h] += __shfl_xor_sync(0xffffffff, l_run[h], 2);
-    l_run[h] = fmaxf(l_run[h], 1e-30f);
-  }
-  const int row0 = q0 + warp * 16 + g;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    int row = row0 + h * 8;
-    if (row < sq) {
-      __nv_bfloat16* orow = ob + row * st.o_s;
-#pragma unroll
-      for (int i = 0; i < HD / 8; ++i) {
-        int col = i * 8 + 2 * tq;
-        *reinterpret_cast<uint32_t*>(orow + col) =
-            pack_bf16x2(acc[i][2 * h] / l_run[h], acc[i][2 * h + 1] / l_run[h]);
-      }
-    }
-  }
+__global__ void __launch_bounds__(Dense<HD, false>::THREADS, 1)
+sparse_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap, int n_heads,
+                    int sq, int kv_limit, float gain, int n_qt, int n_work, KeyList kl) {
+  attention_wgmma<HD, false, true>(&qmap, &kmap, &vmap, &omap, nullptr, nullptr, nullptr, n_heads, sq, kv_limit, gain,
+                                   n_qt, n_work, kl);
 }
 
 }  // namespace
@@ -487,15 +290,25 @@ extern "C" int block_sparse_attention_bf16(const void* q, const void* k, const v
                                            long long k_b, long long k_s, long long k_n, long long v_b, long long v_s,
                                            long long v_n, long long o_b, long long o_s, long long o_n, float gain,
                                            void* stream) {
-  if (bq <= 0 || bq % SP_BQ || bk <= 0 || bk % SP_BKV || rows < (sq + bq - 1) / bq)
+  using C = Dense<HD, false>;
+  if (bq <= 0 || bq % C::BM || bk <= 0 || bk % 64 || rows < (sq + bq - 1) / bq)
     return static_cast<int>(cudaErrorInvalidValue);
-  Strides st{q_b, q_s, q_n, k_b, k_s, k_n, v_b, v_s, v_n, o_b, o_s, o_n};
-  Sparse sp{static_cast<const int*>(idx), static_cast<const int*>(cnt), rows, nnz, bq, bk, shared};
-  cudaError_t err = set_smem(sparse_fwd_kernel, SP_SMEM);
+  if (batch == 0 || n_heads == 0 || sq == 0) return 0;
+  CUtensorMap qm, km, vm, om;
+  const int rows_k = sk > 0 ? sk : 1;
+  if (!bsnd_map<HD>(&qm, q, batch, sq, n_heads, q_b, q_s, q_n, C::BM) ||
+      !bsnd_map<HD>(&km, k, batch, rows_k, n_heads, k_b, k_s, k_n, C::BN) ||
+      !bsnd_map<HD>(&vm, v, batch, rows_k, n_heads, v_b, v_s, v_n, C::BN) ||
+      !bsnd_map<HD>(&om, o, batch, sq, n_heads, o_b, o_s, o_n, C::BM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_qt = (sq + C::BM - 1) / C::BM;
+  const long long n_work = (long long)n_qt * batch * n_heads;
+  if (n_work > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(n_work < sm_count() ? n_work : sm_count());
+  cudaError_t err = set_smem(sparse_wgmma_kernel, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((sq + SP_BQ - 1) / SP_BQ, batch * n_heads);
-  sparse_fwd_kernel<<<grid, SP_THREADS, SP_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), n_heads, sq, sk, st, gain, sp);
+  const KeyList kl{static_cast<const int*>(idx), static_cast<const int*>(cnt), rows, nnz, bq, bk, shared};
+  sparse_wgmma_kernel<<<grid, C::THREADS, C::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      qm, km, vm, om, n_heads, sq, sk, gain, n_qt, static_cast<int>(n_work), kl);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,19 @@
-// The dense attention body on wgmma + TMA, shared by flash_attention.cu
-// (bf16 Q.K^T: flash_wgmma_kernel) and sage_attention.cu (int8 Q.K^T with
+// The attention body on wgmma + TMA, shared by flash_attention.cu (bf16
+// Q.K^T over all keys: flash_wgmma_kernel; over a list of selected key
+// superblocks: sparse_wgmma_kernel) and sage_attention.cu (int8 Q.K^T with
 // per-row scales: sage_wgmma_kernel). Each kernel is a thin wrapper that
-// calls attention_wgmma<D, INT8> with its tensor maps, so the producer, the
-// ring, the persistent walk, the S(t) / P.V(t - 1) schedule, the softmax
-// and the TMA-store epilogue are one piece of code. flash_attention.cu's
-// note describes the design; sage_attention.cu's what the int8 form adds.
+// calls attention_wgmma<D, INT8, SPARSE> with its tensor maps, so the
+// producer, the ring, the persistent walk, the S(t) / P.V(t - 1) schedule,
+// the softmax and the TMA-store epilogue are one piece of code.
+// flash_attention.cu's note describes the design and what the sparse walk
+// changes; sage_attention.cu's what the int8 form adds.
+//
+// The dense forms sweep key tiles 0 .. ceil(kv_limit / 128) of every work
+// tile. The sparse form (SPARSE) sweeps the work tile's list instead
+// (KeyList): cnt superblocks of bk keys, each as ceil(bk / 128) tiles, so a
+// work tile has its own tile count, read from the table by the producer
+// and the consumers alike. The producer places each tile and writes its
+// first key and mask limit into the stage's slot; nothing else changes.
 //
 // Each .cu that includes this file gets its own copy (anonymous namespace).
 
@@ -103,6 +112,17 @@ __device__ __forceinline__ float ex2_ftz(float x) {
   return y;
 }
 
+// (SPARSE) The key superblocks a work tile sweeps. Row (shared ? 0 : bh *
+// rows) + q0 / bq of the tables (bq % 128 == 0, so a work tile lies in one
+// row) names cnt[row] superblocks of bk keys (bk % 64 == 0) in idx[row,
+// :cnt[row]], in any order; each is swept as ceil(bk / 128) tiles of 128
+// keys, the last masked at the superblock's end.
+struct KeyList {
+  const int* idx;
+  const int* cnt;
+  int rows, nnz, bq, bk, shared;
+};
+
 // Q and K codes are bf16 (INT8 false) or int8 with one fp32 scale a row
 // (INT8 true); V and O are bf16 either way.
 template <int D, bool INT8>
@@ -137,13 +157,14 @@ struct Dense {
 // same over bf16 (64-column boxes). qsmap/ksmap (INT8 only): the row scales
 // (S, B * N), boxes of 128 x 1. lse (B, sq, N) fp32 or null. Work tile w is
 // query tile w % n_qt of (batch, head) w / n_qt; CTA c takes w = c,
-// c + gridDim.x, ...
-template <int D, bool INT8>
+// c + gridDim.x, ... (SPARSE) kl names each work tile's key superblocks.
+template <int D, bool INT8, bool SPARSE = false>
 __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const CUtensorMap* kmap,
                                                 const CUtensorMap* vmap, const CUtensorMap* omap,
                                                 const CUtensorMap* qsmap, const CUtensorMap* ksmap,
                                                 float* __restrict__ lse, int n_heads, int sq, int kv_limit,
-                                                float gain, int n_qt, int n_work) {
+                                                float gain, int n_qt, int n_work, KeyList kl = {}) {
+  static_assert(!(SPARSE && INT8), "the sparse form is bf16");
   using C = Dense<D, INT8>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t q_full[2], q_ready[2], o_full[2], q_empty[2], k_full[C::STAGES], v_full[C::STAGES],
@@ -156,6 +177,22 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
     return reinterpret_cast<float*>(smem + 2 * C::QBUF + C::STAGES * C::STAGE_BYTES + i * C::SC_BYTES);
   };
   const int n_tiles = (kv_limit + C::BN - 1) / C::BN;
+  // (SPARSE) the first key and the mask limit of each stage's tile, written
+  // by the producer before it arms k_full and read by the consumers once
+  // k_full completes (the mbarrier orders the two): the consumers do no
+  // table lookup and no tile arithmetic
+  __shared__ int2 key_slot[C::STAGES];
+  const int tpb = SPARSE ? (kl.bk + C::BN - 1) / C::BN : 1;  // tiles a superblock
+  // the table row of work tile w, and its count of key tiles
+  auto list_row = [&](int w) {
+    return (kl.shared ? 0LL : (long long)(w / n_qt) * kl.rows) + (w % n_qt) * C::BM / kl.bq;
+  };
+  auto tiles_of = [&](int w) {
+    if constexpr (SPARSE)
+      return __ldg(kl.cnt + list_row(w)) * tpb;
+    else
+      return n_tiles;
+  };
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
@@ -187,18 +224,34 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
         for (int x = 0; x < C::QK_BOXES; ++x)
           tma_load_4d(q_buf(qb) + x * C::BOX, qmap, &q_full[qb], C::QK_COLS * x, n, q0, b);
         if constexpr (INT8) tma_load(q_scales(qb), qsmap, &q_full[qb], q0, bh);
-        for (int t = 0; t < n_tiles; ++t, ++gt) {
+        const int nt = tiles_of(w);
+        // (SPARSE) the list entry of tile t and the tile's place in its superblock
+        const int* e = SPARSE ? kl.idx + list_row(w) * kl.nnz : nullptr;
+        int sub = 0;
+        for (int t = 0; t < nt; ++t, ++gt) {
           const int s = gt % C::STAGES;
           unsigned char* kt = k_tile(s);
+          // (SPARSE) the tile's first key and mask limit, looked up before
+          // the wait so that the load's latency hides behind it
+          int2 tk;
+          if constexpr (SPARSE) {
+            const int blk = __ldg(e);
+            tk = make_int2(blk * kl.bk + sub * C::BN, min(kv_limit, (blk + 1) * kl.bk));
+            if (++sub == tpb) {
+              sub = 0;
+              ++e;
+            }
+          }
           mbar_wait(&k_empty[s], ((gt / C::STAGES) & 1) ^ 1);
+          if constexpr (SPARSE) key_slot[s] = tk;
           mbar_expect_tx(&k_full[s], C::K_BYTES + C::SC_BYTES);
           for (int x = 0; x < C::QK_BOXES; ++x)
-            tma_load_4d(kt + x * C::BOX, kmap, &k_full[s], C::QK_COLS * x, n, t * C::BN, b);
+            tma_load_4d(kt + x * C::BOX, kmap, &k_full[s], C::QK_COLS * x, n, SPARSE ? tk.x : t * C::BN, b);
           if constexpr (INT8) tma_load(kt + C::K_BYTES + C::V_BYTES, ksmap, &k_full[s], t * C::BN, bh);
           mbar_wait(&v_empty[s], ((gt / C::STAGES) & 1) ^ 1);
           mbar_expect_tx(&v_full[s], C::V_BYTES);
           for (int x = 0; x < C::V_BOXES; ++x)
-            tma_load_4d(kt + C::K_BYTES + x * C::BOX, vmap, &v_full[s], 64 * x, n, t * C::BN, b);
+            tma_load_4d(kt + C::K_BYTES + x * C::BOX, vmap, &v_full[s], 64 * x, n, SPARSE ? tk.x : t * C::BN, b);
         }
       }
     } else if (threadIdx.x >= 32) {
@@ -300,16 +353,17 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
         wgmma_rs_m64n64k16_tb(o[x], pa[kk], make_desc(vaddr + x * C::BOX + kk * 16 * 128));
     wgmma_commit();
   };
-  // online softmax of the tile at key0 (exp2 domain), in place in sc; the
-  // row's other columns sit in the quad. (int8) The logit is y * qa: its
-  // max is qa * max(y), and 2^(logit - m) is ex2(fma(y, qa, -m))
-  auto softmax = [&](int key0) {
-    if (key0 + C::BN > kv_limit) {
+  // online softmax of the tile at key0 (exp2 domain), in place in sc, keys
+  // at or past lim masked; the row's other columns sit in the quad. (int8)
+  // The logit is y * qa: its max is qa * max(y), and 2^(logit - m) is
+  // ex2(fma(y, qa, -m))
+  auto softmax = [&](int key0, int lim) {
+    if (key0 + C::BN > lim) {
 #pragma unroll
       for (int j = 0; j < C::BN / 8; ++j) {
         const int key = key0 + 8 * j + 2 * tq;
-        if (key >= kv_limit) { sc[4 * j] = NEG_INF; sc[4 * j + 2] = NEG_INF; }
-        if (key + 1 >= kv_limit) { sc[4 * j + 1] = NEG_INF; sc[4 * j + 3] = NEG_INF; }
+        if (key >= lim) { sc[4 * j] = NEG_INF; sc[4 * j + 2] = NEG_INF; }
+        if (key + 1 >= lim) { sc[4 * j + 1] = NEG_INF; sc[4 * j + 3] = NEG_INF; }
       }
     }
     float tmax[2] = {NEG_INF, NEG_INF};
@@ -413,12 +467,17 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
     m_run[0] = m_run[1] = NEG_INF;
     l_run[0] = l_run[1] = 0.f;
 
-    if (n_tiles > 0) {
+    const int nt = tiles_of(w);
+    if (nt > 0) {
       // the softmax of tile t runs while the tensor cores do P.V of tile t - 1
       auto ph = [](int i) { return static_cast<uint32_t>((i / C::STAGES) & 1); };
+      // (SPARSE) the first key and the mask limit of the stage's tile, read
+      // before the stage's K is handed back, which frees the slot
+      int2 tk;
       {
         const int s = gt % C::STAGES;
         mbar_wait(&k_full[s], ph(gt));
+        if constexpr (SPARSE) tk = key_slot[s];
         my_turn();
         wgmma_fence();
         issue_s(qaddr, s);
@@ -426,13 +485,14 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
         wgmma_wait<0>();
         take_s(s);
         release_k(s);
-        softmax(0);
+        softmax(SPARSE ? tk.x : 0, SPARSE ? tk.y : kv_limit);
         mbar_wait(&v_full[s], ph(gt));
         rescale_pack();
       }
-      for (int t = 1; t < n_tiles; ++t, ++gt) {
+      for (int t = 1; t < nt; ++t, ++gt) {
         const int sp = gt % C::STAGES, sn = (gt + 1) % C::STAGES;
         mbar_wait(&k_full[sn], ph(gt + 1));
+        if constexpr (SPARSE) tk = key_slot[sn];
         my_turn();
         wgmma_fence();
         issue_s(qaddr, sn);
@@ -441,7 +501,7 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
         wgmma_wait<1>();  // S of tile t is done; P.V of tile t - 1 may still run
         take_s(sn);
         release_k(sn);
-        softmax(t * C::BN);
+        softmax(SPARSE ? tk.x : t * C::BN, SPARSE ? tk.y : kv_limit);
         mbar_wait(&v_full[sn], ph(gt + 1));
         wgmma_wait<0>();
 #pragma unroll

@@ -6,9 +6,11 @@ block_sparse_attention`` in both forms: per head (indices (B*N, nq, nnz),
 counts (B*N, nq): Sparge's selection) and shared (indices (nq, nnz), counts
 (nq,) read by every (batch, head): radial attention's static mask, whose
 padding entries repeat the last block and are never reached since only
-j < counts[i] is swept). The kernel is the SPARSE instantiation of
-``csrc/flash_attention.cu``; the shared form is one flag on its row lookup,
-so the table is not copied per head. Row i of the tables covers q tokens
+j < counts[i] is swept). The kernel is ``sparse_wgmma_kernel`` of
+``csrc/flash_attention.cu``, the dense flash kernel's wgmma + TMA body
+walking each 128-row work tile's list of selected key superblocks; the
+shared form is one flag on its row lookup, so the table is not copied per
+head. Row i of the tables covers q tokens
 [i*bq, (i+1)*bq); entry j < counts[..., i] names a bk-token key superblock.
 Public functions keep the JAX (B, S, N, D) layout. On a CUDA tensor the
 wrapper launches the kernel or raises; on a CPU tensor it runs the plain

@@ -234,8 +234,11 @@ def _tables(dev, bn, nq, nk, nnz, seed):
     return idx.to(dev).contiguous(), cnt.to(dev).contiguous()
 
 
-@pytest.mark.parametrize("s,bq,bk,nnz", [(600, 128, 128, 3), (1000, 256, 256, 3), (2100, 1024, 512, 2)])
+@pytest.mark.parametrize("s,bq,bk,nnz", [(600, 128, 128, 3), (1000, 256, 256, 3), (2100, 1024, 512, 2),
+                                          (600, 128, 192, 3), (1000, 256, 64, 4)])
 def test_block_sparse_kernel_vs_plain(dev, s, bq, bk, nnz):
+    """bk 192 and 64: a superblock that ends half way through a 128-key
+    tile (the half tile's other 64 keys are masked)."""
     from lightx2v_tpu_torch.ops.cuda import block_sparse_attention as bsa
 
     g = torch.Generator(device=dev).manual_seed(s)
@@ -245,6 +248,43 @@ def test_block_sparse_kernel_vs_plain(dev, s, bq, bk, nnz):
     out = bsa.block_sparse_attention(q, k, v, idx, cnt, bq=bq, bk=bk)
     # bar: bf16 P rounded at different running maxima, summation order
     _close(out, bsa.block_sparse_attention_plain(q, k, v, idx, cnt, bq=bq, bk=bk), 2e-2, 2e-3)
+
+
+def test_block_sparse_kernel_zero_count_rows(dev):
+    """Rows whose count is 0 store zeros; the rows around them are unharmed."""
+    from lightx2v_tpu_torch.ops.cuda import block_sparse_attention as bsa
+
+    s = 700
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn((1, s, 2, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    idx, cnt = _tables(dev, 2, -(-s // 128), -(-s // 128), 3, 11)
+    cnt[0, 1] = 0
+    cnt[1, ::2] = 0
+    out = bsa.block_sparse_attention(q, k, v, idx, cnt)
+    torch.cuda.synchronize()
+    assert not out[:, 128:256, 0].any() and not out[:, :128, 1].any() and not out[:, 256:384, 1].any()
+    _close(out, bsa.block_sparse_attention_plain(q, k, v, idx, cnt), 2e-2, 2e-3)
+
+
+@pytest.mark.parametrize("bk", [128, 192])
+def test_block_sparse_kernel_uneven_counts(dev, bk):
+    """512 work tiles on at most 132 CTAs, so each CTA walks several, with
+    counts from 0 to 24 superblocks (at bk 128 odd and even key-tile counts,
+    so a work tile starts on either stage of the ring): the producer and the
+    consumers must agree on the phase of every tile across work tiles."""
+    from lightx2v_tpu_torch.ops.cuda import block_sparse_attention as bsa
+
+    s, heads = 8192, 8
+    g = torch.Generator(device=dev).manual_seed(bk)
+    q, k, v = (torch.randn((1, s, heads, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    nq, nk = s // 128, -(-s // bk)
+    idx, _ = _tables(dev, heads, nq, nk, 24, bk)
+    gc = torch.Generator().manual_seed(bk)
+    cnt = torch.randint(0, 25, (heads, nq + 1), generator=gc).to(torch.int32)
+    cnt[:, 1::7] = 24
+    cnt = cnt.to(dev).contiguous()
+    out = bsa.block_sparse_attention(q, k, v, idx, cnt, bq=128, bk=bk)
+    _close(out, bsa.block_sparse_attention_plain(q, k, v, idx, cnt, bq=128, bk=bk), 2e-2, 2e-3)
 
 
 def test_sparge_kernel_vs_plain(dev):

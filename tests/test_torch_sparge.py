@@ -88,7 +88,8 @@ def _tables(bn, nq, nk, nnz, seed):
     return idx, cnt
 
 
-@pytest.mark.parametrize("s,bq,bk,nnz", [(600, 128, 128, 3), (600, 256, 128, 4), (700, 256, 256, 2)])
+@pytest.mark.parametrize("s,bq,bk,nnz", [(600, 128, 128, 3), (600, 256, 128, 4), (700, 256, 256, 2),
+                                          (600, 128, 192, 3)])
 def test_block_sparse_plain_matches_pallas(s, bq, bk, nnz):
     q, k, v = _qk(s, seed=s + bq, structure=0.5)
     (jq, tq), (jk, tk), (jv, tv) = _both(q), _both(k), _both(v)
