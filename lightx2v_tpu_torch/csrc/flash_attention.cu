@@ -137,9 +137,6 @@
 //  - The first S of a work tile and its last P.V overlap nothing, as in the
 //    dense kernel: at 8 key tiles (the flagship's sparsest rows) that
 //    weighs more than at the dense self-attention's 256.
-// A first form (on mma.sync.m16n8k16: 8 warps of 16 query rows,
-// 64-key tiles through a 2-deep cp.async ring, a __syncthreads per tile,
-// one CTA per (128 query rows, batch*head)) was replaced by this one.
 
 #include "flash_wgmma.cuh"
 
@@ -219,27 +216,43 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_consta
                             n_work);
 }
 
+// the tensor maps of a bf16 launch over q, k, v, o (strides st: q_b, q_s,
+// q_n, then k's, v's and o's) and its persistent grid: one CTA an SM, each
+// walking work tiles c, c + grid, ...
+struct Launch {
+  CUtensorMap q, k, v, o;
+  int grid, n_qt, n_work;
+};
+
+template <int D>
+cudaError_t plan(Launch& l, const void* q, const void* k, const void* v, void* o, int batch, int n_heads, int sq,
+                 int sk, const long long (&st)[12]) {
+  using C = Dense<D, false>;
+  const int rows_k = sk > 0 ? sk : 1;  // no key tile is loaded when sk == 0
+  if (!bsnd_map<D>(&l.q, q, batch, sq, n_heads, st[0], st[1], st[2], C::BM) ||
+      !bsnd_map<D>(&l.k, k, batch, rows_k, n_heads, st[3], st[4], st[5], C::BN) ||
+      !bsnd_map<D>(&l.v, v, batch, rows_k, n_heads, st[6], st[7], st[8], C::BN) ||
+      !bsnd_map<D>(&l.o, o, batch, sq, n_heads, st[9], st[10], st[11], C::BM))
+    return cudaErrorInvalidValue;
+  l.n_qt = (sq + C::BM - 1) / C::BM;
+  const long long n_work = (long long)l.n_qt * batch * n_heads;
+  if (n_work > 0x7fffffffLL) return cudaErrorInvalidValue;
+  l.n_work = static_cast<int>(n_work);
+  l.grid = l.n_work < sm_count() ? l.n_work : sm_count();
+  return cudaSuccess;
+}
+
 template <int D>
 int launch_dense(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int n_heads, int sq,
                  int sk, int kv_limit, const long long (&st)[12], float gain, cudaStream_t stream) {
   using C = Dense<D, false>;
   if (batch == 0 || n_heads == 0 || sq == 0) return 0;
-  CUtensorMap qm, km, vm, om;
-  const int rows_k = sk > 0 ? sk : 1;  // no key tile is loaded when sk == 0
-  if (!bsnd_map<D>(&qm, q, batch, sq, n_heads, st[0], st[1], st[2], C::BM) ||
-      !bsnd_map<D>(&km, k, batch, rows_k, n_heads, st[3], st[4], st[5], C::BN) ||
-      !bsnd_map<D>(&vm, v, batch, rows_k, n_heads, st[6], st[7], st[8], C::BN) ||
-      !bsnd_map<D>(&om, o, batch, sq, n_heads, st[9], st[10], st[11], C::BM))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int n_qt = (sq + C::BM - 1) / C::BM;
-  const long long n_work = (long long)n_qt * batch * n_heads;
-  if (n_work > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  // persistent: one CTA an SM, each walking work tiles c, c + grid, ...
-  const int grid = static_cast<int>(n_work < sm_count() ? n_work : sm_count());
-  cudaError_t err = set_smem(flash_wgmma_kernel<D>, C::SMEM);
+  Launch l;
+  cudaError_t err = plan<D>(l, q, k, v, o, batch, n_heads, sq, sk, st);
+  if (err == cudaSuccess) err = set_smem(flash_wgmma_kernel<D>, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_wgmma_kernel<D><<<grid, C::THREADS, C::SMEM, stream>>>(qm, km, vm, om, lse, n_heads, sq, kv_limit, gain, n_qt,
-                                                               static_cast<int>(n_work));
+  flash_wgmma_kernel<D><<<l.grid, C::THREADS, C::SMEM, stream>>>(l.q, l.k, l.v, l.o, lse, n_heads, sq, kv_limit, gain,
+                                                                 l.n_qt, l.n_work);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -294,21 +307,13 @@ extern "C" int block_sparse_attention_bf16(const void* q, const void* k, const v
   if (bq <= 0 || bq % C::BM || bk <= 0 || bk % 64 || rows < (sq + bq - 1) / bq)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || n_heads == 0 || sq == 0) return 0;
-  CUtensorMap qm, km, vm, om;
-  const int rows_k = sk > 0 ? sk : 1;
-  if (!bsnd_map<HD>(&qm, q, batch, sq, n_heads, q_b, q_s, q_n, C::BM) ||
-      !bsnd_map<HD>(&km, k, batch, rows_k, n_heads, k_b, k_s, k_n, C::BN) ||
-      !bsnd_map<HD>(&vm, v, batch, rows_k, n_heads, v_b, v_s, v_n, C::BN) ||
-      !bsnd_map<HD>(&om, o, batch, sq, n_heads, o_b, o_s, o_n, C::BM))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int n_qt = (sq + C::BM - 1) / C::BM;
-  const long long n_work = (long long)n_qt * batch * n_heads;
-  if (n_work > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = static_cast<int>(n_work < sm_count() ? n_work : sm_count());
-  cudaError_t err = set_smem(sparse_wgmma_kernel, C::SMEM);
+  const long long st[12] = {q_b, q_s, q_n, k_b, k_s, k_n, v_b, v_s, v_n, o_b, o_s, o_n};
+  Launch l;
+  cudaError_t err = plan<HD>(l, q, k, v, o, batch, n_heads, sq, sk, st);
+  if (err == cudaSuccess) err = set_smem(sparse_wgmma_kernel, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const KeyList kl{static_cast<const int*>(idx), static_cast<const int*>(cnt), rows, nnz, bq, bk, shared};
-  sparse_wgmma_kernel<<<grid, C::THREADS, C::SMEM, static_cast<cudaStream_t>(stream)>>>(
-      qm, km, vm, om, n_heads, sq, sk, gain, n_qt, static_cast<int>(n_work), kl);
+  sparse_wgmma_kernel<<<l.grid, C::THREADS, C::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      l.q, l.k, l.v, l.o, n_heads, sq, sk, gain, l.n_qt, l.n_work, kl);
   return static_cast<int>(cudaGetLastError());
 }

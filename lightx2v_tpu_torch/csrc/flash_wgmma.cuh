@@ -9,11 +9,9 @@
 // changes; sage_attention.cu's what the int8 form adds.
 //
 // The dense forms sweep key tiles 0 .. ceil(kv_limit / 128) of every work
-// tile. The sparse form (SPARSE) sweeps the work tile's list instead
-// (KeyList): cnt superblocks of bk keys, each as ceil(bk / 128) tiles, so a
-// work tile has its own tile count, read from the table by the producer
-// and the consumers alike. The producer places each tile and writes its
-// first key and mask limit into the stage's slot; nothing else changes.
+// tile; the sparse form sweeps the tiles of the work tile's KeyList row,
+// placed by the producer, which hands each tile's first key and mask limit
+// to the consumers in a slot of its stage. Nothing else differs.
 //
 // Each .cu that includes this file gets its own copy (anonymous namespace).
 
