@@ -483,7 +483,10 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
         wgmma_wait<0>();
         take_s(s);
         release_k(s);
-        softmax(SPARSE ? tk.x : 0, SPARSE ? tk.y : kv_limit);
+        if constexpr (SPARSE)
+          softmax(tk.x, tk.y);
+        else
+          softmax(0, kv_limit);
         mbar_wait(&v_full[s], ph(gt));
         rescale_pack();
       }
@@ -499,7 +502,10 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
         wgmma_wait<1>();  // S of tile t is done; P.V of tile t - 1 may still run
         take_s(sn);
         release_k(sn);
-        softmax(SPARSE ? tk.x : t * C::BN, SPARSE ? tk.y : kv_limit);
+        if constexpr (SPARSE)
+          softmax(tk.x, tk.y);
+        else
+          softmax(t * C::BN, kv_limit);
         mbar_wait(&v_full[sn], ph(gt + 1));
         wgmma_wait<0>();
 #pragma unroll
