@@ -242,6 +242,44 @@ def ffn_parts(wm, x, w0, s0, b0, w2, s2, b2, kind: str, reps: int) -> dict:
     return parts
 
 
+def w4a8_parts(w4, x, w, ws, b, reps: int) -> dict:
+    """Row 8's two kernels timed apart: the quantize pass and the GEMM on
+    its codes."""
+    import torch
+
+    lib, stream = w4._lib(), torch.cuda.current_stream().cuda_stream
+    (m, k), n = x.shape, w.shape[0]
+    group = k // ws.shape[1]
+    quant_ms = cuda_ms(lambda: w4._quant(lib, x, group, stream), reps)
+    xq, xs = w4._quant(lib, x, group, stream)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    gemm_ms = cuda_ms(lambda: w4._gemm(lib, xq, w, xs, ws, b, out, group, stream, "gemm"), reps)
+    parts = dict(quantize_ms=quant_ms, gemm_ms=gemm_ms)
+    print(f"[parts] w4a8 M={m}: {json.dumps(parts)}", flush=True)
+    return parts
+
+
+def ffn_w4a8_parts(w4, x, w0, s0, b0, w2, s2, b2, reps: int) -> dict:
+    """Row 7's three kernels timed apart: the quantize pass, GEMM1 (GELU and
+    the hidden requantization in its epilogue) and GEMM2 (the GEMM of row 8
+    over the hidden's bh groups)."""
+    import torch
+
+    lib, stream = w4._lib(), torch.cuda.current_stream().cuda_stream
+    (m, k), h, n = x.shape, w0.shape[0], w2.shape[0]
+    group, bh = k // s0.shape[1], h // s2.shape[1]
+    quant_ms = cuda_ms(lambda: w4._quant(lib, x, group, stream), reps)
+    xq, xs = w4._quant(lib, x, group, stream)
+    hq = torch.empty((m, h), dtype=torch.int8, device=x.device)
+    hs = torch.empty((m, h // bh), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    gemm1_ms = cuda_ms(lambda: w4._gemm1(lib, xq, xs, w0, s0, b0, hq, hs, group, bh, stream), reps)
+    gemm2_ms = cuda_ms(lambda: w4._gemm(lib, hq, w2, hs, s2, b2, out, bh, stream, "gemm2"), reps)
+    parts = dict(quantize_ms=quant_ms, gemm1_ms=gemm1_ms, gemm2_ms=gemm2_ms)
+    print(f"[parts] w4a8 FFN: {json.dumps(parts)}", flush=True)
+    return parts
+
+
 def sage_parts(sa, fa, q, k, v, reps: int) -> dict:
     """Row 10's two kernels timed apart, the quantize pre-pass (q and k) and
     the attention kernel on its codes, beside the port's own bf16 dense
@@ -478,9 +516,9 @@ def kernel_phase_flagship(peaks, reps: int, want):
     def randn(*shape, dtype=torch.bfloat16, std=1.0):
         return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
 
-    def packed(n, k):  # synthetic int4 weights as the runner makes them
+    def packed(n, k):  # synthetic int4 weights as the runner makes them, with scales that vary by (row, group)
         return (torch.randint(0, 256, (n, k // 2), generator=g, device=dev, dtype=torch.uint8),
-                torch.full((n, k // GROUP), 0.02 / 7, device=dev))
+                (0.5 + torch.rand((n, k // GROUP), generator=g, device=dev)) * (0.02 / 7))
 
     # ---- w4a8_matmul (q/k/v/o and cross q/o at M=32,760; cross k/v at M=512) ----
     if want("w4a8_matmul"):
@@ -504,7 +542,7 @@ def kernel_phase_flagship(peaks, reps: int, want):
                 replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:585",
                 shape=f"x ({m},{DIM}) bf16; w ({DIM},{DIM // 2}) u8 + ({DIM},{DIM // GROUP}) fp32",
                 max_abs_err=err, bar="2^-7*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, library_call=none_int4))
+                library_ms=None, library_call=none_int4, **w4a8_parts(w4, x, w, ws, bvec, reps * 2)))
             del x
         del w, ws
 
@@ -530,7 +568,8 @@ def kernel_phase_flagship(peaks, reps: int, want):
                          shape=f"x ({S},{DIM}) bf16; w0 ({FFN},{DIM // 2}) u8 + ({FFN},{DIM // GROUP}); "
                                f"w2 ({DIM},{FFN // 2}) u8 + ({DIM},{FFN // GROUP}) fp32",
                          max_abs_err=err, bar="2e-2*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None, library_call=none_int4))
+                         library_ms=None, library_call=none_int4,
+                         **ffn_w4a8_parts(w4, x, w0, s0, b0, w2, s2, b2, reps)))
         del x, w0, w2
 
     # ---- w8a8_matmul, k-blocked (UMT5-XXL fc2: K = 10,240 > 8192) ----

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) pieces shared by the wgmma kernels (int4_matmul.cu,
 // flash_attention.cu and sage_attention.cu through flash_wgmma.cuh,
-// w8a8_matmul.cu): the wgmma fences and the shared-memory
-// descriptor of the 128-byte swizzle, mbarriers, TMA copies in both
-// directions, tensor maps, and cuTensorMapEncodeTiled looked up through the
-// CUDA runtime's entry-point query (so no library needs -lcuda).
+// w8a8_matmul.cu, w4a8_matmul.cu): the wgmma fences, the shared-memory
+// descriptors of the 128- and 64-byte swizzles, the accumulator operand
+// lists of the 8-bit wgmma shapes, 32-bit shared-memory loads and stores,
+// mbarriers, TMA copies in both directions, tensor maps, and
+// cuTensorMapEncodeTiled looked up through the CUDA runtime's entry-point
+// query (so no library needs -lcuda).
 //
 // Each .cu that includes this file gets its own copy (anonymous namespace).
 
@@ -26,6 +28,15 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
          (1ull << 62);
 }
 
+// The same for a K-major operand in the 64-byte swizzle (rows of 64 bytes,
+// 8-row groups 512 bytes apart), as TMA writes a box with
+// CU_TENSOR_MAP_SWIZZLE_64B: layout type 2, stride byte offset 512. A k32
+// step of 8-bit values moves the start 32 bytes inside the swizzle row.
+__device__ __forceinline__ uint64_t make_desc64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (static_cast<uint64_t>(512 >> 4) << 32) |
+         (2ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 template <int N>
@@ -45,6 +56,73 @@ template <int N>
 __device__ __forceinline__ void fence_acc(int (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Accumulator operand lists of wgmma.m64nNk32 (8-bit operands) at N = 128,
+// 192 and 256: "{%0, ..., %(N/2 - 1)}" in the asm text and the matching
+// constraints, "+f" (W8_F) or "+r" (W8_R) for each of a thread's N/2
+// registers; the operands after them start at %(N/2).
+#define W8_D64 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+  "}"
+#define W8_D96 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95" \
+  "}"
+#define W8_D128 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
+  "}"
+#define W8_F(x) "+f"(x)
+#define W8_R(x) "+r"(x)
+#define W8_OP8(C, d, o) \
+  C(d[o]), C(d[o + 1]), C(d[o + 2]), C(d[o + 3]), C(d[o + 4]), C(d[o + 5]), C(d[o + 6]), C(d[o + 7])
+#define W8_OP64(C, d) \
+  W8_OP8(C, d, 0), W8_OP8(C, d, 8), W8_OP8(C, d, 16), W8_OP8(C, d, 24), W8_OP8(C, d, 32), W8_OP8(C, d, 40), \
+      W8_OP8(C, d, 48), W8_OP8(C, d, 56)
+#define W8_OP96(C, d) W8_OP64(C, d), W8_OP8(C, d, 64), W8_OP8(C, d, 72), W8_OP8(C, d, 80), W8_OP8(C, d, 88)
+#define W8_OP128(C, d) W8_OP96(C, d), W8_OP8(C, d, 96), W8_OP8(C, d, 104), W8_OP8(C, d, 112), W8_OP8(C, d, 120)
+
+// ---- shared memory by 32-bit address ----
+__device__ __forceinline__ void st_shared_b16(uint32_t addr, uint16_t v) {
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(addr), "h"(v) : "memory");
+}
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ uint32_t ld_shared_b32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ uint2 ld_shared_v2(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // ---- mbarriers ----

@@ -116,48 +116,6 @@ constexpr int FP8_FOLD_K = 256;
 // wgmma.m64nNk32 on 8-bit operands, both K-major in shared memory:
 // d (64 x N) = (scale_d ? d : 0) + a (64 x 32) . b (32 x N)
 
-#define W8_D96 \
-  "{" \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
-  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
-  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
-  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95" \
-  "}"
-#define W8_D128 \
-  "{" \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
-  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
-  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
-  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
-  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
-  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
-  "}"
-#define W8_F(x) "+f"(x)
-#define W8_R(x) "+r"(x)
-#define W8_OP8(C, d, o) \
-  C(d[o]), C(d[o + 1]), C(d[o + 2]), C(d[o + 3]), C(d[o + 4]), C(d[o + 5]), C(d[o + 6]), C(d[o + 7])
-#define W8_OP64(C, d) \
-  W8_OP8(C, d, 0), W8_OP8(C, d, 8), W8_OP8(C, d, 16), W8_OP8(C, d, 24), W8_OP8(C, d, 32), W8_OP8(C, d, 40), \
-      W8_OP8(C, d, 48), W8_OP8(C, d, 56)
-#define W8_OP96(C, d) W8_OP64(C, d), W8_OP8(C, d, 64), W8_OP8(C, d, 72), W8_OP8(C, d, 80), W8_OP8(C, d, 88)
-#define W8_OP128(C, d) W8_OP96(C, d), W8_OP8(C, d, 96), W8_OP8(C, d, 104), W8_OP8(C, d, 112), W8_OP8(C, d, 120)
-
-__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(addr)
-               : "memory");
-  return v;
-}
-
 template <int N>
 struct Wgmma8;
 template <>

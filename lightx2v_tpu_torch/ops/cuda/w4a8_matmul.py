@@ -74,19 +74,23 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.w4a8_quant_groups.argtypes = [p, p, p, i, i, i, p]
         lib.w4a8_gemm.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.w4a8_gemm_config.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.ffn_w4a8_gemm1.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
-        for fn in (lib.w4a8_quant_groups, lib.w4a8_gemm, lib.ffn_w4a8_gemm1):
+        for fn in (lib.w4a8_quant_groups, lib.w4a8_gemm, lib.w4a8_gemm_config, lib.ffn_w4a8_gemm1):
             fn.restype = ctypes.c_int
     return lib
 
 
 def _check_packed(w: torch.Tensor, ws: torch.Tensor, b, k: int, dev, name: str):
-    """-> (quant group, fp32 bias). w (N, K/2) uint8, ws (N, K/group) fp32;
-    the kernel takes groups that are multiples of 128."""
+    """-> (quant group, fp32 bias). w (N, K/2) uint8, 16-byte aligned (the
+    GEMM reads it by TMA), ws (N, K/group) fp32; the kernels take groups
+    that are multiples of 128."""
     if w.device != dev or ws.device != dev:
         raise ValueError(f"{name} is on {w.device}, expected {dev}")
     if w.dtype != torch.uint8 or w.dim() != 2 or 2 * w.shape[1] != k or not w.is_contiguous():
         raise ValueError(f"{name} must be contiguous uint8 (N, {k // 2}), got {w.dtype} {tuple(w.shape)}")
+    if w.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
     n = w.shape[0]
     if n % 2:
         raise ValueError(f"{name}: N must be even, got {n}")
@@ -104,6 +108,26 @@ def _check_packed(w: torch.Tensor, ws: torch.Tensor, b, k: int, dev, name: str):
     return group, b.float().contiguous()
 
 
+def _quant(lib, x2, group, stream):
+    return quant_groups(lib.w4a8_quant_groups, x2, group, stream)
+
+
+def _gemm(lib, xq, w, xs, ws, b, out, group, stream, what):
+    """The GEMM on int8 codes: out (M, N) bf16 from xq (M, K), its scales xs
+    (M, K/group), w (N, K/2) packed, ws (N, K/group), fp32 bias b (N,)."""
+    (m, k), n = xq.shape, w.shape[0]
+    _build.check(lib.w4a8_gemm(xq.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(), b.data_ptr(),
+                               out.data_ptr(), m, n, k, group, stream), what)
+
+
+def _gemm1(lib, xq, xs, w0, ws0, b0, hq, hs, group, bh, stream):
+    """The FFN's GEMM1: hq (M, H) int8 and hs (M, H/bh) fp32 from the codes
+    xq (M, K), their scales xs, w0 (H, K/2) packed, ws0, fp32 bias b0."""
+    (m, k), h = xq.shape, w0.shape[0]
+    _build.check(lib.ffn_w4a8_gemm1(xq.data_ptr(), w0.data_ptr(), xs.data_ptr(), ws0.data_ptr(), b0.data_ptr(),
+                                    hq.data_ptr(), hs.data_ptr(), m, h, k, group, bh, stream), "ffn_w4a8 gemm1")
+
+
 def w4a8_matmul(x: torch.Tensor, packed: torch.Tensor, w_scale: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (..., K) bf16 -> (..., N) bf16. packed (N, K/2) uint8 nibbles,
@@ -116,10 +140,9 @@ def w4a8_matmul(x: torch.Tensor, packed: torch.Tensor, w_scale: torch.Tensor,
     n, m = packed.shape[0], x2.shape[0]
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    xq, xs = quant_groups(lib.w4a8_quant_groups, x2, group, stream)
+    xq, xs = _quant(lib, x2, group, stream)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    _build.check(lib.w4a8_gemm(xq.data_ptr(), packed.data_ptr(), xs.data_ptr(), w_scale.data_ptr(), b.data_ptr(),
-                               out.data_ptr(), m, n, k, group, stream), "w4a8_matmul")
+    _gemm(lib, xq, packed, xs, w_scale, b, out, group, stream, "w4a8_matmul")
     LAUNCHES["w4a8_matmul"] += 1
     return out.reshape(*lead, n)
 
@@ -142,14 +165,11 @@ def ffn_w4a8(x: torch.Tensor, w0: torch.Tensor, w0_scale: torch.Tensor, b0: Opti
     n, m = w2.shape[0], x2.shape[0]
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    xq, xs = quant_groups(lib.w4a8_quant_groups, x2, group0, stream)
+    xq, xs = _quant(lib, x2, group0, stream)
     hq = torch.empty((m, h_dim), dtype=torch.int8, device=x.device)
     hs = torch.empty((m, h_dim // bh), dtype=torch.float32, device=x.device)
-    _build.check(lib.ffn_w4a8_gemm1(xq.data_ptr(), w0.data_ptr(), xs.data_ptr(), w0_scale.data_ptr(),
-                                    b0c.data_ptr(), hq.data_ptr(), hs.data_ptr(), m, h_dim, k, group0, bh,
-                                    stream), "ffn_w4a8 gemm1")
+    _gemm1(lib, xq, xs, w0, w0_scale, b0c, hq, hs, group0, bh, stream)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    _build.check(lib.w4a8_gemm(hq.data_ptr(), w2.data_ptr(), hs.data_ptr(), w2_scale.data_ptr(), b2c.data_ptr(),
-                               out.data_ptr(), m, n, h_dim, bh, stream), "ffn_w4a8 gemm2")
+    _gemm(lib, hq, w2, hs, w2_scale, b2c, out, bh, stream, "ffn_w4a8 gemm2")
     LAUNCHES["ffn_w4a8"] += 1
     return out.reshape(*lead, n)

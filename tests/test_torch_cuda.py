@@ -192,6 +192,28 @@ def test_w4a8_kernel_vs_plain(dev, m, n, k, group, bias):
     _close(w4.w4a8_matmul(x, w, ws, b), w4.w4a8_matmul_plain(x, w, ws, b), 2 ** -7, 0.0)
 
 
+@pytest.mark.parametrize("case", ["wrap", "nibbles_00", "nibbles_ff", "gemm2_k"])
+def test_w4a8_kernel_hazards(dev, case):
+    """wrap: more output tiles than CTAs (M = 4096, N = 2048: 22 x 16 tiles of
+    192 tokens x 128 weight rows), so the persistent walk wraps and the ring
+    carries its phases from tile to tile. nibbles_00 / nibbles_ff: one-signed
+    x (positive codes) against all-0x00 and all-0xFF packed weights, the
+    nibble extremes -8 and 7, so every group sum has one sign and its
+    largest size. gemm2_k: K = 13,824 in 27 groups of 512 (the FFN's second
+    GEMM) with ragged M and N."""
+    from lightx2v_tpu_torch.ops.cuda import w4a8_matmul as w4
+
+    m, n, k = {"wrap": (4096, 2048, 5120), "gemm2_k": (333, 136, 13824)}.get(case, (300, 256, 5120))
+    g = torch.Generator(device=dev).manual_seed(m + n + k)
+    x = _x(g, dev, m, k, one_signed=case.startswith("nibbles"))
+    w, ws = _packed(g, dev, n, k, 512)
+    if case.startswith("nibbles"):
+        w.fill_(0x00 if case == "nibbles_00" else 0xFF)
+    b = torch.randn((n,), generator=g, device=dev) * 0.1
+    # bar: same codes, exact int32 group sums, same fp32 order; bf16 ties aside
+    _close(w4.w4a8_matmul(x, w, ws, b), w4.w4a8_matmul_plain(x, w, ws, b), 2 ** -7, 0.0)
+
+
 @pytest.mark.parametrize("m,k,h,n", [(70, 512, 13824, 128), (33, 1024, 768, 256), (129, 256, 384, 64)])
 def test_ffn_w4a8_kernel_vs_plain(dev, m, k, h, n):
     """bh = 512 (27 hidden groups), 256 and 128."""
