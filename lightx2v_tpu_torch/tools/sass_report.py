@@ -1,8 +1,10 @@
 """Compiles ``csrc`` sources to cubins with the build's nvcc flags and reports
 their SASS, one JSON line per kernel: the counts of the tensor-core and
 conversion instructions that tell how a kernel was lowered (``IGMMA``,
-``HGMMA``, ``QGMMA``, ``IMMA``, ``HMMA``, ``I2F``, ``I2FP``, ``MUFU.EX2``)
-and the count of all instructions.
+``HGMMA``, ``QGMMA``, ``IMMA``, ``HMMA``, ``I2F``, ``I2FP``, ``MUFU.EX2``),
+of local-memory stores and loads (``STL``, ``LDL``: spills) and of register
+reallocations (``USETMAXREG``, from ``setmaxnreg``), and the count of all
+instructions.
 
     python3 lightx2v_tpu_torch/tools/sass_report.py SOURCE [SOURCE ...]
     python3 lightx2v_tpu_torch/tools/sass_report.py flash_attention --same-as OTHER_ROOT --kernel flash_wgmma_kernel
@@ -26,7 +28,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-OPS = ("IGMMA", "HGMMA", "QGMMA", "IMMA", "HMMA", "I2F", "I2FP", "MUFU.EX2")
+OPS = ("IGMMA", "HGMMA", "QGMMA", "IMMA", "HMMA", "I2F", "I2FP", "MUFU.EX2", "STL", "LDL", "USETMAXREG")
 _INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 
 

@@ -1,23 +1,24 @@
-"""Times the int4 x int8 GEMM (``w4a8_gemm_kernel``) in each of its
-configurations on the card, on the same codes:
+"""Times the int4 x int8 GEMM (``w4a8_gemm_kernel``) on the card in its two
+grids and at several quant group sizes, on the same codes:
 
     python3 lightx2v_tpu_torch/tools/w4a8_tile.py               # check and time
     python3 lightx2v_tpu_torch/tools/w4a8_tile.py --check-only  # small ragged shapes only
 
-For each tile width (128 or 192 tokens a tile, the wgmma N) and each grid
-(one CTA a tile, or persistent: one CTA an SM walking the tiles) it runs the
-GEMM entry point ``w4a8_gemm_config`` at the main path's shapes, the q/k/v/o
-projection (M = 32,760, N = K = 5120, groups of 512), the cross-attention
-k/v projection (M = 512) and the FFN's second GEMM (K = 13,824, 27 groups),
-and prints one JSON line per case: max |out - plain| against the bar 2^-7 *
-max |plain| (the plain version's ``_grouped_dot`` on the same codes) and the
-CUDA-event median ms of the GEMM alone. First it holds every configuration
-against the plain version at small ragged shapes. With ``--parent ROOT``
-it also builds ROOT's ``csrc/w4a8_matmul.cu`` (another checkout) and times
-its ``w4a8_gemm`` entry point in turns with this checkout's (theirs, ours,
-ours, theirs) at each main shape, on the same codes. The card's name and
-power limit come first, its SM clock and power draw last. The ``ptxas -v``
-lines of the build are printed.
+For each grid, one CTA a tile or persistent (one CTA an SM walking the
+tiles, the grid the port launches), it runs the GEMM entry point
+``w4a8_gemm_ctas`` at the main path's shapes, the q/k/v/o projection (M =
+32,760, N = K = 5120, groups of 512), the cross-attention k/v projection (M
+= 512) and the FFN's second GEMM (K = 13,824, 27 groups), and prints one
+JSON line per case: max |out - plain| against the bar 2^-7 * max |plain|
+(the plain version's ``_grouped_dot`` on the same codes) and the CUDA-event
+median ms of the GEMM alone; then the q/k/v/o projection again, persistent,
+with quant groups of 128 to 5120 (what the folds cost). First it holds both
+grids against the plain version at small ragged shapes. With ``--parent
+ROOT`` it also builds ROOT's ``csrc/w4a8_matmul.cu`` (another checkout) and
+times its ``w4a8_gemm`` entry point in turns with this checkout's (theirs,
+ours, ours, theirs) at each main shape, on the same codes. The card's name
+and power limit come first, its SM clock and power draw last. The ``ptxas
+-v`` lines of the build are printed.
 """
 
 from __future__ import annotations
@@ -29,7 +30,6 @@ import subprocess
 import sys
 from pathlib import Path
 
-TILES = (128, 192)
 SMALL = ((200, 136, 1024, 512), (513, 256, 384, 128), (1, 130, 768, 256), (4096, 2048, 5120, 512),
          (333, 256, 13824, 512))
 MAIN = (("row 8", 32760, 5120, 5120), ("row 8 M=512", 512, 5120, 5120), ("GEMM2", 32760, 5120, 13824))
@@ -79,7 +79,7 @@ def main() -> None:
     lib = w4._lib()
     stream = torch.cuda.current_stream().cuda_stream
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    configs = [(bm, ctas) for bm in TILES for ctas in (0, sms)]
+    configs = [0, sms]  # CTAs: one a tile, persistent
     other = None
     if args.parent:
         so = _build.BUILD_DIR / "w4a8_parent.so"
@@ -100,10 +100,10 @@ def main() -> None:
         ref = (w4._grouped_dot(xq, xs, w4.unpack_int4_plain(w, k // group), ws, group) + b[None]).to(torch.bfloat16)
         return xq, xs, w, ws, b, ref
 
-    def run(bm, ctas, xq, xs, w, ws, b, out, group):
+    def run(ctas, xq, xs, w, ws, b, out, group):
         (m, k), n = xq.shape, w.shape[0]
-        _build.check(lib.w4a8_gemm_config(xq.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(), b.data_ptr(),
-                                          out.data_ptr(), m, n, k, group, bm, ctas, stream), f"w4a8 {bm} {ctas}")
+        _build.check(lib.w4a8_gemm_ctas(xq.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(), b.data_ptr(),
+                                        out.data_ptr(), m, n, k, group, ctas, stream), f"w4a8 ctas={ctas}")
 
     def err_of(out, ref):
         torch.cuda.synchronize()
@@ -112,25 +112,27 @@ def main() -> None:
     ok = True
     for m, n, k, group in SMALL:
         xq, xs, w, ws, b, ref = case(m, n, k, group)
-        for bm, ctas in configs:
+        for cfg in configs:
             out = torch.full((m, n), float("nan"), dtype=torch.bfloat16, device=dev)
-            run(bm, ctas, xq, xs, w, ws, b, out, group)
+            run(cfg, xq, xs, w, ws, b, out, group)
             err, bar = err_of(out, ref)
             ok &= err <= bar
-            print(json.dumps(dict(shape=[m, n, k, group], bm=bm, ctas=ctas, max_abs_err=err, bar=bar)), flush=True)
+            print(json.dumps(dict(shape=[m, n, k, group], ctas=cfg, max_abs_err=err, bar=bar)), flush=True)
     if not args.check_only:
-        for name, m, n, k in MAIN:
-            xq, xs, w, ws, b, ref = case(m, n, k, 512)
+        runs = [(name, m, n, k, 512, configs) for name, m, n, k in MAIN]
+        runs += [("row 8, groups", 32760, 5120, 5120, grp, [sms]) for grp in (5120, 1024, 256, 128)]
+        for name, m, n, k, group, cfgs in runs:
+            xq, xs, w, ws, b, ref = case(m, n, k, group)
             out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-            for bm, ctas in configs:
+            for cfg in cfgs:
                 out.fill_(float("nan"))
-                run(bm, ctas, xq, xs, w, ws, b, out, 512)
+                run(cfg, xq, xs, w, ws, b, out, group)
                 err, bar = err_of(out, ref)
                 ok &= err <= bar
-                ms = cuda_ms(lambda: run(bm, ctas, xq, xs, w, ws, b, out, 512), args.reps)
-                print(json.dumps(dict(case=name, shape=[m, n, k, 512], bm=bm, ctas=ctas, max_abs_err=err, bar=bar,
+                ms = cuda_ms(lambda: run(cfg, xq, xs, w, ws, b, out, group), args.reps)
+                print(json.dumps(dict(case=name, shape=[m, n, k, group], ctas=cfg, max_abs_err=err, bar=bar,
                                       ms=ms)), flush=True)
-            if other is not None:
+            if other is not None and group == 512:
                 turns = []
                 for lib_ in (other, lib, lib, other):
                     def call(lib_=lib_):
