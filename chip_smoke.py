@@ -58,7 +58,10 @@ parts (``[parts]`` lines, and keys of their kernel rows): the quantize pass
 and the GEMM of rows 3/3f beside the bare ``torch._int_mm`` /
 ``torch._scaled_mm`` on the same codes, and the FFN's GEMM1 and GEMM2 of
 rows 4/4f; row 3f is also held against its plain version on one-signed
-inputs at the main shape. Row 10 (``sage_attention``) is timed in parts too,
+inputs at the main shape. The w4a8 rows are timed in parts the same way:
+row 8's quantize pass and GEMM, row 7's quantize pass, GEMM1 and GEMM2; their
+synthetic weight scales vary by (row, group), so a scale read from the wrong
+row or group shows. Row 10 (``sage_attention``) is timed in parts too,
 its quantize pass and its attention kernel, beside the port's own bf16
 ``flash_attention`` on the same q, k, v, and held against its plain version
 on one-signed q and k at the main shape.

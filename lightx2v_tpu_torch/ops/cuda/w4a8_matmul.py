@@ -74,9 +74,8 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.w4a8_quant_groups.argtypes = [p, p, p, i, i, i, p]
         lib.w4a8_gemm.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
-        lib.w4a8_gemm_ctas.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.ffn_w4a8_gemm1.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
-        for fn in (lib.w4a8_quant_groups, lib.w4a8_gemm, lib.w4a8_gemm_ctas, lib.ffn_w4a8_gemm1):
+        for fn in (lib.w4a8_quant_groups, lib.w4a8_gemm, lib.ffn_w4a8_gemm1):
             fn.restype = ctypes.c_int
     return lib
 

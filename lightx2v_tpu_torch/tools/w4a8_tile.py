@@ -1,24 +1,23 @@
-"""Times the int4 x int8 GEMM (``w4a8_gemm_kernel``) on the card in its two
-grids and at several quant group sizes, on the same codes:
+"""Checks and times the int4 x int8 GEMM (``w4a8_gemm_kernel``, the
+``w4a8_gemm`` entry point) on the card, on codes from the port's quantize
+pass:
 
-    python3 lightx2v_tpu_torch/tools/w4a8_tile.py               # check and time
-    python3 lightx2v_tpu_torch/tools/w4a8_tile.py --check-only  # small ragged shapes only
+    python3 lightx2v_tpu_torch/tools/w4a8_tile.py                      # check and time
+    python3 lightx2v_tpu_torch/tools/w4a8_tile.py --check-only         # small ragged shapes only
+    python3 lightx2v_tpu_torch/tools/w4a8_tile.py --parent OTHER_ROOT  # and another checkout's, in turns
 
-For each grid, one CTA a tile or persistent (one CTA an SM walking the
-tiles, the grid the port launches), it runs the GEMM entry point
-``w4a8_gemm_ctas`` at the main path's shapes, the q/k/v/o projection (M =
-32,760, N = K = 5120, groups of 512), the cross-attention k/v projection (M
-= 512) and the FFN's second GEMM (K = 13,824, 27 groups), and prints one
-JSON line per case: max |out - plain| against the bar 2^-7 * max |plain|
-(the plain version's ``_grouped_dot`` on the same codes) and the CUDA-event
-median ms of the GEMM alone; then the q/k/v/o projection again, persistent,
-with quant groups of 128 to 5120 (what the folds cost). First it holds both
-grids against the plain version at small ragged shapes. With ``--parent
-ROOT`` it also builds ROOT's ``csrc/w4a8_matmul.cu`` (another checkout) and
-times its ``w4a8_gemm`` entry point in turns with this checkout's (theirs,
-ours, ours, theirs) at each main shape, on the same codes. The card's name
-and power limit come first, its SM clock and power draw last. The ``ptxas
--v`` lines of the build are printed.
+First it holds the GEMM against the plain version's ``_grouped_dot`` on the
+same codes at small ragged shapes (bar 2^-7 * max |plain|). Then, one JSON
+line per case, max |out - plain| and the CUDA-event median ms of the GEMM
+alone at the main path's shapes: the q/k/v/o projection (M = 32,760, N = K
+= 5120, groups of 512), the cross-attention k/v projection (M = 512) and the
+FFN's second GEMM (K = 13,824, 27 groups); then the q/k/v/o projection with
+quant groups of 128 to 5120, which shows what the group boundaries' folds
+cost. With ``--parent ROOT`` it also builds ROOT's ``csrc/w4a8_matmul.cu``
+(another checkout of the port) and times its ``w4a8_gemm`` in turns with
+this checkout's (theirs, ours, ours, theirs) at each main shape. The card's
+name and power limit come first, its SM clock and power draw last; the
+build's ``ptxas -v`` lines are printed.
 """
 
 from __future__ import annotations
@@ -33,6 +32,7 @@ from pathlib import Path
 SMALL = ((200, 136, 1024, 512), (513, 256, 384, 128), (1, 130, 768, 256), (4096, 2048, 5120, 512),
          (333, 256, 13824, 512))
 MAIN = (("row 8", 32760, 5120, 5120), ("row 8 M=512", 512, 5120, 5120), ("GEMM2", 32760, 5120, 13824))
+GROUPS = (5120, 1024, 256, 128)
 
 
 def smi(query: str) -> str:
@@ -58,6 +58,19 @@ def cuda_ms(fn, reps: int) -> float:
     return float(times[len(times) // 2])
 
 
+def load_other(root: str, build_dir: Path, nvcc: str, flags) -> ctypes.CDLL:
+    """Another checkout's w4a8 library, built with this checkout's flags."""
+    so = build_dir / "w4a8_parent.so"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    src = Path(root).resolve() / "lightx2v_tpu_torch" / "csrc" / "w4a8_matmul.cu"
+    subprocess.run([nvcc, *flags, "-o", str(so), str(src)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.w4a8_gemm.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.w4a8_gemm.restype = ctypes.c_int
+    return lib
+
+
 def main() -> None:
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     import torch
@@ -77,19 +90,8 @@ def main() -> None:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4)
     lib = w4._lib()
+    other = load_other(args.parent, _build.BUILD_DIR, _build.nvcc_path(), _build.NVCC_FLAGS) if args.parent else None
     stream = torch.cuda.current_stream().cuda_stream
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    configs = [0, sms]  # CTAs: one a tile, persistent
-    other = None
-    if args.parent:
-        so = _build.BUILD_DIR / "w4a8_parent.so"
-        src = Path(args.parent).resolve() / "lightx2v_tpu_torch" / "csrc" / "w4a8_matmul.cu"
-        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(src)], check=True,
-                       capture_output=True)
-        other = ctypes.CDLL(str(so))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        other.w4a8_gemm.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
-        other.w4a8_gemm.restype = ctypes.c_int
 
     def case(m, n, k, group):
         x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
@@ -100,56 +102,49 @@ def main() -> None:
         ref = (w4._grouped_dot(xq, xs, w4.unpack_int4_plain(w, k // group), ws, group) + b[None]).to(torch.bfloat16)
         return xq, xs, w, ws, b, ref
 
-    def run(ctas, xq, xs, w, ws, b, out, group):
+    def run(which, xq, xs, w, ws, b, out, group):
         (m, k), n = xq.shape, w.shape[0]
-        _build.check(lib.w4a8_gemm_ctas(xq.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(), b.data_ptr(),
-                                        out.data_ptr(), m, n, k, group, ctas, stream), f"w4a8 ctas={ctas}")
-
-    def err_of(out, ref):
-        torch.cuda.synchronize()
-        return float((out.float() - ref.float()).abs().max()), 2 ** -7 * float(ref.float().abs().max())
+        _build.check(which.w4a8_gemm(xq.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(), b.data_ptr(),
+                                     out.data_ptr(), m, n, k, group, stream), "w4a8_gemm")
 
     ok = True
+
+    def checked(which, xq, xs, w, ws, b, ref, group):
+        """One call on an output filled with NaN (so an unwritten element
+        fails), then max |out - ref| and the bar."""
+        nonlocal ok
+        out = torch.full(ref.shape, float("nan"), dtype=torch.bfloat16, device=dev)
+        run(which, xq, xs, w, ws, b, out, group)
+        torch.cuda.synchronize()
+        err, bar = float((out.float() - ref.float()).abs().max()), 2 ** -7 * float(ref.float().abs().max())
+        ok &= err <= bar
+        return out, err, bar
+
     for m, n, k, group in SMALL:
         xq, xs, w, ws, b, ref = case(m, n, k, group)
-        for cfg in configs:
-            out = torch.full((m, n), float("nan"), dtype=torch.bfloat16, device=dev)
-            run(cfg, xq, xs, w, ws, b, out, group)
-            err, bar = err_of(out, ref)
-            ok &= err <= bar
-            print(json.dumps(dict(shape=[m, n, k, group], ctas=cfg, max_abs_err=err, bar=bar)), flush=True)
+        _, err, bar = checked(lib, xq, xs, w, ws, b, ref, group)
+        print(json.dumps(dict(shape=[m, n, k, group], max_abs_err=err, bar=bar)), flush=True)
     if not args.check_only:
-        runs = [(name, m, n, k, 512, configs) for name, m, n, k in MAIN]
-        runs += [("row 8, groups", 32760, 5120, 5120, grp, [sms]) for grp in (5120, 1024, 256, 128)]
-        for name, m, n, k, group, cfgs in runs:
+        runs = [(name, m, n, k, 512) for name, m, n, k in MAIN]
+        runs += [("row 8, groups", 32760, 5120, 5120, group) for group in GROUPS]
+        for name, m, n, k, group in runs:
             xq, xs, w, ws, b, ref = case(m, n, k, group)
-            out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-            for cfg in cfgs:
-                out.fill_(float("nan"))
-                run(cfg, xq, xs, w, ws, b, out, group)
-                err, bar = err_of(out, ref)
-                ok &= err <= bar
-                ms = cuda_ms(lambda: run(cfg, xq, xs, w, ws, b, out, group), args.reps)
-                print(json.dumps(dict(case=name, shape=[m, n, k, group], ctas=cfg, max_abs_err=err, bar=bar,
-                                      ms=ms)), flush=True)
+            out, err, bar = checked(lib, xq, xs, w, ws, b, ref, group)
+            ms = cuda_ms(lambda: run(lib, xq, xs, w, ws, b, out, group), args.reps)
+            line = dict(case=name, shape=[m, n, k, group], max_abs_err=err, bar=bar, ms=ms)
             if other is not None and group == 512:
                 turns = []
-                for lib_ in (other, lib, lib, other):
-                    def call(lib_=lib_):
-                        _build.check(lib_.w4a8_gemm(xq.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(),
-                                                    b.data_ptr(), out.data_ptr(), m, n, k, 512, stream), "w4a8_gemm")
-                    out.fill_(float("nan"))
-                    call()
-                    err, bar = err_of(out, ref)
-                    ok &= err <= bar
-                    turns.append(dict(build="parent" if lib_ is other else "this", ms=cuda_ms(call, args.reps),
-                                      max_abs_err=err))
-                print(json.dumps(dict(case=name, turns=turns)), flush=True)
+                for which in (other, lib, lib, other):
+                    out, err, _ = checked(which, xq, xs, w, ws, b, ref, group)
+                    turns.append(dict(build="parent" if which is other else "this", max_abs_err=err,
+                                      ms=cuda_ms(lambda: run(which, xq, xs, w, ws, b, out, group), args.reps)))
+                line["turns"] = turns
+            print(json.dumps(line), flush=True)
             del xq, xs, w, ref, out
             torch.cuda.empty_cache()
     print(smi("clocks.sm,power.draw"), flush=True)
     if not ok:
-        raise SystemExit("w4a8_tile.py: a configuration exceeded its bar")
+        raise SystemExit("w4a8_tile.py: the GEMM exceeded its bar")
 
 
 if __name__ == "__main__":

@@ -172,3 +172,37 @@ def test_jax_cpu_int4a8_is_weight_only():
     tout = t4.w4a8_matmul(tx, torch.from_numpy(wp), torch.from_numpy(ws)).float().numpy()
     rel = np.linalg.norm(tout - jout) / np.linalg.norm(jout)
     assert 0 < rel < 2e-2, rel
+
+
+def test_w4a8_x16_operand_folds_as_contract():
+    """The CUDA GEMM feeds its tensor cores 16 * (nibble - 8), one LOP3 a
+    word of high nibbles ((r & 0xF0) ^ 0x80) and a shift more for the low
+    ones, so its group sums are 16 times the contract's; its fold then takes
+    xs / 16. Both steps are exact: the bytes are 16 * (nibble - 8) for every
+    packed byte, and (float(16 S) * (xs / 16)) * ws equals (float(S) * xs) *
+    ws bit for bit over the group sums and scales a group of 512 can give."""
+    r = np.arange(256, dtype=np.uint32)
+    hi = ((r & 0xF0) ^ 0x80).astype(np.uint8).view(np.int8)
+    lo = (((r << 4) & 0xF0) ^ 0x80).astype(np.uint8).view(np.int8)
+    np.testing.assert_array_equal(hi, 16 * ((r >> 4).astype(np.int64) - 8))
+    np.testing.assert_array_equal(lo, 16 * ((r & 15).astype(np.int64) - 8))
+    rng = np.random.default_rng(16)
+    s = torch.from_numpy(np.concatenate([rng.integers(-512 * 127 * 8, 512 * 127 * 8 + 1, 100_000),
+                                         [512 * 127 * 8, -512 * 127 * 8, 1, -1, 0]]))
+    xs = torch.clamp_min(torch.from_numpy(rng.random(s.shape[0]).astype(np.float32) * 8), 1e-8) * (1.0 / 127.0)
+    ws = torch.from_numpy((0.5 + rng.random(s.shape[0]).astype(np.float32)) * (0.02 / 7))
+    contract = (s.float() * xs) * ws
+    kernel = ((16 * s).float() * (xs * 0.0625)) * ws
+    assert torch.equal(kernel, contract)
+
+
+def test_w4a8_refuses_misaligned_weights():
+    """The GEMM reads the packed weights by TMA, so their start must be
+    16-byte aligned; a view that is not is refused before any launch."""
+    n, k = 8, 1024
+    base = torch.zeros(n * k // 2 + 16, dtype=torch.uint8)
+    w = base[1:1 + n * k // 2].view(n, k // 2)
+    ws = torch.ones((n, 2), dtype=torch.float32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        t4._check_packed(w, ws, None, k, torch.device("cpu"), "w")
+    assert t4._check_packed(base[16:16 + n * k // 2].view(n, k // 2), ws, None, k, torch.device("cpu"), "w")[0] == 512
