@@ -1157,7 +1157,7 @@ def _category(name: str) -> str:
                      ("sage_wgmma_kernel", "sage attention (ours)"),
                      ("sage_quant_rows", "sage row quantize (ours)"), ("int4_wgmma_kernel", "int4 GEMM (ours)"),
                      ("w8a8_wgmma_kernel<true", "fp8 GEMM (ours)"), ("w8a8_wgmma_kernel", "int8 GEMM (ours)"),
-                     ("ffn_gemm1_kernel<true", "fp8 FFN GEMM1 (ours)"),
+                     ("ffn_gemm1_wgmma_kernel<true", "fp8 FFN GEMM1 (ours)"),
                      ("ffn_gemm1", "ffn GEMM1 (ours)"), ("ffn_w4a8_gemm1", "ffn w4a8 GEMM1 (ours)"),
                      ("w4a8_gemm_kernel", "w4a8 GEMM (ours)"), ("quant_groups", "8-bit quantize (ours)"),
                      ("sort", "sort (torch)"),

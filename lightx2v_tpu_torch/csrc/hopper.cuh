@@ -3,7 +3,8 @@
 // w8a8_matmul.cu, w4a8_matmul.cu): the wgmma fences, the shared-memory
 // descriptors of the 128- and 64-byte swizzles, the accumulator operand
 // lists of the 8-bit wgmma shapes, 32-bit shared-memory loads and stores,
-// mbarriers, TMA copies in both directions, tensor maps, and
+// mbarriers, cluster ranks, barriers and distributed shared memory, TMA
+// copies in both directions, tensor maps, and
 // cuTensorMapEncodeTiled looked up through the CUDA runtime's entry-point
 // query (so no library needs -lcuda).
 //
@@ -145,6 +146,60 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// ---- thread block clusters (1-D) ----
+__device__ __forceinline__ int cluster_rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ int cluster_size() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ int cluster_id() {
+  int r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ int cluster_count() {
+  int r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+// every thread of every CTA of the cluster; orders shared-memory accesses
+// across the cluster (not .aligned: the callers need not be converged)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// the same shared-memory location in the cluster's CTA `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_cluster_v2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+// an arrive on a barrier of any CTA of the cluster (addr from map_rank),
+// releasing this thread's earlier stores to the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr) : "memory");
+}
+// a wait that acquires what the arrivals released at cluster scope
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
 }
 
 // ---- TMA ----

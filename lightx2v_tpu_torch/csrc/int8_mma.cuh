@@ -1,8 +1,8 @@
 // Pieces shared by the 8-bit tensor-core kernels (w8a8_matmul.cu,
-// w4a8_matmul.cu): cp.async and ldmatrix wrappers, the mma.sync.m16n8k32
-// products on int8 (int32 sums) and on e4m3 (fp32 sums), tanh-GELU in the
-// TPU kernels' evaluation order, and the dynamic per-(row, group) activation
-// quantization pass to int8 or e4m3 codes.
+// w4a8_matmul.cu): cp.async and ldmatrix wrappers and the int8
+// mma.sync.m16n8k32 product (int32 sums) of w4a8_matmul.cu's FFN GEMM1,
+// tanh-GELU in the TPU kernels' evaluation order, and the dynamic
+// per-(row, group) activation quantization pass to int8 or e4m3 codes.
 //
 // Each .cu that includes this file gets its own copy (anonymous namespace),
 // so every shared library stays self-contained.
@@ -42,27 +42,7 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The same product on e4m3 operands with fp32 accumulators (sm_89 and
-// later): the operand and accumulator fragments have the s8 layout. On
-// sm_90 ptxas lowers it to an e4m3 -> f16 unpack of the fragments and two
-// HMMA.16816.F32, the fp16 rate (cuobjdump -sass); only wgmma reaches
-// Hopper's fp8 rate. Of the fp8 kernels only the FFN's first GEMM
-// (ffn_gemm1_kernel in w8a8_matmul.cu) still runs it.
-__device__ __forceinline__ void mma_e4m3(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// one name for both, chosen by the accumulator type
-__device__ __forceinline__ void mma8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  mma_s8(c, a, b0, b1);
-}
-__device__ __forceinline__ void mma8(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  mma_e4m3(c, a, b0, b1);
-}
+// the wgmma kernels' accumulators (int32 or fp32) as fp32
 __device__ __forceinline__ float acc_to_float(int a) { return __int2float_rn(a); }
 __device__ __forceinline__ float acc_to_float(float a) { return a; }
 

@@ -93,16 +93,46 @@
 //
 // The fused FFN cannot keep the TPU's (512, 5120) fp32 accumulator (100 MB
 // VMEM there, 227 KB of shared memory here), so it is two GEMMs around an
-// 8-bit hidden: ffn_gemm1_kernel's CTA N-tile is exactly one bh-wide hidden
-// group (bh = 512 at H = 13,824), so its epilogue can apply *xs*ws0 + b0,
-// tanh-GELU in fp32, the per-(token, bh) absmax and the requantization,
-// writing 8-bit h and fp32 hs (S, H/bh). The second GEMM is the grouped
-// form above with hs as a_scale, then *ws2 + b2. h never exists in fp32 or
-// bf16 in device memory; the 8-bit round trip costs ~0.9 GB (~0.27 ms at
-// 3.35 TB/s) against a 4.69 ms operation bound. ffn_gemm1_kernel still runs
-// mma.sync.m16n8k32 on a 3-stage cp.async ring (rows padded to 80 bytes so
-// ldmatrix is conflict-free); on sm_90 its e4m3 product runs at the fp16
-// rate (int8_mma.cuh).
+// 8-bit hidden. The first (ffn_gemm1_wgmma_kernel) applies *xs*ws0 + b0,
+// tanh-GELU in fp32, the per-(token, bh) absmax and the requantization in
+// its epilogue, writing 8-bit h and fp32 hs (S, H/bh). The second GEMM is
+// the grouped form above with hs as a_scale, then *ws2 + b2. h never exists
+// in fp32 or bf16 in device memory; the 8-bit round trip costs ~0.9 GB
+// (~0.27 ms at 3.35 TB/s) against a 4.69 ms operation bound.
+//
+// The first GEMM runs the main loop above (produce_tile / consume_tile, the
+// same ring, the fp8 promotion every FP8_FOLD_K) on a (token tile, hidden
+// group) unit. A group's absmax needs all bh of a row's hidden values, and
+// no CTA holds 128 rows x 512 (int8: m64n256 is 128 accumulator registers a
+// thread; fp8: the promotion sum doubles them, so a warpgroup holds at most
+// m64n192, which does not divide 512). So a cluster of bh / BN CTAs covers
+// one unit: int8 128 x 256 CTAs (bh 512: 2 CTAs; bh 256: 1), fp8 and int8
+// at bh = 128 128 x 128 CTAs (fp8 bh 512: 4 CTAs).
+//  - Absmax exchange: in wgmma's accumulator layout a row's columns sit in
+//    the 4 lanes of a quad, so a row's partial over the CTA's columns takes
+//    two shfl_xor. Each quad's first lane writes its two rows' partials into
+//    every CTA of the cluster (st.shared::cluster into the slot of its rank)
+//    and arrives on that CTA's mbarrier with release at cluster scope; the
+//    warpgroup waits on its own barrier (acquire) and takes the max over the
+//    ranks. Slots and barriers are per consumer warpgroup (the two
+//    warpgroups run up to a ring apart) and per unit parity: a CTA writes
+//    unit i + 2's partials only after every peer's unit i + 1 partials
+//    arrived, which the peers sent after reading unit i's.
+//  - Epilogue: h overwrites the accumulator (or the promotion sum) in place,
+//    so no second 128-register array is live; the codes are staged 128
+//    columns at a time through the warpgroup's buffer and written with
+//    16-byte stores. The TPU order and the port's rounding are kept
+//    (__fmul_rn/__fadd_rn, tanhf, Codes<FP8>::pair's IEEE division), so the
+//    int8 codes and scales are bit-identical to the earlier mma.sync kernel.
+//  - Walk: persistent, one cluster for every bh / BN SMs
+//    (cudaOccupancyMaxActiveClusters); unit u lies in a block of GB = 8
+//    groups, token tile outer and group inner inside the block, so the
+//    clusters in flight share 8 groups of w0 (21 MB at K = 5120) and a few
+//    token tiles in L2 where group-fastest order streamed all 71 MB of w0
+//    for every few token tiles. Every CTA of a cluster walks the same units.
+//  - The producer warpgroup stays to the end: the kernel ends with a
+//    cluster barrier, so no CTA exits while a peer may still write into its
+//    shared memory.
 
 #include "hopper.cuh"
 
@@ -118,6 +148,23 @@ constexpr int FP8_FOLD_K = 256;
 
 template <int N>
 struct Wgmma8;
+template <>
+struct Wgmma8<128> {
+  __device__ static __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 " W8_D64 ", %64, %65, p, 1, 1;\n}\n"
+        : W8_OP64(W8_F, d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  __device__ static __forceinline__ void mma(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " W8_D64 ", %64, %65, p;\n}\n"
+        : W8_OP64(W8_R, d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
 template <>
 struct Wgmma8<192> {
   __device__ static __forceinline__ void mma(float (&d)[96], uint64_t da, uint64_t db, int scale_d) {
@@ -154,30 +201,130 @@ struct Wgmma8<256> {
 };
 
 // ---------------------------------------------------------------------------
+// The tile: a producer warpgroup and two consumer warpgroups of 64 token
+// rows each, BN weight rows, a ring of STAGES stages of 128 values of K.
+
+template <int BN_, int STAGES_>
+struct Tile {
+  static constexpr int THREADS = 384;  // a producer warpgroup, then two consumer warpgroups
+  static constexpr int CONSUMERS = 256;
+  static constexpr int BM = 128;       // token rows, 64 per consumer warpgroup
+  static constexpr int BN = BN_;       // weight rows: the wgmma N
+  static constexpr int BK = 128;       // values (bytes) of K a stage: one swizzle row
+  static constexpr int A_BYTES = BM * BK;
+  static constexpr int STAGE_BYTES = A_BYTES + BN * BK;
+  static constexpr int STAGES = STAGES_;
+  static constexpr int NACC = BN / 2;  // accumulator registers a thread
+  // a staged output row: 64 bf16 or 128 8-bit codes, + 16 bytes of pad (conflict-free)
+  static constexpr int EP_LD = 128 + 16;
+  static constexpr int EP_BYTES = 64 * EP_LD;  // a warpgroup's 64 rows
+  // the ring, a staging buffer per consumer warpgroup, slack to align the ring to 1024 bytes
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * EP_BYTES + 1024;
+  static_assert(STAGE_BYTES % 1024 == 0, "swizzle atoms must stay 1024-byte aligned");
+  static_assert(BN % 128 == 0 || BN == 192, "the epilogues stage 64 or 128 columns at a time");
+};
+
+// the GEMM's tile: FOLD needs the fp32 sum beside the accumulator, so 192
+// weight rows (96 + 96 registers a thread) in five 40 KB stages; without it
+// 256 (128 registers) in four 48 KB stages
+template <bool FOLD>
+using GemmTile = Tile<FOLD ? 192 : 256, FOLD ? 5 : 4>;
+
+// The producer's part of one output tile: all KT stages of the A box at
+// token row m0 and the B box at weight row n0 into the ring, after the q
+// stages loaded before (over all tiles). Returns q + KT.
+template <class T>
+__device__ __forceinline__ int produce_tile(const CUtensorMap* amap, const CUtensorMap* bmap, unsigned char* smem,
+                                            uint64_t* full, uint64_t* empty, int q, int KT, int m0, int n0) {
+  for (int kt = 0; kt < KT; ++kt, ++q) {
+    const int s = q % T::STAGES;
+    mbar_wait(&empty[s], ((q / T::STAGES) & 1) ^ 1);
+    mbar_expect_tx(&full[s], T::STAGE_BYTES);
+    tma_load(smem + s * T::STAGE_BYTES, amap, &full[s], kt * T::BK, m0);
+    tma_load(smem + s * T::STAGE_BYTES + T::A_BYTES, bmap, &full[s], kt * T::BK, n0);
+  }
+  return q;
+}
+
+// One stage's batch of products on a consumer warpgroup: four k32 steps.
+// The first batch of a fold interval starts from scale-d 0, a constant here:
+// ptxas then knows that it does not read the accumulator's registers, which
+// the epilogue may have written since the last batch (else C7515).
+template <class T, bool FIRST, class Acc>
+__device__ __forceinline__ void issue_stage(Acc (&acc)[T::NACC], uint32_t a_addr, uint32_t b_addr) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < T::BK / 32; ++kk)
+    Wgmma8<T::BN>::mma(acc, make_desc(a_addr + kk * 32), make_desc(b_addr + kk * 32), (FIRST && kk == 0) ? 0 : 1);
+  wgmma_commit();
+}
+
+// A consumer warpgroup's part of one output tile: the products of all of K
+// into acc, after the q stages consumed before (over all tiles). With FOLD,
+// sum ends as the fp32 sum of the fold intervals: float(acc) * a_scale[row,
+// g] where G > 1 (the group this interval lies in), float(acc) for an fp8
+// promotion; without it, acc holds the tile's one partial.
+//
+// One fold interval per outer iteration (all of K without FOLD); acc is
+// touched outside the wgmma only after the interval's wait_group 0. An
+// interval ends at a scale-group boundary or, for fp8, at a promotion point;
+// the second warpgroup's promotion points sit `off` stages later, so the
+// two drain and fold at different times.
+template <class T, bool FP8, bool FOLD>
+__device__ __forceinline__ void consume_tile(typename Codes<FP8>::Acc (&acc)[T::NACC], float (&sum)[T::NACC],
+                                             uint32_t ring, uint64_t* full, uint64_t* empty, int q, int KT, int wg,
+                                             int lane, int group_tiles, int fold_tiles, int off,
+                                             const float* __restrict__ a_scale, int G, int ra, int rb, int M) {
+#pragma unroll
+  for (int i = 0; i < T::NACC; ++i) sum[i] = 0.f;
+  // the ring slot of stage kt of this tile, once its loads have landed
+  auto ready = [&](int kt) {
+    const int s = (q + kt) % T::STAGES;
+    mbar_wait(&full[s], ((q + kt) / T::STAGES) & 1);
+    return ring + s * T::STAGE_BYTES;
+  };
+  for (int f0 = 0; f0 < KT;) {
+    const int next_group = (f0 / group_tiles + 1) * group_tiles;
+    const int next_promotion = ((f0 + off) / fold_tiles + 1) * fold_tiles - off;
+    const int f1 = min(KT, min(next_group, next_promotion));
+    uint32_t st = ready(f0);
+    issue_stage<T, true>(acc, st + wg * 64 * T::BK, st + T::A_BYTES);
+    for (int kt = f0 + 1; kt < f1; ++kt) {
+      st = ready(kt);
+      issue_stage<T, false>(acc, st + wg * 64 * T::BK, st + T::A_BYTES);
+      wgmma_wait<1>();
+      // the batch of stage kt - 1 is done: hand its slot back
+      if (lane == 0) mbar_arrive(&empty[(q + kt - 1) % T::STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(&empty[(q + f1 - 1) % T::STAGES]);
+    if constexpr (FOLD) {
+      if (G > 1) {  // sum += partial * a_scale[row, g] of the group this interval lies in
+        const int grp = f0 / group_tiles;
+        const float sa = ra < M ? __ldg(a_scale + (long long)ra * G + grp) : 0.f;
+        const float sb = rb < M ? __ldg(a_scale + (long long)rb * G + grp) : 0.f;
+#pragma unroll
+        for (int j = 0; j < T::NACC / 4; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sum[4 * j + e] = __fadd_rn(sum[4 * j + e], __fmul_rn(acc_to_float(acc[4 * j + e]), (e >> 1) ? sb : sa));
+        }
+      } else {  // a promotion: the row scale comes in the epilogue
+#pragma unroll
+        for (int i = 0; i < T::NACC; ++i) sum[i] = __fadd_rn(sum[i], acc_to_float(acc[i]));
+      }
+    }
+    f0 = f1;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // out (M, N) bf16 = act( (sum_g float(partial_g) * a_scale[m, g]) * ws[n] + bias[n] ),
 // G scale groups of `group` values of K (G = 1: one scale per row). FOLD
 // folds every `fold` values of K (a divisor of the group) into an fp32 sum;
 // without it the one partial is scaled in the epilogue.
-
-template <bool FOLD>
-struct Tile {
-  static constexpr int THREADS = 384;  // a producer warpgroup, then two consumer warpgroups
-  static constexpr int CONSUMERS = 256;
-  static constexpr int BM = 128;               // token rows, 64 per consumer warpgroup
-  static constexpr int BN = FOLD ? 192 : 256;  // weight rows: the wgmma N
-  static constexpr int BK = 128;               // values (bytes) of K a stage: one swizzle row
-  static constexpr int A_BYTES = BM * BK;
-  static constexpr int STAGE_BYTES = A_BYTES + BN * BK;
-  static constexpr int STAGES = FOLD ? 5 : 4;
-  static constexpr int NACC = BN / 2;  // accumulator registers a thread
-  static constexpr int EP_LD = 64 * 2 + 16;    // a staged output row: 64 bf16 + pad (conflict-free)
-  static constexpr int EP_BYTES = 64 * EP_LD;  // a warpgroup's 64 rows x 64 columns
-  // the ring, a staging buffer per consumer warpgroup, slack to align the ring to 1024 bytes
-  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * EP_BYTES + 1024;
-  static_assert(STAGE_BYTES % 1024 == 0, "swizzle atoms must stay 1024-byte aligned");
-  static_assert(BN % 64 == 0, "the epilogue stages 64 columns at a time");
-};
-
+//
 // amap: codes (M, K), boxes of 128 bytes x 128 rows; bmap: w (N, K), boxes
 // of 128 bytes x BN rows; both 128B-swizzled. Persistent: CTA c takes
 // output tiles c, c + gridDim.x, ..., tile w at token tile w / n_tiles_n and
@@ -188,14 +335,13 @@ __global__ void __launch_bounds__(384, 1)
     w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
                       const float* __restrict__ a_scale, int G, int group, int fold, const float* __restrict__ ws,
                       const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int M, int N, int K) {
-  using T = Tile<FOLD>;
+  using T = GemmTile<FOLD>;
   using Acc = typename Codes<FP8>::Acc;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[T::STAGES], empty[T::STAGES];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int KT = (K + T::BK - 1) / T::BK;
   const int n_tiles_n = (N + T::BN - 1) / T::BN, n_tiles = n_tiles_n * ((M + T::BM - 1) / T::BM);
-  auto stage = [&](int s) { return smem + s * T::STAGE_BYTES; };  // the A box, then the B box
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < T::STAGES; ++s) {
@@ -211,23 +357,15 @@ __global__ void __launch_bounds__(384, 1)
     // thread keeps the ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0) {
-      for (int w = blockIdx.x, q = 0; w < n_tiles; w += gridDim.x) {
-        const int m0 = w / n_tiles_n * T::BM, n0 = w % n_tiles_n * T::BN;
-        for (int kt = 0; kt < KT; ++kt, ++q) {  // q: stages loaded so far, over all tiles
-          const int s = q % T::STAGES;
-          mbar_wait(&empty[s], ((q / T::STAGES) & 1) ^ 1);
-          mbar_expect_tx(&full[s], T::STAGE_BYTES);
-          tma_load(stage(s), &amap, &full[s], kt * T::BK, m0);
-          tma_load(stage(s) + T::A_BYTES, &bmap, &full[s], kt * T::BK, n0);
-        }
-      }
+      for (int w = blockIdx.x, q = 0; w < n_tiles; w += gridDim.x)
+        q = produce_tile<T>(&amap, &bmap, smem, full, empty, q, KT, w / n_tiles_n * T::BM, w % n_tiles_n * T::BN);
     }
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
   const int tid = threadIdx.x - (T::THREADS - T::CONSUMERS), lane = tid & 31, wg = tid >> 7;
-  const int g = lane >> 2, t = lane & 3;
-  const int wrow = ((tid >> 5) & 3) * 16 + g;  // this thread's rows wrow and wrow + 8 of its warpgroup's 64
+  const int t = lane & 3;
+  const int wrow = ((tid >> 5) & 3) * 16 + (lane >> 2);  // this thread's rows wrow and wrow + 8 of its warpgroup's 64
   // value 4j + e of an accumulator is (row wrow + 8 * (e >> 1), column 8j + 2t + (e & 1))
   const int tw = tid & 127;
   // 32-bit shared-memory addresses: the ring, this warpgroup's staging buffer
@@ -245,54 +383,8 @@ __global__ void __launch_bounds__(384, 1)
   for (int w = blockIdx.x, q = 0; w < n_tiles; w += gridDim.x, q += KT) {
     const int m0 = w / n_tiles_n * T::BM, n0 = w % n_tiles_n * T::BN;
     const int ra = m0 + wg * 64 + wrow, rb = ra + 8;
-#pragma unroll
-    for (int i = 0; i < T::NACC; ++i) sum[i] = 0.f;
-
-    // one fold interval per outer iteration (all of K without FOLD); acc is
-    // touched outside the wgmma only after the interval's wait_group 0. An
-    // interval ends at a scale-group boundary or, for fp8, at a promotion
-    // point; the second warpgroup's promotion points sit half an interval
-    // later, so the two drain and fold at different times.
-    for (int f0 = 0, kt = 0; f0 < KT;) {
-      const int next_group = (f0 / group_tiles + 1) * group_tiles;
-      const int next_promotion = ((f0 + off) / fold_tiles + 1) * fold_tiles - off;
-      const int f1 = min(KT, min(next_group, next_promotion));
-      for (; kt < f1; ++kt) {
-        const int s = (q + kt) % T::STAGES;
-        mbar_wait(&full[s], ((q + kt) / T::STAGES) & 1);
-        const uint32_t a_addr = ring + s * T::STAGE_BYTES + wg * 64 * T::BK;
-        const uint32_t b_addr = ring + s * T::STAGE_BYTES + T::A_BYTES;
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < T::BK / 32; ++kk)
-          Wgmma8<T::BN>::mma(acc, make_desc(a_addr + kk * 32), make_desc(b_addr + kk * 32),
-                             (kk == 0 && kt == f0) ? 0 : 1);
-        wgmma_commit();
-        wgmma_wait<1>();
-        // the batch of stage kt - 1 is done: hand its slot back
-        if (kt > f0 && lane == 0) mbar_arrive(&empty[(q + kt - 1) % T::STAGES]);
-      }
-      wgmma_wait<0>();
-      fence_acc(acc);
-      if (lane == 0) mbar_arrive(&empty[(q + kt - 1) % T::STAGES]);
-      if constexpr (FOLD) {
-        if (G > 1) {  // sum += partial * a_scale[row, g] of the group this interval lies in
-          const int grp = f0 / group_tiles;
-          const float sa = ra < M ? __ldg(a_scale + (long long)ra * G + grp) : 0.f;
-          const float sb = rb < M ? __ldg(a_scale + (long long)rb * G + grp) : 0.f;
-#pragma unroll
-          for (int j = 0; j < T::NACC / 4; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              sum[4 * j + e] = __fadd_rn(sum[4 * j + e], __fmul_rn(acc_to_float(acc[4 * j + e]), (e >> 1) ? sb : sa));
-          }
-        } else {  // a promotion: the row scale comes in the epilogue
-#pragma unroll
-          for (int i = 0; i < T::NACC; ++i) sum[i] = __fadd_rn(sum[i], acc_to_float(acc[i]));
-        }
-      }
-      f0 = f1;
-    }
+    consume_tile<T, FP8, FOLD>(acc, sum, ring, full, empty, q, KT, wg, lane, group_tiles, fold_tiles, off, a_scale, G,
+                               ra, rb, M);
     // y = acc * xs * ws + b (with G > 1, sum * 1 * ws + b), the optional
     // GELU, staged 64 columns at a time in this warpgroup's buffer as [row][column]
     // bf16, then written with 16-byte stores
@@ -345,7 +437,7 @@ __global__ void __launch_bounds__(384, 1)
 template <bool FP8, bool GELU, bool FOLD>
 int launch_gemm(const void* a, const void* b, const void* a_scale, int G, int group, int fold, const void* ws,
                 const void* bias, void* out, int M, int N, int K, cudaStream_t s) {
-  using T = Tile<FOLD>;
+  using T = GemmTile<FOLD>;
   CUtensorMap amap, bmap;
   if (!make_map_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, M, K, K, T::BM, T::BK, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !make_map_2d(&bmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, b, N, K, K, T::BN, T::BK, CU_TENSOR_MAP_SWIZZLE_128B))
@@ -373,205 +465,199 @@ int launch_gemm_kind(const void* a, const void* b, const void* a_scale, int G, i
 }
 
 // ---------------------------------------------------------------------------
-// FFN first GEMM on mma.sync: main loop pieces. A (M, K) and B (N, K) are
-// row-major 8-bit codes; the CTA owns rows [m0, m0+BM) of A and [n0, n0+BN)
-// of B.
-
-constexpr int NTHREADS = 256;
-constexpr int BK = 64;          // bytes of K per pipeline stage
-constexpr int LDSB = BK + 16;   // padded smem row (80 bytes)
-constexpr int STAGES = 3;
-
-template <int BM, int BN>
-__device__ __forceinline__ void load_stage(uint8_t* sA, uint8_t* sB, const uint8_t* __restrict__ A,
-                                           const uint8_t* __restrict__ B, int M, int N, int K, int m0, int n0,
-                                           int k0, int tid) {
-#pragma unroll
-  for (int i = 0; i < (BM * 4 + NTHREADS - 1) / NTHREADS; ++i) {
-    int c = tid + i * NTHREADS;
-    if (c < BM * 4) {
-      int r = c >> 2, kc = (c & 3) * 16;
-      int gr = m0 + r, gk = k0 + kc;
-      bool ok = gr < M && gk < K;
-      cp_async16(sA + r * LDSB + kc, ok ? A + (long long)gr * K + gk : A, ok);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < (BN * 4 + NTHREADS - 1) / NTHREADS; ++i) {
-    int c = tid + i * NTHREADS;
-    if (c < BN * 4) {
-      int r = c >> 2, kc = (c & 3) * 16;
-      int gr = n0 + r, gk = k0 + kc;
-      bool ok = gr < N && gk < K;
-      cp_async16(sB + r * LDSB + kc, ok ? B + (long long)gr * K + gk : B, ok);
-    }
-  }
-}
-
-// one BK-deep stage: warp tile (MT*16) x (NT*8) at (wr0, wc0) in the CTA tile
-template <int MT, int NT, typename Acc>
-__device__ __forceinline__ void mma_stage(const uint8_t* sA, const uint8_t* sB, int wr0, int wc0, int lane,
-                                          Acc (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int ks = 0; ks < BK / 32; ++ks) {
-    uint32_t af[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      ldmatrix_x4(af[mt], sA + (wr0 + mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDSB + ks * 32 + (lane >> 4) * 16);
-    }
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t bfr[4];
-      ldmatrix_x4(bfr, sB + (wc0 + np * 16 + (lane & 7) + (lane >> 4) * 8) * LDSB + ks * 32 + ((lane >> 3) & 1) * 16);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma8(acc[mt][2 * np], af[mt], bfr[0], bfr[1]);
-        mma8(acc[mt][2 * np + 1], af[mt], bfr[2], bfr[3]);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // FFN first GEMM: hq (M, H) 8-bit codes and hs (M, H/bh) from
-// gelu(float(xq . w0) * xs * ws0 + b0), requantized per (row, bh group).
-// The CTA tile is 64 rows x one bh group (8 warps side by side, NT*8 columns
-// each), so the group absmax never leaves the CTA.
+// gelu(float(xq . w0) * xs * ws0 + b0), requantized per (row, bh group). A
+// unit is 128 token rows x one bh group, covered by a cluster of bh / BN
+// CTAs side by side along the hidden axis (the note at the top).
 
-template <int NT>
-struct Gemm1Cfg {
-  static constexpr int BM = 64, MT = 4, BN = 8 * NT * 8;
-  static constexpr int SMEM = STAGES * (BM + BN) * LDSB;
-};
+// int8 (no fold) at bh >= 256: 128 x 256 in four 48 KB stages; fp8 (the
+// promotion sum beside the accumulator) and int8 at bh = 128: 128 x 128 in
+// six 32 KB stages
+template <int BN>
+using Gemm1Tile = Tile<BN, BN == 256 ? 4 : 6>;
+constexpr int MAX_CLUSTER = 4;  // bh 512 / BN 128
+constexpr int GB = 8;           // hidden groups in a block of the unit walk
 
-template <bool FP8, int NT>
-__global__ void __launch_bounds__(NTHREADS, 1) ffn_gemm1_kernel(const uint8_t* __restrict__ A,
-                                                                const uint8_t* __restrict__ B,
-                                                                const float* __restrict__ xs,
-                                                                const float* __restrict__ ws0,
-                                                                const float* __restrict__ b0,
-                                                                uint8_t* __restrict__ hq, float* __restrict__ hs,
-                                                                int M, int H, int K) {
-  using C = Gemm1Cfg<NT>;
-  using Acc = typename Codes<FP8>::Acc;
-  extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ float red[8][C::BM];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * C::BN, m0 = blockIdx.y * C::BM;
-  const int wc0 = warp * NT * 8;
-  const int g = lane >> 2, tq = lane & 3;
-  const int KT = (K + BK - 1) / BK;
-  const int n_groups = H / C::BN;
+// int8's h is kept in the accumulator it came from, as its bits
+__device__ __forceinline__ float bits_to_float(int a) { return __int_as_float(a); }
+__device__ __forceinline__ float bits_to_float(float a) { return a; }
 
-  Acc acc[C::MT][NT][4];
-#pragma unroll
-  for (int a = 0; a < C::MT; ++a)
-#pragma unroll
-    for (int b = 0; b < NT; ++b)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0;
-
-  auto sA = [&](int st) { return smem + st * (C::BM + C::BN) * LDSB; };
-  auto sB = [&](int st) { return smem + st * (C::BM + C::BN) * LDSB + C::BM * LDSB; };
-
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < KT) load_stage<C::BM, C::BN>(sA(st), sB(st), A, B, M, H, K, m0, n0, st * BK, tid);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    int nk = kt + STAGES - 1;
-    if (nk < KT) load_stage<C::BM, C::BN>(sA(nk % STAGES), sB(nk % STAGES), A, B, M, H, K, m0, n0, nk * BK, tid);
-    cp_async_commit();
-    mma_stage<C::MT, NT>(sA(kt % STAGES), sB(kt % STAGES), 0, wc0, lane, acc);
-  }
-  cp_async_wait<0>();
-
-  // epilogue 1: h = gelu(acc*xs*ws0 + b0) in fp32, kept in registers
-  float hf[C::MT][NT][4];
-  float amax[C::MT][2];
-#pragma unroll
-  for (int mt = 0; mt < C::MT; ++mt) {
-    amax[mt][0] = amax[mt][1] = 0.f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      int r = m0 + mt * 16 + g + h * 8;
-      float sx = r < M ? __ldg(xs + r) : 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          int c = n0 + wc0 + nt * 8 + 2 * tq + e;
-          float y = __fmul_rn(__fmul_rn(acc_to_float(acc[mt][nt][h * 2 + e]), sx), __ldg(ws0 + c));
-          y = gelu_tanh(__fadd_rn(y, __ldg(b0 + c)));
-          hf[mt][nt][h * 2 + e] = y;
-          amax[mt][h] = fmaxf(amax[mt][h], fabsf(y));
-        }
-      }
-    }
-  }
-  // group absmax: quad lanes, then the 8 warps through shared memory
-#pragma unroll
-  for (int mt = 0; mt < C::MT; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float a = amax[mt][h];
-      a = fmaxf(a, __shfl_xor_sync(0xffffffff, a, 1));
-      a = fmaxf(a, __shfl_xor_sync(0xffffffff, a, 2));
-      if (tq == 0) red[warp][mt * 16 + g + h * 8] = a;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int mt = 0; mt < C::MT; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      int lr = mt * 16 + g + h * 8;
-      int r = m0 + lr;
-      float a = red[0][lr];
-#pragma unroll
-      for (int w = 1; w < 8; ++w) a = fmaxf(a, red[w][lr]);
-      const float s = __fmul_rn(fmaxf(a, 1e-8f), Codes<FP8>::INV_MAX);
-      if (r >= M) continue;
-      if (warp == 0 && tq == 0) hs[(long long)r * n_groups + blockIdx.x] = s;
-      uint8_t* hrow = hq + (long long)r * H;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        int c = n0 + wc0 + nt * 8 + 2 * tq;
-        *reinterpret_cast<uint16_t*>(hrow + c) = Codes<FP8>::pair(hf[mt][nt][h * 2], hf[mt][nt][h * 2 + 1], s);
-      }
-    }
-  }
+// unit u -> (token tile, hidden group): blocks of GB groups over every token
+// tile, token tile outer and group inner inside a block
+__device__ __forceinline__ int2 unit_coords(int u, int n_mt, int n_g) {
+  const int blk = u / (GB * n_mt), r = u - blk * GB * n_mt;
+  const int g0 = blk * GB, gw = min(GB, n_g - g0);
+  return make_int2(r / gw, g0 + r % gw);
 }
 
-template <bool FP8, int NT>
+template <bool FP8, int BN>
+__global__ void __launch_bounds__(384, 1)
+    ffn_gemm1_wgmma_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+                           const float* __restrict__ xs, const float* __restrict__ ws0,
+                           const float* __restrict__ b0, uint8_t* __restrict__ hq, float* __restrict__ hs, int M,
+                           int H, int K, int bh) {
+  using T = Gemm1Tile<BN>;
+  constexpr bool FOLD = FP8;  // fp8 promotes into the fp32 sum; int8's int32 sums are exact
+  using Acc = typename Codes<FP8>::Acc;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[T::STAGES], empty[T::STAGES], xbar[2][2];
+  // [unit parity][consumer warpgroup][source rank][quad]: a quad's two rows' partial absmax
+  __shared__ float2 xch[2][2][MAX_CLUSTER][32];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int KT = (K + T::BK - 1) / T::BK;
+  const int cs = cluster_size(), rank = cluster_rank();
+  const int n_mt = (M + T::BM - 1) / T::BM, n_g = H / bh, units = n_mt * n_g;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], T::CONSUMERS / 32);  // one arrive per consumer warp
+    }
+    for (int p = 0; p < 2; ++p)
+      for (int w = 0; w < 2; ++w) mbar_init(&xbar[p][w], 32 * cs);  // 32 quads of each rank's warpgroup
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();  // every peer's barriers are initialised before anyone arrives on them
+
+  if (threadIdx.x < T::THREADS - T::CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      for (int u = cluster_id(), q = 0; u < units; u += cluster_count()) {
+        const int2 mg = unit_coords(u, n_mt, n_g);
+        q = produce_tile<T>(&amap, &bmap, smem, full, empty, q, KT, mg.x * T::BM, mg.y * bh + rank * BN);
+      }
+    }
+    cluster_sync();
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int tid = threadIdx.x - (T::THREADS - T::CONSUMERS), lane = tid & 31, wg = tid >> 7;
+  const int t = lane & 3, quad = ((tid >> 5) & 3) * 8 + (lane >> 2);
+  const int wrow = ((tid >> 5) & 3) * 16 + (lane >> 2);  // this thread's rows wrow and wrow + 8 of its warpgroup's 64
+  // value 4j + e of an accumulator is (row wrow + 8 * (e >> 1), column 8j + 2t + (e & 1))
+  const int tw = tid & 127;
+  const uint32_t ring = smem_u32(smem), ep = ring + T::STAGES * T::STAGE_BYTES + wg * T::EP_BYTES;
+
+  const int fold_tiles = FOLD ? FP8_FOLD_K / T::BK : KT;
+  const int off = (FOLD && wg) ? fold_tiles / 2 : 0;
+  for (int u = cluster_id(), i = 0; u < units; u += cluster_count(), ++i) {
+    // a unit's first product starts with scale-d 0, so nothing is carried
+    // from the last unit: declared here, the epilogue's h can take the
+    // accumulator's registers without moves into a wgmma in flight (C7515)
+    Acc acc[T::NACC];
+    float sum[T::NACC];  // fp8: the promotion sum, then h (unused for int8)
+    const int2 mg = unit_coords(u, n_mt, n_g);
+    const int m0 = mg.x * T::BM, n0 = mg.y * bh + rank * BN;
+    const int ra = m0 + wg * 64 + wrow, rb = ra + 8;
+    consume_tile<T, FP8, FOLD>(acc, sum, ring, full, empty, i * KT, KT, wg, lane, KT, fold_tiles, off, xs, 1, ra,
+                               rb, M);
+
+    // h = gelu(acc * xs * ws0 + b0) in place, and the rows' absmax over this CTA's columns
+    const float xa = ra < M ? __ldg(xs + ra) : 0.f, xb = rb < M ? __ldg(xs + rb) : 0.f;
+    float ma = 0.f, mb = 0.f;
+#pragma unroll
+    for (int j = 0; j < T::NACC / 4; ++j) {
+      const int c = n0 + 8 * j + 2 * t;
+      const float w[2] = {__ldg(ws0 + c), __ldg(ws0 + c + 1)}, b[2] = {__ldg(b0 + c), __ldg(b0 + c + 1)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = 4 * j + e;
+        const float v = FOLD ? sum[k] : acc_to_float(acc[k]);
+        const float h = gelu_tanh(__fadd_rn(__fmul_rn(__fmul_rn(v, (e >> 1) ? xb : xa), w[e & 1]), b[e & 1]));
+        if constexpr (FOLD) sum[k] = h;
+        else acc[k] = __float_as_int(h);
+        if (e >> 1) mb = fmaxf(mb, fabsf(h));
+        else ma = fmaxf(ma, fabsf(h));
+      }
+    }
+    ma = fmaxf(ma, __shfl_xor_sync(0xffffffff, ma, 1));
+    ma = fmaxf(ma, __shfl_xor_sync(0xffffffff, ma, 2));
+    mb = fmaxf(mb, __shfl_xor_sync(0xffffffff, mb, 1));
+    mb = fmaxf(mb, __shfl_xor_sync(0xffffffff, mb, 2));
+    // the group's absmax: every rank's partials, through each CTA's slots
+    const int p = i & 1;
+    if (t == 0) {
+      const uint32_t slot = smem_u32(&xch[p][wg][rank][quad]), bar = smem_u32(&xbar[p][wg]);
+      for (int r = 0; r < cs; ++r) {
+        st_cluster_v2(map_rank(slot, r), ma, mb);
+        mbar_arrive_cluster(map_rank(bar, r));
+      }
+    }
+    mbar_wait_cluster(&xbar[p][wg], (i >> 1) & 1);
+    for (int r = 0; r < cs; ++r) {
+      const float2 v = xch[p][wg][r][quad];
+      ma = fmaxf(ma, v.x);
+      mb = fmaxf(mb, v.y);
+    }
+    const float sa = __fmul_rn(fmaxf(ma, 1e-8f), Codes<FP8>::INV_MAX);
+    const float sb = __fmul_rn(fmaxf(mb, 1e-8f), Codes<FP8>::INV_MAX);
+    if (rank == 0 && t == 0) {
+      if (ra < M) hs[(long long)ra * n_g + mg.y] = sa;
+      if (rb < M) hs[(long long)rb * n_g + mg.y] = sb;
+    }
+    // the codes, staged 128 columns at a time as [row][column], then 16-byte stores
+#pragma unroll
+    for (int c0 = 0; c0 < BN; c0 += 128) {
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const int k = 4 * (c0 / 8 + jj);
+        float h[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) h[e] = FOLD ? sum[k + e] : bits_to_float(acc[k + e]);
+        st_shared_b16(ep + wrow * T::EP_LD + 8 * jj + 2 * t, Codes<FP8>::pair(h[0], h[1], sa));
+        st_shared_b16(ep + (wrow + 8) * T::EP_LD + 8 * jj + 2 * t, Codes<FP8>::pair(h[2], h[3], sb));
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {  // 64 rows x 8 chunks of 16 bytes
+        const int r = (tw >> 3) + 16 * k, ch = tw & 7, m = m0 + wg * 64 + r;
+        if (m < M)
+          *reinterpret_cast<uint4*>(hq + (long long)m * H + n0 + c0 + ch * 16) = ld_shared_v4(ep + r * T::EP_LD + ch * 16);
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    }
+  }
+  cluster_sync();  // no CTA leaves while a peer may still write into its slots
+}
+
+template <bool FP8, int BN>
 int launch_gemm1(const void* xq, const void* w0, const void* xs, const void* ws0, const void* b0, void* hq,
-                 void* hs, int M, int H, int K, cudaStream_t stream) {
-  using C = Gemm1Cfg<NT>;
-  auto kern = ffn_gemm1_kernel<FP8, NT>;
-  cudaError_t err = set_smem(kern, C::SMEM);
+                 void* hs, int M, int H, int K, int bh, cudaStream_t s) {
+  using T = Gemm1Tile<BN>;
+  CUtensorMap amap, bmap;
+  if (!make_map_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, M, K, K, T::BM, T::BK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map_2d(&bmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w0, H, K, K, BN, T::BK, CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = ffn_gemm1_wgmma_kernel<FP8, BN>;
+  cudaError_t err = set_smem(kern, T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(H / C::BN, (M + C::BM - 1) / C::BM);
-  kern<<<grid, NTHREADS, C::SMEM, stream>>>(
-      static_cast<const uint8_t*>(xq), static_cast<const uint8_t*>(w0), static_cast<const float*>(xs),
-      static_cast<const float*>(ws0), static_cast<const float*>(b0), static_cast<uint8_t*>(hq),
-      static_cast<float*>(hs), M, H, K);
+  const int cs = bh / BN;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cs;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(T::THREADS);
+  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  static int max_clusters[MAX_CLUSTER + 1] = {};  // by cluster size: one CTA an SM
+  if (max_clusters[cs] == 0) {
+    cfg.gridDim = dim3(cs);
+    err = cudaOccupancyMaxActiveClusters(&max_clusters[cs], kern, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (max_clusters[cs] == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const int units = ((M + T::BM - 1) / T::BM) * (H / bh);
+  cfg.gridDim = dim3(min(units, max_clusters[cs]) * cs);
+  err = cudaLaunchKernelEx(&cfg, kern, amap, bmap, static_cast<const float*>(xs), static_cast<const float*>(ws0),
+                           static_cast<const float*>(b0), static_cast<uint8_t*>(hq), static_cast<float*>(hs), M, H,
+                           K, bh);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
-
-template <bool FP8>
-int launch_gemm1_bh(const void* xq, const void* w0, const void* xs, const void* ws0, const void* b0, void* hq,
-                    void* hs, int M, int H, int K, int bh, cudaStream_t s) {
-  switch (bh) {
-    case 512: return launch_gemm1<FP8, 8>(xq, w0, xs, ws0, b0, hq, hs, M, H, K, s);
-    case 256: return launch_gemm1<FP8, 4>(xq, w0, xs, ws0, b0, hq, hs, M, H, K, s);
-    case 128: return launch_gemm1<FP8, 2>(xq, w0, xs, ws0, b0, hq, hs, M, H, K, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 
 }  // namespace
 
@@ -609,10 +695,16 @@ extern "C" int w8a8_gemm(const void* a, const void* b, const void* a_scale, int 
   return w8a8_gemm_fold(a, b, a_scale, G, group, ws, bias, out, M, N, K, gelu, kind, fold, stream);
 }
 
+// The FFN's first GEMM. bh is 512, 256 or 128 and divides H; xq, w0 and hq
+// 16-byte aligned, K % 16 == 0 (TMA's row pitch).
 extern "C" int ffn_w8a8_gemm1(const void* xq, const void* w0, const void* xs, const void* ws0, const void* b0,
                               void* hq, void* hs, int M, int H, int K, int bh, int kind, void* stream) {
   if (M == 0) return 0;
+  if (K <= 0 || K % 16 || (bh != 512 && bh != 256 && bh != 128) || H <= 0 || H % bh ||
+      ((reinterpret_cast<uintptr_t>(xq) | reinterpret_cast<uintptr_t>(w0) | reinterpret_cast<uintptr_t>(hq)) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return kind ? launch_gemm1_bh<true>(xq, w0, xs, ws0, b0, hq, hs, M, H, K, bh, s)
-              : launch_gemm1_bh<false>(xq, w0, xs, ws0, b0, hq, hs, M, H, K, bh, s);
+  if (kind) return launch_gemm1<true, 128>(xq, w0, xs, ws0, b0, hq, hs, M, H, K, bh, s);
+  return bh == 128 ? launch_gemm1<false, 128>(xq, w0, xs, ws0, b0, hq, hs, M, H, K, bh, s)
+                   : launch_gemm1<false, 256>(xq, w0, xs, ws0, b0, hq, hs, M, H, K, bh, s);
 }

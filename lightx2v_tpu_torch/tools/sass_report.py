@@ -8,6 +8,7 @@ instructions.
 
     python3 lightx2v_tpu_torch/tools/sass_report.py SOURCE [SOURCE ...]
     python3 lightx2v_tpu_torch/tools/sass_report.py flash_attention --same-as OTHER_ROOT --kernel flash_wgmma_kernel
+    python3 lightx2v_tpu_torch/tools/sass_report.py w8a8_matmul --same-as OTHER_ROOT --kernel w8a8_wgmma_kernel
 
 SOURCE is a file stem under ``lightx2v_tpu_torch/csrc`` (``sage_attention``).
 With ``--same-as``, each kernel whose name holds ``--kernel`` is also

@@ -138,12 +138,18 @@ def test_fullk_kernel_vs_plain(dev, m, n, k, act, one_signed):
            2 ** -7, 0.0)
 
 
-@pytest.mark.parametrize("h", [384, 8960, 13824])
-def test_ffn_kernel_vs_plain(dev, h):
+# (m, k, h): bh 128, 256 and 512 (H = 384, 8960, 13,824); K = 5120 with M
+# ragged past a 128-row tile (333) and M = 4096 at H = 13,824, 864 units of
+# GEMM1, more than the persistent clusters in flight, so they wrap
+FFN_SHAPES = [(70, 256, 384), (70, 256, 8960), (70, 256, 13824), (333, 5120, 8960), (4096, 5120, 13824)]
+
+
+@pytest.mark.parametrize("m,k,h", FFN_SHAPES)
+def test_ffn_kernel_vs_plain(dev, m, k, h):
     from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
 
     g = torch.Generator(device=dev).manual_seed(h)
-    m, k, n = 70, 256, 128
+    n = 128
     x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
     w0 = torch.randint(-127, 128, (h, k), generator=g, device=dev, dtype=torch.int8)
     w2 = torch.randint(-127, 128, (n, h), generator=g, device=dev, dtype=torch.int8)
@@ -569,14 +575,16 @@ def test_fp8_quantize_pass_is_exact(dev):
         assert torch.equal(q.view(torch.uint8), rq.view(torch.uint8)) and torch.equal(s, rs)
 
 
-@pytest.mark.parametrize("h", [384, 8960, 13824])
-def test_ffn_fp8_kernel_vs_plain(dev, h):
+# one_signed: x = |randn| and positive w0 codes, so GEMM1's truncated e4m3
+# partial sums add up rather than cancel (difference "o" of ROADMAP.md)
+@pytest.mark.parametrize("m,k,h,one_signed", [(*shape, False) for shape in FFN_SHAPES] + [(333, 5120, 13824, True)])
+def test_ffn_fp8_kernel_vs_plain(dev, m, k, h, one_signed):
     from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
 
     g = torch.Generator(device=dev).manual_seed(h)
-    m, k, n = 70, 256, 128
-    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-    w0, w2 = _fp8_w(g, dev, h, k), _fp8_w(g, dev, n, h)
+    n = 128
+    x = _x(g, dev, m, k, one_signed)
+    w0, w2 = _fp8_w(g, dev, h, k, one_signed), _fp8_w(g, dev, n, h)
     s0, s2 = torch.full((h,), 0.02 / 100, device=dev), torch.full((n,), 0.02 / 100, device=dev)
     b0, b2 = torch.randn((h,), generator=g, device=dev) * 0.02, torch.randn((n,), generator=g, device=dev) * 0.02
     before = wm.LAUNCHES["ffn_w8a8_fp8"]
