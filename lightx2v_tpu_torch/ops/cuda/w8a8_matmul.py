@@ -196,6 +196,15 @@ def _check_w(w: torch.Tensor, ws: torch.Tensor, b, k: int, dev, name: str, kind:
     return b.float().contiguous()
 
 
+def _check_gemm1_vectors(w0_scale: torch.Tensor, b0: torch.Tensor) -> None:
+    """The FFN's first GEMM reads its scale and bias in pairs: both must
+    start at an 8-byte aligned address."""
+    for name, t in (("w0 scale", w0_scale), ("b0", b0)):
+        if t.data_ptr() % 8:
+            raise ValueError(f"{name} must start at an 8-byte aligned address (GEMM1 reads it in pairs), "
+                             f"got {t.data_ptr():#x}")
+
+
 def quant_groups(fn, x2: torch.Tensor, group: int, stream, dtype=torch.int8):
     """Launch a library's quant_groups pass: x2 (M, K) bf16 -> 8-bit codes
     (M, K) of ``dtype`` and fp32 scales (M, K/group)."""
@@ -285,6 +294,7 @@ def ffn_w8a8(x: torch.Tensor, w0: torch.Tensor, w0_scale: torch.Tensor, b0: Opti
     bh = pick_bh(h_dim)
     b0c = _check_w(w0, w0_scale, b0, k, x.device, "w0", kind)
     b2c = _check_w(w2, w2_scale, b2, h_dim, x.device, "w2", kind)
+    _check_gemm1_vectors(w0_scale, b0c)
     n, m = w2.shape[0], x2.shape[0]
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -216,3 +216,14 @@ def test_wrapper_kinds_and_launch_keys():
         tw.w8a8_matmul_fullk(torch.zeros((2, 32), dtype=torch.bfloat16), torch.zeros((4, 32), dtype=torch.int8),
                              torch.ones(4), kind="int4")
     assert {"w8a8_matmul_fullk_fp8", "w8a8_matmul_fp8", "ffn_w8a8_fp8", "w8a8_matmul_fullk"} <= set(tw.LAUNCHES)
+
+
+def test_ffn_gemm1_refuses_misaligned_scale_and_bias():
+    """The FFN's first GEMM reads w0's scale and b0 in pairs, so each must
+    start at an 8-byte aligned address; a view that does not is refused
+    before any launch."""
+    buf = torch.zeros(66, dtype=torch.float32)
+    tw._check_gemm1_vectors(buf[:64], buf[2:66])
+    for scale, bias in ((buf[1:65], buf[:64]), (buf[:64], buf[1:65])):
+        with pytest.raises(ValueError, match="8-byte aligned"):
+            tw._check_gemm1_vectors(scale, bias)
