@@ -118,6 +118,10 @@
 //    warpgroups run up to a ring apart) and per unit parity: a CTA writes
 //    unit i + 2's partials only after every peer's unit i + 1 partials
 //    arrived, which the peers sent after reading unit i's.
+//  - fp8: two accumulators take the promotion intervals in turn
+//    (consume_tile's TWO; 64 + 64 + 64 registers at 128 x 128), so a
+//    warpgroup folds one interval while the next one's products run and
+//    never drains before the unit's end: 5% off the fp8 GEMM1 (PERF.md).
 //  - Epilogue: h overwrites the accumulator (or the promotion sum) in place,
 //    so no second 128-register array is live; the codes are staged 128
 //    columns at a time through the warpgroup's buffer and written with
@@ -265,19 +269,21 @@ __device__ __forceinline__ void issue_stage(Acc (&acc)[T::NACC], uint32_t a_addr
 // g] where G > 1 (the group this interval lies in), float(acc) for an fp8
 // promotion; without it, acc holds the tile's one partial.
 //
-// One fold interval per outer iteration (all of K without FOLD); acc is
-// touched outside the wgmma only after the interval's wait_group 0. An
-// interval ends at a scale-group boundary or, for fp8, at a promotion point;
-// the second warpgroup's promotion points sit `off` stages later, so the
-// two drain and fold at different times.
-template <class T, bool FP8, bool FOLD>
-__device__ __forceinline__ void consume_tile(typename Codes<FP8>::Acc (&acc)[T::NACC], float (&sum)[T::NACC],
+// An interval ends at a scale-group boundary or, for fp8, at a promotion
+// point; the second warpgroup's promotion points sit `off` stages later, so
+// the two fold at different times. With one accumulator (TWO false; acc2
+// unused) the warpgroup drains at the end of each interval (wait_group 0)
+// and folds, the other warpgroup's products running meanwhile. With TWO, acc
+// and acc2 take the intervals in turn: an interval's partial is folded once
+// the next interval's first batch is issued, so the warpgroup never drains
+// before the tile's end (a third NACC registers).
+template <class T, bool FP8, bool FOLD, bool TWO = false>
+__device__ __forceinline__ void consume_tile(typename Codes<FP8>::Acc (&acc)[T::NACC],
+                                             typename Codes<FP8>::Acc (&acc2)[T::NACC], float (&sum)[T::NACC],
                                              uint32_t ring, uint64_t* full, uint64_t* empty, int q, int KT, int wg,
                                              int lane, int group_tiles, int fold_tiles, int off,
-                                             const float* __restrict__ a_scale, int G, int ra, int rb, int M,
-                                             int a_off = -1, int b_off = -1) {
-  if (a_off < 0) a_off = wg * 64 * T::BK;
-  if (b_off < 0) b_off = T::A_BYTES;
+                                             const float* __restrict__ a_scale, int G, int ra, int rb, int M) {
+  using Acc = typename Codes<FP8>::Acc;
 #pragma unroll
   for (int i = 0; i < T::NACC; ++i) sum[i] = 0.f;
   // the ring slot of stage kt of this tile, once its loads have landed
@@ -286,24 +292,20 @@ __device__ __forceinline__ void consume_tile(typename Codes<FP8>::Acc (&acc)[T::
     mbar_wait(&full[s], ((q + kt) / T::STAGES) & 1);
     return ring + s * T::STAGE_BYTES;
   };
-  for (int f0 = 0; f0 < KT;) {
+  // the batch of stage kt is done: hand its slot back
+  auto release = [&](int kt) {
+    if (lane == 0) mbar_arrive(&empty[(q + kt) % T::STAGES]);
+  };
+  auto interval_end = [&](int f0) {
     const int next_group = (f0 / group_tiles + 1) * group_tiles;
     const int next_promotion = ((f0 + off) / fold_tiles + 1) * fold_tiles - off;
-    const int f1 = min(KT, min(next_group, next_promotion));
-    uint32_t st = ready(f0);
-    issue_stage<T, true>(acc, st + a_off, st + b_off);
-    for (int kt = f0 + 1; kt < f1; ++kt) {
-      st = ready(kt);
-      issue_stage<T, false>(acc, st + a_off, st + b_off);
-      wgmma_wait<1>();
-      // the batch of stage kt - 1 is done: hand its slot back
-      if (lane == 0) mbar_arrive(&empty[(q + kt - 1) % T::STAGES]);
-    }
-    wgmma_wait<0>();
-    fence_acc(acc);
-    if (lane == 0) mbar_arrive(&empty[(q + f1 - 1) % T::STAGES]);
+    return min(KT, min(next_group, next_promotion));
+  };
+  // sum += the partial in a of the interval that starts at stage f0
+  auto fold = [&](Acc (&a)[T::NACC], int f0) {
+    fence_acc(a);
     if constexpr (FOLD) {
-      if (G > 1) {  // sum += partial * a_scale[row, g] of the group this interval lies in
+      if (G > 1) {  // * a_scale[row, g] of the group this interval lies in
         const int grp = f0 / group_tiles;
         const float sa = ra < M ? __ldg(a_scale + (long long)ra * G + grp) : 0.f;
         const float sb = rb < M ? __ldg(a_scale + (long long)rb * G + grp) : 0.f;
@@ -311,14 +313,67 @@ __device__ __forceinline__ void consume_tile(typename Codes<FP8>::Acc (&acc)[T::
         for (int j = 0; j < T::NACC / 4; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            sum[4 * j + e] = __fadd_rn(sum[4 * j + e], __fmul_rn(acc_to_float(acc[4 * j + e]), (e >> 1) ? sb : sa));
+            sum[4 * j + e] = __fadd_rn(sum[4 * j + e], __fmul_rn(acc_to_float(a[4 * j + e]), (e >> 1) ? sb : sa));
         }
       } else {  // a promotion: the row scale comes in the epilogue
 #pragma unroll
-        for (int i = 0; i < T::NACC; ++i) sum[i] = __fadd_rn(sum[i], acc_to_float(acc[i]));
+        for (int i = 0; i < T::NACC; ++i) sum[i] = __fadd_rn(sum[i], acc_to_float(a[i]));
       }
     }
-    f0 = f1;
+  };
+  // issues stages f0 .. f1 - 1 into a; `between` runs once the first batch is issued
+  auto interval = [&](Acc (&a)[T::NACC], int f0, int f1, auto between) {
+    uint32_t st = ready(f0);
+    issue_stage<T, true>(a, st + wg * 64 * T::BK, st + T::A_BYTES);
+    between();
+    for (int kt = f0 + 1; kt < f1; ++kt) {
+      st = ready(kt);
+      issue_stage<T, false>(a, st + wg * 64 * T::BK, st + T::A_BYTES);
+      wgmma_wait<1>();
+      release(kt - 1);
+    }
+  };
+  if constexpr (!TWO) {
+    for (int f0 = 0; f0 < KT;) {
+      const int f1 = interval_end(f0);
+      interval(acc, f0, f1, [] {});
+      wgmma_wait<0>();
+      release(f1 - 1);
+      fold(acc, f0);
+      f0 = f1;
+    }
+  } else {
+    // the previous interval [p0, p1) sits in one accumulator while the next
+    // one's first batch runs in the other
+    int p0 = 0, p1 = interval_end(0);
+    interval(acc, p0, p1, [] {});
+    while (true) {
+      if (p1 >= KT) {
+        wgmma_wait<0>();
+        release(p1 - 1);
+        fold(acc, p0);
+        break;
+      }
+      const int n0 = p1, n1 = interval_end(n0);
+      interval(acc2, n0, n1, [&] {
+        wgmma_wait<1>();
+        release(n0 - 1);
+        fold(acc, p0);
+      });
+      if (n1 >= KT) {
+        wgmma_wait<0>();
+        release(n1 - 1);
+        fold(acc2, n0);
+        break;
+      }
+      p0 = n1;
+      p1 = interval_end(p0);
+      interval(acc, p0, p1, [&] {
+        wgmma_wait<1>();
+        release(p0 - 1);
+        fold(acc2, n0);
+      });
+    }
   }
 }
 
@@ -386,8 +441,8 @@ __global__ void __launch_bounds__(384, 1)
   for (int w = blockIdx.x, q = 0; w < n_tiles; w += gridDim.x, q += KT) {
     const int m0 = w / n_tiles_n * T::BM, n0 = w % n_tiles_n * T::BN;
     const int ra = m0 + wg * 64 + wrow, rb = ra + 8;
-    consume_tile<T, FP8, FOLD>(acc, sum, ring, full, empty, q, KT, wg, lane, group_tiles, fold_tiles, off, a_scale, G,
-                               ra, rb, M);
+    consume_tile<T, FP8, FOLD>(acc, acc, sum, ring, full, empty, q, KT, wg, lane, group_tiles, fold_tiles, off,
+                               a_scale, G, ra, rb, M);
     // y = acc * xs * ws + b (with G > 1, sum * 1 * ws + b), the optional
     // GELU, staged 64 columns at a time in this warpgroup's buffer as [row][column]
     // bf16, then written with 16-byte stores
@@ -547,13 +602,13 @@ __global__ void __launch_bounds__(384, 1)
     // a unit's first product starts with scale-d 0, so nothing is carried
     // from the last unit: declared here, the epilogue's h can take the
     // accumulator's registers without moves into a wgmma in flight (C7515)
-    Acc acc[T::NACC];
-    float sum[T::NACC];  // fp8: the promotion sum, then h (unused for int8)
+    Acc acc[T::NACC], acc2[T::NACC];  // acc2: fp8's second accumulator
+    float sum[T::NACC];               // fp8: the promotion sum, then h (unused for int8)
     const int2 mg = unit_coords(u, n_mt, n_g);
     const int m0 = mg.x * T::BM, n0 = mg.y * bh + rank * BN;
     const int ra = m0 + wg * 64 + wrow, rb = ra + 8;
-    consume_tile<T, FP8, FOLD>(acc, sum, ring, full, empty, i * KT, KT, wg, lane, KT, fold_tiles, off, xs, 1, ra,
-                               rb, M);
+    consume_tile<T, FP8, FOLD, FP8>(acc, acc2, sum, ring, full, empty, i * KT, KT, wg, lane, KT, fold_tiles, off, xs,
+                                    1, ra, rb, M);
 
     // h = gelu(acc * xs * ws0 + b0) in place, and the rows' absmax over this CTA's columns
     const float xa = ra < M ? __ldg(xs + ra) : 0.f, xb = rb < M ? __ldg(xs + rb) : 0.f;
@@ -561,7 +616,9 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
     for (int j = 0; j < T::NACC / 4; ++j) {
       const int c = n0 + 8 * j + 2 * t;
-      const float w[2] = {__ldg(ws0 + c), __ldg(ws0 + c + 1)}, b[2] = {__ldg(b0 + c), __ldg(b0 + c + 1)};
+      // c is even and ws0, b0 8-byte aligned: one load a pair (scalar loads hoisted far enough to spill)
+      const float2 wp = __ldg(reinterpret_cast<const float2*>(ws0 + c)), bp = __ldg(reinterpret_cast<const float2*>(b0 + c));
+      const float w[2] = {wp.x, wp.y}, b[2] = {bp.x, bp.y};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int k = 4 * j + e;
@@ -662,131 +719,7 @@ int launch_gemm1(const void* xq, const void* w0, const void* xs, const void* ws0
   return static_cast<int>(cudaGetLastError());
 }
 
-// Step A's alternative (int8, bh = 512): one CTA of 64 tokens x 512 hidden,
-// the two consumer warpgroups side by side on the same rows (m64n256 each),
-// the absmax exchanged through shared memory; three 72 KB stages; codes
-// written straight from registers.
-struct WideTile {
-  static constexpr int THREADS = 384, CONSUMERS = 256, BM = 64, BN = 256, BK = 128;
-  static constexpr int A_BYTES = BM * BK, STAGE_BYTES = A_BYTES + 2 * BN * BK, STAGES = 3, NACC = BN / 2;
-  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;
-};
-
-__global__ void __launch_bounds__(384, 1)
-    ffn_gemm1_wide_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
-                          const float* __restrict__ xs, const float* __restrict__ ws0, const float* __restrict__ b0,
-                          uint8_t* __restrict__ hq, float* __restrict__ hs, int M, int H, int K) {
-  using T = WideTile;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t full[T::STAGES], empty[T::STAGES];
-  __shared__ float2 xw[2][2][32];  // [unit parity][warpgroup][quad]
-  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const int KT = (K + T::BK - 1) / T::BK;
-  const int n_mt = (M + T::BM - 1) / T::BM, n_g = H / 512, units = n_mt * n_g;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < T::STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], T::CONSUMERS / 32);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x < T::THREADS - T::CONSUMERS) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x == 0) {
-      for (int u = blockIdx.x, q = 0; u < units; u += gridDim.x) {
-        const int2 mg = unit_coords(u, n_mt, n_g);
-        for (int kt = 0; kt < KT; ++kt, ++q) {
-          const int s = q % T::STAGES;
-          unsigned char* st = smem + s * T::STAGE_BYTES;
-          mbar_wait(&empty[s], ((q / T::STAGES) & 1) ^ 1);
-          mbar_expect_tx(&full[s], T::STAGE_BYTES);
-          tma_load(st, &amap, &full[s], kt * T::BK, mg.x * T::BM);
-          tma_load(st + T::A_BYTES, &bmap, &full[s], kt * T::BK, mg.y * 512);
-          tma_load(st + T::A_BYTES + T::BN * T::BK, &bmap, &full[s], kt * T::BK, mg.y * 512 + 256);
-        }
-      }
-    }
-    return;
-  }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-  const int tid = threadIdx.x - (T::THREADS - T::CONSUMERS), lane = tid & 31, wg = tid >> 7;
-  const int t = lane & 3, quad = ((tid >> 5) & 3) * 8 + (lane >> 2);
-  const int wrow = ((tid >> 5) & 3) * 16 + (lane >> 2);
-  const uint32_t ring = smem_u32(smem);
-  for (int u = blockIdx.x, i = 0; u < units; u += gridDim.x, ++i) {
-    int acc[T::NACC];
-    float sum[T::NACC];
-    const int2 mg = unit_coords(u, n_mt, n_g);
-    const int m0 = mg.x * T::BM, n0 = mg.y * 512 + wg * T::BN;
-    const int ra = m0 + wrow, rb = ra + 8;
-    consume_tile<T, false, false>(acc, sum, ring, full, empty, i * KT, KT, wg, lane, KT, KT, 0, xs, 1, ra, rb, M, 0,
-                                  T::A_BYTES + wg * T::BN * T::BK);
-    const float xa = ra < M ? __ldg(xs + ra) : 0.f, xb = rb < M ? __ldg(xs + rb) : 0.f;
-    float ma = 0.f, mb = 0.f;
-#pragma unroll
-    for (int j = 0; j < T::NACC / 4; ++j) {
-      const int c = n0 + 8 * j + 2 * t;
-      const float w[2] = {__ldg(ws0 + c), __ldg(ws0 + c + 1)}, b[2] = {__ldg(b0 + c), __ldg(b0 + c + 1)};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int k = 4 * j + e;
-        const float h = gelu_tanh(__fadd_rn(__fmul_rn(__fmul_rn(acc_to_float(acc[k]), (e >> 1) ? xb : xa), w[e & 1]), b[e & 1]));
-        acc[k] = __float_as_int(h);
-        if (e >> 1) mb = fmaxf(mb, fabsf(h));
-        else ma = fmaxf(ma, fabsf(h));
-      }
-    }
-    ma = fmaxf(ma, __shfl_xor_sync(0xffffffff, ma, 1));
-    ma = fmaxf(ma, __shfl_xor_sync(0xffffffff, ma, 2));
-    mb = fmaxf(mb, __shfl_xor_sync(0xffffffff, mb, 1));
-    mb = fmaxf(mb, __shfl_xor_sync(0xffffffff, mb, 2));
-    const int p = i & 1;
-    if (t == 0) xw[p][wg][quad] = make_float2(ma, mb);
-    asm volatile("bar.sync 3, 256;\n" ::: "memory");
-    const float2 o = xw[p][wg ^ 1][quad];
-    ma = fmaxf(ma, o.x);
-    mb = fmaxf(mb, o.y);
-    const float sa = __fmul_rn(fmaxf(ma, 1e-8f), Codes<false>::INV_MAX);
-    const float sb = __fmul_rn(fmaxf(mb, 1e-8f), Codes<false>::INV_MAX);
-    if (wg == 0 && t == 0) {
-      if (ra < M) hs[(long long)ra * n_g + mg.y] = sa;
-      if (rb < M) hs[(long long)rb * n_g + mg.y] = sb;
-    }
-#pragma unroll
-    for (int j = 0; j < T::NACC / 4; ++j) {
-      const int c = n0 + 8 * j + 2 * t;
-      const int k = 4 * j;
-      if (ra < M)
-        *reinterpret_cast<uint16_t*>(hq + (long long)ra * H + c) =
-            Codes<false>::pair(__int_as_float(acc[k]), __int_as_float(acc[k + 1]), sa);
-      if (rb < M)
-        *reinterpret_cast<uint16_t*>(hq + (long long)rb * H + c) =
-            Codes<false>::pair(__int_as_float(acc[k + 2]), __int_as_float(acc[k + 3]), sb);
-    }
-  }
-}
-
-int launch_gemm1_wide(const void* xq, const void* w0, const void* xs, const void* ws0, const void* b0, void* hq,
-                      void* hs, int M, int H, int K, cudaStream_t s) {
-  using T = WideTile;
-  CUtensorMap amap, bmap;
-  if (!make_map_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, M, K, K, T::BM, T::BK, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map_2d(&bmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w0, H, K, K, T::BN, T::BK, CU_TENSOR_MAP_SWIZZLE_128B))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = set_smem(ffn_gemm1_wide_kernel, T::SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  static int sms = 0;
-  if (sms == 0 && cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0) != cudaSuccess) sms = 132;
-  const int units = ((M + T::BM - 1) / T::BM) * (H / 512);
-  ffn_gemm1_wide_kernel<<<min(units, sms), T::THREADS, T::SMEM, s>>>(
-      amap, bmap, static_cast<const float*>(xs), static_cast<const float*>(ws0), static_cast<const float*>(b0),
-      static_cast<uint8_t*>(hq), static_cast<float*>(hs), M, H, K);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
-
 
 // kind: 0 = int8, 1 = e4m3. Codes are one byte a value either way.
 extern "C" int w8a8_quant_groups(int kind, const void* x, void* q, void* scale, int M, int K, int group,
@@ -823,16 +756,16 @@ extern "C" int w8a8_gemm(const void* a, const void* b, const void* a_scale, int 
 }
 
 // The FFN's first GEMM. bh is 512, 256 or 128 and divides H; xq, w0 and hq
-// 16-byte aligned, K % 16 == 0 (TMA's row pitch).
+// 16-byte aligned, K % 16 == 0 (TMA's row pitch); ws0 and b0 8-byte aligned.
 extern "C" int ffn_w8a8_gemm1(const void* xq, const void* w0, const void* xs, const void* ws0, const void* b0,
                               void* hq, void* hs, int M, int H, int K, int bh, int kind, void* stream) {
   if (M == 0) return 0;
-  if (K <= 0 || K % 16 || (bh != 512 && bh != 256 && bh != 128) || H <= 0 || H % bh ||
-      ((reinterpret_cast<uintptr_t>(xq) | reinterpret_cast<uintptr_t>(w0) | reinterpret_cast<uintptr_t>(hq)) & 15))
+  const uintptr_t a16 = reinterpret_cast<uintptr_t>(xq) | reinterpret_cast<uintptr_t>(w0) | reinterpret_cast<uintptr_t>(hq);
+  const uintptr_t a8 = reinterpret_cast<uintptr_t>(ws0) | reinterpret_cast<uintptr_t>(b0);
+  if (K <= 0 || K % 16 || (bh != 512 && bh != 256 && bh != 128) || H <= 0 || H % bh || (a16 & 15) || (a8 & 7))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kind) return launch_gemm1<true, 128>(xq, w0, xs, ws0, b0, hq, hs, M, H, K, bh, s);
-  if (bh == 512) return launch_gemm1_wide(xq, w0, xs, ws0, b0, hq, hs, M, H, K, s);
   return bh == 128 ? launch_gemm1<false, 128>(xq, w0, xs, ws0, b0, hq, hs, M, H, K, bh, s)
                    : launch_gemm1<false, 256>(xq, w0, xs, ws0, b0, hq, hs, M, H, K, bh, s);
 }
