@@ -127,7 +127,8 @@
 //    columns at a time through the warpgroup's buffer and written with
 //    16-byte stores. The TPU order and the port's rounding are kept
 //    (__fmul_rn/__fadd_rn, tanhf, Codes<FP8>::pair's IEEE division), so the
-//    int8 codes and scales are bit-identical to the earlier mma.sync kernel.
+//    int8 codes and scales match the mma.sync kernel this one replaced bit
+//    for bit (tools/ffn_gemm1_tile.py --parent checks it).
 //  - Walk: persistent, one cluster for every bh / BN SMs
 //    (cudaOccupancyMaxActiveClusters); unit u lies in a block of GB = 8
 //    groups, token tile outer and group inner inside the block, so the
@@ -137,6 +138,14 @@
 //  - The producer warpgroup stays to the end: the kernel ends with a
 //    cluster barrier, so no CTA exits while a peer may still write into its
 //    shared memory.
+//  - Measured on an H100 at M = 32,760, K = 5120, H = 13,824 (PERF.md):
+//    int8 4.1-4.4 ms, fp8 6.2-6.6 ms against a 2.34 ms operation bound. A
+//    single CTA of 64 tokens x 512 (both warpgroups side by side on the same
+//    rows, no cluster; 3 stages of 72 KB) took 5.8-5.9 ms where the int8
+//    cluster took 4.5. A tile costs ~20K cycles more than the GEMM's (the
+//    GELU, IEEE division and absmax of 128 values a thread, both
+//    warpgroups at once); ping-pong warpgroups could hide that only with
+//    an operand stream each, at 160 bytes of shared memory a clock.
 
 #include "hopper.cuh"
 
@@ -536,10 +545,6 @@ using Gemm1Tile = Tile<BN, BN == 256 ? 4 : 6>;
 constexpr int MAX_CLUSTER = 4;  // bh 512 / BN 128
 constexpr int GB = 8;           // hidden groups in a block of the unit walk
 
-// int8's h is kept in the accumulator it came from, as its bits
-__device__ __forceinline__ float bits_to_float(int a) { return __int_as_float(a); }
-__device__ __forceinline__ float bits_to_float(float a) { return a; }
-
 // unit u -> (token tile, hidden group): blocks of GB groups over every token
 // tile, token tile outer and group inner inside a block
 __device__ __forceinline__ int2 unit_coords(int u, int n_mt, int n_g) {
@@ -599,9 +604,9 @@ __global__ void __launch_bounds__(384, 1)
   const int fold_tiles = FOLD ? FP8_FOLD_K / T::BK : KT;
   const int off = (FOLD && wg) ? fold_tiles / 2 : 0;
   for (int u = cluster_id(), i = 0; u < units; u += cluster_count(), ++i) {
-    // a unit's first product starts with scale-d 0, so nothing is carried
-    // from the last unit: declared here, the epilogue's h can take the
-    // accumulator's registers without moves into a wgmma in flight (C7515)
+    // a unit's first product starts with scale-d 0 (a constant, issue_stage),
+    // so nothing is carried from the last unit and h may take the
+    // accumulator's registers
     Acc acc[T::NACC], acc2[T::NACC];  // acc2: fp8's second accumulator
     float sum[T::NACC];               // fp8: the promotion sum, then h (unused for int8)
     const int2 mg = unit_coords(u, n_mt, n_g);
@@ -616,7 +621,8 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
     for (int j = 0; j < T::NACC / 4; ++j) {
       const int c = n0 + 8 * j + 2 * t;
-      // c is even and ws0, b0 8-byte aligned: one load a pair (scalar loads hoisted far enough to spill)
+      // c is even and ws0, b0 8-byte aligned: one load a pair (with scalar
+      // loads the int8 128 x 256 kernel spilled 56 bytes, with these 8)
       const float2 wp = __ldg(reinterpret_cast<const float2*>(ws0 + c)), bp = __ldg(reinterpret_cast<const float2*>(b0 + c));
       const float w[2] = {wp.x, wp.y}, b[2] = {bp.x, bp.y};
 #pragma unroll
@@ -663,7 +669,10 @@ __global__ void __launch_bounds__(384, 1)
         const int k = 4 * (c0 / 8 + jj);
         float h[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) h[e] = FOLD ? sum[k + e] : bits_to_float(acc[k + e]);
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (FOLD) h[e] = sum[k + e];
+          else h[e] = __int_as_float(acc[k + e]);
+        }
         st_shared_b16(ep + wrow * T::EP_LD + 8 * jj + 2 * t, Codes<FP8>::pair(h[0], h[1], sa));
         st_shared_b16(ep + (wrow + 8) * T::EP_LD + 8 * jj + 2 * t, Codes<FP8>::pair(h[2], h[3], sb));
       }

@@ -47,29 +47,6 @@ PEAK_OPS = 1979e12  # int8 TOP/s and dense fp8 TFLOP/s of the H100 SXM
 BANDS = ((0.0, 1.0), (1.0, 16.0), (16.0, 128.0), (128.0, 449.0))  # |code| bands for where fp8 codes differ
 
 
-def smi(query: str) -> str:
-    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Median ms of ``fn`` over ``reps`` calls after one warm-up call, each
-    call timed with CUDA events (the timer of ``chip_smoke.py``)."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return float(times[len(times) // 2])
-
-
 def load_other(root: str, build_dir: Path, nvcc: str, flags) -> ctypes.CDLL:
     """Another checkout's w8a8 library, built with this checkout's flags."""
     so = build_dir / "w8a8_parent.so"
@@ -146,6 +123,7 @@ def main() -> None:
 
     from lightx2v_tpu_torch.ops.cuda import _build
     from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
+    from lightx2v_tpu_torch.tools.w4a8_tile import cuda_ms, smi
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--check-only", action="store_true")
