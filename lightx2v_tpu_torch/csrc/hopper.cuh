@@ -2,11 +2,12 @@
 // flash_attention.cu and sage_attention.cu through flash_wgmma.cuh,
 // w8a8_matmul.cu, w4a8_matmul.cu): the wgmma fences, the shared-memory
 // descriptors of the 128- and 64-byte swizzles, the accumulator operand
-// lists of the 8-bit wgmma shapes, 32-bit shared-memory loads and stores,
-// mbarriers, cluster ranks, barriers and distributed shared memory, TMA
-// copies in both directions, tensor maps, and
-// cuTensorMapEncodeTiled looked up through the CUDA runtime's entry-point
-// query (so no library needs -lcuda).
+// lists of the 8-bit wgmma shapes, shared-memory loads and stores by 32-bit
+// address, mbarriers, cluster ranks, barriers and distributed shared memory,
+// the unit walk and launch of the cluster kernels (the FFNs' first GEMMs in
+// w8a8_matmul.cu and w4a8_matmul.cu), TMA copies in both directions, tensor
+// maps, and cuTensorMapEncodeTiled looked up through the CUDA runtime's
+// entry-point query (so no library needs -lcuda).
 //
 // Each .cu that includes this file gets its own copy (anonymous namespace).
 
@@ -101,6 +102,9 @@ __device__ __forceinline__ void fence_acc(int (&d)[N]) {
 #define W8_OP128(C, d) W8_OP96(C, d), W8_OP8(C, d, 96), W8_OP8(C, d, 104), W8_OP8(C, d, 112), W8_OP8(C, d, 120)
 
 // ---- shared memory by 32-bit address ----
+__device__ __forceinline__ void st_shared_b8(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b8 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
 __device__ __forceinline__ void st_shared_b16(uint32_t addr, uint16_t v) {
   asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(addr), "h"(v) : "memory");
 }
@@ -111,6 +115,9 @@ __device__ __forceinline__ uint32_t ld_shared_b32(uint32_t addr) {
   uint32_t v;
   asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
   return v;
+}
+__device__ __forceinline__ void st_shared_v2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
 }
 __device__ __forceinline__ uint2 ld_shared_v2(uint32_t addr) {
   uint2 v;
@@ -183,6 +190,11 @@ __device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
 __device__ __forceinline__ void st_cluster_v2(uint32_t addr, float a, float b) {
   asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
 }
+__device__ __forceinline__ void st_cluster_v4(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x), "f"(v.y), "f"(v.z),
+               "f"(v.w)
+               : "memory");
+}
 // an arrive on a barrier of any CTA of the cluster (addr from map_rank),
 // releasing this thread's earlier stores to the cluster
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
@@ -200,6 +212,53 @@ __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity
         : "r"(a), "r"(parity)
         : "memory");
   }
+}
+
+// ---- the cluster kernels' persistent walk ----
+// A unit is one token tile x one hidden group, covered by a cluster of CTAs
+// side by side along the hidden axis; every CTA of a cluster walks the same
+// units, cluster c taking units c, c + clusters, ...
+constexpr int MAX_CLUSTER = 4;  // CTAs a cluster
+constexpr int GB = 8;           // hidden groups in a block of the unit walk
+
+// unit u -> (token tile, hidden group): blocks of GB groups over every token
+// tile, token tile outer and group inner inside a block, so the clusters in
+// flight share GB groups of the weights and a few token tiles in L2
+__device__ __forceinline__ int2 unit_coords(int u, int n_mt, int n_g) {
+  const int blk = u / (GB * n_mt), r = u - blk * GB * n_mt;
+  const int g0 = blk * GB, gw = min(GB, n_g - g0);
+  return make_int2(r / gw, g0 + r % gw);
+}
+
+// Launches kern on 1-D clusters of cs CTAs, one cluster for each that the
+// card holds at once (at most `units`). max_clusters caches that count for
+// this kernel and cluster size (cudaOccupancyMaxActiveClusters, asked once).
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kern)(Params...), int& max_clusters, int threads, int smem, int cs, int units,
+                            cudaStream_t s, Args... args) {
+  cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cs;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if (max_clusters == 0) {
+    cfg.gridDim = dim3(cs);
+    err = cudaOccupancyMaxActiveClusters(&max_clusters, kern, &cfg);
+    if (err != cudaSuccess) return err;
+    if (max_clusters == 0) return cudaErrorInvalidConfiguration;
+  }
+  cfg.gridDim = dim3(min(units, max_clusters) * cs);
+  err = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // ---- TMA ----

@@ -1,8 +1,7 @@
 // Pieces shared by the 8-bit tensor-core kernels (w8a8_matmul.cu,
-// w4a8_matmul.cu): cp.async and ldmatrix wrappers and the int8
-// mma.sync.m16n8k32 product (int32 sums) of w4a8_matmul.cu's FFN GEMM1,
-// tanh-GELU in the TPU kernels' evaluation order, and the dynamic
-// per-(row, group) activation quantization pass to int8 or e4m3 codes.
+// w4a8_matmul.cu): tanh-GELU in the TPU kernels' evaluation order, the
+// code kinds' rounding, and the dynamic per-(row, group) activation
+// quantization pass to int8 or e4m3 codes.
 //
 // Each .cu that includes this file gets its own copy (anonymous namespace),
 // so every shared library stays self-contained.
@@ -19,27 +18,6 @@ namespace {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // the wgmma kernels' accumulators (int32 or fp32) as fp32

@@ -129,12 +129,13 @@
 //    (__fmul_rn/__fadd_rn, tanhf, Codes<FP8>::pair's IEEE division), so the
 //    int8 codes and scales match the mma.sync kernel this one replaced bit
 //    for bit (tools/ffn_gemm1_tile.py --parent checks it).
-//  - Walk: persistent, one cluster for every bh / BN SMs
-//    (cudaOccupancyMaxActiveClusters); unit u lies in a block of GB = 8
-//    groups, token tile outer and group inner inside the block, so the
-//    clusters in flight share 8 groups of w0 (21 MB at K = 5120) and a few
-//    token tiles in L2 where group-fastest order streamed all 71 MB of w0
-//    for every few token tiles. Every CTA of a cluster walks the same units.
+//  - Walk (unit_coords and launch_clusters, hopper.cuh): persistent, one
+//    cluster for every bh / BN SMs (cudaOccupancyMaxActiveClusters); unit u
+//    lies in a block of GB = 8 groups, token tile outer and group inner
+//    inside the block, so the clusters in flight share 8 groups of w0 (21
+//    MB at K = 5120) and a few token tiles in L2 where group-fastest order
+//    streamed all 71 MB of w0 for every few token tiles. Every CTA of a
+//    cluster walks the same units.
 //  - The producer warpgroup stays to the end: the kernel ends with a
 //    cluster barrier, so no CTA exits while a peer may still write into its
 //    shared memory.
@@ -542,16 +543,6 @@ int launch_gemm_kind(const void* a, const void* b, const void* a_scale, int G, i
 // six 32 KB stages
 template <int BN>
 using Gemm1Tile = Tile<BN, BN == 256 ? 4 : 6>;
-constexpr int MAX_CLUSTER = 4;  // bh 512 / BN 128
-constexpr int GB = 8;           // hidden groups in a block of the unit walk
-
-// unit u -> (token tile, hidden group): blocks of GB groups over every token
-// tile, token tile outer and group inner inside a block
-__device__ __forceinline__ int2 unit_coords(int u, int n_mt, int n_g) {
-  const int blk = u / (GB * n_mt), r = u - blk * GB * n_mt;
-  const int g0 = blk * GB, gw = min(GB, n_g - g0);
-  return make_int2(r / gw, g0 + r % gw);
-}
 
 template <bool FP8, int BN>
 __global__ void __launch_bounds__(384, 1)
@@ -698,34 +689,13 @@ int launch_gemm1(const void* xq, const void* w0, const void* xs, const void* ws0
       !make_map_2d(&bmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w0, H, K, K, BN, T::BK, CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = ffn_gemm1_wgmma_kernel<FP8, BN>;
-  cudaError_t err = set_smem(kern, T::SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int cs = bh / BN;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cs;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(T::THREADS);
-  cfg.dynamicSmemBytes = T::SMEM;
-  cfg.stream = s;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
   static int max_clusters[MAX_CLUSTER + 1] = {};  // by cluster size: one CTA an SM
-  if (max_clusters[cs] == 0) {
-    cfg.gridDim = dim3(cs);
-    err = cudaOccupancyMaxActiveClusters(&max_clusters[cs], kern, &cfg);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (max_clusters[cs] == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
   const int units = ((M + T::BM - 1) / T::BM) * (H / bh);
-  cfg.gridDim = dim3(min(units, max_clusters[cs]) * cs);
-  err = cudaLaunchKernelEx(&cfg, kern, amap, bmap, static_cast<const float*>(xs), static_cast<const float*>(ws0),
-                           static_cast<const float*>(b0), static_cast<uint8_t*>(hq), static_cast<float*>(hs), M, H,
-                           K, bh);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_clusters(kern, max_clusters[cs], T::THREADS, T::SMEM, cs, units, s, amap, bmap,
+                                          static_cast<const float*>(xs), static_cast<const float*>(ws0),
+                                          static_cast<const float*>(b0), static_cast<uint8_t*>(hq),
+                                          static_cast<float*>(hs), M, H, K, bh));
 }
 
 }  // namespace

@@ -220,15 +220,30 @@ def test_w4a8_kernel_hazards(dev, case):
     _close(w4.w4a8_matmul(x, w, ws, b), w4.w4a8_matmul_plain(x, w, ws, b), 2 ** -7, 0.0)
 
 
-@pytest.mark.parametrize("m,k,h,n", [(70, 512, 13824, 128), (33, 1024, 768, 256), (129, 256, 384, 64)])
-def test_ffn_w4a8_kernel_vs_plain(dev, m, k, h, n):
-    """bh = 512 (27 hidden groups), 256 and 128."""
+# (m, k, h, n, w0's quant group, w0's fill): bh (w2's quant group) 512 at H =
+# 13,824 (27 hidden groups, GEMM1 clusters of 4 CTAs), 256 at H = 768 and
+# 8960 (clusters of 2), 128 at H = 384 (1); M ragged past a 192-token tile
+# (333, 200), 1, and 4096 at K = 5120, H = 13,824: 22 x 27 units of GEMM1,
+# more than the clusters in flight, so the walk wraps; w0 groups of 512, 256
+# and 128. A fill (0x00, 0xFF: every nibble -8 or 7, the extremes) comes with
+# one-signed x, so every group sum has one sign and its largest size.
+FFN_W4A8_CASES = [(70, 512, 13824, 128, 512, None), (33, 1024, 768, 256, 512, None), (129, 256, 384, 64, 256, None),
+                  (4096, 5120, 13824, 128, 512, None), (333, 5120, 8960, 136, 512, None),
+                  (1, 5120, 13824, 128, 512, None), (333, 1024, 13824, 128, 128, None),
+                  (200, 768, 384, 64, 256, None), (300, 5120, 13824, 128, 512, 0x00),
+                  (300, 5120, 13824, 128, 512, 0xFF)]
+
+
+@pytest.mark.parametrize("m,k,h,n,group,fill", FFN_W4A8_CASES)
+def test_ffn_w4a8_kernel_vs_plain(dev, m, k, h, n, group, fill):
     from lightx2v_tpu_torch.ops.cuda import w4a8_matmul as w4
     from lightx2v_tpu_torch.tools.convert import _pick_bk
 
     g = torch.Generator(device=dev).manual_seed(h + k)
-    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-    w0, s0 = _packed(g, dev, h, k, _pick_bk(k))
+    x = _x(g, dev, m, k, one_signed=fill is not None)
+    w0, s0 = _packed(g, dev, h, k, group)
+    if fill is not None:
+        w0.fill_(fill)
     w2, s2 = _packed(g, dev, n, h, _pick_bk(h))
     b0, b2 = torch.randn((h,), generator=g, device=dev) * 0.02, torch.randn((n,), generator=g, device=dev) * 0.02
     # bar: a tanh ulp can flip a rare hidden code by one step
