@@ -1,10 +1,12 @@
-"""Checks and times the FFN's first 8-bit GEMM (``ffn_gemm1_wgmma_kernel``,
-the ``ffn_w8a8_gemm1`` entry point) on the card, in both kinds, on codes
-from the port's quantize pass:
+"""Checks and times the FFN's first GEMM on the card, on codes from the
+port's quantize pass: the 8-bit one (``ffn_gemm1_wgmma_kernel``, the
+``ffn_w8a8_gemm1`` entry point) in both kinds, or with ``--w4a8`` the
+int4-weight one (at the end):
 
     python3 lightx2v_tpu_torch/tools/ffn_gemm1_tile.py                      # check and time
     python3 lightx2v_tpu_torch/tools/ffn_gemm1_tile.py --check-only         # small ragged shapes only
     python3 lightx2v_tpu_torch/tools/ffn_gemm1_tile.py --parent OTHER_ROOT  # and another checkout's, in turns
+    python3 lightx2v_tpu_torch/tools/ffn_gemm1_tile.py --w4a8 --parent OTHER_ROOT
 
 GEMM1 writes the hidden's 8-bit codes hq (M, H) and scales hs (M, H/bh)
 from gelu(xq . w0 * xs * ws0 + b0), requantized per (token, bh group). First
@@ -43,9 +45,7 @@ epilogue, the group absmax) with the int8 bars above, at M of 1, 333 and
 (M = 32,760, K = 5120, H = 13,824, groups of 512) one JSON line gives the ms
 beside the operation bound, in turns with ROOT's, and, as a reference point
 (not a port: no GELU, no absmax), ``w4a8_gemm`` on the same codes and
-weights at (M, N, K) = (32,760, 13,824, 5120):
-
-    python3 lightx2v_tpu_torch/tools/ffn_gemm1_tile.py --w4a8 --parent OTHER_ROOT
+weights at (M, N, K) = (32,760, 13,824, 5120).
 """
 
 from __future__ import annotations
