@@ -7,6 +7,7 @@
     python3 chip_smoke.py --kernels-only --kernel int4_matmul  # one kernel's phase
     python3 chip_smoke.py --path base     # the kernel phases and one path
     python3 chip_smoke.py --path fp8_distill   # the kernel phases and the fp8 path
+    python3 chip_smoke.py --path i2v      # the kernel phases and the i2v path
 
 1. Prints the card's name and power limit, builds every CUDA kernel of the
    port from ``lightx2v_tpu_torch/csrc`` (one nvcc per source, in parallel)
@@ -43,13 +44,26 @@
    reference's LightX2V_3-Distill row: fp8 e4m3 DiT linears, fused-RoPE
    flash, its 4 distill steps, tiled decode) at the 14B widths with the fp8
    UMT5-XXL (``t5_quantized``, ``t5_quant_scheme: "fp8"``).
+8. i2v: one full-width int8 i2v block (36 input channels, the image
+   cross-attention over 257 CLIP tokens) the same way; the full-width CLIP
+   ViT-H/14 tower, bf16 and int8, on the card vs the CPU; the full Wan
+   VAE's encode of 5 frames of 64 x 64 on the card vs the CPU; then the
+   distill runner on ``configs/deploy/wan_i2v.json`` as it is (Wan2.1-I2V-14B
+   widths, int8 DiT, fused-RoPE flash) with a seeded 480 x 832 PNG: bf16
+   UMT5-XXL -> area resize (the identity at this size) -> CLIP tower on the
+   card (bicubic 224 x 224) -> VAE encode of [image, 80 zero frames] ->
+   4-step distill denoise with the image cross-attention -> tiled decode.
+   Its line gives the encode's parts (T5, CLIP, VAE encode) and the stage
+   that set the peak device memory.
 
 The kernel phases also print the radial comparison at the main shape (dense
 flash, block-sparse at 128 x 128 and 256 x 128, two_pass), hold two merged
 half-key partials against one dense call, time the dense flash kernel at the
-self-attention shape without RoPE (an ``other_shapes`` line, SDPA its
-yardstick), and hold the RoPE pass of the fused-RoPE flash (``rope_rotate``,
-its own kernel row and counter) bit for bit against its plain version. The
+self-attention shape without RoPE and over i2v's 257 image keys
+(``other_shapes`` entries, SDPA their yardstick) and the 8-bit full-K GEMM
+at i2v's M = 257 beside M = 512, and hold the RoPE pass of the fused-RoPE
+flash (``rope_rotate``, its own kernel row and counter) bit for bit against
+its plain version. The
 fp8 rows' library yardstick is the torch quantize pass plus
 ``torch._scaled_mm`` with row-wise scales; the per-head block-sparse row's is
 ``torch.compile(flex_attention)`` on the same block mask (None, with the
@@ -79,6 +93,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -93,6 +108,7 @@ PEAKS = {
 
 # main-path shapes: latents 16x21x60x104 -> 32,760 tokens, 40 heads of 128
 S, HEADS, HD, DIM, FFN, TXT = 32760, 40, 128, 5120, 13824, 512
+IMG = 257  # i2v image context: the CLIP tower's cls + 16 x 16 patch tokens
 T5_DIM, T5_FFN = 4096, 10240  # UMT5-XXL
 GROUP = 512  # int4 quant group along in-features at these widths
 REPS = 5  # timed calls per kernel (CUDA-event median)
@@ -104,6 +120,7 @@ FRAMES = 21  # latent frames of 1560 tokens
 DEPLOY_JSON = "configs/deploy/wan_t2v.json"
 BASE_JSON = "configs/bench/lightx2v_1.json"
 FP8_JSON = "configs/bench/lightx2v_3_distill.json"
+I2V_JSON = "configs/deploy/wan_i2v.json"
 # the bench flagship: the deploy config plus these overrides
 FLAGSHIP = dict(mm_config={"mm_type": INT4A8}, sparge=True, sparge_keep_ratio=0.3,
                 sparge_ckpt=str(ROOT / "configs/sparge/wan_t2v_14b_structured_keep03.npz"),
@@ -119,7 +136,7 @@ RADIAL_TWO_PASS = dict(RADIAL_BSR, sparse_block_q=256, radial_sparsity_type="two
 # 14B widths, with the fp8 UMT5-XXL
 FP8_DISTILL = dict(dim=DIM, ffn_dim=FFN, num_heads=HEADS, num_layers=40, text_len=TXT, t5_quantized=True,
                    t5_quant_scheme="fp8")
-PATHS = ("slice", "flagship", "base", "radial_bsr", "radial_two_pass", "fp8_distill")
+PATHS = ("slice", "flagship", "base", "radial_bsr", "radial_two_pass", "fp8_distill", "i2v")
 
 
 def card_line() -> str:
@@ -382,26 +399,28 @@ def kernel_phase(peaks, reps: int, want):
     if want("flash_attention_fused_rope"):
         del v
 
-    # ---- flash attention (cross-attention over 512 text tokens) ----
+    # ---- flash attention (cross-attention over 512 text tokens; i2v's 257 image tokens: the last
+    # key tile holds one valid row, the rest zero-filled by TMA and masked by kv_limit) ----
     if want("flash_attention"):
-        kc, vc = randn(1, TXT, HEADS, HD), randn(1, TXT, HEADS, HD)
-        out = fa.flash_attention(q, kc, vc)
-        torch.cuda.synchronize()
-        ref = fa.flash_attention_plain(q, kc, vc)
-        err = check_close("flash_attention", out, ref, 2e-2, 1e-3)
-        del ref, out
-        ms = cuda_ms(lambda: fa.flash_attention(q, kc, vc), reps)
-        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, kc, vc), 2)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), kc.transpose(1, 2),
-                                                                vc.transpose(1, 2)), reps)
-        b_ms, b_by = bound(4.0 * HEADS * S * TXT * HD, (2 * S + 2 * TXT) * HEADS * HD * 2, peak_bf16, peak_bw)
-        rows.append(dict(name="flash_attention", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
-                         replaces="lightx2v_tpu/ops/pallas/flash_attention.py:409",
-                         shape=f"q (1,{S},{HEADS},{HD}); k,v (1,{TXT},{HEADS},{HD}) bf16",
-                         max_abs_err=err, bar="2e-2*max|ref| + 1e-3", ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                         library_call="F.scaled_dot_product_attention"))
-        del kc, vc
+        for sk in (TXT, IMG):
+            kc, vc = randn(1, sk, HEADS, HD), randn(1, sk, HEADS, HD)
+            out = fa.flash_attention(q, kc, vc)
+            torch.cuda.synchronize()
+            ref = fa.flash_attention_plain(q, kc, vc)
+            err = check_close(f"flash_attention {sk} keys", out, ref, 2e-2, 1e-3)
+            del ref, out
+            ms = cuda_ms(lambda: fa.flash_attention(q, kc, vc), reps)
+            plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, kc, vc), 2)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), kc.transpose(1, 2),
+                                                                    vc.transpose(1, 2)), reps)
+            b_ms, b_by = bound(4.0 * HEADS * S * sk * HD, (2 * S + 2 * sk) * HEADS * HD * 2, peak_bf16, peak_bw)
+            (rows if sk == TXT else extra).append(dict(
+                name="flash_attention", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
+                replaces="lightx2v_tpu/ops/pallas/flash_attention.py:409",
+                shape=f"q (1,{S},{HEADS},{HD}); k,v (1,{sk},{HEADS},{HD}) bf16",
+                max_abs_err=err, bar="2e-2*max|ref| + 1e-3", ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library_call="F.scaled_dot_product_attention"))
+            del kc, vc
 
         # ---- the dense kernel at the self-attention shape, without RoPE ----
         ks, vs = randn(1, S, HEADS, HD), randn(1, S, HEADS, HD)
@@ -425,7 +444,7 @@ def kernel_phase(peaks, reps: int, want):
     if want("flash_attention_fused_rope") or want("flash_attention") or want("rope_rotate"):
         del q
 
-    # ---- w8a8_matmul_fullk (q/k/v/o at M=32,760; cross k/v at M=512) ----
+    # ---- w8a8_matmul_fullk (q/k/v/o at M=32,760; cross k/v at M=512; i2v's image k/v at M=257) ----
     def quant_lib(x2):
         s = torch.clamp_min(x2.float().abs().amax(-1), 1e-8) * (1.0 / 127.0)
         return torch.clamp(torch.round(x2.float() / s[:, None]), -127, 127).to(torch.int8), s
@@ -439,7 +458,7 @@ def kernel_phase(peaks, reps: int, want):
         w = torch.randint(-127, 128, (DIM, DIM), generator=g, device=dev, dtype=torch.int8)
         ws = torch.full((DIM,), 0.02 / 127, device=dev)
         bvec = randn(DIM, dtype=torch.float32, std=0.02)
-        for m in (S, TXT):
+        for m in (S, TXT, IMG):
             x = randn(m, DIM)
             out = wm.w8a8_matmul_fullk(x, w, ws, bvec)
             torch.cuda.synchronize()
@@ -995,11 +1014,24 @@ def kernel_phase_fp8(peaks, reps: int, want):
 # slice phase
 
 
+def _to(tree, dev):
+    """A params tree (dicts, lists, tensors) with every tensor on ``dev``."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
 def block_reference_check(scheme: str = "int8", mm_type: str = INT8, self_attn_type: str = "flash_attn3",
-                          rtol: float = 3e-2, perturbation: bool = False):
+                          rtol: float = 3e-2, perturbation: bool = False, i2v: bool = False):
     """One full-width quantized DiT block (kernel thresholds engaged) on a
     small input: CUDA kernels vs the plain versions on the CPU, same
     weights, dense fused-RoPE flash self-attention (or ``self_attn_type``).
+    With ``i2v`` the block is the i2v one: 36 input channels (``y``) and the
+    image cross-attention over 257 CLIP tokens beside the text.
     With ``perturbation`` it also prints how far the CPU block moves when one
     bf16 ulp is added to 1% of the context entries: the block's sensitivity
     to bf16-level noise, which the card-vs-CPU difference is made of."""
@@ -1012,22 +1044,23 @@ def block_reference_check(scheme: str = "int8", mm_type: str = INT8, self_attn_t
     from lightx2v_tpu_torch.models.wan.pipeline import rope_for_shape
     from lightx2v_tpu_torch.models.wan.weights import init_random_params_on_device, permute_qk_half
 
-    arch = dataclasses.replace(WanArch(**PRESETS["wan2.1_14b"]), num_layers=1, rope_fused=True)
+    arch = dataclasses.replace(WanArch(**PRESETS["wan2.1_14b"]), num_layers=1, rope_fused=True,
+                               **(dict(task="i2v", in_dim=36) if i2v else {}))
     params = permute_qk_half(init_random_params_on_device(arch, scheme, seed=3, device="cuda"), arch)
     g = torch.Generator(device="cuda").manual_seed(4)
     shape = (16, 2, 8, 12)  # 48 tokens
     lat = torch.randn((1, *shape), generator=g, device="cuda")
     ctx = (torch.randn((1, TXT, arch.text_dim), generator=g, device="cuda") * 0.5).to(torch.bfloat16)
     t = torch.tensor([750.0], device="cuda")
+    cond = {}
+    if i2v:
+        cond = dict(y=torch.randn((1, 20, *shape[1:]), generator=g, device="cuda"),
+                    clip_fea=torch.randn((1, IMG, arch.clip_dim), generator=g, device="cuda"))
 
     def run(dev):
-        to = lambda tree: (  # noqa: E731
-            {k: to(v) for k, v in tree.items()} if isinstance(tree, dict)
-            else [to(v) for v in tree] if isinstance(tree, list)
-            else tree.to(dev) if isinstance(tree, torch.Tensor) else tree)
         cos, sin, _ = rope_for_shape(arch, shape, device=dev)
-        return wan_forward(to(params), lat.to(dev), t.to(dev), context.to(dev), cos, sin, arch, mm_type=mm_type,
-                           self_attn_type=self_attn_type)
+        return wan_forward(_to(params, dev), lat.to(dev), t.to(dev), context.to(dev), cos, sin, arch,
+                           mm_type=mm_type, self_attn_type=self_attn_type, **_to(cond, dev))
 
     context = ctx
     out = run("cuda")
@@ -1043,8 +1076,83 @@ def block_reference_check(scheme: str = "int8", mm_type: str = INT8, self_attn_t
     # quantized GEMMs; summation order and rare rounding flips stay at bf16
     # noise (rtol 3e-2), which each quantized GEMM then amplifies where it
     # moves an activation across a code boundary (see the fp8 call)
-    return check_close(f"one 14B {scheme} block ({mm_type}, {self_attn_type}), card vs CPU plain", out.cpu(), ref,
-                       rtol, 1e-3)
+    kind = "i2v " if i2v else ""
+    return check_close(f"one 14B {kind}{scheme} block ({mm_type}, {self_attn_type}), card vs CPU plain", out.cpu(),
+                       ref, rtol, 1e-3)
+
+
+def clip_reference_check():
+    """The full-width CLIP ViT-H/14 tower (31 blocks, 257 tokens), bf16 and
+    with ``quantize_clip_params`` int8, on the card vs the same arithmetic on
+    the CPU, on one seeded 480 x 832 image: the embedding, then each block
+    on the card's input to it. The blocks are held one by one because the
+    random-weight tower amplifies bf16-level noise from block to block, so
+    whole-tower outputs would differ by that amplified noise, not by a
+    fault."""
+    import numpy as np
+    import torch
+
+    from lightx2v_tpu_torch.encoders import clip
+
+    arch = clip.ClipVisionArch()
+    params = clip.init_random_clip_params_on_device(arch, seed=3, device="cuda")
+    img = np.random.default_rng(5).uniform(-1, 1, (480, 832, 3)).astype(np.float32)
+    px = torch.from_numpy(clip.preprocess_image(img, arch.image_size))
+    rel = lambda a, b: float((a.cpu().float() - b.float()).norm() / b.float().norm())  # noqa: E731
+    worst = {}
+    for scheme in ("bf16", "int8"):
+        p = params if scheme == "bf16" else clip.quantize_clip_params(params, "int8")
+        cpu = _to(p, "cpu")
+        x = clip.clip_embed(p, px, arch)
+        errs = [rel(x, clip.clip_embed(cpu, px, arch))]
+        for bp, cbp in zip(p["blocks"], cpu["blocks"]):
+            y = clip.clip_block(bp, x, arch)
+            errs.append(rel(y, clip.clip_block(cbp, x.cpu(), arch)))
+            x = y
+        torch.cuda.synchronize()
+        worst[scheme] = max(errs)
+        # bar: relative L2 1e-2 a stage, the tower's bar against the JAX
+        # package on the CPU (bf16 activations; fp32 sums in another order)
+        print(f"[check] CLIP ViT-H/14 tower {scheme}, card vs CPU, embedding and each of {len(p['blocks'])} blocks "
+              f"on the card's input: worst rel_l2 {worst[scheme]:.3e} (bar 1e-2)", flush=True)
+        if not (torch.isfinite(x.float()).all() and x.shape == (1, 257, arch.dim) and worst[scheme] <= 1e-2):
+            raise AssertionError(f"CLIP tower {scheme}: worst rel_l2 {worst[scheme]}, shape {tuple(x.shape)}")
+        del p, cpu
+    return worst
+
+
+def vae_encode_check():
+    """The full Wan VAE's encode of a short clip (5 frames of 64 x 64) on the
+    card (TF32 convolutions) vs the CPU (fp32)."""
+    import numpy as np
+    import torch
+
+    from lightx2v_tpu_torch.vae import wan_vae
+
+    cfg = wan_vae.WanVAEConfig()
+    sd = wan_vae.init_random_vae_state_dict(cfg, seed=2)
+    x = torch.from_numpy(np.random.default_rng(8).uniform(-1, 1, (1, 5, 64, 64, 3)).astype(np.float32))
+    out = wan_vae.vae_encode(wan_vae.load_wan_vae_params(sd, cfg, device="cuda"), x.to("cuda"), cfg)
+    torch.cuda.synchronize()
+    ref = wan_vae.vae_encode(wan_vae.load_wan_vae_params(sd, cfg), x, cfg)
+    rel = float((out.cpu() - ref).norm() / ref.norm())
+    print(json.dumps({"vae_encode_check": {"shape": list(out.shape), "rel_l2": rel}}), flush=True)
+    # bar: TF32 rounds each conv's inputs to 10 mantissa bits (~5e-4
+    # relative) on the card; the CPU convolves in fp32
+    return check_close("Wan VAE encode 5x64x64, card (TF32) vs CPU (fp32)", out.cpu(), ref, 2e-2, 1e-3)
+
+
+def write_image(path: str, seed: int = 0) -> str:
+    """A seeded 480 x 832 RGB PNG (smooth colour ramps plus noise)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:480, 0:832] / np.array([480.0, 832.0])[:, None, None]
+    ramp = np.stack([yy, xx, 1 - (yy + xx) / 2], axis=-1) * 200
+    img = np.clip(ramp + rng.normal(0, 20, ramp.shape), 0, 255).astype(np.uint8)
+    Image.fromarray(img).save(path)
+    return path
 
 
 def expected_launches(runner, cfg) -> dict:
@@ -1058,22 +1166,25 @@ def expected_launches(runner, cfg) -> dict:
     out = {k: 0 for k in launch_counts()}
     calls = L * steps  # one per block and forward (CFG doubles the batch, not the calls)
     mm_type = cfg["mm_config"]["mm_type"]
-    # per block: q/k/v/o of both attentions, and the FFN (fused, or two GEMMs around a torch GELU)
+    i2v = cfg.get("task") == "i2v"
+    # per block: q/k/v/o of both attentions (and i2v's k_img / v_img at M = 257), and the FFN (fused,
+    # or two GEMMs around a torch GELU)
+    lin = (10 if i2v else 8) * calls
     if mm_type == INT4A8:
-        out.update(w4a8_matmul=8 * calls, ffn_w4a8=calls)
+        out.update(w4a8_matmul=lin, ffn_w4a8=calls)
     elif mm_type == INT4W:
-        out.update(int4_matmul=10 * calls)
+        out.update(int4_matmul=lin + 2 * calls)
     elif mm_type == FP8:
-        out.update(w8a8_matmul_fullk_fp8=8 * calls, ffn_w8a8_fp8=calls)
+        out.update(w8a8_matmul_fullk_fp8=lin, ffn_w8a8_fp8=calls)
     else:
-        out.update(w8a8_matmul_fullk=8 * calls, ffn_w8a8=calls)
+        out.update(w8a8_matmul_fullk=lin, ffn_w8a8=calls)
     if cfg.get("t5_quantized"):
         # T5: q/k/v/o/gate/fc1 full-K (K = 4096), fc2 k-blocked (K = 10,240), in the T5's kind
         t5_layers = runner.text_encoder.cfg.num_layers
         sfx = "" if "int8" in str(cfg.get("t5_quant_scheme", "int8")) else "_fp8"
         out["w8a8_matmul_fullk" + sfx] += (len(T5_LINEARS) - 1) * t5_layers
         out["w8a8_matmul" + sfx] += t5_layers
-    out["flash_attention"] = calls  # cross-attention
+    out["flash_attention"] = (2 if i2v else 1) * calls  # cross-attention (text, and the image for i2v)
     attn, _, kw = runner._self_attn_setup()
     if attn == "sparge":
         p = (kw or {}).get("dense_prefix", 0)
@@ -1143,9 +1254,13 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
     if frames.shape != (81, 480, 832, 3) or not np.isfinite(frames).all():
         raise AssertionError(f"{name}: bad frames: shape {frames.shape}, finite {np.isfinite(frames).all()}")
     tm = runner.timings
-    stats = {"encode_s": tm["encode_s"], "denoise_step_s": [float(x) for x in tm["step_s"]],
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    stats = {"encode_s": tm["encode_s"], **{k: tm[k] for k in ("t5_s", "clip_s", "vae_encode_s") if k in tm},
+             "denoise_step_s": [float(x) for x in tm["step_s"]],
              "dit_s": tm["dit_s"], "decode_s": tm["decode_s"], "e2e_s": total, "steps": len(tm["step_s"]),
-             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "peak_mem_gb": peak,
+             # the first stage (or encode part) after which the peak so far reached the run's peak
+             "peak_stage": next((k for k, v in tm["mem_gb"].items() if v >= peak), None),
              "frames": list(frames.shape), "frames_mean_abs": float(np.abs(frames).mean())}
     if selected:
         stats["sparge_calls"] = len(selected)
@@ -1189,6 +1304,7 @@ def profile_run(runner, out_dir: str, name: str):
 
     if runner.text_encoder is None:  # released by the measured run: reload outside the window
         runner.text_encoder = runner.load_text_encoder()
+        runner.image_encoder = runner.load_image_encoder()
     if runner.model is None:
         runner.model = runner.load_transformer()
     runner.config["release_modules"] = False
@@ -1283,6 +1399,13 @@ def main():
         # the two checks; PERF.md, PR 6)
         block_reference_check("fp8", FP8, rtol=6e-2, perturbation=True)
         by_path["fp8_distill"] = run_path("fp8_distill", FP8_DISTILL, args.profile, config_json=FP8_JSON)
+    if "i2v" in paths:
+        block_reference_check("int8", INT8, i2v=True)
+        clip_reference_check()
+        vae_encode_check()
+        with tempfile.TemporaryDirectory() as tmp:
+            image = write_image(str(Path(tmp) / "i2v_input.png"))
+            by_path["i2v"] = run_path("i2v", dict(task="i2v", image_path=image), args.profile, config_json=I2V_JSON)
     for r in rows:
         r["launches_by_path"] = {p: c.get(r["name"], 0) for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

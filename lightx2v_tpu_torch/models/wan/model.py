@@ -1,7 +1,10 @@
 """Wan2.1 DiT forward pass in PyTorch (counterpart of
 ``lightx2v_tpu.models.wan.model``): patchify -> embeddings -> a Python loop
 over the blocks -> AdaLN head -> unpatchify. Timestep/text embeddings run
-in fp32, the bulk in bf16."""
+in fp32, the bulk in bf16. For i2v, ``y`` (the mask and the VAE latents of
+the conditioning video) joins the latents on channels before the patch
+embedding, and ``clip_fea`` (CLIP tokens) becomes the image context that
+each block's cross-attention attends to beside the text."""
 
 from __future__ import annotations
 
@@ -56,6 +59,17 @@ def text_embeddings(params: Params, context: torch.Tensor, mm_fn) -> torch.Tenso
     return mm_fn(params["text_embedding"]["2"], h)
 
 
+def img_embeddings(params: Params, clip_fea: torch.Tensor, mm_fn, eps: float = 1e-6) -> torch.Tensor:
+    """i2v CLIP features (B, 257, clip_dim) -> (B, 257, D) bf16: LayerNorm
+    -> Linear -> exact GELU -> Linear -> LayerNorm."""
+    p = params["img_emb"]
+    h = layer_norm(clip_fea.float(), p["norm0"]["w"], p["norm0"]["b"], eps=eps)
+    h = mm_fn(p["1"], h.to(torch.bfloat16))
+    h = F.gelu(h.float(), approximate="none").to(torch.bfloat16)
+    h = mm_fn(p["3"], h)
+    return layer_norm(h, p["norm4"]["w"], p["norm4"]["b"], eps=eps).to(torch.bfloat16)
+
+
 def _split_modulation(block: Params, embed0: torch.Tensor):
     """e = modulation + embed0 -> six (B, 1, D) chunks."""
     e = block["modulation"] + embed0.float()
@@ -63,10 +77,11 @@ def _split_modulation(block: Params, embed0: torch.Tensor):
 
 
 def wan_block_parts(block: Params, x: torch.Tensor, embed0: torch.Tensor, context: torch.Tensor,
-                    rope_cos: torch.Tensor, rope_sin: torch.Tensor, arch: WanArch, mm_fn,
-                    self_attn_fn, cross_attn_fn):
+                    context_img: Optional[torch.Tensor], rope_cos: torch.Tensor, rope_sin: torch.Tensor,
+                    arch: WanArch, mm_fn, self_attn_fn, cross_attn_fn):
     """One DiT block; also returns the self-attention, cross-attention and
-    FFN outputs."""
+    FFN outputs. With ``context_img`` (i2v) the image cross-attention's
+    output is added to the text one's before the output projection."""
     b, s, d = x.shape
     n, hd = arch.num_heads, arch.head_dim
     shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = _split_modulation(block, embed0)
@@ -93,6 +108,10 @@ def wan_block_parts(block: Params, x: torch.Tensor, embed0: torch.Tensor, contex
     ck = rms_norm(mm_fn(ca["k"], context), ca["norm_k"], eps=arch.eps).reshape(b, -1, n, hd)
     cv = mm_fn(ca["v"], context).reshape(b, -1, n, hd)
     cross_out = cross_attn_fn(cq, ck, cv).reshape(b, s, d)
+    if context_img is not None and "k_img" in ca:
+        ik = rms_norm(mm_fn(ca["k_img"], context_img), ca["norm_k_img"], eps=arch.eps).reshape(b, -1, n, hd)
+        iv = mm_fn(ca["v_img"], context_img).reshape(b, -1, n, hd)
+        cross_out = cross_out + cross_attn_fn(cq, ik, iv).reshape(b, s, d)
     cross_proj = mm_fn(ca["o"], cross_out)
     x = x + cross_proj
 
@@ -102,14 +121,15 @@ def wan_block_parts(block: Params, x: torch.Tensor, embed0: torch.Tensor, contex
     return x, y_sa, cross_proj, y_ffn
 
 
-def wan_block(block: Params, x: torch.Tensor, embed0, context, rope_cos, rope_sin, arch: WanArch,
+def wan_block(block: Params, x: torch.Tensor, embed0, context, context_img, rope_cos, rope_sin, arch: WanArch,
               mm_fn, self_attn_fn, cross_attn_fn) -> torch.Tensor:
-    return wan_block_parts(block, x, embed0, context, rope_cos, rope_sin, arch, mm_fn,
+    return wan_block_parts(block, x, embed0, context, context_img, rope_cos, rope_sin, arch, mm_fn,
                            self_attn_fn, cross_attn_fn)[0]
 
 
 def wan_transformer(blocks, x: torch.Tensor, embed0: torch.Tensor, context: torch.Tensor,
-                    rope_cos: torch.Tensor, rope_sin: torch.Tensor, arch: WanArch,
+                    context_img: Optional[torch.Tensor], rope_cos: torch.Tensor, rope_sin: torch.Tensor,
+                    arch: WanArch,
                     mm_type: str = "Default", self_attn_type: str = "flash_attn3",
                     cross_attn_type: str = "flash_attn3",
                     self_attn_kwargs: Optional[dict] = None) -> torch.Tensor:
@@ -136,7 +156,8 @@ def wan_transformer(blocks, x: torch.Tensor, embed0: torch.Tensor, context: torc
             attn_fn = dense_fn
         elif l1_layers is not None:
             attn_fn = partial(self_attn_fn, l1=float(l1_layers[i]))
-        x = wan_block(block, x, embed0, context, rope_cos, rope_sin, arch, mm_fn, attn_fn, cross_attn_fn)
+        x = wan_block(block, x, embed0, context, context_img, rope_cos, rope_sin, arch, mm_fn, attn_fn,
+                      cross_attn_fn)
     return x
 
 
@@ -149,10 +170,13 @@ def wan_head(params: Params, x: torch.Tensor, embed: torch.Tensor, arch: WanArch
 
 
 def wan_pre_process(params: Params, latents: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
-                    arch: WanArch, seq_len: Optional[int] = None):
-    """Patchify + embeddings. Returns (x, embed, embed0, ctx, grid, s_tokens).
-    Pre/post layers always run the Default GEMM."""
+                    arch: WanArch, y: Optional[torch.Tensor] = None, clip_fea: Optional[torch.Tensor] = None,
+                    seq_len: Optional[int] = None):
+    """Patchify + embeddings. Returns (x, embed, embed0, ctx, ctx_img, grid,
+    s_tokens). Pre/post layers always run the Default GEMM."""
     pt, ph, pw = arch.patch_size
+    if y is not None:
+        latents = torch.cat([latents, y.to(latents.dtype)], dim=1)
     grid = (latents.shape[2] // pt, latents.shape[3] // ph, latents.shape[4] // pw)
     mm_fn = resolve_mm("Default")
     x = mm_fn(params["patch_embedding"], patchify(latents.to(torch.bfloat16), arch.patch_size))
@@ -161,7 +185,10 @@ def wan_pre_process(params: Params, latents: torch.Tensor, t: torch.Tensor, cont
         x = F.pad(x, (0, 0, 0, seq_len - s_tokens))
     embed, embed0 = time_embeddings(params, t, arch)
     ctx = text_embeddings(params, context, mm_fn)
-    return x, embed, embed0, ctx, grid, s_tokens
+    ctx_img = None
+    if clip_fea is not None and "img_emb" in params:
+        ctx_img = img_embeddings(params, clip_fea, mm_fn, eps=arch.eps)
+    return x, embed, embed0, ctx, ctx_img, grid, s_tokens
 
 
 def wan_post_process(params: Params, x: torch.Tensor, embed: torch.Tensor, grid, s_tokens: int,
@@ -173,16 +200,19 @@ def wan_post_process(params: Params, x: torch.Tensor, embed: torch.Tensor, grid,
 
 def wan_forward(params: Params, latents: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
                 rope_cos: torch.Tensor, rope_sin: torch.Tensor, arch: WanArch,
+                y: Optional[torch.Tensor] = None, clip_fea: Optional[torch.Tensor] = None,
                 mm_type: str = "Default", self_attn_type: str = "flash_attn3",
                 cross_attn_type: str = "flash_attn3", seq_len: Optional[int] = None,
                 self_attn_kwargs: Optional[dict] = None) -> torch.Tensor:
     """Full DiT forward: latents (B, C, F, H, W) + timestep (B,) + context
-    (B, Lt, text_dim) -> flow prediction (B, out_dim, F, H, W) fp32."""
-    x, embed, embed0, ctx, grid, s_tokens = wan_pre_process(params, latents, t, context, arch, seq_len)
+    (B, Lt, text_dim) -> flow prediction (B, out_dim, F, H, W) fp32. i2v
+    adds ``y`` (B, 4 + z, F, H, W) and ``clip_fea`` (B, 257, clip_dim)."""
+    x, embed, embed0, ctx, ctx_img, grid, s_tokens = wan_pre_process(params, latents, t, context, arch, y=y,
+                                                                      clip_fea=clip_fea, seq_len=seq_len)
     if seq_len is not None and seq_len > s_tokens:
         self_attn_kwargs = dict(self_attn_kwargs or {})
         self_attn_kwargs.setdefault("kv_len", s_tokens)
-    x = wan_transformer(params["blocks"], x, embed0, ctx, rope_cos, rope_sin, arch, mm_type,
+    x = wan_transformer(params["blocks"], x, embed0, ctx, ctx_img, rope_cos, rope_sin, arch, mm_type,
                         self_attn_type, cross_attn_type, self_attn_kwargs)
     return wan_post_process(params, x, embed, grid, s_tokens, arch)
 
@@ -191,8 +221,12 @@ def wan_forward_cfg(params: Params, latents: torch.Tensor, t: torch.Tensor, cont
                     context_null: torch.Tensor, guide_scale: float, rope_cos: torch.Tensor,
                     rope_sin: torch.Tensor, arch: WanArch, **kw) -> torch.Tensor:
     """Classifier-free guidance as one batched forward (B doubles: cond
-    rows, then uncond rows): ``uncond + guide_scale * (cond - uncond)``."""
+    rows, then uncond rows): ``uncond + guide_scale * (cond - uncond)``.
+    The i2v ``y`` and ``clip_fea`` double with the batch."""
     b = latents.shape[0]
+    for key in ("y", "clip_fea"):
+        if kw.get(key) is not None:
+            kw[key] = torch.cat([kw[key], kw[key]])
     out = wan_forward(params, torch.cat([latents, latents]), torch.cat([t, t]),
                       torch.cat([context, context_null]), rope_cos, rope_sin, arch, **kw)
     cond, uncond = out[:b], out[b:]

@@ -36,11 +36,12 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
                     cross_attn_type: str = "flash_attn3", feature_caching: str = "NoCaching",
                     self_attn_kwargs: Optional[dict] = None, device="cpu"):
     """Build ``denoise(params, state, context, generator, noises=None,
-    on_step=None, context_null=None) -> final state`` running every
-    scheduler step. ``noises`` (one tensor per step) replaces the generator's
-    re-noise draws; ``on_step(i)`` is called after each step. With
-    ``enable_cfg`` each step is one forward at batch 2 (cond, uncond) on
-    ``context`` and ``context_null``."""
+    on_step=None, context_null=None, y=None, clip_fea=None) -> final state``
+    running every scheduler step. ``noises`` (one tensor per step) replaces
+    the generator's re-noise draws; ``on_step(i)`` is called after each
+    step. With ``enable_cfg`` each step is one forward at batch 2 (cond,
+    uncond) on ``context`` and ``context_null``, ``y`` and ``clip_fea`` (the
+    i2v conditioning) doubled with the batch."""
     if feature_caching != "NoCaching":
         raise NotImplementedError(f"feature caching {feature_caching!r} is not ported yet "
                                   "(ROADMAP.md, Queue 1 item 11)")
@@ -48,11 +49,12 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
 
     def denoise(params, state, context: torch.Tensor, generator: Optional[torch.Generator] = None,
                 noises=None, on_step: Optional[Callable[[int], None]] = None,
-                context_null: Optional[torch.Tensor] = None):
+                context_null: Optional[torch.Tensor] = None, y: Optional[torch.Tensor] = None,
+                clip_fea: Optional[torch.Tensor] = None):
         if enable_cfg and context_null is None:
             raise ValueError("enable_cfg needs context_null (the negative prompt's encoding)")
         kw = dict(mm_type=mm_type, self_attn_type=self_attn_type, cross_attn_type=cross_attn_type,
-                  seq_len=seq_len, self_attn_kwargs=self_attn_kwargs)
+                  seq_len=seq_len, self_attn_kwargs=self_attn_kwargs, y=y, clip_fea=clip_fea)
         for i in range(scheduler.num_steps()):
             lat, t = scheduler.step_pre(state)
             if enable_cfg:

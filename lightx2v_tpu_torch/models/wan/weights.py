@@ -101,6 +101,13 @@ def build_non_block_params(wd: Dict[str, Any], arch: WanArch, compute_dtype=torc
         "head": {**lin("head.head"),
                  "modulation": to_tensor(wd["head.modulation"], torch.float32, device).reshape(2, arch.dim)},
     }
+    if "img_emb.proj.1.weight" in wd:  # i2v: CLIP tokens -> the image context
+        params["img_emb"] = {
+            "norm0": {"w": _f32(wd, "img_emb.proj.0.weight", device), "b": _f32(wd, "img_emb.proj.0.bias", device)},
+            "1": lin("img_emb.proj.1"),
+            "3": lin("img_emb.proj.3"),
+            "norm4": {"w": _f32(wd, "img_emb.proj.4.weight", device), "b": _f32(wd, "img_emb.proj.4.bias", device)},
+        }
     return params
 
 
@@ -112,7 +119,7 @@ def build_block_params(wd: Dict[str, Any], i: int, arch: WanArch, compute_dtype=
         return _linear(wd, prefix, compute_dtype, device)
 
     p = f"blocks.{i}"
-    return {
+    block = {
         "modulation": to_tensor(wd[f"{p}.modulation"], torch.float32, device).reshape(6, arch.dim),
         "norm3": {"w": _f32(wd, f"{p}.norm3.weight", device), "b": _f32(wd, f"{p}.norm3.bias", device)},
         "self_attn": {
@@ -127,6 +134,11 @@ def build_block_params(wd: Dict[str, Any], i: int, arch: WanArch, compute_dtype=
         },
         "ffn": {"0": lin(f"{p}.ffn.0"), "2": lin(f"{p}.ffn.2")},
     }
+    if f"{p}.cross_attn.k_img.weight" in wd:  # i2v: the image cross-attention's keys and values
+        ca = block["cross_attn"]
+        ca["k_img"], ca["v_img"] = lin(f"{p}.cross_attn.k_img"), lin(f"{p}.cross_attn.v_img")
+        ca["norm_k_img"] = _f32(wd, f"{p}.cross_attn.norm_k_img.weight", device)
+    return block
 
 
 def load_wan_params(weight_dict: Dict[str, Any], arch: WanArch, compute_dtype=torch.bfloat16,
@@ -199,6 +211,13 @@ def init_random_weight_dict(arch: WanArch, seed: int = 0, scale: float = 0.02) -
     lin("time_embedding.0", arch.freq_dim, d)
     lin("time_embedding.2", d, d)
     lin("time_projection.1", d, 6 * d)
+    if arch.task == "i2v":
+        wd["img_emb.proj.0.weight"] = np.ones(arch.clip_dim, np.float32)
+        wd["img_emb.proj.0.bias"] = np.zeros(arch.clip_dim, np.float32)
+        lin("img_emb.proj.1", arch.clip_dim, d)
+        lin("img_emb.proj.3", d, d)
+        wd["img_emb.proj.4.weight"] = np.ones(d, np.float32)
+        wd["img_emb.proj.4.bias"] = np.zeros(d, np.float32)
     for i in range(arch.num_layers):
         p = f"blocks.{i}"
         wd[f"{p}.modulation"] = (rng.standard_normal((1, 6, d)) * scale).astype(np.float32)
@@ -211,6 +230,10 @@ def init_random_weight_dict(arch: WanArch, seed: int = 0, scale: float = 0.02) -
         wd[f"{p}.self_attn.norm_k.weight"] = np.ones(d, np.float32)
         wd[f"{p}.cross_attn.norm_q.weight"] = np.ones(d, np.float32)
         wd[f"{p}.cross_attn.norm_k.weight"] = np.ones(d, np.float32)
+        if arch.task == "i2v":
+            lin(f"{p}.cross_attn.k_img", d, d)
+            lin(f"{p}.cross_attn.v_img", d, d)
+            wd[f"{p}.cross_attn.norm_k_img.weight"] = np.ones(d, np.float32)
         lin(f"{p}.ffn.0", d, f_)
         lin(f"{p}.ffn.2", f_, d)
     lin("head.head", d, arch.out_dim * int(np.prod(arch.patch_size)))
@@ -229,7 +252,9 @@ def init_random_params_on_device(arch: WanArch, scheme: str = "int8", seed: int 
     synthesizer's layout; it does not clip, and its cast turns the tail past
     464 into NaN), or int4 nibbles packed (out, in/2) as uint8 bytes in
     0..255 plus per-(channel, group) ``w_scale`` (scale/7, group from
-    ``_pick_bk``); pre/post weights stay bf16/fp32."""
+    ``_pick_bk``); pre/post weights stay bf16/fp32. An i2v arch adds the
+    image embedding (bf16, like the other pre/post layers) and each block's
+    ``k_img`` / ``v_img`` in the block linears' scheme."""
     if scheme not in ("int8", "fp8", "int4", "bf16"):
         raise NotImplementedError(f"synthetic scheme {scheme!r} is not ported yet")
     dev = torch.device(device)
@@ -267,13 +292,25 @@ def init_random_params_on_device(arch: WanArch, scheme: str = "int8", seed: int 
         "time_projection": {"1": lin(6 * d, d, torch.float32)},
         "head": {**lin(arch.out_dim * int(np.prod(arch.patch_size)), d), "modulation": nrm((2, d), torch.float32)},
     }
-    ones = lambda: torch.ones((d,), dtype=torch.float32, device=dev)  # noqa: E731
+    ones = lambda n=d: torch.ones((n,), dtype=torch.float32, device=dev)  # noqa: E731
+    zeros = lambda n=d: torch.zeros((n,), dtype=torch.float32, device=dev)  # noqa: E731
+    i2v = arch.task == "i2v"
+    if i2v:  # the image embedding runs Default (bf16), as the other pre/post layers
+        params["img_emb"] = {"norm0": {"w": ones(arch.clip_dim), "b": zeros(arch.clip_dim)},
+                             "1": lin(d, arch.clip_dim), "3": lin(d, d), "norm4": {"w": ones(), "b": zeros()}}
+
+    def cross_attn():
+        ca = {**{m: qlin(d, d) for m in ("q", "k", "v", "o")}, "norm_q": ones(), "norm_k": ones()}
+        if i2v:
+            ca.update(k_img=qlin(d, d), v_img=qlin(d, d), norm_k_img=ones())
+        return ca
+
     params["blocks"] = [
         {
             "modulation": nrm((6, d), torch.float32),
-            "norm3": {"w": ones(), "b": torch.zeros((d,), dtype=torch.float32, device=dev)},
+            "norm3": {"w": ones(), "b": zeros()},
             "self_attn": {**{m: qlin(d, d) for m in ("q", "k", "v", "o")}, "norm_q": ones(), "norm_k": ones()},
-            "cross_attn": {**{m: qlin(d, d) for m in ("q", "k", "v", "o")}, "norm_q": ones(), "norm_k": ones()},
+            "cross_attn": cross_attn(),
             "ffn": {"0": qlin(f_, d), "2": qlin(d, f_)},
         }
         for _ in range(L)

@@ -1,9 +1,15 @@
 """Runner abstractions (counterpart of ``lightx2v_tpu.runners.base_runner``).
 
-A runner owns one model family's pieces (text encoder, DiT, VAE, scheduler)
-on one device and drives ``run_pipeline``: encode -> denoise -> VAE decode
--> save video. With ``release_modules`` the text encoder is dropped before
-the denoise and the DiT before the decode (reloaded by the next run)."""
+A runner owns one model family's pieces (text encoder, image encoder for
+i2v, DiT, VAE, scheduler) on one device and drives ``run_pipeline``: encode
+-> denoise -> VAE decode -> save video. With ``release_modules`` the text
+and image encoders are dropped before the denoise and the DiT before the
+decode (reloaded by the next run).
+
+``timings`` holds each stage's seconds (``encode_s``, ``dit_s``,
+``decode_s``; a runner may add parts of a stage) and, on CUDA, ``mem_gb``:
+the device's peak allocated memory after each stage or part, in order, so
+the stage that set the run's peak is the first to show the final value."""
 
 from __future__ import annotations
 
@@ -32,6 +38,9 @@ class BaseRunner:
     def load_vae(self):
         raise NotImplementedError
 
+    def load_image_encoder(self):
+        return None
+
     def init_scheduler(self):
         raise NotImplementedError
 
@@ -52,6 +61,7 @@ class DefaultRunner(BaseRunner):
         t0 = time.perf_counter()
         self.model = self.load_transformer()
         self.text_encoder = self.load_text_encoder()
+        self.image_encoder = self.load_image_encoder()
         self.vae = self.load_vae()
         self.sync()
         self.timings["load_s"] = time.perf_counter() - t0
@@ -78,11 +88,18 @@ class DefaultRunner(BaseRunner):
         cache_video(frames, save_path, fps=int(self.config.get("fps", 16)))
         logger.info(f"saved video to {save_path}")
 
+    def _mark(self, name: str, t0: float):
+        """Record the seconds since ``t0`` (after a sync) and the peak
+        device memory so far under ``name``."""
+        self.sync()
+        self.timings[name] = time.perf_counter() - t0
+        if self.device.type == "cuda":
+            self.timings.setdefault("mem_gb", {})[name] = torch.cuda.max_memory_allocated(self.device) / 1e9
+
     def _stage(self, name: str, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
-        self.sync()
-        self.timings[name] = time.perf_counter() - t0
+        self._mark(name, t0)
         logger.info(f"[Profile] {name}: {self.timings[name]:.3f} s")
         return out
 
@@ -90,9 +107,12 @@ class DefaultRunner(BaseRunner):
         release = bool(self.config.get("release_modules", False))
         if self.text_encoder is None:
             self.text_encoder = self.load_text_encoder()
+            self.image_encoder = self.load_image_encoder()
+        self.timings.pop("mem_gb", None)
         encoder_out = self._stage("encode_s", self.run_input_encoder)
         if release:
             self._release("text_encoder")
+            self._release("image_encoder")
         if self.model is None:
             self.model = self.load_transformer()
         latents = self._stage("dit_s", self.run_dit, encoder_out)

@@ -1,5 +1,5 @@
 """Wan2.1 runners (counterpart of ``lightx2v_tpu.runners.wan_runner``), t2v
-with resident weights.
+and i2v with resident weights.
 
 ``wan2.1`` is the base model: UniPC with classifier-free guidance as one
 batched forward. ``wan2.1_distill`` is the 4-step step-distill model without
@@ -14,6 +14,18 @@ per-channel scales under an int8 mm_type, e4m3 codes plus per-channel
 scales under an fp8 one, nibble-packed int4 plus per-(channel, group)
 scales under an int4 one), a UMT5-XXL when text_dim is 4096 (bf16, or int8
 or fp8 with ``t5_quantized`` and ``t5_quant_scheme``), and the full Wan VAE.
+
+i2v (``task: "i2v"``, ``image_path``): the image is resized to the target
+size (``utils/image.resize_area``, cv2's INTER_AREA), its CLIP tokens become
+the image context, and the VAE latents of [image, zeros x (frames - 1)] (untiled,
+normalized, as the JAX runner encodes even under ``use_tiling_vae``) with a
+4-channel first-frame mask become ``y``, 20 channels beside the 16 of the
+latents. In the small synthetic mode the CLIP tokens are zeros, as the JAX
+runner feeds them. At a published width the runner makes the ViT-H/14
+tower on the device (bf16, or int8 / fp8 with ``clip_quantized`` and
+``clip_quant_scheme``) and runs it, as it makes the UMT5-XXL where the JAX
+runner would use a small T5: the card runs the tower that a real-weights
+run runs.
 
 Config keys whose feature is not ported raise ``NotImplementedError`` naming
 their ROADMAP.md item rather than run as if absent: ``changing_resolution``,
@@ -37,6 +49,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..encoders.clip import (ClipVisionArch, CLIPVisionModel, init_random_clip_params_on_device,
+                             quantize_clip_params)
 from ..encoders.t5 import (UMT5_XXL, T5Config, T5EncoderModel, init_random_t5_params_on_device,
                            init_random_t5_state_dict, load_t5_params, quantize_t5_params)
 from ..models.wan.config import arch_from_config, is_published_width
@@ -47,9 +61,12 @@ from ..ops.radial import MaskMap
 from ..schedulers.step_distill import WanStepDistillScheduler
 from ..schedulers.unipc import WanUniPCScheduler
 from ..tools.convert import quantize_model
+from ..utils.image import resize_area
 from ..utils.logging_utils import logger
+from ..utils.media import load_image
 from ..utils.registry import RUNNER_REGISTER
-from ..vae.wan_vae import WanVAEConfig, init_random_vae_state_dict, load_wan_vae_params, vae_decode, vae_decode_tiled
+from ..vae.wan_vae import (WanVAEConfig, init_random_vae_state_dict, load_wan_vae_params, vae_decode,
+                           vae_decode_tiled, vae_encode)
 from .base_runner import DefaultRunner
 
 SMALL_T5 = T5Config(vocab_size=4096, dim=256, dim_attn=256, dim_ffn=512, num_heads=8, num_layers=2)
@@ -96,8 +113,6 @@ class WanRunner(DefaultRunner):
     # ---------------- component loading ----------------
     def load_transformer(self):
         self._require_synthetic()
-        if self.config.get("task", "t2v") != "t2v":
-            raise _not_ported("i2v", "Queue 1 item 9")
         if self.config.get("cpu_offload") or self.config.get("lazy_load") or self.config.get("mesh_shape"):
             raise _not_ported("offload, streaming and multi-device runs", "Queue 1 items 13-14")
         if self.config.get("weight_streaming"):
@@ -145,6 +160,24 @@ class WanRunner(DefaultRunner):
         enc.tokenizer = _SyntheticTokenizer(text_len, cfg.vocab_size)
         return enc
 
+    def _i2v(self) -> bool:
+        return self.config.get("task", "t2v") == "i2v"
+
+    def load_image_encoder(self):
+        """The i2v CLIP tower: None in the small synthetic mode (zero tokens),
+        a ViT-H/14 made on the device at a published width."""
+        if not self._i2v():
+            return None
+        self._require_synthetic()
+        if not is_published_width(self.arch):
+            return None
+        arch = ClipVisionArch()
+        params = init_random_clip_params_on_device(arch, seed=3, device=self.device)
+        if self.config.get("clip_quantized"):
+            scheme = "int8" if "int8" in str(self.config.get("clip_quant_scheme", "int8")) else "fp8"
+            params = quantize_clip_params(params, scheme)
+        return CLIPVisionModel(arch, params=params)
+
     def load_vae(self):
         self._require_synthetic()
         if self.config.get("tiny_vae"):
@@ -152,8 +185,11 @@ class WanRunner(DefaultRunner):
         if self.config.get("vae_int8"):
             raise _not_ported("vae_int8 (the int8 VAE decoder)", "Queue 1 item 7")
         self.vae_cfg = WanVAEConfig() if is_published_width(self.arch) else SMALL_VAE
-        return load_wan_vae_params(init_random_vae_state_dict(self.vae_cfg, seed=2), self.vae_cfg,
-                                   device=self.device)
+        params = load_wan_vae_params(init_random_vae_state_dict(self.vae_cfg, seed=2), self.vae_cfg,
+                                     device=self.device)
+        if not self._i2v():  # t2v never encodes: its encoder stays off the device
+            del params["encoder"], params["conv1"]
+        return params
 
     # ---------------- pipeline stages ----------------
     def set_target_shape(self):
@@ -180,12 +216,45 @@ class WanRunner(DefaultRunner):
     def run_input_encoder(self) -> Dict[str, Any]:
         if self.config.get("use_prompt_enhancer"):
             raise _not_ported("the prompt enhancer", "Queue 1 item 18")
+        if self._i2v() and not self.config.get("image_path"):
+            raise ValueError("task i2v needs image_path")
+        t0 = time.perf_counter()
         context = self.text_encoder.infer([self.config.get("prompt", "")])
         context_null = context
         if self.config.get("enable_cfg", True):
             context_null = self.text_encoder.infer([self.config.get("negative_prompt", "") or ""])
-        return {"text_encoder_output": {"context": context, "context_null": context_null},
-                "image_encoder_output": None}
+        out = {"text_encoder_output": {"context": context, "context_null": context_null},
+               "image_encoder_output": None}
+        if self._i2v():
+            self._mark("t5_s", t0)
+            out["image_encoder_output"] = self.run_image_encoder(self.config["image_path"])
+        return out
+
+    def run_image_encoder(self, image_path: str) -> Dict[str, Any]:
+        """i2v conditioning: the CLIP tokens of the image resized to the
+        target size, and the VAE latents of [image, zeros x (frames - 1)]
+        behind a 4-channel mask that is 1 on the first latent frame. Records
+        ``clip_s`` and ``vae_encode_s``."""
+        cfg = self.config
+        h, w = int(cfg.get("target_height", 480)), int(cfg.get("target_width", 832))
+        frames = int(cfg.get("target_video_length", 81))
+        t0 = time.perf_counter()
+        img = resize_area(load_image(image_path), h, w)
+        if self.image_encoder is None:
+            clip_out = torch.zeros((1, 257, self.arch.clip_dim), dtype=torch.float32, device=self.device)
+        else:
+            clip_out = self.image_encoder.infer(img)
+        self._mark("clip_s", t0)
+        t0 = time.perf_counter()
+        vid = torch.zeros((1, frames, h, w, 3), dtype=torch.float32, device=self.device)
+        vid[0, 0] = torch.from_numpy(img).to(self.device)
+        z = vae_encode(self.vae, vid, self.vae_cfg)[0].permute(3, 0, 1, 2)  # (z, lat_f, h/8, w/8)
+        del vid
+        msk = torch.zeros((4, *z.shape[1:]), dtype=torch.float32, device=self.device)
+        msk[:, 0] = 1.0
+        y = torch.cat([msk, z])[None]
+        self._mark("vae_encode_s", t0)
+        return {"clip_encoder_out": clip_out, "vae_encode_out": y}
 
     def _generators(self):
         """(latent generator, re-noise generator). ``latent_init: "torch"``
@@ -227,9 +296,10 @@ class WanRunner(DefaultRunner):
             steps.append(time.perf_counter())
 
         t0 = time.perf_counter()
-        teo = encoder_out["text_encoder_output"]
+        teo, ieo = encoder_out["text_encoder_output"], encoder_out.get("image_encoder_output") or {}
         state = denoise(self.model, state, teo["context"], noise_gen, noises=noises, on_step=on_step,
-                        context_null=teo["context_null"] if enable_cfg else None)
+                        context_null=teo["context_null"] if enable_cfg else None,
+                        y=ieo.get("vae_encode_out"), clip_fea=ieo.get("clip_encoder_out"))
         self.timings["step_s"] = list(np.diff([t0] + steps))
         return state["latents"]
 

@@ -1,4 +1,5 @@
-"""Seeding and video writing (the slice's part of ``lightx2v_tpu.utils.media``)."""
+"""Seeding, image reading and video writing (the port's part of
+``lightx2v_tpu.utils.media``)."""
 
 from __future__ import annotations
 
@@ -66,3 +67,11 @@ def cache_video(video: np.ndarray, save_path: str, fps: int = 16, normalize: boo
             time.sleep(0.5)
     logger.error(f"cache_video failed, error: {error}")
     return None
+
+
+def load_image(path: str) -> np.ndarray:
+    """Load an RGB image as float32 in [-1, 1], shape (H, W, 3)."""
+    from PIL import Image
+
+    img = np.asarray(Image.open(path).convert("RGB"), dtype=np.float32)
+    return img / 127.5 - 1.0

@@ -1,14 +1,16 @@
-"""Wan2.1 causal 3D video VAE decoder in PyTorch (counterpart of the decode
-half of ``lightx2v_tpu.vae.wan_vae``).
+"""Wan2.1 causal 3D video VAE in PyTorch (counterpart of
+``lightx2v_tpu.vae.wan_vae``): the encoder (i2v conditioning) and the
+decoder.
 
-Public functions keep the JAX layout: latents (B, T, h, w, z) in, frames
-(B, T', H, W, 3) out. Inside, activations are channels-first (B, C, T, H, W)
-for ``F.conv3d`` (the JAX package has no Pallas kernel here); every 2D conv
-runs as a conv3d with a temporal kernel of 1. The stream is the JAX one:
-the first latent frame decodes alone (it bypasses temporal upsampling),
-then ``chunk`` frames at a time, every causal conv carrying a 2-frame cache
-through a ``CacheTape``. Decode runs in fp32; on CUDA the caller chooses
-TF32 for the convolutions (``torch.backends.cudnn.allow_tf32``)."""
+Public functions keep the JAX layout: pixels (B, T, H, W, 3) and latents
+(B, T, h, w, z). Inside, activations are channels-first (B, C, T, H, W) for
+``F.conv3d`` (the JAX package has no Pallas kernel here); every 2D conv
+runs as a conv3d with a temporal kernel of 1. The streams are the JAX ones:
+the first frame encodes or decodes alone (it bypasses the temporal
+resampling), then ``chunk`` latent frames at a time (4 * ``chunk`` pixel
+frames when encoding), every causal conv carrying a 2-frame cache through a
+``CacheTape``. The VAE runs in fp32; on CUDA the caller chooses TF32 for the
+convolutions (``torch.backends.cudnn.allow_tf32``)."""
 
 from __future__ import annotations
 
@@ -52,18 +54,27 @@ class WanVAEConfig:
 # primitives (channels-first)
 
 
-def cconv3d(p: Dict, x: torch.Tensor, cache: Optional[torch.Tensor]) -> torch.Tensor:
+def cconv3d(p: Dict, x: torch.Tensor, cache: Optional[torch.Tensor], t_stride: int = 1,
+            causal_pad: bool = True) -> torch.Tensor:
     """Causal 3D conv; weight (O, I, kt, kh, kw). ``cache`` supplies the
-    temporal left context (else zero-pad by kt-1); spatial padding kh//2."""
+    temporal left context (else zero-pad by kt-1); spatial padding kh//2.
+    ``causal_pad=False`` gives a temporally valid conv (the encoder's
+    stride-2 time conv)."""
     w = p["w"]
     kt, kh, kw = w.shape[2:]
-    pad_t = kt - 1
+    pad_t = kt - 1 if causal_pad else 0
     if cache is not None:
         x = torch.cat([cache.to(x.dtype), x], dim=2)
         pad_t = max(pad_t - cache.shape[2], 0)
     if pad_t > 0:
         x = F.pad(x, (0, 0, 0, 0, pad_t, 0))
-    return F.conv3d(x, w.to(x.dtype), p.get("b"), padding=(0, kh // 2, kw // 2))
+    return F.conv3d(x, w.to(x.dtype), p.get("b"), stride=(t_stride, 1, 1), padding=(0, kh // 2, kw // 2))
+
+
+def conv2d_down(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Per-frame stride-2 conv padded on the right and bottom only (the
+    encoder's spatial downsample)."""
+    return F.conv3d(F.pad(x, (0, 1, 0, 1)), p["w"].to(x.dtype), p.get("b"), stride=(1, 2, 2))
 
 
 def rms_norm_ch(p: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -126,8 +137,10 @@ def _tail(x: torch.Tensor, n: int = CACHE_T) -> torch.Tensor:
 
 
 def cconv3d_cached(p: Dict, x: torch.Tensor, tape: CacheTape) -> torch.Tensor:
+    """The next chunk's cache is the last CACHE_T frames of the stream
+    (cache, x); the two are joined only when x alone is shorter."""
     cache = tape.pull()
-    stream = x if cache is None else torch.cat([cache.to(x.dtype), x], dim=2)
+    stream = x if cache is None or x.shape[2] >= CACHE_T else torch.cat([cache.to(x.dtype), x], dim=2)
     tape.push(_tail(stream))
     return cconv3d(p, x, cache)
 
@@ -154,6 +167,36 @@ def upsample3d_time(p: Dict, x: torch.Tensor, tape: CacheTape, first: bool) -> t
     b, c2, t, h, w = y.shape
     c = c2 // 2
     return y.reshape(b, 2, c, t, h, w).permute(0, 2, 3, 1, 4, 5).reshape(b, c, t * 2, h, w)
+
+
+def downsample3d_time(p: Dict, x: torch.Tensor, tape: CacheTape, first: bool) -> torch.Tensor:
+    """Temporal stride 2 for the encoder: the first chunk bypasses; later
+    chunks run the time conv (no causal pad) over the previous chunk's last
+    frame and this chunk. Each chunk's last frame is the next one's cache."""
+    if first:
+        tape.push(x[:, :, -1:].clone())
+        return x
+    cache = tape.pull()
+    tape.push(x[:, :, -1:].clone())
+    return cconv3d(p["time_conv"], torch.cat([cache.to(x.dtype), x], dim=2), None, t_stride=2, causal_pad=False)
+
+
+def encoder_chunk(params: Dict, cfg: WanVAEConfig, x: torch.Tensor, tape: CacheTape, first: bool) -> torch.Tensor:
+    """x: (B, 3, t, H, W) pixel frames -> (B, 2z, t', H/8, W/8)."""
+    x = cconv3d_cached(params["conv1"], x, tape)
+    for stage in params["down"]:
+        for rb in stage["blocks"]:
+            x = residual_block(rb, x, tape)
+        if "resample" in stage:
+            r = stage["resample"]
+            x = conv2d_down(r["conv"], x)
+            if r["mode"] == "downsample3d":
+                x = downsample3d_time(r, x, tape, first)
+    x = residual_block(params["mid_res1"], x, tape)
+    x = spatial_attention(params["mid_attn"], x)
+    x = residual_block(params["mid_res2"], x, tape)
+    x = F.silu(rms_norm_ch(params["head_norm"], x).float()).to(x.dtype)
+    return cconv3d_cached(params["head_conv"], x, tape)
 
 
 def decoder_chunk(params: Dict, cfg: WanVAEConfig, x: torch.Tensor, tape: CacheTape, first: bool) -> torch.Tensor:
@@ -196,6 +239,36 @@ def vae_decode(params: Dict, z: torch.Tensor, cfg: WanVAEConfig = WanVAEConfig()
             outs.append(decoder_chunk(params["decoder"], cfg, z[:, :, 1 + i * k:1 + (i + 1) * k], tape, first=False))
             cache = tape.new
     return torch.cat(outs, dim=2).permute(0, 2, 3, 4, 1).float()
+
+
+def vae_encode(params: Dict, x: torch.Tensor, cfg: WanVAEConfig = WanVAEConfig(), scale: bool = True,
+               dtype=torch.float32, chunk: int = 4) -> torch.Tensor:
+    """x: (B, T, H, W, 3) pixels, T = 4n + 1 -> (B, n + 1, H/8, W/8, z) mu
+    fp32, normalized by the latent statistics when ``scale``. After the
+    first frame, 4k pixel frames encode per step (k the largest divisor of
+    n that is <= ``chunk``); the causal convs' windows are the same for
+    any k."""
+    t = x.shape[1]
+    if (t - 1) % 4:
+        raise ValueError(f"vae_encode takes 4n + 1 frames, got {t}")
+    x = x.to(dtype).permute(0, 4, 1, 2, 3)  # (B, 3, T, H, W)
+    tape = CacheTape(None)
+    outs = [encoder_chunk(params["encoder"], cfg, x[:, :, :1], tape, first=True)]
+    cache = tape.new
+    n = (t - 1) // 4
+    if n:
+        k = max(d for d in range(1, min(chunk, n) + 1) if n % d == 0)
+        for i in range(n // k):
+            tape = CacheTape(cache)
+            outs.append(encoder_chunk(params["encoder"], cfg, x[:, :, 1 + 4 * k * i:1 + 4 * k * (i + 1)], tape,
+                                      first=False))
+            cache = tape.new
+    mu = cconv3d(params["conv1"], torch.cat(outs, dim=2), None)[:, :cfg.z_dim].float()
+    if scale:
+        mean = torch.tensor(WAN_LATENT_MEAN, dtype=torch.float32, device=mu.device).reshape(-1, 1, 1, 1)
+        std = torch.tensor(WAN_LATENT_STD, dtype=torch.float32, device=mu.device).reshape(-1, 1, 1, 1)
+        mu = (mu - mean) / std
+    return mu.permute(0, 2, 3, 4, 1)
 
 
 def _blend_h(a: torch.Tensor, b: torch.Tensor, extent: int) -> torch.Tensor:
@@ -245,6 +318,31 @@ def vae_decode_tiled(params: Dict, z: torch.Tensor, cfg: WanVAEConfig = WanVAECo
     return torch.cat(out_rows, dim=2)[:, :, :h * 8, :w * 8]
 
 
+def vae_encode_tiled(params: Dict, x: torch.Tensor, cfg: WanVAEConfig = WanVAEConfig(), scale: bool = True,
+                     dtype=torch.float32, tile_px: int = 256, stride_px: int = 192) -> torch.Tensor:
+    """Tiled encode: ``tile_px`` tiles at a ``stride_px`` stride, the
+    latent overlaps blended by a linear ramp as in ``vae_decode_tiled``.
+    x: (B, T, H, W, 3)."""
+    b, t, h, w, _ = x.shape
+    tl, sl = tile_px // 8, stride_px // 8
+    rows = []
+    for i in range(0, h, stride_px):
+        rows.append([vae_encode(params, x[:, :, i:i + tile_px, j:j + tile_px], cfg, scale=scale, dtype=dtype)
+                     for j in range(0, w, stride_px)])
+    out_rows = []
+    for i, row in enumerate(rows):
+        merged = []
+        for j, tile in enumerate(row):
+            if i > 0:
+                tile = _blend_v(rows[i - 1][j], tile, tl - sl)
+            if j > 0:
+                tile = _blend_h(row[j - 1], tile, tl - sl)
+            row[j] = tile
+            merged.append(tile[:, :, :sl, :sl])
+        out_rows.append(torch.cat(merged, dim=3))
+    return torch.cat(out_rows, dim=2)[:, :, :h // 8, :w // 8]
+
+
 # --------------------------------------------------------------------------
 # weights
 
@@ -275,10 +373,47 @@ def _res_p(sd, key, has_shortcut, dtype, device) -> Dict:
     return p
 
 
+def _attn_p(sd, key, dtype, device) -> Dict:
+    return {
+        "norm": _norm_p(sd, f"{key}.norm", device),
+        "to_qkv": _conv_p(sd, f"{key}.to_qkv", dtype, device),
+        "proj": _conv_p(sd, f"{key}.proj", dtype, device),
+    }
+
+
+def _encoder_p(sd, cfg: WanVAEConfig, dtype, device) -> Dict:
+    dims = [cfg.dim * u for u in (1,) + tuple(cfg.dim_mult)]
+    stages, li = [], 0
+    for i, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
+        blocks, d = [], din
+        for _ in range(cfg.num_res_blocks):
+            blocks.append(_res_p(sd, f"encoder.downsamples.{li}", d != dout, dtype, device))
+            li += 1
+            d = dout
+        st: Dict[str, Any] = {"blocks": blocks}
+        if i != len(cfg.dim_mult) - 1:
+            mode = "downsample3d" if cfg.temperal_downsample[i] else "downsample2d"
+            st["resample"] = {"mode": mode,
+                              "conv": _conv_p(sd, f"encoder.downsamples.{li}.resample.1", dtype, device)}
+            if mode == "downsample3d":
+                st["resample"]["time_conv"] = _conv_p(sd, f"encoder.downsamples.{li}.time_conv", dtype, device)
+            li += 1
+        stages.append(st)
+    return {
+        "conv1": _conv_p(sd, "encoder.conv1", dtype, device),
+        "down": stages,
+        "mid_res1": _res_p(sd, "encoder.middle.0", False, dtype, device),
+        "mid_attn": _attn_p(sd, "encoder.middle.1", dtype, device),
+        "mid_res2": _res_p(sd, "encoder.middle.2", False, dtype, device),
+        "head_norm": _norm_p(sd, "encoder.head.0", device),
+        "head_conv": _conv_p(sd, "encoder.head.2", dtype, device),
+    }
+
+
 def load_wan_vae_params(state_dict: Dict[str, Any], cfg: WanVAEConfig = WanVAEConfig(), dtype=torch.float32,
                         device="cpu") -> Dict:
-    """Reference-layout VAE state dict -> decoder params (plus the
-    post-quant ``conv2``). The encoder is not part of this slice."""
+    """Reference-layout VAE state dict -> params: the encoder with its
+    moments conv ``conv1``, the decoder with its post-quant ``conv2``."""
     sd = state_dict
     dims = [cfg.dim * u for u in (cfg.dim_mult[-1],) + tuple(reversed(cfg.dim_mult))]
     stages, li = [], 0
@@ -298,17 +433,14 @@ def load_wan_vae_params(state_dict: Dict[str, Any], cfg: WanVAEConfig = WanVAECo
                 st["resample"]["time_conv"] = _conv_p(sd, f"decoder.upsamples.{li}.time_conv", dtype, device)
             li += 1
         stages.append(st)
-    attn = {
-        "norm": _norm_p(sd, "decoder.middle.1.norm", device),
-        "to_qkv": _conv_p(sd, "decoder.middle.1.to_qkv", dtype, device),
-        "proj": _conv_p(sd, "decoder.middle.1.proj", dtype, device),
-    }
     return {
+        "conv1": _conv_p(sd, "conv1", dtype, device),
         "conv2": _conv_p(sd, "conv2", dtype, device),
+        "encoder": _encoder_p(sd, cfg, dtype, device),
         "decoder": {
             "conv1": _conv_p(sd, "decoder.conv1", dtype, device),
             "mid_res1": _res_p(sd, "decoder.middle.0", False, dtype, device),
-            "mid_attn": attn,
+            "mid_attn": _attn_p(sd, "decoder.middle.1", dtype, device),
             "mid_res2": _res_p(sd, "decoder.middle.2", False, dtype, device),
             "up": stages,
             "head_norm": _norm_p(sd, "decoder.head.0", device),

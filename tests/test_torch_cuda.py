@@ -27,11 +27,13 @@ def _close(out, ref, rtol, atol):
 
 @pytest.mark.parametrize("b,sq,sk,kv_len", [(2, 200, 200, None), (2, 256, 256, None), (2, 200, 200, 150),
                                             (2, 300, 64, None), (2, 7, 513, 300), (1, 1000, 512, None),
-                                            (2, 120, 200, None), (2, 200, 390, 130), (21, 156, 624, None)])
+                                            (2, 120, 200, None), (2, 200, 390, 130), (21, 156, 624, None),
+                                            (1, 1000, 257, None), (2, 300, 257, 200)])
 def test_flash_kernel_vs_plain(dev, b, sq, sk, kv_len):
     """Ragged sq (7, 120 below one 128-row tile, 200), sk below one 128-key
     tile, not a multiple of it and 512 (the cross-attention shape, narrowed),
-    kv_len inside the first and the second key tile, batch 1, 2 and 21."""
+    257 (i2v's image keys: one valid row in the last key tile), kv_len inside
+    the first and the second key tile, batch 1, 2 and 21."""
     from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(sq + sk)
@@ -124,7 +126,9 @@ def _int8_w(g, dev, n, k, one_signed=False):
 @pytest.mark.parametrize("m,n,k,act,one_signed", [(200, 200, 256, None, False), (37, 384, 4096, "gelu", False),
                                                   (512, 136, 96, None, False), (300, 256, 5120, None, True),
                                                   # ragged on all three axes: 128-row, 256-column, 128-deep tiles
-                                                  (300, 266, 416, "gelu", False)])
+                                                  (300, 266, 416, "gelu", False),
+                                                  # i2v's image k / v: 257 CLIP tokens at the 14B width
+                                                  (257, 5120, 5120, None, False)])
 def test_fullk_kernel_vs_plain(dev, m, n, k, act, one_signed):
     from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
 
@@ -696,3 +700,38 @@ def test_mm_default_bf16_on_card(dev):
     assert y.dtype == torch.bfloat16
     # bar: the same exact products summed in fp32 in another order, then one bf16 rounding
     _close(y.cpu(), mm(p, x), 2 ** -7, 0.0)
+
+
+@pytest.mark.parametrize("scheme", ["bf16", "int8"])
+def test_clip_tower_on_card(dev, scheme):
+    """Two blocks of the CLIP ViT-H/14 tower at its full width (1280, 16
+    heads of 80, 257 tokens) on the card vs the CPU: the embedding and each
+    block on the same input."""
+    import dataclasses
+
+    import numpy as np
+
+    from lightx2v_tpu_torch.encoders import clip
+
+    arch = dataclasses.replace(clip.ClipVisionArch(), use_blocks=2)
+    params = clip.init_random_clip_params_on_device(arch, seed=3, device=dev)
+    if scheme == "int8":
+        params = clip.quantize_clip_params(params, "int8")
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        return [to_cpu(v) for v in tree] if isinstance(tree, list) else tree.cpu()
+
+    cpu = to_cpu(params)
+    img = np.random.default_rng(5).uniform(-1, 1, (480, 832, 3)).astype(np.float32)
+    px = torch.from_numpy(clip.preprocess_image(img))
+    x = clip.clip_embed(params, px, arch)
+    pairs = [(x, clip.clip_embed(cpu, px, arch))]
+    for bp, cbp in zip(params["blocks"], cpu["blocks"]):
+        pairs.append((clip.clip_block(bp, x, arch), clip.clip_block(cbp, x.cpu(), arch)))
+        x = pairs[-1][0]
+    torch.cuda.synchronize()
+    assert x.shape == (1, 257, 1280) and x.dtype == torch.bfloat16
+    for out, ref in pairs:
+        # bar: relative L2 1e-2 (bf16 activations; fp32 sums in another order)
+        assert float((out.cpu().float() - ref.float()).norm() / ref.float().norm()) < 1e-2

@@ -25,12 +25,13 @@ def test_every_module_imports_without_jax():
             "lightx2v_tpu_torch.ops.cuda.block_sparse_attention", "lightx2v_tpu_torch.ops.cuda.sage_attention",
             "lightx2v_tpu_torch.ops.cuda.int4_matmul", "lightx2v_tpu_torch.ops.radial",
             "lightx2v_tpu_torch.parallel.ring", "lightx2v_tpu_torch.schedulers.unipc",
-            "lightx2v_tpu_torch.tools.convert"} <= set(mods)
+            "lightx2v_tpu_torch.tools.convert", "lightx2v_tpu_torch.encoders.clip",
+            "lightx2v_tpu_torch.utils.image"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'ml_dtypes'"
-        " or m == 'lightx2v_tpu' or m.startswith('lightx2v_tpu.'))\n"
+        " or m == 'cv2' or m == 'lightx2v_tpu' or m.startswith('lightx2v_tpu.'))\n"
         "print('BAD', bad)\n"
         "assert not bad, bad\n"
     )
@@ -42,11 +43,12 @@ def test_every_module_imports_without_jax():
 
 def test_sources_import_no_jax_ml_dtypes_or_jax_package():
     """No import statement in the port or in chip_smoke.py names jax,
-    ml_dtypes or lightx2v_tpu, at module level or inside a function (the
-    fp8 weights cross by dtype name and bytes, not through ml_dtypes)."""
+    ml_dtypes, cv2 or lightx2v_tpu, at module level or inside a function
+    (the fp8 weights cross by dtype name and bytes, not through ml_dtypes;
+    images are resized by ``utils/image.py``, not by cv2)."""
     import re
 
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ml_dtypes|lightx2v_tpu)(\.|\s|$)", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ml_dtypes|cv2|lightx2v_tpu)(\.|\s|$)", re.M)
     files = [ROOT / "chip_smoke.py", *sorted((ROOT / "lightx2v_tpu_torch").rglob("*.py"))]
     assert len(files) > 40
     bad = [str(f.relative_to(ROOT)) for f in files if pat.search(f.read_text())]
