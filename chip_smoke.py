@@ -8,6 +8,7 @@
     python3 chip_smoke.py --path base     # the kernel phases and one path
     python3 chip_smoke.py --path fp8_distill   # the kernel phases and the fp8 path
     python3 chip_smoke.py --path i2v      # the kernel phases and the i2v path
+    python3 chip_smoke.py --path cogvideox   # the kernel phases and the CogVideoX path
 
 1. Prints the card's name and power limit, builds every CUDA kernel of the
    port from ``lightx2v_tpu_torch/csrc`` (one nvcc per source, in parallel)
@@ -55,12 +56,25 @@
    4-step distill denoise with the image cross-attention -> tiled decode.
    Its line gives the encode's parts (T5, CLIP, VAE encode) and the stage
    that set the peak device memory.
+9. CogVideoX (slice 6): one full-width CogVideoX1.5-5B block (48 heads of
+   64, dim 3072) on a small input the same way; the full CogVideoX VAE's
+   frame-batched decode of 3 x 4 x 6 latents on the card vs the CPU; then
+   the port's ``CogvideoxRunner`` on ``configs/cogvideox_t2v.json`` as it is
+   (42 joint blocks at full width, 768 x 1360, 81 frames, 45,106 tokens an
+   attention call, CFG as one forward at batch 2 at scale 6): bf16 T5
+   v1.1-XXL on the prompt and the negative prompt -> XDPM -> tiled,
+   frame-batched decode. Cut: the first 2 of the file's 50 XDPM steps (the
+   fewest that run both the first-order and the second-order update; the
+   50 would take minutes).
 
 The kernel phases also print the radial comparison at the main shape (dense
 flash, block-sparse at 128 x 128 and 256 x 128, two_pass), hold two merged
 half-key partials against one dense call, time the dense flash kernel at the
 self-attention shape without RoPE and over i2v's 257 image keys
-(``other_shapes`` entries, SDPA their yardstick) and the 8-bit full-K GEMM
+(``other_shapes`` entries, SDPA their yardstick), the dense kernel's 64-wide
+form at CogVideoX's (2, 45,106, 48, 64) (its own row,
+``flash_attention_d64``, bound by the larger of its tensor-core and its
+exp2 time), and the 8-bit full-K GEMM
 at i2v's M = 257 beside M = 512, and hold the RoPE pass of the fused-RoPE
 flash (``rope_rotate``, its own kernel row and counter) bit for bit against
 its plain version. The
@@ -117,6 +131,12 @@ INT4W = "W-int4-group-sym-A-bf16-Tpu"
 INT8 = "W-int8-channel-sym-A-int8-channel-sym-dynamic-Tpu"
 FP8 = "W-fp8-channel-sym-A-fp8-channel-sym-dynamic-Tpu"
 FRAMES = 21  # latent frames of 1560 tokens
+# CogVideoX1.5-5B at 768x1360, 81 frames: 11 x 48 x 85 video tokens (21 latent frames padded to 22) + 226 text
+COG_S, COG_HEADS, COG_HD = 11 * 48 * 85 + 226, 48, 64
+# exp2 a second on the special-function units: 16 a clock on each of 132 SMs at the 1,980 MHz boost clock
+PEAK_EX2 = 16 * 132 * 1.98e9
+COG_JSON = "configs/cogvideox_t2v.json"
+COG_STEPS = 2  # of the file's 50: step 0 first-order, step 1 second-order
 DEPLOY_JSON = "configs/deploy/wan_t2v.json"
 BASE_JSON = "configs/bench/lightx2v_1.json"
 FP8_JSON = "configs/bench/lightx2v_3_distill.json"
@@ -136,7 +156,7 @@ RADIAL_TWO_PASS = dict(RADIAL_BSR, sparse_block_q=256, radial_sparsity_type="two
 # 14B widths, with the fp8 UMT5-XXL
 FP8_DISTILL = dict(dim=DIM, ffn_dim=FFN, num_heads=HEADS, num_layers=40, text_len=TXT, t5_quantized=True,
                    t5_quant_scheme="fp8")
-PATHS = ("slice", "flagship", "base", "radial_bsr", "radial_two_pass", "fp8_distill", "i2v")
+PATHS = ("slice", "flagship", "base", "radial_bsr", "radial_two_pass", "fp8_distill", "i2v", "cogvideox")
 
 
 def card_line() -> str:
@@ -1010,6 +1030,50 @@ def kernel_phase_fp8(peaks, reps: int, want):
     return rows, extra
 
 
+def kernel_phase_cog(peaks, reps: int, want):
+    """The dense flash kernel's 64-wide form at CogVideoX's joint-stream
+    self-attention, q, k, v (2, 45,106, 48, 64): CFG's two rows, 226 text
+    tokens + 44,880 video tokens, one call a block."""
+    import torch
+    import torch.nn.functional as F
+
+    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+
+    if not want("flash_attention_d64"):
+        return [], []
+    peak_bf16, _, peak_bw = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    shape = (2, COG_S, COG_HEADS, COG_HD)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    hs = slice(0, 2)  # the plain version materializes S x S per head
+    ref = fa.flash_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs])
+    # bar: as row 2 (bf16 P at other running maxima, another summation order)
+    err = check_close(f"flash_attention_d64 {shape}", out[:, :, hs], ref, 2e-2, 1e-3)
+    del ref, out
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), reps)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 1, warmup=0)
+    lib_ms = library(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                            v.transpose(1, 2)), reps)
+    pairs = 2.0 * COG_HEADS * COG_S * COG_S  # (batch, head, query, key)
+    tensor_ms, by = bound(4.0 * COG_HD * pairs, 4 * 2 * COG_S * COG_HEADS * COG_HD * 2, peak_bf16, peak_bw)
+    exp_ms = pairs / PEAK_EX2 * 1e3  # one exp2 a (query, key) pair on the special-function units
+    row = dict(name="flash_attention_d64", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
+               replaces="lightx2v_tpu/ops/pallas/flash_attention.py:409",
+               shape=f"q,k,v {shape} bf16 (CogVideoX joint stream, CFG batch 2)",
+               max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms,
+               bound_ms=max(tensor_ms, exp_ms), bound_by="bytes" if by == "bytes" and tensor_ms > exp_ms else "operations",
+               bound_tensor_ms=tensor_ms, bound_exp2_ms=exp_ms, library_ms=lib_ms,
+               library_call="F.scaled_dot_product_attention")
+    print(f"[flash_attention_d64] {ms:.3f} ms; bounds: tensor cores {tensor_ms:.2f} ms, exp2 {exp_ms:.2f} ms; "
+          f"SDPA {lib_ms} ms", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return [row], []
+
+
 # ---------------------------------------------------------------------------
 # slice phase
 
@@ -1142,6 +1206,69 @@ def vae_encode_check():
     return check_close("Wan VAE encode 5x64x64, card (TF32) vs CPU (fp32)", out.cpu(), ref, 2e-2, 1e-3)
 
 
+def cog_block_reference_check():
+    """One full-width CogVideoX1.5-5B block (48 heads of 64, dim 3072, the
+    226-token text stream) on a small latent (16 x 3 x 8 x 12, padded to 4
+    frames: 2 x 4 x 6 = 48 video tokens) at CFG's batch of 2: the card (the
+    64-wide flash kernel) vs the plain versions on the CPU, same weights."""
+    import dataclasses
+
+    import torch
+
+    from lightx2v_tpu_torch.models.cogvideox.config import CogArch, build_cog_rope
+    from lightx2v_tpu_torch.models.cogvideox.model import CogTransformer
+    from lightx2v_tpu_torch.models.cogvideox.weights import init_random_cog_params_on_device
+
+    arch = dataclasses.replace(CogArch(), num_layers=1)
+    params = init_random_cog_params_on_device(arch, seed=3, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    lat = torch.randn((2, 16, 3, 8, 12), generator=g, device="cuda").to(torch.bfloat16)
+    ctx = (torch.randn((2, arch.text_len, arch.text_dim), generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    t = torch.tensor([999.0, 999.0], device="cuda")
+    cos, sin = (torch.from_numpy(a) for a in build_cog_rope(arch, 2, 4, 6))
+
+    def run(dev):
+        return CogTransformer(_to(params, dev), arch)(lat.to(dev), t.to(dev), ctx.to(dev), cos.to(dev), sin.to(dev))
+
+    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+
+    before = fa.LAUNCHES["flash_attention_d64"]
+    out = run("cuda")
+    torch.cuda.synchronize()
+    if fa.LAUNCHES["flash_attention_d64"] != before + 1:
+        raise AssertionError("the CogVideoX block did not run the 64-wide flash kernel")
+    # bar: as the 14B int8 block's, bf16 activations through one flash call
+    # and bf16 GEMMs summed in another order
+    return check_close("one CogVideoX1.5-5B block (bf16, flash_attn3 at head dim 64), card vs CPU plain",
+                       out.cpu(), run("cpu"), 3e-2, 1e-3)
+
+
+def cog_vae_decode_check():
+    """The full CogVideoX VAE's frame-batched decode of 3 x 4 x 6 latents
+    (chunks [3]; the odd-T first-frame split) and of 5 (chunks [3, 2], the
+    conv caches carried) on the card (TF32 convolutions) vs the CPU (fp32)."""
+    import numpy as np
+    import torch
+
+    from lightx2v_tpu_torch.vae import cogvideox_vae as cv
+
+    cfg = cv.CogVAEConfig()
+    sd = cv.init_random_cog_vae_state_dict(cfg, seed=2)
+    pc, pg = cv.load_cog_vae_params(sd, cfg), cv.load_cog_vae_params(sd, cfg, device="cuda")
+    errs = []
+    for t in (3, 5):
+        z = torch.from_numpy(np.random.default_rng(t).standard_normal((1, t, 4, 6, 16)).astype(np.float32))
+        out = cv.cog_vae_decode_chunked(pg, z.to("cuda"), cfg, scale=True)
+        torch.cuda.synchronize()
+        ref = cv.cog_vae_decode_chunked(pc, z, cfg, scale=True)
+        if out.shape != (1, 4 * t - 3, 32, 48, 3):
+            raise AssertionError(f"CogVideoX VAE decode: shape {tuple(out.shape)}")
+        # bar: TF32 rounds each conv's inputs to 10 mantissa bits on the card
+        errs.append(check_close(f"CogVideoX VAE decode {t}x4x6, card (TF32) vs CPU (fp32)", out.cpu(), ref, 2e-2,
+                                1e-3))
+    return max(errs)
+
+
 def write_image(path: str, seed: int = 0) -> str:
     """A seeded 480 x 832 RGB PNG (smooth colour ramps plus noise)."""
     import numpy as np
@@ -1162,6 +1289,8 @@ def expected_launches(runner, cfg) -> dict:
     from lightx2v_tpu_torch.ops.cuda import launch_counts
 
     L = runner.arch.num_layers
+    if cfg["model_cls"] == "cogvideox":  # one 64-wide flash call a block and step; its linears are bf16 torch.mm
+        return {**{k: 0 for k in launch_counts()}, "flash_attention_d64": L * COG_STEPS}
     steps = len(cfg["denoising_step_list"]) if cfg["model_cls"] == "wan2.1_distill" else int(cfg["infer_steps"])
     out = {k: 0 for k in launch_counts()}
     calls = L * steps  # one per block and forward (CFG doubles the batch, not the calls)
@@ -1206,10 +1335,24 @@ def expected_launches(runner, cfg) -> dict:
     return out
 
 
+def first_steps(runner, n: int):
+    """Cut the runner's denoise to the first ``n`` steps of its schedule
+    (the schedule itself, and so each step's timestep, stays the file's)."""
+    make = runner.init_scheduler
+
+    def init():
+        sched = make()
+        sched.num_steps = lambda: n
+        return sched
+
+    runner.init_scheduler = init
+
+
 def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan2.1_distill",
-             config_json: str = DEPLOY_JSON):
+             config_json: str = DEPLOY_JSON, steps=None):
     """Synthesize the path's weights on the card, zero the counters, run the
-    pipeline once, and check the counts and the frames."""
+    pipeline once (its first ``steps`` denoise steps where given), and check
+    the counts and the frames."""
     import gc
 
     import numpy as np
@@ -1229,6 +1372,8 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
     t0 = time.perf_counter()
     runner = infer.init_runner(cfg)
     print(f"[{name}] synthesized weights on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    if steps is not None:
+        first_steps(runner, steps)
     expect = expected_launches(runner, cfg)
     selected = []  # Sparge's per-call selected-block totals, summed on the device
     select = sparge.sparge_select_blocks
@@ -1251,7 +1396,8 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
     print(json.dumps({"path": name, "launch_counts": counts, "expected": expect}), flush=True)
     if counts != expect:
         raise AssertionError(f"{name}: launch counts {counts} != {expect}")
-    if frames.shape != (81, 480, 832, 3) or not np.isfinite(frames).all():
+    want_shape = (int(cfg["target_video_length"]), int(cfg["target_height"]), int(cfg["target_width"]), 3)
+    if frames.shape != want_shape or not np.isfinite(frames).all():
         raise AssertionError(f"{name}: bad frames: shape {frames.shape}, finite {np.isfinite(frames).all()}")
     tm = runner.timings
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1375,8 +1521,9 @@ def main():
     rows2, extra2 = kernel_phase_flagship(peaks_for(card), REPS, want)
     rows3, extra3 = kernel_phase_base(peaks_for(card), REPS, want)
     rows4, extra4 = kernel_phase_fp8(peaks_for(card), REPS, want)
-    rows += rows2 + rows3 + rows4
-    print(json.dumps({"other_shapes": extra + extra2 + extra3 + extra4}), flush=True)
+    rows5, extra5 = kernel_phase_cog(peaks_for(card), REPS, want)
+    rows += rows2 + rows3 + rows4 + rows5
+    print(json.dumps({"other_shapes": extra + extra2 + extra3 + extra4 + extra5}), flush=True)
     by_path = {}
     paths = [] if args.kernels_only else args.path or list(PATHS)
     if "slice" in paths:
@@ -1406,6 +1553,11 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             image = write_image(str(Path(tmp) / "i2v_input.png"))
             by_path["i2v"] = run_path("i2v", dict(task="i2v", image_path=image), args.profile, config_json=I2V_JSON)
+    if "cogvideox" in paths:
+        cog_block_reference_check()
+        cog_vae_decode_check()
+        by_path["cogvideox"] = run_path("cogvideox", dict(negative_prompt="blurry, low quality, distorted"),
+                                        args.profile, model_cls="cogvideox", config_json=COG_JSON, steps=COG_STEPS)
     for r in rows:
         r["launches_by_path"] = {p: c.get(r["name"], 0) for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

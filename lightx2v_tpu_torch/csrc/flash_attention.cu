@@ -1,5 +1,5 @@
-// Flash attention for Hopper (sm_90a), bf16 in / bf16 out, head dim 128:
-// three kernels.
+// Flash attention for Hopper (sm_90a), bf16 in / bf16 out, head dim 128
+// (and 64 for the dense kernel): three kernels.
 //
 // Replaces: lightx2v_tpu/ops/pallas/flash_attention.py:flash_attention
 //           (_flash_bnsd / _flash_body), :flash_attention_with_lse
@@ -87,6 +87,21 @@
 //  - A first form (one CTA a work tile, S -> wait -> softmax -> P.V ->
 //    wait per tile, the consumers scaling Q and storing O) was replaced by
 //    the persistent, pipelined form above.
+//
+// HEAD DIM 64 (flash_attention_d64_bf16: flash_wgmma_kernel<64>, CogVideoX's
+// 48 heads of 64 over its joint [text; video] stream). The same body with one
+// 64-column box a row of q, k, v and o: the S product takes 4 k-steps of 16
+// instead of 8, P.V one m64n64 product a 16-key step into a 64 x 64 O
+// accumulator a warpgroup, and O is staged through the one box of the
+// warpgroup's Q rows. Shared memory: 2 x 16 KB of Q + 2 x 32 KB of K/V.
+// What bounds it: halving d halves the tensor-core work a key but not the
+// softmax's, so at d = 64 a 128 x 128 tile's 16,384 exp2 on the special-
+// function units (16 a clock on an SM) take about as long as its two
+// products on the tensor cores: at 45,106 tokens x 96 (batch, head) pairs,
+// 5.0e13 FLOP (51 ms at 989 TFLOP/s) against 1.95e11 exp2 (47 ms at 16 a
+// clock on 132 SMs at 1,980 MHz). The design keeps the 128 form's overlap of
+// tile t's softmax with tile t - 1's P.V, which is all the overlap that
+// bound leaves; nothing else in the body changes.
 //
 // RoPE (flash_attention_fused_rope) is rotated once per call, not once per
 // CTA as the TPU kernel's grid order (b*n, nq, nk) does: rope_rotate_kernel
@@ -277,6 +292,17 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     float gain, void* stream) {
   const long long st[12] = {q_b, q_s, q_n, k_b, k_s, k_n, v_b, v_s, v_n, o_b, o_s, o_n};
   return launch_dense<HD>(q, k, v, o, static_cast<float*>(lse), batch, n_heads, sq, sk, kv_limit, st, gain,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// the same at head dim 64, without lse (no caller needs it there)
+extern "C" int flash_attention_d64_bf16(const void* q, const void* k, const void* v, void* o, int batch,
+                                        int n_heads, int sq, int sk, int kv_limit, long long q_b, long long q_s,
+                                        long long q_n, long long k_b, long long k_s, long long k_n, long long v_b,
+                                        long long v_s, long long v_n, long long o_b, long long o_s, long long o_n,
+                                        float gain, void* stream) {
+  const long long st[12] = {q_b, q_s, q_n, k_b, k_s, k_n, v_b, v_s, v_n, o_b, o_s, o_n};
+  return launch_dense<64>(q, k, v, o, nullptr, batch, n_heads, sq, sk, kv_limit, st, gain,
                           static_cast<cudaStream_t>(stream));
 }
 

@@ -1,6 +1,7 @@
-"""UMT5-XXL text encoder in PyTorch (counterpart of
+"""UMT5-XXL and T5 v1.1-XXL text encoders in PyTorch (counterpart of
 ``lightx2v_tpu.encoders.t5``): pre-norm blocks with T5 RMS norm, unscaled
-attention plus a per-layer bidirectional relative-position bias, gated-GELU
+attention plus a bidirectional relative-position bias (per layer for UMT5,
+one table shared by every layer for T5 v1.1, ``shared_pos``), gated-GELU
 FFN, final norm; rows past each prompt's length are zeroed. Linears are
 bf16 GEMMs with fp32 accumulation, or int8 or e4m3 codes with per-channel
 scales (``{"w", "w_scale"}``, the quantized encoder) through the int8 or
@@ -36,6 +37,8 @@ class T5Config:
 
 
 UMT5_XXL = T5Config()
+# CogVideoX's text encoder: T5 v1.1-XXL, English vocabulary, one shared bias table
+T5_V1_1_XXL = T5Config(vocab_size=32128, shared_pos=True)
 
 
 def relative_position_buckets(lq: int, lk: int, num_buckets: int = 32, max_dist: int = 128) -> np.ndarray:
@@ -180,7 +183,9 @@ def init_random_t5_params_on_device(cfg: T5Config = UMT5_XXL, seed: int = 0, sca
     scheme "int8" makes the seven block linears ``{"w", "w_scale"}`` dicts:
     int8 codes in -127..127 with per-channel scales scale/127; "fp8" e4m3
     codes of normal * 100 clipped to +-448 with scales scale/100 (the JAX
-    synthesizer's layout and clip)."""
+    synthesizer's layout and clip). With ``shared_pos`` every block holds
+    the same bias table, as a T5 v1.1 checkpoint loads (the JAX synthesizer
+    draws one a layer)."""
     if scheme not in ("bf16", "int8", "fp8"):
         raise NotImplementedError(f"synthetic T5 scheme {scheme!r} is not ported yet")
     dev = torch.device(device)
@@ -201,9 +206,11 @@ def init_random_t5_params_on_device(cfg: T5Config = UMT5_XXL, seed: int = 0, sca
                 "w_scale": torch.full((out,), scale / 127.0, dtype=torch.float32, device=dev)}
 
     ones = lambda: torch.ones((d,), dtype=torch.float32, device=dev)  # noqa: E731
+    rel = lambda: nrm((cfg.num_buckets, cfg.num_heads), torch.float32)  # noqa: E731
+    shared = rel() if cfg.shared_pos else None
     blocks: List[Params] = [
         {"norm1": ones(), "q": lin(da, d), "k": lin(da, d), "v": lin(da, d), "o": lin(d, da),
-         "rel_emb": nrm((cfg.num_buckets, cfg.num_heads), torch.float32), "norm2": ones(),
+         "rel_emb": shared if cfg.shared_pos else rel(), "norm2": ones(),
          "gate": lin(df, d), "fc1": lin(df, d), "fc2": lin(d, df)}
         for _ in range(cfg.num_layers)
     ]

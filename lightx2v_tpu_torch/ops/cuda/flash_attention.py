@@ -4,7 +4,10 @@ Port of ``lightx2v_tpu/ops/pallas/flash_attention.py``: ``flash_attention``,
 ``flash_attention_fused_rope`` and ``flash_attention_with_lse`` (kernel
 source ``csrc/flash_attention.cu``). All three launch one dense kernel;
 ``flash_attention_fused_rope`` first rotates q and k once in the RoPE pass
-``rope_rotate`` (its own kernel and counter).
+``rope_rotate`` (its own kernel and counter). ``flash_attention`` also takes
+head dim 64 (CogVideoX), the dense kernel's 64-wide instance, counted apart
+as ``flash_attention_d64``; every other entry, and the sage and
+block-sparse kernels that import ``HEAD_DIM``, stay at 128.
 Public functions keep the JAX (B, S, N, D) layout. On a CUDA tensor the
 wrapper launches the kernel or raises; on a CPU tensor it runs the plain
 version, which repeats the kernel's arithmetic (q scaled by scale*log2(e)
@@ -24,8 +27,10 @@ from . import _build
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 HEAD_DIM = 128
+DENSE_HEAD_DIMS = (64, HEAD_DIM)  # the widths of the dense kernel behind ``flash_attention``
 
-LAUNCHES = {"flash_attention": 0, "flash_attention_fused_rope": 0, "flash_attention_with_lse": 0, "rope_rotate": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_d64": 0, "flash_attention_fused_rope": 0,
+            "flash_attention_with_lse": 0, "rope_rotate": 0}
 
 
 def _kv_limit(kv_len, sk: int) -> int:
@@ -130,28 +135,31 @@ def _lib():
     if lib.flash_attention_bf16.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attention_bf16.argtypes = [p] * 5 + [i] * 5 + [ll] * 12 + [ctypes.c_float, p]
+        lib.flash_attention_d64_bf16.argtypes = [p] * 4 + [i] * 5 + [ll] * 12 + [ctypes.c_float, p]
         lib.rope_rotate_bf16.argtypes = [p] * 4 + [i] * 5 + [ll] * 6 + [p] * 2 + [ctypes.c_float, p]
-        lib.flash_attention_bf16.restype = lib.rope_rotate_bf16.restype = ctypes.c_int
+        lib.flash_attention_bf16.restype = lib.flash_attention_d64_bf16.restype = ctypes.c_int
+        lib.rope_rotate_bf16.restype = ctypes.c_int
     return lib
 
 
-def _check(t: torch.Tensor, name: str, dev: torch.device):
+def _check(t: torch.Tensor, name: str, dev: torch.device, head_dims=(HEAD_DIM,)):
     if t.device != dev:
         raise ValueError(f"{name} is on {t.device}, expected {dev}")
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
-    if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
-        raise ValueError(f"{name} must be (B, S, N, {HEAD_DIM}), got {tuple(t.shape)}")
+    if t.dim() != 4 or t.shape[-1] not in head_dims:
+        raise ValueError(f"{name} must be (B, S, N, D) with D in {head_dims}, got {tuple(t.shape)}")
     if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
         raise ValueError(f"{name} needs a unit-stride head dim and 16-byte aligned rows, "
                          f"got strides {t.stride()}")
 
 
-def _check_qkv(q, k, v):
+def _check_qkv(q, k, v, head_dims=(HEAD_DIM,)):
     dev = q.device
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _check(t, name, dev)
-    if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        _check(t, name, dev, head_dims)
+    if (k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]
+            or k.shape[3] != q.shape[3]):
         raise ValueError(f"shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
 
 
@@ -162,10 +170,15 @@ def _launch(q, k, v, kv_len, gain: float, name: str, lse: Optional[torch.Tensor]
     sk = k.shape[1]
     out = torch.empty((b, sq, n, d), dtype=torch.bfloat16, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib().flash_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                      None if lse is None else lse.data_ptr(), b, n, sq, sk, _kv_limit(kv_len, sk),
-                                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], gain,
-                                      stream)
+    args = (b, n, sq, sk, _kv_limit(kv_len, sk), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], gain, stream)
+    if d == 64:
+        if lse is not None:
+            raise ValueError("the head-dim-64 kernel writes no lse")
+        err = _lib().flash_attention_d64_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args)
+    else:
+        err = _lib().flash_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                          None if lse is None else lse.data_ptr(), *args)
     _build.check(err, name)
     LAUNCHES[name] += 1
     return out
@@ -206,12 +219,14 @@ def rope_rotate(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_len: Optional[int] = None) -> torch.Tensor:
-    """q/k/v (B, S, N, 128) bf16 -> (B, Sq, N, 128); keys at or past
-    ``kv_len`` are masked."""
+    """q/k/v (B, S, N, D) bf16, D 128 or 64 -> (B, Sq, N, D); keys at or
+    past ``kv_len`` are masked. D = 64 launches the 64-wide kernel (counter
+    ``flash_attention_d64``)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_len)
-    _check_qkv(q, k, v)
-    return _launch(q, k, v, kv_len, _gain(q.shape[-1]), "flash_attention")
+    _check_qkv(q, k, v, DENSE_HEAD_DIMS)
+    d = q.shape[-1]
+    return _launch(q, k, v, kv_len, _gain(d), "flash_attention_d64" if d == 64 else "flash_attention")
 
 
 def flash_attention_fused_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

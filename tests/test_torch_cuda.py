@@ -106,10 +106,57 @@ def test_rope_rotate_pass_is_exact(dev, sq, sk, grid):
 
 
 def test_flash_refuses_bad_input(dev):
+    """Widths other than 64 and 128 are refused by the dense wrapper; 64 by
+    the sage, block-sparse, fused-RoPE and LSE wrappers (their kernels are
+    128 only)."""
+    from lightx2v_tpu_torch.ops.cuda import block_sparse_attention as bsa
     from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+    from lightx2v_tpu_torch.ops.cuda import sage_attention as sa
 
     with pytest.raises(ValueError):
-        fa.flash_attention(*(torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.bfloat16) for _ in range(3)))
+        fa.flash_attention(*(torch.zeros((1, 8, 2, 96), device=dev, dtype=torch.bfloat16) for _ in range(3)))
+    q = torch.zeros((1, 256, 2, 64), device=dev, dtype=torch.bfloat16)
+    cos = torch.zeros((256, 32), device=dev)
+    idx = torch.zeros((2, 2, 1), dtype=torch.int32, device=dev)
+    for call in (lambda: sa.sage_attention(q, q, q), lambda: bsa.block_sparse_attention(q, q, q, idx, idx[..., 0]),
+                 lambda: fa.flash_attention_with_lse(q, q, q), lambda: fa.flash_attention_fused_rope(q, q, q, cos, cos)):
+        with pytest.raises(ValueError):
+            call()
+
+
+@pytest.mark.parametrize("b,sq,sk,kv_len", [(2, 200, 200, None), (2, 256, 256, None), (1, 300, 64, None),
+                                            (2, 7, 513, 300), (2, 130, 257, 150), (1, 1100, 1100, None)])
+def test_flash_d64_kernel_vs_plain(dev, b, sq, sk, kv_len):
+    """The 64-wide dense kernel (CogVideoX's 48 heads of 64): ragged sq and
+    sk (a 50-key last tile at the main shape; here 1-key, 72-key and 76-key
+    last tiles), kv_len inside a tile, batch 1 and 2; it counts under
+    ``flash_attention_d64`` and not under the 128-wide row."""
+    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(sq + sk)
+    q, k, v = (torch.randn((b, s, 3, 64), generator=g, device=dev).to(torch.bfloat16) for s in (sq, sk, sk))
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention(q, k, v, kv_len=kv_len)
+    assert fa.LAUNCHES["flash_attention_d64"] == before["flash_attention_d64"] + 1
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"]
+    assert out.shape == (b, sq, 3, 64)
+    # bar: bf16 P rounded at different running maxima, summation order
+    _close(out, fa.flash_attention_plain(q, k, v, kv_len), 2e-2, 2e-3)
+
+
+@pytest.mark.parametrize("pattern", ["column", "key"])
+def test_flash_d64_kernel_structured_v(dev, pattern):
+    """V holding its column (or key) index through the 64-wide kernel: a
+    wrong box, stride or transpose in its one-box P.V or O staging gives
+    another pattern, not noise."""
+    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k = (torch.randn((1, 256, 2, 64), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    idx = torch.arange(256, device=dev, dtype=torch.float32)
+    v = (idx[None, None, None, :64] if pattern == "column" else idx[None, :, None, None]).expand(1, 256, 2, 64)
+    v = v.to(torch.bfloat16).contiguous()
+    _close(fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v), 2e-2, 2e-3)
 
 
 def _x(g, dev, m, k, one_signed=False):

@@ -135,3 +135,46 @@ def test_fused_rope_is_rope_pass_then_dense(kv_len):
     assert torch.equal(kr[:, 147:], k[:, 147:])  # identity rotation past the table
     fused = tflash.flash_attention_fused_rope_plain(q, k, v, cos, sin, kv_len)
     assert torch.equal(fused, tflash._attend_plain(qr, kr, v, tflash._kv_limit(kv_len, 260)))
+
+
+@pytest.mark.parametrize("b,sq,sk,kv_len", [(1, 256, 256, None), (2, 200, 330, None), (2, 130, 257, 150),
+                                            (1, 70, 129, None)])
+def test_flash_attention_d64_vs_pallas(b, sq, sk, kv_len):
+    """Head dim 64 (CogVideoX's 48 heads of 64): the plain version of the
+    64-wide kernel against the Pallas kernel in interpret mode, at a block
+    multiple, ragged sq and sk (a 74-row and a 1-key last tile), a batch
+    axis and a static kv_len. Bar: as above."""
+    rng = np.random.default_rng(sq + sk)
+    mk = lambda s: (rng.standard_normal((b, s, 2, 64)) * 1.5).astype(np.float32)  # noqa: E731
+    q, k, v = mk(sq), mk(sk), mk(sk)
+    ref = jflash.flash_attention(_j(q), _j(k), _j(v), kv_len=kv_len, bq=128, bk=128, interpret=True)
+    out = tflash.flash_attention(_t(q), _t(k), _t(v), kv_len=kv_len)
+    assert out.shape == (b, sq, 2, 64) and out.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(out), _np(ref), **TOL)
+
+
+def test_head_dim_64_only_for_the_dense_wrapper():
+    """The dense wrapper takes head dim 64 (its checks pass; checked on the
+    meta device, no card needed); the sage, block-sparse, fused-RoPE and LSE
+    wrappers refuse it before any launch, and every wrapper refuses other
+    widths and a k/v width unlike q's."""
+    from lightx2v_tpu_torch.ops.cuda import block_sparse_attention as tbsa
+    from lightx2v_tpu_torch.ops.cuda import sage_attention as tsage
+
+    meta = lambda d, s=8: torch.empty((1, s, 2, d), dtype=torch.bfloat16, device="meta")  # noqa: E731
+    q = meta(64)
+    tflash._check_qkv(q, q, q, tflash.DENSE_HEAD_DIMS)
+    for d in (32, 96):
+        with pytest.raises(ValueError):
+            tflash.flash_attention(meta(d), meta(d), meta(d))
+    with pytest.raises(ValueError):
+        tflash.flash_attention(q, meta(128), meta(128))
+    cos = torch.empty((8, 32), dtype=torch.float32, device="meta")
+    idx = torch.zeros((2, 1, 1), dtype=torch.int32, device="meta")
+    refusals = (lambda: tsage.sage_attention(q, q, q),
+                lambda: tbsa.block_sparse_attention(q, q, q, idx, idx[..., 0]),
+                lambda: tflash.flash_attention_with_lse(q, q, q),
+                lambda: tflash.flash_attention_fused_rope(q, q, q, cos, cos))
+    for call in refusals:
+        with pytest.raises(ValueError):
+            call()
