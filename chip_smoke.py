@@ -58,7 +58,7 @@
    that set the peak device memory.
 9. CogVideoX (slice 6): one full-width CogVideoX1.5-5B block (48 heads of
    64, dim 3072) on a small input the same way; the full CogVideoX VAE's
-   frame-batched decode of 3 x 4 x 6 latents on the card vs the CPU; then
+   frame-batched decode of 3 and 5 x 4 x 6 latents on the card vs the CPU; then
    the port's ``CogvideoxRunner`` on ``configs/cogvideox_t2v.json`` as it is
    (42 joint blocks at full width, 768 x 1360, 81 frames, 45,106 tokens an
    attention call, CFG as one forward at batch 2 at scale 6): bf16 T5
@@ -1064,7 +1064,8 @@ def kernel_phase_cog(peaks, reps: int, want):
                replaces="lightx2v_tpu/ops/pallas/flash_attention.py:409",
                shape=f"q,k,v {shape} bf16 (CogVideoX joint stream, CFG batch 2)",
                max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms,
-               bound_ms=max(tensor_ms, exp_ms), bound_by="bytes" if by == "bytes" and tensor_ms > exp_ms else "operations",
+               bound_ms=max(tensor_ms, exp_ms),
+               bound_by="bytes" if by == "bytes" and tensor_ms > exp_ms else "operations",
                bound_tensor_ms=tensor_ms, bound_exp2_ms=exp_ms, library_ms=lib_ms,
                library_call="F.scaled_dot_product_attention")
     print(f"[flash_attention_d64] {ms:.3f} ms; bounds: tensor cores {tensor_ms:.2f} ms, exp2 {exp_ms:.2f} ms; "
@@ -1218,6 +1219,7 @@ def cog_block_reference_check():
     from lightx2v_tpu_torch.models.cogvideox.config import CogArch, build_cog_rope
     from lightx2v_tpu_torch.models.cogvideox.model import CogTransformer
     from lightx2v_tpu_torch.models.cogvideox.weights import init_random_cog_params_on_device
+    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
 
     arch = dataclasses.replace(CogArch(), num_layers=1)
     params = init_random_cog_params_on_device(arch, seed=3, device="cuda")
@@ -1229,8 +1231,6 @@ def cog_block_reference_check():
 
     def run(dev):
         return CogTransformer(_to(params, dev), arch)(lat.to(dev), t.to(dev), ctx.to(dev), cos.to(dev), sin.to(dev))
-
-    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
 
     before = fa.LAUNCHES["flash_attention_d64"]
     out = run("cuda")

@@ -107,11 +107,10 @@ class CogTransformer(torch.nn.Module):
     text_dim) -> prediction (B, C, F, H, W) fp32. The rope tables cover the
     padded frame grid."""
 
-    def __init__(self, params: Params, arch: CogArch, mm_type: str = "Default", attn_type: str = "flash_attn3"):
+    def __init__(self, params: Params, arch: CogArch, attn_type: str = "flash_attn3"):
         super().__init__()
         self.params = params
         self.arch = arch
-        self.mm_type = mm_type
         self.attn_type = attn_type
 
     def forward(self, latents: torch.Tensor, t: torch.Tensor, context: torch.Tensor, rope_cos: torch.Tensor,
@@ -130,9 +129,8 @@ class CogTransformer(torch.nn.Module):
         enc = mm(params["text_proj"], context.to(torch.bfloat16))
         x = mm(params["patch_proj"], cog_patchify(latents.to(torch.bfloat16), p, p_t))
 
-        mm_blk = resolve_mm(self.mm_type)
         for block in params["blocks"]:
-            x, enc = cog_block(block, x, enc, temb, rope_cos, rope_sin, arch, mm_blk, self.attn_type)
+            x, enc = cog_block(block, x, enc, temb, rope_cos, rope_sin, arch, mm, self.attn_type)
 
         # the final norm over the joint stream, then the AdaLN head on the video tokens
         joint = layer_norm(torch.cat([enc, x], dim=1), params["norm_final"]["w"], params["norm_final"]["b"],

@@ -172,9 +172,7 @@ def _launch(q, k, v, kv_len, gain: float, name: str, lse: Optional[torch.Tensor]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     args = (b, n, sq, sk, _kv_limit(kv_len, sk), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], gain, stream)
-    if d == 64:
-        if lse is not None:
-            raise ValueError("the head-dim-64 kernel writes no lse")
+    if d == 64:  # no lse at 64: only flash_attention takes that width
         err = _lib().flash_attention_d64_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args)
     else:
         err = _lib().flash_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

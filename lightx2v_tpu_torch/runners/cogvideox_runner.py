@@ -141,13 +141,12 @@ class CogvideoxRunner(DefaultRunner):
     def run_vae_decoder(self, latents) -> np.ndarray:
         z = latents.permute(1, 2, 3, 0)[None]  # (C, F, H, W) -> (1, F, H, W, C)
         scale = not self.config.get("synthetic_weights")
-        # the reference's decode loop: 2 latent frames a chunk, the conv caches carried across
-        fb = int(self.config.get("vae_frame_batch", 2))
+        # the reference's decode loop: 2 latent frames a chunk, the conv caches carried across;
+        # tiles past 256 px (32 latents), each with its own frame loop
         if self.config.get("use_tiling_vae") or max(z.shape[2], z.shape[3]) > 32:
-            # tiles past 256 px (32 latents), each with its own frame loop
-            frames = cog_vae_decode_tiled(self.vae, z, self.vae_cfg, scale=scale, frame_batch=fb)
-        elif z.shape[1] > fb:
-            frames = cog_vae_decode_chunked(self.vae, z, self.vae_cfg, scale=scale, frame_batch=fb)
+            frames = cog_vae_decode_tiled(self.vae, z, self.vae_cfg, scale=scale)
+        elif z.shape[1] > 2:
+            frames = cog_vae_decode_chunked(self.vae, z, self.vae_cfg, scale=scale)
         else:
             frames = cog_vae_decode(self.vae, z, self.vae_cfg, scale=scale)
         return np.clip(frames[0].float().cpu().numpy(), -1.0, 1.0)

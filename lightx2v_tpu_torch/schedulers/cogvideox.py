@@ -2,7 +2,8 @@
 ``lightx2v_tpu.schedulers.cogvideox``): scaled-linear betas, SNR shift,
 zero-terminal-SNR rescale, trailing timestep spacing, v-prediction, and a
 DPM-solver++(2M)-SDE update whose second order corrects with the previous
-x0 prediction.
+x0 prediction. The JAX scheduler's other beta schedules, spacings and
+prediction types, which no config in the repo selects, raise.
 
 The alphas stay float64 on the host and are cast to fp32 as in the JAX
 package; each step's scalar coefficients are computed in fp32 (0-d CPU
@@ -40,28 +41,19 @@ class CogvideoxXDPMScheduler(SchedulerBase):
         beta_start = float(c.get("scheduler_beta_start", 0.00085))
         beta_end = float(c.get("scheduler_beta_end", 0.012))
         snr_shift = float(c.get("scheduler_snr_shift_scale", 1.0))
-        if c.get("scheduler_beta_schedule", "scaled_linear") == "scaled_linear":
-            betas = np.linspace(beta_start ** 0.5, beta_end ** 0.5, self.num_train_timesteps, dtype=np.float64) ** 2
-        else:
-            betas = np.linspace(beta_start, beta_end, self.num_train_timesteps, dtype=np.float64)
+        for key, value in (("scheduler_beta_schedule", "scaled_linear"), ("timestep_spacing", "trailing"),
+                           ("scheduler_prediction_type", "v_prediction")):
+            if c.get(key, value) != value:
+                raise NotImplementedError(f"XDPM {key}={c[key]!r} is not ported yet (ROADMAP.md, Queue 1 item 17)")
+        betas = np.linspace(beta_start ** 0.5, beta_end ** 0.5, self.num_train_timesteps, dtype=np.float64) ** 2
         ac = np.cumprod(1.0 - betas)
         ac = ac / (snr_shift + (1 - snr_shift) * ac)
         if c.get("scheduler_rescale_betas_zero_snr", True):
             ac = rescale_zero_terminal_snr(ac)
         self.alphas_cumprod = ac.astype(np.float64)
         self.final_alpha_cumprod = 1.0 if c.get("scheduler_set_alpha_to_one", True) else float(ac[0])
-        self.prediction_type = c.get("scheduler_prediction_type", "v_prediction")
-
-        spacing = c.get("timestep_spacing", "trailing")
-        n = self.infer_steps
-        if spacing == "linspace":
-            ts = np.linspace(0, self.num_train_timesteps - 1, n).round()[::-1].astype(np.int64)
-        elif spacing == "leading":
-            ratio = self.num_train_timesteps // n
-            ts = (np.arange(n) * ratio).round()[::-1].astype(np.int64) + int(c.get("steps_offset", 0))
-        else:  # trailing
-            ratio = self.num_train_timesteps / n
-            ts = np.round(np.arange(self.num_train_timesteps, 0, -ratio)).astype(np.int64) - 1
+        ratio = self.num_train_timesteps / self.infer_steps
+        ts = np.round(np.arange(self.num_train_timesteps, 0, -ratio)).astype(np.int64) - 1  # trailing
         self.timesteps = ts.astype(np.float32)
         self._ts_int = ts
 
@@ -70,8 +62,8 @@ class CogvideoxXDPMScheduler(SchedulerBase):
         return {"latents": latents, "step_index": 0, "old_pred_x0": None}
 
     def _coefficients(self, i: int):
-        """The step's fp32 scalars: (a_t, b_t, mult1, mult2, mult3, mult4,
-        mult_noise, use_first)."""
+        """The step's fp32 scalars: (sqrt(a_t), sqrt(1 - a_t), mult1, mult2,
+        mult3, mult4, mult_noise, use_first)."""
         ac = torch.from_numpy(self.alphas_cumprod.astype(np.float32))
         t = int(self._ts_int[i])
         prev_t = t - self.num_train_timesteps // self.infer_steps
@@ -89,24 +81,17 @@ class CogvideoxXDPMScheduler(SchedulerBase):
         mult4 = 1 / (2 * r)
         mult_noise = torch.sqrt(1 - a_prev) * torch.sqrt(1 - torch.exp(-2 * h))
         use_first = i == 0 or prev_t < 0
-        return (float(a_t), float(1 - a_t), float(mult1), float(mult2), float(mult3), float(mult4),
-                float(mult_noise), use_first)
+        return (float(torch.sqrt(a_t)), float(torch.sqrt(1 - a_t)), float(mult1), float(mult2), float(mult3),
+                float(mult4), float(mult_noise), use_first)
 
     def step_post(self, state: State, noise_pred: torch.Tensor, generator: Optional[torch.Generator] = None,
                   noise: Optional[torch.Tensor] = None) -> State:
         """``noise`` replaces the generator's draw (tests inject the JAX
         package's ``jax.random`` draws)."""
         i = state["step_index"]
-        a_t, b_t, mult1, mult2, mult3, mult4, mult_noise, use_first = self._coefficients(i)
+        sqrt_a, sqrt_b, mult1, mult2, mult3, mult4, mult_noise, use_first = self._coefficients(i)
         sample = state["latents"].float()
-        pred = noise_pred.float()
-        a32, b32 = torch.tensor(a_t), torch.tensor(b_t)
-        if self.prediction_type == "epsilon":
-            x0 = (sample - float(torch.sqrt(b32)) * pred) / float(torch.sqrt(a32))
-        elif self.prediction_type == "sample":
-            x0 = pred
-        else:  # v_prediction
-            x0 = float(torch.sqrt(a32)) * sample - float(torch.sqrt(b32)) * pred
+        x0 = sqrt_a * sample - sqrt_b * noise_pred.float()  # v-prediction
         if noise is None:
             noise = torch.randn(sample.shape, generator=generator, dtype=torch.float32, device=generator.device)
         noise = noise.to(device=sample.device, dtype=torch.float32)

@@ -16,8 +16,9 @@ CUDA the caller chooses TF32 for the convolutions
 The nearest resize is pinned to ``jax.image.resize(..., "nearest")``, which
 samples at half-pixel centres, floor((i + 0.5) * m / n) in fp32;
 ``F.interpolate(mode="nearest")`` samples at floor(i * m / n), and the two
-agree only at integer factors (the odd-T first-frame split and the edge
-tiles are not). The encoder is not ported (the t2v path never encodes)."""
+agree only at integer factors. The decoder's own resizes are integer
+factors, but nothing here relies on it. The encoder is not ported (the t2v
+path never encodes)."""
 
 from __future__ import annotations
 
@@ -209,21 +210,17 @@ def _blend_dim(a: torch.Tensor, b: torch.Tensor, n: int, axis: int) -> torch.Ten
 
 
 def cog_vae_decode_tiled(params: Params, z: torch.Tensor, cfg: CogVAEConfig = CogVAEConfig(), scale: bool = True,
-                         tile_latent: int = 32, overlap: float = 0.25,
-                         frame_batch: Optional[int] = None) -> torch.Tensor:
-    """Spatially tiled decode: overlapping latent tiles of ``tile_latent``
-    decoded apart (each with its own zq slice; with ``frame_batch`` each
-    tile frame-batched through ``cog_vae_decode_chunked``), blended with
-    linear ramps in pixel space, each blended tile replacing its original
-    before the next blend (the reference's cascade)."""
+                         tile_latent: int = 32, frame_batch: int = 2) -> torch.Tensor:
+    """Spatially tiled decode: latent tiles of ``tile_latent`` overlapping
+    by a quarter, each with its own zq slice, frame-batched through
+    ``cog_vae_decode_chunked``, blended with linear ramps in pixel space,
+    each blended tile replacing its original before the next blend (the
+    reference's cascade)."""
     b, t, h, w, c = z.shape
-    if frame_batch is not None:
-        dec = lambda z_: cog_vae_decode_chunked(params, z_, cfg, scale=scale, frame_batch=frame_batch)  # noqa: E731
-    else:
-        dec = lambda z_: cog_vae_decode(params, z_, cfg, scale=scale)  # noqa: E731
+    dec = lambda z_: cog_vae_decode_chunked(params, z_, cfg, scale=scale, frame_batch=frame_batch)  # noqa: E731
     if max(h, w) <= tile_latent:
         return dec(z)
-    step = max(1, int(tile_latent * (1 - overlap)))
+    step = max(1, int(tile_latent * 0.75))
     up = 2 ** (len(cfg.block_out_channels) - 1)
     blend = (tile_latent - step) * up
     limit = step * up

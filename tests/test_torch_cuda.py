@@ -118,8 +118,10 @@ def test_flash_refuses_bad_input(dev):
     q = torch.zeros((1, 256, 2, 64), device=dev, dtype=torch.bfloat16)
     cos = torch.zeros((256, 32), device=dev)
     idx = torch.zeros((2, 2, 1), dtype=torch.int32, device=dev)
-    for call in (lambda: sa.sage_attention(q, q, q), lambda: bsa.block_sparse_attention(q, q, q, idx, idx[..., 0]),
-                 lambda: fa.flash_attention_with_lse(q, q, q), lambda: fa.flash_attention_fused_rope(q, q, q, cos, cos)):
+    for call in (lambda: sa.sage_attention(q, q, q),
+                 lambda: bsa.block_sparse_attention(q, q, q, idx, idx[..., 0]),
+                 lambda: fa.flash_attention_with_lse(q, q, q),
+                 lambda: fa.flash_attention_fused_rope(q, q, q, cos, cos)):
         with pytest.raises(ValueError):
             call()
 
