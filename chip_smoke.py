@@ -1290,7 +1290,7 @@ def expected_launches(runner, cfg) -> dict:
 
     L = runner.arch.num_layers
     if cfg["model_cls"] == "cogvideox":  # one 64-wide flash call a block and step; its linears are bf16 torch.mm
-        return {**{k: 0 for k in launch_counts()}, "flash_attention_d64": L * COG_STEPS}
+        return {**{k: 0 for k in launch_counts()}, "flash_attention_d64": L * runner.init_scheduler().num_steps()}
     steps = len(cfg["denoising_step_list"]) if cfg["model_cls"] == "wan2.1_distill" else int(cfg["infer_steps"])
     out = {k: 0 for k in launch_counts()}
     calls = L * steps  # one per block and forward (CFG doubles the batch, not the calls)

@@ -88,7 +88,7 @@
 //    wait per tile, the consumers scaling Q and storing O) was replaced by
 //    the persistent, pipelined form above.
 //
-// HEAD DIM 64 (flash_attention_d64_bf16: flash_wgmma_kernel<64>, CogVideoX's
+// HEAD DIM 64 (flash_attention_bf16 at head_dim 64: flash_wgmma_kernel<64>, CogVideoX's
 // 48 heads of 64 over its joint [text; video] stream). The same body with one
 // 64-column box a row of q, k, v and o: the S product takes 4 k-steps of 16
 // instead of 8, P.V one m64n64 product a 16-key step into a 64 x 64 O
@@ -284,26 +284,20 @@ sparse_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_const
 
 }  // namespace
 
-// dense attention; lse (batch, sq, n_heads) fp32 contiguous, or null
-extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
-                                    int n_heads, int sq, int sk, int kv_limit, long long q_b, long long q_s,
+// dense attention at head dim 128 or 64; lse (batch, sq, n_heads) fp32
+// contiguous, or null (at 128 only: no caller needs it at 64)
+extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int head_dim,
+                                    int batch, int n_heads, int sq, int sk, int kv_limit, long long q_b, long long q_s,
                                     long long q_n, long long k_b, long long k_s, long long k_n, long long v_b,
                                     long long v_s, long long v_n, long long o_b, long long o_s, long long o_n,
                                     float gain, void* stream) {
   const long long st[12] = {q_b, q_s, q_n, k_b, k_s, k_n, v_b, v_s, v_n, o_b, o_s, o_n};
-  return launch_dense<HD>(q, k, v, o, static_cast<float*>(lse), batch, n_heads, sq, sk, kv_limit, st, gain,
-                          static_cast<cudaStream_t>(stream));
-}
-
-// the same at head dim 64, without lse (no caller needs it there)
-extern "C" int flash_attention_d64_bf16(const void* q, const void* k, const void* v, void* o, int batch,
-                                        int n_heads, int sq, int sk, int kv_limit, long long q_b, long long q_s,
-                                        long long q_n, long long k_b, long long k_s, long long k_n, long long v_b,
-                                        long long v_s, long long v_n, long long o_b, long long o_s, long long o_n,
-                                        float gain, void* stream) {
-  const long long st[12] = {q_b, q_s, q_n, k_b, k_s, k_n, v_b, v_s, v_n, o_b, o_s, o_n};
-  return launch_dense<64>(q, k, v, o, nullptr, batch, n_heads, sq, sk, kv_limit, st, gain,
-                          static_cast<cudaStream_t>(stream));
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (head_dim == HD)
+    return launch_dense<HD>(q, k, v, o, static_cast<float*>(lse), batch, n_heads, sq, sk, kv_limit, st, gain, s);
+  if (head_dim == 64 && lse == nullptr)
+    return launch_dense<64>(q, k, v, o, nullptr, batch, n_heads, sq, sk, kv_limit, st, gain, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // q (batch, sq, n_heads, 128), k (batch, sk, n_heads, 128) by stride ->

@@ -134,10 +134,9 @@ def _lib():
     lib = _build.load("flash_attention")
     if lib.flash_attention_bf16.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flash_attention_bf16.argtypes = [p] * 5 + [i] * 5 + [ll] * 12 + [ctypes.c_float, p]
-        lib.flash_attention_d64_bf16.argtypes = [p] * 4 + [i] * 5 + [ll] * 12 + [ctypes.c_float, p]
+        lib.flash_attention_bf16.argtypes = [p] * 5 + [i] * 6 + [ll] * 12 + [ctypes.c_float, p]
         lib.rope_rotate_bf16.argtypes = [p] * 4 + [i] * 5 + [ll] * 6 + [p] * 2 + [ctypes.c_float, p]
-        lib.flash_attention_bf16.restype = lib.flash_attention_d64_bf16.restype = ctypes.c_int
+        lib.flash_attention_bf16.restype = ctypes.c_int
         lib.rope_rotate_bf16.restype = ctypes.c_int
     return lib
 
@@ -170,13 +169,10 @@ def _launch(q, k, v, kv_len, gain: float, name: str, lse: Optional[torch.Tensor]
     sk = k.shape[1]
     out = torch.empty((b, sq, n, d), dtype=torch.bfloat16, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    args = (b, n, sq, sk, _kv_limit(kv_len, sk), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], gain, stream)
-    if d == 64:  # no lse at 64: only flash_attention takes that width
-        err = _lib().flash_attention_d64_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args)
-    else:
-        err = _lib().flash_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                          None if lse is None else lse.data_ptr(), *args)
+    err = _lib().flash_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                      None if lse is None else lse.data_ptr(), d, b, n, sq, sk,
+                                      _kv_limit(kv_len, sk), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                      *out.stride()[:3], gain, stream)
     _build.check(err, name)
     LAUNCHES[name] += 1
     return out

@@ -70,6 +70,16 @@ class DefaultRunner(BaseRunner):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _generators(self, noise_offset: int):
+        """(latent generator, re-noise generator seeded ``seed +
+        noise_offset``). ``latent_init: "torch"`` draws the latents from a
+        CPU generator (the JAX package's torch stream); otherwise both live
+        on the run device."""
+        seed = int(self.config.get("seed", 42))
+        lat_dev = "cpu" if str(self.config.get("latent_init", "")) == "torch" else self.device
+        return (torch.Generator(device=lat_dev).manual_seed(seed),
+                torch.Generator(device=self.device).manual_seed(seed + noise_offset))
+
     def _release(self, name: str):
         setattr(self, name, None)
         if self.device.type == "cuda":

@@ -30,8 +30,8 @@ from ..models.cogvideox.model import CogTransformer
 from ..models.cogvideox.weights import init_random_cog_params_on_device, init_random_cog_state_dict, load_cog_params
 from ..schedulers.cogvideox import CogvideoxXDPMScheduler
 from ..utils.registry import RUNNER_REGISTER
-from ..vae.cogvideox_vae import (CogVAEConfig, cog_vae_decode, cog_vae_decode_chunked, cog_vae_decode_tiled,
-                                 init_random_cog_vae_state_dict, load_cog_vae_params)
+from ..vae.cogvideox_vae import (CogVAEConfig, cog_vae_decode_tiled, init_random_cog_vae_state_dict,
+                                 load_cog_vae_params)
 from .base_runner import DefaultRunner
 from .wan_runner import _not_ported, _SyntheticTokenizer
 
@@ -105,10 +105,8 @@ class CogvideoxRunner(DefaultRunner):
         ``timings["step_s"]``."""
         target_shape = self.set_target_shape()
         self.scheduler = scheduler = self.init_scheduler()
-        seed = int(self.config.get("seed", 42))
-        lat_dev = "cpu" if str(self.config.get("latent_init", "")) == "torch" else self.device
-        state = scheduler.prepare(target_shape, torch.Generator(device=lat_dev).manual_seed(seed), device=self.device)
-        noise_gen = torch.Generator(device=self.device).manual_seed(seed + 3)
+        lat_gen, noise_gen = self._generators(3)
+        state = scheduler.prepare(target_shape, lat_gen, device=self.device)
 
         arch = self.arch
         _, lat_f, lat_h, lat_w = target_shape
@@ -140,13 +138,7 @@ class CogvideoxRunner(DefaultRunner):
 
     def run_vae_decoder(self, latents) -> np.ndarray:
         z = latents.permute(1, 2, 3, 0)[None]  # (C, F, H, W) -> (1, F, H, W, C)
-        scale = not self.config.get("synthetic_weights")
         # the reference's decode loop: 2 latent frames a chunk, the conv caches carried across;
         # tiles past 256 px (32 latents), each with its own frame loop
-        if self.config.get("use_tiling_vae") or max(z.shape[2], z.shape[3]) > 32:
-            frames = cog_vae_decode_tiled(self.vae, z, self.vae_cfg, scale=scale)
-        elif z.shape[1] > 2:
-            frames = cog_vae_decode_chunked(self.vae, z, self.vae_cfg, scale=scale)
-        else:
-            frames = cog_vae_decode(self.vae, z, self.vae_cfg, scale=scale)
+        frames = cog_vae_decode_tiled(self.vae, z, self.vae_cfg, scale=not self.config.get("synthetic_weights"))
         return np.clip(frames[0].float().cpu().numpy(), -1.0, 1.0)

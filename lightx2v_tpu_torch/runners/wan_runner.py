@@ -256,20 +256,11 @@ class WanRunner(DefaultRunner):
         self._mark("vae_encode_s", t0)
         return {"clip_encoder_out": clip_out, "vae_encode_out": y}
 
-    def _generators(self):
-        """(latent generator, re-noise generator). ``latent_init: "torch"``
-        draws the latents from a CPU generator (the JAX package's torch
-        stream); otherwise both live on the run device."""
-        seed = int(self.config.get("seed", 42))
-        lat_dev = "cpu" if str(self.config.get("latent_init", "")) == "torch" else self.device
-        return (torch.Generator(device=lat_dev).manual_seed(seed),
-                torch.Generator(device=self.device).manual_seed(seed + 1))
-
     def run_dit(self, encoder_out: Dict[str, Any], noises=None):
         target_shape = self.set_target_shape()
         scheduler = self.init_scheduler()
         self.scheduler = scheduler
-        lat_gen, noise_gen = self._generators()
+        lat_gen, noise_gen = self._generators(1)
         state = scheduler.prepare(target_shape, lat_gen, device=self.device)
         attn, cross_attn, self_attn_kwargs = self._self_attn_setup()
         if attn == "radial_attn":

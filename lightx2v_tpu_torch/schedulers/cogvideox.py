@@ -1,9 +1,10 @@
 """CogVideoX XDPM scheduler (counterpart of
-``lightx2v_tpu.schedulers.cogvideox``): scaled-linear betas, SNR shift,
+``lightx2v_tpu.schedulers.cogvideox``): scaled-linear betas, the
 zero-terminal-SNR rescale, trailing timestep spacing, v-prediction, and a
 DPM-solver++(2M)-SDE update whose second order corrects with the previous
-x0 prediction. The JAX scheduler's other beta schedules, spacings and
-prediction types, which no config in the repo selects, raise.
+x0 prediction. The schedule is CogVideoX1.5-5B's, fixed: the JAX
+scheduler's other betas, SNR shifts, beta schedules, spacings, prediction
+types and final alphas, which no config in the repo selects, raise.
 
 The alphas stay float64 on the host and are cast to fp32 as in the JAX
 package; each step's scalar coefficients are computed in fp32 (0-d CPU
@@ -21,6 +22,13 @@ import torch
 from ..utils.registry import SCHEDULER_REGISTER
 from .base import SchedulerBase, State
 
+BETA_START, BETA_END = 0.00085, 0.012
+# the one value of each schedule key that is ported (CogVideoX1.5-5B's); any other raises
+_FIXED = (("scheduler_beta_start", BETA_START), ("scheduler_beta_end", BETA_END),
+          ("scheduler_snr_shift_scale", 1.0), ("scheduler_beta_schedule", "scaled_linear"),
+          ("timestep_spacing", "trailing"), ("scheduler_prediction_type", "v_prediction"),
+          ("scheduler_rescale_betas_zero_snr", True), ("scheduler_set_alpha_to_one", True))
+
 
 def rescale_zero_terminal_snr(alphas_cumprod: np.ndarray) -> np.ndarray:
     """arXiv:2305.08891 Algorithm 1, on alphas_cumprod."""
@@ -37,21 +45,12 @@ class CogvideoxXDPMScheduler(SchedulerBase):
     def __init__(self, config):
         config.setdefault("infer_steps", config.get("num_inference_steps", 50))
         super().__init__(config)
-        c = config
-        beta_start = float(c.get("scheduler_beta_start", 0.00085))
-        beta_end = float(c.get("scheduler_beta_end", 0.012))
-        snr_shift = float(c.get("scheduler_snr_shift_scale", 1.0))
-        for key, value in (("scheduler_beta_schedule", "scaled_linear"), ("timestep_spacing", "trailing"),
-                           ("scheduler_prediction_type", "v_prediction")):
-            if c.get(key, value) != value:
-                raise NotImplementedError(f"XDPM {key}={c[key]!r} is not ported yet (ROADMAP.md, Queue 1 item 17)")
-        betas = np.linspace(beta_start ** 0.5, beta_end ** 0.5, self.num_train_timesteps, dtype=np.float64) ** 2
-        ac = np.cumprod(1.0 - betas)
-        ac = ac / (snr_shift + (1 - snr_shift) * ac)
-        if c.get("scheduler_rescale_betas_zero_snr", True):
-            ac = rescale_zero_terminal_snr(ac)
-        self.alphas_cumprod = ac.astype(np.float64)
-        self.final_alpha_cumprod = 1.0 if c.get("scheduler_set_alpha_to_one", True) else float(ac[0])
+        for key, value in _FIXED:
+            if config.get(key, value) != value:
+                raise NotImplementedError(f"XDPM {key}={config[key]!r} is not ported yet (ROADMAP.md, Queue 1 item 17)")
+        betas = np.linspace(BETA_START ** 0.5, BETA_END ** 0.5, self.num_train_timesteps, dtype=np.float64) ** 2
+        self.alphas_cumprod = rescale_zero_terminal_snr(np.cumprod(1.0 - betas))
+        self.final_alpha_cumprod = 1.0
         ratio = self.num_train_timesteps / self.infer_steps
         ts = np.round(np.arange(self.num_train_timesteps, 0, -ratio)).astype(np.int64) - 1  # trailing
         self.timesteps = ts.astype(np.float32)

@@ -34,6 +34,7 @@ from ..models.wan.weights import to_tensor
 Params = Dict[str, Any]
 
 COGVIDEOX_SCALING = 0.7
+FRAME_BATCH = 2  # latent frames a decode chunk (the reference's num_latent_frames_batch_size)
 
 
 @dataclass(frozen=True)
@@ -175,19 +176,19 @@ def cog_vae_decode(params: Params, z: torch.Tensor, cfg: CogVAEConfig = CogVAECo
 
 
 def cog_vae_decode_chunked(params: Params, z: torch.Tensor, cfg: CogVAEConfig = CogVAEConfig(),
-                           scale: bool = True, frame_batch: int = 2) -> torch.Tensor:
+                           scale: bool = True) -> torch.Tensor:
     """Frame-batched decode: chunk i > 0 covers latent frames
-    [fb*i + rem, fb*(i+1) + rem), so the first chunk takes the remainder
-    (21 latent frames -> [3, 2, 2, ...]); each causal conv's left pad comes
-    from the previous chunk's cache. Peak memory is one chunk's
-    activations."""
-    t = z.shape[1]
-    nb = max(t // frame_batch, 1)
-    rem = t % frame_batch
+    [fb*i + rem, fb*(i+1) + rem) with fb = ``FRAME_BATCH``, so the first
+    chunk takes the remainder (21 latent frames -> [3, 2, 2, ...]); each
+    causal conv's left pad comes from the previous chunk's cache. Peak
+    memory is one chunk's activations."""
+    t, fb = z.shape[1], FRAME_BATCH
+    nb = max(t // fb, 1)
+    rem = t % fb
     out, caches = [], None
     for i in range(nb):
-        start = frame_batch * i + (0 if i == 0 else rem)
-        end = min(frame_batch * (i + 1) + rem, t)
+        start = fb * i + (0 if i == 0 else rem)
+        end = min(fb * (i + 1) + rem, t)
         ctx = ConvCacheCtx(caches)
         out.append(cog_vae_decode(params, z[:, start:end], cfg, scale=scale, ctx=ctx))
         caches = ctx.new
@@ -210,14 +211,14 @@ def _blend_dim(a: torch.Tensor, b: torch.Tensor, n: int, axis: int) -> torch.Ten
 
 
 def cog_vae_decode_tiled(params: Params, z: torch.Tensor, cfg: CogVAEConfig = CogVAEConfig(), scale: bool = True,
-                         tile_latent: int = 32, frame_batch: int = 2) -> torch.Tensor:
+                         tile_latent: int = 32) -> torch.Tensor:
     """Spatially tiled decode: latent tiles of ``tile_latent`` overlapping
     by a quarter, each with its own zq slice, frame-batched through
     ``cog_vae_decode_chunked``, blended with linear ramps in pixel space,
     each blended tile replacing its original before the next blend (the
     reference's cascade)."""
     b, t, h, w, c = z.shape
-    dec = lambda z_: cog_vae_decode_chunked(params, z_, cfg, scale=scale, frame_batch=frame_batch)  # noqa: E731
+    dec = lambda z_: cog_vae_decode_chunked(params, z_, cfg, scale=scale)  # noqa: E731
     if max(h, w) <= tile_latent:
         return dec(z)
     step = max(1, int(tile_latent * 0.75))

@@ -122,6 +122,22 @@ def test_xdpm_trajectory_vs_jax():
     np.testing.assert_allclose(tst["latents"].numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("key,value", [("scheduler_beta_start", 0.0001), ("scheduler_beta_end", 0.02),
+                                       ("scheduler_snr_shift_scale", 3.0), ("scheduler_beta_schedule", "linear"),
+                                       ("timestep_spacing", "leading"), ("scheduler_prediction_type", "epsilon"),
+                                       ("scheduler_rescale_betas_zero_snr", False),
+                                       ("scheduler_set_alpha_to_one", False)])
+def test_xdpm_refuses_other_schedules(key, value):
+    """The port fixes CogVideoX1.5-5B's schedule: every other value of a
+    schedule key, which the JAX scheduler takes, raises; the config's own
+    values build the same alphas as the JAX scheduler's."""
+    JXDPM(jset(dict(infer_steps=50, **{key: value})))
+    with pytest.raises(NotImplementedError, match=key):
+        TXDPM(tset(dict(infer_steps=50, **{key: value})))
+    np.testing.assert_array_equal(TXDPM(tset(dict(infer_steps=50))).alphas_cumprod,
+                                  JXDPM(jset(dict(infer_steps=50))).alphas_cumprod)
+
+
 def test_nearest_resize_is_jax_half_pixel():
     """The spatial norm's nearest resize samples at half-pixel centres as
     jax.image.resize does; F.interpolate's "nearest" differs at a
@@ -159,7 +175,7 @@ def test_vae_decode_vs_jax(vae, mode):
         out = tv.cog_vae_decode_chunked(tp, torch.from_numpy(z), cfg_t, scale=False)
     else:
         ref = jv.cog_vae_decode_tiled(jp, jnp.asarray(z), cfg_j, scale=False, tile_latent=8, frame_batch=2)
-        out = tv.cog_vae_decode_tiled(tp, torch.from_numpy(z), cfg_t, scale=False, tile_latent=8, frame_batch=2)
+        out = tv.cog_vae_decode_tiled(tp, torch.from_numpy(z), cfg_t, scale=False, tile_latent=8)
     ref = np.asarray(ref)
     frames = 4 * (shape[1] - 1) + 1
     assert out.shape == ref.shape == (1, frames, 8 * shape[2], 8 * shape[3], 3)
