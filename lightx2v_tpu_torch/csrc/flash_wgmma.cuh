@@ -126,24 +126,32 @@ struct KeyList {
 template <int D, bool INT8>
 struct Dense {
   static_assert(D % (INT8 ? 128 : 64) == 0, "head dim in 128-byte boxes");
-  static constexpr int THREADS = 384;      // a producer warpgroup, then two consumer warpgroups
-  static constexpr int CONSUMERS = 256;
-  static constexpr int BM = 128;           // query rows per work tile, 64 per consumer warpgroup
-  static constexpr int BN = 128;           // keys per tile
-  static constexpr int STAGES = 2;
-  // the consumer warpgroups take turns to issue their products (int8 only:
-  // the bf16 kernel keeps its own measured schedule)
-  static constexpr bool PINGPONG = INT8;
-  static constexpr int BOX = 128 * 128;    // one box: 128 rows of 128 bytes
+  // the 64-wide bf16 instance has a schedule of its own (flash_attention.cu,
+  // HEAD DIM 64); the 128-wide kernels keep theirs
+  static constexpr bool NARROW = D == 64 && !INT8;
+  static constexpr int WGS = 2;                    // consumer warpgroups, 64 query rows each
+  static constexpr int CONSUMERS = 128 * WGS;
+  static constexpr int THREADS = 128 + CONSUMERS;  // a producer warpgroup, then the consumers
+  static constexpr int CONSUMER_REGS = 240;        // setmaxnreg of a consumer (the producer keeps 24)
+  static constexpr int BM = 64 * WGS;              // query rows per work tile
+  static constexpr int BN = 128;                   // keys per tile
+  static constexpr int STAGES = NARROW ? 4 : 2;
+  // the consumer warpgroups take turns to issue their products (int8 and
+  // the 64-wide bf16 form: the 128-wide bf16 kernel keeps its own measured
+  // schedule)
+  static constexpr bool PINGPONG = INT8 || NARROW;
+  static constexpr int BOX = 128 * 128;    // a K or V box: 128 rows of 128 bytes
+  static constexpr int Q_BOX = BM * 128;   // a Q or O box
   static constexpr int QK_COLS = INT8 ? 128 : 64;  // q/k values in a box row
   static constexpr int QK_BOXES = D / QK_COLS;     // boxes of a q or k row
   static constexpr int V_BOXES = D / 64;           // boxes of a v or o row (bf16)
-  static constexpr int Q_BYTES = QK_BOXES * BOX;
+  static constexpr int Q_BYTES = QK_BOXES * Q_BOX;
+  static constexpr int O_BYTES = V_BOXES * Q_BOX;
   static constexpr int K_BYTES = QK_BOXES * BOX;   // one K tile
   static constexpr int V_BYTES = V_BOXES * BOX;    // one V tile
   static constexpr int SC_BYTES = INT8 ? BN * 4 : 0;  // a tile's row scales (BM == BN)
   // a Q buffer also stages the work tile's bf16 O
-  static constexpr int QBUF = Q_BYTES > V_BYTES ? Q_BYTES : V_BYTES;
+  static constexpr int QBUF = Q_BYTES > O_BYTES ? Q_BYTES : O_BYTES;
   // K, V, then (int8) the key scales, padded so that the next stage stays 1024-aligned
   static constexpr int STAGE_BYTES = K_BYTES + V_BYTES + (INT8 ? 1024 : 0);
   // two Q buffers (the next work tile's Q lands while this one's O is
@@ -220,7 +228,7 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
         mbar_wait(&q_empty[qb], ((it >> 1) & 1) ^ 1);
         mbar_expect_tx(&q_full[qb], C::Q_BYTES + C::SC_BYTES);
         for (int x = 0; x < C::QK_BOXES; ++x)
-          tma_load_4d(q_buf(qb) + x * C::BOX, qmap, &q_full[qb], C::QK_COLS * x, n, q0, b);
+          tma_load_4d(q_buf(qb) + x * C::Q_BOX, qmap, &q_full[qb], C::QK_COLS * x, n, q0, b);
         if constexpr (INT8) tma_load(q_scales(qb), qsmap, &q_full[qb], q0, bh);
         const int nt = tiles_of(w);
         // (SPARSE) the list entry of tile t and the tile's place in its superblock
@@ -264,7 +272,7 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
         const int qb = it & 1, q0 = (w % n_qt) * C::BM, bh = w / n_qt, b = bh / n_heads, n = bh % n_heads;
         if (lane == 0) {
           mbar_wait(&o_full[qb], (it >> 1) & 1);
-          for (int x = 0; x < C::V_BOXES; ++x) tma_store_4d(omap, q_buf(qb) + x * C::BOX, 64 * x, n, q0, b);
+          for (int x = 0; x < C::V_BOXES; ++x) tma_store_4d(omap, q_buf(qb) + x * C::Q_BOX, 64 * x, n, q0, b);
           tma_store_wait();
           mbar_arrive(&q_empty[qb]);
         }
@@ -295,7 +303,7 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
     }
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::CONSUMER_REGS) : "memory");
   const int tid = threadIdx.x - (C::THREADS - C::CONSUMERS);
   const int wg = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -315,11 +323,11 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
     const uint32_t kaddr = smem_u32(k_tile(s));
 #pragma unroll
     for (int kk = 0; kk < C::QK_BOXES * 4; ++kk) {
-      const uint32_t off = (kk >> 2) * C::BOX + (kk & 3) * 32;
+      const uint32_t qoff = (kk >> 2) * C::Q_BOX + (kk & 3) * 32, koff = (kk >> 2) * C::BOX + (kk & 3) * 32;
       if constexpr (INT8)
-        wgmma_ss_m64n128k32_s8(si, make_desc(qaddr + off), make_desc(kaddr + off), kk > 0);
+        wgmma_ss_m64n128k32_s8(si, make_desc(qaddr + qoff), make_desc(kaddr + koff), kk > 0);
       else
-        wgmma_ss_m64n128k16(sc, make_desc(qaddr + off), make_desc(kaddr + off), kk > 0);
+        wgmma_ss_m64n128k16(sc, make_desc(qaddr + qoff), make_desc(kaddr + koff), kk > 0);
     }
     wgmma_commit();
   };
@@ -403,11 +411,12 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
   };
   // rescale O (no product that writes it may be in flight) and pack P: the A
   // fragment of step kk is the accumulator's columns 16kk..16kk+15 as they
-  // lie. (int8) A warp whose 16 rows kept their maxima (alpha == 1, most
-  // tiles once a row has seen a few) skips the rescale: it would multiply by 1
+  // lie. (int8, 64-wide bf16) A warp whose 16 rows kept their maxima (alpha
+  // == 1, most tiles once a row has seen a few) skips the rescale: it would
+  // multiply by 1
   auto rescale_pack = [&]() {
     bool rescale = true;
-    if constexpr (INT8) rescale = __any_sync(0xffffffff, alpha[0] != 1.f || alpha[1] != 1.f);
+    if constexpr (INT8 || C::NARROW) rescale = __any_sync(0xffffffff, alpha[0] != 1.f || alpha[1] != 1.f);
     if (rescale) {
 #pragma unroll
       for (int x = 0; x < C::V_BOXES; ++x)
@@ -429,17 +438,19 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
   auto release_v = [&](int s) {
     if (lane == 0) mbar_arrive(&v_empty[s]);
   };
-  // (PINGPONG) the warpgroups take turns to issue their products, so that
-  // one's softmax runs under the other's products: named barrier 1 + wg is
-  // met by this warpgroup's bar.sync and the other's bar.arrive
+  // (PINGPONG) the warpgroups take turns to issue their products, in the
+  // order 0, 1, .., WGS - 1, 0, .., so that one's softmax runs under the
+  // others' products: named barrier 1 + wg is met by this warpgroup's
+  // bar.sync and the bar.arrive of the warpgroup before it
   auto my_turn = [&]() {
     if constexpr (C::PINGPONG) asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
   };
   auto your_turn = [&]() {
-    if constexpr (C::PINGPONG) asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+    if constexpr (C::PINGPONG)
+      asm volatile("bar.arrive %0, 256;\n" ::"r"(C::WGS == 2 ? 2 - wg : (wg + 1) % C::WGS + 1) : "memory");
   };
   if constexpr (C::PINGPONG) {
-    if (wg == 1) your_turn();  // the first turn is warpgroup 0's
+    if (wg == C::WGS - 1) your_turn();  // the first turn is warpgroup 0's
   }
 
 #pragma unroll
@@ -551,7 +562,7 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          unsigned char* p = qwg + x * C::BOX + (rloc + 8 * h) * 128 + ((j ^ g) << 4) + tq * 4;
+          unsigned char* p = qwg + x * C::Q_BOX + (rloc + 8 * h) * 128 + ((j ^ g) << 4) + tq * 4;
           *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(o[x][4 * j + 2 * h] * inv[h], o[x][4 * j + 2 * h + 1] * inv[h]);
         }
     fence_proxy_async();
