@@ -129,10 +129,12 @@ struct Dense {
   // the 64-wide bf16 instance has a schedule of its own (flash_attention.cu,
   // HEAD DIM 64); the 128-wide kernels keep theirs
   static constexpr bool NARROW = D == 64 && !INT8;
-  static constexpr int WGS = 2;                    // consumer warpgroups, 64 query rows each
+  static constexpr int WGS = NARROW ? 3 : 2;       // consumer warpgroups, 64 query rows each
   static constexpr int CONSUMERS = 128 * WGS;
   static constexpr int THREADS = 128 + CONSUMERS;  // a producer warpgroup, then the consumers
-  static constexpr int CONSUMER_REGS = 240;        // setmaxnreg of a consumer (the producer keeps 24)
+  // setmaxnreg of a consumer (the producer keeps 24): 24 * 128 + 240 * 256
+  // and 24 * 128 + 160 * 384 fit the SM's 65,536
+  static constexpr int CONSUMER_REGS = WGS == 2 ? 240 : 160;
   static constexpr int BM = 64 * WGS;              // query rows per work tile
   static constexpr int BN = 128;                   // keys per tile
   static constexpr int STAGES = NARROW ? 4 : 2;
