@@ -110,22 +110,6 @@ __device__ __forceinline__ float ex2_ftz(float x) {
   return y;
 }
 
-// 2^x for x <= 0 (or -inf) on the FMA pipes, the special-function unit's
-// ex2_ftz to within 8.6e-5 relative: x clamped at -127 splits into j =
-// floor(x) (an add rounding down onto 1.5 * 2^23, whose low bits then hold
-// j) and f = x - j in [0, 1); 2^f is a degree-3 polynomial (constant 1,
-// the rest minimax in relative error), times 2^j built from j's bits. For
-// x below -126, j = -127 gives an exponent field of 0 and a scale of +0, so
-// the result is exactly 0, as ex2_ftz flushes it.
-__device__ __forceinline__ float ex2_fma(float x) {
-  constexpr float SHIFT = 12582912.f;  // 1.5 * 2^23
-  const float xc = fmaxf(x, -127.f);
-  const float t = __fadd_rd(xc, SHIFT);
-  const float f = xc - (t - SHIFT);
-  const float p = __fmaf_rn(__fmaf_rn(__fmaf_rn(0x1.3babb0p-4f, f, 0x1.d236c6p-3f), f, 0x1.63e66ap-1f), f, 1.f);
-  return p * __uint_as_float((__float_as_uint(t) << 23) + 0x3f800000u);
-}
-
 // (SPARSE) The key superblocks a work tile sweeps. Row (shared ? 0 : bh *
 // rows) + q0 / bq of the tables (bq % 128 == 0, so a work tile lies in one
 // row) names cnt[row] superblocks of bk keys (bk % 64 == 0) in idx[row,
@@ -158,9 +142,6 @@ struct Dense {
   // the 64-wide bf16 form: the 128-wide bf16 kernel keeps its own measured
   // schedule)
   static constexpr bool PINGPONG = INT8 || NARROW;
-  // of a row's BN / 8 column groups in a tile, this many (spread evenly)
-  // take 2^x on the FMA pipes (ex2_fma), the rest on the special-function unit
-  static constexpr int EXP2_FMA = NARROW ? 4 : 0;
   static constexpr int BOX = 128 * 128;    // a K or V box: 128 rows of 128 bytes
   static constexpr int Q_BOX = BM * 128;   // a Q or O box
   static constexpr int QK_COLS = INT8 ? 128 : 64;  // q/k values in a box row
@@ -418,11 +399,6 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
         sc[4 * j + 1] = ex2_ftz(__fmaf_rn(sc[4 * j + 1], qa[0], -msafe[0]));
         sc[4 * j + 2] = ex2_ftz(__fmaf_rn(sc[4 * j + 2], qa[1], -msafe[1]));
         sc[4 * j + 3] = ex2_ftz(__fmaf_rn(sc[4 * j + 3], qa[1], -msafe[1]));
-      } else if (((j + 1) * C::EXP2_FMA) / (C::BN / 8) != (j * C::EXP2_FMA) / (C::BN / 8)) {
-        sc[4 * j] = ex2_fma(sc[4 * j] - msafe[0]);
-        sc[4 * j + 1] = ex2_fma(sc[4 * j + 1] - msafe[0]);
-        sc[4 * j + 2] = ex2_fma(sc[4 * j + 2] - msafe[1]);
-        sc[4 * j + 3] = ex2_fma(sc[4 * j + 3] - msafe[1]);
       } else {
         sc[4 * j] = ex2_ftz(sc[4 * j] - msafe[0]);
         sc[4 * j + 1] = ex2_ftz(sc[4 * j + 1] - msafe[0]);
