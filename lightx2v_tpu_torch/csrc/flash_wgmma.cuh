@@ -137,7 +137,7 @@ struct Dense {
   static constexpr int CONSUMER_REGS = WGS == 2 ? 240 : 160;
   static constexpr int BM = 64 * WGS;              // query rows per work tile
   static constexpr int BN = 128;                   // keys per tile
-  static constexpr int STAGES = NARROW ? 4 : 2;
+  static constexpr int STAGES = 2;
   // the consumer warpgroups take turns to issue their products (int8 and
   // the 64-wide bf16 form: the 128-wide bf16 kernel keeps its own measured
   // schedule)
@@ -413,12 +413,11 @@ __device__ __forceinline__ void attention_wgmma(const CUtensorMap* qmap, const C
   };
   // rescale O (no product that writes it may be in flight) and pack P: the A
   // fragment of step kk is the accumulator's columns 16kk..16kk+15 as they
-  // lie. (int8, 64-wide bf16) A warp whose 16 rows kept their maxima (alpha
-  // == 1, most tiles once a row has seen a few) skips the rescale: it would
-  // multiply by 1
+  // lie. (int8) A warp whose 16 rows kept their maxima (alpha == 1, most
+  // tiles once a row has seen a few) skips the rescale: it would multiply by 1
   auto rescale_pack = [&]() {
     bool rescale = true;
-    if constexpr (INT8 || C::NARROW) rescale = __any_sync(0xffffffff, alpha[0] != 1.f || alpha[1] != 1.f);
+    if constexpr (INT8) rescale = __any_sync(0xffffffff, alpha[0] != 1.f || alpha[1] != 1.f);
     if (rescale) {
 #pragma unroll
       for (int x = 0; x < C::V_BOXES; ++x)
