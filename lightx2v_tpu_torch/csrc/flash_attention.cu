@@ -1,5 +1,6 @@
 // Flash attention for Hopper (sm_90a), bf16 in / bf16 out, head dim 128
-// (and 64 for the dense kernel): three kernels.
+// (and 64 for the dense kernel, with a schedule of its own: HEAD DIM 64
+// below): three kernels.
 //
 // Replaces: lightx2v_tpu/ops/pallas/flash_attention.py:flash_attention
 //           (_flash_bnsd / _flash_body), :flash_attention_with_lse
@@ -88,20 +89,55 @@
 //    wait per tile, the consumers scaling Q and storing O) was replaced by
 //    the persistent, pipelined form above.
 //
-// HEAD DIM 64 (flash_attention_bf16 at head_dim 64: flash_wgmma_kernel<64>, CogVideoX's
-// 48 heads of 64 over its joint [text; video] stream). The same body with one
+// HEAD DIM 64 (flash_attention_bf16 at head_dim 64: flash_wgmma_kernel<64>,
+// CogVideoX's 48 heads of 64 over its joint [text; video] stream). One
 // 64-column box a row of q, k, v and o: the S product takes 4 k-steps of 16
 // instead of 8, P.V one m64n64 product a 16-key step into a 64 x 64 O
 // accumulator a warpgroup, and O is staged through the one box of the
-// warpgroup's Q rows. Shared memory: 2 x 16 KB of Q + 2 x 32 KB of K/V.
-// What bounds it: halving d halves the tensor-core work a key but not the
-// softmax's, so at d = 64 a 128 x 128 tile's 16,384 exp2 on the special-
-// function units (16 a clock on an SM) take about as long as its two
-// products on the tensor cores: at 45,106 tokens x 96 (batch, head) pairs,
-// 5.0e13 FLOP (51 ms at 989 TFLOP/s) against 1.95e11 exp2 (47 ms at 16 a
-// clock on 132 SMs at 1,980 MHz). The design keeps the 128 form's overlap of
-// tile t's softmax with tile t - 1's P.V, which is all the overlap that
-// bound leaves; nothing else in the body changes.
+// warpgroup's Q rows.
+//  - What bounds it: halving d halves the tensor-core work a key but not
+//    the softmax's. A 128 x 128 tile costs ~1,024 SM clocks on the tensor
+//    cores and its 16,384 exp2 ~1,024 on the special-function units (16 a
+//    clock an SM): at 45,106 tokens x 96 (batch, head) pairs, 5.0e13 FLOP
+//    (51 ms at 989 TFLOP/s) against 1.95e11 exp2 (47 ms at 16 a clock on
+//    132 SMs at 1,980 MHz). So the two units must run at once, and a tile's
+//    fixed costs (the max shuffles, alpha, the barrier round trips, the
+//    wgmma commit and wait latencies) weigh twice what they do at 128. K
+//    and V (11.5 MB a head) stream from L2 once per work tile.
+//  - The schedule (Dense<64, false>, NARROW): three consumer warpgroups of
+//    64 query rows, a 192-row work tile, 512 threads, setmaxnreg 24 / 160
+//    (a consumer holds S, 64 fp32, P, 32, and O, 32, at once). They take
+//    turns round-robin to issue S of tile t with P.V of tile t - 1 (named
+//    barrier 1 + wg, met by the warpgroup's bar.sync and its predecessor's
+//    bar.arrive), so that each one's softmax runs under the other two's
+//    products instead of beside them. The 192-row tile cuts K/V's L2 reads
+//    a FLOP by a third (~255 GB a call against ~383) and spreads each key
+//    tile's fixed costs over 1.5x the rows. Shared memory: 2 x 24 KB of Q +
+//    2 x 32 KB of K/V. The main shape ends in a 178-row work tile (45,106 =
+//    234 x 192 + 178) and a 50-key tile.
+//  - Measured (NVIDIA H100 80GB HBM3, 700 W; tools/flash_compare.py, each
+//    call in turns with the parent): the parent (the 128 design at 64: two
+//    warpgroups side by side, 128-row tiles) 123.5-124.6 ms, SDPA
+//    120.1-121.8 in the same calls. Step A, the two warpgroups taking turns
+//    (with a 4-stage ring and O's rescale skipped where a warp's maxima
+//    held): 105.5-106.2. Step B, three warpgroups and 192 rows (the same
+//    extras): 97.2-99.1. B with the parent's 2-stage ring and unconditional
+//    rescale, kept: 95.7-95.9 (0.77x the parent; 53% of the tensor bound);
+//    the 4-stage ring alone 97.2-97.6, the rescale skip alone 96.8-97.0. B
+//    without the turns was 16% slower than B in one call (a card throttled
+//    to 1.1-1.6 GHz, where the parent took 138-172 ms).
+//  - Tried and dropped, step C: 2^x of a share of each tile's logits on the
+//    FMA pipes. x clamped at -127 split into j = floor(x) (an add rounding
+//    down onto 1.5 * 2^23) and f in [0, 1), 2^f = 1 + f (0.6951173 + f
+//    (0.22764353 + f 0.07706803)) (8.6e-5 relative against 2^x, from a
+//    float64 emulation of its fp32 steps), times 2^j from j's bits, which is
+//    +0 below -126. With 2, 3, 4 and 6 of a row's 16 column groups on the
+//    polynomial, the kernel took 100.7-101.9, 103.5-104.4, 103.8-105.3 and
+//    111.8-112.0 ms against B's 97.2-99.1 in the same call: MUFU is not the
+//    wall (the exp2 bound is 49% of ~96 ms), and the ~9 instructions an
+//    element cost the issue slots more than they free on MUFU. A 192-key
+//    tile does not fit: S (96), P (48) and O (32) pass a consumer's 160
+//    registers at three warpgroups.
 //
 // RoPE (flash_attention_fused_rope) is rotated once per call, not once per
 // CTA as the TPU kernel's grid order (b*n, nq, nk) does: rope_rotate_kernel

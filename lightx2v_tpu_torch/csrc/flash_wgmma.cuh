@@ -126,8 +126,13 @@ struct KeyList {
 template <int D, bool INT8>
 struct Dense {
   static_assert(D % (INT8 ? 128 : 64) == 0, "head dim in 128-byte boxes");
-  // the 64-wide bf16 instance has a schedule of its own (flash_attention.cu,
-  // HEAD DIM 64); the 128-wide kernels keep theirs
+  // The 64-wide bf16 instance has a schedule of its own (flash_attention.cu,
+  // HEAD DIM 64): at d = 64 a tile's exp2 on the special-function units
+  // take as long as its products on the tensor cores, so three consumer
+  // warpgroups (a 192-row work tile: a third less K/V read from L2 a FLOP)
+  // take turns, each one's softmax under the others' products; every 2^x
+  // stays on the special-function unit (a polynomial share on the FMA pipes
+  // measured slower). The 128-wide kernels keep theirs.
   static constexpr bool NARROW = D == 64 && !INT8;
   static constexpr int WGS = NARROW ? 3 : 2;       // consumer warpgroups, 64 query rows each
   static constexpr int CONSUMERS = 128 * WGS;

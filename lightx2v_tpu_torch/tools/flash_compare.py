@@ -5,12 +5,17 @@ checkouts on the same card in turns (parent, change, change, parent):
 
 imports ``lightx2v_tpu_torch`` from the checkout at ROOT, holds
 ``flash_attention_with_lse`` against its plain version on small ragged cases
-(and its output bit-equal to ``flash_attention``'s), then prints one line:
-ROOT, the CUDA-event median ms of ``flash_attention`` at the main path's
-cross-attention shape (q 32,760 x 512 keys, 40 heads; 40 calls) and
-self-attention shape (32,760^2; 10 calls) and of the two-pass radial LSE
-passes (21 x 1560 q x 6240 k; 8 x 195 x 11,505), and the card's SM clock and
-power draw just after.
+(and its output bit-equal to ``flash_attention``'s) and the 64-wide
+``flash_attention`` on small ragged cases (query and key counts around the
+128- and 192-row tiles, a 1-key and a 50-key last key tile, kv_len inside a
+tile), then prints one line: ROOT, the CUDA-event median ms of
+``flash_attention`` at the main path's cross-attention shape (q 32,760 x 512
+keys, 40 heads; 40 calls) and self-attention shape (32,760^2; 10 calls), of
+the two-pass radial LSE passes (21 x 1560 q x 6240 k; 8 x 195 x 11,505), of
+the 64-wide kernel at CogVideoX's joint stream (2, 45,106, 48, 64; 10
+calls, ``d64``) and of ``F.scaled_dot_product_attention`` on the same q, k,
+v (``sdpa_d64``, a yardstick the port never calls), and the card's SM clock
+and power draw just after.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import subprocess
 import sys
 
 SMALL = ((2, 200, 200, None), (2, 7, 513, 300), (1, 1000, 512, None), (21, 156, 624, None), (1, 300, 2000, 1500))
+SMALL64 = ((2, 193, 385, None), (1, 384, 434, 300), (2, 178, 200, None), (1, 383, 129, None), (1, 1000, 1100, 1000))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -63,6 +69,12 @@ def main(root: str) -> None:
         if not (err <= 2e-3 + 2e-2 * float(ref.float().abs().max()) and float((lse - ref_lse).abs().max()) <= 1e-3
                 and torch.equal(out, fa.flash_attention(q, k, v, kv_len=kv_len))):
             raise SystemExit(f"flash_compare.py: ({b}, {sq}, {sk}, {kv_len}) off its plain version: {err}")
+    for b, sq, sk, kv_len in SMALL64:
+        q, k, v = rnd(b, sq, 3, 64), rnd(b, sk, 3, 64), rnd(b, sk, 3, 64)
+        out, ref = fa.flash_attention(q, k, v, kv_len=kv_len), fa.flash_attention_plain(q, k, v, kv_len)
+        err = float((out.float() - ref.float()).abs().max())
+        if not err <= 2e-3 + 2e-2 * float(ref.float().abs().max()):
+            raise SystemExit(f"flash_compare.py: d64 ({b}, {sq}, {sk}, {kv_len}) off its plain version: {err}")
     s, heads = 32760, 40
     q, k, v = rnd(1, s, heads, 128), rnd(1, s, heads, 128), rnd(1, s, heads, 128)
     kc, vc = rnd(1, 512, heads, 128), rnd(1, 512, heads, 128)
@@ -72,6 +84,11 @@ def main(root: str) -> None:
              "self": cuda_ms(lambda: fa.flash_attention(q, k, v), 10),
              "near": cuda_ms(lambda: fa.flash_attention_with_lse(qn, kn, vn), 10),
              "far": cuda_ms(lambda: fa.flash_attention_with_lse(qf, kf, vf), 40)}
+    del q, k, v, kc, vc, qn, kn, vn, qf, kf, vf
+    q, k, v = rnd(2, 45106, 48, 64), rnd(2, 45106, 48, 64), rnd(2, 45106, 48, 64)
+    times["d64"] = cuda_ms(lambda: fa.flash_attention(q, k, v), 10)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    times["sdpa_d64"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), 10)
     card = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(root, json.dumps(times), card, flush=True)

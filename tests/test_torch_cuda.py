@@ -127,12 +127,16 @@ def test_flash_refuses_bad_input(dev):
 
 
 @pytest.mark.parametrize("b,sq,sk,kv_len", [(2, 200, 200, None), (2, 256, 256, None), (1, 300, 64, None),
-                                            (2, 7, 513, 300), (2, 130, 257, 150), (1, 1100, 1100, None)])
+                                            (2, 7, 513, 300), (2, 130, 257, 150), (1, 1100, 1100, None),
+                                            (2, 192, 192, None), (2, 193, 385, None), (1, 383, 434, None),
+                                            (2, 384, 129, None), (1, 191, 178, None), (2, 577, 306, 200)])
 def test_flash_d64_kernel_vs_plain(dev, b, sq, sk, kv_len):
     """The 64-wide dense kernel (CogVideoX's 48 heads of 64): ragged sq and
-    sk (a 50-key last tile at the main shape; here 1-key, 72-key and 76-key
-    last tiles), kv_len inside a tile, batch 1 and 2; it counts under
-    ``flash_attention_d64`` and not under the 128-wide row."""
+    sk (a 50-key last tile at the main shape; here 1-key, 50-key, 72-key and
+    76-key last tiles), sq at and around the 192-row work tile's edges (191,
+    192, 193, 383, 384, 577 = 3 * 192 + 1), kv_len inside a tile, batch 1
+    and 2; it counts under ``flash_attention_d64`` and not under the
+    128-wide row."""
     from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(sq + sk)
@@ -159,6 +163,37 @@ def test_flash_d64_kernel_structured_v(dev, pattern):
     v = (idx[None, None, None, :64] if pattern == "column" else idx[None, :, None, None]).expand(1, 256, 2, 64)
     v = v.to(torch.bfloat16).contiguous()
     _close(fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v), 2e-2, 2e-3)
+
+
+@pytest.mark.parametrize("b,sq,sk,kv_len", [(2, 200, 434, 300), (1, 385, 385, 193), (2, 193, 129, 128)])
+def test_flash_d64_masked_keys_carry_no_mass(dev, b, sq, sk, kv_len):
+    """V is 1e30 at every key at or past kv_len (inside the second and the
+    third key tile, and at a tile's edge): a masked key whose P is not
+    exactly 0 puts ~1e30 * P into its rows, far outside the bar. The plain
+    version never reads those keys."""
+    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(sq + kv_len)
+    q, k, v = (torch.randn((b, s, 3, 64), generator=g, device=dev).to(torch.bfloat16) for s in (sq, sk, sk))
+    v[:, kv_len:] = 1e30
+    out = fa.flash_attention(q, k, v, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    _close(out, fa.flash_attention_plain(q, k, v, kv_len), 2e-2, 2e-3)
+
+
+@pytest.mark.parametrize("sq,sk", [(200, 512), (384, 385)])
+def test_flash_d64_wide_range_logits(dev, sq, sk):
+    """q and k at 5x unit scale: a row's logits (exp2 domain) spread over
+    ~200, so x - m runs far below -126, where 2^x is flushed to 0, and P
+    mixes values near 1 with values near the flush."""
+    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(sk)
+    q, k, v = ((torch.randn((2, s, 3, 64), generator=g, device=dev) * a).to(torch.bfloat16)
+               for s, a in ((sq, 5.0), (sk, 5.0), (sk, 1.0)))
+    out = fa.flash_attention(q, k, v)
+    _close(out, fa.flash_attention_plain(q, k, v), 2e-2, 2e-3)
 
 
 def _x(g, dev, m, k, one_signed=False):
