@@ -167,15 +167,15 @@ def test_flash_d64_kernel_structured_v(dev, pattern):
 
 @pytest.mark.parametrize("b,sq,sk,kv_len", [(2, 200, 434, 300), (1, 385, 385, 193), (2, 193, 129, 128)])
 def test_flash_d64_masked_keys_carry_no_mass(dev, b, sq, sk, kv_len):
-    """V is 1e30 at every key at or past kv_len (inside the second and the
-    third key tile, and at a tile's edge): a masked key whose P is not
-    exactly 0 puts ~1e30 * P into its rows, far outside the bar. The plain
-    version never reads those keys."""
+    """V is 3e38 (near bf16's largest) at every key at or past kv_len
+    (inside the second and the third key tile, and at a tile's edge): a
+    masked key whose P is not exactly 0, even 2^-126, puts 3e38 * P into its
+    rows, far outside the bar. The plain version never reads those keys."""
     from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(sq + kv_len)
     q, k, v = (torch.randn((b, s, 3, 64), generator=g, device=dev).to(torch.bfloat16) for s in (sq, sk, sk))
-    v[:, kv_len:] = 1e30
+    v[:, kv_len:] = 3e38
     out = fa.flash_attention(q, k, v, kv_len=kv_len)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out).all())
