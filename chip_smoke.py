@@ -9,6 +9,7 @@
     python3 chip_smoke.py --path fp8_distill   # the kernel phases and the fp8 path
     python3 chip_smoke.py --path i2v      # the kernel phases and the i2v path
     python3 chip_smoke.py --path cogvideox   # the kernel phases and the CogVideoX path
+    python3 chip_smoke.py --path tea_fp8 --path changing_resolution   # caching, changing resolution
 
 1. Prints the card's name and power limit, builds every CUDA kernel of the
    port from ``lightx2v_tpu_torch/csrc`` (one nvcc per source, in parallel)
@@ -66,8 +67,34 @@
    frame-batched decode. Cut: the first 2 of the file's 50 XDPM steps (the
    fewest that run both the first-order and the second-order update; the
    50 would take minutes).
+10. Feature caching: first the caching steps at the 1.3B width on a small
+   input, card vs CPU (TaylorSeer's calc and skip, a one-sided per-side Tea
+   step); then the ``wan2.1`` runner on each config as it is, at the widths
+   it names or else Wan2.1-T2V-1.3B's: ``tea_fp8`` (``configs/bench/
+   lightx2v_4.json`` at 14B: TeaCache on fp8 W8A8, CFG at 5 with per-side
+   decisions, 40 UniPC steps, tiled decode), ``taylorseer_1_3b``,
+   ``taylorws_1_3b``, ``ada_1_3b`` and ``custom_1_3b``
+   (``configs/caching/*``). Cuts, through the runner's ``step_window`` so
+   that every decision sees the file's step count: Tea and Custom a window
+   of 4 and 7 steps that starts at a calc step and holds a skip step of the
+   full-schedule host replay (printed first as a ``tea_series`` line with
+   its calc count), the Taylor pattern's first 6 steps, Ada's first 4. A
+   skip step launches no kernel: the counts are those of the forwards that
+   computed (a one-sided per-side forward is one at batch 1), the calc
+   entries must equal the plan's (Ada's codebook chooses its own), and each
+   cut must hold a calc and a skip step. The path line gives the calc and
+   skip steps' times apart.
+11. Changing resolution (``configs/changing_resolution/wan_t2v.json`` at
+   14B as it is: bf16 ``Default`` linears, CFG at 6, 50 steps switching at
+   step 25 from 16 x 21 x 44 x 78 latents (18,018 tokens) to the full 32,760).
+   Cut: steps 24 (phase A), 25 (the low-resolution forward, x0, trilinear
+   resize, re-noise) and 26 (phase B, a fresh UniPC at shift 10), each at
+   the file's timestep: three forwards.
 
-The kernel phases also print the radial comparison at the main shape (dense
+The kernel phases also hold and time the fused-RoPE flash kernel at
+changing resolution's phase A, (2, 18,018, 40, 128) with a 98-row last
+query tile, and rows 3f/4f at tea_fp8's M = 65,520 (``other_shapes``
+entries). They print the radial comparison at the main shape (dense
 flash, block-sparse at 128 x 128 and 256 x 128, two_pass), hold two merged
 half-key partials against one dense call, time the dense flash kernel at the
 self-attention shape without RoPE and over i2v's 257 image keys
@@ -145,18 +172,33 @@ I2V_JSON = "configs/deploy/wan_i2v.json"
 FLAGSHIP = dict(mm_config={"mm_type": INT4A8}, sparge=True, sparge_keep_ratio=0.3,
                 sparge_ckpt=str(ROOT / "configs/sparge/wan_t2v_14b_structured_keep03.npz"),
                 sparse_block_q=2048, sparse_block_k=1024, t5_quantized=True, use_tiling_vae=False)
+WAN14B = dict(dim=DIM, ffn_dim=FFN, num_heads=HEADS, num_layers=40, text_len=TXT)
+NEG = "blurry, low quality, distorted, static frame"
 # the base model: the upstream baseline bench config at the 14B widths, weight-only int4, 3 of its 40 steps
-BASE = dict(dim=DIM, ffn_dim=FFN, num_heads=HEADS, num_layers=40, text_len=TXT, mm_config={"mm_type": INT4W},
-            infer_steps=3, negative_prompt="blurry, low quality, distorted, static frame")
+BASE = dict(WAN14B, mm_config={"mm_type": INT4W}, infer_steps=3, negative_prompt=NEG)
 # radial attention on the slice-1 config, two steps, in its two executions
 RADIAL_BSR = dict(self_attn_1_type="radial_attn", sparse_block_q=128, sparse_block_k=128,
                   denoising_step_list=[1000, 500], radial_sparsity_type="bsr")
 RADIAL_TWO_PASS = dict(RADIAL_BSR, sparse_block_q=256, radial_sparsity_type="two_pass")
 # the reference's LightX2V_3-Distill row (fp8 DiT, fused-RoPE flash, its 4 distill steps, tiled decode) at the
 # 14B widths, with the fp8 UMT5-XXL
-FP8_DISTILL = dict(dim=DIM, ffn_dim=FFN, num_heads=HEADS, num_layers=40, text_len=TXT, t5_quantized=True,
-                   t5_quant_scheme="fp8")
-PATHS = ("slice", "flagship", "base", "radial_bsr", "radial_two_pass", "fp8_distill", "i2v", "cogvideox")
+FP8_DISTILL = dict(WAN14B, t5_quantized=True, t5_quant_scheme="fp8")
+TEA_JSON = "configs/bench/lightx2v_4.json"
+CR_JSON = "configs/changing_resolution/wan_t2v.json"
+# Wan2.1-T2V-1.3B (PRESETS["wan2.1_1.3b"]) for the configs/caching files that name no width
+WAN1_3B = dict(dim=1536, ffn_dim=8960, num_heads=12, num_layers=30, text_len=TXT)
+# the cached paths: (config file, widths, how its cut is planned, steps in the cut); the cuts run through the
+# runner's step_window, so every caching decision sees the file's step count. Custom's use_ret_steps warm-up
+# computes steps 0-4; the Taylor pattern is calc, skip, skip, skip, calc, skip.
+CACHED = {
+    "tea_fp8": (TEA_JSON, WAN14B, "tea", 4),
+    "taylorseer_1_3b": ("configs/caching/taylorseer/wan_t2v_taylorseer.json", WAN1_3B, "taylor", 6),
+    "taylorws_1_3b": ("configs/caching/taylorws/wan_t2v_taylorws.json", WAN1_3B, "taylor", 6),
+    "ada_1_3b": ("configs/caching/adacache/wan_t2v_ada.json", WAN1_3B, "ada", 4),
+    "custom_1_3b": ("configs/caching/custom/wan_t2v_custom_1_3b.json", WAN1_3B, "tea", 7),
+}
+PATHS = ("slice", "flagship", "base", "radial_bsr", "radial_two_pass", "fp8_distill", "i2v", "cogvideox",
+         "tea_fp8", "changing_resolution", "taylorseer_1_3b", "taylorws_1_3b", "ada_1_3b", "custom_1_3b")
 
 
 def card_line() -> str:
@@ -278,7 +320,7 @@ def ffn_parts(wm, x, w0, s0, b0, w2, s2, b2, kind: str, reps: int) -> dict:
     gemm2_ms = cuda_ms(lambda: wm._gemm(lib, hq, w2, hs, h // bh, bh, s2, b2, out, m, n, h, None, kind, stream,
                                         "ffn gemm2"), reps)
     parts = dict(quantize_ms=quant_ms, gemm1_ms=gemm1_ms, gemm2_ms=gemm2_ms)
-    print(f"[parts] 8-bit FFN {kind}: {json.dumps(parts)}", flush=True)
+    print(f"[parts] 8-bit FFN {kind} M={m}: {json.dumps(parts)}", flush=True)
     return parts
 
 
@@ -390,6 +432,39 @@ def kernel_phase(peaks, reps: int, want):
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                          library_call="apply_rope_half x2 + F.scaled_dot_product_attention"))
         del out
+
+    # ---- the same kernel at changing resolution's phase A: CFG's batch of two at 16 x 21 x 44 x 78 latents,
+    # 18,018 tokens, whose last 128-row query tile holds 98 rows ----
+    if want("flash_attention_fused_rope"):
+        grid_a = (21, 22, 39)
+        sa = grid_a[0] * grid_a[1] * grid_a[2]
+        qa, ka, va = (randn(2, sa, HEADS, HD) for _ in range(3))
+        ca, sna = (torch.from_numpy(t).to(dev) for t in build_wan_rope_grid(HD, *grid_a))
+        out = fa.flash_attention_fused_rope(qa, ka, va, ca, sna)
+        torch.cuda.synchronize()
+        hs = slice(0, 2)
+        ref = fa.flash_attention_fused_rope_plain(qa[:, :, hs], ka[:, :, hs], va[:, :, hs], ca, sna)
+        err = check_close(f"flash_attention_fused_rope (2,{sa},{HEADS},{HD})", out[:, :, hs], ref, 2e-2, 1e-3)
+        del ref, out
+        ms = cuda_ms(lambda: fa.flash_attention_fused_rope(qa, ka, va, ca, sna), reps)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_fused_rope_plain(qa, ka, va, ca, sna), 1, warmup=0)
+
+        def lib_rope_a():
+            qr, kr = apply_rope_half(qa, ca, sna), apply_rope_half(ka, ca, sna)
+            return F.scaled_dot_product_attention(qr.transpose(1, 2), kr.transpose(1, 2), va.transpose(1, 2))
+
+        lib_ms = cuda_ms(lib_rope_a, reps)
+        b_ms, b_by = bound(4.0 * 2 * HEADS * sa * sa * HD, 4 * 2 * sa * HEADS * HD * 2 + 2 * sa * HD // 2 * 4,
+                           peak_bf16, peak_bw)
+        extra.append(dict(name="flash_attention_fused_rope", route="cuda",
+                          source="lightx2v_tpu_torch/csrc/flash_attention.cu",
+                          replaces="lightx2v_tpu/ops/pallas/flash_attention.py:243",
+                          shape=f"q,k,v (2,{sa},{HEADS},{HD}) bf16; cos,sin ({sa},64) fp32 (changing resolution, "
+                                "phase A)",
+                          max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                          library_call="apply_rope_half x2 + F.scaled_dot_product_attention"))
+        del qa, ka, va
 
     # ---- the RoPE pass of flash_attention_fused_rope (once per call) ----
     if want("flash_attention_fused_rope") or want("rope_rotate"):
@@ -931,7 +1006,7 @@ def kernel_phase_fp8(peaks, reps: int, want):
     if want("w8a8_matmul_fullk_fp8"):
         w, ws = fp8_w(DIM, DIM)
         bvec = randn(DIM, dtype=torch.float32, std=0.02)
-        for m in (S, TXT):
+        for m in (S, TXT, 2 * S):  # 2S: tea_fp8's CFG batch of two
             x = randn(m, DIM)
             out = wm.w8a8_matmul_fullk(x, w, ws, bvec, kind="fp8")
             torch.cuda.synchronize()
@@ -965,46 +1040,51 @@ def kernel_phase_fp8(peaks, reps: int, want):
             del x
         del w
 
-    # ---- ffn_w8a8, fp8 ----
+    # ---- ffn_w8a8, fp8 (M = 32,760; 65,520, tea_fp8's CFG batch of two) ----
     if want("ffn_w8a8_fp8"):
-        x = randn(S, DIM)
         w0, s0 = fp8_w(FFN, DIM)
         w2, s2 = fp8_w(DIM, FFN)
         b0, b2 = randn(FFN, dtype=torch.float32, std=0.02), randn(DIM, dtype=torch.float32, std=0.02)
-        out = wm.ffn_w8a8(x, w0, s0, b0, w2, s2, b2, kind="fp8")
-        torch.cuda.synchronize()
-        ref = wm.ffn_w8a8_plain(x, w0, s0, b0, w2, s2, b2, kind="fp8")
-        # bar: x codes exact; h is fp32 on both sides but tanh on the card and
-        # in torch may differ by an ulp, moving a rare h code by one step
-        err = check_close("ffn_w8a8_fp8", out, ref, 2e-2, 0.0)
-        del ref, out
-        # one-signed x and w0 codes: GEMM1's truncated wgmma partial sums
-        # would add up here (the source note's promotion interval); same bar
-        xo, w0o = x.abs(), w0.view(torch.uint8).bitwise_and(0x7F).view(torch.float8_e4m3fn)
-        out = wm.ffn_w8a8(xo, w0o, s0, b0, w2, s2, b2, kind="fp8")
-        torch.cuda.synchronize()
-        ref = wm.ffn_w8a8_plain(xo, w0o, s0, b0, w2, s2, b2, kind="fp8")
-        one_signed_err = check_close("ffn_w8a8_fp8 one-signed", out, ref, 2e-2, 0.0)
-        del xo, w0o, ref, out
-        ms = cuda_ms(lambda: wm.ffn_w8a8(x, w0, s0, b0, w2, s2, b2, kind="fp8"), reps)
-        plain_ms = cuda_ms(lambda: wm.ffn_w8a8_plain(x, w0, s0, b0, w2, s2, b2, kind="fp8"), 1)
+        for m in (S, 2 * S):
+            x = randn(m, DIM)
+            out = wm.ffn_w8a8(x, w0, s0, b0, w2, s2, b2, kind="fp8")
+            torch.cuda.synchronize()
+            ref = wm.ffn_w8a8_plain(x, w0, s0, b0, w2, s2, b2, kind="fp8")
+            # bar: x codes exact; h is fp32 on both sides but tanh on the card and
+            # in torch may differ by an ulp, moving a rare h code by one step
+            err = check_close(f"ffn_w8a8_fp8 M={m}", out, ref, 2e-2, 0.0)
+            del ref, out
+            one_signed = {}
+            if m == S:
+                # one-signed x and w0 codes: GEMM1's truncated wgmma partial sums
+                # would add up here (the source note's promotion interval); same bar
+                xo, w0o = x.abs(), w0.view(torch.uint8).bitwise_and(0x7F).view(torch.float8_e4m3fn)
+                out = wm.ffn_w8a8(xo, w0o, s0, b0, w2, s2, b2, kind="fp8")
+                torch.cuda.synchronize()
+                ref = wm.ffn_w8a8_plain(xo, w0o, s0, b0, w2, s2, b2, kind="fp8")
+                one_signed["one_signed_max_abs_err"] = check_close("ffn_w8a8_fp8 one-signed", out, ref, 2e-2, 0.0)
+                del xo, w0o, ref, out
+            ms = cuda_ms(lambda: wm.ffn_w8a8(x, w0, s0, b0, w2, s2, b2, kind="fp8"), reps)
+            plain_ms = cuda_ms(lambda: wm.ffn_w8a8_plain(x, w0, s0, b0, w2, s2, b2, kind="fp8"), 1)
 
-        def ffn_lib():
-            h = wm.gelu_tanh(fp8_lib(x, w0, s0, b0).float()).to(torch.bfloat16)
-            return fp8_lib(h, w2, s2, b2)
+            def ffn_lib():
+                h = wm.gelu_tanh(fp8_lib(x, w0, s0, b0).float()).to(torch.bfloat16)
+                return fp8_lib(h, w2, s2, b2)
 
-        lib_ms = library(ffn_lib, reps)
-        b_ms, b_by = bound(4.0 * S * DIM * FFN, S * DIM * 2 * 2 + 2 * DIM * FFN + (2 * FFN + 2 * DIM) * 4,
-                           peak_fp8, peak_bw)
-        rows.append(dict(name="ffn_w8a8_fp8", route="cuda", source="lightx2v_tpu_torch/csrc/w8a8_matmul.cu",
-                         replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:301",
-                         shape=f"x ({S},{DIM}) bf16; w0 ({FFN},{DIM}), w2 ({DIM},{FFN}) e4m3",
-                         max_abs_err=err, bar="2e-2*max|ref|", one_signed_max_abs_err=one_signed_err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib_ms, library_call="two (torch quantize + torch._scaled_mm) around a torch "
-                                                         "GELU, per-token h scales",
-                         **ffn_parts(wm, x, w0, s0, b0, w2, s2, b2, "fp8", reps)))
-        del x, w0, w2
+            lib_ms = library(ffn_lib, reps)
+            b_ms, b_by = bound(4.0 * m * DIM * FFN, m * DIM * 2 * 2 + 2 * DIM * FFN + (2 * FFN + 2 * DIM) * 4,
+                               peak_fp8, peak_bw)
+            (rows if m == S else extra).append(dict(
+                name="ffn_w8a8_fp8", route="cuda", source="lightx2v_tpu_torch/csrc/w8a8_matmul.cu",
+                replaces="lightx2v_tpu/ops/pallas/w8a8_matmul.py:301",
+                shape=f"x ({m},{DIM}) bf16; w0 ({FFN},{DIM}), w2 ({DIM},{FFN}) e4m3",
+                max_abs_err=err, bar="2e-2*max|ref|", **one_signed, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, library_call="two (torch quantize + torch._scaled_mm) around a torch "
+                                                "GELU, per-token h scales",
+                **ffn_parts(wm, x, w0, s0, b0, w2, s2, b2, "fp8", reps)))
+            del x
+        del w0, w2
 
     # ---- w8a8_matmul (k-blocked), fp8 (UMT5-XXL fc2: K = 10,240 > 8192) ----
     if want("w8a8_matmul_fp8"):
@@ -1146,6 +1226,61 @@ def block_reference_check(scheme: str = "int8", mm_type: str = INT8, self_attn_t
                        ref, rtol, 1e-3)
 
 
+def caching_reference_check():
+    """The caching steps at the Wan2.1-1.3B width (2 of its 30 blocks, bf16
+    linears, fused-RoPE flash) on a small latent (48 tokens) at CFG's batch
+    of two: the card vs the plain versions on the CPU, same weights and
+    inputs. TaylorSeer's calc step twice (unprimed, then at dt 4) and a skip
+    step at dt 1, and a per-side Tea step where only the cond side computes
+    (its forward at batch 1, the uncond side's residual replayed)."""
+    import dataclasses
+    from functools import partial
+
+    import torch
+
+    from lightx2v_tpu_torch.caching import taylorseer, teacache
+    from lightx2v_tpu_torch.models.wan.config import PRESETS, WanArch
+    from lightx2v_tpu_torch.models.wan.model import wan_transformer
+    from lightx2v_tpu_torch.models.wan.pipeline import rope_for_shape
+    from lightx2v_tpu_torch.models.wan.weights import init_random_params_on_device, permute_qk_half
+    from lightx2v_tpu_torch.ops.attention import attention
+
+    arch = dataclasses.replace(WanArch(**PRESETS["wan2.1_1.3b"]), num_layers=2, rope_fused=True)
+    params = permute_qk_half(init_random_params_on_device(arch, "bf16", seed=3, device="cuda"), arch)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    shape, s = (16, 2, 8, 12), 48
+    xs = [torch.randn((2, s, arch.dim), generator=g, device="cuda").to(torch.bfloat16) for _ in range(3)]
+    e0 = torch.randn((2, 6, arch.dim), generator=g, device="cuda") * 0.1
+    ctx = (torch.randn((2, TXT, arch.dim), generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    fns = dict(self_attn_fn=partial(attention, "flash_attn3"), cross_attn_fn=partial(attention, "flash_attn3"))
+
+    def run(dev):
+        p, (x0, x1, x2), e, c = _to(params, dev), [v.to(dev) for v in xs], e0.to(dev), ctx.to(dev)
+        cos, sin, _ = rope_for_shape(arch, shape, device=dev)
+        cache = taylorseer.init_taylor_cache(arch, 2, s, device=dev)
+        taylorseer.taylor_calc_step(p, x0, e, c, None, cos, sin, arch, cache, 1.0, primed=False, **fns)
+        calc, _ = taylorseer.taylor_calc_step(p, x1, e, c, None, cos, sin, arch, cache, 4.0, **fns)
+        skip = taylorseer.taylor_skip_step(p, x2, e, arch, cache, 1.0)
+
+        def tf(xx, side=None):
+            rows = slice(None) if side is None else slice(side, side + 1)
+            return wan_transformer(p["blocks"], xx, e[rows], c[rows], None, cos, sin, arch)
+
+        state = teacache.init_tea_state((2, s, arch.dim), (2, arch.dim), device=dev)
+        state["prev_residual"] = x2.clone()
+        tea, _ = teacache.tea_transform_per_side(state, torch.tensor([True, False]), x0, tf, tf)
+        return calc, skip, tea, cache["ffn"]["f1"]
+
+    out = run("cuda")
+    torch.cuda.synchronize()
+    ref = run("cpu")
+    # bar: as the full-width blocks', bf16 activations through flash calls
+    # and bf16 GEMMs summed in another order
+    return max(check_close(f"1.3B caching, card vs CPU plain: {what}", o.cpu(), r, 3e-2, 1e-3)
+               for what, o, r in zip(("TaylorSeer calc", "TaylorSeer skip", "per-side Tea (cond only)",
+                                      "TaylorSeer ffn f1"), out, ref))
+
+
 def clip_reference_check():
     """The full-width CLIP ViT-H/14 tower (31 blocks, 257 tokens), bf16 and
     with ``quantize_clip_params`` int8, on the card vs the same arithmetic on
@@ -1282,8 +1417,11 @@ def write_image(path: str, seed: int = 0) -> str:
     return path
 
 
-def expected_launches(runner, cfg) -> dict:
-    """The exact launch count of every kernel for one pipeline run."""
+def expected_launches(runner, cfg, forwards=None) -> dict:
+    """The exact launch count of every kernel for one pipeline run;
+    ``forwards``: the DiT forwards that ran the block stack (a cached or cut
+    run; a one-sided per-side forward at batch 1 counts as one), else every
+    step's."""
     from lightx2v_tpu_torch.encoders.t5 import T5_LINEARS
     from lightx2v_tpu_torch.ops import radial
     from lightx2v_tpu_torch.ops.cuda import launch_counts
@@ -1292,9 +1430,11 @@ def expected_launches(runner, cfg) -> dict:
     if cfg["model_cls"] == "cogvideox":  # one 64-wide flash call a block and step; its linears are bf16 torch.mm
         return {**{k: 0 for k in launch_counts()}, "flash_attention_d64": L * runner.init_scheduler().num_steps()}
     steps = len(cfg["denoising_step_list"]) if cfg["model_cls"] == "wan2.1_distill" else int(cfg["infer_steps"])
+    if forwards is not None:
+        steps = forwards
     out = {k: 0 for k in launch_counts()}
     calls = L * steps  # one per block and forward (CFG doubles the batch, not the calls)
-    mm_type = cfg["mm_config"]["mm_type"]
+    mm_type = (cfg.get("mm_config") or {}).get("mm_type", "Default")
     i2v = cfg.get("task") == "i2v"
     # per block: q/k/v/o of both attentions (and i2v's k_img / v_img at M = 257), and the FFN (fused,
     # or two GEMMs around a torch GELU)
@@ -1305,8 +1445,10 @@ def expected_launches(runner, cfg) -> dict:
         out.update(int4_matmul=lin + 2 * calls)
     elif mm_type == FP8:
         out.update(w8a8_matmul_fullk_fp8=lin, ffn_w8a8_fp8=calls)
-    else:
+    elif mm_type == INT8:
         out.update(w8a8_matmul_fullk=lin, ffn_w8a8=calls)
+    elif mm_type != "Default":  # Default: the bf16 linears are torch.mm, no kernel of the port
+        raise AssertionError(f"no launch model for mm_type {mm_type}")
     if cfg.get("t5_quantized"):
         # T5: q/k/v/o/gate/fc1 full-K (K = 4096), fc2 k-blocked (K = 10,240), in the T5's kind
         t5_layers = runner.text_encoder.cfg.num_layers
@@ -1348,11 +1490,69 @@ def first_steps(runner, n: int):
     runner.init_scheduler = init
 
 
+def tea_series(runner):
+    """The host replay of Tea's decisions over the file's whole schedule,
+    from the runner's weights on the card: (n,) bools, or (n, 2) per CFG side."""
+    import torch
+
+    from lightx2v_tpu_torch.caching.teacache import TeaCacheConfig, tea_decision_series
+    from lightx2v_tpu_torch.models.wan.pipeline import tea_mod_series
+
+    cfg = runner.config
+    sched = runner.init_scheduler()
+    sched.prepare(runner.set_target_shape(), torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    tc = TeaCacheConfig.from_config(cfg)
+    cfg_on = bool(cfg.get("enable_cfg", True))
+    mods = tea_mod_series(runner.model, runner.arch, sched, tc, 2 if cfg_on else 1, sched.num_steps(), device="cuda")
+    return tea_decision_series(mods, tc, per_side=cfg["feature_caching"] == "Tea" and cfg_on)
+
+
+def _flag(c) -> bool:
+    """Did a step's entry of ``calc_steps`` run the stack (either side for a per-side pair)?"""
+    import numpy as np
+
+    return bool(np.any(c))
+
+
+def plan_cut(name: str, runner):
+    """(step window, the calc entries the window must record, or None where
+    only the run can say) for a cached or changing-resolution path. Tea and
+    Custom take the first window of their cut's length that starts at a calc
+    step and holds a skip step of the full-schedule host series (printed
+    with its calc count); TaylorSeer's and TaylorWS's pattern starts at 0;
+    changing resolution crosses the switch: steps k - 1, k, k + 1."""
+    import numpy as np
+
+    from lightx2v_tpu_torch.caching.taylorseer import taylor_schedule
+
+    cfg = runner.config
+    n = int(cfg["infer_steps"])
+    if name == "changing_resolution":
+        k = int(cfg.get("changing_resolution_steps", n // 2))
+        return (k - 1, 3), [True] * 3
+    _, _, kind, count = CACHED[name]
+    if kind == "taylor":
+        return (0, count), [bool(c) for c in taylor_schedule(n)[0][:count]]
+    if kind == "ada":
+        return (0, count), None
+    series = tea_series(runner)
+    flags = [_flag(c) for c in series]
+    text = "".join("C" if f else "s" for f in flags)
+    print(json.dumps({"tea_series": {"path": name, "steps": n, "series": text, "calc_steps": int(sum(flags)),
+                                     "per_side": series.ndim == 2}}), flush=True)
+    for first in range(n - count + 1):
+        if flags[first] and not all(flags[first:first + count]):
+            want = [tuple(bool(v) for v in c) if np.ndim(c) else bool(c) for c in series[first:first + count]]
+            return (first, count), want
+    raise AssertionError(f"{name}: the Tea series {text} has no {count}-step window with a calc and a skip step")
+
+
 def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan2.1_distill",
-             config_json: str = DEPLOY_JSON, steps=None):
+             config_json: str = DEPLOY_JSON, steps=None, cut: bool = False):
     """Synthesize the path's weights on the card, zero the counters, run the
-    pipeline once (its first ``steps`` denoise steps where given), and check
-    the counts and the frames."""
+    pipeline once (its first ``steps`` denoise steps where given; with
+    ``cut``, the window of ``plan_cut``), and check the counts and the
+    frames; a cut path also its calc and skip steps."""
     import gc
 
     import numpy as np
@@ -1374,7 +1574,11 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
     print(f"[{name}] synthesized weights on the card in {time.perf_counter() - t0:.1f} s", flush=True)
     if steps is not None:
         first_steps(runner, steps)
-    expect = expected_launches(runner, cfg)
+    want_calc = None
+    if cut:
+        runner.step_window, want_calc = plan_cut(name, runner)
+    expect = None if cut and want_calc is None else expected_launches(
+        runner, cfg, sum(map(_flag, want_calc)) if cut else None)
     selected = []  # Sparge's per-call selected-block totals, summed on the device
     select = sparge.sparge_select_blocks
 
@@ -1393,13 +1597,24 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
         counts = launch_counts()
     finally:
         sparge.sparge_select_blocks = select
+    tm = runner.timings
+    calc = tm.get("calc_steps")
+    if cut:
+        if want_calc is not None and [_flag(c) if isinstance(w, bool) else tuple(c) for c, w in
+                                      zip(calc, want_calc)] != want_calc:
+            raise AssertionError(f"{name}: calc steps {calc} != the plan's {want_calc}")
+        if name != "changing_resolution" and not (any(map(_flag, calc)) and not all(map(_flag, calc))):
+            raise AssertionError(f"{name}: the cut needs a calc and a skip step, ran {calc}")
+        if tm["step_index"] != list(range(runner.step_window[0], sum(runner.step_window))):
+            raise AssertionError(f"{name}: ran steps {tm['step_index']}, not the window {runner.step_window}")
+        if expect is None:  # Ada: the forwards its codebook chose
+            expect = expected_launches(runner, cfg, sum(map(_flag, calc)))
     print(json.dumps({"path": name, "launch_counts": counts, "expected": expect}), flush=True)
     if counts != expect:
         raise AssertionError(f"{name}: launch counts {counts} != {expect}")
     want_shape = (int(cfg["target_video_length"]), int(cfg["target_height"]), int(cfg["target_width"]), 3)
     if frames.shape != want_shape or not np.isfinite(frames).all():
         raise AssertionError(f"{name}: bad frames: shape {frames.shape}, finite {np.isfinite(frames).all()}")
-    tm = runner.timings
     peak = torch.cuda.max_memory_allocated() / 1e9
     stats = {"encode_s": tm["encode_s"], **{k: tm[k] for k in ("t5_s", "clip_s", "vae_encode_s") if k in tm},
              "denoise_step_s": [float(x) for x in tm["step_s"]],
@@ -1408,6 +1623,11 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
              # the first stage (or encode part) after which the peak so far reached the run's peak
              "peak_stage": next((k for k, v in tm["mem_gb"].items() if v >= peak), None),
              "frames": list(frames.shape), "frames_mean_abs": float(np.abs(frames).mean())}
+    if cut:
+        step_s = [float(x) for x in tm["step_s"]]
+        stats.update(step_index=tm["step_index"], calc_steps=calc,
+                     calc_step_s=[t for t, c in zip(step_s, calc) if _flag(c)],
+                     skip_step_s=[t for t, c in zip(step_s, calc) if not _flag(c)])
     if selected:
         stats["sparge_calls"] = len(selected)
         stats["sparge_selected_blocks"] = int(torch.stack(selected).sum())
@@ -1558,6 +1778,12 @@ def main():
         cog_vae_decode_check()
         by_path["cogvideox"] = run_path("cogvideox", dict(negative_prompt="blurry, low quality, distorted"),
                                         args.profile, model_cls="cogvideox", config_json=COG_JSON, steps=COG_STEPS)
+    if any(p in paths for p in CACHED):
+        caching_reference_check()
+    for name in [p for p in PATHS if p in paths and (p in CACHED or p == "changing_resolution")]:
+        config_json, widths = (CR_JSON, WAN14B) if name == "changing_resolution" else CACHED[name][:2]
+        by_path[name] = run_path(name, dict(widths, negative_prompt=NEG), args.profile, model_cls="wan2.1",
+                                 config_json=config_json, cut=True)
     for r in rows:
         r["launches_by_path"] = {p: c.get(r["name"], 0) for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

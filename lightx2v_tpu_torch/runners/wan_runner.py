@@ -28,9 +28,23 @@ runner would use a small T5: the card runs the tower that a real-weights
 run runs.
 
 Config keys whose feature is not ported raise ``NotImplementedError`` naming
-their ROADMAP.md item rather than run as if absent: ``changing_resolution``,
-``do_mm_calib``, ``weight_streaming`` (and offload), ``vae_int8``,
+their ROADMAP.md item rather than run as if absent: ``do_mm_calib``,
+``weight_streaming`` (and offload, so caching under them too), ``vae_int8``,
 ``tiny_vae``.
+
+``feature_caching`` (Tea, Custom, TaylorSeer, TaylorWS, Ada) runs in the
+denoise loop (``models/wan/pipeline.py``), the config passed on as its
+caching config; ``timings["calc_steps"]`` records which steps ran the block
+stack. ``changing_resolution`` runs the first ``changing_resolution_steps``
+(k) steps at ``resolution_rate`` of the latent's height and width, one more
+forward at step k whose x0 prediction is resized trilinearly to the full
+latent and re-noised from the re-noise generator, then a fresh UniPC at
+shift + 2 from step k + 1 (``_run_dit_changing_resolution``).
+
+``step_window = (first, count)`` runs steps first..first + count - 1 of the
+file's schedule (every decision still sees the whole schedule; a UniPC run
+restarts its multistep history at ``first``). A changing-resolution window
+must hold step k; each phase runs its part of it.
 
 ``sparge: true`` runs the video self-attention as Sparge with the
 per-layer budgets of ``sparge_ckpt`` (or ``sparge_l1_per_layer``), the
@@ -44,7 +58,7 @@ table's leading failed layers dense (``_self_attn_setup``).
 from __future__ import annotations
 
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,14 +68,15 @@ from ..encoders.clip import (ClipVisionArch, CLIPVisionModel, init_random_clip_p
 from ..encoders.t5 import (UMT5_XXL, T5Config, T5EncoderModel, init_random_t5_params_on_device,
                            init_random_t5_state_dict, load_t5_params, quantize_t5_params)
 from ..models.wan.config import arch_from_config, is_published_width
-from ..models.wan.pipeline import make_denoise_fn
+from ..models.wan.model import wan_forward, wan_forward_cfg
+from ..models.wan.pipeline import make_denoise_fn, rope_for_shape
 from ..models.wan.weights import (init_random_params_on_device, init_random_weight_dict, load_wan_params,
                                   permute_qk_half)
 from ..ops.radial import MaskMap
 from ..schedulers.step_distill import WanStepDistillScheduler
 from ..schedulers.unipc import WanUniPCScheduler
 from ..tools.convert import quantize_model
-from ..utils.image import resize_area
+from ..utils.image import resize_area, resize_trilinear
 from ..utils.logging_utils import logger
 from ..utils.media import load_image
 from ..utils.registry import RUNNER_REGISTER
@@ -105,6 +120,8 @@ _SCHEMES = {"int8": "int8", "fp8": "fp8", "int4": "int4", "nvfp4": "int4"}
 @RUNNER_REGISTER.register("wan2.1")
 class WanRunner(DefaultRunner):
     scheduler_cls = WanUniPCScheduler
+    # (first step, step count) of the schedule to run; None runs all of it
+    step_window: Optional[Tuple[int, int]] = None
 
     def _require_synthetic(self):
         if not self.config.get("synthetic_weights"):
@@ -117,8 +134,6 @@ class WanRunner(DefaultRunner):
             raise _not_ported("offload, streaming and multi-device runs", "Queue 1 items 13-14")
         if self.config.get("weight_streaming"):
             raise _not_ported("weight_streaming (the streamed DiT)", "Queue 1 item 13")
-        if self.config.get("changing_resolution"):
-            raise _not_ported("changing_resolution", "Queue 1 item 10")
         if self.config.get("do_mm_calib"):
             raise _not_ported("do_mm_calib (activation calibration)", "Queue 1 item 12")
         if "dim" not in self.config:
@@ -256,12 +271,33 @@ class WanRunner(DefaultRunner):
         self._mark("vae_encode_s", t0)
         return {"clip_encoder_out": clip_out, "vae_encode_out": y}
 
-    def run_dit(self, encoder_out: Dict[str, Any], noises=None):
+    def _prepare(self, scheduler, shape, generator, first: int, **kw):
+        """The scheduler's state at step ``first`` (a UniPC restart there)."""
+        if first:
+            kw["start_step"] = first
+        state = scheduler.prepare(shape, generator, device=self.device, **kw)
+        state["step_index"] = first
+        return state
+
+    def _step_timer(self):
+        """(on_step callback, list of step end times): syncs after each step."""
+        ends = []
+
+        def on_step(_):
+            self.sync()
+            ends.append(time.perf_counter())
+
+        return on_step, ends
+
+    def run_dit(self, encoder_out: Dict[str, Any], noises=None, renoise=None):
+        if self.config.get("changing_resolution"):
+            return self._run_dit_changing_resolution(encoder_out, renoise)
         target_shape = self.set_target_shape()
         scheduler = self.init_scheduler()
         self.scheduler = scheduler
         lat_gen, noise_gen = self._generators(1)
-        state = scheduler.prepare(target_shape, lat_gen, device=self.device)
+        first, count = self.step_window or (0, None)
+        state = self._prepare(scheduler, target_shape, lat_gen, first)
         attn, cross_attn, self_attn_kwargs = self._self_attn_setup()
         if attn == "radial_attn":
             pt, ph, pw = self.arch.patch_size
@@ -279,19 +315,83 @@ class WanRunner(DefaultRunner):
                                   mm_type=self.mm_type,
                                   self_attn_type=attn, cross_attn_type=cross_attn,
                                   feature_caching=self.config.get("feature_caching", "NoCaching"),
+                                  caching_config=self.config, num_steps=count,
                                   self_attn_kwargs=self_attn_kwargs, device=self.device)
-        steps = []
-
-        def on_step(i):
-            self.sync()
-            steps.append(time.perf_counter())
-
+        on_step, ends = self._step_timer()
         t0 = time.perf_counter()
         teo, ieo = encoder_out["text_encoder_output"], encoder_out.get("image_encoder_output") or {}
         state = denoise(self.model, state, teo["context"], noise_gen, noises=noises, on_step=on_step,
                         context_null=teo["context_null"] if enable_cfg else None,
                         y=ieo.get("vae_encode_out"), clip_fea=ieo.get("clip_encoder_out"))
-        self.timings["step_s"] = list(np.diff([t0] + steps))
+        self.timings["step_s"] = list(np.diff([t0] + ends))
+        self.timings["calc_steps"] = list(denoise.calc_steps)
+        self.timings["step_index"] = list(range(first, first + len(ends)))
+        return state["latents"]
+
+    def _run_dit_changing_resolution(self, encoder_out: Dict[str, Any], renoise=None):
+        """Two phases (t2v, no caching, as the JAX runner): steps 0..k-1 at
+        ``resolution_rate``; at step k one more low-resolution forward, its
+        x0 prediction ``latents - sigma_k * pred`` (fp32) resized trilinearly
+        to the full latent and re-noised, ``(1 - sigma_k) * clean + sigma_k *
+        noise``, the noise drawn from the re-noise generator (or
+        ``renoise``); then a fresh UniPC at shift + 2 from step k + 1. Self-
+        and cross-attention both run ``attention_impl`` or
+        ``self_attn_1_type``; every forward runs the runner's ``mm_type``."""
+        cfg = self.config
+        target = self.set_target_shape()
+        c, f_, h, w = target
+        rate = float(cfg.get("resolution_rate", 0.75))
+        n = int(cfg.infer_steps)
+        k = int(cfg.get("changing_resolution_steps", n // 2))
+        low = (c, f_, int(h * rate) // 2 * 2, int(w * rate) // 2 * 2)
+        first, count = self.step_window or (0, n)
+        if not first <= k < first + count:
+            raise ValueError(f"a changing-resolution window must hold step {k}, got {self.step_window}")
+        end = min(n, first + count)
+        enable_cfg = bool(cfg.get("enable_cfg", True))
+        guide = float(cfg.get("sample_guide_scale", 5.0))
+        attn = cfg.get("attention_impl") or cfg.get("self_attn_1_type", "flash_attn3")
+        teo = encoder_out["text_encoder_output"]
+        ctx, ctx_null = teo["context"], teo["context_null"] if enable_cfg else None
+        lat_gen, noise_gen = self._generators(1)
+        kw = dict(enable_cfg=enable_cfg, guide_scale=guide, mm_type=self.mm_type, self_attn_type=attn,
+                  cross_attn_type=attn, device=self.device)
+        on_step, ends = self._step_timer()
+        t0 = time.perf_counter()
+
+        # phase A: steps first..k-1 at low resolution
+        sched_a = self.scheduler = self.scheduler_cls(cfg)
+        state = self._prepare(sched_a, low, lat_gen, first)
+        state = make_denoise_fn(self.arch, sched_a, low, num_steps=k - first, **kw)(
+            self.model, state, ctx, on_step=on_step, context_null=ctx_null)
+
+        # step k: a low-resolution forward, x0 prediction, trilinear resize, re-noise
+        cos, sin, _ = rope_for_shape(self.arch, low, device=self.device)
+        lat, t = sched_a.step_pre(state)
+        fkw = dict(mm_type=self.mm_type, self_attn_type=attn, cross_attn_type=attn)
+        if enable_cfg:
+            pred = wan_forward_cfg(self.model, lat[None], t, ctx, ctx_null, guide, cos, sin, self.arch, **fkw)[0]
+        else:
+            pred = wan_forward(self.model, lat[None], t, ctx, cos, sin, self.arch, **fkw)[0]
+        sig_k = float(sched_a.sigmas[k])
+        clean = resize_trilinear(state["latents"].float() - sig_k * pred.float(), target[1:])
+        del state, pred
+        if renoise is None:
+            renoise = torch.randn(target, generator=noise_gen, dtype=torch.float32, device=noise_gen.device)
+        noisy = (1.0 - sig_k) * clean + sig_k * renoise.to(self.device)
+        del clean
+        on_step(k)
+
+        # phase B: steps k+1..end-1 at full resolution, shift + 2, a fresh multistep history
+        sched_b = self.scheduler = self.scheduler_cls(cfg)
+        seed_b = torch.Generator(device=lat_gen.device).manual_seed(int(cfg.get("seed", 42)) + 1)
+        state = self._prepare(sched_b, target, seed_b, k + 1, shift=float(cfg.sample_shift) + 2.0)
+        state["latents"] = noisy
+        state = make_denoise_fn(self.arch, sched_b, target, num_steps=end - (k + 1), **kw)(
+            self.model, state, ctx, on_step=on_step, context_null=ctx_null)
+        self.timings["step_s"] = list(np.diff([t0] + ends))
+        self.timings["calc_steps"] = [True] * len(ends)
+        self.timings["step_index"] = list(range(first, end))
         return state["latents"]
 
     def _self_attn_setup(self):

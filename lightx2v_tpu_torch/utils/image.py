@@ -15,13 +15,22 @@ unchanged size returns a copy, as cv2 does.
 
 The weights are built in float64 and the sums run in float64, rounded once
 to float32; cv2 sums in float32 in its own order, so the two differ in the
-last bits (``tests/test_torch_i2v.py`` pins the difference)."""
+last bits (``tests/test_torch_i2v.py`` pins the difference).
+
+``resize_trilinear`` resizes a latent tensor on its device as
+``jax.image.resize(..., method="trilinear")`` does when no axis shrinks:
+half-pixel centres, and at the edges the weights of the taps inside the
+latent renormalised to 1, which is ``F.interpolate(mode="trilinear",
+align_corners=False)``'s clamp (``tests/test_torch_changing_resolution.py``
+pins it)."""
 
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 
 def _cubic(t: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -108,3 +117,12 @@ def resize_area(img: np.ndarray, height: int, width: int) -> np.ndarray:
     if height <= h and width <= w:
         return _apply(img, area_weights(h, height), area_weights(w, width))
     return _apply(img, area_linear_weights(h, height), area_linear_weights(w, width))
+
+
+def resize_trilinear(x: torch.Tensor, size) -> torch.Tensor:
+    """(C, F, H, W) -> (C, *size), trilinear, for sizes that do not shrink
+    (a shrinking axis would need JAX's antialiasing kernel)."""
+    size = tuple(int(v) for v in size)
+    if any(o < i for o, i in zip(size, x.shape[1:])):
+        raise ValueError(f"resize_trilinear upsamples only: {tuple(x.shape[1:])} -> {size}")
+    return F.interpolate(x[None], size=size, mode="trilinear", align_corners=False)[0]

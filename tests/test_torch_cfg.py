@@ -102,8 +102,9 @@ def test_denoise_needs_context_null_under_cfg():
     denoise = make_denoise_fn(tcfg.WanArch(**TINY), sched, SHAPE, enable_cfg=True)
     with pytest.raises(ValueError, match="context_null"):
         denoise({}, {}, torch.zeros(1, 4, 256))
-    with pytest.raises(NotImplementedError):
-        make_denoise_fn(tcfg.WanArch(**TINY), sched, SHAPE, feature_caching="Tea")
+    make_denoise_fn(tcfg.WanArch(**TINY), sched, SHAPE, feature_caching="Tea")  # ported: builds
+    with pytest.raises(ValueError, match="feature_caching"):
+        make_denoise_fn(tcfg.WanArch(**TINY), sched, SHAPE, feature_caching="FirstBlock")
 
 
 @pytest.fixture(scope="module")

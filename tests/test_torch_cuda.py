@@ -83,6 +83,20 @@ def test_flash_rope_kernel_vs_plain(dev):
     _close(out, fa.flash_attention_fused_rope_plain(q, k, v, cos, sin), 2e-2, 2e-3)
 
 
+def test_flash_rope_kernel_phase_a_shape(dev):
+    """Changing resolution's phase A: CFG's batch of two over 16 x 21 x 44 x
+    78 latents, 18,018 tokens (21 x 22 x 39), whose last 128-row query tile
+    holds 98 rows; two of the 40 heads (the plain version holds S x S)."""
+    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+    from lightx2v_tpu_torch.ops.rope import build_wan_rope_grid
+
+    cos, sin = (torch.from_numpy(a).to(dev) for a in build_wan_rope_grid(128, 21, 22, 39))
+    g = torch.Generator(device=dev).manual_seed(18018)
+    q, k, v = (torch.randn((2, 18018, 2, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    out = fa.flash_attention_fused_rope(q, k, v, cos, sin)
+    _close(out, fa.flash_attention_fused_rope_plain(q, k, v, cos, sin), 2e-2, 2e-3)
+
+
 @pytest.mark.parametrize("sq,sk,grid", [(200, 200, (3, 7, 7)), (300, 260, (2, 10, 10)), (64, 64, (1, 8, 8))])
 def test_rope_rotate_pass_is_exact(dev, sq, sk, grid):
     """The RoPE pass against its plain version on the same card tensors, bit

@@ -224,7 +224,7 @@ def test_fp8_distill_runner_tiny_on_cpu():
     assert len(runner.timings["step_s"]) == 4
 
 
-@pytest.mark.parametrize("key,item", [("changing_resolution", "Queue 1 item 10"), ("vae_int8", "Queue 1 item 7"),
+@pytest.mark.parametrize("key,item", [("tiny_vae", "Queue 1 item 17"), ("vae_int8", "Queue 1 item 7"),
                                       ("do_mm_calib", "Queue 1 item 12"), ("weight_streaming", "Queue 1 item 13")])
 def test_unported_config_keys_raise(key, item):
     """Keys the JAX runner honours and the port does not: the runner refuses
