@@ -10,6 +10,7 @@
     python3 chip_smoke.py --path i2v      # the kernel phases and the i2v path
     python3 chip_smoke.py --path cogvideox   # the kernel phases and the CogVideoX path
     python3 chip_smoke.py --path tea_fp8 --path changing_resolution   # caching, changing resolution
+    python3 chip_smoke.py --path offload_stream_fp8 --path offload_lazy_i2v   # the offload tiers
 
 1. Prints the card's name and power limit, builds every CUDA kernel of the
    port from ``lightx2v_tpu_torch/csrc`` (one nvcc per source, in parallel)
@@ -90,6 +91,33 @@
    Cut: steps 24 (phase A), 25 (the low-resolution forward, x0, trilinear
    resize, re-noise) and 26 (phase B, a fresh UniPC at shift 10), each at
    the file's timestep: three forwards.
+12. Offload, host-RAM tier (``offload_stream_fp8``):
+   ``configs/bench/lightx2v_5_distill.json`` as it is at the 14B widths (fp8
+   W8A8, dense flash self-attention with RoPE in torch, no CFG, its 4
+   distill steps, ``weight_streaming``): the fp8 DiT is made on the card,
+   packed block by block into pinned host memory, and streamed through two
+   device slots on a copy stream each step.
+13. Offload, disk tier (``offload_lazy_i2v``):
+   ``configs/offload/wan_i2v_disk_lazy_480p.json`` as it is, with
+   ``dit_quantized_ckpt``, ``model_path`` and ``image_path`` pointed at
+   files the script writes (about 29 GB, in the system temp directory or
+   the repo's ``build/``, whichever has room; else the DiT's depth is cut
+   to what fits, full width kept, and printed): the full-width i2v DiT made
+   as a reference-key bf16 dict on the card, a rank-32 LoRA over every
+   block linear folded in by the converter, int8 on the card, the blocks
+   layout; the bf16 UMT5-XXL, CLIP and VAE ``.pth`` files. Every file is
+   fsynced and its pages dropped (``posix_fadvise``), and each block file's
+   again after each read, so every step reads its blocks from the disk.
+   The runner loads from those files (the T5 quantized to int8 at load),
+   with the synthetic tokenizer set on its encoder, and runs the first 2 of
+   the file's 40 UniPC steps (CFG at batch 2, sage, int8) through its step
+   window; the directory is deleted afterwards.
+   Before each of the two paths' counted runs, the step-0 prediction of the
+   offloaded forward is held bit for bit against the resident forward on
+   the same weights and inputs. Their lines add the load seconds per
+   component, stall ms, H2D and disk GB/s per step, the peak device memory
+   after each stage, the host's available RAM and peak RSS (``VmHWM``), and
+   the pinned GB.
 
 The kernel phases also hold and time the fused-RoPE flash kernel at
 changing resolution's phase A, (2, 18,018, 40, 128) with a 98-row last
@@ -197,8 +225,15 @@ CACHED = {
     "ada_1_3b": ("configs/caching/adacache/wan_t2v_ada.json", WAN1_3B, "ada", 4),
     "custom_1_3b": ("configs/caching/custom/wan_t2v_custom_1_3b.json", WAN1_3B, "tea", 7),
 }
+# the offload tiers: the host-RAM tier on the reference's LightX2V_5-Distill row (fp8, weight streaming) and the
+# disk tier on the lazy i2v config, run from checkpoint files this script writes (about 29 GB at 40 blocks)
+STREAM_JSON = "configs/bench/lightx2v_5_distill.json"
+LAZY_JSON = "configs/offload/wan_i2v_disk_lazy_480p.json"
+LAZY_STEPS = 2  # of the file's 40 UniPC steps
+LORA_RANK = 32
 PATHS = ("slice", "flagship", "base", "radial_bsr", "radial_two_pass", "fp8_distill", "i2v", "cogvideox",
-         "tea_fp8", "changing_resolution", "taylorseer_1_3b", "taylorws_1_3b", "ada_1_3b", "custom_1_3b")
+         "tea_fp8", "changing_resolution", "taylorseer_1_3b", "taylorws_1_3b", "ada_1_3b", "custom_1_3b",
+         "offload_stream_fp8", "offload_lazy_i2v")
 
 
 def card_line() -> str:
@@ -1432,6 +1467,8 @@ def expected_launches(runner, cfg, forwards=None) -> dict:
     steps = len(cfg["denoising_step_list"]) if cfg["model_cls"] == "wan2.1_distill" else int(cfg["infer_steps"])
     if forwards is not None:
         steps = forwards
+    elif runner.step_window is not None:
+        steps = runner.step_window[1]
     out = {k: 0 for k in launch_counts()}
     calls = L * steps  # one per block and forward (CFG doubles the batch, not the calls)
     mm_type = (cfg.get("mm_config") or {}).get("mm_type", "Default")
@@ -1450,8 +1487,9 @@ def expected_launches(runner, cfg, forwards=None) -> dict:
     elif mm_type != "Default":  # Default: the bf16 linears are torch.mm, no kernel of the port
         raise AssertionError(f"no launch model for mm_type {mm_type}")
     if cfg.get("t5_quantized"):
-        # T5: q/k/v/o/gate/fc1 full-K (K = 4096), fc2 k-blocked (K = 10,240), in the T5's kind
-        t5_layers = runner.text_encoder.cfg.num_layers
+        # T5: q/k/v/o/gate/fc1 full-K (K = 4096), fc2 k-blocked (K = 10,240), in the T5's kind; under CFG it
+        # encodes the prompt and the negative prompt
+        t5_layers = runner.text_encoder.cfg.num_layers * (2 if cfg.get("enable_cfg", True) else 1)
         sfx = "" if "int8" in str(cfg.get("t5_quant_scheme", "int8")) else "_fp8"
         out["w8a8_matmul_fullk" + sfx] += (len(T5_LINEARS) - 1) * t5_layers
         out["w8a8_matmul" + sfx] += t5_layers
@@ -1471,8 +1509,10 @@ def expected_launches(runner, cfg, forwards=None) -> dict:
             out["flash_attention_with_lse"] = (1 + FRAMES) * calls  # the near pass, then one far call per frame
         else:
             out["block_sparse_attention_shared"] = calls
-    else:
+    elif runner.arch.rope_fused:
         out["flash_attention_fused_rope"] = calls
+    else:  # RoPE in torch, then the dense kernel
+        out["flash_attention"] += calls
     out["rope_rotate"] = out["flash_attention_fused_rope"]  # one RoPE pass a fused-RoPE call
     return out
 
@@ -1547,12 +1587,312 @@ def plan_cut(name: str, runner):
     raise AssertionError(f"{name}: the Tea series {text} has no {count}-step window with a calc and a skip step")
 
 
+def host_memory() -> dict:
+    """The host's available RAM and this process's peak resident set (GB):
+    ``VmHWM`` of ``/proc/self/status``, or ``getrusage``'s ``ru_maxrss``
+    where the kernel does not report it."""
+    import resource
+
+    info = dict(line.split(":", 1) for line in Path("/proc/meminfo").read_text().splitlines())
+    status = dict(line.split(":", 1) for line in Path("/proc/self/status").read_text().splitlines())
+    kb, src = ((int(status["VmHWM"].split()[0]), "VmHWM") if "VmHWM" in status
+               else (resource.getrusage(resource.RUSAGE_SELF).ru_maxrss, "ru_maxrss"))
+    return {"host_available_gb": int(info["MemAvailable"].split()[0]) / 1e6, "peak_rss_gb": kb / 1e6,
+            "peak_rss_from": src}
+
+
+def drop_pages(path) -> None:
+    """fsync the script's own file and drop its pages from the page cache, so
+    that the next read of it comes from the disk."""
+    import os
+
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+
+
+def offload_stats(tm) -> dict:
+    """Per step: stall ms (the compute stream waiting for a block),
+    host-to-device GB/s over the copy stream's busy time, and for the disk
+    tier the GB read, the workers' read rate and the rate the step
+    sustained; the pinned host buffers."""
+    steps = tm["offload"]
+    out = {"stall_ms": [st["stall_ms"] for st in steps],
+           "h2d_gb": [st["h2d_bytes"] / 1e9 for st in steps],
+           "h2d_gb_s": [st["h2d_bytes"] / 1e6 / st["h2d_ms"] if st["h2d_ms"] else None for st in steps],
+           "pinned_gb": tm["host_buffer_gb"]}
+    if "disk_bytes" in steps[0]:
+        out.update(disk_gb=[st["disk_bytes"] / 1e9 for st in steps],
+                   disk_worker_gb_s=[st["disk_bytes"] / 1e9 / st["disk_read_s"] if st["disk_read_s"] else None
+                                     for st in steps],
+                   disk_sustained_gb_s=[st["disk_bytes"] / 1e9 / s for st, s in zip(steps, tm["step_s"])],
+                   fetch_wait_s=[st["fetch_wait_s"] for st in steps])
+    return out
+
+
+def offload_step0_check(runner) -> dict:
+    """The step-0 prediction of the offloaded forward against the resident
+    forward on the same weights and inputs (seeded latents, context, and
+    for i2v y and CLIP tokens; CFG as the runner's batch 2): the same kernels
+    in the same order, so bit for bit."""
+    import torch
+
+    from lightx2v_tpu_torch.models.wan.model import wan_forward
+    from lightx2v_tpu_torch.models.wan.pipeline import rope_for_shape
+
+    arch, cfg = runner.arch, runner.config
+    shape = runner.set_target_shape()
+    sched = runner.init_scheduler()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    lat, t = sched.step_pre(sched.prepare(shape, g, device="cuda"))
+    batch = 2 if cfg.get("enable_cfg", True) else 1
+    lat, t = torch.cat([lat[None]] * batch), torch.cat([t] * batch)
+    ctx = (torch.randn((batch, TXT, arch.text_dim), generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    cond = {}
+    if arch.task == "i2v":
+        cond = dict(y=torch.randn((1, 20, *shape[1:]), generator=g, device="cuda").expand(batch, -1, -1, -1, -1),
+                    clip_fea=torch.randn((1, IMG, arch.clip_dim), generator=g, device="cuda").expand(batch, -1, -1))
+    cos, sin, _ = rope_for_shape(arch, shape, device="cuda")
+    attn, cross, kw = runner._self_attn_setup()
+
+    def forward(params):
+        out = wan_forward(params, lat, t, ctx, cos, sin, arch, mm_type=runner.mm_type, self_attn_type=attn,
+                          cross_attn_type=cross, self_attn_kwargs=kw, **cond)
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    with runner.dit_params() as (params, streamer):
+        streamed = forward(params)
+        stats = streamer.take_stats()
+    streamed_s = time.perf_counter() - t0
+    resident = dict(runner.model, blocks=resident_blocks(runner.model["blocks"]))
+    t0 = time.perf_counter()
+    ref = forward(resident)
+    resident_s = time.perf_counter() - t0
+    del resident
+    torch.cuda.empty_cache()
+    diff = float((streamed - ref).abs().max())
+    out = {"step0_bitwise_equal": bool(torch.equal(streamed, ref)), "step0_max_abs_diff": diff,
+           "step0_streamed_s": streamed_s, "step0_resident_s": resident_s, "step0_stall_ms": stats["stall_ms"]}
+    print(json.dumps({"offload_step0": out}), flush=True)
+    if not out["step0_bitwise_equal"]:
+        raise AssertionError(f"the offloaded step-0 prediction differs from the resident one by {diff}")
+    return out
+
+
+def resident_blocks(store) -> list:
+    """Every block of an offload store resident on the card, each its own
+    copy, built from the store's host buffers (the disk tier's read with
+    ``read_block``)."""
+    import torch
+
+    out = []
+    for i in range(store.num_blocks):
+        if hasattr(store, "read_block"):
+            buf = torch.empty(store.layout.nbytes, dtype=torch.uint8)
+            store.read_block(i, buf)
+        else:
+            buf = store.fetch(i)
+        out.append(store.block(i, store.layout.views(buf.to("cuda"))))
+    return out
+
+
+def t5_state_dict(params, cfg) -> dict:
+    """UMT5 params -> the reference's T5 encoder keys, all bf16 on the host."""
+    import torch
+
+    sd = {"token_embedding.weight": params["token_embedding"], "norm.weight": params["norm"]}
+    for i, b in enumerate(params["blocks"]):
+        p = f"blocks.{i}"
+        sd.update({f"{p}.norm1.weight": b["norm1"], f"{p}.norm2.weight": b["norm2"],
+                   f"{p}.pos_embedding.embedding.weight": b["rel_emb"],
+                   **{f"{p}.attn.{m}.weight": b[m] for m in "qkvo"},
+                   f"{p}.ffn.gate.0.weight": b["gate"], f"{p}.ffn.fc1.weight": b["fc1"],
+                   f"{p}.ffn.fc2.weight": b["fc2"]})
+    return {k: v.to("cpu", torch.bfloat16) for k, v in sd.items()}
+
+
+def clip_state_dict(params, arch) -> dict:
+    """CLIP vision params -> the reference's ``visual.*`` keys, bf16 on the
+    host, plus one ``textual`` key, which the loader must skip."""
+    import torch
+
+    d, p = arch.dim, arch.patch_size
+    sd = {"visual.patch_embedding.weight": params["patch"].reshape(d, 3, p, p),
+          "visual.cls_embedding": params["cls"].reshape(1, 1, d),
+          "visual.pos_embedding": params["pos"].reshape(1, -1, d),
+          "visual.pre_norm.weight": params["pre_norm"]["w"], "visual.pre_norm.bias": params["pre_norm"]["b"],
+          "textual.token_embedding.weight": torch.zeros((8, d))}
+    for i, b in enumerate(params["blocks"]):
+        k = f"visual.transformer.{i}"
+        sd.update({f"{k}.norm1.weight": b["norm1"]["w"], f"{k}.norm1.bias": b["norm1"]["b"],
+                   f"{k}.attn.to_qkv.weight": b["qkv_w"], f"{k}.attn.to_qkv.bias": b["qkv_b"],
+                   f"{k}.attn.proj.weight": b["proj_w"], f"{k}.attn.proj.bias": b["proj_b"],
+                   f"{k}.norm2.weight": b["norm2"]["w"], f"{k}.norm2.bias": b["norm2"]["b"],
+                   f"{k}.mlp.0.weight": b["fc1_w"], f"{k}.mlp.0.bias": b["fc1_b"],
+                   f"{k}.mlp.2.weight": b["fc2_w"], f"{k}.mlp.2.bias": b["fc2_b"]})
+    return {k: v.to("cpu", torch.bfloat16) for k, v in sd.items()}
+
+
+def write_i2v_checkpoint(root: Path, layers: int) -> dict:
+    """The lazy i2v path's files under ``root``: ``model/`` with the Wan i2v
+    ``config.json`` and the T5 (bf16 UMT5-XXL), CLIP and VAE ``.pth`` files;
+    ``dit_int8_blocks/`` from the converter: the full-width i2v DiT made as a
+    reference-key bf16 dict on the card, a rank-32 LoRA over every block
+    linear folded in, int8 on the card, the blocks layout. Every file is
+    fsynced and its pages dropped; returns the write seconds and bytes."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from lightx2v_tpu_torch.encoders.clip import ClipVisionArch, init_random_clip_params_on_device
+    from lightx2v_tpu_torch.encoders.t5 import UMT5_XXL, init_random_t5_params_on_device
+    from lightx2v_tpu_torch.models.wan.config import PRESETS, WanArch
+    from lightx2v_tpu_torch.models.wan.weights import init_random_weight_dict_on_device
+    from lightx2v_tpu_torch.tools.convert import apply_lora, quantize_model, save_quantized
+    from lightx2v_tpu_torch.vae.wan_vae import WanVAEConfig, init_random_vae_state_dict
+
+    model, dit = root / "model", root / "dit_int8_blocks"
+    model.mkdir(parents=True)
+    arch = WanArch(**dict(PRESETS["wan2.1_14b"], num_layers=layers), task="i2v", in_dim=36)
+    times = {}
+    t0 = time.perf_counter()
+    wd = init_random_weight_dict_on_device(arch, seed=11, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    lora = {}
+    for k, w in wd.items():
+        if k.startswith("blocks.") and k.endswith(".weight") and w.ndim == 2:
+            stem = "diffusion_model." + k[: -len(".weight")]
+            lora[f"{stem}.lora_A.weight"] = torch.randn((LORA_RANK, w.shape[1]), generator=g, device="cuda") * 0.02
+            lora[f"{stem}.lora_B.weight"] = torch.randn((w.shape[0], LORA_RANK), generator=g, device="cuda") * 0.02
+    torch.cuda.synchronize()
+    times["synthesize_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    applied = apply_lora(wd, lora, 1.0)
+    if applied != 12 * layers:
+        raise AssertionError(f"the LoRA folded into {applied} linears, not the {12 * layers} block linears")
+    q = quantize_model(wd, "int8")
+    del wd, lora
+    torch.cuda.synchronize()
+    times["lora_and_quantize_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_quantized(q, str(dit), "blocks", "int8")
+    del q
+    torch.cuda.empty_cache()
+    times["dit_write_s"] = time.perf_counter() - t0
+    (model / "config.json").write_text(json.dumps({
+        "model_type": "i2v", "dim": arch.dim, "ffn_dim": arch.ffn_dim, "freq_dim": arch.freq_dim, "in_dim": 36,
+        "num_heads": arch.num_heads, "num_layers": layers, "out_dim": arch.out_dim, "text_len": TXT,
+        "eps": arch.eps}))
+    t0 = time.perf_counter()
+    torch.save(t5_state_dict(init_random_t5_params_on_device(UMT5_XXL, seed=1, device="cuda"), UMT5_XXL),
+               model / "models_t5_umt5-xxl-enc-bf16.pth")
+    times["t5_write_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    clip_arch = ClipVisionArch()
+    torch.save(clip_state_dict(init_random_clip_params_on_device(clip_arch, seed=3, device="cuda"), clip_arch),
+               model / "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth")
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
+                init_random_vae_state_dict(WanVAEConfig(), seed=2).items()}, model / "Wan2.1_VAE.pth")
+    times["clip_vae_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    files = sorted(p for p in root.rglob("*") if p.is_file())
+    for f in files:
+        drop_pages(f)
+    times["fsync_s"] = time.perf_counter() - t0
+    sizes = {"dit_gb": sum(f.stat().st_size for f in dit.iterdir()) / 1e9,
+             "block_gb": (dit / "block_0.safetensors").stat().st_size / 1e9,
+             "t5_gb": (model / "models_t5_umt5-xxl-enc-bf16.pth").stat().st_size / 1e9,
+             "files_gb": sum(f.stat().st_size for f in files) / 1e9}
+    written = {**times, **sizes, "write_gb_s": sizes["files_gb"] / sum(times[k] for k in times if "write" in k
+                                                                       or k == "fsync_s"),
+               "lora_linears": applied, "layers": layers}
+    print(json.dumps({"offload_lazy_i2v_write": written}), flush=True)
+    return written
+
+
+def pick_checkpoint_dir():
+    """(a directory for the lazy path's files, the DiT depth that fits it):
+    the system temp directory, or the repo's git-ignored ``build/``, the
+    first with room for the 40-block files; else the roomier one at the
+    depth that fits (full width kept)."""
+    import shutil
+
+    block_gb, other_gb, margin_gb = 0.404, 11.4 + 1.3 + 0.6 + 0.2, 2.0
+    need = lambda layers: (layers * block_gb + other_gb + margin_gb) * 1e9  # noqa: E731
+    cands = [Path(tempfile.gettempdir()), ROOT / "build"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    free = {str(c): shutil.disk_usage(c).free for c in cands}
+    print(json.dumps({"disk_free_gb": {k: v / 1e9 for k, v in free.items()}, **host_memory(), "card": card_line()}),
+          flush=True)
+    for c in cands:
+        if free[str(c)] >= need(40):
+            return c, 40
+    best = max(cands, key=lambda c: free[str(c)])
+    layers = int((free[str(best)] / 1e9 - other_gb - margin_gb) // block_gb)
+    if layers < 1:
+        raise AssertionError(f"no directory holds the lazy path's files: {free}")
+    print(json.dumps({"offload_lazy_i2v_depth_cut": layers}), flush=True)
+    return best, layers
+
+
+def run_offload_lazy(profile_dir=None):
+    """The disk tier on ``configs/offload/wan_i2v_disk_lazy_480p.json`` as it
+    is, from files this script writes, with ``dit_quantized_ckpt``,
+    ``model_path`` and ``image_path`` pointed at them; cut to the first
+    ``LAZY_STEPS`` steps through the runner's step window. The block files'
+    pages are dropped after each read, so every step reads its blocks from
+    the disk, as on a host that cannot cache the DiT."""
+    import shutil
+
+    from lightx2v_tpu_torch.runners.wan_runner import _SyntheticTokenizer
+    from lightx2v_tpu_torch.utils.config import set_config
+
+    base, layers = pick_checkpoint_dir()
+    root = Path(tempfile.mkdtemp(prefix="lazy_i2v_", dir=base))
+    try:
+        written = write_i2v_checkpoint(root, layers)
+        cfg = json.loads((ROOT / LAZY_JSON).read_text())
+        cfg.update(model_cls="wan2.1", task="i2v", device="cuda", seed=42, release_modules=True,
+                   prompt="a red panda climbing a bamboo tree in the rain",
+                   dit_quantized_ckpt=str(root / "dit_int8_blocks"), model_path=str(root / "model"),
+                   image_path=write_image(str(root / "i2v_input.png")))
+        cfg = set_config(cfg)
+
+        def before(runner):
+            runner.text_encoder.tokenizer = _SyntheticTokenizer(TXT, runner.text_encoder.cfg.vocab_size)
+            runner.step_window = (0, LAZY_STEPS)
+            store = runner.model["blocks"]
+            read = store.read_block
+
+            def read_from_disk(i, buf):
+                n = read(i, buf)
+                drop_pages(store.paths[i])
+                return n
+
+            store.read_block = read_from_disk
+            check = offload_step0_check(runner)
+            return {"write": written, **check}
+
+        return run_path("offload_lazy_i2v", {}, profile_dir, cfg=cfg, before=before)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan2.1_distill",
-             config_json: str = DEPLOY_JSON, steps=None, cut: bool = False):
-    """Synthesize the path's weights on the card, zero the counters, run the
-    pipeline once (its first ``steps`` denoise steps where given; with
-    ``cut``, the window of ``plan_cut``), and check the counts and the
-    frames; a cut path also its calc and skip steps."""
+             config_json: str = DEPLOY_JSON, steps=None, cut: bool = False, cfg=None, before=None):
+    """Synthesize the path's weights on the card (or load what ``cfg``, a
+    prepared config, names), zero the counters, run the pipeline once (its
+    first ``steps`` denoise steps where given; with ``cut``, the window of
+    ``plan_cut``), and check the counts and the frames; a cut path also its
+    calc and skip steps. ``before(runner)`` runs after loading, outside the
+    counted run, and returns entries for the path's line."""
     import gc
 
     import numpy as np
@@ -1563,17 +1903,22 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
     from lightx2v_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from lightx2v_tpu_torch.utils.config import set_config
 
-    cfg = set_config(dict(model_cls=model_cls, task="t2v", device="cuda", synthetic_weights=True,
-                          config_json=str(ROOT / config_json),
-                          prompt="a red panda climbing a bamboo tree in the rain", seed=42,
-                          release_modules=True))
-    cfg.update(overrides)
+    if cfg is None:
+        cfg = set_config(dict(model_cls=model_cls, task="t2v", device="cuda", synthetic_weights=True,
+                              config_json=str(ROOT / config_json),
+                              prompt="a red panda climbing a bamboo tree in the rain", seed=42,
+                              release_modules=True))
+        cfg.update(overrides)
     print(f"[{name}] device memory in use before loading: {torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     runner = infer.init_runner(cfg)
-    print(f"[{name}] synthesized weights on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    load_peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{name}] loaded in {time.perf_counter() - t0:.1f} s, device peak while loading {load_peak:.2f} GB",
+          flush=True)
     if steps is not None:
         first_steps(runner, steps)
+    extra = before(runner) if before is not None else {}
     want_calc = None
     if cut:
         runner.step_window, want_calc = plan_cut(name, runner)
@@ -1619,7 +1964,7 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
     stats = {"encode_s": tm["encode_s"], **{k: tm[k] for k in ("t5_s", "clip_s", "vae_encode_s") if k in tm},
              "denoise_step_s": [float(x) for x in tm["step_s"]],
              "dit_s": tm["dit_s"], "decode_s": tm["decode_s"], "e2e_s": total, "steps": len(tm["step_s"]),
-             "peak_mem_gb": peak,
+             "load_peak_mem_gb": load_peak, "peak_mem_gb": peak,
              # the first stage (or encode part) after which the peak so far reached the run's peak
              "peak_stage": next((k for k, v in tm["mem_gb"].items() if v >= peak), None),
              "frames": list(frames.shape), "frames_mean_abs": float(np.abs(frames).mean())}
@@ -1631,6 +1976,10 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
     if selected:
         stats["sparge_calls"] = len(selected)
         stats["sparge_selected_blocks"] = int(torch.stack(selected).sum())
+    if "offload" in tm:
+        stats.update(offload_stats(tm), **host_memory(), load_parts_s=tm["load_parts_s"],
+                     load_mem_gb_by_part=tm["load_mem_gb"], mem_gb_by_stage=tm["mem_gb"])
+    stats.update(extra)
     print(json.dumps({name: stats}), flush=True)
     if profile_dir:
         profile_run(runner, profile_dir, name)
@@ -1784,6 +2133,11 @@ def main():
         config_json, widths = (CR_JSON, WAN14B) if name == "changing_resolution" else CACHED[name][:2]
         by_path[name] = run_path(name, dict(widths, negative_prompt=NEG), args.profile, model_cls="wan2.1",
                                  config_json=config_json, cut=True)
+    if "offload_stream_fp8" in paths:
+        by_path["offload_stream_fp8"] = run_path("offload_stream_fp8", WAN14B, args.profile,
+                                                 config_json=STREAM_JSON, before=offload_step0_check)
+    if "offload_lazy_i2v" in paths:
+        by_path["offload_lazy_i2v"] = run_offload_lazy(args.profile)
     for r in rows:
         r["launches_by_path"] = {p: c.get(r["name"], 0) for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

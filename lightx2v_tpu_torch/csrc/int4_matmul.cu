@@ -9,7 +9,7 @@
 // accumulation (w's int4 values -8..7 are exact in bf16) and the per-group
 // rescale and the sum over groups in fp32. An optional bias is added after
 // that first rounding, in fp32, and the sum rounded to bf16 again, as the
-// linear layer around the TPU kernel does. Weights arrive as quantize_int4
+// linear layer around the TPU kernel does. Weights arrive as quantize_int4_weight
 // writes them: row n of w is K/2 bytes; within each group of `group`
 // columns, byte j holds column j in its low nibble and column j + group/2 in
 // its high nibble, both stored +8.

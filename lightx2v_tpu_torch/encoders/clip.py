@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from ..models.wan.weights import to_tensor
 from ..ops.linear import nt_dot_f32, resolve_mm
 from ..ops.norms import layer_norm
-from ..tools.convert import fp8_bits_to_tensor, quantize_tensor
+from ..tools.convert import quantize_weight
+from ..utils.safetensors_io import read_state_dict
 from ..utils.image import resize_bicubic
 
 Params = Dict[str, Any]
@@ -148,10 +149,8 @@ def quantize_clip_params(params: Params, scheme: str = "int8") -> Params:
     for blk in params["blocks"]:
         blk = dict(blk)
         for name in CLIP_LINEARS:
-            w = blk[name]
-            q, s = quantize_tensor(w.float().cpu().numpy(), scheme)
-            q = fp8_bits_to_tensor(q) if scheme == "fp8" else torch.from_numpy(q)
-            blk[name] = {"w": q.to(w.device), "w_scale": torch.from_numpy(s).to(w.device)}
+            q, s = quantize_weight(blk[name], scheme)
+            blk[name] = {"w": q, "w_scale": s}
         blocks.append(blk)
     return dict(params, blocks=blocks)
 
@@ -220,13 +219,25 @@ def preprocess_image(img: np.ndarray, image_size: int = 224) -> np.ndarray:
     return ((x - CLIP_MEAN) / CLIP_STD)[None]
 
 
-class CLIPVisionModel:
-    """Image -> CLIP tokens (the reference ``CLIPModel.visual``)."""
+def load_clip_from_path(path: str, arch: ClipVisionArch = ClipVisionArch(), device="cpu") -> Params:
+    """The reference's ``models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth``
+    (or a ``.safetensors`` with its keys) -> vision params on ``device``;
+    the text tower's ``textual`` keys are skipped, as the JAX loader skips
+    them."""
+    sd = {k: v for k, v in read_state_dict(path).items() if "textual" not in k}
+    return load_clip_vision_params(sd, arch, device=device)
 
-    def __init__(self, arch: ClipVisionArch = ClipVisionArch(), params: Optional[Params] = None):
+
+class CLIPVisionModel:
+    """Image -> CLIP tokens (the reference ``CLIPModel.visual``), from
+    ``params`` or a ``checkpoint_path``."""
+
+    def __init__(self, arch: ClipVisionArch = ClipVisionArch(), params: Optional[Params] = None,
+                 checkpoint_path: Optional[str] = None, device="cpu"):
         if params is None:
-            raise NotImplementedError("CLIP checkpoint loading is not ported yet (ROADMAP.md, Queue 1 item 8); "
-                                      "pass params (e.g. synthetic weights)")
+            if checkpoint_path is None:
+                raise ValueError("CLIPVisionModel needs params or checkpoint_path")
+            params = load_clip_from_path(checkpoint_path, arch, device=device)
         self.arch = arch
         self.params = params
 

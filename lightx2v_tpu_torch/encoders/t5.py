@@ -9,6 +9,7 @@ fp8 matmul path; attention is plain einsum/softmax in fp32."""
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
@@ -18,7 +19,8 @@ import torch.nn.functional as F
 
 from ..models.wan.weights import to_tensor
 from ..ops.linear import nt_dot_f32, resolve_mm
-from ..tools.convert import fp8_bits_to_tensor, quantize_tensor
+from ..tools.convert import quantize_weight
+from ..utils.safetensors_io import read_state_dict
 
 Params = Dict[str, Any]
 
@@ -217,38 +219,64 @@ def init_random_t5_params_on_device(cfg: T5Config = UMT5_XXL, seed: int = 0, sca
     return {"token_embedding": nrm((cfg.vocab_size, d)), "blocks": blocks, "norm": ones()}
 
 
-def quantize_t5_params(params: Params, scheme: str = "int8") -> Params:
+def quantize_t5_params(params: Params, scheme: str = "int8", device=None) -> Params:
     """Quantize the seven block linears per output channel to int8 or e4m3
-    codes (the JAX package's ``quantize_t5_params``): each becomes
-    ``{"w", "w_scale"}``."""
+    codes (``tools/convert.quantize_weight``, equal to the JAX package's
+    numpy quantizer): each becomes ``{"w", "w_scale"}``. Runs where the
+    params lie, or with ``device`` moves every tensor there one at a time,
+    quantizing on the way, so params loaded on the host reach the card
+    already quantized."""
     if scheme not in ("int8", "fp8"):
         raise NotImplementedError(f"T5 quant scheme {scheme!r} is not ported yet (ROADMAP.md, Queue 1 item 12)")
+
+    def to(t):
+        return t if device is None else t.to(device)
+
     blocks = []
-    for blk in params["blocks"]:
-        blk = dict(blk)
+    for src in params["blocks"]:
+        blk = {k: to(v) for k, v in src.items() if k not in T5_LINEARS}
         for name in T5_LINEARS:
-            w = blk[name]
-            q, s = quantize_tensor(w.float().cpu().numpy(), scheme)
-            q = fp8_bits_to_tensor(q) if scheme == "fp8" else torch.from_numpy(q)
-            blk[name] = {"w": q.to(w.device), "w_scale": torch.from_numpy(s).to(w.device)}
+            q, s = quantize_weight(to(src[name]), scheme)
+            blk[name] = {"w": q, "w_scale": s}
         blocks.append(blk)
-    return dict(params, blocks=blocks)
+    return dict(params, token_embedding=to(params["token_embedding"]), norm=to(params["norm"]), blocks=blocks)
+
+
+def load_t5_from_path(path: str, cfg: T5Config = UMT5_XXL, device="cpu") -> Params:
+    """The reference's ``models_t5_umt5-xxl-enc-bf16.pth`` (or a
+    ``.safetensors`` with its keys) -> params on ``device``."""
+    return load_t5_params(read_state_dict(path), cfg, device=device)
 
 
 class T5EncoderModel:
-    """Tokenize -> encode -> per-prompt contexts."""
+    """Tokenize -> encode -> per-prompt contexts. ``tokenizer`` is
+    injectable (a callable ``(texts, return_mask=True) -> (ids, mask)``);
+    without one, ``tokenizer_path`` names the HF tokenizer files."""
 
-    def __init__(self, text_len: int, cfg: T5Config = UMT5_XXL, params: Optional[Params] = None):
+    def __init__(self, text_len: int, cfg: T5Config = UMT5_XXL, params: Optional[Params] = None,
+                 checkpoint_path: Optional[str] = None, tokenizer_path: Optional[str] = None, device="cpu"):
         if params is None:
-            raise NotImplementedError("T5 checkpoint loading is not ported yet (ROADMAP.md, Queue 1 item 6); "
-                                      "pass params (e.g. synthetic weights)")
+            if checkpoint_path is None:
+                raise ValueError("T5EncoderModel needs params or checkpoint_path")
+            params = load_t5_from_path(checkpoint_path, cfg, device=device)
         self.text_len = text_len
         self.cfg = cfg
         self.params = params
+        self.tokenizer_path = tokenizer_path
         self.tokenizer = None
 
     def infer(self, texts) -> torch.Tensor:
-        if self.tokenizer is None:
-            raise NotImplementedError("the HF tokenizer path is not ported yet (ROADMAP.md, Queue 1 item 6)")
-        ids, mask = self.tokenizer(texts, return_mask=True)
-        return t5_encode(self.params, torch.from_numpy(ids), torch.from_numpy(mask), self.cfg)
+        if self.tokenizer is not None:
+            ids, mask = self.tokenizer(texts, return_mask=True)
+        else:
+            from .tokenizer import encode_prompts
+
+            missing = RuntimeError(f"no tokenizer: set T5EncoderModel.tokenizer, or provide transformers and the "
+                                   f"tokenizer files in {self.tokenizer_path!r} (ROADMAP.md, Queue 1 item 6)")
+            if not (self.tokenizer_path and os.path.isdir(self.tokenizer_path)):
+                raise missing
+            try:
+                ids, mask = encode_prompts(self.tokenizer_path, texts, self.text_len)
+            except (ImportError, OSError) as e:
+                raise missing from e
+        return t5_encode(self.params, torch.from_numpy(np.asarray(ids)), torch.from_numpy(np.asarray(mask)), self.cfg)

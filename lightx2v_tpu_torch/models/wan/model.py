@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from ...ops.attention import attention
 from ...ops.linear import mm_ffn, resolve_mm
 from ...ops.norms import layer_norm, modulated_layer_norm, rms_norm
-from ...ops.rope import apply_rope, sinusoidal_embedding_1d
+from ...ops.rope import apply_rope, guidance_scale_embedding, sinusoidal_embedding_1d
 from .config import WanArch
 
 Params = Dict[str, Any]
@@ -42,10 +42,15 @@ def unpatchify(x: torch.Tensor, grid, patch, out_dim: int) -> torch.Tensor:
     return x.reshape(b, out_dim, f * pt, h * ph, w * pw)
 
 
-def time_embeddings(params: Params, t: torch.Tensor, arch: WanArch):
-    """timestep (B,) -> (embed (B, D) fp32, embed0 (B, 6, D) fp32)."""
+def time_embeddings(params: Params, t: torch.Tensor, arch: WanArch, cfg_scale: Optional[torch.Tensor] = None):
+    """timestep (B,) -> (embed (B, D) fp32, embed0 (B, 6, D) fp32). With
+    ``cfg_scale`` (B,) and a checkpoint's ``cfg_cond_proj`` (dynamic-CFG
+    distilled models), the projected guidance-scale embedding joins the
+    timestep's."""
     mm = resolve_mm("Default-Force-FP32")
     sin_emb = sinusoidal_embedding_1d(arch.freq_dim, t)
+    if cfg_scale is not None and "cfg_cond_proj" in params:
+        sin_emb = sin_emb + mm(params["cfg_cond_proj"], guidance_scale_embedding(cfg_scale, 256))
     e = F.silu(mm(params["time_embedding"]["0"], sin_emb))
     embed = mm(params["time_embedding"]["2"], e)
     e0 = mm(params["time_projection"]["1"], F.silu(embed))
@@ -171,7 +176,7 @@ def wan_head(params: Params, x: torch.Tensor, embed: torch.Tensor, arch: WanArch
 
 def wan_pre_process(params: Params, latents: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
                     arch: WanArch, y: Optional[torch.Tensor] = None, clip_fea: Optional[torch.Tensor] = None,
-                    seq_len: Optional[int] = None):
+                    seq_len: Optional[int] = None, cfg_scale: Optional[torch.Tensor] = None):
     """Patchify + embeddings. Returns (x, embed, embed0, ctx, ctx_img, grid,
     s_tokens). Pre/post layers always run the Default GEMM."""
     pt, ph, pw = arch.patch_size
@@ -183,7 +188,7 @@ def wan_pre_process(params: Params, latents: torch.Tensor, t: torch.Tensor, cont
     s_tokens = x.shape[1]
     if seq_len is not None and seq_len > s_tokens:
         x = F.pad(x, (0, 0, 0, seq_len - s_tokens))
-    embed, embed0 = time_embeddings(params, t, arch)
+    embed, embed0 = time_embeddings(params, t, arch, cfg_scale)
     ctx = text_embeddings(params, context, mm_fn)
     ctx_img = None
     if clip_fea is not None and "img_emb" in params:
@@ -203,12 +208,13 @@ def wan_forward(params: Params, latents: torch.Tensor, t: torch.Tensor, context:
                 y: Optional[torch.Tensor] = None, clip_fea: Optional[torch.Tensor] = None,
                 mm_type: str = "Default", self_attn_type: str = "flash_attn3",
                 cross_attn_type: str = "flash_attn3", seq_len: Optional[int] = None,
-                self_attn_kwargs: Optional[dict] = None) -> torch.Tensor:
+                self_attn_kwargs: Optional[dict] = None, cfg_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full DiT forward: latents (B, C, F, H, W) + timestep (B,) + context
     (B, Lt, text_dim) -> flow prediction (B, out_dim, F, H, W) fp32. i2v
     adds ``y`` (B, 4 + z, F, H, W) and ``clip_fea`` (B, 257, clip_dim)."""
     x, embed, embed0, ctx, ctx_img, grid, s_tokens = wan_pre_process(params, latents, t, context, arch, y=y,
-                                                                      clip_fea=clip_fea, seq_len=seq_len)
+                                                                      clip_fea=clip_fea, seq_len=seq_len,
+                                                                      cfg_scale=cfg_scale)
     if seq_len is not None and seq_len > s_tokens:
         self_attn_kwargs = dict(self_attn_kwargs or {})
         self_attn_kwargs.setdefault("kv_len", s_tokens)
@@ -224,7 +230,7 @@ def wan_forward_cfg(params: Params, latents: torch.Tensor, t: torch.Tensor, cont
     rows, then uncond rows): ``uncond + guide_scale * (cond - uncond)``.
     The i2v ``y`` and ``clip_fea`` double with the batch."""
     b = latents.shape[0]
-    for key in ("y", "clip_fea"):
+    for key in ("y", "clip_fea", "cfg_scale"):
         if kw.get(key) is not None:
             kw[key] = torch.cat([kw[key], kw[key]])
     out = wan_forward(params, torch.cat([latents, latents]), torch.cat([t, t]),

@@ -66,7 +66,7 @@ def rope_for_shape(arch: WanArch, target_shape, sp_pad: int = 1, device="cpu"):
 
 
 def tea_mod_series(params, arch: WanArch, scheduler, tea_cfg: TeaCacheConfig, batch: int, n: int,
-                   device="cpu") -> np.ndarray:
+                   device="cpu", cfg_scale: Optional[torch.Tensor] = None) -> np.ndarray:
     """(n, batch, ...) fp32 host array: what Tea decides on (``embed``, or
     ``embed0`` under ``use_ret_steps``) at steps 0..n-1 of the prepared
     scheduler, computed as each step computes it (batch rows of one
@@ -74,7 +74,7 @@ def tea_mod_series(params, arch: WanArch, scheduler, tea_cfg: TeaCacheConfig, ba
     mods = []
     for i in range(n):
         t = torch.full((batch,), float(scheduler.timesteps[i]), dtype=torch.float32, device=device)
-        embed, embed0 = time_embeddings(params, t, arch)
+        embed, embed0 = time_embeddings(params, t, arch, cfg_scale)
         mods.append(embed0 if tea_cfg.use_ret_steps else embed)
     return torch.stack(mods).cpu().numpy()
 
@@ -83,7 +83,8 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
                     guide_scale: float = 5.0, mm_type: str = "Default", self_attn_type: str = "flash_attn3",
                     cross_attn_type: str = "flash_attn3", feature_caching: str = "NoCaching",
                     caching_config=None, num_steps: Optional[int] = None,
-                    self_attn_kwargs: Optional[dict] = None, device="cpu"):
+                    self_attn_kwargs: Optional[dict] = None, device="cpu",
+                    cfg_scale_embed: Optional[float] = None):
     """Build ``denoise(params, state, context, generator, noises=None,
     on_step=None, context_null=None, y=None, clip_fea=None) -> final state``
     running ``num_steps`` steps (default: the rest of the schedule) from the
@@ -93,11 +94,18 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
     uncond) on ``context`` and ``context_null``, ``y`` and ``clip_fea`` (the
     i2v conditioning) doubled with the batch. ``caching_config`` holds the
     caching keys (``teacache_thresh``, ``coefficients``, ``use_ret_steps``,
-    ``tea_cache_dtype``, ``taylor_cache_dtype``, ``ada_metric_scale``)."""
+    ``tea_cache_dtype``, ``taylor_cache_dtype``, ``ada_metric_scale``).
+    ``cfg_scale_embed`` (``enable_dynamic_cfg``) feeds that guidance scale
+    to every forward's time embedding (a checkpoint's ``cfg_cond_proj``).
+    ``params["blocks"]`` may be any iterable of blocks with a length: a
+    list, or an offload tier's streamer (``models/wan/streaming.py``)."""
     if feature_caching not in CACHING_MODES:
         raise ValueError(f"feature_caching {feature_caching!r} is not one of {CACHING_MODES}")
     rope_cos, rope_sin, seq_len = rope_for_shape(arch, target_shape, device=device)
     batch = 2 if enable_cfg else 1
+    cfg_vec = None
+    if cfg_scale_embed is not None:
+        cfg_vec = torch.full((batch,), float(cfg_scale_embed), dtype=torch.float32, device=device)
     cc = caching_config if caching_config is not None else {}
     tea_cfg = None
     if feature_caching in ("Tea", "Custom"):
@@ -164,7 +172,8 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
             c2 = None if clip_fea is None else torch.cat([clip_fea, clip_fea])
         tea_plan = None
         if tea_cfg is not None:
-            mods = tea_mod_series(params, arch, scheduler, tea_cfg, batch, first + n, device=device)
+            mods = tea_mod_series(params, arch, scheduler, tea_cfg, batch, first + n, device=device,
+                                  cfg_scale=cfg_vec)
             tea_plan = tea_decision_series(mods, tea_cfg, per_side=per_side)[first:]
         if first > 0 and n > 0:
             starts = tea_plan[0] if tea_plan is not None else True
@@ -222,7 +231,8 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
             if enable_cfg:
                 lat, tb = torch.cat([lat, lat]), torch.cat([t, t])
             x, embed, embed0, ctx_e, ctx_img, grid, s_tokens = wan_pre_process(params, lat, tb, ctx2, arch, y=y2,
-                                                                                clip_fea=c2, seq_len=seq_len)
+                                                                                clip_fea=c2, seq_len=seq_len,
+                                                                                cfg_scale=cfg_vec)
             x, calc = branch(j, i, x, embed0, ctx_e, ctx_img)
             calc_steps.append(calc)
             out = wan_post_process(params, x, embed, grid, s_tokens, arch)

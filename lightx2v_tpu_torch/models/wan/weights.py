@@ -18,45 +18,27 @@ import numpy as np
 import torch
 
 from ...tools.convert import _pick_bk
+from ...utils.safetensors_io import as_tensor
 from .config import WanArch
 
 Params = Dict[str, Any]
 
 
-def _is_fp8_array(arr: np.ndarray) -> bool:
-    """An ``ml_dtypes`` float8_e4m3fn array (as the JAX package's
-    ``quantize_model(wd, "fp8")`` writes), recognised by name: the port does
-    not import ``ml_dtypes``."""
-    return arr.dtype.name == "float8_e4m3fn"
-
-
 def to_tensor(a, dtype: Optional[torch.dtype], device) -> torch.Tensor:
-    """numpy (incl. bf16-typed arrays) or torch -> tensor on ``device``.
-    Integer and float8_e4m3fn arrays keep their dtype when ``dtype`` is None
-    (an e4m3 array crosses as its bytes, viewed as torch.float8_e4m3fn)."""
-    if isinstance(a, torch.Tensor):
-        t = a
-    else:
-        arr = np.asarray(a)
-        if _is_fp8_array(arr):
-            t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint8)).view(torch.float8_e4m3fn)
-        else:
-            if arr.dtype.kind not in "iubf":  # e.g. bfloat16-typed numpy arrays
-                arr = arr.astype(np.float32)
-            t = torch.from_numpy(np.ascontiguousarray(arr))
+    """numpy (incl. the JAX package's bf16 and float8_e4m3fn arrays, carried
+    as their bytes) or torch -> tensor on ``device``; integer and
+    float8_e4m3fn weights keep their dtype when ``dtype`` is None."""
+    t = as_tensor(a)
     return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device=device)
 
 
 def _is_packed_int4(w) -> bool:
-    return (w.dtype == torch.uint8) if isinstance(w, torch.Tensor) else (np.asarray(w).dtype == np.uint8)
+    return as_tensor(w).dtype == torch.uint8
 
 
 def _is_quantized(w) -> bool:
     """int8 or e4m3 codes (per-channel scales beside them)."""
-    if isinstance(w, torch.Tensor):
-        return w.dtype in (torch.int8, torch.float8_e4m3fn)
-    arr = np.asarray(w)
-    return arr.dtype == np.int8 or _is_fp8_array(arr)
+    return as_tensor(w).dtype in (torch.int8, torch.float8_e4m3fn)
 
 
 def _linear(wd: Dict[str, Any], prefix: str, compute_dtype=torch.bfloat16, device="cpu") -> Params:
@@ -108,6 +90,8 @@ def build_non_block_params(wd: Dict[str, Any], arch: WanArch, compute_dtype=torc
             "3": lin("img_emb.proj.3"),
             "norm4": {"w": _f32(wd, "img_emb.proj.4.weight", device), "b": _f32(wd, "img_emb.proj.4.bias", device)},
         }
+    if "cfg_cond_proj.weight" in wd:  # dynamic-CFG distilled models: the guidance-scale embedding's projection
+        params["cfg_cond_proj"] = lin("cfg_cond_proj", torch.float32)
     return params
 
 
@@ -142,43 +126,45 @@ def build_block_params(wd: Dict[str, Any], i: int, arch: WanArch, compute_dtype=
 
 
 def load_wan_params(weight_dict: Dict[str, Any], arch: WanArch, compute_dtype=torch.bfloat16,
-                    device="cpu") -> Params:
-    """The full parameter dict; ``params["blocks"]`` is a per-block list."""
+                    device="cpu", iter_blocks: bool = False) -> Params:
+    """The full parameter dict; ``params["blocks"]`` is a per-block list, or
+    with ``iter_blocks`` a generator that builds each block as it is asked
+    for (the host-RAM tier packs them one at a time)."""
     params = build_non_block_params(weight_dict, arch, compute_dtype, device)
-    params["blocks"] = [build_block_params(weight_dict, i, arch, compute_dtype, device)
-                        for i in range(arch.num_layers)]
+    blocks = (build_block_params(weight_dict, i, arch, compute_dtype, device) for i in range(arch.num_layers))
+    params["blocks"] = blocks if iter_blocks else list(blocks)
     return params
 
 
-def permute_qk_half(params: Params, arch: WanArch) -> Params:
-    """Permute self-attention q/k output features (and QK-norm scales) from
-    interleaved rope pairs (2i, 2i+1) to half-split pairs (i, i + hd/2)
-    within each head, for the fused-RoPE flash kernel. Attention output is
-    unchanged: q and k share the permutation."""
+def permute_block_qk_half(blk: Params, arch: WanArch) -> Params:
+    """Permute one block's self-attention q/k output features (and QK-norm
+    scales) from interleaved rope pairs (2i, 2i+1) to half-split pairs (i, i
+    + hd/2) within each head, for the fused-RoPE flash kernel. Attention
+    output is unchanged: q and k share the permutation."""
     hd = arch.head_dim
     half = np.arange(hd).reshape(hd // 2, 2).T.reshape(-1)
-    perm_np = np.concatenate([half + h * hd for h in range(arch.num_heads)])
-    out = dict(params)
-    blocks = []
-    for blk in params["blocks"]:
-        perm = torch.from_numpy(perm_np).to(blk["modulation"].device)
-        sa = dict(blk["self_attn"])
-        for name in ("q", "k"):
-            lin = dict(sa[name])
-            w = lin["w"]
-            # e4m3 rows move as their bytes (a gather needs no float8 kernel)
-            lin["w"] = (w.view(torch.uint8)[perm].view(w.dtype) if w.dtype == torch.float8_e4m3fn
-                        else w[perm]).contiguous()
-            if lin.get("b") is not None:
-                lin["b"] = lin["b"][perm].contiguous()
-            if "w_scale" in lin:
-                lin["w_scale"] = lin["w_scale"][perm].contiguous()
-            sa[name] = lin
-        sa["norm_q"] = sa["norm_q"][perm].contiguous()
-        sa["norm_k"] = sa["norm_k"][perm].contiguous()
-        blocks.append(dict(blk, self_attn=sa))
-    out["blocks"] = blocks
-    return out
+    perm = torch.from_numpy(np.concatenate([half + h * hd for h in range(arch.num_heads)]))
+    perm = perm.to(blk["modulation"].device)
+    sa = dict(blk["self_attn"])
+    for name in ("q", "k"):
+        lin = dict(sa[name])
+        w = lin["w"]
+        # e4m3 rows move as their bytes (a gather needs no float8 kernel)
+        lin["w"] = (w.view(torch.uint8)[perm].view(w.dtype) if w.dtype == torch.float8_e4m3fn
+                    else w[perm]).contiguous()
+        if lin.get("b") is not None:
+            lin["b"] = lin["b"][perm].contiguous()
+        if "w_scale" in lin:
+            lin["w_scale"] = lin["w_scale"][perm].contiguous()
+        sa[name] = lin
+    sa["norm_q"] = sa["norm_q"][perm].contiguous()
+    sa["norm_k"] = sa["norm_k"][perm].contiguous()
+    return dict(blk, self_attn=sa)
+
+
+def permute_qk_half(params: Params, arch: WanArch) -> Params:
+    """``permute_block_qk_half`` on every block of ``params``."""
+    return dict(params, blocks=[permute_block_qk_half(blk, arch) for blk in params["blocks"]])
 
 
 def _bf16_round(a: np.ndarray) -> np.ndarray:
@@ -241,8 +227,66 @@ def init_random_weight_dict(arch: WanArch, seed: int = 0, scale: float = 0.02) -
     return wd
 
 
+def init_random_weight_dict_on_device(arch: WanArch, seed: int = 0, scale: float = 0.02, device="cuda",
+                                     dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """A random checkpoint with the reference's keys (``init_random_weight_dict``'s
+    layout, i2v keys included for an i2v arch), made on ``device`` from a
+    seeded ``torch.Generator``: every linear and the patch embedding
+    normal * ``scale`` in ``dtype``, their biases and the modulation tables
+    normal * ``scale`` in fp32, unit norms and zero norm biases. At 14B it is
+    the bf16 dict that the converter (``tools/convert.py``) takes; the host
+    numpy function would build a 56 GB fp32 dict."""
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d, f_, td = arch.dim, arch.ffn_dim, arch.text_dim
+    wd: Dict[str, torch.Tensor] = {}
+
+    def randn(shape, dt=torch.float32):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).mul_(scale).to(dt)
+
+    def lin(prefix, kin, out):
+        wd[f"{prefix}.weight"] = randn((out, kin), dtype)
+        wd[f"{prefix}.bias"] = randn((out,))
+
+    def norm(key, n, bias=True):
+        wd[f"{key}.weight"] = torch.ones((n,), dtype=torch.float32, device=dev)
+        if bias:
+            wd[f"{key}.bias"] = torch.zeros((n,), dtype=torch.float32, device=dev)
+
+    wd["patch_embedding.weight"] = randn((d, arch.in_dim, *arch.patch_size), dtype)
+    wd["patch_embedding.bias"] = randn((d,))
+    lin("text_embedding.0", td, d)
+    lin("text_embedding.2", d, d)
+    lin("time_embedding.0", arch.freq_dim, d)
+    lin("time_embedding.2", d, d)
+    lin("time_projection.1", d, 6 * d)
+    if arch.task == "i2v":
+        norm("img_emb.proj.0", arch.clip_dim)
+        lin("img_emb.proj.1", arch.clip_dim, d)
+        lin("img_emb.proj.3", d, d)
+        norm("img_emb.proj.4", d)
+    for i in range(arch.num_layers):
+        p = f"blocks.{i}"
+        wd[f"{p}.modulation"] = randn((1, 6, d))
+        norm(f"{p}.norm3", d)
+        for a in ("self_attn", "cross_attn"):
+            for m in ("q", "k", "v", "o"):
+                lin(f"{p}.{a}.{m}", d, d)
+            norm(f"{p}.{a}.norm_q", d, bias=False)
+            norm(f"{p}.{a}.norm_k", d, bias=False)
+        if arch.task == "i2v":
+            lin(f"{p}.cross_attn.k_img", d, d)
+            lin(f"{p}.cross_attn.v_img", d, d)
+            norm(f"{p}.cross_attn.norm_k_img", d, bias=False)
+        lin(f"{p}.ffn.0", d, f_)
+        lin(f"{p}.ffn.2", f_, d)
+    lin("head.head", d, arch.out_dim * int(np.prod(arch.patch_size)))
+    wd["head.modulation"] = randn((1, 2, d))
+    return wd
+
+
 def init_random_params_on_device(arch: WanArch, scheme: str = "int8", seed: int = 0,
-                                 scale: float = 0.02, device="cuda") -> Params:
+                                 scale: float = 0.02, device="cuda", iter_blocks: bool = False) -> Params:
     """Synthesize the params directly on ``device`` from a seeded
     ``torch.Generator`` (host numpy at 14B would be a 56 GB fp32 array).
     Layout as ``load_wan_params`` (+ ``quantize_model`` for
@@ -254,7 +298,9 @@ def init_random_params_on_device(arch: WanArch, scheme: str = "int8", seed: int 
     0..255 plus per-(channel, group) ``w_scale`` (scale/7, group from
     ``_pick_bk``); pre/post weights stay bf16/fp32. An i2v arch adds the
     image embedding (bf16, like the other pre/post layers) and each block's
-    ``k_img`` / ``v_img`` in the block linears' scheme."""
+    ``k_img`` / ``v_img`` in the block linears' scheme. ``iter_blocks`` as
+    in ``load_wan_params`` (the same values: the blocks draw from the
+    generator in order either way)."""
     if scheme not in ("int8", "fp8", "int4", "bf16"):
         raise NotImplementedError(f"synthetic scheme {scheme!r} is not ported yet")
     dev = torch.device(device)
@@ -305,7 +351,7 @@ def init_random_params_on_device(arch: WanArch, scheme: str = "int8", seed: int 
             ca.update(k_img=qlin(d, d), v_img=qlin(d, d), norm_k_img=ones())
         return ca
 
-    params["blocks"] = [
+    blocks = (
         {
             "modulation": nrm((6, d), torch.float32),
             "norm3": {"w": ones(), "b": zeros()},
@@ -314,5 +360,6 @@ def init_random_params_on_device(arch: WanArch, scheme: str = "int8", seed: int 
             "ffn": {"0": qlin(f_, d), "2": qlin(d, f_)},
         }
         for _ in range(L)
-    ]
+    )
+    params["blocks"] = blocks if iter_blocks else list(blocks)
     return params

@@ -2,7 +2,7 @@
 
 Port of ``lightx2v_tpu/ops/pallas/int4_matmul.py``: ``int4_matmul`` (kernel
 source ``csrc/int4_matmul.cu``) and ``unpack_int4``. Weights are
-nibble-packed as ``tools.convert.quantize_int4`` writes them ((N, K/2) uint8;
+nibble-packed as ``tools.convert.quantize_int4_weight`` writes them ((N, K/2) uint8;
 within each group byte j holds column j in its low nibble and column
 j + group/2 in its high nibble, both stored +8) with per-(channel, group)
 fp32 scales; activations stay bf16. Per group the bf16 x bf16 product is

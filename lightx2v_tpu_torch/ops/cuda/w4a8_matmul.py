@@ -4,7 +4,7 @@ plain PyTorch versions.
 Port of ``lightx2v_tpu/ops/pallas/w8a8_matmul.py``: ``w4a8_matmul`` (its
 full-K and k-blocked forms compute the same function, so both map to one
 kernel) and ``ffn_w4a8`` (kernel source ``csrc/w4a8_matmul.cu``). Weights
-are nibble-packed as ``tools.convert.quantize_int4`` writes them, with
+are nibble-packed as ``tools.convert.quantize_int4_weight`` writes them, with
 per-(channel, group) scales; activations are quantized to int8 per (token,
 group). On a CUDA tensor a wrapper launches its kernels or raises; on a CPU
 tensor it runs the plain version, which repeats the kernel's arithmetic

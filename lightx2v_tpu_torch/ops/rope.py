@@ -5,6 +5,7 @@ rotation runs in fp32 and casts back per half, as there."""
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -97,3 +98,17 @@ def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
                       -torch.arange(half, dtype=torch.float32, device=pos.device) / half)
     sinusoid = pos[..., None] * freqs
     return torch.cat([torch.cos(sinusoid), torch.sin(sinusoid)], dim=-1)
+
+
+def guidance_scale_embedding(w: torch.Tensor, embedding_dim: int = 256, cfg_range=(1.0, 8.0),
+                             target_range: float = 1000.0) -> torch.Tensor:
+    """CFG-scale conditioning embedding of dynamic-CFG distilled models:
+    w (B,) -> (B, embedding_dim) fp32, [sin | cos] halves of w mapped from
+    ``cfg_range`` onto [0, ``target_range``]."""
+    cfg_min, cfg_max = cfg_range
+    wn = (w.float() - cfg_min) / (cfg_max - cfg_min) * target_range
+    half = embedding_dim // 2
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=w.device) * (-math.log(10000.0) / (half - 1)))
+    emb = wn[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(emb), torch.cos(emb)], dim=1)
+

@@ -6,7 +6,8 @@ i2v, DiT, VAE, scheduler) on one device and drives ``run_pipeline``: encode
 and image encoders are dropped before the denoise and the DiT before the
 decode (reloaded by the next run).
 
-``timings`` holds each stage's seconds (``encode_s``, ``dit_s``,
+``timings`` holds the load seconds (``load_s``, and per component in
+``load_parts_s``), each stage's seconds (``encode_s``, ``dit_s``,
 ``decode_s``; a runner may add parts of a stage) and, on CUDA, ``mem_gb``:
 the device's peak allocated memory after each stage or part, in order, so
 the stage that set the run's peak is the first to show the final value."""
@@ -59,11 +60,15 @@ class DefaultRunner(BaseRunner):
 
     def init_modules(self):
         t0 = time.perf_counter()
-        self.model = self.load_transformer()
-        self.text_encoder = self.load_text_encoder()
-        self.image_encoder = self.load_image_encoder()
-        self.vae = self.load_vae()
-        self.sync()
+        parts = self.timings["load_parts_s"] = {}
+        for name, load in (("model", self.load_transformer), ("text_encoder", self.load_text_encoder),
+                           ("image_encoder", self.load_image_encoder), ("vae", self.load_vae)):
+            t1 = time.perf_counter()
+            setattr(self, name, load())
+            self.sync()
+            parts[name] = time.perf_counter() - t1
+            if self.device.type == "cuda":  # the device peak so far, after each part
+                self.timings.setdefault("load_mem_gb", {})[name] = torch.cuda.max_memory_allocated(self.device) / 1e9
         self.timings["load_s"] = time.perf_counter() - t0
 
     def sync(self):

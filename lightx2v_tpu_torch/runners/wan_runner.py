@@ -27,10 +27,34 @@ tower on the device (bf16, or int8 / fp8 with ``clip_quantized`` and
 runner would use a small T5: the card runs the tower that a real-weights
 run runs.
 
+Checkpoints (no ``synthetic_weights``): the DiT from ``dit_quantized_ckpt``
+or ``model_path`` (safetensors, one file, chunks with an index, or the
+converter's blocks layout; ``utils/safetensors_io.load_sharded``), with the
+``lora_configs`` folded in before its params are built; the UMT5-XXL from
+``model_path/models_t5_umt5-xxl-enc-bf16.pth`` (quantized at load with
+``t5_quantized``) with the HF tokenizer files of ``model_path/google/umt5-xxl``
+(or a tokenizer set on the encoder); the CLIP ViT-H/14 from
+``model_path/models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth``; the
+VAE from ``model_path/Wan2.1_VAE.pth``. A LoRA on a quantized checkpoint, a
+float checkpoint under a quantized ``mm_type`` and a quantized one under
+``Default`` raise ``ValueError`` pointing at ``tools/convert.py``.
+``enable_dynamic_cfg`` feeds
+``cfg_scale`` to a checkpoint's ``cfg_cond_proj``.
+
+Offload (``models/wan/streaming.py``, ``lazy_offload.py``): with
+``cpu_offload`` or ``weight_streaming`` the blocks live packed in pinned
+host memory (built and packed one at a time at load, so the card holds the
+non-block weights and one block then) and stream to two device slots; with ``lazy_load`` they stay in
+a blocks-layout checkpoint and ``num_disk_workers`` threads read them into
+a staging pool of ``max_memory`` GB. CFG stays one batch-2 forward, so the
+weights stream once a step. ``timings["offload"]`` holds each step's
+counters (host-to-device bytes and copy ms, stall ms, disk bytes and read
+seconds).
+
 Config keys whose feature is not ported raise ``NotImplementedError`` naming
 their ROADMAP.md item rather than run as if absent: ``do_mm_calib``,
-``weight_streaming`` (and offload, so caching under them too), ``vae_int8``,
-``tiny_vae``.
+``mesh_shape``, ``vae_int8``, ``tiny_vae``, and caching or changing
+resolution under offload.
 
 ``feature_caching`` (Tea, Custom, TaylorSeer, TaylorWS, Ada) runs in the
 denoise loop (``models/wan/pipeline.py``), the config passed on as its
@@ -57,6 +81,8 @@ table's leading failed layers dense (``_self_attn_setup``).
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -64,24 +90,27 @@ import numpy as np
 import torch
 
 from ..encoders.clip import (ClipVisionArch, CLIPVisionModel, init_random_clip_params_on_device,
-                             quantize_clip_params)
+                             load_clip_from_path, quantize_clip_params)
 from ..encoders.t5 import (UMT5_XXL, T5Config, T5EncoderModel, init_random_t5_params_on_device,
                            init_random_t5_state_dict, load_t5_params, quantize_t5_params)
 from ..models.wan.config import arch_from_config, is_published_width
+from ..models.wan.lazy_offload import BlockPrefetcher, LazyBlockStore, is_blocks_layout
 from ..models.wan.model import wan_forward, wan_forward_cfg
 from ..models.wan.pipeline import make_denoise_fn, rope_for_shape
+from ..models.wan.streaming import BlockStreamer, HostBlocks
 from ..models.wan.weights import (init_random_params_on_device, init_random_weight_dict, load_wan_params,
-                                  permute_qk_half)
+                                  permute_block_qk_half)
 from ..ops.radial import MaskMap
 from ..schedulers.step_distill import WanStepDistillScheduler
 from ..schedulers.unipc import WanUniPCScheduler
-from ..tools.convert import quantize_model
+from ..tools.convert import apply_lora, quantize_model
 from ..utils.image import resize_area, resize_trilinear
 from ..utils.logging_utils import logger
 from ..utils.media import load_image
 from ..utils.registry import RUNNER_REGISTER
-from ..vae.wan_vae import (WanVAEConfig, init_random_vae_state_dict, load_wan_vae_params, vae_decode,
-                           vae_decode_tiled, vae_encode)
+from ..utils.safetensors_io import load_file, load_sharded
+from ..vae.wan_vae import (WanVAEConfig, init_random_vae_state_dict, load_wan_vae_from_path, load_wan_vae_params,
+                           vae_decode, vae_decode_tiled, vae_encode)
 from .base_runner import DefaultRunner
 
 SMALL_T5 = T5Config(vocab_size=4096, dim=256, dim_attn=256, dim_ffn=512, num_heads=8, num_layers=2)
@@ -115,6 +144,13 @@ def _not_ported(what: str, item: str):
 
 # mm_type -> the weight scheme its synthetic weights are made in
 _SCHEMES = {"int8": "int8", "fp8": "fp8", "int4": "int4", "nvfp4": "int4"}
+OFFLOAD_KEYS = ("cpu_offload", "weight_streaming", "lazy_load")
+# the reference's file names under model_path
+T5_CKPT = "models_t5_umt5-xxl-enc-bf16.pth"
+CLIP_CKPT = "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth"
+VAE_CKPT = "Wan2.1_VAE.pth"
+FOLD_FIRST = ("fold LoRAs and quantize with python -m lightx2v_tpu_torch.tools.convert "
+              "(--lora path[:strength] --quant int8|fp8|int4)")
 
 
 @RUNNER_REGISTER.register("wan2.1")
@@ -123,44 +159,93 @@ class WanRunner(DefaultRunner):
     # (first step, step count) of the schedule to run; None runs all of it
     step_window: Optional[Tuple[int, int]] = None
 
-    def _require_synthetic(self):
-        if not self.config.get("synthetic_weights"):
-            raise _not_ported("checkpoint loading", "Queue 1 item 8")
+    def _synthetic(self) -> bool:
+        return bool(self.config.get("synthetic_weights"))
+
+    def _offload(self) -> bool:
+        return any(self.config.get(k) for k in OFFLOAD_KEYS)
+
+    def _model_file(self, name: str) -> str:
+        if not self.config.get("model_path"):
+            raise ValueError(f"{name} is read from model_path: set model_path (or synthetic_weights)")
+        return os.path.join(self.config["model_path"], name)
+
+    def _check_scheme(self, scheme: Optional[str], quantized: bool):
+        """The checkpoint's linears must be what the mm_type multiplies."""
+        if scheme and not quantized:
+            raise ValueError(f"mm_type {self.mm_type} needs a quantized checkpoint, this one is float: {FOLD_FIRST}")
+        if quantized and not scheme:
+            raise ValueError("the checkpoint is quantized: set mm_config.mm_type to its scheme (its config.json names "
+                             "it)")
 
     # ---------------- component loading ----------------
     def load_transformer(self):
-        self._require_synthetic()
-        if self.config.get("cpu_offload") or self.config.get("lazy_load") or self.config.get("mesh_shape"):
-            raise _not_ported("offload, streaming and multi-device runs", "Queue 1 items 13-14")
-        if self.config.get("weight_streaming"):
-            raise _not_ported("weight_streaming (the streamed DiT)", "Queue 1 item 13")
-        if self.config.get("do_mm_calib"):
+        cfg = self.config
+        if cfg.get("mesh_shape"):
+            raise _not_ported("multi-device runs (mesh_shape)", "Queue 1 item 14")
+        if cfg.get("do_mm_calib"):
             raise _not_ported("do_mm_calib (activation calibration)", "Queue 1 item 12")
-        if "dim" not in self.config:
+        if self._offload() and (cfg.get("feature_caching", "NoCaching") != "NoCaching"
+                                or cfg.get("changing_resolution")):
+            raise _not_ported("offload x caching (feature_caching or changing_resolution with cpu_offload, "
+                              "weight_streaming or lazy_load)", "Queue 1 item 19")
+        if self._synthetic() and "dim" not in cfg:
             for k, v in dict(dim=384, ffn_dim=768, num_heads=6, num_layers=4, freq_dim=256, text_dim=256).items():
-                self.config.setdefault(k, v)
-        self.arch = arch_from_config(self.config)
-        mm_cfg = self.config.get("mm_config") or {}
-        self.mm_type = mm_cfg.get("mm_type", "Default")
+                cfg.setdefault(k, v)
+        self.arch = arch_from_config(cfg)
+        self.mm_type = (cfg.get("mm_config") or {}).get("mm_type", "Default")
         parts = self.mm_type.split("-")
         scheme = _SCHEMES.get(parts[1]) if self.mm_type.startswith("W-") and len(parts) > 1 else None
-        if is_published_width(self.arch):
-            params = init_random_params_on_device(self.arch, scheme or "bf16", seed=0, device=self.device)
+        ckpt = cfg.get("dit_quantized_ckpt") or cfg.get("model_path")
+        if cfg.get("lazy_load"):
+            if not ckpt or not is_blocks_layout(ckpt):
+                raise ValueError("lazy_load reads a blocks-layout checkpoint (dit_quantized_ckpt or model_path "
+                                 "written by tools/convert.py --layout blocks)")
+            if cfg.get("lora_configs"):
+                raise ValueError(f"lora_configs with a blocks-layout checkpoint: {FOLD_FIRST}")
+            store = LazyBlockStore(ckpt, self.arch, device=self.device)
+            self._check_scheme(scheme, store.quantized())
+            return dict(store.small, blocks=store)
+        # the host-RAM tier builds the blocks one at a time and packs each into
+        # pinned host memory, so the card never holds the whole stack
+        offload = self._offload()
+        if self._synthetic():
+            if is_published_width(self.arch):
+                params = init_random_params_on_device(self.arch, scheme or "bf16", seed=0, device=self.device,
+                                                      iter_blocks=offload)
+            else:
+                wd = init_random_weight_dict(self.arch, seed=0, scale=0.02)
+                if scheme:
+                    wd = quantize_model(wd, scheme)
+                params = load_wan_params(wd, self.arch, device=self.device, iter_blocks=offload)
         else:
-            wd = init_random_weight_dict(self.arch, seed=0, scale=0.02)
-            if scheme:
-                wd = quantize_model(wd, scheme)
-            params = load_wan_params(wd, self.arch, device=self.device)
+            if not ckpt:
+                raise ValueError("set model_path or dit_quantized_ckpt (or synthetic_weights)")
+            wd = load_sharded(ckpt)
+            for lc in cfg.get("lora_configs") or []:
+                apply_lora(wd, load_file(lc["path"]), float(lc.get("strength", 1.0)), device=self.device)
+            self._check_scheme(scheme, any(k.endswith(".weight_scale") for k in wd))
+            params = load_wan_params(wd, self.arch, device=self.device, iter_blocks=offload)
+            del wd
+        blocks = params["blocks"]
         if self.arch.rope_fused:
-            params = permute_qk_half(params, self.arch)
+            blocks = (permute_block_qk_half(b, self.arch) for b in blocks)
+        params["blocks"] = HostBlocks(blocks, pin=self.device.type == "cuda") if offload else list(blocks)
         return params
 
     def load_text_encoder(self):
-        self._require_synthetic()
         text_len = int(self.config.get("text_len", 512))
         scheme = "bf16"
         if self.config.get("t5_quantized"):
             scheme = "int8" if "int8" in str(self.config.get("t5_quant_scheme", "int8")) else "fp8"
+        if not self._synthetic():
+            # a quantized T5 is read on the host and quantized on its way to the device, one tensor at a time
+            enc = T5EncoderModel(text_len, cfg=UMT5_XXL, checkpoint_path=self._model_file(T5_CKPT),
+                                 tokenizer_path=self._model_file(os.path.join("google", "umt5-xxl")),
+                                 device=self.device if scheme == "bf16" else "cpu")
+            if scheme != "bf16":
+                enc.params = quantize_t5_params(enc.params, scheme, device=self.device)
+            return enc
         if self.arch.text_dim == UMT5_XXL.dim:
             cfg = UMT5_XXL
             params = init_random_t5_params_on_device(cfg, seed=1, device=self.device, scheme=scheme)
@@ -179,29 +264,35 @@ class WanRunner(DefaultRunner):
         return self.config.get("task", "t2v") == "i2v"
 
     def load_image_encoder(self):
-        """The i2v CLIP tower: None in the small synthetic mode (zero tokens),
-        a ViT-H/14 made on the device at a published width."""
+        """The i2v CLIP tower: a checkpoint's; or in the small synthetic
+        mode None (zero tokens), and at a published width a ViT-H/14 made on
+        the device."""
         if not self._i2v():
             return None
-        self._require_synthetic()
-        if not is_published_width(self.arch):
-            return None
         arch = ClipVisionArch()
-        params = init_random_clip_params_on_device(arch, seed=3, device=self.device)
+        if not self._synthetic():
+            params = load_clip_from_path(self._model_file(CLIP_CKPT), arch, device=self.device)
+        elif is_published_width(self.arch):
+            params = init_random_clip_params_on_device(arch, seed=3, device=self.device)
+        else:
+            return None
         if self.config.get("clip_quantized"):
             scheme = "int8" if "int8" in str(self.config.get("clip_quant_scheme", "int8")) else "fp8"
             params = quantize_clip_params(params, scheme)
         return CLIPVisionModel(arch, params=params)
 
     def load_vae(self):
-        self._require_synthetic()
         if self.config.get("tiny_vae"):
             raise _not_ported("the tiny VAE", "Queue 1 item 17")
         if self.config.get("vae_int8"):
             raise _not_ported("vae_int8 (the int8 VAE decoder)", "Queue 1 item 7")
-        self.vae_cfg = WanVAEConfig() if is_published_width(self.arch) else SMALL_VAE
-        params = load_wan_vae_params(init_random_vae_state_dict(self.vae_cfg, seed=2), self.vae_cfg,
-                                     device=self.device)
+        if not self._synthetic():
+            self.vae_cfg = WanVAEConfig()
+            params = load_wan_vae_from_path(self._model_file(VAE_CKPT), self.vae_cfg, device=self.device)
+        else:
+            self.vae_cfg = WanVAEConfig() if is_published_width(self.arch) else SMALL_VAE
+            params = load_wan_vae_params(init_random_vae_state_dict(self.vae_cfg, seed=2), self.vae_cfg,
+                                         device=self.device)
         if not self._i2v():  # t2v never encodes: its encoder stays off the device
             del params["encoder"], params["conv1"]
         return params
@@ -289,9 +380,38 @@ class WanRunner(DefaultRunner):
 
         return on_step, ends
 
+    @contextlib.contextmanager
+    def dit_params(self):
+        """(params, streamer) for one run: the resident params and None, or
+        under offload the params with their blocks streamed through a
+        ``BlockStreamer`` (the disk tier's prefetcher closed afterwards)."""
+        blocks = self.model["blocks"]
+        if not isinstance(blocks, (HostBlocks, LazyBlockStore)):
+            yield self.model, None
+            return
+        store = blocks
+        if isinstance(blocks, LazyBlockStore):
+            gb = self.config.get("max_memory")
+            store = BlockPrefetcher(blocks, num_workers=int(self.config.get("num_disk_workers", 2)),
+                                    max_host_bytes=int(float(gb) * 2**30) if gb else None,
+                                    pin=self.device.type == "cuda")
+            self.timings["host_buffer_gb"] = store.num_buffers * store.layout.nbytes / 1e9
+        else:
+            self.timings["host_buffer_gb"] = blocks.num_blocks * blocks.layout.nbytes / 1e9
+        try:
+            streamer = BlockStreamer(store, self.device)
+            yield dict(self.model, blocks=streamer), streamer
+        finally:
+            if store is not blocks:
+                store.close()
+
     def run_dit(self, encoder_out: Dict[str, Any], noises=None, renoise=None):
         if self.config.get("changing_resolution"):
             return self._run_dit_changing_resolution(encoder_out, renoise)
+        with self.dit_params() as (params, streamer):
+            return self._run_dit(params, streamer, encoder_out, noises)
+
+    def _run_dit(self, params, streamer, encoder_out: Dict[str, Any], noises=None):
         target_shape = self.set_target_shape()
         scheduler = self.init_scheduler()
         self.scheduler = scheduler
@@ -316,11 +436,21 @@ class WanRunner(DefaultRunner):
                                   self_attn_type=attn, cross_attn_type=cross_attn,
                                   feature_caching=self.config.get("feature_caching", "NoCaching"),
                                   caching_config=self.config, num_steps=count,
-                                  self_attn_kwargs=self_attn_kwargs, device=self.device)
+                                  self_attn_kwargs=self_attn_kwargs, device=self.device,
+                                  cfg_scale_embed=(float(self.config.get("cfg_scale", 4.0))
+                                                   if self.config.get("enable_dynamic_cfg") else None))
         on_step, ends = self._step_timer()
+        if streamer is not None:
+            stats = self.timings["offload"] = []
+            timer = on_step
+
+            def on_step(j):
+                timer(j)  # synced: the step's copies and reads are done
+                stats.append(streamer.take_stats())
+
         t0 = time.perf_counter()
         teo, ieo = encoder_out["text_encoder_output"], encoder_out.get("image_encoder_output") or {}
-        state = denoise(self.model, state, teo["context"], noise_gen, noises=noises, on_step=on_step,
+        state = denoise(params, state, teo["context"], noise_gen, noises=noises, on_step=on_step,
                         context_null=teo["context_null"] if enable_cfg else None,
                         y=ieo.get("vae_encode_out"), clip_fea=ieo.get("clip_encoder_out"))
         self.timings["step_s"] = list(np.diff([t0] + ends))

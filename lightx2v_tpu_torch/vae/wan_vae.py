@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.wan.weights import to_tensor
+from ..utils.safetensors_io import read_state_dict
 
 CACHE_T = 2
 
@@ -447,6 +448,13 @@ def load_wan_vae_params(state_dict: Dict[str, Any], cfg: WanVAEConfig = WanVAECo
             "head_conv": _conv_p(sd, "decoder.head.2", dtype, device),
         },
     }
+
+
+def load_wan_vae_from_path(path: str, cfg: WanVAEConfig = WanVAEConfig(), dtype=torch.float32,
+                           device="cpu") -> Dict:
+    """The reference's ``Wan2.1_VAE.pth`` (or a ``.safetensors`` with its
+    keys) -> params on ``device``."""
+    return load_wan_vae_params(read_state_dict(path), cfg, dtype, device)
 
 
 def init_random_vae_state_dict(cfg: WanVAEConfig, seed: int = 0, scale: float = 0.1) -> Dict[str, np.ndarray]:

@@ -69,7 +69,7 @@ def test_clip_model_infer_and_device_synthesizer():
     out = tclip.CLIPVisionModel(arch, params=params).infer(img)
     want = tclip.clip_vision_forward(params, torch.from_numpy(tclip.preprocess_image(img, 28)), arch)
     assert out.shape == (1, 5, 64) and torch.equal(out, want)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # neither params nor a checkpoint
         tclip.CLIPVisionModel(arch)
 
 

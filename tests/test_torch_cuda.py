@@ -833,3 +833,65 @@ def test_clip_tower_on_card(dev, scheme):
     for out, ref in pairs:
         # bar: relative L2 1e-2 (bf16 activations; fp32 sums in another order)
         assert float((out.cpu().float() - ref.float()).norm() / ref.float().norm()) < 1e-2
+
+
+def test_two_slot_copier_is_byte_exact_under_load(dev):
+    """The host-RAM tier's copier: pinned packed blocks stream through two
+    device slots while the compute stream is kept busy before each block
+    is read; every tensor of every block arrives byte for byte, in two
+    passes (a copy that overwrote a slot still in use would show)."""
+    from lightx2v_tpu_torch.models.wan.streaming import BlockStreamer, HostBlocks
+
+    g = torch.Generator().manual_seed(0)
+    blocks = [{"w": torch.randint(-127, 128, (777, 129), generator=g, dtype=torch.int8),
+               "s": torch.randn((777,), generator=g),
+               "n": {"b": torch.randn((3, 5), generator=g).to(torch.bfloat16), "none": None},
+               "f8": torch.randn((64, 33), generator=g).to(torch.float8_e4m3fn)} for _ in range(7)]
+    want = [{k: v for k, v in b.items()} for b in blocks]
+    host = HostBlocks([dict(b) for b in blocks], pin=True)
+    assert all(buf.is_pinned() for buf in host.bufs)
+    streamer = BlockStreamer(host, dev)
+    busy = torch.randn((2048, 2048), device=dev)
+    for _ in range(2):
+        got = []
+        for blk in streamer:
+            for _ in range(8):
+                busy = torch.tanh(busy @ busy * 1e-3)
+            got.append({"w": blk["w"].clone(), "s": blk["s"].clone(), "b": blk["n"]["b"].clone(),
+                        "f8": blk["f8"].view(torch.uint8).clone(), "none": blk["n"]["none"]})
+        torch.cuda.synchronize()
+        stats = streamer.take_stats()
+        assert stats["h2d_bytes"] == 7 * host.layout.nbytes and stats["h2d_ms"] > 0 and stats["stall_ms"] >= 0
+        for blk, ref in zip(got, want):
+            assert torch.equal(blk["w"].cpu(), ref["w"]) and torch.equal(blk["s"].cpu(), ref["s"])
+            assert torch.equal(blk["b"].cpu(), ref["n"]["b"]) and blk["none"] is None
+            assert torch.equal(blk["f8"].cpu(), ref["f8"].view(torch.uint8))
+
+
+def test_card_written_checkpoint_reads_back_exact(dev, tmp_path):
+    """A checkpoint made, quantized and written from the card (the
+    converter's blocks layout) reads back exact: through ``load_file``, and
+    through the disk tier (pinned staging pool, copy stream) onto the card."""
+    from lightx2v_tpu_torch.models.wan.config import WanArch
+    from lightx2v_tpu_torch.models.wan.lazy_offload import BlockPrefetcher, LazyBlockStore
+    from lightx2v_tpu_torch.models.wan.streaming import BlockStreamer
+    from lightx2v_tpu_torch.models.wan.weights import init_random_weight_dict_on_device
+    from lightx2v_tpu_torch.tools.convert import quantize_model, save_quantized
+    from lightx2v_tpu_torch.utils.safetensors_io import load_file
+
+    arch = WanArch(dim=256, ffn_dim=512, num_heads=2, num_layers=3, text_dim=256)
+    q = quantize_model(init_random_weight_dict_on_device(arch, seed=5, device=dev), "int8")
+    assert q["blocks.0.ffn.0.weight"].device.type == "cuda"
+    save_quantized(q, str(tmp_path), "blocks", "int8")
+    back = load_file(str(tmp_path / "block_1.safetensors"))
+    for k, v in back.items():
+        assert v.dtype == q[k].dtype and torch.equal(v, q[k].cpu()), k
+    store = LazyBlockStore(str(tmp_path), arch, device=dev)
+    with BlockPrefetcher(store, num_workers=2, max_host_bytes=None, pin=True) as pf:
+        streamer = BlockStreamer(pf, dev)
+        for _ in range(2):
+            for i, blk in enumerate(streamer):
+                assert torch.equal(blk["ffn"]["2"]["w"], q[f"blocks.{i}.ffn.2.weight"])
+                assert torch.equal(blk["cross_attn"]["k"]["w_scale"], q[f"blocks.{i}.cross_attn.k.weight_scale"])
+        torch.cuda.synchronize()
+        assert streamer.take_stats()["disk_bytes"] > 0

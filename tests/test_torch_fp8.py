@@ -62,12 +62,12 @@ def test_quantize_tensor_fp8_matches_jax(scale, shape):
     rng = np.random.default_rng(shape[1])
     w = (rng.standard_normal(shape) * scale).astype(np.float32)
     w[0, :7] = [0.0, 1e-9, -1e-9, 5e-6, 0.0, 0.0, 0.0]
-    q, s = tconvert.quantize_tensor(w, "fp8")
+    q, s = tconvert.quantize_weight(torch.from_numpy(w), "fp8")
     jq, js = jconvert.quantize_tensor(w, "fp8")
-    assert q.dtype == np.uint8 and s.dtype == np.float32 and s.shape == (shape[0],)
-    np.testing.assert_array_equal(q, _bits(jq))
-    np.testing.assert_array_equal(s, js)
-    assert (q & 0x78 == 0).any()  # subnormal codes among them
+    assert q.dtype == torch.float8_e4m3fn and s.dtype == torch.float32 and s.shape == (shape[0],)
+    np.testing.assert_array_equal(_bits(q), _bits(jq))
+    np.testing.assert_array_equal(s.numpy(), js)
+    assert (_bits(q) & 0x78 == 0).any()  # subnormal codes among them
 
 
 def test_fp8_casts_agree_in_range():
@@ -78,7 +78,8 @@ def test_fp8_casts_agree_in_range():
     a = np.clip(rng.standard_normal(1 << 20).astype(np.float32) * 100, -448, 448)
     b = (rng.standard_normal(1 << 18) * 1e-3).astype(np.float32)
     for v in (a, b):
-        np.testing.assert_array_equal(tconvert.fp8_bits(v), _bits(v.astype(ml_dtypes.float8_e4m3fn)))
+        np.testing.assert_array_equal(_bits(torch.from_numpy(v).to(torch.float8_e4m3fn)),
+                                      _bits(v.astype(ml_dtypes.float8_e4m3fn)))
 
 
 def test_fp8_cast_difference_m():
@@ -86,7 +87,7 @@ def test_fp8_cast_difference_m():
     464 up (464 itself still rounds to 448). The port clips synthetic fp8
     weights before the cast, and no kernel meets the difference."""
     v = np.array([448.0, 460.0, 464.0, 470.0, 1e4, -500.0], np.float32)
-    t = tconvert.fp8_bits_to_tensor(tconvert.fp8_bits(v)).float().numpy()
+    t = torch.from_numpy(v).to(torch.float8_e4m3fn).float().numpy()
     j = v.astype(ml_dtypes.float8_e4m3fn).astype(np.float32)
     np.testing.assert_array_equal(t, [448, 448, 448, 448, 448, -448])
     np.testing.assert_array_equal(j[:3], [448, 448, 448])
@@ -225,7 +226,7 @@ def test_fp8_distill_runner_tiny_on_cpu():
 
 
 @pytest.mark.parametrize("key,item", [("tiny_vae", "Queue 1 item 17"), ("vae_int8", "Queue 1 item 7"),
-                                      ("do_mm_calib", "Queue 1 item 12"), ("weight_streaming", "Queue 1 item 13")])
+                                      ("do_mm_calib", "Queue 1 item 12"), ("mesh_shape", "Queue 1 item 14")])
 def test_unported_config_keys_raise(key, item):
     """Keys the JAX runner honours and the port does not: the runner refuses
     them, naming their ROADMAP.md item, rather than run as if absent."""

@@ -16,7 +16,7 @@ import torch
 
 from lightx2v_tpu.ops.pallas import int4_matmul as jint4
 from lightx2v_tpu_torch.ops.cuda import int4_matmul as tint4
-from lightx2v_tpu_torch.tools.convert import quantize_int4
+from lightx2v_tpu_torch.tools.convert import quantize_int4_weight
 
 BAR = 2 ** -7
 
@@ -25,8 +25,8 @@ def _case(m, n, k, seed, group=None):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((m, k)).astype(np.float32)
     w = (rng.standard_normal((n, k)) * 0.05).astype(np.float32)
-    packed, scale = quantize_int4(w, group)
-    return x, packed, scale
+    packed, scale = quantize_int4_weight(torch.from_numpy(w), group)
+    return x, packed.numpy(), scale.numpy()
 
 
 def _np(x):

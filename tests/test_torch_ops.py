@@ -104,12 +104,12 @@ def _lin(n, k, seed, quant=False, kind="int8"):
     if quant:
         import ml_dtypes
 
-        from lightx2v_tpu_torch.tools.convert import fp8_bits_to_tensor, quantize_tensor
+        from lightx2v_tpu_torch.tools.convert import quantize_weight
 
-        q, s = quantize_tensor(w, kind)
-        jq, tq = (q.view(ml_dtypes.float8_e4m3fn), fp8_bits_to_tensor(q)) if kind == "fp8" else (q, torch.from_numpy(q))
-        return ({"w": jnp.asarray(jq), "w_scale": jnp.asarray(s), "b": jnp.asarray(b)},
-                {"w": tq, "w_scale": torch.from_numpy(s), "b": torch.from_numpy(b)})
+        tq, ts = quantize_weight(torch.from_numpy(w), kind)
+        jq = tq.view(torch.uint8).numpy().view(ml_dtypes.float8_e4m3fn) if kind == "fp8" else tq.numpy()
+        return ({"w": jnp.asarray(jq), "w_scale": jnp.asarray(ts.numpy()), "b": jnp.asarray(b)},
+                {"w": tq, "w_scale": ts, "b": torch.from_numpy(b)})
     return ({"w": jnp.asarray(w, jnp.bfloat16), "b": jnp.asarray(b)},
             {"w": torch.from_numpy(w).to(torch.bfloat16), "b": torch.from_numpy(b)})
 

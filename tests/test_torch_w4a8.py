@@ -34,7 +34,9 @@ def _jt(x):
 
 
 def _int4(rng, n, k, bk=None):
-    return tconvert.quantize_int4(rng.standard_normal((n, k)).astype(np.float32) * 0.05, bk)
+    w = rng.standard_normal((n, k)).astype(np.float32) * 0.05
+    packed, scale = tconvert.quantize_int4_weight(torch.from_numpy(w), bk)
+    return packed.numpy(), scale.numpy()
 
 
 @pytest.mark.parametrize("n,k,bk", [(64, 5120, None), (40, 384, None), (8, 200, None), (16, 1024, 256)])
@@ -43,7 +45,7 @@ def test_quantize_int4_bit_exact(n, k, bk):
     one per row for K=200, and a forced 256)."""
     w = np.random.default_rng(k).standard_normal((n, k)).astype(np.float32) * 0.05
     jp, js = jint4.quantize_int4(w, bk)
-    tp, ts = tconvert.quantize_int4(w, bk)
+    tp, ts = (t.numpy() for t in tconvert.quantize_int4_weight(torch.from_numpy(w), bk))
     assert tp.dtype == np.uint8 and ts.dtype == np.float32
     np.testing.assert_array_equal(tp, jp)
     np.testing.assert_array_equal(ts, js)
