@@ -9,6 +9,7 @@
     python3 chip_smoke.py --path fp8_distill   # the kernel phases and the fp8 path
     python3 chip_smoke.py --path i2v      # the kernel phases and the i2v path
     python3 chip_smoke.py --path cogvideox   # the kernel phases and the CogVideoX path
+    python3 chip_smoke.py --path hunyuan     # the kernel phases and the HunyuanVideo path
     python3 chip_smoke.py --path tea_fp8 --path changing_resolution   # caching, changing resolution
     python3 chip_smoke.py --path offload_stream_fp8 --path offload_lazy_i2v   # the offload tiers
 
@@ -68,7 +69,20 @@
    frame-batched decode. Cut: the first 2 of the file's 50 XDPM steps (the
    fewest that run both the first-order and the second-order update; the
    50 would take minutes).
-10. Feature caching: first the caching steps at the 1.3B width on a small
+10. HunyuanVideo (slice 9): one full-width double-stream and one
+   single-stream block (hidden 3072, 24 heads of 128) on a small input (2 x
+   8 x 8 latents, 32 text tokens of which 20 are valid) the same way; the
+   full Hunyuan VAE's decode of 3 x 4 x 6 latents on the card vs the CPU;
+   then the port's ``HunyuanRunner`` on ``configs/hunyuan_t2v.json`` as it
+   is with ``hidden_size: 3072`` (``HunyuanArch()``: 20 double and 40
+   single blocks, 720 x 1280, 85 frames, 79,200 image tokens + 256 text
+   tokens an attention call, embedded guidance 6, no CFG): the bf16
+   llava-llama-3-8b-class encoder (30 of 32 blocks) and CLIP-L text tower
+   behind synthetic tokenizers -> flow-match Euler -> the temporally and
+   spatially tiled decode to 85 x 720 x 1280. Cut: the first 2 of the
+   file's 50 Euler steps. Its line gives the Llama and CLIP seconds and the
+   joint attention's ``kv_len``.
+11. Feature caching: first the caching steps at the 1.3B width on a small
    input, card vs CPU (TaylorSeer's calc and skip, a one-sided per-side Tea
    step); then the ``wan2.1`` runner on each config as it is, at the widths
    it names or else Wan2.1-T2V-1.3B's: ``tea_fp8`` (``configs/bench/
@@ -85,19 +99,19 @@
    entries must equal the plan's (Ada's codebook chooses its own), and each
    cut must hold a calc and a skip step. The path line gives the calc and
    skip steps' times apart.
-11. Changing resolution (``configs/changing_resolution/wan_t2v.json`` at
+12. Changing resolution (``configs/changing_resolution/wan_t2v.json`` at
    14B as it is: bf16 ``Default`` linears, CFG at 6, 50 steps switching at
    step 25 from 16 x 21 x 44 x 78 latents (18,018 tokens) to the full 32,760).
    Cut: steps 24 (phase A), 25 (the low-resolution forward, x0, trilinear
    resize, re-noise) and 26 (phase B, a fresh UniPC at shift 10), each at
    the file's timestep: three forwards.
-12. Offload, host-RAM tier (``offload_stream_fp8``):
+13. Offload, host-RAM tier (``offload_stream_fp8``):
    ``configs/bench/lightx2v_5_distill.json`` as it is at the 14B widths (fp8
    W8A8, dense flash self-attention with RoPE in torch, no CFG, its 4
    distill steps, ``weight_streaming``): the fp8 DiT is made on the card,
    packed block by block into pinned host memory, and streamed through two
    device slots on a copy stream each step.
-13. Offload, disk tier (``offload_lazy_i2v``):
+14. Offload, disk tier (``offload_lazy_i2v``):
    ``configs/offload/wan_i2v_disk_lazy_480p.json`` as it is, with
    ``dit_quantized_ckpt``, ``model_path`` and ``image_path`` pointed at
    files the script writes (about 29 GB, in the system temp directory or
@@ -129,7 +143,9 @@ self-attention shape without RoPE and over i2v's 257 image keys
 (``other_shapes`` entries, SDPA their yardstick), the dense kernel's 64-wide
 form at CogVideoX's (2, 45,106, 48, 64) (its own row,
 ``flash_attention_d64``, bound by the larger of its tensor-core and its
-exp2 time), and the 8-bit full-K GEMM
+exp2 time), the dense kernel at HunyuanVideo's joint stream, (1, 79,456,
+24, 128) with the path's ``kv_len`` (a ragged last query tile, a partly
+masked last key tile; SDPA on the valid keys its yardstick), and the 8-bit full-K GEMM
 at i2v's M = 257 beside M = 512, and hold the RoPE pass of the fused-RoPE
 flash (``rope_rotate``, its own kernel row and counter) bit for bit against
 its plain version. The
@@ -192,6 +208,11 @@ COG_S, COG_HEADS, COG_HD = 11 * 48 * 85 + 226, 48, 64
 PEAK_EX2 = 16 * 132 * 1.98e9
 COG_JSON = "configs/cogvideox_t2v.json"
 COG_STEPS = 2  # of the file's 50: step 0 first-order, step 1 second-order
+# HunyuanVideo at 720x1280, 85 frames: 22 x 45 x 80 image tokens + 256 text tokens, 24 heads of 128
+HY_IMG, HY_TXT, HY_HEADS = 22 * 45 * 80, 256, 24
+HY_JSON = "configs/hunyuan_t2v.json"
+HY_STEPS = 2  # of the file's 50 Euler steps
+PROMPT = "a red panda climbing a bamboo tree in the rain"
 DEPLOY_JSON = "configs/deploy/wan_t2v.json"
 BASE_JSON = "configs/bench/lightx2v_1.json"
 FP8_JSON = "configs/bench/lightx2v_3_distill.json"
@@ -232,7 +253,7 @@ LAZY_JSON = "configs/offload/wan_i2v_disk_lazy_480p.json"
 LAZY_STEPS = 2  # of the file's 40 UniPC steps
 LORA_RANK = 32
 PATHS = ("slice", "flagship", "base", "radial_bsr", "radial_two_pass", "fp8_distill", "i2v", "cogvideox",
-         "tea_fp8", "changing_resolution", "taylorseer_1_3b", "taylorws_1_3b", "ada_1_3b", "custom_1_3b",
+         "hunyuan", "tea_fp8", "changing_resolution", "taylorseer_1_3b", "taylorws_1_3b", "ada_1_3b", "custom_1_3b",
          "offload_stream_fp8", "offload_lazy_i2v")
 
 
@@ -1190,6 +1211,61 @@ def kernel_phase_cog(peaks, reps: int, want):
     return [row], []
 
 
+def hunyuan_text_len() -> int:
+    """The valid text tokens of the path's prompt: what the runner's
+    synthetic Llama tokenizer keeps past the template's crop."""
+    from lightx2v_tpu_torch.encoders.llama import LLAVA_LLAMA3_8B, PROMPT_TEMPLATE
+    from lightx2v_tpu_torch.runners.hunyuan_runner import _SyntheticLlamaTokenizer
+
+    _, mask = _SyntheticLlamaTokenizer(LLAVA_LLAMA3_8B)([PROMPT_TEMPLATE.format(PROMPT)], return_mask=True)
+    return int(mask[0, LLAVA_LLAMA3_8B.crop_start:].sum())
+
+
+def kernel_phase_hunyuan(peaks, reps: int, want):
+    """The dense flash kernel (row 2) at HunyuanVideo's joint stream: q, k, v
+    (1, 79,456, 24, 128), keys at or past ``kv_len`` (the 79,200 image tokens
+    and the prompt's valid text tokens) masked. 79,456 is no multiple of 128,
+    so the last query tile is ragged and the last key tile partly masked.
+    Returns its ``other_shapes`` entry (row 2's main entry is the
+    cross-attention's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+
+    if not want("flash_attention"):
+        return []
+    peak_bf16, _, peak_bw = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    s, kv = HY_IMG + HY_TXT, HY_IMG + hunyuan_text_len()
+    q, k, v = (torch.randn((1, s, HY_HEADS, HD), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    v[:, kv:] = 1e4  # a kernel that reads a masked key fails by orders of magnitude, not by chance
+    out = fa.flash_attention(q, k, v, kv_len=kv)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError("flash_attention at Hunyuan's shape: non-finite output")
+    hs = slice(0, 2)  # the plain version materializes rows x S per head
+    ref = fa.flash_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs], kv)
+    # bar: as row 2 (bf16 P at other running maxima, another summation order)
+    err = check_close(f"flash_attention (1,{s},{HY_HEADS},{HD}) kv_len {kv}", out[:, :, hs], ref, 2e-2, 1e-3)
+    del ref, out
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, kv_len=kv), reps)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, kv), 1, warmup=0)
+    kt, vt = k[:, :kv].transpose(1, 2), v[:, :kv].transpose(1, 2)
+    lib_ms = library(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), kt, vt), reps)
+    b_ms, b_by = bound(4.0 * HY_HEADS * s * kv * HD, (2 * s + 2 * kv) * HY_HEADS * HD * 2, peak_bf16, peak_bw)
+    print(f"[flash_attention_hunyuan] {ms:.3f} ms ({b_ms / ms:.0%} of its {b_ms:.2f} ms bound); SDPA {lib_ms} ms",
+          flush=True)
+    del q, k, v, kt, vt
+    torch.cuda.empty_cache()
+    return [dict(name="flash_attention", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
+                 replaces="lightx2v_tpu/ops/pallas/flash_attention.py:409",
+                 shape=f"q,k,v (1,{s},{HY_HEADS},{HD}) bf16, kv_len {kv} (HunyuanVideo joint stream)",
+                 max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=lib_ms, library_call="F.scaled_dot_product_attention on the valid keys")]
+
+
 # ---------------------------------------------------------------------------
 # slice phase
 
@@ -1439,6 +1515,71 @@ def cog_vae_decode_check():
     return max(errs)
 
 
+def hunyuan_block_reference_check():
+    """One full-width HunyuanVideo double-stream and one single-stream block
+    (hidden 3072, 24 heads of 128, with the text refiner and the head around
+    them) on a small input (16 x 2 x 8 x 8 latents: 32 image tokens; 32
+    text tokens, 20 valid, so kv_len 52 of 64 keys): the card (two flash
+    calls) vs the plain versions on the CPU, same weights."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lightx2v_tpu_torch.models.hunyuan.config import HunyuanArch
+    from lightx2v_tpu_torch.models.hunyuan.model import HunyuanTransformer, build_hunyuan_rope, text_kv_len
+    from lightx2v_tpu_torch.models.hunyuan.weights import init_random_hunyuan_params_on_device
+    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+
+    arch = dataclasses.replace(HunyuanArch(), double_blocks=1, single_blocks=1)
+    params = init_random_hunyuan_params_on_device(arch, seed=3, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    lat = torch.randn((1, 16, 2, 8, 8), generator=g, device="cuda").to(torch.bfloat16)
+    states = (torch.randn((1, 32, arch.text_states_dim), generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    pooled = torch.randn((1, arch.text_states_dim_2), generator=g, device="cuda") * 0.5
+    mask = np.zeros((1, 32), np.int32)
+    mask[0, :20] = 1
+    t, guidance = torch.tensor([999.0]), torch.tensor([6000.0])
+    cos, sin = (torch.from_numpy(a) for a in build_hunyuan_rope(arch, 2, 4, 4))
+
+    def run(dev):
+        return HunyuanTransformer(_to(params, dev), arch)(
+            lat.to(dev), t.to(dev), states.to(dev), torch.from_numpy(mask).to(dev), pooled.to(dev), cos.to(dev),
+            sin.to(dev), text_kv_len(32, mask), guidance.to(dev))
+
+    before = fa.LAUNCHES["flash_attention"]
+    out = run("cuda")
+    torch.cuda.synchronize()
+    if fa.LAUNCHES["flash_attention"] != before + 2:
+        raise AssertionError("the Hunyuan blocks did not run the flash kernel once each")
+    # bar: as the CogVideoX block's, bf16 activations through two flash calls
+    # and bf16 GEMMs summed in another order
+    return check_close("one HunyuanVideo double + single block (bf16, flash_attn3, kv_len 52 of 64), card vs CPU "
+                       "plain", out.cpu(), run("cpu"), 3e-2, 1e-3)
+
+
+def hunyuan_vae_decode_check():
+    """The full HunyuanVideo VAE's decode of 3 x 4 x 6 latents (the mid
+    block's frame-causal attention, the first frame upsampled in space only)
+    on the card (TF32 convolutions) vs the CPU (fp32)."""
+    import numpy as np
+    import torch
+
+    from lightx2v_tpu_torch.vae import hunyuan_vae as hv
+
+    cfg = hv.HunyuanVAEConfig()
+    sd = hv.init_random_hunyuan_vae_state_dict(cfg, seed=2)
+    pc, pg = hv.load_hunyuan_vae_params(sd, cfg), hv.load_hunyuan_vae_params(sd, cfg, device="cuda")
+    z = torch.from_numpy(np.random.default_rng(3).standard_normal((1, 3, 4, 6, 16)).astype(np.float32))
+    out = hv.hunyuan_vae_decode(pg, z.to("cuda"), cfg, scale=True)
+    torch.cuda.synchronize()
+    if out.shape != (1, 9, 32, 48, 3):
+        raise AssertionError(f"Hunyuan VAE decode: shape {tuple(out.shape)}")
+    # bar: TF32 rounds each conv's inputs to 10 mantissa bits on the card
+    return check_close("Hunyuan VAE decode 3x4x6, card (TF32) vs CPU (fp32)", out.cpu(),
+                       hv.hunyuan_vae_decode(pc, z, cfg, scale=True), 2e-2, 1e-3)
+
+
 def write_image(path: str, seed: int = 0) -> str:
     """A seeded 480 x 832 RGB PNG (smooth colour ramps plus noise)."""
     import numpy as np
@@ -1461,9 +1602,13 @@ def expected_launches(runner, cfg, forwards=None) -> dict:
     from lightx2v_tpu_torch.ops import radial
     from lightx2v_tpu_torch.ops.cuda import launch_counts
 
-    L = runner.arch.num_layers
     if cfg["model_cls"] == "cogvideox":  # one 64-wide flash call a block and step; its linears are bf16 torch.mm
-        return {**{k: 0 for k in launch_counts()}, "flash_attention_d64": L * runner.init_scheduler().num_steps()}
+        return {**{k: 0 for k in launch_counts()},
+                "flash_attention_d64": runner.arch.num_layers * runner.init_scheduler().num_steps()}
+    if cfg["model_cls"] == "hunyuan":  # one joint flash call a double or single block and step; bf16 torch.mm
+        blocks = runner.arch.double_blocks + runner.arch.single_blocks
+        return {**{k: 0 for k in launch_counts()}, "flash_attention": blocks * runner.init_scheduler().num_steps()}
+    L = runner.arch.num_layers
     steps = len(cfg["denoising_step_list"]) if cfg["model_cls"] == "wan2.1_distill" else int(cfg["infer_steps"])
     if forwards is not None:
         steps = forwards
@@ -1860,7 +2005,7 @@ def run_offload_lazy(profile_dir=None):
         written = write_i2v_checkpoint(root, layers)
         cfg = json.loads((ROOT / LAZY_JSON).read_text())
         cfg.update(model_cls="wan2.1", task="i2v", device="cuda", seed=42, release_modules=True,
-                   prompt="a red panda climbing a bamboo tree in the rain",
+                   prompt=PROMPT,
                    dit_quantized_ckpt=str(root / "dit_int8_blocks"), model_path=str(root / "model"),
                    image_path=write_image(str(root / "i2v_input.png")))
         cfg = set_config(cfg)
@@ -1906,7 +2051,7 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
     if cfg is None:
         cfg = set_config(dict(model_cls=model_cls, task="t2v", device="cuda", synthetic_weights=True,
                               config_json=str(ROOT / config_json),
-                              prompt="a red panda climbing a bamboo tree in the rain", seed=42,
+                              prompt=PROMPT, seed=42,
                               release_modules=True))
         cfg.update(overrides)
     print(f"[{name}] device memory in use before loading: {torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
@@ -1961,7 +2106,8 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
     if frames.shape != want_shape or not np.isfinite(frames).all():
         raise AssertionError(f"{name}: bad frames: shape {frames.shape}, finite {np.isfinite(frames).all()}")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    stats = {"encode_s": tm["encode_s"], **{k: tm[k] for k in ("t5_s", "clip_s", "vae_encode_s") if k in tm},
+    stats = {"encode_s": tm["encode_s"],
+             **{k: tm[k] for k in ("t5_s", "llama_s", "clip_s", "vae_encode_s", "kv_len") if k in tm},
              "denoise_step_s": [float(x) for x in tm["step_s"]],
              "dit_s": tm["dit_s"], "decode_s": tm["decode_s"], "e2e_s": total, "steps": len(tm["step_s"]),
              "load_peak_mem_gb": load_peak, "peak_mem_gb": peak,
@@ -1999,7 +2145,9 @@ def _category(name: str) -> str:
                      ("ffn_gemm1_wgmma_kernel<true", "fp8 FFN GEMM1 (ours)"),
                      ("ffn_gemm1", "ffn GEMM1 (ours)"), ("ffn_w4a8_gemm1", "ffn w4a8 GEMM1 (ours)"),
                      ("w4a8_gemm_kernel", "w4a8 GEMM (ours)"), ("quant_groups", "8-bit quantize (ours)"),
-                     ("sort", "sort (torch)"),
+                     ("sort", "sort (torch)"), ("replication_pad", "replicate padding (torch)"),
+                     ("nchwtonhwc", "layout transposes (cuDNN)"), ("nhwctonchw", "layout transposes (cuDNN)"),
+                     ("nvjet", "matmul (cuBLAS)"),
                      ("conv", "convolution (cuDNN)"), ("fprop", "convolution (cuDNN)"),
                      ("dgrad", "convolution (cuDNN)"), ("gemm", "matmul (cuBLAS)"), ("sm90", "matmul (cuBLAS)"),
                      ("reduce", "reductions (torch)"), ("elementwise", "elementwise (torch)"),
@@ -2091,8 +2239,9 @@ def main():
     rows3, extra3 = kernel_phase_base(peaks_for(card), REPS, want)
     rows4, extra4 = kernel_phase_fp8(peaks_for(card), REPS, want)
     rows5, extra5 = kernel_phase_cog(peaks_for(card), REPS, want)
+    extra6 = kernel_phase_hunyuan(peaks_for(card), REPS, want)
     rows += rows2 + rows3 + rows4 + rows5
-    print(json.dumps({"other_shapes": extra + extra2 + extra3 + extra4 + extra5}), flush=True)
+    print(json.dumps({"other_shapes": extra + extra2 + extra3 + extra4 + extra5 + extra6}), flush=True)
     by_path = {}
     paths = [] if args.kernels_only else args.path or list(PATHS)
     if "slice" in paths:
@@ -2127,6 +2276,11 @@ def main():
         cog_vae_decode_check()
         by_path["cogvideox"] = run_path("cogvideox", dict(negative_prompt="blurry, low quality, distorted"),
                                         args.profile, model_cls="cogvideox", config_json=COG_JSON, steps=COG_STEPS)
+    if "hunyuan" in paths:
+        hunyuan_block_reference_check()
+        hunyuan_vae_decode_check()
+        by_path["hunyuan"] = run_path("hunyuan", dict(hidden_size=3072), args.profile, model_cls="hunyuan",
+                                      config_json=HY_JSON, steps=HY_STEPS)
     if any(p in paths for p in CACHED):
         caching_reference_check()
     for name in [p for p in PATHS if p in paths and (p in CACHED or p == "changing_resolution")]:

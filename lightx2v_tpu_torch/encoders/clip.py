@@ -1,5 +1,6 @@
 """CLIP ViT-H/14 vision tower in PyTorch (counterpart of the vision half of
-``lightx2v_tpu.encoders.clip``): the Wan i2v image conditioning.
+``lightx2v_tpu.encoders.clip``): the Wan i2v image conditioning; and, at the
+end of the file, the CLIP-L text tower (HunyuanVideo's pooled prompt vector).
 
 Patch conv (14x14, no bias) as a reshape and a matmul, cls token, learned
 positional embedding, pre-LN, then the first ``use_blocks`` (31 of 32)
@@ -246,3 +247,117 @@ class CLIPVisionModel:
         params' device."""
         return clip_vision_forward(self.params, torch.from_numpy(preprocess_image(img, self.arch.image_size)),
                                    self.arch)
+
+
+# ---------------------------------------------------------------------------
+# CLIP-L text tower (HunyuanVideo's second text encoder: the pooled prompt
+# vector). Learned positions, 12 pre-norm blocks (q scaled before the
+# product, causal and padding bias, quick-GELU MLP), a final LayerNorm; the
+# pooled vector is the row at the end-of-text token, the vocabulary's
+# highest id, so the argmax over the ids finds it.
+
+
+@dataclass(frozen=True)
+class ClipTextArch:
+    vocab_size: int = 49408
+    dim: int = 768
+    mlp_ratio: int = 4
+    num_heads: int = 12
+    num_layers: int = 12
+    max_positions: int = 77
+    norm_eps: float = 1e-5
+
+
+def clip_text_forward(params: Params, ids: torch.Tensor, mask: torch.Tensor, arch: ClipTextArch):
+    """ids, mask (B, L <= 77) -> (last hidden (B, L, dim) bf16, pooled
+    (B, dim) fp32)."""
+    dev = params["token_embedding"].device
+    ids, mask = ids.to(dev).long(), mask.to(dev)
+    b, L = ids.shape
+    n, hd = arch.num_heads, arch.dim // arch.num_heads
+    x = params["token_embedding"][ids].to(torch.bfloat16) + params["pos"][:L].to(torch.bfloat16)
+    keep = torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev))[None, None] & (mask[:, None, None, :] > 0)
+    bias = torch.where(keep, 0.0, torch.finfo(torch.float32).min).float()
+    for bp in params["blocks"]:
+        h = layer_norm(x, bp["norm1"]["w"], bp["norm1"]["b"], eps=arch.norm_eps)
+        q = (_lin(bp["q_w"], h, bp["q_b"]) / np.sqrt(hd)).to(h.dtype).reshape(b, L, n, hd)
+        k = _lin(bp["k_w"], h, bp["k_b"]).to(h.dtype).reshape(b, L, n, hd)
+        v = _lin(bp["v_w"], h, bp["v_b"]).to(h.dtype).reshape(b, L, n, hd)
+        logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
+        probs = torch.softmax(logits + bias, dim=-1).to(v.dtype)
+        attn = torch.einsum("bnqk,bknd->bqnd", probs.float(), v.float()).to(v.dtype).reshape(b, L, arch.dim)
+        x = x + _lin(bp["proj_w"], attn, bp["proj_b"]).to(h.dtype)
+        h = layer_norm(x, bp["norm2"]["w"], bp["norm2"]["b"], eps=arch.norm_eps)
+        h = _lin(bp["fc1_w"], h, bp["fc1_b"])
+        h = h * torch.sigmoid(1.702 * h)  # quick GELU
+        x = x + _lin(bp["fc2_w"], h.to(x.dtype), bp["fc2_b"]).to(x.dtype)
+    x = layer_norm(x, params["final_norm"]["w"], params["final_norm"]["b"], eps=arch.norm_eps)
+    pooled = x[torch.arange(b, device=dev), ids.argmax(dim=-1)].float()
+    return x, pooled
+
+
+def load_clip_text_params(sd: Dict[str, Any], arch: ClipTextArch, device="cpu") -> Params:
+    """HF CLIPTextModel state dict (``text_model.`` keys) -> params with a
+    per-block list; matmul weights and the token embedding bf16, everything
+    else fp32."""
+
+    def g(key, dt=torch.float32):
+        return to_tensor(sd[f"text_model.{key}"], dt, device).contiguous()
+
+    def block(i):
+        p = f"encoder.layers.{i}"
+        out = {}
+        for ours, theirs in (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"), ("v", "self_attn.v_proj"),
+                             ("proj", "self_attn.out_proj"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            out[f"{ours}_w"] = g(f"{p}.{theirs}.weight", torch.bfloat16)
+            out[f"{ours}_b"] = g(f"{p}.{theirs}.bias")
+        for ours, theirs in (("norm1", "layer_norm1"), ("norm2", "layer_norm2")):
+            out[ours] = {"w": g(f"{p}.{theirs}.weight"), "b": g(f"{p}.{theirs}.bias")}
+        return out
+
+    return {"token_embedding": g("embeddings.token_embedding.weight", torch.bfloat16),
+            "pos": g("embeddings.position_embedding.weight"),
+            "blocks": [block(i) for i in range(arch.num_layers)],
+            "final_norm": {"w": g("final_layer_norm.weight"), "b": g("final_layer_norm.bias")}}
+
+
+def init_random_clip_text_params_on_device(arch: ClipTextArch = ClipTextArch(), seed: int = 0,
+                                           scale: float = 0.02, device="cuda") -> Params:
+    """CLIP text params synthesized directly on ``device`` from a seeded
+    ``torch.Generator``, in ``load_clip_text_params``' layout: bf16 matmul
+    weights and token embedding of normal * scale, fp32 positions of
+    normal * scale, zero biases, unit norms."""
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d, md = arch.dim, arch.mlp_ratio * arch.dim
+
+    def nrm(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).mul_(scale).to(dtype)
+
+    def norm():
+        return {"w": torch.ones((d,), dtype=torch.float32, device=dev),
+                "b": torch.zeros((d,), dtype=torch.float32, device=dev)}
+
+    zeros = lambda n: torch.zeros((n,), dtype=torch.float32, device=dev)  # noqa: E731
+    blocks = [{"norm1": norm(), "norm2": norm(), "q_w": nrm((d, d)), "q_b": zeros(d), "k_w": nrm((d, d)),
+               "k_b": zeros(d), "v_w": nrm((d, d)), "v_b": zeros(d), "proj_w": nrm((d, d)), "proj_b": zeros(d),
+               "fc1_w": nrm((md, d)), "fc1_b": zeros(md), "fc2_w": nrm((d, md)), "fc2_b": zeros(d)}
+              for _ in range(arch.num_layers)]
+    return {"token_embedding": nrm((arch.vocab_size, d)), "pos": nrm((arch.max_positions, d), torch.float32),
+            "blocks": blocks, "final_norm": norm()}
+
+
+class CLIPTextModel:
+    """Prompt -> the pooled vector (B, dim) fp32: the tokenizer (injectable,
+    ``(texts, return_mask=True) -> (ids, mask)``, padding to
+    ``arch.max_positions``), then the tower."""
+
+    def __init__(self, arch: ClipTextArch = ClipTextArch(), params: Optional[Params] = None, tokenizer=None):
+        self.arch = arch
+        self.params = params
+        self.tokenizer = tokenizer
+
+    def infer(self, texts) -> torch.Tensor:
+        ids, mask = self.tokenizer(texts, return_mask=True)
+        return clip_text_forward(self.params, torch.from_numpy(np.asarray(ids)), torch.from_numpy(np.asarray(mask)),
+                                 self.arch)[1]

@@ -14,7 +14,7 @@ import argparse
 
 import torch
 
-from .runners import cogvideox_runner, wan_runner  # noqa: F401  (registers runners)
+from .runners import cogvideox_runner, hunyuan_runner, wan_runner  # noqa: F401  (registers runners)
 from .utils.config import set_config
 from .utils.logging_utils import logger
 from .utils.media import seed_all, video_writer

@@ -25,19 +25,26 @@ def _close(out, ref, rtol, atol):
     assert err <= atol + rtol * float(ref.float().abs().max()), err
 
 
-@pytest.mark.parametrize("b,sq,sk,kv_len", [(2, 200, 200, None), (2, 256, 256, None), (2, 200, 200, 150),
-                                            (2, 300, 64, None), (2, 7, 513, 300), (1, 1000, 512, None),
-                                            (2, 120, 200, None), (2, 200, 390, 130), (21, 156, 624, None),
-                                            (1, 1000, 257, None), (2, 300, 257, 200)])
-def test_flash_kernel_vs_plain(dev, b, sq, sk, kv_len):
+@pytest.mark.parametrize("b,sq,sk,kv_len,heads", [
+    (2, 200, 200, None, 3), (2, 256, 256, None, 3), (2, 200, 200, 150, 3), (2, 300, 64, None, 3),
+    (2, 7, 513, 300, 3), (1, 1000, 512, None, 3), (2, 120, 200, None, 3), (2, 200, 390, 130, 3),
+    (21, 156, 624, None, 3), (1, 1000, 257, None, 3), (2, 300, 257, 200, 3),
+    (1, 1000, 1000, 970, 24), (1, 1100, 1100, 1060, 24)])
+def test_flash_kernel_vs_plain(dev, b, sq, sk, kv_len, heads):
     """Ragged sq (7, 120 below one 128-row tile, 200), sk below one 128-key
     tile, not a multiple of it and 512 (the cross-attention shape, narrowed),
     257 (i2v's image keys: one valid row in the last key tile), kv_len inside
-    the first and the second key tile, batch 1, 2 and 21."""
+    the first and the second key tile, batch 1, 2 and 21; and HunyuanVideo's
+    joint stream, narrowed: 24 heads, Sq = Sk not a multiple of 128, kv_len a
+    few dozen below Sk inside the last key tile (the padded text keys). V is
+    1e4 past kv_len, so a kernel that reads a masked key fails by orders of
+    magnitude."""
     from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(sq + sk)
-    q, k, v = (torch.randn((b, s, 3, 128), generator=g, device=dev).to(torch.bfloat16) for s in (sq, sk, sk))
+    q, k, v = (torch.randn((b, s, heads, 128), generator=g, device=dev).to(torch.bfloat16) for s in (sq, sk, sk))
+    if kv_len is not None:
+        v[:, kv_len:] = 1e4
     before = fa.LAUNCHES["flash_attention"]
     out = fa.flash_attention(q, k, v, kv_len=kv_len)
     assert fa.LAUNCHES["flash_attention"] == before + 1

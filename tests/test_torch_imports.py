@@ -26,7 +26,10 @@ def test_every_module_imports_without_jax():
             "lightx2v_tpu_torch.ops.cuda.int4_matmul", "lightx2v_tpu_torch.ops.radial",
             "lightx2v_tpu_torch.parallel.ring", "lightx2v_tpu_torch.schedulers.unipc",
             "lightx2v_tpu_torch.tools.convert", "lightx2v_tpu_torch.encoders.clip",
-            "lightx2v_tpu_torch.utils.image"} <= set(mods)
+            "lightx2v_tpu_torch.utils.image", "lightx2v_tpu_torch.models.hunyuan.config",
+            "lightx2v_tpu_torch.models.hunyuan.model", "lightx2v_tpu_torch.models.hunyuan.weights",
+            "lightx2v_tpu_torch.schedulers.euler", "lightx2v_tpu_torch.encoders.llama",
+            "lightx2v_tpu_torch.vae.hunyuan_vae", "lightx2v_tpu_torch.runners.hunyuan_runner"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -134,4 +137,4 @@ def test_unported_runner_raises():
     from lightx2v_tpu_torch.utils.config import set_config
 
     with pytest.raises(NotImplementedError):
-        infer.init_runner(set_config(dict(model_cls="hunyuan", device="cpu")))
+        infer.init_runner(set_config(dict(model_cls="wan2.1_causvid", device="cpu")))
