@@ -12,6 +12,7 @@
     python3 chip_smoke.py --path hunyuan     # the kernel phases and the HunyuanVideo path
     python3 chip_smoke.py --path tea_fp8 --path changing_resolution   # caching, changing resolution
     python3 chip_smoke.py --path offload_stream_fp8 --path offload_lazy_i2v   # the offload tiers
+    python3 chip_smoke.py --path offload_stream_tea --path offload_lazy_t2v_tiny   # offload x caching, lightx2v_6*
 
 1. Prints the card's name and power limit, builds every CUDA kernel of the
    port from ``lightx2v_tpu_torch/csrc`` (one nvcc per source, in parallel)
@@ -132,6 +133,27 @@
    component, stall ms, H2D and disk GB/s per step, the peak device memory
    after each stage, the host's available RAM and peak RSS (``VmHWM``), and
    the pinned GB.
+15. Offload with feature caching (``offload_stream_tea``):
+   ``configs/bench/lightx2v_4.json`` (Tea 0.2, fp8, CFG at 5) with
+   ``cpu_offload`` and ``weight_streaming``: lightx2v_5's tier under
+   lightx2v_4's cache, Tea deciding once for the CFG batch. Cut: a 3-step
+   window of the host Tea series holding a calc and a skip step. Gates: the
+   step-0 streamed prediction bit for bit the resident one; a skip step
+   copies 0 block bytes (and the staged bf16 residual in), a calc step the
+   40 blocks.
+16. The low-memory tier (``offload_lazy_t2v_tiny``,
+   ``offload_lazy_t2v_cfg_tiny``): ``configs/bench/lightx2v_6_distill.json``
+   as it is (int8, ``lazy_load`` with 2 disk workers and a 4 GB pool, RoPE
+   in torch, 4 distill steps, the tiny VAE) and ``lightx2v_6.json`` (UniPC,
+   CFG at batch 2; cut to 2 of its 40 steps), from files the script writes
+   beside the lazy i2v path's (the t2v int8 DiT in the blocks layout, the
+   bf16 UMT5-XXL ``.pth``, shared, and a ``taew2_1.pth`` read through the
+   tiny VAE's converter). The distill path holds its step-0 prediction bit
+   for bit against the resident forward; both time the tiny decode alone
+   with its device peak and hold its first 2 latent frames (a 240 x 416
+   corner) on the card against the CPU. Before them, the ``vae_int8`` phase:
+   the full Wan VAE's tiled decode of a 16 x 21 x 60 x 104 latent with the
+   int8 decoder against the float one (times, SNR > 15 dB).
 
 The kernel phases also hold and time the fused-RoPE flash kernel at
 changing resolution's phase A, (2, 18,018, 40, 128) with a 98-row last
@@ -252,9 +274,18 @@ STREAM_JSON = "configs/bench/lightx2v_5_distill.json"
 LAZY_JSON = "configs/offload/wan_i2v_disk_lazy_480p.json"
 LAZY_STEPS = 2  # of the file's 40 UniPC steps
 LORA_RANK = 32
+# the low-memory rows of the bench ladder on the disk tier (int8, 2 workers, a 4 GB pool, the tiny VAE), from a
+# t2v blocks checkpoint and a taew2_1-style .pth this script writes; lightx2v_6 cut to 2 of its 40 UniPC steps
+LAZY_T2V = {"offload_lazy_t2v_tiny": ("configs/bench/lightx2v_6_distill.json", "wan2.1_distill", None),
+            "offload_lazy_t2v_cfg_tiny": ("configs/bench/lightx2v_6.json", "wan2.1", 2)}
+# lightx2v_4 (Tea 0.2, fp8, CFG at 5) on the host-RAM tier: a window of its host Tea series (one decision for the
+# CFG batch under offload) holding a calc and a skip step
+STREAM_TEA = (TEA_JSON, "tea", 3)
+TINY_CHECK_FRAMES = 2  # latent frames of the lazy t2v path's latents decoded on the CPU against the card
 PATHS = ("slice", "flagship", "base", "radial_bsr", "radial_two_pass", "fp8_distill", "i2v", "cogvideox",
          "hunyuan", "tea_fp8", "changing_resolution", "taylorseer_1_3b", "taylorws_1_3b", "ada_1_3b", "custom_1_3b",
-         "offload_stream_fp8", "offload_lazy_i2v")
+         "offload_stream_fp8", "offload_lazy_i2v", "offload_stream_tea", "offload_lazy_t2v_tiny",
+         "offload_lazy_t2v_cfg_tiny")
 
 
 def card_line() -> str:
@@ -1689,7 +1720,7 @@ def tea_series(runner):
     tc = TeaCacheConfig.from_config(cfg)
     cfg_on = bool(cfg.get("enable_cfg", True))
     mods = tea_mod_series(runner.model, runner.arch, sched, tc, 2 if cfg_on else 1, sched.num_steps(), device="cuda")
-    return tea_decision_series(mods, tc, per_side=cfg["feature_caching"] == "Tea" and cfg_on)
+    return tea_decision_series(mods, tc, per_side=cfg["feature_caching"] == "Tea" and cfg_on and not runner._offload())
 
 
 def _flag(c) -> bool:
@@ -1699,13 +1730,14 @@ def _flag(c) -> bool:
     return bool(np.any(c))
 
 
-def plan_cut(name: str, runner):
+def plan_cut(name: str, runner, spec=None):
     """(step window, the calc entries the window must record, or None where
     only the run can say) for a cached or changing-resolution path. Tea and
     Custom take the first window of their cut's length that starts at a calc
     step and holds a skip step of the full-schedule host series (printed
     with its calc count); TaylorSeer's and TaylorWS's pattern starts at 0;
-    changing resolution crosses the switch: steps k - 1, k, k + 1."""
+    changing resolution crosses the switch: steps k - 1, k, k + 1.
+    ``spec`` (kind, count) stands for a path that is not in ``CACHED``."""
     import numpy as np
 
     from lightx2v_tpu_torch.caching.taylorseer import taylor_schedule
@@ -1715,7 +1747,7 @@ def plan_cut(name: str, runner):
     if name == "changing_resolution":
         k = int(cfg.get("changing_resolution_steps", n // 2))
         return (k - 1, 3), [True] * 3
-    _, _, kind, count = CACHED[name]
+    kind, count = spec or CACHED[name][2:]
     if kind == "taylor":
         return (0, count), [bool(c) for c in taylor_schedule(n)[0][:count]]
     if kind == "ada":
@@ -1759,6 +1791,19 @@ def drop_pages(path) -> None:
         os.close(fd)
 
 
+def read_from_disk(store) -> None:
+    """Drop each block file's pages after the disk tier's store reads it, so
+    every read of it comes from the disk."""
+    read = store.read_block
+
+    def read_and_drop(i, buf):
+        n = read(i, buf)
+        drop_pages(store.paths[i])
+        return n
+
+    store.read_block = read_and_drop
+
+
 def offload_stats(tm) -> dict:
     """Per step: stall ms (the compute stream waiting for a block),
     host-to-device GB/s over the copy stream's busy time, and for the disk
@@ -1769,6 +1814,9 @@ def offload_stats(tm) -> dict:
            "h2d_gb": [st["h2d_bytes"] / 1e9 for st in steps],
            "h2d_gb_s": [st["h2d_bytes"] / 1e6 / st["h2d_ms"] if st["h2d_ms"] else None for st in steps],
            "pinned_gb": tm["host_buffer_gb"]}
+    if "cache_h2d_bytes" in steps[0]:  # feature caching under offload: its host-staged state
+        out.update(cache_h2d_gb=[st["cache_h2d_bytes"] / 1e9 for st in steps],
+                   cache_d2h_gb=[st["cache_d2h_bytes"] / 1e9 for st in steps])
     if "disk_bytes" in steps[0]:
         out.update(disk_gb=[st["disk_bytes"] / 1e9 for st in steps],
                    disk_worker_gb_s=[st["disk_bytes"] / 1e9 / st["disk_read_s"] if st["disk_read_s"] else None
@@ -1983,61 +2031,326 @@ def pick_checkpoint_dir():
     layers = int((free[str(best)] / 1e9 - other_gb - margin_gb) // block_gb)
     if layers < 1:
         raise AssertionError(f"no directory holds the lazy path's files: {free}")
-    print(json.dumps({"offload_lazy_i2v_depth_cut": layers}), flush=True)
+    print(json.dumps({"offload_lazy_depth_cut": layers}), flush=True)
     return best, layers
 
 
-def run_offload_lazy(profile_dir=None):
-    """The disk tier on ``configs/offload/wan_i2v_disk_lazy_480p.json`` as it
-    is, from files this script writes, with ``dit_quantized_ckpt``,
-    ``model_path`` and ``image_path`` pointed at them; cut to the first
-    ``LAZY_STEPS`` steps through the runner's step window. The block files'
-    pages are dropped after each read, so every step reads its blocks from
-    the disk, as on a host that cannot cache the DiT."""
+def tiny_vae_state_dict(params) -> dict:
+    """Tiny-VAE params -> a taew2_1.pth's keys (the reference's
+    ``encoder.N`` / ``decoder.N`` Sequential indices), fp32 on the host."""
+    from lightx2v_tpu_torch.vae.tiny_vae import DEC_SEQ, ENC_SEQ
+
+    sd = {}
+
+    def put(key, w, b=None):
+        sd[f"{key}.weight"] = w.cpu()
+        if b is not None:
+            sd[f"{key}.bias"] = b.cpu()
+
+    def mem(key, mp):
+        for n, (w, b) in enumerate(((mp["c0_w"], mp["c0_b"]), (mp["c1_w"], mp["c1_b"]), (mp["c2_w"], mp["c2_b"]))):
+            put(f"{key}.conv.{2 * n}", w, b)
+        if "skip_w" in mp:
+            put(f"{key}.skip", mp["skip_w"])
+
+    e, d = params["encoder"], params["decoder"]
+    put("encoder.0", e["in_w"], e["in_b"])
+    for i, (pool_i, down_i, mems) in enumerate(ENC_SEQ):
+        put(f"encoder.{pool_i}.conv", e[f"s{i}_pool"]["w"])
+        put(f"encoder.{down_i}", e[f"s{i}_down_w"])
+        for j, m in enumerate(mems):
+            mem(f"encoder.{m}", e[f"s{i}_mem{j}"])
+    put("encoder.17", e["out_w"], e["out_b"])
+    put("decoder.1", d["in_w"], d["in_b"])
+    for i, (mems, grow_i, out_i) in enumerate(DEC_SEQ):
+        for j, m in enumerate(mems):
+            mem(f"decoder.{m}", d[f"s{i}_mem{j}"])
+        put(f"decoder.{grow_i}.conv", d[f"s{i}_grow"]["w"])
+        put(f"decoder.{out_i}", d[f"s{i}_out_w"])
+    put("decoder.22", d["out_w"], d["out_b"])
+    return sd
+
+
+def write_t2v_checkpoint(root: Path, layers: int) -> dict:
+    """The lazy t2v paths' files under ``root``: ``dit_int8_t2v/`` from the
+    converter (the full-width t2v DiT made as a reference-key bf16 dict on
+    the card, int8 on the card, the blocks layout), ``model_t2v/`` with the
+    Wan t2v ``config.json``, the bf16 UMT5-XXL ``.pth`` (a link to the i2v
+    path's file where it was written) and ``taew2_1.pth`` (the runner's
+    seed-2 tiny VAE under the reference's keys). The new files are fsynced
+    and their pages dropped; returns the write seconds and bytes."""
+    import os
+
+    import torch
+
+    from lightx2v_tpu_torch.encoders.t5 import UMT5_XXL, init_random_t5_params_on_device
+    from lightx2v_tpu_torch.models.wan.config import PRESETS, WanArch
+    from lightx2v_tpu_torch.models.wan.weights import init_random_weight_dict_on_device
+    from lightx2v_tpu_torch.tools.convert import quantize_model, save_quantized
+    from lightx2v_tpu_torch.vae.tiny_vae import init_random_tiny_vae_params
+
+    model, dit = root / "model_t2v", root / "dit_int8_t2v"
+    model.mkdir(parents=True)
+    arch = WanArch(**dict(PRESETS["wan2.1_14b"], num_layers=layers))
+    times = {}
+    t0 = time.perf_counter()
+    q = quantize_model(init_random_weight_dict_on_device(arch, seed=13, device="cuda"), "int8")
+    torch.cuda.synchronize()
+    times["synthesize_and_quantize_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_quantized(q, str(dit), "blocks", "int8")
+    del q
+    torch.cuda.empty_cache()
+    times["dit_write_s"] = time.perf_counter() - t0
+    (model / "config.json").write_text(json.dumps({
+        "model_type": "t2v", "dim": arch.dim, "ffn_dim": arch.ffn_dim, "freq_dim": arch.freq_dim, "in_dim": 16,
+        "num_heads": arch.num_heads, "num_layers": layers, "out_dim": arch.out_dim, "text_len": TXT,
+        "eps": arch.eps}))
+    t5 = model / "models_t5_umt5-xxl-enc-bf16.pth"
+    shared = root / "model" / t5.name
+    t0 = time.perf_counter()
+    if shared.is_file():
+        os.symlink(shared, t5)
+    else:
+        torch.save(t5_state_dict(init_random_t5_params_on_device(UMT5_XXL, seed=1, device="cuda"), UMT5_XXL), t5)
+        torch.cuda.empty_cache()
+    times["t5_write_s"] = time.perf_counter() - t0
+    torch.save(tiny_vae_state_dict(init_random_tiny_vae_params(seed=2)), model / "taew2_1.pth")
+    t0 = time.perf_counter()
+    files = sorted(p for d in (model, dit) for p in d.iterdir() if p.is_file() and not p.is_symlink())
+    for f in files:
+        drop_pages(f)
+    times["fsync_s"] = time.perf_counter() - t0
+    sizes = {"dit_gb": sum(f.stat().st_size for f in dit.iterdir()) / 1e9,
+             "block_gb": (dit / "block_0.safetensors").stat().st_size / 1e9,
+             "t5_gb": t5.stat().st_size / 1e9, "t5_shared": shared.is_file(),
+             "tiny_vae_mb": (model / "taew2_1.pth").stat().st_size / 1e6,
+             "files_gb": sum(f.stat().st_size for f in files) / 1e9}
+    written = {**times, **sizes, "layers": layers,
+               "write_gb_s": sizes["files_gb"] / sum(v for k, v in times.items() if "write" in k or k == "fsync_s")}
+    print(json.dumps({"offload_lazy_t2v_write": written}), flush=True)
+    return written
+
+
+def tiny_decode_check(runner, latents) -> dict:
+    """The tiny decode of the path's latents again, timed alone with its
+    own device peak; then its first ``TINY_CHECK_FRAMES`` latent frames
+    (a 30 x 52 latent corner, 240 x 416 pixels) on the card against the
+    same decode on the CPU, before the clip."""
+    import os
+
+    import torch
+
+    from lightx2v_tpu_torch.runners.wan_runner import TINY_VAE_CHUNK
+    from lightx2v_tpu_torch.vae.tiny_vae import tiny_decode_wan_latents
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    frames = tiny_decode_wan_latents(runner.vae, latents, chunk=TINY_VAE_CHUNK)
+    torch.cuda.synchronize()
+    out = {"tiny_decode_s": time.perf_counter() - t0, "tiny_decode_frames": list(frames.shape),
+           "tiny_decode_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "tiny_decode_added_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "tiny_chunk": TINY_VAE_CHUNK}
+    del frames
+    part = latents[:, :TINY_CHECK_FRAMES, :30, :52]
+    card = tiny_decode_wan_latents(runner.vae, part).cpu()
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    ref = tiny_decode_wan_latents(_to(runner.vae, "cpu"), part.cpu())
+    out["tiny_cpu_check_s"] = time.perf_counter() - t0
+    # bar: relative L2 1e-2, TF32 convolutions on the card against fp32 on the CPU
+    rel = float((card - ref).norm() / ref.norm())
+    out["tiny_decode_rel_l2"] = rel
+    print(json.dumps({"tiny_decode_check": out}), flush=True)
+    if not rel < 1e-2 or card.shape != (4 * TINY_CHECK_FRAMES - 3, 240, 416, 3):
+        raise AssertionError(f"tiny decode on the card vs the CPU: relative L2 {rel}, shape {tuple(card.shape)}")
+    return out
+
+
+def run_lazy_t2v(name: str, root: Path, written: dict, profile_dir=None):
+    """A lazy t2v path on ``LAZY_T2V[name]``'s config as it is, from the
+    files ``write_t2v_checkpoint`` wrote (the DiT's block pages dropped
+    after each read); lightx2v_6 cut through the step window. The distill
+    path first holds its step-0 prediction bit for bit against the resident
+    forward; both check the tiny decode afterwards."""
+    import torch
+
+    from lightx2v_tpu_torch.runners.wan_runner import _SyntheticTokenizer
+    from lightx2v_tpu_torch.utils.config import set_config
+    from lightx2v_tpu_torch.vae.tiny_vae import init_random_tiny_vae_params
+
+    config_json, model_cls, steps = LAZY_T2V[name]
+    model = root / "model_t2v"
+    cfg = json.loads((ROOT / config_json).read_text())
+    cfg.update(model_cls=model_cls, task="t2v", device="cuda", seed=42, release_modules=True, prompt=PROMPT,
+               negative_prompt=NEG, dit_quantized_ckpt=str(root / "dit_int8_t2v"), model_path=str(model),
+               tiny_vae_path=str(model / "taew2_1.pth"))
+    cfg = set_config(cfg)
+    captured = {}
+
+    def before(runner):
+        runner.text_encoder.tokenizer = _SyntheticTokenizer(TXT, runner.text_encoder.cfg.vocab_size)
+        if steps:
+            runner.step_window = (0, steps)
+        want = init_random_tiny_vae_params(seed=2)
+        if not all(torch.equal(runner.vae["decoder"][k].cpu(), want["decoder"][k]) for k in ("in_w", "out_w")):
+            raise AssertionError("the tiny VAE read from taew2_1.pth is not the one written")
+        read_from_disk(runner.model["blocks"])
+        decode = runner.run_vae_decoder
+
+        def keep(latents):
+            captured["latents"] = latents
+            return decode(latents)
+
+        runner.run_vae_decoder = keep
+        extra = {"write": written}
+        if model_cls == "wan2.1_distill":
+            extra.update(offload_step0_check(runner))
+        return extra
+
+    return run_path(name, {}, profile_dir, cfg=cfg, before=before,
+                    after=lambda runner: tiny_decode_check(runner, captured.pop("latents")))
+
+
+def run_offload_lazy(paths, profile_dir=None) -> dict:
+    """The disk-tier paths, from files this script writes under one
+    directory: ``offload_lazy_i2v`` on ``configs/offload/
+    wan_i2v_disk_lazy_480p.json`` as it is (cut to the first ``LAZY_STEPS``
+    steps through the runner's step window), its DiT deleted afterwards;
+    then the ``LAZY_T2V`` paths on a t2v DiT, sharing the T5 file. The block
+    files' pages are dropped after each read, so every step reads its blocks
+    from the disk, as on a host that cannot cache the DiT."""
     import shutil
 
     from lightx2v_tpu_torch.runners.wan_runner import _SyntheticTokenizer
     from lightx2v_tpu_torch.utils.config import set_config
 
     base, layers = pick_checkpoint_dir()
-    root = Path(tempfile.mkdtemp(prefix="lazy_i2v_", dir=base))
+    root = Path(tempfile.mkdtemp(prefix="lazy_", dir=base))
+    out = {}
     try:
-        written = write_i2v_checkpoint(root, layers)
-        cfg = json.loads((ROOT / LAZY_JSON).read_text())
-        cfg.update(model_cls="wan2.1", task="i2v", device="cuda", seed=42, release_modules=True,
-                   prompt=PROMPT,
-                   dit_quantized_ckpt=str(root / "dit_int8_blocks"), model_path=str(root / "model"),
-                   image_path=write_image(str(root / "i2v_input.png")))
-        cfg = set_config(cfg)
+        if "offload_lazy_i2v" in paths:
+            written = write_i2v_checkpoint(root, layers)
+            cfg = json.loads((ROOT / LAZY_JSON).read_text())
+            cfg.update(model_cls="wan2.1", task="i2v", device="cuda", seed=42, release_modules=True,
+                       prompt=PROMPT,
+                       dit_quantized_ckpt=str(root / "dit_int8_blocks"), model_path=str(root / "model"),
+                       image_path=write_image(str(root / "i2v_input.png")))
+            cfg = set_config(cfg)
 
-        def before(runner):
-            runner.text_encoder.tokenizer = _SyntheticTokenizer(TXT, runner.text_encoder.cfg.vocab_size)
-            runner.step_window = (0, LAZY_STEPS)
-            store = runner.model["blocks"]
-            read = store.read_block
+            def before(runner):
+                runner.text_encoder.tokenizer = _SyntheticTokenizer(TXT, runner.text_encoder.cfg.vocab_size)
+                runner.step_window = (0, LAZY_STEPS)
+                read_from_disk(runner.model["blocks"])
+                check = offload_step0_check(runner)
+                return {"write": written, **check}
 
-            def read_from_disk(i, buf):
-                n = read(i, buf)
-                drop_pages(store.paths[i])
-                return n
-
-            store.read_block = read_from_disk
-            check = offload_step0_check(runner)
-            return {"write": written, **check}
-
-        return run_path("offload_lazy_i2v", {}, profile_dir, cfg=cfg, before=before)
+            out["offload_lazy_i2v"] = run_path("offload_lazy_i2v", {}, profile_dir, cfg=cfg, before=before)
+            shutil.rmtree(root / "dit_int8_blocks")
+        t2v = [p for p in LAZY_T2V if p in paths]
+        if t2v:
+            written = write_t2v_checkpoint(root, layers)
+            for name in t2v:
+                out[name] = run_lazy_t2v(name, root, written, profile_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def stream_tea(profile_dir=None):
+    """``offload_stream_tea``: lightx2v_4 with ``cpu_offload`` and
+    ``weight_streaming`` (the fp8 DiT packed into pinned host memory, Tea on
+    the streamed stack), the ``STREAM_TEA`` window. Gates: the step-0
+    prediction of the streamed forward is the resident one bit for bit (a
+    calc step runs that forward), every skip step copies 0 block bytes and
+    copies the staged residual in, every calc step copies all 40 blocks."""
+    blocks = {}
+
+    def before(runner):
+        store = runner.model["blocks"]
+        blocks["bytes"] = store.num_blocks * store.layout.nbytes
+        return offload_step0_check(runner)
+
+    def after(runner):
+        tm = runner.timings
+        for c, st in zip(tm["calc_steps"], tm["offload"]):
+            if st["h2d_bytes"] != (blocks["bytes"] if c else 0) or not (c or st["cache_h2d_bytes"] > 0):
+                raise AssertionError(f"offload_stream_tea: step {'calc' if c else 'skip'} moved {st}")
+        return {"calc_h2d_gb": blocks["bytes"] / 1e9}
+
+    return run_path("offload_stream_tea", dict(WAN14B, negative_prompt=NEG, cpu_offload=True, weight_streaming=True),
+                    profile_dir, model_cls="wan2.1", config_json=STREAM_TEA[0], cut=STREAM_TEA[1:], before=before,
+                    after=after)
+
+
+def vae_int8_check():
+    """``vae_int8``: the full Wan VAE's tiled decode of one 16 x 21 x 60 x
+    104 latent (81 x 480 x 832 frames) with the int8 decoder
+    (``quantize_vae_decoder_int8``) against the float decoder on the card,
+    each timed once after a warm-up on the first 5 latent frames (every
+    tile and chunk shape). Gate: SNR > 15 dB (the JAX package's bound,
+    ``tests/test_vae.py``)."""
+    import math
+
+    import torch
+
+    from lightx2v_tpu_torch.vae.wan_vae import (WanVAEConfig, init_random_vae_state_dict, load_wan_vae_params,
+                                                quantize_vae_decoder_int8, vae_decode_tiled)
+
+    cfg = WanVAEConfig()
+    params = load_wan_vae_params(init_random_vae_state_dict(cfg, seed=2), cfg, device="cuda")
+    del params["encoder"], params["conv1"]
+    pairs = (("float", params), ("int8", quantize_vae_decoder_int8(params)))
+    z = torch.randn((1, FRAMES, 60, 104, 16), generator=torch.Generator(device="cuda").manual_seed(9), device="cuda")
+
+    def decode(p, zz):
+        out = vae_decode_tiled(p, zz, cfg)
+        torch.cuda.synchronize()
+        return out
+
+    for _, p in pairs:
+        decode(p, z[:, :5])
+    res, outs = {}, {}
+    for name, p in pairs:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs[name] = decode(p, z)
+        res[f"{name}_decode_s"] = time.perf_counter() - t0
+        res[f"{name}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    ref, got = outs["float"].float(), outs["int8"].float()
+    res["snr_db"] = 20 * math.log10(float(ref.pow(2).mean().sqrt()) / max(float((got - ref).pow(2).mean().sqrt()),
+                                                                            1e-20))
+    res["frames"] = list(got.shape)
+    res["int8_convs"] = sum(1 for p in _conv_leaves(pairs[1][1]) if "w_scale" in p)
+    print(json.dumps({"vae_int8": res}), flush=True)
+    if not (res["snr_db"] > 15.0 and torch.isfinite(got).all() and got.shape == (1, 81, 480, 832, 3)):
+        raise AssertionError(f"vae_int8: SNR {res['snr_db']} dB (bound 15), shape {tuple(got.shape)}")
+    return res
+
+
+def _conv_leaves(tree):
+    if isinstance(tree, dict):
+        if "w" in tree:
+            yield tree
+        for v in tree.values():
+            yield from _conv_leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _conv_leaves(v)
 
 
 def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan2.1_distill",
-             config_json: str = DEPLOY_JSON, steps=None, cut: bool = False, cfg=None, before=None):
+             config_json: str = DEPLOY_JSON, steps=None, cut=False, cfg=None, before=None, after=None):
     """Synthesize the path's weights on the card (or load what ``cfg``, a
     prepared config, names), zero the counters, run the pipeline once (its
     first ``steps`` denoise steps where given; with ``cut``, the window of
     ``plan_cut``), and check the counts and the frames; a cut path also its
-    calc and skip steps. ``before(runner)`` runs after loading, outside the
-    counted run, and returns entries for the path's line."""
+    calc and skip steps (``cut`` may be a ``plan_cut`` spec). ``before(runner)``
+    runs after loading and ``after(runner)`` after the run, both outside the
+    counted run, and return entries for the path's line."""
     import gc
 
     import numpy as np
@@ -2066,7 +2379,7 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
     extra = before(runner) if before is not None else {}
     want_calc = None
     if cut:
-        runner.step_window, want_calc = plan_cut(name, runner)
+        runner.step_window, want_calc = plan_cut(name, runner, None if cut is True else cut)
     expect = None if cut and want_calc is None else expected_launches(
         runner, cfg, sum(map(_flag, want_calc)) if cut else None)
     selected = []  # Sparge's per-call selected-block totals, summed on the device
@@ -2126,6 +2439,8 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
         stats.update(offload_stats(tm), **host_memory(), load_parts_s=tm["load_parts_s"],
                      load_mem_gb_by_part=tm["load_mem_gb"], mem_gb_by_stage=tm["mem_gb"])
     stats.update(extra)
+    if after is not None:
+        stats.update(after(runner))
     print(json.dumps({name: stats}), flush=True)
     if profile_dir:
         profile_run(runner, profile_dir, name)
@@ -2290,8 +2605,12 @@ def main():
     if "offload_stream_fp8" in paths:
         by_path["offload_stream_fp8"] = run_path("offload_stream_fp8", WAN14B, args.profile,
                                                  config_json=STREAM_JSON, before=offload_step0_check)
-    if "offload_lazy_i2v" in paths:
-        by_path["offload_lazy_i2v"] = run_offload_lazy(args.profile)
+    if "offload_stream_tea" in paths:
+        by_path["offload_stream_tea"] = stream_tea(args.profile)
+    if "offload_lazy_t2v_tiny" in paths:
+        vae_int8_check()
+    if any(p in paths for p in ("offload_lazy_i2v", *LAZY_T2V)):
+        by_path.update(run_offload_lazy(paths, args.profile))
     for r in rows:
         r["launches_by_path"] = {p: c.get(r["name"], 0) for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -16,6 +16,12 @@ Feature caching (``feature_caching``):
 - ``Ada``: the codebook's skip lengths from the middle block's gated
   self-attention output.
 
+Under offload (``streamed``) the caching follows the JAX streamed forward
+(``streaming.StreamedCache``): Tea, Custom, TaylorSeer and Ada on the
+whole stack's residual staged in host memory, Tea's decision shared by the
+CFG batch, TaylorSeer's pattern ``taylor_pattern``; a skipped step does not
+iterate the streamed blocks. TaylorWS has no streamed form.
+
 Every decision is made on the host. Tea's and Custom's depend only on the
 timestep embeddings, so the run's series is replayed before the first step
 (``tea_decision_series``); TaylorSeer's pattern is fixed; Ada reads one
@@ -45,8 +51,10 @@ from ...ops.rope import build_wan_rope_grid
 from .config import WanArch
 from .model import _split_modulation, time_embeddings, wan_block_parts, wan_post_process, wan_pre_process, \
     wan_transformer
+from .streaming import StreamedCache
 
 CACHING_MODES = ("NoCaching", "Tea", "Custom", "TaylorSeer", "TaylorWS", "Ada")
+STREAMED_CACHING_MODES = ("NoCaching", "Tea", "Custom", "TaylorSeer", "Ada")
 CACHE_DTYPES = {"bf16": torch.bfloat16, "fp8": torch.float8_e4m3fn, "fp32": torch.float32}
 
 
@@ -84,7 +92,7 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
                     cross_attn_type: str = "flash_attn3", feature_caching: str = "NoCaching",
                     caching_config=None, num_steps: Optional[int] = None,
                     self_attn_kwargs: Optional[dict] = None, device="cpu",
-                    cfg_scale_embed: Optional[float] = None):
+                    cfg_scale_embed: Optional[float] = None, streamed: bool = False):
     """Build ``denoise(params, state, context, generator, noises=None,
     on_step=None, context_null=None, y=None, clip_fea=None) -> final state``
     running ``num_steps`` steps (default: the rest of the schedule) from the
@@ -98,9 +106,13 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
     ``cfg_scale_embed`` (``enable_dynamic_cfg``) feeds that guidance scale
     to every forward's time embedding (a checkpoint's ``cfg_cond_proj``).
     ``params["blocks"]`` may be any iterable of blocks with a length: a
-    list, or an offload tier's streamer (``models/wan/streaming.py``)."""
+    list, or an offload tier's streamer (``models/wan/streaming.py``), and
+    then ``streamed`` selects the streamed caching; ``denoise.stream_cache``
+    is its ``StreamedCache`` during a run."""
     if feature_caching not in CACHING_MODES:
         raise ValueError(f"feature_caching {feature_caching!r} is not one of {CACHING_MODES}")
+    if streamed and feature_caching not in STREAMED_CACHING_MODES:
+        raise ValueError(f"feature_caching {feature_caching!r} has no streamed form ({STREAMED_CACHING_MODES})")
     rope_cos, rope_sin, seq_len = rope_for_shape(arch, target_shape, device=device)
     batch = 2 if enable_cfg else 1
     cfg_vec = None
@@ -110,13 +122,14 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
     tea_cfg = None
     if feature_caching in ("Tea", "Custom"):
         tea_cfg = TeaCacheConfig.from_config(caching_config) if caching_config is not None else TeaCacheConfig()
-    per_side = feature_caching == "Tea" and enable_cfg
+    per_side = feature_caching == "Tea" and enable_cfg and not streamed
     taylor_dtype = CACHE_DTYPES[str(cc.get("taylor_cache_dtype", "bf16"))]
     tea_dtype = CACHE_DTYPES[str(cc.get("tea_cache_dtype", "bf16"))]
     n_sched = scheduler.num_steps()
     taylor_is_calc = taylor_step_diff = None
     if feature_caching in ("TaylorSeer", "TaylorWS"):
-        taylor_is_calc, taylor_step_diff = taylor_schedule(n_sched)
+        taylor_is_calc, taylor_step_diff = taylor_schedule(n_sched, int(cc.get("taylor_pattern", 4)) if streamed
+                                                           else 4)
     mm_fn = resolve_mm(mm_type)
     self_fn, cross_fn = partial(attention, self_attn_type), partial(attention, cross_attn_type)
     mid = arch.num_layers // 2
@@ -139,6 +152,15 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
 
     def init_cache():
         d = arch.dim
+        if streamed:
+            if feature_caching == "NoCaching":
+                return {}
+            cache = {"stream": StreamedCache(feature_caching, taylor_dtype, device)}
+            if feature_caching == "Ada":
+                cache["ada"] = init_ada_state((batch, seq_len, d), dtype=torch.bfloat16,
+                                              metric_scale=float(cc.get("ada_metric_scale", 1.0)), device=device)
+                del cache["ada"]["prev_residual"]  # the residual lives in host memory
+            return cache
         if feature_caching == "Tea":
             mod_shape = (batch, 6, d) if tea_cfg.use_ret_steps else (batch, d)
             return init_tea_state((batch, seq_len, d), mod_shape, dtype=tea_dtype, device=device)
@@ -182,6 +204,7 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
             if not np.all(starts):
                 raise ValueError(f"{feature_caching}: a run that starts at step {first} must start at a calc step")
         cache = init_cache()
+        denoise.stream_cache = cache.get("stream") if streamed else None
         calc_steps = denoise.calc_steps = []
 
         def branch(j, i, x, embed0, ctx_e, ctx_img):
@@ -189,6 +212,8 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
             tf = partial(transformer, params, embed0=embed0, ctx=ctx_e, ctx_img=ctx_img)
             if feature_caching == "NoCaching":
                 return tf(x), True
+            if streamed:
+                return streamed_branch(j, i, x, embed0, ctx_e, ctx_img)
             if per_side:
                 def single(xx, side):
                     return transformer(params, xx, embed0[side:side + 1], ctx_e[side:side + 1],
@@ -224,6 +249,28 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
             cache["calc_count"] += 1
             return x_out, True
 
+        def streamed_branch(j, i, x, embed0, ctx_e, ctx_img):
+            """A skip step replays the host-staged state without touching
+            the blocks; a calc step runs the stack and stages its residual
+            (x is not written in place, so it is the stack's input)."""
+            sc = cache["stream"]
+            if feature_caching in ("Tea", "Custom"):
+                calc = bool(tea_plan[j])
+            elif feature_caching == "TaylorSeer":
+                calc = bool(taylor_is_calc[i])
+            else:
+                calc = i >= cache["ada"]["skip_until"]
+            if not calc and sc.ready:
+                return sc.replay(x, i), False
+            if feature_caching == "Ada":
+                x_out, tiny = ada_compute(params, x, embed0, ctx_e, ctx_img)
+                _, cache["ada"] = ada_skip_length(cache["ada"], tiny, i, n_sched, tokens_per_frame)
+                del tiny
+            else:
+                x_out = transformer(params, x, embed0, ctx_e, ctx_img)
+            sc.stage(x, x_out, i)
+            return x_out, True
+
         for j in range(n):
             i = first + j
             lat, t = scheduler.step_pre(state)
@@ -243,4 +290,5 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
         return state
 
     denoise.calc_steps = []
+    denoise.stream_cache = None
     return denoise

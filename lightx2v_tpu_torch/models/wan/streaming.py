@@ -27,8 +27,15 @@ the compute stream waited for a block to land (stall), and for the disk
 tier (``lazy_offload.py``) the bytes read, the workers' read seconds and
 the seconds the host waited for a read.
 
-Feature caching under offload is not ported (the JAX package composes
-them; ROADMAP.md, Queue 1 item 19): the runner refuses the combination."""
+Feature caching under offload (``StreamedCache``, driven by the denoise
+loop with ``streamed=True``) follows the JAX streamed forward, not the
+resident caching: a skipped step does not iterate the streamer, so it
+copies no block and reads nothing from the disk; the cached state is the
+whole stack's residual ``x_out - x_in`` (fp32), staged in host memory
+(pinned on a CUDA device) and added back in fp32. Tea and Ada keep it in
+bf16; TaylorSeer and Custom keep ``(f0, f1)`` in ``taylor_cache_dtype``
+(e4m3 saturating at +-448), f1 = 0 at the first calc. Tea decides once a
+step for the whole CFG batch."""
 
 from __future__ import annotations
 
@@ -36,6 +43,8 @@ from dataclasses import dataclass
 from typing import Any, Dict, Iterable, List, Sequence, Tuple
 
 import torch
+
+from ...caching.teacache import store
 
 Params = Dict[str, Any]
 ALIGN = 256  # bytes; every tensor of a packed block starts on this boundary
@@ -217,4 +226,64 @@ class BlockStreamer:
                "stall_ms": sum(a.elapsed_time(b) for a, b in self._stalls),
                **self.store.pass_stats()}
         self._reset()
+        return out
+
+
+class StreamedCache:
+    """The host-staged whole-stack cache of a streamed stack (counterpart of
+    the caching state in the JAX ``make_streamed_forward``): ``mode`` is
+    Tea, Ada (bf16 residual) or TaylorSeer, Custom (first-order ``(f0, f1)``
+    in ``dtype``). ``ready`` says a skip step can be rebuilt;
+    ``replay(x, step)`` rebuilds it, ``stage(x_in, x_out, step)`` stores a
+    calc step's. ``take_stats`` gives the bytes staged to and from the host
+    since its last call."""
+
+    def __init__(self, mode: str, dtype=torch.bfloat16, device="cpu"):
+        self.taylor = mode in ("TaylorSeer", "Custom")
+        self.dtype = dtype if self.taylor else torch.bfloat16
+        self.device = torch.device(device)
+        self.host: Dict[str, torch.Tensor] = {}  # "r", or "f0" and "f1"
+        self.last_calc = 0
+        self._stats = {"cache_d2h_bytes": 0, "cache_h2d_bytes": 0}
+
+    @property
+    def ready(self) -> bool:
+        return bool(self.host)
+
+    def _put(self, name: str, t: torch.Tensor) -> None:
+        """Stage ``t`` in its host buffer (made once, pinned on CUDA; the copy
+        is ordered before any later copy back on the same stream)."""
+        buf = self.host.get(name)
+        if buf is None or buf.shape != t.shape:
+            buf = self.host[name] = torch.empty(t.shape, dtype=t.dtype, pin_memory=self.device.type == "cuda")
+        buf.copy_(t, non_blocking=True)
+        self._stats["cache_d2h_bytes"] += t.numel() * t.element_size()
+
+    def _get(self, name: str) -> torch.Tensor:
+        buf = self.host[name]
+        self._stats["cache_h2d_bytes"] += buf.numel() * buf.element_size()
+        return buf.to(self.device, non_blocking=True).float()
+
+    def replay(self, x: torch.Tensor, step: int) -> torch.Tensor:
+        """x plus the cached residual (Tea, Ada) or f0 + f1 * (step -
+        last_calc) (TaylorSeer, Custom), added in fp32."""
+        rec = self._get("f0") + self._get("f1") * float(step - self.last_calc) if self.taylor else self._get("r")
+        return (x.float() + rec).to(x.dtype)
+
+    def stage(self, x_in: torch.Tensor, x_out: torch.Tensor, step: int) -> None:
+        r = x_out.float() - x_in.float()
+        if not self.taylor:
+            self._put("r", r.to(torch.bfloat16))
+            return
+        if self.ready:
+            f1 = (r - self._get("f0")) / float(max(step - self.last_calc, 1))
+        else:
+            f1 = torch.zeros_like(r)  # the first calc: f0 alone
+        self._put("f1", store(f1, self.dtype))
+        del f1
+        self._put("f0", store(r, self.dtype))
+        self.last_calc = step
+
+    def take_stats(self) -> Dict[str, int]:
+        out, self._stats = self._stats, {"cache_d2h_bytes": 0, "cache_h2d_bytes": 0}
         return out

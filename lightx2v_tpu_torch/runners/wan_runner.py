@@ -49,12 +49,22 @@ a blocks-layout checkpoint and ``num_disk_workers`` threads read them into
 a staging pool of ``max_memory`` GB. CFG stays one batch-2 forward, so the
 weights stream once a step. ``timings["offload"]`` holds each step's
 counters (host-to-device bytes and copy ms, stall ms, disk bytes and read
-seconds).
+seconds, and with caching the bytes its state moved to and from the host).
+Tea, Custom, TaylorSeer and Ada run under offload as the JAX streamed
+forward runs them (``models/wan/pipeline.py``, ``streamed``): a skipped step
+copies no block. TaylorWS and ``changing_resolution`` under offload raise
+``NotImplementedError`` (ROADMAP.md, Queue 3, difference ac): the JAX runner
+runs the one uncached and the other with resident weights.
+
+``tiny_vae`` decodes with the taew2_1 decoder (``vae/tiny_vae.py``: random
+from seed 2 with ``synthetic_weights`` or without ``tiny_vae_path``, as the
+JAX runner), ``TINY_VAE_CHUNK`` latent frames at a time, and ignores
+``use_tiling_vae``. ``vae_int8`` runs the Wan VAE decoder's convolutions on
+int8 codes (``quantize_vae_decoder_int8``).
 
 Config keys whose feature is not ported raise ``NotImplementedError`` naming
-their ROADMAP.md item rather than run as if absent: ``do_mm_calib``,
-``mesh_shape``, ``vae_int8``, ``tiny_vae``, and caching or changing
-resolution under offload.
+their ROADMAP.md item rather than run as if absent: ``do_mm_calib`` and
+``mesh_shape``.
 
 ``feature_caching`` (Tea, Custom, TaylorSeer, TaylorWS, Ada) runs in the
 denoise loop (``models/wan/pipeline.py``), the config passed on as its
@@ -109,8 +119,9 @@ from ..utils.logging_utils import logger
 from ..utils.media import load_image
 from ..utils.registry import RUNNER_REGISTER
 from ..utils.safetensors_io import load_file, load_sharded
+from ..vae.tiny_vae import init_random_tiny_vae_params, load_tiny_vae_params, tiny_decode_wan_latents
 from ..vae.wan_vae import (WanVAEConfig, init_random_vae_state_dict, load_wan_vae_from_path, load_wan_vae_params,
-                           vae_decode, vae_decode_tiled, vae_encode)
+                           quantize_vae_decoder_int8, vae_decode, vae_decode_tiled, vae_encode)
 from .base_runner import DefaultRunner
 
 SMALL_T5 = T5Config(vocab_size=4096, dim=256, dim_attn=256, dim_ffn=512, num_heads=8, num_layers=2)
@@ -149,6 +160,9 @@ OFFLOAD_KEYS = ("cpu_offload", "weight_streaming", "lazy_load")
 T5_CKPT = "models_t5_umt5-xxl-enc-bf16.pth"
 CLIP_CKPT = "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth"
 VAE_CKPT = "Wan2.1_VAE.pth"
+# latent frames the tiny VAE decodes at a time (4 output frames each; at 480x832 a chunk's largest
+# activations are 8 frames of 64 channels, 0.82 GB in fp32)
+TINY_VAE_CHUNK = 2
 FOLD_FIRST = ("fold LoRAs and quantize with python -m lightx2v_tpu_torch.tools.convert "
               "(--lora path[:strength] --quant int8|fp8|int4)")
 
@@ -185,10 +199,13 @@ class WanRunner(DefaultRunner):
             raise _not_ported("multi-device runs (mesh_shape)", "Queue 1 item 14")
         if cfg.get("do_mm_calib"):
             raise _not_ported("do_mm_calib (activation calibration)", "Queue 1 item 12")
-        if self._offload() and (cfg.get("feature_caching", "NoCaching") != "NoCaching"
-                                or cfg.get("changing_resolution")):
-            raise _not_ported("offload x caching (feature_caching or changing_resolution with cpu_offload, "
-                              "weight_streaming or lazy_load)", "Queue 1 item 19")
+        if self._offload() and cfg.get("changing_resolution"):
+            raise NotImplementedError("changing_resolution under offload: the JAX runner runs it with resident "
+                                      "weights, ignoring cpu_offload, weight_streaming and lazy_load (ROADMAP.md, "
+                                      "Queue 3, difference ac)")
+        if self._offload() and cfg.get("feature_caching") == "TaylorWS":
+            raise NotImplementedError("TaylorWS under offload: the JAX streamed forward runs it uncached "
+                                      "(ROADMAP.md, Queue 3, difference ac)")
         if self._synthetic() and "dim" not in cfg:
             for k, v in dict(dim=384, ffn_dim=768, num_heads=6, num_layers=4, freq_dim=256, text_dim=256).items():
                 cfg.setdefault(k, v)
@@ -283,9 +300,13 @@ class WanRunner(DefaultRunner):
 
     def load_vae(self):
         if self.config.get("tiny_vae"):
-            raise _not_ported("the tiny VAE", "Queue 1 item 17")
-        if self.config.get("vae_int8"):
-            raise _not_ported("vae_int8 (the int8 VAE decoder)", "Queue 1 item 7")
+            # taew2_1: random (seed 2) with synthetic weights or no tiny_vae_path, as the JAX runner
+            if self._i2v():
+                raise ValueError("tiny_vae decodes only: i2v encodes its image with the Wan VAE")
+            self.vae_cfg = None
+            if self._synthetic() or not self.config.get("tiny_vae_path"):
+                return init_random_tiny_vae_params(seed=2, device=self.device)
+            return load_tiny_vae_params(self.config["tiny_vae_path"], device=self.device)
         if not self._synthetic():
             self.vae_cfg = WanVAEConfig()
             params = load_wan_vae_from_path(self._model_file(VAE_CKPT), self.vae_cfg, device=self.device)
@@ -295,6 +316,8 @@ class WanRunner(DefaultRunner):
                                          device=self.device)
         if not self._i2v():  # t2v never encodes: its encoder stays off the device
             del params["encoder"], params["conv1"]
+        if self.config.get("vae_int8"):
+            params = quantize_vae_decoder_int8(params)
         return params
 
     # ---------------- pipeline stages ----------------
@@ -438,7 +461,8 @@ class WanRunner(DefaultRunner):
                                   caching_config=self.config, num_steps=count,
                                   self_attn_kwargs=self_attn_kwargs, device=self.device,
                                   cfg_scale_embed=(float(self.config.get("cfg_scale", 4.0))
-                                                   if self.config.get("enable_dynamic_cfg") else None))
+                                                   if self.config.get("enable_dynamic_cfg") else None),
+                                  streamed=streamer is not None)
         on_step, ends = self._step_timer()
         if streamer is not None:
             stats = self.timings["offload"] = []
@@ -446,7 +470,8 @@ class WanRunner(DefaultRunner):
 
             def on_step(j):
                 timer(j)  # synced: the step's copies and reads are done
-                stats.append(streamer.take_stats())
+                sc = denoise.stream_cache
+                stats.append({**streamer.take_stats(), **(sc.take_stats() if sc is not None else {})})
 
         t0 = time.perf_counter()
         teo, ieo = encoder_out["text_encoder_output"], encoder_out.get("image_encoder_output") or {}
@@ -576,6 +601,9 @@ class WanRunner(DefaultRunner):
         return frames[:f, y0:y0 + h, x0:x0 + w]
 
     def run_vae_decoder(self, latents) -> np.ndarray:
+        if self.config.get("tiny_vae"):  # use_tiling_vae does not apply, as in the JAX runner
+            frames = tiny_decode_wan_latents(self.vae, latents, chunk=TINY_VAE_CHUNK)
+            return self._crop_to_request(frames.clamp(-1.0, 1.0).cpu().numpy())
         z = latents.permute(1, 2, 3, 0)[None]  # (C, F, H, W) -> (1, F, H, W, C)
         scale = not self.config.get("synthetic_weights")
         chunk = int(self.config.get("vae_decode_chunk", 4))

@@ -69,7 +69,29 @@ def cconv3d(p: Dict, x: torch.Tensor, cache: Optional[torch.Tensor], t_stride: i
         pad_t = max(pad_t - cache.shape[2], 0)
     if pad_t > 0:
         x = F.pad(x, (0, 0, 0, 0, pad_t, 0))
+    if "w_scale" in p:
+        return _conv3d_int8(p, x, (t_stride, 1, 1), (0, kh // 2, kw // 2))
     return F.conv3d(x, w.to(x.dtype), p.get("b"), stride=(t_stride, 1, 1), padding=(0, kh // 2, kw // 2))
+
+
+def _conv3d_int8(p: Dict, x: torch.Tensor, stride, padding) -> torch.Tensor:
+    """The int8 decoder conv (``quantize_vae_decoder_int8``): x quantized to
+    int8 codes with one dynamic scale (absmax / 127), the codes convolved
+    with the weight's codes, the sums rescaled by ``a_s * w_scale`` per
+    output channel, plus the bias. Codes of at most 127 are exact in fp32
+    and TF32, so their products are exact: the CPU sums in fp64 (equal to
+    int32 accumulation), a CUDA device in fp32 through cuDNN (PyTorch has no
+    int8 convolution there), which rounds only sums past 2^24."""
+    xf = x.float()
+    a_s = torch.clamp_min(xf.abs().amax(), 1e-8) / 127.0
+    acc = torch.float64 if x.device.type == "cpu" else torch.float32
+    xq = torch.clamp(torch.round(xf / a_s), -127, 127).to(acc)
+    del xf
+    out = F.conv3d(xq, p["w"].to(acc), None, stride=stride, padding=padding).float()
+    out = out * (a_s * p["w_scale"].float()).reshape(1, -1, 1, 1, 1)
+    if p.get("b") is not None:
+        out = out + p["b"].float().reshape(1, -1, 1, 1, 1)
+    return out.to(x.dtype)
 
 
 def conv2d_down(p: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -448,6 +470,39 @@ def load_wan_vae_params(state_dict: Dict[str, Any], cfg: WanVAEConfig = WanVAECo
             "head_conv": _conv_p(sd, "decoder.head.2", dtype, device),
         },
     }
+
+
+INT8_KEPT_FLOAT = ("head_conv", "to_qkv", "proj")
+
+
+def quantize_vae_decoder_int8(params: Dict) -> Dict:
+    """The decoder's convolutions as per-output-channel symmetric int8 codes
+    (``w`` int8, ``w_scale`` (O,) fp32, the bias as it was), run by
+    ``cconv3d``'s int8 path. ``head_conv`` (the 3-channel output) and the
+    middle attention's ``to_qkv`` and ``proj`` stay float. Given the whole
+    VAE (a dict with ``decoder``) only its decoder is quantized; an int8
+    conv is left as it is."""
+    if "decoder" in params:
+        return dict(params, decoder=quantize_vae_decoder_int8(params["decoder"]))
+
+    def quant(conv: Dict) -> Dict:
+        w = conv["w"].float()
+        s = torch.clamp_min(w.abs().amax(dim=tuple(range(1, w.dim()))), 1e-8) / 127.0
+        q = torch.clamp(torch.round(w / s.reshape(-1, *([1] * (w.dim() - 1)))), -127, 127).to(torch.int8)
+        return dict(conv, w=q, w_scale=s)
+
+    def walk(node, key=""):
+        if isinstance(node, dict):
+            w = node.get("w")
+            if isinstance(w, torch.Tensor) and w.dim() in (4, 5) and w.is_floating_point() \
+                    and key not in INT8_KEPT_FLOAT:
+                return quant(node)
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, key) for v in node]
+        return node
+
+    return walk(params)
 
 
 def load_wan_vae_from_path(path: str, cfg: WanVAEConfig = WanVAEConfig(), dtype=torch.float32,

@@ -902,3 +902,70 @@ def test_card_written_checkpoint_reads_back_exact(dev, tmp_path):
                 assert torch.equal(blk["cross_attn"]["k"]["w_scale"], q[f"blocks.{i}.cross_attn.k.weight_scale"])
         torch.cuda.synchronize()
         assert streamer.take_stats()["disk_bytes"] > 0
+
+
+def test_tiny_vae_decode_on_card(dev):
+    """The taew2_1 decoder (seed 2, as the runner draws it) on the card
+    against the same decode on the CPU, whole and in chunks of 2 latent
+    frames. Bar: relative L2 1e-2 (TF32 convolutions on the card against
+    fp32 on the CPU; the random decoder's outputs reach ~1e3)."""
+    from lightx2v_tpu_torch.vae.tiny_vae import init_random_tiny_vae_params, tiny_decode
+
+    params = init_random_tiny_vae_params(seed=2)
+    lat = torch.randn((1, 5, 8, 12, 16), generator=torch.Generator().manual_seed(0))
+    ref = tiny_decode(params, lat)
+    card = init_random_tiny_vae_params(seed=2, device=dev)
+    for chunk in (None, 2):
+        out = tiny_decode(card, lat.to(dev), chunk=chunk).cpu()
+        assert out.shape == ref.shape == (1, 17, 64, 96, 3)
+        assert float((out - ref).norm() / ref.norm()) < 1e-2
+
+
+def test_vae_int8_conv_on_card(dev):
+    """The int8 decoder conv (fp32 sums of exact code products through
+    cuDNN) against its plain version in fp64 on the CPU (the int32 sums):
+    a causal 3x3x3 conv with a temporal cache and a 1x1x1 conv. Bar: 1e-5 of
+    the output's max (fp32 rounding of sums up to 127^2 * 3456)."""
+    from lightx2v_tpu_torch.vae.wan_vae import cconv3d, quantize_vae_decoder_int8
+
+    g = torch.Generator().manual_seed(1)
+    for k, cin in ((3, 128), (1, 384)):
+        conv = {"w": torch.randn((96, cin, k, k, k), generator=g) * 0.05, "b": torch.randn((96,), generator=g)}
+        q = quantize_vae_decoder_int8({"decoder": {"conv": conv}})["decoder"]["conv"]
+        assert q["w"].dtype == torch.int8
+        x = torch.randn((1, cin, 4, 20, 28), generator=g)
+        cache = torch.randn((1, cin, 2, 20, 28), generator=g) if k == 3 else None
+        ref = cconv3d(q, x, cache)
+        out = cconv3d({n: v.to(dev) for n, v in q.items()}, x.to(dev), None if cache is None else cache.to(dev))
+        assert out.dtype == torch.float32
+        _close(out.cpu(), ref, 1e-5, 0.0)
+
+
+@pytest.mark.parametrize("mode", ["TaylorSeer", "Ada", "Custom"])
+def test_streamed_caching_on_card(dev, mode):
+    """A tiny streamed denoise with caching on the card (the host-RAM tier,
+    pinned blocks and staged state): every skip step copies no block (0
+    bytes) and copies its staged state in; a calc step copies every block;
+    the latents are finite and within 2e-2 (relative L2) of the same run on
+    the CPU."""
+    from lightx2v_tpu_torch import infer
+    from lightx2v_tpu_torch.utils.config import set_config
+
+    linear = [[1.0, 0.0], [1.0, 0.0]]
+    extra = {"TaylorSeer": dict(taylor_pattern=2, infer_steps=4), "Ada": dict(infer_steps=5),
+             "Custom": dict(coefficients=linear, teacache_thresh=1.0, infer_steps=5)}[mode]
+    cfg = dict(model_cls="wan2.1", task="t2v", synthetic_weights=True, prompt="a red panda", seed=42,
+               enable_cfg=False, target_video_length=9, target_height=64, target_width=96, sample_shift=5,
+               latent_init="torch", text_len=64, cpu_offload=True, feature_caching=mode, dim=256, ffn_dim=512,
+               num_heads=2, num_layers=2, text_dim=256, **extra)
+    lats = {}
+    for d in ("cuda", "cpu"):
+        r = infer.init_runner(set_config(dict(cfg, device=d)))
+        lats[d] = r.run_dit(r.run_input_encoder()).float().cpu()
+        calc = r.timings["calc_steps"]
+        assert any(calc) and not all(calc), calc
+        nbytes = r.model["blocks"].num_blocks * r.model["blocks"].layout.nbytes
+        for c, st in zip(calc, r.timings["offload"]):
+            assert st["h2d_bytes"] == (nbytes if c else 0) and (c or st["cache_h2d_bytes"] > 0), (calc, st)
+    assert torch.isfinite(lats["cuda"]).all()
+    assert float((lats["cuda"] - lats["cpu"]).norm() / lats["cpu"].norm()) < 2e-2

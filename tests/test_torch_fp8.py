@@ -225,8 +225,7 @@ def test_fp8_distill_runner_tiny_on_cpu():
     assert len(runner.timings["step_s"]) == 4
 
 
-@pytest.mark.parametrize("key,item", [("tiny_vae", "Queue 1 item 17"), ("vae_int8", "Queue 1 item 7"),
-                                      ("do_mm_calib", "Queue 1 item 12"), ("mesh_shape", "Queue 1 item 14")])
+@pytest.mark.parametrize("key,item", [("do_mm_calib", "Queue 1 item 12"), ("mesh_shape", "Queue 1 item 14")])
 def test_unported_config_keys_raise(key, item):
     """Keys the JAX runner honours and the port does not: the runner refuses
     them, naming their ROADMAP.md item, rather than run as if absent."""

@@ -29,7 +29,8 @@ def test_every_module_imports_without_jax():
             "lightx2v_tpu_torch.utils.image", "lightx2v_tpu_torch.models.hunyuan.config",
             "lightx2v_tpu_torch.models.hunyuan.model", "lightx2v_tpu_torch.models.hunyuan.weights",
             "lightx2v_tpu_torch.schedulers.euler", "lightx2v_tpu_torch.encoders.llama",
-            "lightx2v_tpu_torch.vae.hunyuan_vae", "lightx2v_tpu_torch.runners.hunyuan_runner"} <= set(mods)
+            "lightx2v_tpu_torch.vae.hunyuan_vae", "lightx2v_tpu_torch.runners.hunyuan_runner",
+            "lightx2v_tpu_torch.vae.tiny_vae"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -3,15 +3,19 @@ streamed forward (the resident forward on a ``BlockStreamer`` over packed
 host blocks) against ``make_streamed_forward`` (t2v and i2v), the disk
 tier's runner against the JAX lazy runner on a blocks checkpoint that the
 JAX converter wrote (int8, and bf16 with ``rope_fused``: ROADMAP difference
-ab), the prefetcher's budget, and the refusal of offload with caching
-(difference ac).
+ab), the prefetcher's budget, the refusals of offload with TaylorWS or
+changing resolution (difference ac), and small ``configs/bench/
+lightx2v_6_distill.json`` and ``lightx2v_6.json`` runners (int8 from the
+disk tier, the tiny VAE) against the JAX runner. Caching under offload is in
+``test_torch_offload_caching.py``.
 
 DiT: dim 256, ffn 512, 2 heads of 128, 2 layers, as the module tests.
 Bars: the streamed forward equals the port's resident forward bit for bit
 (the same ops on the same weights) and the JAX streamed forward at the
 whole-model bar, relative L2 1e-2; the lazy runners' latents 1e-2 bf16 and
 3e-2 int8 (the JAX CPU int8 path quantizes differently, difference a), as
-``test_torch_checkpoint.py``. On a CUDA device the same classes pin the
+``test_torch_checkpoint.py``; the lightx2v_6 runners' frames 1e-4 on the
+same latents (the tiny VAE, as ``test_torch_tiny_vae.py``). On a CUDA device the same classes pin the
 host buffers and copy on a stream of their own (``test_torch_cuda.py``)."""
 
 import os
@@ -195,6 +199,47 @@ def test_lazy_runner_vs_jax(blocks_ckpts, kind):
     assert len(steps) == 2 and all(st["disk_bytes"] > 0 and st["h2d_bytes"] > 0 for st in steps)
 
 
+@pytest.mark.parametrize("name", ["lightx2v_6_distill", "lightx2v_6"])
+def test_lightx2v_6_runner_vs_jax(blocks_ckpts, name):
+    """The bench ladder's last rows at the tiny widths: the file's keys
+    (int8 W8A8, cpu_offload + lazy_load with 2 disk workers and a 4 GB pool,
+    RoPE in torch, the tiny VAE under use_tiling_vae) on the int8 blocks
+    checkpoint; lightx2v_6_distill its 4-entry step list without CFG,
+    lightx2v_6 UniPC with CFG at 5, cut to 2 of its 40 steps."""
+    import json
+
+    from lightx2v_tpu.runners.wan_runner import WanDistillRunner, WanRunner
+    from lightx2v_tpu.utils.config import set_config as jset
+    from lightx2v_tpu_torch import infer as tinfer
+    from lightx2v_tpu_torch.utils.config import set_config as tset
+
+    with open(os.path.join(os.path.dirname(__file__), "..", "configs", "bench", f"{name}.json")) as f:
+        cfg = json.load(f)
+    distill = name.endswith("distill")
+    cfg.update(model_cls="wan2.1_distill" if distill else "wan2.1", task="t2v", synthetic_weights=True,
+               prompt="a red panda", negative_prompt="blurry", target_video_length=9, target_height=64,
+               target_width=96, latent_init="torch", text_len=64, dit_quantized_ckpt=str(blocks_ckpts / "int8"),
+               **TINY)
+    if not distill:
+        cfg["infer_steps"] = 2
+    jr = (WanDistillRunner if distill else WanRunner)(jset(dict(cfg)))
+    tr = tinfer.init_runner(tset(dict(cfg, device="cpu")))
+    assert isinstance(tr.model["blocks"], tlazy.LazyBlockStore) and not tr.arch.rope_fused and tr.vae_cfg is None
+    shape = tuple(tr.set_target_shape())
+    noises = None
+    if distill:
+        rng, noises = jax.random.PRNGKey(cfg["seed"] + 1), []
+        for _ in cfg["denoising_step_list"]:
+            rng, sub = jax.random.split(rng)
+            noises.append(torch.from_numpy(np.array(jax.random.normal(sub, shape, jnp.float32))))
+    lj, lt = np.asarray(jr.run_dit(jr.run_input_encoder())), tr.run_dit(tr.run_input_encoder(), noises=noises)
+    assert lt.shape == lj.shape == shape and _rel(lt.numpy(), lj) < 3e-2, _rel(lt.numpy(), lj)
+    steps = tr.timings["offload"]
+    assert len(steps) == (4 if distill else 2) and all(st["disk_bytes"] > 0 for st in steps)
+    fj, ft = jr.run_vae_decoder(jnp.asarray(lj)), tr.run_vae_decoder(torch.from_numpy(lj))
+    assert ft.shape == fj.shape == (9, 64, 96, 3) and _rel(ft, fj) < 1e-4, _rel(ft, fj)
+
+
 @pytest.fixture(scope="module")
 def port_blocks(tmp_path_factory):
     root = tmp_path_factory.mktemp("port_blocks")
@@ -257,18 +302,19 @@ def test_prefetcher_stress(port_blocks, monkeypatch):
 
 
 def test_offload_refusals(port_blocks):
-    """Offload with feature caching or changing resolution raises
-    (difference ac, Queue 1 item 19); lazy_load needs a blocks-layout
+    """Under every offload key, changing resolution (the JAX runner runs it
+    with resident weights) and TaylorWS (the JAX streamed forward runs it
+    uncached) raise, naming difference ac; lazy_load needs a blocks-layout
     checkpoint; mesh_shape stays refused (item 14)."""
     from lightx2v_tpu_torch import infer as tinfer
     from lightx2v_tpu_torch.utils.config import set_config as tset
 
     base = {k: v for k, v in RUN.items() if k not in ("lazy_load", "cpu_offload")}
     for key in ("cpu_offload", "weight_streaming", "lazy_load"):
-        with pytest.raises(NotImplementedError, match="item 19"):
-            tinfer.init_runner(tset(dict(base, device="cpu", feature_caching="Tea", **{key: True})))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        tinfer.init_runner(tset(dict(base, device="cpu", cpu_offload=True, changing_resolution=True)))
+        with pytest.raises(NotImplementedError, match="resident weights.*difference ac"):
+            tinfer.init_runner(tset(dict(base, device="cpu", changing_resolution=True, **{key: True})))
+        with pytest.raises(NotImplementedError, match="TaylorWS.*uncached.*difference ac"):
+            tinfer.init_runner(tset(dict(base, device="cpu", feature_caching="TaylorWS", **{key: True})))
     with pytest.raises(ValueError, match="blocks-layout"):
         tinfer.init_runner(tset(dict(base, device="cpu", lazy_load=True)))
     with pytest.raises(NotImplementedError, match="item 14"):
