@@ -13,6 +13,7 @@
     python3 chip_smoke.py --path tea_fp8 --path changing_resolution   # caching, changing resolution
     python3 chip_smoke.py --path offload_stream_fp8 --path offload_lazy_i2v   # the offload tiers
     python3 chip_smoke.py --path offload_stream_tea --path offload_lazy_t2v_tiny   # offload x caching, lightx2v_6*
+    python3 chip_smoke.py --kernel flash_attention --path causvid --path skyreels_df --path audio   # the other runners
 
 1. Prints the card's name and power limit, builds every CUDA kernel of the
    port from ``lightx2v_tpu_torch/csrc`` (one nvcc per source, in parallel)
@@ -154,6 +155,26 @@
    corner) on the card against the CPU. Before them, the ``vae_int8`` phase:
    the full Wan VAE's tiled decode of a 16 x 21 x 60 x 104 latent with the
    int8 decoder against the float one (times, SNR > 15 dB).
+17. CausVid (``causvid``): ``configs/wan_t2v_causvid.json`` as it is at the
+   14B widths (bf16 ``Default`` linears) with ``sample_shift`` 5, which the
+   file does not name: 3 fragments of 3 AR blocks of 7 latent frames (10,920
+   tokens) against a 21-frame (32,760-slot, 26.8 GB) bf16 KV cache, 9
+   distill steps a block, the later fragments' first block re-anchored: 63
+   block forwards and 2 re-anchors; the decode of 49 latent frames (193 x
+   480 x 832). Its line adds each AR block's and re-anchor's seconds, the
+   cache's GB, and the device memory in use when the denoise starts (the T5
+   released).
+18. SkyReels-V2-DF (``skyreels_df``): ``configs/wan_skyreels_v2_df.json``
+   at the 14B widths: 544 x 960, 97 frames (25 latent frames, 51,000
+   tokens), CFG at 6 at batch 2, one timestep per latent frame. Cut: the
+   first 2 of its 30 timestep-matrix rows (one segment: no re-encode).
+19. Audio-driven i2v (``audio``): ``configs/audio_driven/wan_i2v_audio.json``
+   as it is at the i2v 14B widths with a seeded PNG and a seeded 16 kHz wav
+   of 157,000 samples: 157 frames, two 81-frame segments of 4 Euler steps,
+   the second conditioned on the VAE latents of the first's last 5 frames,
+   the audio adapter's 40 fp32 injections (synthetic, made on the card),
+   radial_attn without a mask (dense flash); the frames and the stitched
+   audio muxed into an ``.av.mp4`` (PIL JPEGs, PCM16) and parsed back.
 
 The kernel phases also hold and time the fused-RoPE flash kernel at
 changing resolution's phase A, (2, 18,018, 40, 128) with a 98-row last
@@ -167,7 +188,10 @@ form at CogVideoX's (2, 45,106, 48, 64) (its own row,
 ``flash_attention_d64``, bound by the larger of its tensor-core and its
 exp2 time), the dense kernel at HunyuanVideo's joint stream, (1, 79,456,
 24, 128) with the path's ``kv_len`` (a ragged last query tile, a partly
-masked last key tile; SDPA on the valid keys its yardstick), and the 8-bit full-K GEMM
+masked last key tile; SDPA on the valid keys its yardstick), at CausVid's
+AR block (q of 10,920 against the 32,760-slot cache at kv_len 21,840, V =
+1e4 in the stale slots past it, and 32,760) and SkyReels-V2-DF's (2,
+51,000, 40, 128), and the 8-bit full-K GEMM
 at i2v's M = 257 beside M = 512, and hold the RoPE pass of the fused-RoPE
 flash (``rope_rotate``, its own kernel row and counter) bit for bit against
 its plain version. The
@@ -234,6 +258,17 @@ COG_STEPS = 2  # of the file's 50: step 0 first-order, step 1 second-order
 HY_IMG, HY_TXT, HY_HEADS = 22 * 45 * 80, 256, 24
 HY_JSON = "configs/hunyuan_t2v.json"
 HY_STEPS = 2  # of the file's 50 Euler steps
+# CausVid (configs/wan_t2v_causvid.json): AR blocks of 7 latent frames of 1560 tokens, a window of 21 frames
+CV_JSON = "configs/wan_t2v_causvid.json"
+CV_BLOCK_TOKENS, CV_WINDOW = 7 * 1560, 21 * 1560
+# SkyReels-V2-DF (configs/wan_skyreels_v2_df.json): 544x960, 97 frames -> 25 latent frames of 34 x 60 tokens
+DF_JSON = "configs/wan_skyreels_v2_df.json"
+DF_TOKENS = 25 * 34 * 60
+DF_ROWS = 2  # of the matrix's 30 rows (one segment: 30 UniPC steps)
+# audio-driven i2v (configs/audio_driven/wan_i2v_audio.json): a 16 kHz mono wav of 157,000 samples is 157 frames at
+# 16 fps, two 81-frame segments overlapping by 5
+AUDIO_JSON = "configs/audio_driven/wan_i2v_audio.json"
+AUDIO_SAMPLES = 157_000
 PROMPT = "a red panda climbing a bamboo tree in the rain"
 DEPLOY_JSON = "configs/deploy/wan_t2v.json"
 BASE_JSON = "configs/bench/lightx2v_1.json"
@@ -285,7 +320,7 @@ TINY_CHECK_FRAMES = 2  # latent frames of the lazy t2v path's latents decoded on
 PATHS = ("slice", "flagship", "base", "radial_bsr", "radial_two_pass", "fp8_distill", "i2v", "cogvideox",
          "hunyuan", "tea_fp8", "changing_resolution", "taylorseer_1_3b", "taylorws_1_3b", "ada_1_3b", "custom_1_3b",
          "offload_stream_fp8", "offload_lazy_i2v", "offload_stream_tea", "offload_lazy_t2v_tiny",
-         "offload_lazy_t2v_cfg_tiny")
+         "offload_lazy_t2v_cfg_tiny", "causvid", "skyreels_df", "audio")
 
 
 def card_line() -> str:
@@ -1297,6 +1332,80 @@ def kernel_phase_hunyuan(peaks, reps: int, want):
                  bound_by=b_by, library_ms=lib_ms, library_call="F.scaled_dot_product_attention on the valid keys")]
 
 
+def kernel_phase_wan_runners(peaks, reps: int, want):
+    """The dense flash kernel (row 2) at the other Wan runners' shapes:
+    CausVid's AR block, q (1, 10,920, 40, 128) against its 32,760-slot KV
+    cache at kv_len 21,840 (the second block, V = 1e4 in the stale slots
+    past it) and 32,760 (the last block); SkyReels-V2-DF's CFG batch, q, k,
+    v (2, 51,000, 40, 128), a ragged last tile, checked on its first and
+    last 2,048 query rows. Each beside SDPA on the same q and the valid
+    keys; the plain versions are checked on 2 heads and not timed (their
+    logits take 57 GB and 830 GB). Returns ``other_shapes`` entries."""
+    import torch
+    import torch.nn.functional as F
+
+    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+
+    if not want("flash_attention"):
+        return []
+    peak_bf16, _, peak_bw = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    randn = lambda *shape: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+    hs, out_rows = slice(0, 2), []
+
+    def entry(shape, err, ms, lib_ms, flops, nbytes, note):
+        b_ms, b_by = bound(flops, nbytes, peak_bf16, peak_bw)
+        print(f"[flash_attention_{note}] {ms:.3f} ms ({b_ms / ms:.0%} of its {b_ms:.2f} ms bound, {flops:.3e} "
+              f"FLOP); SDPA {lib_ms} ms", flush=True)
+        out_rows.append(dict(name="flash_attention", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
+                             replaces="lightx2v_tpu/ops/pallas/flash_attention.py:409", shape=shape + f" ({note})",
+                             max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=None,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                             library_call="F.scaled_dot_product_attention on the valid keys"))
+
+    # ---- CausVid: one AR block's queries against the KV cache ----
+    blk, cache = CV_BLOCK_TOKENS, CV_WINDOW
+    q, k, v = randn(1, blk, HEADS, HD), randn(1, cache, HEADS, HD), randn(1, cache, HEADS, HD)
+    for kv in (2 * blk, cache):
+        if kv < cache:
+            v[:, kv:] = 1e4  # a re-anchored cache's stale slots: a kernel that reads one fails by orders of magnitude
+        out = fa.flash_attention(q, k, v, kv_len=kv)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs], kv)
+        err = check_close(f"flash_attention CausVid block kv_len {kv}", out[:, :, hs], ref, 2e-2, 1e-3)
+        del out, ref
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, kv_len=kv), reps)
+        kt, vt = k[:, :kv].transpose(1, 2), v[:, :kv].transpose(1, 2)
+        lib_ms = library(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), kt, vt), reps)
+        del kt, vt
+        entry(f"q (1,{blk},{HEADS},{HD}); k,v cache (1,{cache},{HEADS},{HD}) bf16, kv_len {kv}", err, ms, lib_ms,
+              4.0 * HEADS * blk * kv * HD, (2 * blk + 2 * kv) * HEADS * HD * 2, f"causvid_kv{kv}")
+        v.normal_(generator=g)
+    del q, k, v
+
+    # ---- SkyReels-V2-DF: CFG's batch of two at 544 x 960, 97 frames ----
+    s_df = DF_TOKENS
+    q, k, v = (randn(2, s_df, HEADS, HD) for _ in range(3))
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    err = 0.0
+    for rows in (slice(0, 2048), slice(s_df - 2048, s_df)):  # the first tiles and the ragged last one
+        ref = fa.flash_attention_plain(q[:, rows, hs], k[:, :, hs], v[:, :, hs])
+        err = max(err, check_close(f"flash_attention DF rows {rows.start}-{rows.stop}", out[:, rows, hs], ref,
+                                   2e-2, 1e-3))
+        del ref
+    del out
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), reps)
+    lib_ms = library(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                            v.transpose(1, 2)), reps)
+    entry(f"q,k,v (2,{s_df},{HEADS},{HD}) bf16", err, ms, lib_ms, 4.0 * 2 * HEADS * s_df * s_df * HD,
+          4 * 2 * s_df * HEADS * HD * 2, "skyreels_df")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out_rows
+
+
 # ---------------------------------------------------------------------------
 # slice phase
 
@@ -1640,6 +1749,10 @@ def expected_launches(runner, cfg, forwards=None) -> dict:
         blocks = runner.arch.double_blocks + runner.arch.single_blocks
         return {**{k: 0 for k in launch_counts()}, "flash_attention": blocks * runner.init_scheduler().num_steps()}
     L = runner.arch.num_layers
+    if cfg["model_cls"] in ("wan2.1_causvid", "wan2.1_skyreels_v2_df", "wan2.1_audio"):
+        # bf16 Default linears (torch.mm); self- and cross-attention through the dense kernel: the audio runner's
+        # radial_attn has no mask map, so it is dense flash, and it feeds the DiT no image context
+        return {**{k: 0 for k in launch_counts()}, "flash_attention": 2 * L * forwards}
     steps = len(cfg["denoising_step_list"]) if cfg["model_cls"] == "wan2.1_distill" else int(cfg["infer_steps"])
     if forwards is not None:
         steps = forwards
@@ -2212,7 +2325,7 @@ def run_lazy_t2v(name: str, root: Path, written: dict, profile_dir=None):
         return extra
 
     return run_path(name, {}, profile_dir, cfg=cfg, before=before,
-                    after=lambda runner: tiny_decode_check(runner, captured.pop("latents")))
+                    after=lambda runner, _: tiny_decode_check(runner, captured.pop("latents")))
 
 
 def run_offload_lazy(paths, profile_dir=None) -> dict:
@@ -2274,7 +2387,7 @@ def stream_tea(profile_dir=None):
         blocks["bytes"] = store.num_blocks * store.layout.nbytes
         return offload_step0_check(runner)
 
-    def after(runner):
+    def after(runner, _):
         tm = runner.timings
         for c, st in zip(tm["calc_steps"], tm["offload"]):
             if st["h2d_bytes"] != (blocks["bytes"] if c else 0) or not (c or st["cache_h2d_bytes"] > 0):
@@ -2343,14 +2456,19 @@ def _conv_leaves(tree):
 
 
 def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan2.1_distill",
-             config_json: str = DEPLOY_JSON, steps=None, cut=False, cfg=None, before=None, after=None):
+             config_json: str = DEPLOY_JSON, steps=None, cut=False, cfg=None, before=None, after=None,
+             forwards=None, want_frames=None):
     """Synthesize the path's weights on the card (or load what ``cfg``, a
     prepared config, names), zero the counters, run the pipeline once (its
     first ``steps`` denoise steps where given; with ``cut``, the window of
     ``plan_cut``), and check the counts and the frames; a cut path also its
-    calc and skip steps (``cut`` may be a ``plan_cut`` spec). ``before(runner)``
-    runs after loading and ``after(runner)`` after the run, both outside the
-    counted run, and return entries for the path's line."""
+    calc and skip steps (``cut`` may be a ``plan_cut`` spec). ``forwards``:
+    the DiT forwards the run makes, where the step count does not say;
+    ``want_frames``: the frames it yields, where ``target_video_length`` does
+    not.
+    ``before(runner)`` runs after loading and ``after(runner, frames)`` after
+    the run, both outside the counted run, and return entries for the path's
+    line."""
     import gc
 
     import numpy as np
@@ -2381,7 +2499,7 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
     if cut:
         runner.step_window, want_calc = plan_cut(name, runner, None if cut is True else cut)
     expect = None if cut and want_calc is None else expected_launches(
-        runner, cfg, sum(map(_flag, want_calc)) if cut else None)
+        runner, cfg, sum(map(_flag, want_calc)) if cut else forwards)
     selected = []  # Sparge's per-call selected-block totals, summed on the device
     select = sparge.sparge_select_blocks
 
@@ -2415,7 +2533,8 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
     print(json.dumps({"path": name, "launch_counts": counts, "expected": expect}), flush=True)
     if counts != expect:
         raise AssertionError(f"{name}: launch counts {counts} != {expect}")
-    want_shape = (int(cfg["target_video_length"]), int(cfg["target_height"]), int(cfg["target_width"]), 3)
+    want_shape = (want_frames or int(cfg["target_video_length"]), int(cfg["target_height"]), int(cfg["target_width"]),
+                  3)
     if frames.shape != want_shape or not np.isfinite(frames).all():
         raise AssertionError(f"{name}: bad frames: shape {frames.shape}, finite {np.isfinite(frames).all()}")
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2440,7 +2559,7 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
                      load_mem_gb_by_part=tm["load_mem_gb"], mem_gb_by_stage=tm["mem_gb"])
     stats.update(extra)
     if after is not None:
-        stats.update(after(runner))
+        stats.update(after(runner, frames))
     print(json.dumps({name: stats}), flush=True)
     if profile_dir:
         profile_run(runner, profile_dir, name)
@@ -2448,6 +2567,103 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
     gc.collect()  # the runner's reference cycles hold its weights until collected
     torch.cuda.empty_cache()
     return counts
+
+
+def run_causvid(profile_dir=None):
+    """``configs/wan_t2v_causvid.json`` as it is at the 14B widths: 3
+    fragments of 3 AR blocks of 7 latent frames (the later fragments' first
+    block re-anchored), 9 distill steps a block, a 21-frame KV cache."""
+    cv = json.loads((ROOT / CV_JSON).read_text())
+    nb, nf, fpb, steps = cv["num_blocks"], cv["num_fragments"], cv["num_frame_per_block"], \
+        len(cv["denoising_step_list"])
+    blocks = nb + (nf - 1) * (nb - 1)
+
+    def after(runner, _):
+        tm = runner.timings
+        if len(tm["step_s"]) != blocks * steps or len(tm["reanchor_s"]) != nf - 1:
+            raise AssertionError(f"causvid: {len(tm['step_s'])} block forwards, {len(tm['reanchor_s'])} re-anchors")
+        return {k: tm[k] for k in ("kv_cache_gb", "block_s", "reanchor_s", "dit_start_mem_gb") if k in tm} | {
+            "t5_released": runner.text_encoder is None, "forwards": blocks * steps + nf - 1}
+
+    # the file names no sample_shift, which the step-distill schedule needs (the JAX runner fails without it too):
+    # 5, what every step-distill config in configs/ names
+    return run_path("causvid", dict(WAN14B, sample_shift=5), profile_dir, model_cls="wan2.1_causvid",
+                    config_json=CV_JSON, forwards=blocks * steps + nf - 1, want_frames=(blocks * fpb - 1) * 4 + 1,
+                    after=after)
+
+
+def write_wav(path: str, samples: int, sr: int = 16000, seed: int = 0) -> str:
+    """A seeded mono 16-bit wav: a tone whose pitch and loudness wander,
+    plus noise."""
+    import wave
+
+    import numpy as np
+
+    t = np.arange(samples) / sr
+    tone = np.sin(2 * np.pi * (180 + 40 * np.sin(2 * np.pi * 0.5 * t)) * t) * (0.55 + 0.45 * np.sin(2 * np.pi * 2 * t))
+    pcm = np.clip(tone * 16000 + np.random.default_rng(seed).normal(0, 800, samples), -32768, 32767).astype(np.int16)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(pcm.tobytes())
+    return path
+
+
+def check_mux(path: str, frames: int, samples: int) -> dict:
+    """Parse the ``.av.mp4``: ftyp, mdat and moov; an ``mp4v`` track of
+    ``frames`` JPEG samples, the first of which PIL decodes at the video's
+    size, and a ``sowt`` track of ``samples`` PCM16 samples."""
+    import io
+    import struct
+
+    from PIL import Image
+
+    raw = Path(path).read_bytes()
+    top, off = [], 0
+    while off < len(raw):
+        size, cc = struct.unpack(">I4s", raw[off:off + 8])
+        top.append((cc, off, size))
+        off += size
+    if [c for c, _, _ in top] != [b"ftyp", b"mdat", b"moov"] or off != len(raw):
+        raise AssertionError(f"audio mux: top-level boxes {top}")
+    moov = raw[top[2][1]:]
+    stsz = [moov.index(b"stsz", i) for i in (moov.index(b"mp4v"), moov.index(b"sowt"))]
+    (n_video,), (size_a, n_audio) = struct.unpack(">I", moov[stsz[0] + 12:stsz[0] + 16]), \
+        struct.unpack(">II", moov[stsz[1] + 8:stsz[1] + 16])
+    first = struct.unpack(">I", moov[stsz[0] + 16:stsz[0] + 20])[0]
+    img = Image.open(io.BytesIO(raw[top[1][1] + 8:top[1][1] + 8 + first]))
+    if (n_video, size_a, n_audio) != (frames, 2, samples):
+        raise AssertionError(f"audio mux: {n_video} video samples, {n_audio} audio of size {size_a}")
+    return {"mux_mb": len(raw) / 1e6, "mux_video_samples": n_video, "mux_audio_samples": n_audio,
+            "mux_first_frame": list(img.size)}
+
+
+def run_audio(profile_dir=None):
+    """``configs/audio_driven/wan_i2v_audio.json`` as it is at the i2v 14B
+    widths, with a seeded PNG and a seeded 157,000-sample 16 kHz wav: 157
+    frames, two 81-frame segments of 4 Euler steps, the second conditioned on
+    the first's last 5 frames; the frames and the stitched audio muxed into
+    an ``.av.mp4``, parsed back."""
+    au = json.loads((ROOT / AUDIO_JSON).read_text())
+    fps, window = int(au["target_fps"]), int(au["target_video_length"])
+    frames = min(int(au["video_duration"] * fps), AUDIO_SAMPLES * fps // int(au["audio_sr"]))
+    n_seg = 1 + -(-(frames - window) // (window - 5))
+    with tempfile.TemporaryDirectory() as tmp:
+        def after(runner, video):
+            tm = runner.timings
+            runner.config["save_video_path"] = str(Path(tmp) / "audio.mp4")
+            t0 = time.perf_counter()
+            path = runner._mux_av(video, *runner.audio_track)
+            return {"segments": n_seg, "adapter_gb": tm["adapter_gb"], "mux_s": time.perf_counter() - t0,
+                    **{f"{k}_by_segment": [tm[f"{k}_{i}"] for i in range(n_seg)]
+                       for k in ("prev_cond_s", "dit_s", "decode_s")},
+                    **check_mux(path, len(video), len(runner.audio_track[0]))}
+
+        overrides = dict(WAN14B, image_path=write_image(str(Path(tmp) / "audio_input.png"), seed=1),
+                         audio_path=write_wav(str(Path(tmp) / "audio_input.wav"), AUDIO_SAMPLES))
+        return run_path("audio", overrides, profile_dir, model_cls="wan2.1_audio", config_json=AUDIO_JSON,
+                        forwards=n_seg * int(au["infer_steps"]), want_frames=frames, after=after)
 
 
 def _category(name: str) -> str:
@@ -2555,8 +2771,9 @@ def main():
     rows4, extra4 = kernel_phase_fp8(peaks_for(card), REPS, want)
     rows5, extra5 = kernel_phase_cog(peaks_for(card), REPS, want)
     extra6 = kernel_phase_hunyuan(peaks_for(card), REPS, want)
+    extra7 = kernel_phase_wan_runners(peaks_for(card), REPS, want)
     rows += rows2 + rows3 + rows4 + rows5
-    print(json.dumps({"other_shapes": extra + extra2 + extra3 + extra4 + extra5 + extra6}), flush=True)
+    print(json.dumps({"other_shapes": extra + extra2 + extra3 + extra4 + extra5 + extra6 + extra7}), flush=True)
     by_path = {}
     paths = [] if args.kernels_only else args.path or list(PATHS)
     if "slice" in paths:
@@ -2611,6 +2828,14 @@ def main():
         vae_int8_check()
     if any(p in paths for p in ("offload_lazy_i2v", *LAZY_T2V)):
         by_path.update(run_offload_lazy(paths, args.profile))
+    if "causvid" in paths:
+        by_path["causvid"] = run_causvid(args.profile)
+    if "skyreels_df" in paths:
+        by_path["skyreels_df"] = run_path("skyreels_df", dict(WAN14B, negative_prompt=NEG), args.profile,
+                                          model_cls="wan2.1_skyreels_v2_df", config_json=DF_JSON, steps=DF_ROWS,
+                                          forwards=DF_ROWS)
+    if "audio" in paths:
+        by_path["audio"] = run_audio(args.profile)
     for r in rows:
         r["launches_by_path"] = {p: c.get(r["name"], 0) for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

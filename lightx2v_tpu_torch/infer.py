@@ -14,7 +14,8 @@ import argparse
 
 import torch
 
-from .runners import cogvideox_runner, hunyuan_runner, wan_runner  # noqa: F401  (registers runners)
+from .runners import (cogvideox_runner, hunyuan_runner, wan_audio_runner,  # noqa: F401  (registers runners)
+                      wan_causvid_runner, wan_runner, wan_skyreels_v2_df_runner)
 from .utils.config import set_config
 from .utils.logging_utils import logger
 from .utils.media import seed_all, video_writer

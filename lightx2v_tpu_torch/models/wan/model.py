@@ -43,7 +43,8 @@ def unpatchify(x: torch.Tensor, grid, patch, out_dim: int) -> torch.Tensor:
 
 
 def time_embeddings(params: Params, t: torch.Tensor, arch: WanArch, cfg_scale: Optional[torch.Tensor] = None):
-    """timestep (B,) -> (embed (B, D) fp32, embed0 (B, 6, D) fp32). With
+    """timestep (B,) -> (embed (B, D) fp32, embed0 (B, 6, D) fp32); per-frame
+    timesteps (B, F) (diffusion forcing) -> (B, F, D) and (B, F, 6, D). With
     ``cfg_scale`` (B,) and a checkpoint's ``cfg_cond_proj`` (dynamic-CFG
     distilled models), the projected guidance-scale embedding joins the
     timestep's."""
@@ -76,9 +77,27 @@ def img_embeddings(params: Params, clip_fea: torch.Tensor, mm_fn, eps: float = 1
 
 
 def _split_modulation(block: Params, embed0: torch.Tensor):
-    """e = modulation + embed0 -> six (B, 1, D) chunks."""
+    """e = modulation + embed0 -> six (B, 1, D) chunks; per-frame embed0
+    (B, F, 6, D) -> six (B, F, 1, D) chunks, one row per latent frame."""
     e = block["modulation"] + embed0.float()
+    if e.ndim == 4:
+        return [e[:, :, i:i + 1, :] for i in range(6)]
     return [e[:, i:i + 1, :] for i in range(6)]
+
+
+def _frames(x: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) as (B, F, S / F, D) where ``chunk`` is per frame (B, F,
+    1, D), so that a frame's row broadcasts over its tokens; else x."""
+    return x if chunk.ndim == 3 else x.reshape(x.shape[0], chunk.shape[1], -1, x.shape[-1])
+
+
+def _modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    return modulated_layer_norm(_frames(x, shift), shift, scale, eps=eps).reshape(x.shape)
+
+
+def _gated_add(x: torch.Tensor, y: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """x + y * gate in fp32, rounded to x's dtype."""
+    return (_frames(x, gate).float() + _frames(y, gate).float() * gate.float()).to(x.dtype).reshape(x.shape)
 
 
 def wan_block_parts(block: Params, x: torch.Tensor, embed0: torch.Tensor, context: torch.Tensor,
@@ -92,7 +111,7 @@ def wan_block_parts(block: Params, x: torch.Tensor, embed0: torch.Tensor, contex
     shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = _split_modulation(block, embed0)
 
     sa = block["self_attn"]
-    norm1 = modulated_layer_norm(x, shift_msa, scale_msa, eps=arch.eps)
+    norm1 = _modulate(x, shift_msa, scale_msa, arch.eps)
     q = rms_norm(mm_fn(sa["q"], norm1), sa["norm_q"], eps=arch.eps).reshape(b, s, n, hd)
     k = rms_norm(mm_fn(sa["k"], norm1), sa["norm_k"], eps=arch.eps).reshape(b, s, n, hd)
     v = mm_fn(sa["v"], norm1).reshape(b, s, n, hd)
@@ -105,7 +124,7 @@ def wan_block_parts(block: Params, x: torch.Tensor, embed0: torch.Tensor, contex
         attn_out = self_attn_fn(q, k, v).reshape(b, s, d)
     del q, k, v
     y_sa = mm_fn(sa["o"], attn_out)
-    x = (x.float() + y_sa.float() * gate_msa.float()).to(x.dtype)
+    x = _gated_add(x, y_sa, gate_msa)
 
     ca = block["cross_attn"]
     norm3 = layer_norm(x, block["norm3"]["w"], block["norm3"]["b"], eps=arch.eps)
@@ -120,9 +139,9 @@ def wan_block_parts(block: Params, x: torch.Tensor, embed0: torch.Tensor, contex
     cross_proj = mm_fn(ca["o"], cross_out)
     x = x + cross_proj
 
-    norm2 = modulated_layer_norm(x, c_shift, c_scale, eps=arch.eps)
+    norm2 = _modulate(x, c_shift, c_scale, arch.eps)
     y_ffn = mm_ffn(mm_fn, block["ffn"]["0"], block["ffn"]["2"], norm2)
-    x = (x.float() + y_ffn.float() * c_gate.float()).to(x.dtype)
+    x = _gated_add(x, y_ffn, c_gate)
     return x, y_sa, cross_proj, y_ffn
 
 
@@ -167,11 +186,15 @@ def wan_transformer(blocks, x: torch.Tensor, embed0: torch.Tensor, context: torc
 
 
 def wan_head(params: Params, x: torch.Tensor, embed: torch.Tensor, arch: WanArch, mm_fn) -> torch.Tensor:
-    """Final AdaLN + linear head."""
-    e = params["head"]["modulation"][None, :, :] + embed[:, None, :].float()
-    shift, scale = e[:, 0:1, :], e[:, 1:2, :]
-    out = modulated_layer_norm(x, shift, scale, eps=arch.eps)
-    return mm_fn(params["head"], out)
+    """Final AdaLN + linear head; a per-frame embed (B, F, D) modulates each
+    frame's tokens with its row."""
+    if embed.ndim == 3:
+        e = params["head"]["modulation"][None, :, None, :] + embed[:, None, :, :].float()
+        shift, scale = e[:, 0, :, None, :], e[:, 1, :, None, :]
+    else:
+        e = params["head"]["modulation"][None, :, :] + embed[:, None, :].float()
+        shift, scale = e[:, 0:1, :], e[:, 1:2, :]
+    return mm_fn(params["head"], _modulate(x, shift, scale, arch.eps))
 
 
 def wan_pre_process(params: Params, latents: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
@@ -211,7 +234,11 @@ def wan_forward(params: Params, latents: torch.Tensor, t: torch.Tensor, context:
                 self_attn_kwargs: Optional[dict] = None, cfg_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full DiT forward: latents (B, C, F, H, W) + timestep (B,) + context
     (B, Lt, text_dim) -> flow prediction (B, out_dim, F, H, W) fp32. i2v
-    adds ``y`` (B, 4 + z, F, H, W) and ``clip_fea`` (B, 257, clip_dim)."""
+    adds ``y`` (B, 4 + z, F, H, W) and ``clip_fea`` (B, 257, clip_dim).
+    Diffusion forcing passes one timestep per latent frame, t (B, F): the
+    time embedding is computed once per frame and each frame's row
+    modulates its tokens (the JAX package computes it per token, (B, S),
+    whose rows within a frame are equal)."""
     x, embed, embed0, ctx, ctx_img, grid, s_tokens = wan_pre_process(params, latents, t, context, arch, y=y,
                                                                       clip_fea=clip_fea, seq_len=seq_len,
                                                                       cfg_scale=cfg_scale)

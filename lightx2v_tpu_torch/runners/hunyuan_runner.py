@@ -14,7 +14,8 @@ config that names ``hidden_size`` (3072, the only width it takes) gets
 behind synthetic tokenizers (the encoders a real-weights run runs, where the
 JAX runner's synthetic mode draws random states), and the full VAE.
 
-Refused: i2v, feature caching and ``mesh_shape`` (``NotImplementedError``
+Refused: i2v, feature caching, the HF text encoders (``text_encoder_path``,
+``text_encoder_crop_start``) and ``mesh_shape`` (``NotImplementedError``
 naming their Queue 1 item), real weights (the JAX runner's text encoders
 run through ``transformers``, which the card machine lacks), and a quantized
 ``mm_config`` (``ValueError``: the JAX runner runs every Hunyuan linear as
@@ -97,6 +98,9 @@ class HunyuanRunner(DefaultRunner):
             raise _not_ported("feature caching on HunyuanVideo", "Queue 1 item 16")
         if config.get("mesh_shape"):
             raise _not_ported("Ulysses over the joint stream (models/hunyuan/sharded.py)", "Queue 1 item 14")
+        for key in ("text_encoder_path", "text_encoder_crop_start"):
+            if config.get(key) is not None:
+                raise _not_ported(f"HunyuanVideo's HF text encoders ({key})", "Queue 1 item 16")
         if not config.get("synthetic_weights"):
             raise _not_ported("HunyuanVideo from real weights (the llava-llama-3-8b and CLIP-L text encoders "
                               "through transformers)", "Queue 1 item 16")

@@ -167,11 +167,28 @@ FOLD_FIRST = ("fold LoRAs and quantize with python -m lightx2v_tpu_torch.tools.c
               "(--lora path[:strength] --quant int8|fp8|int4)")
 
 
+def refuse_unrun_keys(cfg, model_cls: str):
+    """Raise for the keys whose feature the JAX ``model_cls`` runner does not
+    run (its denoise loop reads resident blocks, has no caching hook, one
+    resolution and one device), rather than run them as if absent."""
+    for key in OFFLOAD_KEYS:
+        if cfg.get(key):
+            raise NotImplementedError(f"{key} on {model_cls}: the JAX runner's denoise reads resident blocks")
+    if cfg.get("feature_caching", "NoCaching") not in (None, "NoCaching"):
+        raise NotImplementedError(f"feature_caching on {model_cls}: the JAX runner's denoise has no caching hook")
+    if cfg.get("changing_resolution"):
+        raise NotImplementedError(f"changing_resolution on {model_cls}: the JAX runner denoises at one resolution")
+    if cfg.get("mesh_shape"):
+        raise _not_ported(f"multi-device runs (mesh_shape) on {model_cls}", "Queue 1 item 14")
+
+
 @RUNNER_REGISTER.register("wan2.1")
 class WanRunner(DefaultRunner):
     scheduler_cls = WanUniPCScheduler
     # (first step, step count) of the schedule to run; None runs all of it
     step_window: Optional[Tuple[int, int]] = None
+    # t2v drops the VAE's encoder unless the runner encodes frames itself
+    encodes_frames = False
 
     def _synthetic(self) -> bool:
         return bool(self.config.get("synthetic_weights"))
@@ -314,7 +331,7 @@ class WanRunner(DefaultRunner):
             self.vae_cfg = WanVAEConfig() if is_published_width(self.arch) else SMALL_VAE
             params = load_wan_vae_params(init_random_vae_state_dict(self.vae_cfg, seed=2), self.vae_cfg,
                                          device=self.device)
-        if not self._i2v():  # t2v never encodes: its encoder stays off the device
+        if not (self._i2v() or self.encodes_frames):  # t2v never encodes: its encoder stays off the device
             del params["encoder"], params["conv1"]
         if self.config.get("vae_int8"):
             params = quantize_vae_decoder_int8(params)

@@ -29,15 +29,20 @@ def _close(out, ref, rtol, atol):
     (2, 200, 200, None, 3), (2, 256, 256, None, 3), (2, 200, 200, 150, 3), (2, 300, 64, None, 3),
     (2, 7, 513, 300, 3), (1, 1000, 512, None, 3), (2, 120, 200, None, 3), (2, 200, 390, 130, 3),
     (21, 156, 624, None, 3), (1, 1000, 257, None, 3), (2, 300, 257, 200, 3),
-    (1, 1000, 1000, 970, 24), (1, 1100, 1100, 1060, 24)])
+    (1, 1000, 1000, 970, 24), (1, 1100, 1100, 1060, 24),
+    (1, 390, 1170, 780, 40), (1, 390, 1170, 1170, 40), (2, 1275, 1275, None, 3)])
 def test_flash_kernel_vs_plain(dev, b, sq, sk, kv_len, heads):
     """Ragged sq (7, 120 below one 128-row tile, 200), sk below one 128-key
     tile, not a multiple of it and 512 (the cross-attention shape, narrowed),
     257 (i2v's image keys: one valid row in the last key tile), kv_len inside
     the first and the second key tile, batch 1, 2 and 21; and HunyuanVideo's
     joint stream, narrowed: 24 heads, Sq = Sk not a multiple of 128, kv_len a
-    few dozen below Sk inside the last key tile (the padded text keys). V is
-    1e4 past kv_len, so a kernel that reads a masked key fails by orders of
+    few dozen below Sk inside the last key tile (the padded text keys); CausVid's
+    block against its KV cache, narrowed (40 heads, a 390-token block, a
+    1170-slot window, kv_len the second block's end and the window's end,
+    stale slots past it); SkyReels-V2-DF's CFG batch of two, narrowed (25
+    frames of 51 tokens). V is 1e4 past kv_len, so a kernel that reads a
+    masked key (a re-anchored cache's stale slots) fails by orders of
     magnitude."""
     from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
 

@@ -166,13 +166,16 @@ def test_small_synthetic_runner_vs_jax():
     (dict(task="i2v"), NotImplementedError, "item 16"),
     (dict(feature_caching="Tea"), NotImplementedError, "item 16"),
     (dict(mesh_shape={"seq": 2}), NotImplementedError, "item 14"),
+    (dict(text_encoder_path="/nonexistent"), NotImplementedError, "item 16"),
+    (dict(text_encoder_crop_start=95), NotImplementedError, "item 16"),
     (dict(synthetic_weights=False, model_path="/nonexistent"), NotImplementedError, "real weights"),
     (dict(mm_config={"mm_type": "W-int8-channel-sym-A-int8-channel-sym-dynamic-Tpu"}), ValueError, "Default"),
     (dict(hidden_size=1536), ValueError, "3072"),
 ])
 def test_runner_refusals(extra, err, match):
     """What the port's Hunyuan runner does not run raises before any weight
-    is made: i2v and Tea (Queue 1 item 16), Ulysses (item 14), real weights
+    is made: i2v, Tea and the HF text encoders (``text_encoder_path``,
+    ``text_encoder_crop_start``; Queue 1 item 16), Ulysses (item 14), real weights
     (the HF text encoders), a quantized mm_type (the JAX runner runs
     Default whatever it says), a width other than HunyuanArch()'s."""
     from lightx2v_tpu_torch import infer as tinfer

@@ -30,7 +30,11 @@ def test_every_module_imports_without_jax():
             "lightx2v_tpu_torch.models.hunyuan.model", "lightx2v_tpu_torch.models.hunyuan.weights",
             "lightx2v_tpu_torch.schedulers.euler", "lightx2v_tpu_torch.encoders.llama",
             "lightx2v_tpu_torch.vae.hunyuan_vae", "lightx2v_tpu_torch.runners.hunyuan_runner",
-            "lightx2v_tpu_torch.vae.tiny_vae"} <= set(mods)
+            "lightx2v_tpu_torch.vae.tiny_vae", "lightx2v_tpu_torch.models.wan.causvid",
+            "lightx2v_tpu_torch.runners.wan_causvid_runner", "lightx2v_tpu_torch.schedulers.df",
+            "lightx2v_tpu_torch.runners.wan_skyreels_v2_df_runner", "lightx2v_tpu_torch.encoders.audio",
+            "lightx2v_tpu_torch.models.wan.audio_adapter", "lightx2v_tpu_torch.runners.wan_audio_runner",
+            "lightx2v_tpu_torch.utils.media"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -134,8 +138,12 @@ def test_cache_video_without_writer_raises(monkeypatch, tmp_path):
 
 
 def test_unported_runner_raises():
+    """Every ``--model_cls`` choice is registered; a name outside them raises."""
     from lightx2v_tpu_torch import infer
     from lightx2v_tpu_torch.utils.config import set_config
+    from lightx2v_tpu_torch.utils.registry import RUNNER_REGISTER
 
+    choices = next(a.choices for a in infer.build_parser()._actions if a.dest == "model_cls")
+    assert len(choices) == 7 and all(c in RUNNER_REGISTER for c in choices)
     with pytest.raises(NotImplementedError):
-        infer.init_runner(set_config(dict(model_cls="wan2.1_causvid", device="cpu")))
+        infer.init_runner(set_config(dict(model_cls="wan2.2_moe", device="cpu")))
