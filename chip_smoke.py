@@ -14,6 +14,7 @@
     python3 chip_smoke.py --path offload_stream_fp8 --path offload_lazy_i2v   # the offload tiers
     python3 chip_smoke.py --path offload_stream_tea --path offload_lazy_t2v_tiny   # offload x caching, lightx2v_6*
     python3 chip_smoke.py --kernel flash_attention --path causvid --path skyreels_df --path audio   # the other runners
+    python3 chip_smoke.py --kernel rope_rotate --path serve   # slice 1, then its runner behind the HTTP server
 
 1. Prints the card's name and power limit, builds every CUDA kernel of the
    port from ``lightx2v_tpu_torch/csrc`` (one nvcc per source, in parallel)
@@ -28,6 +29,20 @@
    ``configs/deploy/wan_t2v.json`` with synthetic weights made on the card
    (14B int8 DiT, 40 blocks; bf16 UMT5-XXL; full Wan VAE): T5 encode ->
    4-step distill denoise -> tiled VAE decode of 81x480x832.
+   Serve (``serve``, after slice 1 and on its runner; ``--path serve``
+   runs slice 1 first): ``server/service.py`` and ``server/api.py`` on
+   127.0.0.1, driven with ``urllib``: request 1 (slice 1's prompt and seed)
+   completes with slice 1's frames bit for bit; request 2, submitted while
+   request 1 runs, is stopped while pending; request 3 (another seed) is
+   stopped once processing and ends at the next stage boundary with no
+   decode and no file; request 4 (another seed and prompt) completes, its
+   file (cv2's where cv2 imports, else the PIL MJPEG writer's) downloads
+   byte for byte and its first frame decodes to 832 x 480, and its frames
+   written by the PIL MJPEG writer parse back; the metrics count 2
+   completed and 2 stopped. The runner keeps its modules resident. The launch counts are slice 1's
+   times the requests whose DiT ran; the line gives each request's seconds
+   from submit to its final status, queue wait, stage seconds, save seconds
+   and peak memory, and request 3's stop latency.
 4. Flagship (slice 2): one full-width w4a8 block the same way; then the
    runner on the same config with the bench flagship's overrides (w4a8 DiT
    linears, Sparge self-attention with the tuned per-layer table and its
@@ -222,6 +237,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -317,7 +333,9 @@ LAZY_T2V = {"offload_lazy_t2v_tiny": ("configs/bench/lightx2v_6_distill.json", "
 # CFG batch under offload) holding a calc and a skip step
 STREAM_TEA = (TEA_JSON, "tea", 3)
 TINY_CHECK_FRAMES = 2  # latent frames of the lazy t2v path's latents decoded on the CPU against the card
-PATHS = ("slice", "flagship", "base", "radial_bsr", "radial_two_pass", "fp8_distill", "i2v", "cogvideox",
+SERVE_PROMPT = "a paper boat drifting down a flooded street at dusk"
+SERVE_WAIT = 300  # seconds: the longest any one wait of the serve path may take
+PATHS = ("slice", "serve", "flagship", "base", "radial_bsr", "radial_two_pass", "fp8_distill", "i2v", "cogvideox",
          "hunyuan", "tea_fp8", "changing_resolution", "taylorseer_1_3b", "taylorws_1_3b", "ada_1_3b", "custom_1_3b",
          "offload_stream_fp8", "offload_lazy_i2v", "offload_stream_tea", "offload_lazy_t2v_tiny",
          "offload_lazy_t2v_cfg_tiny", "causvid", "skyreels_df", "audio")
@@ -2610,33 +2628,45 @@ def write_wav(path: str, samples: int, sr: int = 16000, seed: int = 0) -> str:
     return path
 
 
-def check_mux(path: str, frames: int, samples: int) -> dict:
-    """Parse the ``.av.mp4``: ftyp, mdat and moov; an ``mp4v`` track of
-    ``frames`` JPEG samples, the first of which PIL decodes at the video's
-    size, and a ``sowt`` track of ``samples`` PCM16 samples."""
+def parse_mjpeg_mp4(raw: bytes, want_boxes) -> tuple:
+    """(the top-level boxes as (fourcc, offset, size), moov's bytes, the
+    video track's sample count, the first sample's image size) of an MJPEG
+    mp4 written by ``utils/media.write_mjpeg_mp4``; its first sample is
+    decoded by PIL."""
     import io
     import struct
 
     from PIL import Image
 
-    raw = Path(path).read_bytes()
     top, off = [], 0
     while off < len(raw):
         size, cc = struct.unpack(">I4s", raw[off:off + 8])
         top.append((cc, off, size))
         off += size
-    if [c for c, _, _ in top] != [b"ftyp", b"mdat", b"moov"] or off != len(raw):
-        raise AssertionError(f"audio mux: top-level boxes {top}")
+    if [c for c, _, _ in top] != want_boxes or off != len(raw):
+        raise AssertionError(f"mp4: top-level boxes {top}")
     moov = raw[top[2][1]:]
-    stsz = [moov.index(b"stsz", i) for i in (moov.index(b"mp4v"), moov.index(b"sowt"))]
-    (n_video,), (size_a, n_audio) = struct.unpack(">I", moov[stsz[0] + 12:stsz[0] + 16]), \
-        struct.unpack(">II", moov[stsz[1] + 8:stsz[1] + 16])
-    first = struct.unpack(">I", moov[stsz[0] + 16:stsz[0] + 20])[0]
+    stsz = moov.index(b"stsz", moov.index(b"mp4v"))
+    n_video, first = struct.unpack(">II", moov[stsz + 12:stsz + 20])
     img = Image.open(io.BytesIO(raw[top[1][1] + 8:top[1][1] + 8 + first]))
+    img.load()
+    return top, moov, n_video, img.size
+
+
+def check_mux(path: str, frames: int, samples: int) -> dict:
+    """Parse the ``.av.mp4``: ftyp, mdat and moov; an ``mp4v`` track of
+    ``frames`` JPEG samples, the first of which PIL decodes at the video's
+    size, and a ``sowt`` track of ``samples`` PCM16 samples."""
+    import struct
+
+    raw = Path(path).read_bytes()
+    _, moov, n_video, size = parse_mjpeg_mp4(raw, [b"ftyp", b"mdat", b"moov"])
+    stsz = moov.index(b"stsz", moov.index(b"sowt"))
+    size_a, n_audio = struct.unpack(">II", moov[stsz + 8:stsz + 16])
     if (n_video, size_a, n_audio) != (frames, 2, samples):
         raise AssertionError(f"audio mux: {n_video} video samples, {n_audio} audio of size {size_a}")
     return {"mux_mb": len(raw) / 1e6, "mux_video_samples": n_video, "mux_audio_samples": n_audio,
-            "mux_first_frame": list(img.size)}
+            "mux_first_frame": list(size)}
 
 
 def run_audio(profile_dir=None):
@@ -2664,6 +2694,191 @@ def run_audio(profile_dir=None):
                          audio_path=write_wav(str(Path(tmp) / "audio_input.wav"), AUDIO_SAMPLES))
         return run_path("audio", overrides, profile_dir, model_cls="wan2.1_audio", config_json=AUDIO_JSON,
                         forwards=n_seg * int(au["infer_steps"]), want_frames=frames, after=after)
+
+
+def http_json(port: int, method: str, path: str, body=None, timeout: float = 60.0):
+    """(status code, JSON body) of one request to the server on 127.0.0.1."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method=method,
+                                 data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def wait_task(port: int, task_id: str, until, timeout: float = SERVE_WAIT) -> str:
+    """Poll the task's status every 20 ms until it is one of ``until``; the
+    status. Raises after ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while True:
+        code, st = http_json(port, "GET", f"/v1/tasks/{task_id}/status")
+        if code != 200:
+            raise AssertionError(f"serve: status of {task_id}: {code} {st}")
+        if st["status"] in until:
+            return st["status"]
+        if time.monotonic() > deadline:
+            raise AssertionError(f"serve: task {task_id} still {st['status']} after {timeout} s")
+        time.sleep(0.02)
+
+
+def run_serve(ref: dict) -> dict:
+    """The slice path's runner (``ref``: its runner, frames and launch
+    counts) behind ``ApiServer`` on 127.0.0.1, driven over HTTP: request 1
+    (the slice path's prompt and seed) completes with the slice path's
+    frames bit for bit; request 2, submitted while request 1 runs, is stopped
+    while pending; request 3 (another seed) is stopped once processing and
+    ends at the next stage boundary with no decode and no file; request 4
+    (another seed and prompt) completes, its file downloads byte for byte
+    and its first frame decodes at 832 x 480; its frames are also written
+    by the PIL MJPEG writer (timed) and parsed back. The launch counts over the
+    four must be the slice path's times the runs that reached the DiT. The
+    runner keeps its modules resident between requests, as ``api_server.py``
+    runs it (request 1 loads the T5 and the DiT that the slice path
+    released)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from lightx2v_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from lightx2v_tpu_torch.server.api import ApiServer
+    from lightx2v_tpu_torch.server.service import VideoGenerationService
+    from lightx2v_tpu_torch.utils.media import video_writer, write_mjpeg_mp4
+
+    runner, cfg = ref["runner"], ref["runner"].config
+    cfg["release_modules"] = False  # served as api_server.py serves: the modules stay resident between requests
+    h, w = int(cfg["target_height"]), int(cfg["target_width"])
+    saved = {}  # save path -> the frames the runner wrote there (the runner's own output, before the encoder)
+    save = runner.save_video
+
+    def capture(frames, path):
+        saved[path] = frames
+        save(frames, path)
+
+    runner.save_video = capture
+    with tempfile.TemporaryDirectory() as out:
+        service = VideoGenerationService(lambda: runner, output_root=out, server_config=cfg)
+        server = ApiServer(service, host="127.0.0.1", port=0, output_root=out)
+        server.serve_background()
+        port = server.port
+        try:
+            def submit(prompt, seed, name):
+                code, body = http_json(port, "POST", "/v1/tasks",
+                                       {"prompt": prompt, "seed": seed, "save_video_path": name})
+                if code != 200:
+                    raise AssertionError(f"serve: submit {name}: {code} {body}")
+                return body["task_id"]
+
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            r1 = submit(PROMPT, 42, "r1.mp4")
+            wait_task(port, r1, ("processing",))
+            r2 = submit(PROMPT, 7, "r2.mp4")
+            code, st = http_json(port, "DELETE", f"/v1/tasks/{r2}")
+            if code != 200 or st["stop_status"] != "requested" or service.get(r2).status != "pending":
+                raise AssertionError(f"serve: the pending stop of request 2: {code} {st}, {service.get(r2).status}")
+            r3 = submit(PROMPT, 8, "r3.mp4")
+            r4 = submit(SERVE_PROMPT, 9, "r4.mp4")
+            finals = {r1: wait_task(port, r1, ("completed", "failed", "stopped")),
+                      r2: wait_task(port, r2, ("completed", "failed", "stopped"))}
+            wait_task(port, r3, ("processing", "completed", "failed", "stopped"))
+            code, st = http_json(port, "DELETE", f"/v1/tasks/{r3}")
+            t_stop = time.time()
+            if code != 200 or st["stop_status"] != "requested":
+                raise AssertionError(f"serve: the processing stop of request 3: {code} {st}")
+            finals[r3] = wait_task(port, r3, ("completed", "failed", "stopped"))
+            finals[r4] = wait_task(port, r4, ("completed", "failed", "stopped"))
+            total = time.perf_counter() - t0
+            counts = launch_counts()
+            want = {r1: "completed", r2: "stopped", r3: "stopped", r4: "completed"}
+            if finals != want:
+                raise AssertionError(f"serve: final statuses {finals} != {want}; errors "
+                                     f"{[service.get(t).error for t in finals]}")
+            recs = {k: service.get(t) for k, t in (("r1", r1), ("r2", r2), ("r3", r3), ("r4", r4))}
+            if recs["r2"].timings is not None:
+                raise AssertionError("serve: request 2 ran")
+            tm3 = recs["r3"].timings
+            if "decode_s" in tm3 or os.path.exists(recs["r3"].request.save_video_path):
+                raise AssertionError(f"serve: request 3 decoded or saved: timings {sorted(tm3)}")
+
+            # request 1: the slice path's frames, bit for bit
+            f1 = saved[recs["r1"].request.save_video_path]
+            if f1.shape != ref["frames"].shape or not np.array_equal(f1, ref["frames"]):
+                d = np.abs(f1.astype(np.float64) - ref["frames"]) if f1.shape == ref["frames"].shape else None
+                raise AssertionError(f"serve: request 1's frames differ from the slice path's direct run: shape "
+                                     f"{f1.shape}, max abs {None if d is None else float(d.max())}")
+            # request 4: the result, the download, the first frame
+            code, res = http_json(port, "GET", f"/v1/tasks/{r4}/result")
+            if code != 200:
+                raise AssertionError(f"serve: result of request 4: {code} {res}")
+            import urllib.request
+
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/files/download/{res['download_path']}",
+                                        timeout=60) as r:
+                body = r.read()
+            on_disk = Path(res["save_video_path"]).read_bytes()
+            if body != on_disk:
+                raise AssertionError(f"serve: download of {len(body)} bytes != the file's {len(on_disk)}")
+            writer = video_writer()  # the module cache_video wrote with: None is the PIL writer
+            if writer is None:  # an MJPEG mp4: parse it, decode its first JPEG
+                _, _, n_frames, first = parse_mjpeg_mp4(on_disk, [b"ftyp", b"mdat", b"moov"])
+            elif writer.__name__ == "cv2":
+                cap = writer.VideoCapture(res["save_video_path"])
+                ok, img = cap.read()
+                n_frames, first = int(cap.get(writer.CAP_PROP_FRAME_COUNT)), img.shape[1::-1] if ok else None
+                cap.release()
+            else:
+                video = writer.mimread(res["save_video_path"], memtest=False)
+                n_frames, first = len(video), video[0].shape[1::-1]
+            if tuple(first) != (w, h) or n_frames != int(cfg["target_video_length"]):
+                raise AssertionError(f"serve: request 4's file holds {n_frames} frames, the first {first}")
+            # the PIL writer, which cache_video takes where neither imageio nor cv2 imports, on request 4's frames
+            t1 = time.perf_counter()
+            mjpeg = write_mjpeg_mp4(saved[recs["r4"].request.save_video_path], str(Path(out) / "r4_mjpeg.mp4"),
+                                    fps=int(cfg.get("fps", 16)))
+            mjpeg_s, mjpeg_mb = time.perf_counter() - t1, os.path.getsize(mjpeg) / 1e6
+            _, _, n_mjpeg, first_mjpeg = parse_mjpeg_mp4(Path(mjpeg).read_bytes(), [b"ftyp", b"mdat", b"moov"])
+            if (n_mjpeg, tuple(first_mjpeg)) != (int(cfg["target_video_length"]), (w, h)):
+                raise AssertionError(f"serve: the MJPEG file holds {n_mjpeg} frames, the first {first_mjpeg}")
+            code, m = http_json(port, "GET", "/v1/service/metrics")
+            if code != 200 or (m["tasks_completed"], m["tasks_stopped"], m["tasks_failed"]) != (2, 2, 0) or \
+                    set(m["last_stage_seconds"]) != {"Run Encoders", "Run DiT", "Run VAE Decoder", "Save video"}:
+                raise AssertionError(f"serve: metrics {m}")
+        finally:
+            server.shutdown()
+            runner.save_video = save
+            if not service.join(SERVE_WAIT):
+                raise AssertionError("serve: the service's worker did not exit")
+
+    # every kernel's launches: the slice path's for each run that ran the DiT (request 3's when it got there)
+    dit_runs = 2 + ("dit_s" in tm3)
+    expect = {k: v * dit_runs for k, v in ref["counts"].items()}
+    print(json.dumps({"path": "serve", "launch_counts": counts, "expected": expect}), flush=True)
+    if counts != expect:
+        raise AssertionError(f"serve: launch counts {counts} != {expect}")
+
+    def line(rec):
+        tm = rec.timings or {}
+        return {"submit_to_final_s": rec.finished - rec.created,
+                "queue_wait_s": None if rec.started is None else rec.started - rec.created,
+                **{k: tm[k] for k in ("encode_s", "dit_s", "decode_s", "save_s") if k in tm},
+                "peak_mem_gb": max(tm["mem_gb"].values()) if tm.get("mem_gb") else None}
+
+    stats = {name: line(rec) for name, rec in recs.items()}
+    stats.update(stop_latency_s=recs["r3"].finished - t_stop, r3_stopped_after="dit" if "dit_s" in tm3 else "encode",
+                 writer=getattr(writer, "__name__", "PIL"), file_mb=len(on_disk) / 1e6, first_frame=list(first),
+                 mjpeg_s=mjpeg_s, mjpeg_mb=mjpeg_mb,
+                 frames_equal_slice=True, e2e_s=total, last_stage_seconds=m["last_stage_seconds"])
+    print(json.dumps({"serve": stats}), flush=True)
+    del runner, ref["runner"], saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def _category(name: str) -> str:
@@ -2776,9 +2991,19 @@ def main():
     print(json.dumps({"other_shapes": extra + extra2 + extra3 + extra4 + extra5 + extra6 + extra7}), flush=True)
     by_path = {}
     paths = [] if args.kernels_only else args.path or list(PATHS)
-    if "slice" in paths:
+    if "slice" in paths or "serve" in paths:  # the serve path serves the slice path's runner
         block_reference_check("int8", INT8, perturbation=True)
-        by_path["slice"] = run_path("slice", {}, args.profile)
+        ref = {}
+
+        def keep(runner, frames):
+            ref.update(runner=runner, frames=frames)
+            return {}
+
+        by_path["slice"] = ref["counts"] = run_path("slice", {}, args.profile,
+                                                    after=keep if "serve" in paths else None)
+    if "serve" in paths:
+        by_path["serve"] = run_serve(ref)
+        del ref
     if "flagship" in paths:
         block_reference_check("int4", INT4A8)
         by_path["flagship"] = run_path("flagship", FLAGSHIP, args.profile)

@@ -18,7 +18,7 @@ from .runners import (cogvideox_runner, hunyuan_runner, wan_audio_runner,  # noq
                       wan_causvid_runner, wan_runner, wan_skyreels_v2_df_runner)
 from .utils.config import set_config
 from .utils.logging_utils import logger
-from .utils.media import seed_all, video_writer
+from .utils.media import seed_all
 from .utils.registry import RUNNER_REGISTER
 
 
@@ -69,11 +69,8 @@ def main():
     args = build_parser().parse_args()
     config = set_config(args)
     logger.info(f"config:\n{config}")
-    save = bool(config.get("save_video_path"))
-    if save:
-        video_writer()  # fail before loading any model
     runner = init_runner(config)
-    runner.run_pipeline(save_video=save)
+    runner.run_pipeline(save_video=bool(config.get("save_video_path")))
 
 
 if __name__ == "__main__":

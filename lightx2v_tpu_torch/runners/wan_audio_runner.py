@@ -199,7 +199,7 @@ class WanAudioRunner(WanRunner):
         fps = float(cfg.get("target_fps", cfg.get("fps", 16)))
         max_frames = int(cfg.get("target_video_length", 81))
         audio_path, duration = cfg.get("audio_path"), cfg.get("video_duration")
-        self.timings["step_s"] = []
+        self.audio_track = None
         if not duration or not audio_path or not os.path.exists(audio_path):
             return super().run_pipeline(save_video)
         waveform, sr = read_wav(audio_path)
@@ -217,12 +217,12 @@ class WanAudioRunner(WanRunner):
         if res_frames > PREV_FRAMES:
             n_seg += 1
         logger.info(f"audio multi-segment: {expected} frames -> {n_seg} segments")
+        self._begin_run()
         if self.text_encoder is None:
             self.text_encoder = self.load_text_encoder()
             self.image_encoder = self.load_image_encoder()
         if self.model is None:
             self.model = self.load_transformer()
-        self.timings.pop("mem_gb", None)
         t0 = time.perf_counter()
         encoder_out = super().run_input_encoder()
         self._mark("encode_s", t0)

@@ -117,6 +117,7 @@ from ..tools.convert import apply_lora, quantize_model
 from ..utils.image import resize_area, resize_trilinear
 from ..utils.logging_utils import logger
 from ..utils.media import load_image
+from ..utils.prompt_enhancer import enhance_via_service
 from ..utils.registry import RUNNER_REGISTER
 from ..utils.safetensors_io import load_file, load_sharded
 from ..vae.tiny_vae import init_random_tiny_vae_params, load_tiny_vae_params, tiny_decode_wan_latents
@@ -360,12 +361,17 @@ class WanRunner(DefaultRunner):
         return self.scheduler_cls(self.config)
 
     def run_input_encoder(self) -> Dict[str, Any]:
-        if self.config.get("use_prompt_enhancer"):
-            raise _not_ported("the prompt enhancer", "Queue 1 item 18")
+        """The T5 context of the prompt (and of the negative prompt under
+        CFG); for i2v the image's. With ``use_prompt_enhancer`` and
+        ``prompt_enhancer_url`` the prompt is rewritten by the enhancer
+        service first (the raw prompt when the service fails)."""
         if self._i2v() and not self.config.get("image_path"):
             raise ValueError("task i2v needs image_path")
+        prompt = self.config.get("prompt", "")
+        if self.config.get("use_prompt_enhancer") and self.config.get("prompt_enhancer_url"):
+            prompt = enhance_via_service(prompt, self.config["prompt_enhancer_url"]) or prompt
         t0 = time.perf_counter()
-        context = self.text_encoder.infer([self.config.get("prompt", "")])
+        context = self.text_encoder.infer([prompt])
         context_null = context
         if self.config.get("enable_cfg", True):
             context_null = self.text_encoder.infer([self.config.get("negative_prompt", "") or ""])
@@ -498,6 +504,8 @@ class WanRunner(DefaultRunner):
         self.timings["step_s"] = list(np.diff([t0] + ends))
         self.timings["calc_steps"] = list(denoise.calc_steps)
         self.timings["step_index"] = list(range(first, first + len(ends)))
+        if self.progress_callback:
+            self.progress_callback(scheduler.num_steps(), scheduler.num_steps())
         return state["latents"]
 
     def _run_dit_changing_resolution(self, encoder_out: Dict[str, Any], renoise=None):

@@ -29,19 +29,21 @@ def to_uint8_frames(video: np.ndarray) -> np.ndarray:
 
 
 def video_writer():
-    """The importable video writer module (imageio, else cv2); raises when
-    neither is installed."""
+    """The importable video writer module (imageio, else cv2), or None when
+    neither is installed (``cache_video`` then writes MJPEG through PIL)."""
     for name in ("imageio", "cv2"):
         try:
             return __import__(name)
         except ImportError:
             continue
-    raise RuntimeError("writing a video needs imageio or cv2 and neither is importable "
-                       "(run the pipeline with save_video=False, or the CLI with --save_video_path '')")
+    return None
 
 
 def _write_mp4(frames: np.ndarray, path: str, fps: int) -> None:
     writer = video_writer()
+    if writer is None:
+        write_mjpeg_mp4(frames, path, fps=fps, normalize=False)
+        return
     if writer.__name__ == "imageio":
         writer.mimwrite(path, list(frames), fps=fps)
         return
@@ -55,8 +57,10 @@ def _write_mp4(frames: np.ndarray, path: str, fps: int) -> None:
 
 def cache_video(video: np.ndarray, save_path: str, fps: int = 16, normalize: bool = True,
                 retry: int = 5) -> Optional[str]:
-    """Write (T, H, W, C) frames to mp4 with a retry loop. Raises when no
-    video writer (imageio or cv2) is importable."""
+    """Write (T, H, W, C) frames to mp4 with a retry loop: through imageio or
+    cv2 where one imports, else as an MJPEG mp4 through PIL
+    (``write_mjpeg_mp4``), the only writer the card machine can run. Raises
+    when none of the three imports."""
     frames = to_uint8_frames(video) if normalize else video.astype(np.uint8)
     error = None
     for _ in range(retry):
@@ -75,7 +79,11 @@ def cache_video(video: np.ndarray, save_path: str, fps: int = 16, normalize: boo
 def encode_jpegs(frames: np.ndarray, quality: int) -> list:
     """(T, H, W, 3) uint8 RGB -> one baseline JPEG (bytes) per frame, by PIL
     (the JAX package encodes with cv2, which the port does not use)."""
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError("writing a video needs imageio, cv2 or PIL and none is importable (run the pipeline "
+                           "with save_video=False, or the CLI with --save_video_path '')") from e
 
     out = []
     for f in frames:
@@ -179,20 +187,41 @@ def mux_mp4_pcm(
     normalize: bool = True,
 ) -> str:
     """Mux video + mono PCM16 audio into one .mp4, pure Python: the JAX
-    package's ISO BMFF layout, an MJPEG video track (sample entry ``mp4v``
-    + esds objectTypeIndication 0x6C = JPEG, each sample one PIL-encoded
-    JPEG, every sample sync) and a QuickTime-style ``sowt`` little-endian
-    PCM16 audio track. libavformat (ffmpeg, VLC) demuxes both tracks.
+    package's ISO BMFF layout, an MJPEG video track (``write_mjpeg_mp4``)
+    and a QuickTime-style ``sowt`` little-endian PCM16 audio track.
+    libavformat (ffmpeg, VLC) demuxes both tracks.
 
     frames: (T, H, W, 3) RGB (float [-1,1] if normalize else uint8);
     audio: float waveform in [-1, 1] (or int16)."""
-    fr = to_uint8_frames(frames) if normalize else frames.astype(np.uint8)
-    t, h, w, _ = fr.shape
     if audio.dtype != np.int16:
         audio = (np.clip(audio, -1, 1) * 32767).astype(np.int16)
-    pcm = audio.astype("<i2").tobytes()
-    n_samples = len(pcm) // 2
+    return write_mjpeg_mp4(frames, path, fps=fps, jpeg_quality=jpeg_quality, normalize=normalize,
+                           pcm=audio.astype("<i2").tobytes(), sample_rate=sample_rate)
+
+
+def write_mjpeg_mp4(
+    frames: np.ndarray,
+    path: str,
+    fps: int = 16,
+    jpeg_quality: int = 92,
+    normalize: bool = True,
+    pcm: Optional[bytes] = None,
+    sample_rate: int = 0,
+) -> str:
+    """Write frames as an MJPEG .mp4, pure Python with PIL: ISO BMFF with
+    one video track (sample entry ``mp4v`` + esds objectTypeIndication 0x6C
+    = JPEG), each sample one PIL-encoded JPEG, every sample a sync sample;
+    with ``pcm`` (mono little-endian PCM16 bytes at ``sample_rate``) a
+    second, ``sowt`` audio track. Needs neither imageio nor cv2, so it is
+    the only video writer the card machine can run.
+
+    frames: (T, H, W, 3) RGB (float [-1,1] if normalize else uint8)."""
+    fr = to_uint8_frames(frames) if normalize else frames.astype(np.uint8)
+    t, h, w, _ = fr.shape
     jpegs = encode_jpegs(fr, jpeg_quality)
+    with_audio = pcm is not None
+    pcm = pcm or b""
+    n_samples = len(pcm) // 2
 
     def box(fourcc: bytes, payload: bytes) -> bytes:
         return struct.pack(">I", 8 + len(payload)) + fourcc + payload
@@ -222,7 +251,8 @@ def mux_mp4_pcm(
 
     MOVIE_TS = 1000  # movie timescale
     dur_movie = int(round(t / fps * MOVIE_TS))
-    dur_movie = max(dur_movie, int(round(n_samples / sample_rate * MOVIE_TS)))
+    if with_audio:
+        dur_movie = max(dur_movie, int(round(n_samples / sample_rate * MOVIE_TS)))
 
     def mvhd():
         return full(b"mvhd", 0, 0, struct.pack(
@@ -232,7 +262,7 @@ def mux_mp4_pcm(
             + b"\x00" * 10                   # reserved
             + struct.pack(">9i", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
             + b"\x00" * 24                   # predefined
-            + struct.pack(">I", 3))          # next track id
+            + struct.pack(">I", 3 if with_audio else 2))  # next track id
 
     def tkhd(track_id, duration, width=0, height=0, volume=0):
         return full(b"tkhd", 0, 7, struct.pack(
@@ -285,22 +315,23 @@ def mux_mp4_pcm(
     minf_v = box(b"minf", full(b"vmhd", 0, 1, struct.pack(">HHHH", 0, 0, 0, 0)) + dinf() + stbl_v)
     mdia_v = box(b"mdia", mdhd(v_ts, t * 1000) + hdlr(b"vide", b"VideoHandler") + minf_v)
     trak_v = box(b"trak", tkhd(1, dur_movie, width=w, height=h) + mdia_v)
+    traks = trak_v
 
-    # ---- audio track: 'sowt' = s16 little-endian PCM (QTFF)
-    sowt = box(b"sowt", struct.pack(">6xH", 1)
-               + struct.pack(">HHI", 0, 0, 0)       # version/revision/vendor
-               + struct.pack(">HHHH", 1, 16, 0, 0)  # mono, 16-bit
-               + struct.pack(">I", min(sample_rate, 65535) << 16))
-    stbl_a = box(b"stbl", full(b"stsd", 0, 0, struct.pack(">I", 1) + sowt)
-                 + stts(n_samples, 1)
-                 + stsc(n_samples)
-                 + full(b"stsz", 0, 0, struct.pack(">II", 2, n_samples))
-                 + stco(audio_off))
-    minf_a = box(b"minf", full(b"smhd", 0, 0, struct.pack(">hH", 0, 0)) + dinf() + stbl_a)
-    mdia_a = box(b"mdia", mdhd(sample_rate, n_samples) + hdlr(b"soun", b"SoundHandler") + minf_a)
-    trak_a = box(b"trak", tkhd(2, dur_movie, volume=0x0100) + mdia_a)
+    if with_audio:  # ---- audio track: 'sowt' = s16 little-endian PCM (QTFF)
+        sowt = box(b"sowt", struct.pack(">6xH", 1)
+                   + struct.pack(">HHI", 0, 0, 0)       # version/revision/vendor
+                   + struct.pack(">HHHH", 1, 16, 0, 0)  # mono, 16-bit
+                   + struct.pack(">I", min(sample_rate, 65535) << 16))
+        stbl_a = box(b"stbl", full(b"stsd", 0, 0, struct.pack(">I", 1) + sowt)
+                     + stts(n_samples, 1)
+                     + stsc(n_samples)
+                     + full(b"stsz", 0, 0, struct.pack(">II", 2, n_samples))
+                     + stco(audio_off))
+        minf_a = box(b"minf", full(b"smhd", 0, 0, struct.pack(">hH", 0, 0)) + dinf() + stbl_a)
+        mdia_a = box(b"mdia", mdhd(sample_rate, n_samples) + hdlr(b"soun", b"SoundHandler") + minf_a)
+        traks += box(b"trak", tkhd(2, dur_movie, volume=0x0100) + mdia_a)
 
-    moov = box(b"moov", mvhd() + trak_v + trak_a)
+    moov = box(b"moov", mvhd() + traks)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
         f.write(ftyp + mdat + moov)

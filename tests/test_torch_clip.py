@@ -27,6 +27,14 @@ from lightx2v_tpu_torch.utils import image as timage
 TINY = dict(image_size=28, patch_size=14, dim=64, mlp_ratio=2, num_heads=4, num_layers=3, use_blocks=2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-12))

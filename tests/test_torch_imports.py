@@ -12,6 +12,14 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_modules():
     import lightx2v_tpu_torch
 
@@ -34,12 +42,17 @@ def test_every_module_imports_without_jax():
             "lightx2v_tpu_torch.runners.wan_causvid_runner", "lightx2v_tpu_torch.schedulers.df",
             "lightx2v_tpu_torch.runners.wan_skyreels_v2_df_runner", "lightx2v_tpu_torch.encoders.audio",
             "lightx2v_tpu_torch.models.wan.audio_adapter", "lightx2v_tpu_torch.runners.wan_audio_runner",
-            "lightx2v_tpu_torch.utils.media"} <= set(mods)
+            "lightx2v_tpu_torch.utils.media", "lightx2v_tpu_torch.server.api", "lightx2v_tpu_torch.server.schema",
+            "lightx2v_tpu_torch.server.service", "lightx2v_tpu_torch.server.webui",
+            "lightx2v_tpu_torch.server.autoconfig", "lightx2v_tpu_torch.server.subservices",
+            "lightx2v_tpu_torch.utils.prompt_enhancer", "lightx2v_tpu_torch.utils.async_io",
+            "lightx2v_tpu_torch.api_server", "lightx2v_tpu_torch.api_multi_servers"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'ml_dtypes'"
-        " or m == 'cv2' or m == 'lightx2v_tpu' or m.startswith('lightx2v_tpu.'))\n"
+        " or m in ('cv2', 'pydantic', 'transformers', 'imageio') or m == 'lightx2v_tpu'"
+        " or m.startswith('lightx2v_tpu.'))\n"
         "print('BAD', bad)\n"
         "assert not bad, bad\n"
     )
@@ -53,13 +66,16 @@ def test_sources_import_no_jax_ml_dtypes_or_jax_package():
     """No import statement in the port or in chip_smoke.py names jax,
     ml_dtypes, cv2 or lightx2v_tpu, at module level or inside a function
     (the fp8 weights cross by dtype name and bytes, not through ml_dtypes;
-    images are resized by ``utils/image.py``, not by cv2)."""
+    images are resized by ``utils/image.py``, not by cv2), nor pydantic,
+    transformers or imageio at module level (the server's schema is
+    dataclasses; the HF tokenizer reads transformers only when asked to)."""
     import re
 
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ml_dtypes|cv2|lightx2v_tpu)(\.|\s|$)", re.M)
+    top = re.compile(r"^(import|from)\s+(pydantic|transformers|imageio)(\.|\s|$)", re.M)
     files = [ROOT / "chip_smoke.py", *sorted((ROOT / "lightx2v_tpu_torch").rglob("*.py"))]
     assert len(files) > 40
-    bad = [str(f.relative_to(ROOT)) for f in files if pat.search(f.read_text())]
+    bad = [str(f.relative_to(ROOT)) for f in files if pat.search(f.read_text()) or top.search(f.read_text())]
     assert not bad, bad
 
 
@@ -119,6 +135,9 @@ def test_cli_main_without_video(monkeypatch, tmp_path):
 
 
 def test_cache_video_without_writer_raises(monkeypatch, tmp_path):
+    """With neither imageio, cv2 nor PIL importable there is no writer
+    (without the first two it writes MJPEG through PIL:
+    ``test_torch_server.py``)."""
     import builtins
 
     import numpy as np
@@ -128,7 +147,7 @@ def test_cache_video_without_writer_raises(monkeypatch, tmp_path):
     real_import = builtins.__import__
 
     def no_writers(name, *a, **kw):
-        if name in ("imageio", "cv2"):
+        if name in ("imageio", "cv2", "PIL"):
             raise ImportError(name)
         return real_import(name, *a, **kw)
 

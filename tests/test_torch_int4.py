@@ -21,6 +21,14 @@ from lightx2v_tpu_torch.tools.convert import quantize_int4_weight
 BAR = 2 ** -7
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _case(m, n, k, seed, group=None):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((m, k)).astype(np.float32)

@@ -22,6 +22,14 @@ BF16 = dict(rtol=2 ** -7, atol=1e-5)
 F32 = dict(rtol=1e-5, atol=1e-6)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _f(x):
     if isinstance(x, torch.Tensor):
         return x.float().numpy()

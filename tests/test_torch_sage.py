@@ -20,6 +20,14 @@ from lightx2v_tpu_torch.ops.cuda import sage_attention as tsage
 TOL = dict(rtol=1e-2, atol=1e-2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _qkv(b, sq, sk, n=2, d=128, seed=0):
     rng = np.random.default_rng(seed)
     mk = lambda s: (rng.standard_normal((b, s, n, d)) * 1.5).astype(np.float32)  # noqa: E731

@@ -24,6 +24,14 @@ CFG = dict(model_cls="wan2.1_distill", task="t2v", synthetic_weights=True, promp
            text_dim=256, text_len=512, self_attn_1_type="flash_attn3", cross_attn_1_type="flash_attn3")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-12))

@@ -22,6 +22,14 @@ from lightx2v_tpu_torch.ops.cuda import block_sparse_attention as tbs
 TOL = dict(rtol=1e-2, atol=1e-2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _qk(s, n=2, d=128, seed=0, structure=2.0):
     """q, k with a per-(128-block, head) offset, so block means (and the
     scores) vary and the selection is not uniform."""

@@ -12,6 +12,14 @@ from lightx2v_tpu_torch.encoders import t5 as tt5
 from lightx2v_tpu_torch.vae import wan_vae as tvae
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-12))

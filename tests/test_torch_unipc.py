@@ -21,6 +21,14 @@ from lightx2v_tpu_torch.utils.config import set_config as tset
 SHAPE = (4, 3, 6, 6)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(steps, order, shift=5.0):
     cfg = dict(infer_steps=steps, sample_shift=shift, solver_order=order)
     return junipc.WanUniPCScheduler(jset(dict(cfg))), tunipc.WanUniPCScheduler(tset(dict(cfg)))

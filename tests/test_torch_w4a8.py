@@ -25,6 +25,14 @@ from lightx2v_tpu_torch.tools import convert as tconvert
 ULP2 = 2.0 ** -7
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _x(rng, shape):
     return (rng.standard_normal(shape) * 0.5).astype(np.float32)
 

@@ -26,6 +26,14 @@ ULP2 = 2.0 ** -7
 KINDS = ("int8", "fp8")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _w(rng, n, k, kind="int8"):
     """Per-channel codes (numpy: int8, or ml_dtypes float8_e4m3fn) and
     scales, as the JAX converter writes them."""

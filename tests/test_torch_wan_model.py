@@ -30,6 +30,14 @@ SHAPE = (16, 5, 20, 20)
 INT8 = "W-int8-channel-sym-A-int8-channel-sym-dynamic-Tpu"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-12))
