@@ -15,6 +15,8 @@
     python3 chip_smoke.py --path offload_stream_tea --path offload_lazy_t2v_tiny   # offload x caching, lightx2v_6*
     python3 chip_smoke.py --kernel flash_attention --path causvid --path skyreels_df --path audio   # the other runners
     python3 chip_smoke.py --kernel rope_rotate --path serve   # slice 1, then its runner behind the HTTP server
+    python3 chip_smoke.py --kernel w8a8_matmul_fullk --path hunyuan_quant --path cogvideox_quant   # quantized DiTs
+    python3 chip_smoke.py --kernel flash_attention --path hunyuan_i2v_tea --path vae_encoders   # i2v Tea, encoders
 
 1. Prints the card's name and power limit, builds every CUDA kernel of the
    port from ``lightx2v_tpu_torch/csrc`` (one nvcc per source, in parallel)
@@ -96,9 +98,9 @@
    tokens an attention call, embedded guidance 6, no CFG): the bf16
    llava-llama-3-8b-class encoder (30 of 32 blocks) and CLIP-L text tower
    behind synthetic tokenizers -> flow-match Euler -> the temporally and
-   spatially tiled decode to 85 x 720 x 1280. Cut: the first 2 of the
-   file's 50 Euler steps. Its line gives the Llama and CLIP seconds and the
-   joint attention's ``kv_len``.
+   spatially tiled decode to 85 x 720 x 1280. Cut: the first of the file's
+   50 Euler steps (``hunyuan_i2v_tea`` runs the same forward). Its line
+   gives the Llama and CLIP seconds and the joint attention's ``kv_len``.
 11. Feature caching: first the caching steps at the 1.3B width on a small
    input, card vs CPU (TaylorSeer's calc and skip, a one-sided per-side Tea
    step); then the ``wan2.1`` runner on each config as it is, at the widths
@@ -170,13 +172,14 @@
    corner) on the card against the CPU. Before them, the ``vae_int8`` phase:
    the full Wan VAE's tiled decode of a 16 x 21 x 60 x 104 latent with the
    int8 decoder against the float one (times, SNR > 15 dB).
-17. CausVid (``causvid``): ``configs/wan_t2v_causvid.json`` as it is at the
-   14B widths (bf16 ``Default`` linears) with ``sample_shift`` 5, which the
-   file does not name: 3 fragments of 3 AR blocks of 7 latent frames (10,920
-   tokens) against a 21-frame (32,760-slot, 26.8 GB) bf16 KV cache, 9
-   distill steps a block, the later fragments' first block re-anchored: 63
-   block forwards and 2 re-anchors; the decode of 49 latent frames (193 x
-   480 x 832). Its line adds each AR block's and re-anchor's seconds, the
+17. CausVid (``causvid``): ``configs/wan_t2v_causvid.json`` at the 14B
+   widths (bf16 ``Default`` linears) with ``sample_shift`` 5, which the
+   file does not name, cut to 2 of its 3 fragments and to every other entry
+   of its 9-step distill list: 3 AR blocks of 7 latent frames (10,920
+   tokens) a fragment against a 21-frame (32,760-slot, 26.8 GB) bf16 KV
+   cache, 5 distill steps a block, the second fragment's first block
+   re-anchored: 25 block forwards and 1 re-anchor; the decode of 35 latent
+   frames (137 x 480 x 832). Its line adds each AR block's and re-anchor's seconds, the
    cache's GB, and the device memory in use when the denoise starts (the T5
    released).
 18. SkyReels-V2-DF (``skyreels_df``): ``configs/wan_skyreels_v2_df.json``
@@ -184,12 +187,35 @@
    tokens), CFG at 6 at batch 2, one timestep per latent frame. Cut: the
    first 2 of its 30 timestep-matrix rows (one segment: no re-encode).
 19. Audio-driven i2v (``audio``): ``configs/audio_driven/wan_i2v_audio.json``
-   as it is at the i2v 14B widths with a seeded PNG and a seeded 16 kHz wav
-   of 157,000 samples: 157 frames, two 81-frame segments of 4 Euler steps,
-   the second conditioned on the VAE latents of the first's last 5 frames,
+   at the i2v 14B widths with a seeded PNG and a seeded 16 kHz wav of
+   157,000 samples: 157 frames, two 81-frame segments, each cut to the
+   first 2 of its 4 Euler steps, the second conditioned on the VAE latents of the first's last 5 frames,
    the audio adapter's 40 fp32 injections (synthetic, made on the card),
    radial_attn without a mask (dense flash); the frames and the stitched
    audio muxed into an ``.av.mp4`` (PIL JPEGs, PCM16) and parsed back.
+20. HunyuanVideo i2v with TeaCache (``hunyuan_i2v_tea``):
+   ``configs/hunyuan_t2v.json`` with ``task: "i2v"``, 193 frames at 480 x
+   832 (49 x 30 x 52 = 76,440 image tokens + 256 text), ``feature_caching:
+   "Tea"`` at ``teacache_thresh`` 0.2, full width (the Llama and CLIP-L
+   synthesizers): token replace on the first latent frame's 1,560 tokens
+   and RIFLEx k = 4 (both checked), the host Tea series over the 50 steps
+   (printed), then a 4-step window of it holding its calc and skip steps,
+   and the tiled decode of the 49 latent frames to 193 x 480 x 832. Like
+   the JAX runner it encodes no image.
+21. The quantized HunyuanVideo DiT (``hunyuan_quant``, ``run_hunyuan_quant``)
+   at bench.py's ``run_hunyuan`` shape, after one full-width int8 double +
+   single block on the card against the CPU: int8 end to end (2 Euler
+   steps, the tiled decode), fp8, weight-only int4 (row 11) and int4 x int8
+   (row 8) one forward each, each scheme's weights made and released in
+   turn, each with exact launch counts.
+22. The quantized CogVideoX1.5-5B DiT (``cogvideox_quant``): one CFG forward
+   at batch 2 at bench.py's 480p shape at int8 and at fp8, after one
+   full-width int8 block on the card against the CPU; exact launch counts
+   of rows 3 / 3f and 2d.
+23. The VAE encoders (``vae_encoders``): HunyuanVideo's and CogVideoX's at
+   their published configs on a seeded 17 x 480 x 832 clip, timed with
+   their device peaks, and a 5 x 64 x 64 corner of it encoded on the card
+   against the CPU.
 
 The kernel phases also hold and time the fused-RoPE flash kernel at
 changing resolution's phase A, (2, 18,018, 40, 128) with a 98-row last
@@ -209,7 +235,12 @@ AR block (q of 10,920 against the 32,760-slot cache at kv_len 21,840, V =
 51,000, 40, 128), and the 8-bit full-K GEMM
 at i2v's M = 257 beside M = 512, and hold the RoPE pass of the fused-RoPE
 flash (``rope_rotate``, its own kernel row and counter) bit for bit against
-its plain version. The
+its plain version. Rows 3 and 3f are also held and timed at every quantized
+HunyuanVideo and CogVideoX linear's shape (M from 1 to 34,772, K up to
+15,360, N up to 21,504: on the card an 8-bit linear of any width runs the
+full-K kernel, and ``guard_exact_dot`` makes one that reaches the float64
+exact dot raise), rows 11 and 8 at HunyuanVideo's, row 2 at the i2v path's
+(1, 76,696, 24, 128) and row 2d at (2, 17,386, 48, 64). The
 fp8 rows' library yardstick is the torch quantize pass plus
 ``torch._scaled_mm`` with row-wise scales; the per-head block-sparse row's is
 ``torch.compile(flex_attention)`` on the same block mask (None, with the
@@ -273,9 +304,26 @@ COG_STEPS = 2  # of the file's 50: step 0 first-order, step 1 second-order
 # HunyuanVideo at 720x1280, 85 frames: 22 x 45 x 80 image tokens + 256 text tokens, 24 heads of 128
 HY_IMG, HY_TXT, HY_HEADS = 22 * 45 * 80, 256, 24
 HY_JSON = "configs/hunyuan_t2v.json"
-HY_STEPS = 2  # of the file's 50 Euler steps
+HY_STEPS = 1  # of the file's 50 Euler steps (hunyuan_i2v_tea runs the same forward)
+# HunyuanVideo i2v with TeaCache: 193 frames at 480 x 832 (49 x 30 x 52 = 76,440 image tokens; RIFLEx past 192
+# frames), a 4-step window of the host Tea series holding its calc and skip steps
+HY_I2V = dict(hidden_size=3072, task="i2v", target_video_length=193, target_height=480, target_width=832,
+              feature_caching="Tea", teacache_thresh=0.2)
+HY_I2V_IMG = 49 * 30 * 52
+HY_I2V_CUT = ("tea", 4)
+# bench.py's run_hunyuan and run_cogvideox shape: 21 x 60 x 104 latents; Hunyuan 32,760 image + 256 text tokens,
+# CogVideoX (frames padded to 22) 17,160 video + 226 text tokens, CFG's batch of 2
+BENCH_LAT = (16, 21, 60, 104)
+HY_Q_IMG, HY_Q_TXT = 21 * 30 * 52, 256
+COG_Q_S = 11 * 30 * 52 + 226
+HY_SCHEMES = (("int8", INT8), ("fp8", FP8), ("int4", INT4W), ("int4a8", INT4A8))
+HY_Q_STEPS = 2  # int8's Euler steps (a 2-step schedule, shift 7) before the tiled decode
+# the VAE encoders' clip: 17 frames of 480 x 832 -> 5 x 60 x 104 latents; the corner held against the CPU
+ENC_FRAMES, ENC_CORNER = 17, (5, 64, 64)
 # CausVid (configs/wan_t2v_causvid.json): AR blocks of 7 latent frames of 1560 tokens, a window of 21 frames
 CV_JSON = "configs/wan_t2v_causvid.json"
+CV_FRAGMENTS = 2  # of the file's 3: 5 AR blocks and one re-anchor (the time limit's cut)
+CV_STEP_STRIDE = 2  # every other entry of the file's 9-step denoising list: 5 steps a block (the same cut)
 CV_BLOCK_TOKENS, CV_WINDOW = 7 * 1560, 21 * 1560
 # SkyReels-V2-DF (configs/wan_skyreels_v2_df.json): 544x960, 97 frames -> 25 latent frames of 34 x 60 tokens
 DF_JSON = "configs/wan_skyreels_v2_df.json"
@@ -285,6 +333,7 @@ DF_ROWS = 2  # of the matrix's 30 rows (one segment: 30 UniPC steps)
 # 16 fps, two 81-frame segments overlapping by 5
 AUDIO_JSON = "configs/audio_driven/wan_i2v_audio.json"
 AUDIO_SAMPLES = 157_000
+AUDIO_STEPS = 2  # of each segment's 4 Euler steps (the time limit's cut)
 PROMPT = "a red panda climbing a bamboo tree in the rain"
 DEPLOY_JSON = "configs/deploy/wan_t2v.json"
 BASE_JSON = "configs/bench/lightx2v_1.json"
@@ -338,7 +387,8 @@ SERVE_WAIT = 300  # seconds: the longest any one wait of the serve path may take
 PATHS = ("slice", "serve", "flagship", "base", "radial_bsr", "radial_two_pass", "fp8_distill", "i2v", "cogvideox",
          "hunyuan", "tea_fp8", "changing_resolution", "taylorseer_1_3b", "taylorws_1_3b", "ada_1_3b", "custom_1_3b",
          "offload_stream_fp8", "offload_lazy_i2v", "offload_stream_tea", "offload_lazy_t2v_tiny",
-         "offload_lazy_t2v_cfg_tiny", "causvid", "skyreels_df", "audio")
+         "offload_lazy_t2v_cfg_tiny", "causvid", "skyreels_df", "audio", "hunyuan_i2v_tea", "hunyuan_quant",
+         "cogvideox_quant", "vae_encoders")
 
 
 def card_line() -> str:
@@ -1253,7 +1303,9 @@ def kernel_phase_fp8(peaks, reps: int, want):
 def kernel_phase_cog(peaks, reps: int, want):
     """The dense flash kernel's 64-wide form at CogVideoX's joint-stream
     self-attention, q, k, v (2, 45,106, 48, 64): CFG's two rows, 226 text
-    tokens + 44,880 video tokens, one call a block."""
+    tokens + 44,880 video tokens, one call a block (its row); and at
+    ``bench.py``'s 480p shape, (2, 17,386, 48, 64), the ``cogvideox_quant``
+    phase's (an ``other_shapes`` entry)."""
     import torch
     import torch.nn.functional as F
 
@@ -1264,35 +1316,39 @@ def kernel_phase_cog(peaks, reps: int, want):
     peak_bf16, _, peak_bw = peaks
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
-    shape = (2, COG_S, COG_HEADS, COG_HD)
-    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
-    out = fa.flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    hs = slice(0, 2)  # the plain version materializes S x S per head
-    ref = fa.flash_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs])
-    # bar: as row 2 (bf16 P at other running maxima, another summation order)
-    err = check_close(f"flash_attention_d64 {shape}", out[:, :, hs], ref, 2e-2, 1e-3)
-    del ref, out
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), reps)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 1, warmup=0)
-    lib_ms = library(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                                            v.transpose(1, 2)), reps)
-    pairs = 2.0 * COG_HEADS * COG_S * COG_S  # (batch, head, query, key)
-    tensor_ms, by = bound(4.0 * COG_HD * pairs, 4 * 2 * COG_S * COG_HEADS * COG_HD * 2, peak_bf16, peak_bw)
-    exp_ms = pairs / PEAK_EX2 * 1e3  # one exp2 a (query, key) pair on the special-function units
-    row = dict(name="flash_attention_d64", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
-               replaces="lightx2v_tpu/ops/pallas/flash_attention.py:409",
-               shape=f"q,k,v {shape} bf16 (CogVideoX joint stream, CFG batch 2)",
-               max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms,
-               bound_ms=max(tensor_ms, exp_ms),
-               bound_by="bytes" if by == "bytes" and tensor_ms > exp_ms else "operations",
-               bound_tensor_ms=tensor_ms, bound_exp2_ms=exp_ms, library_ms=lib_ms,
-               library_call="F.scaled_dot_product_attention")
-    print(f"[flash_attention_d64] {ms:.3f} ms; bounds: tensor cores {tensor_ms:.2f} ms, exp2 {exp_ms:.2f} ms; "
-          f"SDPA {lib_ms} ms", flush=True)
-    del q, k, v
+    out_rows = []
+    for s_len, note in ((COG_S, "CogVideoX joint stream, CFG batch 2"),
+                        (COG_Q_S, "CogVideoX at bench.py's 480p shape, CFG batch 2")):
+        shape = (2, s_len, COG_HEADS, COG_HD)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+        out = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        hs = slice(0, 2)  # the plain version materializes S x S per head
+        ref = fa.flash_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs])
+        # bar: as row 2 (bf16 P at other running maxima, another summation order)
+        err = check_close(f"flash_attention_d64 {shape}", out[:, :, hs], ref, 2e-2, 1e-3)
+        del ref, out
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v), reps)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 1, warmup=0)
+        lib_ms = library(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                                v.transpose(1, 2)), reps)
+        pairs = 2.0 * COG_HEADS * s_len * s_len  # (batch, head, query, key)
+        tensor_ms, by = bound(4.0 * COG_HD * pairs, 4 * 2 * s_len * COG_HEADS * COG_HD * 2, peak_bf16, peak_bw)
+        exp_ms = pairs / PEAK_EX2 * 1e3  # one exp2 a (query, key) pair on the special-function units
+        out_rows.append(dict(name="flash_attention_d64", route="cuda",
+                             source="lightx2v_tpu_torch/csrc/flash_attention.cu",
+                             replaces="lightx2v_tpu/ops/pallas/flash_attention.py:409",
+                             shape=f"q,k,v {shape} bf16 ({note})",
+                             max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms,
+                             bound_ms=max(tensor_ms, exp_ms),
+                             bound_by="bytes" if by == "bytes" and tensor_ms > exp_ms else "operations",
+                             bound_tensor_ms=tensor_ms, bound_exp2_ms=exp_ms, library_ms=lib_ms,
+                             library_call="F.scaled_dot_product_attention"))
+        print(f"[flash_attention_d64] {shape}: {ms:.3f} ms; bounds: tensor cores {tensor_ms:.2f} ms, exp2 "
+              f"{exp_ms:.2f} ms; SDPA {lib_ms} ms", flush=True)
+        del q, k, v
     torch.cuda.empty_cache()
-    return [row], []
+    return out_rows[:1], out_rows[1:]
 
 
 def hunyuan_text_len() -> int:
@@ -1307,11 +1363,12 @@ def hunyuan_text_len() -> int:
 
 def kernel_phase_hunyuan(peaks, reps: int, want):
     """The dense flash kernel (row 2) at HunyuanVideo's joint stream: q, k, v
-    (1, 79,456, 24, 128), keys at or past ``kv_len`` (the 79,200 image tokens
-    and the prompt's valid text tokens) masked. 79,456 is no multiple of 128,
-    so the last query tile is ragged and the last key tile partly masked.
-    Returns its ``other_shapes`` entry (row 2's main entry is the
-    cross-attention's)."""
+    (1, 79,456, 24, 128) for t2v at 720 x 1280, and (1, 76,696, 24, 128) for
+    the i2v path at 193 frames of 480 x 832, keys at or past ``kv_len`` (the
+    image tokens and the prompt's valid text tokens) masked. Neither length
+    is a multiple of 128, so the last query tile is ragged and the last key
+    tile partly masked. Returns ``other_shapes`` entries (row 2's main entry
+    is the cross-attention's)."""
     import torch
     import torch.nn.functional as F
 
@@ -1322,32 +1379,162 @@ def kernel_phase_hunyuan(peaks, reps: int, want):
     peak_bf16, _, peak_bw = peaks
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
-    s, kv = HY_IMG + HY_TXT, HY_IMG + hunyuan_text_len()
-    q, k, v = (torch.randn((1, s, HY_HEADS, HD), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
-    v[:, kv:] = 1e4  # a kernel that reads a masked key fails by orders of magnitude, not by chance
-    out = fa.flash_attention(q, k, v, kv_len=kv)
-    torch.cuda.synchronize()
-    if not torch.isfinite(out).all():
-        raise AssertionError("flash_attention at Hunyuan's shape: non-finite output")
-    hs = slice(0, 2)  # the plain version materializes rows x S per head
-    ref = fa.flash_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs], kv)
-    # bar: as row 2 (bf16 P at other running maxima, another summation order)
-    err = check_close(f"flash_attention (1,{s},{HY_HEADS},{HD}) kv_len {kv}", out[:, :, hs], ref, 2e-2, 1e-3)
-    del ref, out
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, kv_len=kv), reps)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, kv), 1, warmup=0)
-    kt, vt = k[:, :kv].transpose(1, 2), v[:, :kv].transpose(1, 2)
-    lib_ms = library(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), kt, vt), reps)
-    b_ms, b_by = bound(4.0 * HY_HEADS * s * kv * HD, (2 * s + 2 * kv) * HY_HEADS * HD * 2, peak_bf16, peak_bw)
-    print(f"[flash_attention_hunyuan] {ms:.3f} ms ({b_ms / ms:.0%} of its {b_ms:.2f} ms bound); SDPA {lib_ms} ms",
-          flush=True)
-    del q, k, v, kt, vt
+    out_rows = []
+    for img, note in ((HY_IMG, "HunyuanVideo joint stream"), (HY_I2V_IMG, "HunyuanVideo i2v, 193 frames at 480p")):
+        s, kv = img + HY_TXT, img + hunyuan_text_len()
+        q, k, v = (torch.randn((1, s, HY_HEADS, HD), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+        v[:, kv:] = 1e4  # a kernel that reads a masked key fails by orders of magnitude, not by chance
+        out = fa.flash_attention(q, k, v, kv_len=kv)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"flash_attention at {note}: non-finite output")
+        hs = slice(0, 2)  # the plain version materializes rows x S per head
+        ref = fa.flash_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs], kv)
+        # bar: as row 2 (bf16 P at other running maxima, another summation order)
+        err = check_close(f"flash_attention (1,{s},{HY_HEADS},{HD}) kv_len {kv}", out[:, :, hs], ref, 2e-2, 1e-3)
+        del ref, out
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, kv_len=kv), reps)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, kv), 1, warmup=0)
+        kt, vt = k[:, :kv].transpose(1, 2), v[:, :kv].transpose(1, 2)
+        lib_ms = library(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), kt, vt), reps)
+        b_ms, b_by = bound(4.0 * HY_HEADS * s * kv * HD, (2 * s + 2 * kv) * HY_HEADS * HD * 2, peak_bf16, peak_bw)
+        print(f"[flash_attention_hunyuan] {note}: {ms:.3f} ms ({b_ms / ms:.0%} of its {b_ms:.2f} ms bound); "
+              f"SDPA {lib_ms} ms", flush=True)
+        del q, k, v, kt, vt
+        out_rows.append(dict(name="flash_attention", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
+                             replaces="lightx2v_tpu/ops/pallas/flash_attention.py:409",
+                             shape=f"q,k,v (1,{s},{HY_HEADS},{HD}) bf16, kv_len {kv} ({note})",
+                             max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                             library_call="F.scaled_dot_product_attention on the valid keys"))
     torch.cuda.empty_cache()
-    return [dict(name="flash_attention", route="cuda", source="lightx2v_tpu_torch/csrc/flash_attention.cu",
-                 replaces="lightx2v_tpu/ops/pallas/flash_attention.py:409",
-                 shape=f"q,k,v (1,{s},{HY_HEADS},{HD}) bf16, kv_len {kv} (HunyuanVideo joint stream)",
-                 max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                 bound_by=b_by, library_ms=lib_ms, library_call="F.scaled_dot_product_attention on the valid keys")]
+    return out_rows
+
+
+def quant_linear_shapes():
+    """(M, K, N, where) of the quantized HunyuanVideo and CogVideoX linears
+    at bench.py's shapes: Hunyuan's modulation projections at M = 1, its
+    text stream at 256 tokens, its image stream at 32,760 and its single
+    blocks' joint stream at 33,016; CogVideoX's joint stream at CFG's 2 x
+    17,386 and its AdaLN projections at M = 2."""
+    d, mlp, hy_j, cog = 3072, 12288, HY_Q_IMG + HY_Q_TXT, 2 * COG_Q_S
+    return [(1, d, 6 * d, "hunyuan double-block modulation"), (1, d, 3 * d, "hunyuan single-block modulation"),
+            (HY_Q_TXT, d, 3 * d, "hunyuan text qkv"), (HY_Q_TXT, mlp, d, "hunyuan text fc2"),
+            (HY_Q_IMG, d, 3 * d, "hunyuan image qkv"), (HY_Q_IMG, d, d, "hunyuan image proj"),
+            (HY_Q_IMG, d, mlp, "hunyuan image fc1"), (HY_Q_IMG, mlp, d, "hunyuan image fc2"),
+            (hy_j, d, 3 * d + mlp, "hunyuan single linear1"), (hy_j, d + mlp, d, "hunyuan single linear2"),
+            (cog, d, d, "cogvideox q/k/v/o"), (cog, d, mlp, "cogvideox ff_0"), (cog, mlp, d, "cogvideox ff_2"),
+            (2, 512, 6 * d, "cogvideox AdaLN")]
+
+
+def kernel_phase_quant_linears(peaks, reps: int, want):
+    """Rows 3 and 3f (the full-K 8-bit GEMM, int8 and fp8) at every
+    quantized HunyuanVideo and CogVideoX linear's shape, and rows 11
+    (weight-only int4) and 8 (int4 x int8) at Hunyuan's, each held against
+    its plain version on the same inputs and timed beside it, the library
+    call and the bound. Widths of 3072 are below the JAX package's 4096
+    threshold, so on the card these are new shapes for rows 3 and 3f (M = 1
+    and 2, K = 12,288 and 15,360, N = 18,432 and 21,504). Returns
+    ``other_shapes`` entries."""
+    import torch
+
+    from lightx2v_tpu_torch.ops.cuda import int4_matmul as i4
+    from lightx2v_tpu_torch.ops.cuda import w4a8_matmul as w4
+    from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
+    from lightx2v_tpu_torch.tools.convert import _pick_bk
+
+    peak_bf16, peak_int8, peak_bw = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    out_rows = []
+
+    def entry(name, src, rep, shape, err, bar, ms, plain_ms, flops, nbytes, peak, lib_ms, lib_call, note):
+        b_ms, b_by = bound(flops, nbytes, peak, peak_bw)
+        print(f"[{name}] {note} {shape}: {ms:.4f} ms ({b_ms / ms:.0%} of its {b_ms:.4f} ms bound); plain "
+              f"{plain_ms:.3f} ms; library {lib_ms} ms", flush=True)
+        out_rows.append(dict(name=name, route="cuda", source=f"lightx2v_tpu_torch/csrc/{src}", replaces=rep,
+                             shape=f"{shape} ({note})", max_abs_err=err, bar=bar, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library_call=lib_call))
+
+    def quant_lib(x2, kind):
+        s = torch.clamp_min(x2.float().abs().amax(-1), 1e-8) * (1.0 / wm._QMAX[kind])
+        q = x2.float() / s[:, None]
+        return (torch.clamp(torch.round(q), -127, 127).to(torch.int8) if kind == "int8"
+                else q.to(torch.float8_e4m3fn)), s
+
+    def w8_lib(x2, w, ws, b, kind):
+        xq, s = quant_lib(x2, kind)
+        if kind == "int8":
+            return (torch._int_mm(xq, w.t()).float() * s[:, None] * ws[None] + b[None]).to(torch.bfloat16)
+        return torch._scaled_mm(xq, w.t(), scale_a=s[:, None].contiguous(), scale_b=ws[None, :].contiguous(),
+                                bias=b.to(torch.bfloat16), out_dtype=torch.bfloat16)
+
+    for m, k, n, note in quant_linear_shapes():
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        bvec = torch.randn((n,), generator=g, device=dev) * 0.02
+        for kind, name in (("int8", "w8a8_matmul_fullk"), ("fp8", "w8a8_matmul_fullk_fp8")):
+            if not want(name):
+                continue
+            if kind == "int8":
+                w = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+                ws = torch.full((n,), 0.02 / 127, device=dev)
+            else:
+                w = (torch.randn((n, k), generator=g, device=dev) * 100).clamp_(-448, 448).to(torch.float8_e4m3fn)
+                ws = torch.full((n,), 0.02 / 100, device=dev)
+            out = wm.w8a8_matmul_fullk(x, w, ws, bvec, kind=kind)
+            torch.cuda.synchronize()
+            ref = wm.w8a8_matmul_fullk_plain(x, w, ws, bvec, kind=kind)
+            # bar: the same codes and scales; exact int32 sums (int8) or exact
+            # products summed in fp32 (fp8) against one rounding of the exact
+            # sum; bf16 ties aside (rows 3 and 3f's bar)
+            err = check_close(f"{name} {note} M={m} K={k} N={n}", out, ref, 2 ** -7, 0.0)
+            del out, ref
+            ms = cuda_ms(lambda: wm.w8a8_matmul_fullk(x, w, ws, bvec, kind=kind), reps)
+            plain_ms = cuda_ms(lambda: wm.w8a8_matmul_fullk_plain(x, w, ws, bvec, kind=kind), 1, warmup=0)
+            lib_ms = library(lambda: w8_lib(x, w, ws, bvec, kind), reps)
+            entry(name, "w8a8_matmul.cu", "lightx2v_tpu/ops/pallas/w8a8_matmul.py:182",
+                  f"x ({m},{k}) bf16; w ({n},{k}) {kind}", err, "2^-7*max|ref|", ms, plain_ms, 2.0 * m * n * k,
+                  m * k * 2 + n * k + n * 8 + m * n * 2, peak_int8, lib_ms,
+                  "torch quantize + " + ("torch._int_mm + torch scaling" if kind == "int8"
+                                         else "torch._scaled_mm (row-wise scales, bias, bf16 out)"), note)
+            del w, ws
+        if note.startswith("hunyuan") and (want("int4_matmul") or want("w4a8_matmul")):
+            group = _pick_bk(k)
+            w = torch.randint(0, 256, (n, k // 2), generator=g, device=dev, dtype=torch.uint8)
+            ws = (0.5 + torch.rand((n, k // group), generator=g, device=dev)) * (0.02 / 7)
+            nbytes = m * k * 2 + n * k // 2 + ws.numel() * 4 + n * 4 + m * n * 2
+            shape = f"x ({m},{k}) bf16; w ({n},{k // 2}) u8 + ({n},{k // group}) fp32"
+            if want("int4_matmul"):
+                out = i4.int4_matmul(x, w, ws, bvec)
+                torch.cuda.synchronize()
+                # bar: exact bf16 x int4 products, per-group fp32 rescale; sums
+                # inside a group in another order (row 11's bar)
+                err = check_close(f"int4_matmul {note} M={m}", out, i4.int4_matmul_plain(x, w, ws, bvec), 2 ** -7,
+                                  0.0)
+                del out
+                lib_ms = library(lambda: torch.matmul(x, i4.unpack_int4(w, ws).to(torch.bfloat16).t()), reps)
+                entry("int4_matmul", "int4_matmul.cu", "lightx2v_tpu/ops/pallas/int4_matmul.py:102", shape, err,
+                      "2^-7*max|ref|", cuda_ms(lambda: i4.int4_matmul(x, w, ws, bvec), reps),
+                      cuda_ms(lambda: i4.int4_matmul_plain(x, w, ws, bvec), 1, warmup=0), 2.0 * m * n * k, nbytes,
+                      peak_bf16,
+                      lib_ms, "dequantize to bf16 in torch + torch.matmul", note)
+            if want("w4a8_matmul"):
+                out = w4.w4a8_matmul(x, w, ws, bvec)
+                torch.cuda.synchronize()
+                # bar: identical int8 codes, exact int32 group sums, the same
+                # fp32 order (row 8's bar)
+                err = check_close(f"w4a8_matmul {note} M={m}", out, w4.w4a8_matmul_plain(x, w, ws, bvec), 2 ** -7,
+                                  0.0)
+                del out
+                entry("w4a8_matmul", "w4a8_matmul.cu", "lightx2v_tpu/ops/pallas/w8a8_matmul.py:585", shape, err,
+                      "2^-7*max|ref|", cuda_ms(lambda: w4.w4a8_matmul(x, w, ws, bvec), reps),
+                      cuda_ms(lambda: w4.w4a8_matmul_plain(x, w, ws, bvec), 1, warmup=0), 2.0 * m * n * k, nbytes,
+                      peak_int8,
+                      None, "none (no single PyTorch call computes per-group-scaled int4 x int8)", note)
+            del w, ws
+        del x
+        torch.cuda.empty_cache()
+    return out_rows
 
 
 def kernel_phase_wan_runners(peaks, reps: int, want):
@@ -1611,11 +1798,12 @@ def vae_encode_check():
     return check_close("Wan VAE encode 5x64x64, card (TF32) vs CPU (fp32)", out.cpu(), ref, 2e-2, 1e-3)
 
 
-def cog_block_reference_check():
+def cog_block_reference_check(scheme: str = "bf16", mm_type: str = "Default"):
     """One full-width CogVideoX1.5-5B block (48 heads of 64, dim 3072, the
     226-token text stream) on a small latent (16 x 3 x 8 x 12, padded to 4
     frames: 2 x 4 x 6 = 48 video tokens) at CFG's batch of 2: the card (the
-    64-wide flash kernel) vs the plain versions on the CPU, same weights."""
+    64-wide flash kernel; with ``scheme`` int8 or fp8 the full-K 8-bit GEMM
+    for its 8 linears) vs the plain versions on the CPU, same weights."""
     import dataclasses
 
     import torch
@@ -1624,9 +1812,10 @@ def cog_block_reference_check():
     from lightx2v_tpu_torch.models.cogvideox.model import CogTransformer
     from lightx2v_tpu_torch.models.cogvideox.weights import init_random_cog_params_on_device
     from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+    from lightx2v_tpu_torch.ops.cuda import launch_counts
 
     arch = dataclasses.replace(CogArch(), num_layers=1)
-    params = init_random_cog_params_on_device(arch, seed=3, device="cuda")
+    params = init_random_cog_params_on_device(arch, scheme, seed=3, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(4)
     lat = torch.randn((2, 16, 3, 8, 12), generator=g, device="cuda").to(torch.bfloat16)
     ctx = (torch.randn((2, arch.text_len, arch.text_dim), generator=g, device="cuda") * 0.5).to(torch.bfloat16)
@@ -1634,16 +1823,20 @@ def cog_block_reference_check():
     cos, sin = (torch.from_numpy(a) for a in build_cog_rope(arch, 2, 4, 6))
 
     def run(dev):
-        return CogTransformer(_to(params, dev), arch)(lat.to(dev), t.to(dev), ctx.to(dev), cos.to(dev), sin.to(dev))
+        return CogTransformer(_to(params, dev), arch)(lat.to(dev), t.to(dev), ctx.to(dev), cos.to(dev), sin.to(dev),
+                                                      mm_type=mm_type)
 
-    before = fa.LAUNCHES["flash_attention_d64"]
+    before = launch_counts()
     out = run("cuda")
     torch.cuda.synchronize()
-    if fa.LAUNCHES["flash_attention_d64"] != before + 1:
-        raise AssertionError("the CogVideoX block did not run the 64-wide flash kernel")
+    moved = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+    want = {"flash_attention_d64": 1, **({} if scheme == "bf16" else
+                                         {"w8a8_matmul_fullk" + ("_fp8" if scheme == "fp8" else ""): 8})}
+    if moved != want:
+        raise AssertionError(f"the CogVideoX {scheme} block launched {moved}, not {want}")
     # bar: as the 14B int8 block's, bf16 activations through one flash call
-    # and bf16 GEMMs summed in another order
-    return check_close("one CogVideoX1.5-5B block (bf16, flash_attn3 at head dim 64), card vs CPU plain",
+    # and bf16 (or 8-bit) GEMMs summed in another order
+    return check_close(f"one CogVideoX1.5-5B block ({scheme}, flash_attn3 at head dim 64), card vs CPU plain",
                        out.cpu(), run("cpu"), 3e-2, 1e-3)
 
 
@@ -1673,12 +1866,14 @@ def cog_vae_decode_check():
     return max(errs)
 
 
-def hunyuan_block_reference_check():
+def hunyuan_block_reference_check(scheme: str = "bf16", mm_type: str = "Default"):
     """One full-width HunyuanVideo double-stream and one single-stream block
     (hidden 3072, 24 heads of 128, with the text refiner and the head around
     them) on a small input (16 x 2 x 8 x 8 latents: 32 image tokens; 32
     text tokens, 20 valid, so kv_len 52 of 64 keys): the card (two flash
-    calls) vs the plain versions on the CPU, same weights."""
+    calls; with ``scheme`` int8 the full-K 8-bit GEMM for the blocks' 13
+    linears, the modulation projections at M = 1) vs the plain versions on
+    the CPU, same weights."""
     import dataclasses
 
     import numpy as np
@@ -1687,10 +1882,10 @@ def hunyuan_block_reference_check():
     from lightx2v_tpu_torch.models.hunyuan.config import HunyuanArch
     from lightx2v_tpu_torch.models.hunyuan.model import HunyuanTransformer, build_hunyuan_rope, text_kv_len
     from lightx2v_tpu_torch.models.hunyuan.weights import init_random_hunyuan_params_on_device
-    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+    from lightx2v_tpu_torch.ops.cuda import launch_counts
 
     arch = dataclasses.replace(HunyuanArch(), double_blocks=1, single_blocks=1)
-    params = init_random_hunyuan_params_on_device(arch, seed=3, device="cuda")
+    params = init_random_hunyuan_params_on_device(arch, seed=3, device="cuda", scheme=scheme)
     g = torch.Generator(device="cuda").manual_seed(4)
     lat = torch.randn((1, 16, 2, 8, 8), generator=g, device="cuda").to(torch.bfloat16)
     states = (torch.randn((1, 32, arch.text_states_dim), generator=g, device="cuda") * 0.5).to(torch.bfloat16)
@@ -1703,17 +1898,19 @@ def hunyuan_block_reference_check():
     def run(dev):
         return HunyuanTransformer(_to(params, dev), arch)(
             lat.to(dev), t.to(dev), states.to(dev), torch.from_numpy(mask).to(dev), pooled.to(dev), cos.to(dev),
-            sin.to(dev), text_kv_len(32, mask), guidance.to(dev))
+            sin.to(dev), text_kv_len(32, mask), guidance.to(dev), mm_type=mm_type)
 
-    before = fa.LAUNCHES["flash_attention"]
+    before = launch_counts()
     out = run("cuda")
     torch.cuda.synchronize()
-    if fa.LAUNCHES["flash_attention"] != before + 2:
-        raise AssertionError("the Hunyuan blocks did not run the flash kernel once each")
+    moved = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+    want = {"flash_attention": 2, **({"w8a8_matmul_fullk": 13} if scheme == "int8" else {})}
+    if moved != want:
+        raise AssertionError(f"the Hunyuan {scheme} blocks launched {moved}, not {want}")
     # bar: as the CogVideoX block's, bf16 activations through two flash calls
-    # and bf16 GEMMs summed in another order
-    return check_close("one HunyuanVideo double + single block (bf16, flash_attn3, kv_len 52 of 64), card vs CPU "
-                       "plain", out.cpu(), run("cpu"), 3e-2, 1e-3)
+    # and bf16 GEMMs summed in another order; int8 as the 14B int8 block's
+    return check_close(f"one HunyuanVideo double + single block ({scheme}, flash_attn3, kv_len 52 of 64), card vs "
+                       "CPU plain", out.cpu(), run("cpu"), 3e-2, 1e-3)
 
 
 def hunyuan_vae_decode_check():
@@ -1763,9 +1960,10 @@ def expected_launches(runner, cfg, forwards=None) -> dict:
     if cfg["model_cls"] == "cogvideox":  # one 64-wide flash call a block and step; its linears are bf16 torch.mm
         return {**{k: 0 for k in launch_counts()},
                 "flash_attention_d64": runner.arch.num_layers * runner.init_scheduler().num_steps()}
-    if cfg["model_cls"] == "hunyuan":  # one joint flash call a double or single block and step; bf16 torch.mm
+    if cfg["model_cls"] == "hunyuan":  # one joint flash call a double or single block and forward; bf16 torch.mm
         blocks = runner.arch.double_blocks + runner.arch.single_blocks
-        return {**{k: 0 for k in launch_counts()}, "flash_attention": blocks * runner.init_scheduler().num_steps()}
+        fwd = forwards if forwards is not None else runner.init_scheduler().num_steps()
+        return {**{k: 0 for k in launch_counts()}, "flash_attention": blocks * fwd}
     L = runner.arch.num_layers
     if cfg["model_cls"] in ("wan2.1_causvid", "wan2.1_skyreels_v2_df", "wan2.1_audio"):
         # bf16 Default linears (torch.mm); self- and cross-attention through the dense kernel: the audio runner's
@@ -1842,12 +2040,14 @@ def tea_series(runner):
     from the runner's weights on the card: (n,) bools, or (n, 2) per CFG side."""
     import torch
 
-    from lightx2v_tpu_torch.caching.teacache import TeaCacheConfig, tea_decision_series
+    from lightx2v_tpu_torch.caching.teacache import TeaCacheConfig, hunyuan_tea_plan, tea_decision_series
     from lightx2v_tpu_torch.models.wan.pipeline import tea_mod_series
 
     cfg = runner.config
     sched = runner.init_scheduler()
     sched.prepare(runner.set_target_shape(), torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    if cfg["model_cls"] == "hunyuan":  # the time embedding of each step's timestep
+        return hunyuan_tea_plan(sched.timesteps, cfg)
     tc = TeaCacheConfig.from_config(cfg)
     cfg_on = bool(cfg.get("enable_cfg", True))
     mods = tea_mod_series(runner.model, runner.arch, sched, tc, 2 if cfg_on else 1, sched.num_steps(), device="cuda")
@@ -2557,7 +2757,8 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
         raise AssertionError(f"{name}: bad frames: shape {frames.shape}, finite {np.isfinite(frames).all()}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     stats = {"encode_s": tm["encode_s"],
-             **{k: tm[k] for k in ("t5_s", "llama_s", "clip_s", "vae_encode_s", "kv_len") if k in tm},
+             **{k: tm[k] for k in ("t5_s", "llama_s", "clip_s", "vae_encode_s", "kv_len", "riflex_k", "tr_len")
+                if k in tm},
              "denoise_step_s": [float(x) for x in tm["step_s"]],
              "dit_s": tm["dit_s"], "decode_s": tm["decode_s"], "e2e_s": total, "steps": len(tm["step_s"]),
              "load_peak_mem_gb": load_peak, "peak_mem_gb": peak,
@@ -2587,13 +2788,251 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
     return counts
 
 
+def check_hunyuan_i2v(runner, _):
+    """The i2v path's RIFLEx index and token-replace length: k = 4 at 193
+    frames, one latent frame of 30 x 52 tokens."""
+    tm = runner.timings
+    if tm["riflex_k"] != 4 or tm["tr_len"] != 30 * 52:
+        raise AssertionError(f"hunyuan i2v: riflex_k {tm['riflex_k']}, tr_len {tm['tr_len']}")
+    return {}
+
+
+def run_hunyuan_quant() -> dict:
+    """The quantized HunyuanVideo DiT (``HunyuanArch()``, every double and
+    single block linear quantized) at bench.py's ``run_hunyuan`` shape: 16 x
+    21 x 60 x 104 latents (32,760 image tokens), 256 text tokens all valid,
+    embedded guidance 6. First one full-width double + single block at int8
+    on the card against the CPU. Then each scheme's weights are made on the
+    card, run and released before the next: int8 (bench.py's default) end to
+    end, 2 Euler steps of a 2-step schedule at shift 7, the DiT released, and
+    the full VAE's tiled decode to 81 x 480 x 832; fp8, weight-only int4
+    (row 11) and int4 x int8 (row 8) one forward each at t = 500. Each
+    scheme's launches are counted and must be exact: 320 quantized linears
+    a forward (13 a double block, 3 a single block) on its kernel and 60
+    flash calls. Returns the summed counts."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from lightx2v_tpu_torch.models.hunyuan.config import HunyuanArch
+    from lightx2v_tpu_torch.models.hunyuan.model import HunyuanTransformer, build_hunyuan_rope
+    from lightx2v_tpu_torch.models.hunyuan.weights import init_random_hunyuan_params_on_device
+    from lightx2v_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from lightx2v_tpu_torch.schedulers.euler import FlowMatchEulerScheduler
+    from lightx2v_tpu_torch.utils.config import set_config
+    from lightx2v_tpu_torch.vae import hunyuan_vae as hv
+
+    hunyuan_block_reference_check("int8", INT8)
+    arch, dev = HunyuanArch(), "cuda"
+    g = torch.Generator(device=dev).manual_seed(0)
+    c, f, h, w = BENCH_LAT
+    lat0 = (torch.randn((1, c, f, h, w), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    states = (torch.randn((1, HY_Q_TXT, arch.text_states_dim), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    mask = torch.ones((1, HY_Q_TXT), dtype=torch.int32, device=dev)
+    pooled = (torch.randn((1, arch.text_states_dim_2), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    cos, sin = (torch.from_numpy(a).to(dev) for a in build_hunyuan_rope(arch, f, h // 2, w // 2))
+    guidance = torch.tensor([6000.0], device=dev)
+    kv_len = HY_Q_IMG + HY_Q_TXT
+    per_forward = 10 * arch.double_blocks + 3 * arch.single_blocks
+    keys = {"int8": "w8a8_matmul_fullk", "fp8": "w8a8_matmul_fullk_fp8", "int4": "int4_matmul",
+            "int4a8": "w4a8_matmul"}
+    total, line = {k: 0 for k in launch_counts()}, {}
+    for scheme, mm_type in HY_SCHEMES:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_random_hunyuan_params_on_device(arch, seed=0, device=dev, scheme=scheme.replace("a8", ""))
+        torch.cuda.synchronize()
+        rec = {"load_s": time.perf_counter() - t0, "weights_gb": torch.cuda.memory_allocated() / 1e9}
+        model = HunyuanTransformer(params, arch)
+        fwd = lambda lat, t: model(lat, t, states, mask, pooled, cos, sin, kv_len, guidance,  # noqa: E731
+                                   mm_type=mm_type)
+        steps = []
+        reset_launch_counts()
+        if scheme == "int8":
+            sched = FlowMatchEulerScheduler(set_config(dict(infer_steps=HY_Q_STEPS, sample_shift=7.0)))
+            state = sched.prepare((c, f, h, w), torch.Generator(device=dev).manual_seed(42), device=dev)
+            for _ in range(HY_Q_STEPS):
+                t0 = time.perf_counter()
+                lat, t = sched.step_pre(state)
+                state = sched.step_post(state, fwd(lat[None], t)[0])
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t0)
+            out = state["latents"]
+        else:
+            t0 = time.perf_counter()
+            out = fwd(lat0, torch.tensor([500.0], device=dev))[0]
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        n = len(steps)
+        expect = {**{k: 0 for k in counts}, keys[scheme]: per_forward * n,
+                  "flash_attention": (arch.double_blocks + arch.single_blocks) * n}
+        if counts != expect:
+            raise AssertionError(f"hunyuan_quant {scheme}: launch counts {counts} != {expect}")
+        if out.shape != (c, f, h, w) or not torch.isfinite(out).all():
+            raise AssertionError(f"hunyuan_quant {scheme}: bad output: shape {tuple(out.shape)}")
+        total = {k: total[k] + v for k, v in counts.items()}
+        rec.update(forward_s=steps, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches={k: v for k, v in counts.items() if v}, out_mean_abs=float(out.abs().mean()))
+        del model, params, fwd
+        gc.collect()
+        torch.cuda.empty_cache()
+        if scheme == "int8":  # the DiT released, then the tiled decode of the 21 latent frames
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cfg = hv.HunyuanVAEConfig()
+            vae = hv.load_hunyuan_vae_params(hv.init_random_hunyuan_vae_state_dict(cfg, seed=2), cfg, device=dev)
+            rec["vae_load_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            frames = hv.hunyuan_vae_decode_tiled(vae, out.permute(1, 2, 3, 0)[None], cfg, scale=False)
+            torch.cuda.synchronize()
+            rec.update(decode_s=time.perf_counter() - t0, decode_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       frames=list(frames.shape[1:]))
+            if frames.shape != (1, 81, 480, 832, 3) or not torch.isfinite(frames).all():
+                raise AssertionError(f"hunyuan_quant int8 decode: shape {tuple(frames.shape)}")
+            del vae, frames
+            torch.cuda.empty_cache()
+        line[scheme] = rec
+        del out
+    print(json.dumps({"hunyuan_quant": line}), flush=True)
+    return total
+
+
+def run_cogvideox_quant() -> dict:
+    """The quantized CogVideoX1.5-5B DiT (``CogArch()``: 42 blocks, every
+    block linear quantized) at bench.py's 480p shape: one CFG forward at
+    batch 2 (16 x 21 x 60 x 104 latents, padded to 22 frames: 17,160 video
+    + 226 text tokens) at int8 and at fp8, each scheme's weights made on the
+    card and released before the next; one full-width int8 block on the
+    card against the CPU first. Launches exact: 8 quantized linears a block
+    (336) on the scheme's full-K kernel and 42 calls of the 64-wide flash
+    kernel. Returns the summed counts."""
+    import gc
+
+    import torch
+
+    from lightx2v_tpu_torch.models.cogvideox.config import CogArch, build_cog_rope
+    from lightx2v_tpu_torch.models.cogvideox.model import CogTransformer
+    from lightx2v_tpu_torch.models.cogvideox.weights import init_random_cog_params_on_device
+    from lightx2v_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    cog_block_reference_check("int8", INT8)
+    arch, dev = CogArch(), "cuda"
+    g = torch.Generator(device=dev).manual_seed(1)
+    c, f, h, w = BENCH_LAT
+    lat = (torch.randn((2, c, f, h, w), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    ctx = (torch.randn((2, arch.text_len, arch.text_dim), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    t = torch.tensor([500.0, 500.0], device=dev)
+    cos, sin = (torch.from_numpy(a).to(dev) for a in build_cog_rope(arch, (f + 1) // 2, h // 2, w // 2))
+    total, line = {k: 0 for k in launch_counts()}, {}
+    for scheme, mm_type in (("int8", INT8), ("fp8", FP8)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_random_cog_params_on_device(arch, scheme, seed=0, device=dev)
+        torch.cuda.synchronize()
+        rec = {"load_s": time.perf_counter() - t0, "weights_gb": torch.cuda.memory_allocated() / 1e9}
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = CogTransformer(params, arch)(lat, t, ctx, cos, sin, mm_type=mm_type)
+        torch.cuda.synchronize()
+        rec["forward_s"] = time.perf_counter() - t0
+        counts = launch_counts()
+        key = "w8a8_matmul_fullk" + ("_fp8" if scheme == "fp8" else "")
+        expect = {**{k: 0 for k in counts}, key: 8 * arch.num_layers, "flash_attention_d64": arch.num_layers}
+        if counts != expect:
+            raise AssertionError(f"cogvideox_quant {scheme}: launch counts {counts} != {expect}")
+        if out.shape != (2, c, f, h, w) or not torch.isfinite(out).all():
+            raise AssertionError(f"cogvideox_quant {scheme}: bad output: shape {tuple(out.shape)}")
+        total = {k: total[k] + v for k, v in counts.items()}
+        rec.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches={k: v for k, v in counts.items() if v},
+                   out_mean_abs=float(out.abs().mean()))
+        line[scheme] = rec
+        del params, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"cogvideox_quant": line}), flush=True)
+    return total
+
+
+def run_vae_encoders() -> dict:
+    """The HunyuanVideo and CogVideoX VAE encoders at their published
+    configs (fp32, TF32 convolutions), each on a seeded clip of 17 frames of
+    480 x 832 -> 5 x 60 x 104 latents at the posterior mean, timed with its
+    device peak; then the same encode of the clip's first 5 frames' 64 x 64
+    corner on the card against the CPU (fp32), relative L2 below 1e-2 (the
+    tiny decode check's bar). Each VAE is released before the next."""
+    import gc
+    import os
+
+    import torch
+
+    from lightx2v_tpu_torch.vae import cogvideox_vae as cv
+    from lightx2v_tpu_torch.vae import hunyuan_vae as hv
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    line = {}
+    for name, mod, cfg in (("hunyuan", hv, hv.HunyuanVAEConfig()), ("cogvideox", cv, cv.CogVAEConfig())):
+        init = hv.init_random_hunyuan_vae_state_dict if mod is hv else cv.init_random_cog_vae_state_dict
+        load = hv.load_hunyuan_vae_params if mod is hv else cv.load_cog_vae_params
+        encode = hv.hunyuan_vae_encode if mod is hv else cv.cog_vae_encode
+        params = load(init(cfg, seed=2), cfg, device="cuda", encoder=True)
+        x = torch.rand((1, ENC_FRAMES, 480, 832, 3), generator=g, device="cuda") * 2 - 1
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        z = encode(params, x, cfg)
+        torch.cuda.synchronize()
+        rec = {"encode_s": time.perf_counter() - t0, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "added_gb": (torch.cuda.max_memory_allocated() - base) / 1e9, "latents": list(z.shape[1:])}
+        if z.shape != (1, 5, 60, 104, 16) or not torch.isfinite(z).all():
+            raise AssertionError(f"{name} VAE encode: shape {tuple(z.shape)}")
+        ft, fh, fw = ENC_CORNER
+        part = x[:, :ft, :fh, :fw]
+        card = encode(params, part, cfg).cpu()
+        torch.set_num_threads(os.cpu_count() or 1)
+        t0 = time.perf_counter()
+        ref = encode(_to(params, "cpu"), part.cpu(), cfg)
+        rec["cpu_check_s"] = time.perf_counter() - t0
+        # bar: relative L2 1e-2, TF32 convolutions on the card against fp32 on the CPU
+        rec["corner_rel_l2"] = rel = float((card - ref).norm() / ref.norm())
+        if not rel < 1e-2 or card.shape != (1, 2, fh // 8, fw // 8, 16):
+            raise AssertionError(f"{name} VAE encode corner, card vs CPU: relative L2 {rel}, shape {tuple(card.shape)}")
+        line[name] = rec
+        del params, x, z
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"vae_encoders": line}), flush=True)
+    return line
+
+
+def guard_exact_dot() -> None:
+    """From here on, an 8-bit linear whose codes lie on the card and reach
+    the float64 exact dot (``ops/linear.py``'s per-token path below the
+    kernels) raises: on the card every 8-bit linear runs a kernel."""
+    from lightx2v_tpu_torch.ops import linear
+
+    exact = linear.int_dot_exact
+
+    def guarded(q, w):
+        if q.is_cuda:
+            raise AssertionError(f"an 8-bit linear on the card reached int_dot_exact: {tuple(q.shape)} x "
+                                 f"{tuple(w.shape)}")
+        return exact(q, w)
+
+    linear.int_dot_exact = guarded
+
+
 def run_causvid(profile_dir=None):
-    """``configs/wan_t2v_causvid.json`` as it is at the 14B widths: 3
-    fragments of 3 AR blocks of 7 latent frames (the later fragments' first
-    block re-anchored), 9 distill steps a block, a 21-frame KV cache."""
+    """``configs/wan_t2v_causvid.json`` at the 14B widths, cut to its first
+    ``CV_FRAGMENTS`` fragments of 3 AR blocks of 7 latent frames (the second
+    fragment's first block re-anchored) and to every ``CV_STEP_STRIDE``-th
+    entry of its distill step list (999 ... 74: 5 of 9), a 21-frame KV
+    cache."""
     cv = json.loads((ROOT / CV_JSON).read_text())
-    nb, nf, fpb, steps = cv["num_blocks"], cv["num_fragments"], cv["num_frame_per_block"], \
-        len(cv["denoising_step_list"])
+    step_list = cv["denoising_step_list"][::CV_STEP_STRIDE]
+    nb, nf, fpb, steps = cv["num_blocks"], CV_FRAGMENTS, cv["num_frame_per_block"], len(step_list)
     blocks = nb + (nf - 1) * (nb - 1)
 
     def after(runner, _):
@@ -2605,7 +3044,8 @@ def run_causvid(profile_dir=None):
 
     # the file names no sample_shift, which the step-distill schedule needs (the JAX runner fails without it too):
     # 5, what every step-distill config in configs/ names
-    return run_path("causvid", dict(WAN14B, sample_shift=5), profile_dir, model_cls="wan2.1_causvid",
+    return run_path("causvid", dict(WAN14B, sample_shift=5, num_fragments=nf, denoising_step_list=step_list),
+                    profile_dir, model_cls="wan2.1_causvid",
                     config_json=CV_JSON, forwards=blocks * steps + nf - 1, want_frames=(blocks * fpb - 1) * 4 + 1,
                     after=after)
 
@@ -2670,11 +3110,11 @@ def check_mux(path: str, frames: int, samples: int) -> dict:
 
 
 def run_audio(profile_dir=None):
-    """``configs/audio_driven/wan_i2v_audio.json`` as it is at the i2v 14B
-    widths, with a seeded PNG and a seeded 157,000-sample 16 kHz wav: 157
-    frames, two 81-frame segments of 4 Euler steps, the second conditioned on
-    the first's last 5 frames; the frames and the stitched audio muxed into
-    an ``.av.mp4``, parsed back."""
+    """``configs/audio_driven/wan_i2v_audio.json`` at the i2v 14B widths,
+    with a seeded PNG and a seeded 157,000-sample 16 kHz wav: 157 frames,
+    two 81-frame segments, each cut to the first ``AUDIO_STEPS`` of its 4
+    Euler steps, the second conditioned on the first's last 5 frames; the
+    frames and the stitched audio muxed into an ``.av.mp4``, parsed back."""
     au = json.loads((ROOT / AUDIO_JSON).read_text())
     fps, window = int(au["target_fps"]), int(au["target_video_length"])
     frames = min(int(au["video_duration"] * fps), AUDIO_SAMPLES * fps // int(au["audio_sr"]))
@@ -2693,7 +3133,7 @@ def run_audio(profile_dir=None):
         overrides = dict(WAN14B, image_path=write_image(str(Path(tmp) / "audio_input.png"), seed=1),
                          audio_path=write_wav(str(Path(tmp) / "audio_input.wav"), AUDIO_SAMPLES))
         return run_path("audio", overrides, profile_dir, model_cls="wan2.1_audio", config_json=AUDIO_JSON,
-                        forwards=n_seg * int(au["infer_steps"]), want_frames=frames, after=after)
+                        steps=AUDIO_STEPS, forwards=n_seg * AUDIO_STEPS, want_frames=frames, after=after)
 
 
 def http_json(port: int, method: str, path: str, body=None, timeout: float = 60.0):
@@ -2973,9 +3413,9 @@ def main():
     card = card_line()
     print(card, flush=True)
     print(json.dumps({"python": sys.version.split()[0], "torch": torch.__version__, "cuda": torch.version.cuda}))
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     _build.build(verbose=True)
-    print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
+    print(json.dumps({"build_s": time.perf_counter() - t_start}), flush=True)
 
     def want(name: str) -> bool:
         return not args.kernel or name in args.kernel
@@ -2987,10 +3427,14 @@ def main():
     rows5, extra5 = kernel_phase_cog(peaks_for(card), REPS, want)
     extra6 = kernel_phase_hunyuan(peaks_for(card), REPS, want)
     extra7 = kernel_phase_wan_runners(peaks_for(card), REPS, want)
+    extra8 = kernel_phase_quant_linears(peaks_for(card), REPS, want)
     rows += rows2 + rows3 + rows4 + rows5
-    print(json.dumps({"other_shapes": extra + extra2 + extra3 + extra4 + extra5 + extra6 + extra7}), flush=True)
+    print(json.dumps({"other_shapes": extra + extra2 + extra3 + extra4 + extra5 + extra6 + extra7 + extra8}),
+          flush=True)
+    kernel_phases_end = time.perf_counter() - t_start
     by_path = {}
     paths = [] if args.kernels_only else args.path or list(PATHS)
+    guard_exact_dot()
     if "slice" in paths or "serve" in paths:  # the serve path serves the slice path's runner
         block_reference_check("int8", INT8, perturbation=True)
         ref = {}
@@ -3038,6 +3482,15 @@ def main():
         hunyuan_vae_decode_check()
         by_path["hunyuan"] = run_path("hunyuan", dict(hidden_size=3072), args.profile, model_cls="hunyuan",
                                       config_json=HY_JSON, steps=HY_STEPS)
+    if "hunyuan_i2v_tea" in paths:
+        by_path["hunyuan_i2v_tea"] = run_path("hunyuan_i2v_tea", HY_I2V, args.profile, model_cls="hunyuan",
+                                              config_json=HY_JSON, cut=HY_I2V_CUT, after=check_hunyuan_i2v)
+    if "hunyuan_quant" in paths:
+        by_path["hunyuan_quant"] = run_hunyuan_quant()
+    if "cogvideox_quant" in paths:
+        by_path["cogvideox_quant"] = run_cogvideox_quant()
+    if "vae_encoders" in paths:
+        run_vae_encoders()
     if any(p in paths for p in CACHED):
         caching_reference_check()
     for name in [p for p in PATHS if p in paths and (p in CACHED or p == "changing_resolution")]:
@@ -3066,6 +3519,8 @@ def main():
         r["launches"] = sum(r["launches_by_path"].values())
         r["kernel_ms"] = r["ms"]
     reset_launch_counts()
+    print(json.dumps({"elapsed_s": {"build_and_kernel_phases": kernel_phases_end,
+                                    "total": time.perf_counter() - t_start}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,11 +14,15 @@ no device value per step. ``tea_decide`` / ``tea_decide_per_side`` are the
 step-by-step forms (same arithmetic, on tensors) that the replay equals.
 With batched CFG the shared decision computes if either side's accumulator
 crosses the threshold; the per-side form decides each row alone.
+
+HunyuanVideo's metric is the 256-d time embedding of each step's timestep
+(``hunyuan_tea_plan``), with ``use_ret_steps`` forced off as the JAX runner
+forces it; a skipped step reuses the last computed prediction.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -125,6 +129,17 @@ def tea_decision_series(mod_series, cfg: TeaCacheConfig, per_side: bool = False,
         out[j] = should
         prev = mods[j]
     return out
+
+
+def hunyuan_tea_plan(timesteps, config) -> np.ndarray:
+    """HunyuanVideo's calc/skip series over a whole schedule: ``tea_decide``
+    replayed on the time embeddings of ``timesteps`` (S,), the config's
+    TeaCache settings with ``use_ret_steps`` off. -> (S,) bools."""
+    from ..models.cogvideox.model import timestep_embedding
+
+    cfg = replace(TeaCacheConfig.from_config(config), use_ret_steps=False)
+    mods = timestep_embedding(torch.as_tensor(np.asarray(timesteps, np.float32)), 256)
+    return tea_decision_series(mods.numpy(), cfg)
 
 
 def tea_transform(state: Dict, should_calc: bool, x: torch.Tensor, transformer_fn: Callable):

@@ -5,8 +5,10 @@ LayerNorm over the head dim, 3D RoPE on the video tokens only (interleaved
 pair form), attention over the whole joint stream, a gelu-tanh FFN, temporal
 patching p_t = 2 (the latent frames padded to a multiple of it).
 
-Linears are bf16 ``Default`` GEMMs with fp32 accumulation (the head's
-``proj_out`` ``Default-Force-FP32``); attention goes through
+The block linears run ``mm_type`` (bf16 ``Default`` GEMMs with fp32
+accumulation, or int8 / fp8 on weights from
+``init_random_cog_params_on_device(scheme=...)``); the embeddings and the
+head run ``Default`` (``proj_out`` ``Default-Force-FP32``); attention goes through
 ``ops.attention.attention`` (``flash_attn3``: the dense flash kernel at head
 dim 64); norms, gates and the GELU are torch ops, in the JAX package's
 dtypes and order."""
@@ -105,7 +107,7 @@ class CogTransformer(torch.nn.Module):
     """The DiT forward (the JAX package's ``cog_forward``) over a params
     dict: latents (B, C, F, H, W) + timestep (B,) + context (B, text_len,
     text_dim) -> prediction (B, C, F, H, W) fp32. The rope tables cover the
-    padded frame grid."""
+    padded frame grid; ``mm_type`` is the block linears' scheme."""
 
     def __init__(self, params: Params, arch: CogArch, attn_type: str = "flash_attn3"):
         super().__init__()
@@ -114,9 +116,9 @@ class CogTransformer(torch.nn.Module):
         self.attn_type = attn_type
 
     def forward(self, latents: torch.Tensor, t: torch.Tensor, context: torch.Tensor, rope_cos: torch.Tensor,
-                rope_sin: torch.Tensor) -> torch.Tensor:
+                rope_sin: torch.Tensor, mm_type: str = "Default") -> torch.Tensor:
         params, arch = self.params, self.arch
-        mm = resolve_mm("Default")
+        mm, mm_blk = resolve_mm("Default"), resolve_mm(mm_type)
         p, p_t = arch.patch_size, arch.patch_size_t
         f_lat = latents.shape[2]
         pad_f = (-f_lat) % p_t
@@ -130,7 +132,7 @@ class CogTransformer(torch.nn.Module):
         x = mm(params["patch_proj"], cog_patchify(latents.to(torch.bfloat16), p, p_t))
 
         for block in params["blocks"]:
-            x, enc = cog_block(block, x, enc, temb, rope_cos, rope_sin, arch, mm, self.attn_type)
+            x, enc = cog_block(block, x, enc, temb, rope_cos, rope_sin, arch, mm_blk, self.attn_type)
 
         # the final norm over the joint stream, then the AdaLN head on the video tokens
         joint = layer_norm(torch.cat([enc, x], dim=1), params["norm_final"]["w"], params["norm_final"]["b"],

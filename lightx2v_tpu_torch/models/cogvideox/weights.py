@@ -4,7 +4,10 @@ in ``lightx2v_tpu.models.cogvideox.model``).
 A checkpoint is a flat ``name -> array`` dict with the diffusers keys. The
 params are a dict of tensors with ``params["blocks"]`` a list of per-block
 dicts: linears {"w": (out, in) bf16, "b": (out,) fp32}, norms {"w", "b"}
-fp32."""
+fp32. A quantized block linear (every one of a block's, the AdaLN
+projections included) carries int8 or float8_e4m3fn codes (out, in) as
+``w`` and a per-channel ``w_scale`` (out,), which the loader reads from
+``{key}.weight`` and ``{key}.weight_scale``."""
 
 from __future__ import annotations
 
@@ -13,17 +16,15 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..wan.weights import _bf16_round, to_tensor
+from ..wan.weights import _bf16_round, _linear, to_tensor
 from .config import CogArch
 
 Params = Dict[str, Any]
 
 
 def load_cog_params(sd: Dict[str, Any], arch: CogArch, device="cpu") -> Params:
-    def lin(key):
-        b = sd.get(f"{key}.bias")
-        return {"w": to_tensor(sd[f"{key}.weight"], torch.bfloat16, device).contiguous(),
-                "b": None if b is None else to_tensor(b, torch.float32, device)}
+    def lin(key):  # bf16, or codes with their scales
+        return _linear(sd, key, device=device)
 
     def norm(key):
         return {"w": to_tensor(sd[f"{key}.weight"], torch.float32, device),
@@ -110,10 +111,12 @@ def init_random_cog_params_on_device(arch: CogArch, scheme: str = "bf16", seed: 
     """Params synthesized directly on ``device`` from a seeded
     ``torch.Generator`` (the 5B DiT is ~11 GB in bf16), in the layout of
     ``load_cog_params``: bf16 linears with fp32 biases, ones / zeros norms.
-    The JAX synthesizer's int8 and fp8 schemes are not ported."""
-    if scheme != "bf16":
-        raise NotImplementedError(f"synthetic CogVideoX scheme {scheme!r} is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 17)")
+    ``scheme`` "int8" or "fp8" quantizes every block linear as the JAX
+    synthesizer does: int8 codes uniform in -127..127 with ``w_scale`` scale
+    / 127, or e4m3 codes of normal * 100 (clipped to +-448) with scale /
+    100."""
+    if scheme not in ("bf16", "int8", "fp8"):
+        raise ValueError(f"scheme must be bf16, int8 or fp8, got {scheme!r}")
     dev = torch.device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     d, ted, p, pt = arch.dim, arch.time_embed_dim, arch.patch_size, arch.patch_size_t
@@ -124,16 +127,27 @@ def init_random_cog_params_on_device(arch: CogArch, scheme: str = "bf16", seed: 
     def lin(out, kin):
         return {"w": nrm((out, kin)), "b": nrm((out,), torch.float32)}
 
+    def qlin(out, kin):  # a block linear in the scheme
+        if scheme == "bf16":
+            return lin(out, kin)
+        if scheme == "fp8":
+            w = torch.randn((out, kin), generator=g, device=dev, dtype=torch.float32).mul_(100.0)
+            w, ws = w.clamp_(-448.0, 448.0).to(torch.float8_e4m3fn), scale / 100.0
+        else:
+            w, ws = torch.randint(-127, 128, (out, kin), generator=g, device=dev, dtype=torch.int8), scale / 127.0
+        return {"w": w, "w_scale": torch.full((out,), ws, dtype=torch.float32, device=dev),
+                "b": nrm((out,), torch.float32)}
+
     def norm(n_):
         return {"w": torch.ones((n_,), dtype=torch.float32, device=dev),
                 "b": torch.zeros((n_,), dtype=torch.float32, device=dev)}
 
     blocks = [
-        {"norm1_linear": lin(6 * d, ted), "norm1_norm": norm(d),
-         "to_q": lin(d, d), "to_k": lin(d, d), "to_v": lin(d, d),
-         "norm_q": norm(arch.head_dim), "norm_k": norm(arch.head_dim), "to_out": lin(d, d),
-         "norm2_linear": lin(6 * d, ted), "norm2_norm": norm(d),
-         "ff_0": lin(arch.ffn_dim, d), "ff_2": lin(d, arch.ffn_dim)}
+        {"norm1_linear": qlin(6 * d, ted), "norm1_norm": norm(d),
+         "to_q": qlin(d, d), "to_k": qlin(d, d), "to_v": qlin(d, d),
+         "norm_q": norm(arch.head_dim), "norm_k": norm(arch.head_dim), "to_out": qlin(d, d),
+         "norm2_linear": qlin(6 * d, ted), "norm2_norm": norm(d),
+         "ff_0": qlin(arch.ffn_dim, d), "ff_2": qlin(d, arch.ffn_dim)}
         for _ in range(arch.num_layers)
     ]
     return {

@@ -1,7 +1,9 @@
 """HunyuanVideo MMDiT architecture (counterpart of
 ``lightx2v_tpu.models.hunyuan.config``): 20 double-stream and 40
 single-stream blocks of 24 heads of 128, the Llama hidden states (4096) and
-the CLIP-L pooled vector (768) as conditioning, embedded guidance."""
+the CLIP-L pooled vector (768) as conditioning, embedded guidance. ``task``
+"i2v" adds the token-replace vector (the t = 0 modulation of the first
+latent frame's tokens)."""
 
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ class HunyuanArch:
     rope_dim_list: Tuple[int, int, int] = (16, 56, 56)
     rope_theta: float = 256.0
     guidance_embed: bool = True
+    task: str = "t2v"
 
     @property
     def head_dim(self) -> int:

@@ -1,11 +1,19 @@
 """HunyuanVideo MMDiT forward pass in PyTorch (counterpart of
-``lightx2v_tpu.models.hunyuan.model``, t2v): the patch embedding, the time,
+``lightx2v_tpu.models.hunyuan.model``): the patch embedding, the time,
 CLIP-pooled and embedded-guidance vector, the two-block token refiner over
 the Llama hidden states, 20 double-stream blocks (separate image and text
 weights, one joint attention over [image; text]), 40 single-stream blocks
 (one fused qkv + MLP linear, RoPE on the image tokens only), the AdaLN head.
+i2v's token replace: with ``token_replace`` (and an i2v arch) the tokens of
+the first latent frame take the modulation of t = 0 (``tr_vec``), in the
+image stream of the double blocks and in the single blocks. RIFLEx lowers
+the k-th temporal frequency of the RoPE for clips past 192 frames
+(``riflex_k_for``).
 
-Linears are bf16 ``Default`` GEMMs with fp32 accumulation (the head's
+The block linears (the modulation projections included) run ``mm_type``
+(bf16 ``Default`` GEMMs with fp32 accumulation, or a quantized scheme on
+weights from ``init_random_hunyuan_params_on_device(scheme=...)``); the
+embeddings, the refiner and the head run ``Default`` (the head's linear
 ``Default-Force-FP32``); the joint attention goes through
 ``ops.attention.attention`` (``flash_attn3``: the dense flash kernel at head
 dim 128) with the padded text keys masked by ``kv_len``: image tokens plus
@@ -37,14 +45,18 @@ from .config import HunyuanArch
 Params = Dict[str, Any]
 
 
-def build_hunyuan_rope(arch: HunyuanArch, f: int, h: int, w: int) -> Tuple[np.ndarray, np.ndarray]:
+def build_hunyuan_rope(arch: HunyuanArch, f: int, h: int, w: int, riflex_k: Optional[int] = None,
+                       l_test: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
     """cos, sin (f*h*w, head_dim//2) fp32 over the token grid, theta 256,
     the head dim split per axis by ``rope_dim_list`` (interleaved pairs).
-    RIFLEx (i2v past 192 frames) is not ported."""
+    RIFLEx: with ``riflex_k`` the k-th temporal frequency becomes
+    0.9 * 2 pi / ``l_test`` (the latent frame count)."""
     sizes = (f, h, w)
     cos_parts, sin_parts = [], []
     for i, dim in enumerate(arch.rope_dim_list):
         freqs = 1.0 / (arch.rope_theta ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
+        if i == 0 and riflex_k is not None:
+            freqs[riflex_k - 1] = 0.9 * 2 * np.pi / l_test
         ang = np.outer(np.arange(sizes[i], dtype=np.float64), freqs)
         shape = [1, 1, 1, ang.shape[1]]
         shape[i] = sizes[i]
@@ -54,6 +66,15 @@ def build_hunyuan_rope(arch: HunyuanArch, f: int, h: int, w: int) -> Tuple[np.nd
     cos = np.concatenate(cos_parts, axis=-1).reshape(f * h * w, -1).astype(np.float32)
     sin = np.concatenate(sin_parts, axis=-1).reshape(f * h * w, -1).astype(np.float32)
     return cos, sin
+
+
+def riflex_k_for(video_length: int, l_train: int = 25) -> Optional[int]:
+    """RIFLEx's frequency index for a clip of ``video_length`` frames: None
+    up to 192 frames, else 2 + (video_length + 3) // (4 * l_train) clipped
+    to 4..8."""
+    if video_length <= 192:
+        return None
+    return max(4, min(8, 2 + (video_length + 3) // (4 * l_train)))
 
 
 def text_kv_len(img_len: int, text_mask) -> int:
@@ -74,8 +95,22 @@ def _gelu_tanh(x: torch.Tensor, dtype) -> torch.Tensor:
     return F.gelu(x.float(), approximate="tanh").to(dtype)
 
 
-def _modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
+def _modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor, tr: Optional[Tuple] = None,
+              tr_len: int = 0) -> torch.Tensor:
+    """AdaLN modulation; with ``tr`` = (shift, scale) of the token-replace
+    vector the first ``tr_len`` tokens take it instead."""
+    out = x * (1.0 + scale[:, None, :]) + shift[:, None, :]
+    if tr is not None and tr_len > 0:
+        out[:, :tr_len] = x[:, :tr_len] * (1.0 + tr[1][:, None, :]) + tr[0][:, None, :]
+    return out
+
+
+def _gate(out: torch.Tensor, gate: torch.Tensor, tr_gate: Optional[torch.Tensor] = None,
+          tr_len: int = 0) -> torch.Tensor:
+    g = out * gate[:, None, :]
+    if tr_gate is not None and tr_len > 0:
+        g[:, :tr_len] = out[:, :tr_len] * tr_gate[:, None, :]
+    return g
 
 
 def _refiner_block(p: Params, x: torch.Tensor, c: torch.Tensor, mask_bias: torch.Tensor, arch: HunyuanArch,
@@ -98,8 +133,10 @@ def _refiner_block(p: Params, x: torch.Tensor, c: torch.Tensor, mask_bias: torch
 
 def hunyuan_pre_process(params: Params, latents: torch.Tensor, t: torch.Tensor, text_states: torch.Tensor,
                         text_mask: torch.Tensor, text_states_2: torch.Tensor, guidance: Optional[torch.Tensor],
-                        arch: HunyuanArch):
-    """-> (img (B, Li, D), txt (B, Lt, D), vec (B, D), token grid)."""
+                        arch: HunyuanArch, token_replace: bool = False):
+    """-> (img (B, Li, D), txt (B, Lt, D), vec (B, D), tr_vec (B, D) or
+    None, token grid). ``tr_vec``, the vector at t = 0 without guidance,
+    is made for ``token_replace`` on an i2v arch."""
     mm = resolve_mm("Default")
     grid = tuple(latents.shape[2 + i] // arch.patch_size[i] for i in range(3))
     img = mm(params["img_in"], patchify(latents.to(torch.bfloat16), arch.patch_size))
@@ -109,6 +146,10 @@ def hunyuan_pre_process(params: Params, latents: torch.Tensor, t: torch.Tensor, 
     vec = vec + _mlp2(params["vector_in"], text_states_2.to(torch.bfloat16), mm)
     if guidance is not None and "guidance_in" in params:
         vec = vec + _mlp2(params["guidance_in"], temb(guidance), mm)
+    tr_vec = None
+    if token_replace and arch.task == "i2v":
+        tr_vec = _mlp2(params["time_in"], temb(torch.zeros_like(t)), mm)
+        tr_vec = tr_vec + _mlp2(params["vector_in"], text_states_2.to(torch.bfloat16), mm)
 
     txt_in = params["txt_in"]
     ts = text_states.to(torch.bfloat16)
@@ -124,20 +165,23 @@ def hunyuan_pre_process(params: Params, latents: torch.Tensor, t: torch.Tensor, 
     bias = torch.where(keep, 0.0, -1e9).float()
     for rb in txt_in["refiner"]:
         txt = _refiner_block(rb, txt, c, bias, arch, mm)
-    return img, txt, vec, grid
+    return img, txt, vec, tr_vec, grid
 
 
 def hunyuan_double_block(block: Params, img: torch.Tensor, txt: torch.Tensor, vec_silu: torch.Tensor,
                          rope_cos: torch.Tensor, rope_sin: torch.Tensor, kv_len: int, arch: HunyuanArch, mm,
-                         attn_type: str):
+                         attn_type: str, tr_vec_silu: Optional[torch.Tensor] = None, tr_len: int = 0):
     b, li, d = img.shape
     lt = txt.shape[1]
     n, hd = arch.heads_num, arch.head_dim
     im1s, im1c, im1g, im2s, im2c, im2g = mm(block["img_mod"], vec_silu).chunk(6, dim=-1)
     tm1s, tm1c, tm1g, tm2s, tm2c, tm2g = mm(block["txt_mod"], vec_silu).chunk(6, dim=-1)
+    trs = [None] * 6
+    if tr_vec_silu is not None:
+        trs = mm(block["img_mod"], tr_vec_silu).chunk(6, dim=-1)
 
-    iq, ik, iv = mm(block["img_attn_qkv"], _modulate(layer_norm(img, eps=1e-6), im1s, im1c)).reshape(
-        b, li, 3, n, hd).unbind(2)
+    iq, ik, iv = mm(block["img_attn_qkv"], _modulate(layer_norm(img, eps=1e-6), im1s, im1c, trs[0:2],
+                                                     tr_len)).reshape(b, li, 3, n, hd).unbind(2)
     iq = apply_rope(rms_norm(iq, block["img_attn_q_norm"], eps=1e-6), rope_cos, rope_sin)
     ik = apply_rope(rms_norm(ik, block["img_attn_k_norm"], eps=1e-6), rope_cos, rope_sin)
     tq, tk, tv = mm(block["txt_attn_qkv"], _modulate(layer_norm(txt, eps=1e-6), tm1s, tm1c)).reshape(
@@ -151,11 +195,11 @@ def hunyuan_double_block(block: Params, img: torch.Tensor, txt: torch.Tensor, ve
     attn = attention(attn_type, q, k, v, kv_len=kv_len).reshape(b, li + lt, d)
     del q, k, v
 
-    img = img + mm(block["img_attn_proj"], attn[:, :li]) * im1g[:, None, :]
+    img = img + _gate(mm(block["img_attn_proj"], attn[:, :li]), im1g, trs[2], tr_len)
     txt = txt + mm(block["txt_attn_proj"], attn[:, li:]) * tm1g[:, None, :]
     del attn
-    h = mm(block["img_mlp_fc1"], _modulate(layer_norm(img, eps=1e-6), im2s, im2c))
-    img = img + mm(block["img_mlp_fc2"], _gelu_tanh(h, img.dtype)) * im2g[:, None, :]
+    h = mm(block["img_mlp_fc1"], _modulate(layer_norm(img, eps=1e-6), im2s, im2c, trs[3:5], tr_len))
+    img = img + _gate(mm(block["img_mlp_fc2"], _gelu_tanh(h, img.dtype)), im2g, trs[5], tr_len)
     h = mm(block["txt_mlp_fc1"], _modulate(layer_norm(txt, eps=1e-6), tm2s, tm2c))
     txt = txt + mm(block["txt_mlp_fc2"], _gelu_tanh(h, txt.dtype)) * tm2g[:, None, :]
     return img, txt
@@ -163,11 +207,15 @@ def hunyuan_double_block(block: Params, img: torch.Tensor, txt: torch.Tensor, ve
 
 def hunyuan_single_block(block: Params, x: torch.Tensor, vec_silu: torch.Tensor, img_len: int,
                          rope_cos: torch.Tensor, rope_sin: torch.Tensor, kv_len: int, arch: HunyuanArch, mm,
-                         attn_type: str) -> torch.Tensor:
+                         attn_type: str, tr_vec_silu: Optional[torch.Tensor] = None,
+                         tr_len: int = 0) -> torch.Tensor:
     b, L, d = x.shape
     n, hd = arch.heads_num, arch.head_dim
     ms, mc, mg = mm(block["modulation"], vec_silu).chunk(3, dim=-1)
-    h = mm(block["linear1"], _modulate(layer_norm(x, eps=1e-6), ms, mc))
+    trs = [None] * 3
+    if tr_vec_silu is not None:
+        trs = mm(block["modulation"], tr_vec_silu).chunk(3, dim=-1)
+    h = mm(block["linear1"], _modulate(layer_norm(x, eps=1e-6), ms, mc, trs[0:2], tr_len))
     q, k, v = h[..., :3 * d].reshape(b, L, 3, n, hd).unbind(2)
     q = rms_norm(q, block["q_norm"], eps=1e-6)
     k = rms_norm(k, block["k_norm"], eps=1e-6)
@@ -179,15 +227,17 @@ def hunyuan_single_block(block: Params, x: torch.Tensor, vec_silu: torch.Tensor,
     mlp = _gelu_tanh(h[..., 3 * d:], x.dtype)
     del h
     out = mm(block["linear2"], torch.cat([attn, mlp], dim=-1))
-    return x + out * mg[:, None, :]
+    return x + _gate(out, mg, trs[2], tr_len)
 
 
 class HunyuanTransformer(torch.nn.Module):
-    """The DiT forward (the JAX package's ``hunyuan_forward``, t2v) over a
+    """The DiT forward (the JAX package's ``hunyuan_forward``) over a
     params dict: latents (B, C, F, H, W) + timestep (B,) + Llama states
     (B, Lt, 4096) and their mask (B, Lt) + CLIP pooled (B, 768) + guidance
     (B,) -> the flow prediction (B, C, F, H, W) fp32. ``kv_len``: image
-    tokens + valid text tokens (``text_kv_len``)."""
+    tokens + valid text tokens (``text_kv_len``). ``mm_type``: the block
+    linears' scheme; ``token_replace`` (i2v arch): the first latent frame's
+    tokens take the t = 0 modulation."""
 
     def __init__(self, params: Params, arch: HunyuanArch, attn_type: str = "flash_attn3"):
         super().__init__()
@@ -197,20 +247,25 @@ class HunyuanTransformer(torch.nn.Module):
 
     def forward(self, latents: torch.Tensor, t: torch.Tensor, text_states: torch.Tensor, text_mask: torch.Tensor,
                 text_states_2: torch.Tensor, rope_cos: torch.Tensor, rope_sin: torch.Tensor, kv_len: int,
-                guidance: Optional[torch.Tensor] = None) -> torch.Tensor:
+                guidance: Optional[torch.Tensor] = None, mm_type: str = "Default",
+                token_replace: bool = False) -> torch.Tensor:
         params, arch = self.params, self.arch
-        mm = resolve_mm("Default")
-        img, txt, vec, grid = hunyuan_pre_process(params, latents, t, text_states, text_mask, text_states_2,
-                                                  guidance, arch)
+        mm, mm_blk = resolve_mm("Default"), resolve_mm(mm_type)
+        img, txt, vec, tr_vec, grid = hunyuan_pre_process(params, latents, t, text_states, text_mask,
+                                                          text_states_2, guidance, arch, token_replace)
         b, li, _ = img.shape
         vec_silu = _silu_bf16(vec, img.dtype)
+        tr_vec_silu, tr_len = None, 0
+        if tr_vec is not None:
+            tr_vec_silu, tr_len = _silu_bf16(tr_vec, img.dtype), grid[1] * grid[2]  # the first latent frame
         for block in params["double_blocks"]:
-            img, txt = hunyuan_double_block(block, img, txt, vec_silu, rope_cos, rope_sin, kv_len, arch, mm,
-                                            self.attn_type)
+            img, txt = hunyuan_double_block(block, img, txt, vec_silu, rope_cos, rope_sin, kv_len, arch, mm_blk,
+                                            self.attn_type, tr_vec_silu, tr_len)
         x = torch.cat([img, txt], dim=1)
         del img, txt
         for block in params["single_blocks"]:
-            x = hunyuan_single_block(block, x, vec_silu, li, rope_cos, rope_sin, kv_len, arch, mm, self.attn_type)
+            x = hunyuan_single_block(block, x, vec_silu, li, rope_cos, rope_sin, kv_len, arch, mm_blk,
+                                     self.attn_type, tr_vec_silu, tr_len)
         img = x[:, :li]
         del x
 

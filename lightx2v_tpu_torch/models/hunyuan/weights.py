@@ -8,7 +8,12 @@ A checkpoint is the reference's flat state dict (``img_in.proj``,
 a dict of tensors with ``params["double_blocks"]`` and
 ``params["single_blocks"]`` lists of per-block dicts: linears {"w": (out, in)
 bf16, "b": (out,) fp32}, norms fp32, the head's linear fp32 (it runs
-``Default-Force-FP32``)."""
+``Default-Force-FP32``). A quantized block linear (every double and single
+block linear, the modulation projections included) carries its codes as
+``w`` -- int8 or float8_e4m3fn (out, in) with a per-channel ``w_scale``
+(out,), or nibble-packed int4 (out, in/2) uint8 with per-(channel, group)
+``w_scale`` (out, in/group) -- and the loader reads them from
+``{key}.weight`` and ``{key}.weight_scale``."""
 
 from __future__ import annotations
 
@@ -17,7 +22,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..wan.weights import _bf16_round, to_tensor
+from ...tools.convert import _pick_bk
+from ..wan.weights import _bf16_round, _linear, to_tensor
 from .config import HunyuanArch
 
 Params = Dict[str, Any]
@@ -26,10 +32,8 @@ STREAMS = ("img", "txt")
 
 
 def load_hunyuan_params(sd: Dict[str, Any], arch: HunyuanArch, device="cpu") -> Params:
-    def lin(key, dtype=torch.bfloat16):
-        b = sd.get(f"{key}.bias")
-        return {"w": to_tensor(sd[f"{key}.weight"], dtype, device).contiguous(),
-                "b": None if b is None else to_tensor(b, torch.float32, device)}
+    def lin(key, dtype=torch.bfloat16):  # in dtype, or codes with their scales
+        return _linear(sd, key, dtype, device)
 
     def norm(key):
         b = sd.get(f"{key}.bias")
@@ -61,8 +65,9 @@ def load_hunyuan_params(sd: Dict[str, Any], arch: HunyuanArch, device="cpu") -> 
 
     def sblock(i):
         p = f"single_blocks.{i}"
-        return {"linear1": lin(f"{p}.linear1"), "linear2": lin(f"{p}.linear2"), "q_norm": f32(f"{p}.q_norm.weight"),
-                "k_norm": f32(f"{p}.k_norm.weight"), "modulation": lin(f"{p}.modulation.linear")}
+        return {"linear1": lin(f"{p}.linear1"), "linear2": lin(f"{p}.linear2"),
+                "q_norm": f32(f"{p}.q_norm.weight"), "k_norm": f32(f"{p}.k_norm.weight"),
+                "modulation": lin(f"{p}.modulation.linear")}
 
     pe = to_tensor(sd["img_in.proj.weight"], torch.bfloat16, device)  # (D, C, pt, ph, pw)
     params: Params = {
@@ -163,14 +168,24 @@ def init_random_hunyuan_state_dict(arch: HunyuanArch, seed: int = 0, scale: floa
     return sd
 
 
+SCHEMES = ("bf16", "int8", "fp8", "int4")
+
+
 def init_random_hunyuan_params_on_device(arch: HunyuanArch, seed: int = 0, scale: float = 0.02,
-                                         device="cuda") -> Params:
+                                         device="cuda", scheme: str = "bf16") -> Params:
     """Params synthesized directly on ``device`` from a seeded
     ``torch.Generator`` (the 12.7B DiT is 25.4 GB in bf16), in the layout of
     ``load_hunyuan_params``: bf16 linears of normal * scale with fp32 biases
-    of normal * scale, the head's linear fp32, unit and zero norms. The JAX
-    synthesizer's int8, fp8 and int4 schemes are not ported (the runner
-    refuses a quantized ``mm_config``)."""
+    of normal * scale, the head's linear fp32, unit and zero norms.
+    ``scheme`` quantizes every double and single block linear as the JAX
+    synthesizer does: "int8" codes uniform in -127..127 with ``w_scale``
+    scale / 127; "fp8" e4m3 codes of normal * 100 (clipped to +-448) with
+    scale / 100; "int4" nibble-packed bytes uniform in 0..255 with
+    per-(channel, group) scale / 7, the group from ``_pick_bk`` (512 at
+    every Hunyuan width). The embeddings, the refiner and the head stay
+    bf16 (the head's linear fp32)."""
+    if scheme not in SCHEMES:
+        raise ValueError(f"scheme must be one of {SCHEMES}, got {scheme!r}")
     dev = torch.device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     d, hd, mlp = arch.hidden_size, arch.head_dim, arch.mlp_hidden_dim
@@ -180,6 +195,21 @@ def init_random_hunyuan_params_on_device(arch: HunyuanArch, seed: int = 0, scale
 
     def lin(out, kin, dtype=torch.bfloat16):
         return {"w": nrm((out, kin), dtype), "b": nrm((out,), torch.float32)}
+
+    def qlin(out, kin):  # a block linear in the scheme
+        if scheme == "bf16":
+            return lin(out, kin)
+        if scheme == "int4":
+            w = torch.randint(0, 256, (out, kin // 2), generator=g, device=dev, dtype=torch.uint8)
+            ws = torch.full((out, kin // _pick_bk(kin)), scale / 7.0, dtype=torch.float32, device=dev)
+        elif scheme == "fp8":
+            w = torch.randn((out, kin), generator=g, device=dev, dtype=torch.float32).mul_(100.0)
+            w = w.clamp_(-448.0, 448.0).to(torch.float8_e4m3fn)
+            ws = torch.full((out,), scale / 100.0, dtype=torch.float32, device=dev)
+        else:
+            w = torch.randint(-127, 128, (out, kin), generator=g, device=dev, dtype=torch.int8)
+            ws = torch.full((out,), scale / 127.0, dtype=torch.float32, device=dev)
+        return {"w": w, "w_scale": ws, "b": nrm((out,), torch.float32)}
 
     def mlp2(kin):
         return {"0": lin(d, kin), "2": lin(d, d)}
@@ -193,9 +223,9 @@ def init_random_hunyuan_params_on_device(arch: HunyuanArch, seed: int = 0, scale
     def dblock():
         out = {}
         for s in STREAMS:
-            out.update({f"{s}_mod": lin(6 * d, d), f"{s}_attn_qkv": lin(3 * d, d), f"{s}_attn_q_norm": ones_hd(),
-                        f"{s}_attn_k_norm": ones_hd(), f"{s}_attn_proj": lin(d, d), f"{s}_mlp_fc1": lin(mlp, d),
-                        f"{s}_mlp_fc2": lin(d, mlp)})
+            out.update({f"{s}_mod": qlin(6 * d, d), f"{s}_attn_qkv": qlin(3 * d, d), f"{s}_attn_q_norm": ones_hd(),
+                        f"{s}_attn_k_norm": ones_hd(), f"{s}_attn_proj": qlin(d, d), f"{s}_mlp_fc1": qlin(mlp, d),
+                        f"{s}_mlp_fc2": qlin(d, mlp)})
         return out
 
     refiner = lambda: {"norm1": norm(), "qkv": lin(3 * d, d), "proj": lin(d, d), "norm2": norm(),  # noqa: E731
@@ -208,8 +238,8 @@ def init_random_hunyuan_params_on_device(arch: HunyuanArch, seed: int = 0, scale
                    "c_embedder_1": lin(d, arch.text_states_dim), "c_embedder_2": lin(d, d),
                    "refiner": [refiner(), refiner()]},
         "double_blocks": [dblock() for _ in range(arch.double_blocks)],
-        "single_blocks": [{"linear1": lin(3 * d + mlp, d), "linear2": lin(d, d + mlp), "q_norm": ones_hd(),
-                           "k_norm": ones_hd(), "modulation": lin(3 * d, d)} for _ in range(arch.single_blocks)],
+        "single_blocks": [{"linear1": qlin(3 * d + mlp, d), "linear2": qlin(d, d + mlp), "q_norm": ones_hd(),
+                           "k_norm": ones_hd(), "modulation": qlin(3 * d, d)} for _ in range(arch.single_blocks)],
         "final_layer": {"linear": lin(arch.out_channels * int(np.prod(arch.patch_size)), d, torch.float32),
                         "adaLN": lin(2 * d, d)},
     }

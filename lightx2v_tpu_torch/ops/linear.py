@@ -11,17 +11,21 @@ bias is added in fp32 and the sum rounded once to x's dtype. The CPU has no
 such kernel and widens both operands to fp32 instead: the same exact
 products and fp32 sums. ``Default-Force-FP32`` stays an fp32 GEMM.
 
-The int8 and fp8 (e4m3) per-channel schemes mirror the JAX dispatch
-exactly, so a given shape gets the same activation-scale contract:
+The int8 and fp8 (e4m3) per-channel schemes follow the JAX dispatch's
+activation-scale contract:
 
 * min(N, K) >= 4096 and K <= 8192 (K % 128 == 0): ``w8a8_matmul_fullk``
   (CUDA kernel; its plain version on the CPU);
-* min(N, K) >= 4096 and K > 8192 (K % 128 == 0): the k-blocked
+* min(N, K) >= 4096 and K > 8192 (or K % 128 != 0): the k-blocked
   ``w8a8_matmul`` (CUDA kernel), one act scale per (token, k-block);
-* smaller dims: per-token quantization in plain torch ops, as the JAX
-  package leaves that path to XLA (int8: absmax / 127, fp8: absmax / 448 --
-  a division here, the kernels multiply by the reciprocal), then an exact
-  dot of the codes;
+* smaller dims: per-token quantization of x over all of K. On a CUDA
+  tensor that is ``w8a8_matmul_fullk`` at any width. On the CPU it is plain
+  torch ops, as the JAX package leaves that path to XLA (int8: absmax / 127,
+  fp8: absmax / 448 -- a division here, the kernels multiply by the
+  reciprocal), then an exact dot of the codes. The JAX package's 4096
+  threshold is a TPU v5e measurement (XLA's int8 dot beat its Pallas kernel
+  below it); on the H100 the hand kernel is the per-token path, so no 8-bit
+  linear on the card runs the exact float64 dot;
 * the FFN runs ``ffn_w8a8`` whole when min(H, K) >= 1024, else GEMM, GELU,
   GEMM.
 
@@ -108,10 +112,10 @@ _QUANTIZE_PER_TOKEN = {"int8": quantize_per_token_int8, "fp8": quantize_per_toke
 def _mm_w8a8(params: Dict, x: torch.Tensor, kind: str, act: Optional[str] = None) -> torch.Tensor:
     w = params["w"]
     n, k = w.shape[-2:]
-    if min(n, k) >= 4096:
-        if k % 128 == 0 and k <= 8192:
-            return w8a8_matmul_fullk(x, w, params["w_scale"], params.get("b"), act=act, kind=kind)
+    if min(n, k) >= 4096 and not (k % 128 == 0 and k <= 8192):
         return w8a8_matmul(x, w, params["w_scale"], params.get("b"), act=act, kind=kind)
+    if min(n, k) >= 4096 or x.device.type == "cuda":
+        return w8a8_matmul_fullk(x, w, params["w_scale"], params.get("b"), act=act, kind=kind)
     *lead, _ = x.shape
     q, x_scale = _QUANTIZE_PER_TOKEN[kind](x.reshape(-1, k))
     y = int_dot_exact(q, w) * x_scale * params["w_scale"].float()

@@ -1,8 +1,20 @@
-"""HunyuanVideo text-to-video runner (counterpart of
-``lightx2v_tpu.runners.hunyuan_runner``, t2v): the Llama hidden states and
-the CLIP-L pooled vector of the prompt -> the MMDiT with embedded guidance
+"""HunyuanVideo runner (counterpart of
+``lightx2v_tpu.runners.hunyuan_runner``): the Llama hidden states and the
+CLIP-L pooled vector of the prompt -> the MMDiT with embedded guidance
 (guidance scale x 1000, no CFG) -> flow-match Euler (shift 7) -> the causal
 3D VAE decode, tiled past 16 latent frames or with ``use_tiling_vae``.
+
+``task: "i2v"`` runs the DiT with token replace (the first latent frame's
+tokens take the t = 0 modulation) and RIFLEx past 192 frames
+(``riflex_k_for(target_video_length)``, recorded in ``timings["riflex_k"]``
+with ``timings["tr_len"]``). Like the JAX runner it encodes no image and pins
+no latents: its i2v conditions through the modulation alone.
+``feature_caching: "Tea"`` decides on the host from the time embeddings of
+the whole schedule (``hunyuan_tea_plan``) and skips the whole stack on a
+skip step, reusing the last computed prediction (fp32, as the JAX state
+holds it); ``timings["calc_steps"]`` records the decisions. ``step_window =
+(first, count)`` runs steps first..first + count - 1 of the schedule (the
+Tea plan still sees all of it; a cached window starts at a calc step).
 
 Synthetic weights only. A config that names no transformer width gets the
 JAX runner's small synthetic mode: the small ``HunyuanArch`` (96 wide, 4
@@ -14,26 +26,30 @@ config that names ``hidden_size`` (3072, the only width it takes) gets
 behind synthetic tokenizers (the encoders a real-weights run runs, where the
 JAX runner's synthetic mode draws random states), and the full VAE.
 
-Refused: i2v, feature caching, the HF text encoders (``text_encoder_path``,
+Refused: the HF text encoders (``text_encoder_path``,
 ``text_encoder_crop_start``) and ``mesh_shape`` (``NotImplementedError``
 naming their Queue 1 item), real weights (the JAX runner's text encoders
-run through ``transformers``, which the card machine lacks), and a quantized
-``mm_config`` (``ValueError``: the JAX runner runs every Hunyuan linear as
-``Default`` whatever ``mm_config`` says)."""
+run through ``transformers``, which the card machine lacks), a caching mode
+other than Tea (``ValueError``: the JAX runner runs Tea only), and a
+quantized ``mm_config`` (``ValueError``: the JAX runner runs every Hunyuan
+linear as ``Default`` whatever ``mm_config`` says; the quantized DiT is
+reached through ``HunyuanTransformer(..., mm_type=...)``)."""
 
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..caching.teacache import hunyuan_tea_plan
 from ..encoders.clip import ClipTextArch, CLIPTextModel, init_random_clip_text_params_on_device
 from ..encoders.llama import LLAVA_LLAMA3_8B, PROMPT_TEMPLATE, LlamaArch, LlamaEncoderModel, \
     init_random_llama_params_on_device
 from ..models.hunyuan.config import HunyuanArch
-from ..models.hunyuan.model import HunyuanTransformer, build_hunyuan_rope, text_kv_len
+from ..models.hunyuan.model import HunyuanTransformer, build_hunyuan_rope, riflex_k_for, text_kv_len
 from ..models.hunyuan.weights import (init_random_hunyuan_params_on_device, init_random_hunyuan_state_dict,
                                       load_hunyuan_params)
 from ..schedulers.euler import FlowMatchEulerScheduler
@@ -90,12 +106,13 @@ class _SyntheticClipTokenizer(_SyntheticTokenizer):
 
 @RUNNER_REGISTER.register("hunyuan")
 class HunyuanRunner(DefaultRunner):
+    # (first step, step count) of the schedule to run; None runs all of it
+    step_window: Optional[Tuple[int, int]] = None
+
     def __init__(self, config):
-        if config.get("task", "t2v") == "i2v":
-            raise _not_ported("HunyuanVideo i2v (the llava encoder, token replace, RIFLEx, the VAE encoder)",
-                              "Queue 1 item 16")
-        if config.get("feature_caching", "NoCaching") not in (None, "NoCaching"):
-            raise _not_ported("feature caching on HunyuanVideo", "Queue 1 item 16")
+        if config.get("feature_caching", "NoCaching") not in (None, "NoCaching", "Tea"):
+            raise ValueError(f"feature_caching {config['feature_caching']!r}: the HunyuanVideo runner runs Tea only, "
+                             "as the JAX runner does")
         if config.get("mesh_shape"):
             raise _not_ported("Ulysses over the joint stream (models/hunyuan/sharded.py)", "Queue 1 item 14")
         for key in ("text_encoder_path", "text_encoder_crop_start"):
@@ -117,12 +134,16 @@ class HunyuanRunner(DefaultRunner):
     def _full_width(self) -> bool:
         return "hidden_size" in self.config
 
+    def _i2v(self) -> bool:
+        return self.config.get("task", "t2v") == "i2v"
+
     def load_transformer(self):
+        task = self.config.get("task", "t2v")
         if not self._full_width():
-            self.arch = SMALL_ARCH
+            self.arch = dataclasses.replace(SMALL_ARCH, task=task)
             return load_hunyuan_params(init_random_hunyuan_state_dict(self.arch, seed=0, scale=0.05), self.arch,
                                        device=self.device)
-        self.arch = HunyuanArch()
+        self.arch = HunyuanArch(task=task)
         return init_random_hunyuan_params_on_device(self.arch, seed=0, device=self.device)
 
     def load_text_encoder(self):
@@ -176,15 +197,24 @@ class HunyuanRunner(DefaultRunner):
                 "image_encoder_output": None}
 
     def run_dit(self, encoder_out: Dict[str, Any]):
-        """The Euler loop. ``kv_len`` (image tokens + the prompt's valid text
-        tokens) is counted once on the host from the mask and recorded in
-        ``timings["kv_len"]``; each step's seconds in ``timings["step_s"]``."""
+        """The Euler loop over the step window. ``kv_len`` (image tokens +
+        the prompt's valid text tokens) is counted once on the host from the
+        mask and recorded in ``timings["kv_len"]``; each step's seconds in
+        ``timings["step_s"]``, its index in ``timings["step_index"]``."""
         target_shape = self.set_target_shape()
         self.scheduler = scheduler = self.init_scheduler()
         state = scheduler.prepare(target_shape, self._generators(0)[0], device=self.device)
+        n = scheduler.num_steps()
+        first, count = self.step_window or (0, n)
+        state["step_index"] = first
         arch = self.arch
         grid = tuple(target_shape[1 + i] // arch.patch_size[i] for i in range(3))
-        cos, sin = (torch.from_numpy(a).to(self.device) for a in build_hunyuan_rope(arch, *grid))
+        frames = int(self.config.get("target_video_length", 85))
+        riflex_k = riflex_k_for(frames) if self._i2v() else None
+        self.timings["riflex_k"] = riflex_k
+        self.timings["tr_len"] = grid[1] * grid[2] if self._i2v() else 0
+        cos, sin = (torch.from_numpy(a).to(self.device)
+                    for a in build_hunyuan_rope(arch, *grid, riflex_k=riflex_k, l_test=grid[0] if riflex_k else None))
         teo = encoder_out["text_encoder_output"]
         mask_np = teo["text_encoder_1_attention_mask"]
         kv_len = self.timings["kv_len"] = text_kv_len(int(np.prod(grid)), mask_np)
@@ -195,15 +225,23 @@ class HunyuanRunner(DefaultRunner):
                                 dtype=torch.float32, device=self.device)
         attn = self.config.get("attention_impl") or self.config.get("attention_type", "flash_attn3")
         model = HunyuanTransformer(self.model, arch, attn_type=attn)
-        steps = []
+        plan = hunyuan_tea_plan(scheduler.timesteps, self.config) if self.config.get("feature_caching") == "Tea" \
+            else np.ones(n, bool)
+        if not plan[first]:
+            raise ValueError(f"Tea: a run that starts at step {first} must start at a calc step")
+        steps, pred = [], None
         t0 = time.perf_counter()
-        for _ in range(scheduler.num_steps()):
+        for i in range(first, min(n, first + count)):
             lat, t = scheduler.step_pre(state)
-            pred = model(lat[None], t, states, mask, pooled, cos, sin, kv_len, guidance)[0]
+            if plan[i]:  # a skip step reuses the last computed prediction
+                pred = model(lat[None], t, states, mask, pooled, cos, sin, kv_len, guidance,
+                             token_replace=self._i2v())[0]
             state = scheduler.step_post(state, pred)
             self.sync()
             steps.append(time.perf_counter())
         self.timings["step_s"] = list(np.diff([t0] + steps))
+        self.timings["step_index"] = list(range(first, first + len(steps)))
+        self.timings["calc_steps"] = [bool(c) for c in plan[first:first + len(steps)]]
         return state["latents"]
 
     def run_vae_decoder(self, latents) -> np.ndarray:

@@ -1,10 +1,12 @@
 """CogVideoX XDPM scheduler (counterpart of
-``lightx2v_tpu.schedulers.cogvideox``): scaled-linear betas, the
-zero-terminal-SNR rescale, trailing timestep spacing, v-prediction, and a
+``lightx2v_tpu.schedulers.cogvideox``): betas (``scheduler_beta_start`` /
+``_end``, ``scheduler_beta_schedule`` "scaled_linear" or linear), the SNR
+shift (``scheduler_snr_shift_scale``), the zero-terminal-SNR rescale
+(``scheduler_rescale_betas_zero_snr``), ``timestep_spacing`` "trailing",
+"leading" (with ``steps_offset``) or "linspace", ``scheduler_prediction_type``
+"v_prediction", "epsilon" or "sample", ``scheduler_set_alpha_to_one``, and a
 DPM-solver++(2M)-SDE update whose second order corrects with the previous
-x0 prediction. The schedule is CogVideoX1.5-5B's, fixed: the JAX
-scheduler's other betas, SNR shifts, beta schedules, spacings, prediction
-types and final alphas, which no config in the repo selects, raise.
+x0 prediction. The defaults are CogVideoX1.5-5B's.
 
 The alphas stay float64 on the host and are cast to fp32 as in the JAX
 package; each step's scalar coefficients are computed in fp32 (0-d CPU
@@ -22,12 +24,7 @@ import torch
 from ..utils.registry import SCHEDULER_REGISTER
 from .base import SchedulerBase, State
 
-BETA_START, BETA_END = 0.00085, 0.012
-# the one value of each schedule key that is ported (CogVideoX1.5-5B's); any other raises
-_FIXED = (("scheduler_beta_start", BETA_START), ("scheduler_beta_end", BETA_END),
-          ("scheduler_snr_shift_scale", 1.0), ("scheduler_beta_schedule", "scaled_linear"),
-          ("timestep_spacing", "trailing"), ("scheduler_prediction_type", "v_prediction"),
-          ("scheduler_rescale_betas_zero_snr", True), ("scheduler_set_alpha_to_one", True))
+PREDICTION_TYPES = ("v_prediction", "epsilon", "sample")
 
 
 def rescale_zero_terminal_snr(alphas_cumprod: np.ndarray) -> np.ndarray:
@@ -45,14 +42,31 @@ class CogvideoxXDPMScheduler(SchedulerBase):
     def __init__(self, config):
         config.setdefault("infer_steps", config.get("num_inference_steps", 50))
         super().__init__(config)
-        for key, value in _FIXED:
-            if config.get(key, value) != value:
-                raise NotImplementedError(f"XDPM {key}={config[key]!r} is not ported yet (ROADMAP.md, Queue 1 item 17)")
-        betas = np.linspace(BETA_START ** 0.5, BETA_END ** 0.5, self.num_train_timesteps, dtype=np.float64) ** 2
-        self.alphas_cumprod = rescale_zero_terminal_snr(np.cumprod(1.0 - betas))
-        self.final_alpha_cumprod = 1.0
-        ratio = self.num_train_timesteps / self.infer_steps
-        ts = np.round(np.arange(self.num_train_timesteps, 0, -ratio)).astype(np.int64) - 1  # trailing
+        c, n_train = config, self.num_train_timesteps
+        beta_start = float(c.get("scheduler_beta_start", 0.00085))
+        beta_end = float(c.get("scheduler_beta_end", 0.012))
+        snr_shift = float(c.get("scheduler_snr_shift_scale", 1.0))
+        if c.get("scheduler_beta_schedule", "scaled_linear") == "scaled_linear":
+            betas = np.linspace(beta_start ** 0.5, beta_end ** 0.5, n_train, dtype=np.float64) ** 2
+        else:
+            betas = np.linspace(beta_start, beta_end, n_train, dtype=np.float64)
+        ac = np.cumprod(1.0 - betas)
+        ac = ac / (snr_shift + (1 - snr_shift) * ac)
+        if c.get("scheduler_rescale_betas_zero_snr", True):
+            ac = rescale_zero_terminal_snr(ac)
+        self.alphas_cumprod = ac
+        self.final_alpha_cumprod = 1.0 if c.get("scheduler_set_alpha_to_one", True) else float(ac[0])
+        self.prediction_type = c.get("scheduler_prediction_type", "v_prediction")
+        if self.prediction_type not in PREDICTION_TYPES:
+            raise ValueError(f"scheduler_prediction_type must be one of {PREDICTION_TYPES}, "
+                             f"got {self.prediction_type!r}")
+        spacing, n = c.get("timestep_spacing", "trailing"), self.infer_steps
+        if spacing == "linspace":
+            ts = np.linspace(0, n_train - 1, n).round()[::-1].astype(np.int64)
+        elif spacing == "leading":
+            ts = (np.arange(n) * (n_train // n)).round()[::-1].astype(np.int64) + int(c.get("steps_offset", 0))
+        else:  # trailing
+            ts = np.round(np.arange(n_train, 0, -n_train / n)).astype(np.int64) - 1
         self.timesteps = ts.astype(np.float32)
         self._ts_int = ts
 
@@ -89,8 +103,13 @@ class CogvideoxXDPMScheduler(SchedulerBase):
         package's ``jax.random`` draws)."""
         i = state["step_index"]
         sqrt_a, sqrt_b, mult1, mult2, mult3, mult4, mult_noise, use_first = self._coefficients(i)
-        sample = state["latents"].float()
-        x0 = sqrt_a * sample - sqrt_b * noise_pred.float()  # v-prediction
+        sample, pred = state["latents"].float(), noise_pred.float()
+        if self.prediction_type == "epsilon":
+            x0 = (sample - sqrt_b * pred) / sqrt_a
+        elif self.prediction_type == "sample":
+            x0 = pred
+        else:  # v-prediction
+            x0 = sqrt_a * sample - sqrt_b * pred
         if noise is None:
             noise = torch.randn(sample.shape, generator=generator, dtype=torch.float32, device=generator.device)
         noise = noise.to(device=sample.device, dtype=torch.float32)

@@ -1,6 +1,9 @@
-"""CogVideoX causal 3D VAE decoder in PyTorch (counterpart of the decoder in
-``lightx2v_tpu.vae.cogvideox_vae``): block channels (128, 256, 256, 512)
-reversed, 4 resnets a decoder block, 16 latent channels, SpatialNorm3D
+"""CogVideoX causal 3D VAE in PyTorch (counterpart of
+``lightx2v_tpu.vae.cogvideox_vae``): the encoder (block channels (128, 256,
+256, 512), 3 resnets a block under GroupNorm, each of the first three blocks
+ending in ``downsample3d``: a first-frame-keeping temporal average pool in
+the first two, then a stride-2 3x3 conv per frame) and the decoder (the
+channels reversed, 4 resnets a block, 16 latent channels, SpatialNorm3D
 (GroupNorm modulated by 1x1x1 convs of the latents zq, nearest-resized to
 each feature map), "first"-pad causal convs (the temporal left pad repeats
 the first frame, or comes from the previous chunk's cache), nearest
@@ -17,8 +20,9 @@ The nearest resize is pinned to ``jax.image.resize(..., "nearest")``, which
 samples at half-pixel centres, floor((i + 0.5) * m / n) in fp32;
 ``F.interpolate(mode="nearest")`` samples at floor(i * m / n), and the two
 agree only at integer factors. The decoder's own resizes are integer
-factors, but nothing here relies on it. The encoder is not ported (the t2v
-path never encodes)."""
+factors, but nothing here relies on it. The encoder's posterior sample
+takes its noise from an explicit ``torch.Generator`` or injected noise (the
+JAX package draws it from a ``jax.random`` key)."""
 
 from __future__ import annotations
 
@@ -127,15 +131,34 @@ def spatial_norm(p: Params, f: torch.Tensor, zq: torch.Tensor, groups: int,
     return group_norm(p["norm"], f, groups) * y + bb
 
 
-def resnet_block(p: Params, x: torch.Tensor, groups: int, zq: torch.Tensor,
+def resnet_block(p: Params, x: torch.Tensor, groups: int, zq: Optional[torch.Tensor],
                  ctx: Optional[ConvCacheCtx] = None) -> torch.Tensor:
-    h = F.silu(spatial_norm(p["norm1"], x, zq, groups, ctx).float()).to(x.dtype)
+    """The decoder's (SpatialNorm3D on ``zq``) or, with ``zq`` None, the
+    encoder's (GroupNorm) resnet."""
+    if zq is None:
+        norm = lambda q, v: group_norm(q, v, groups)  # noqa: E731
+    else:
+        norm = lambda q, v: spatial_norm(q, v, zq, groups, ctx)  # noqa: E731
+    h = F.silu(norm(p["norm1"], x).float()).to(x.dtype)
     h = causal_conv3d(p["conv1"], h, ctx)
-    h = F.silu(spatial_norm(p["norm2"], h, zq, groups, ctx).float()).to(x.dtype)
+    h = F.silu(norm(p["norm2"], h).float()).to(x.dtype)
     h = causal_conv3d(p["conv2"], h, ctx)
     if "shortcut" in p:
         x = causal_conv3d(p["shortcut"], x, ctx)  # 1x1x1
     return x + h
+
+
+def downsample3d(p: Params, x: torch.Tensor, compress_time: bool) -> torch.Tensor:
+    """With ``compress_time`` a 2x temporal average pool that keeps the first
+    frame apart at odd T > 1; then a stride-2 3x3 conv per frame over the
+    frame zero-padded by one row and column at the bottom and right."""
+    t = x.shape[2]
+    if compress_time and t > 1 and t % 2 == 1:
+        rest = x[:, :, 1:]
+        x = torch.cat([x[:, :, :1], (rest[:, :, 0::2] + rest[:, :, 1::2]) * 0.5], dim=2)
+    elif compress_time and t > 1:
+        x = (x[:, :, 0::2] + x[:, :, 1::2]) * 0.5
+    return F.conv3d(F.pad(x, (0, 1, 0, 1)), p["w"].to(x.dtype), p.get("b"), stride=(1, 2, 2))
 
 
 def upsample3d(p: Params, x: torch.Tensor, compress_time: bool) -> torch.Tensor:
@@ -152,7 +175,33 @@ def upsample3d(p: Params, x: torch.Tensor, compress_time: bool) -> torch.Tensor:
     return F.conv3d(x, p["w"].to(x.dtype), p.get("b"), padding=(0, 1, 1))
 
 
-# ---------------------------------------------------------------- decode
+# ---------------------------------------------------------------- encode / decode
+
+
+def cog_vae_encode(params: Params, x: torch.Tensor, cfg: CogVAEConfig = CogVAEConfig(), scale: bool = True,
+                   generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pixels x (B, T, H, W, 3) -> latents (B, (T - 1) / 4 + 1, H / 8, W / 8,
+    z) fp32 (the whole clip at once): the posterior mean, or with ``noise``
+    (the latents' shape) or a ``generator`` a sample mean + exp(logvar / 2)
+    * noise (logvar clipped to [-30, 20]); times ``COGVIDEOX_SCALING`` with
+    ``scale``."""
+    g = cfg.norm_num_groups
+    enc = params["encoder"]
+    h = causal_conv3d(enc["conv_in"], x.float().permute(0, 4, 1, 2, 3))
+    for i, stage in enumerate(enc["down"]):
+        for rb in stage["resnets"]:
+            h = resnet_block(rb, h, g, None)
+        if "downsample" in stage:
+            h = downsample3d(stage["downsample"], h, compress_time=i < cfg.temporal_compress_level)
+    for rb in enc["mid"]:
+        h = resnet_block(rb, h, g, None)
+    h = F.silu(group_norm(enc["norm_out"], h, g).float())
+    mu, logvar = causal_conv3d(enc["conv_out"], h).permute(0, 2, 3, 4, 1).chunk(2, dim=-1)
+    if noise is None and generator is not None:
+        noise = torch.randn(mu.shape, generator=generator, dtype=torch.float32, device=generator.device)
+    if noise is not None:
+        mu = mu + torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0)) * noise.to(mu.device, torch.float32)
+    return mu * COGVIDEOX_SCALING if scale else mu.contiguous()
 
 
 def cog_vae_decode(params: Params, z: torch.Tensor, cfg: CogVAEConfig = CogVAEConfig(), scale: bool = True,
@@ -245,10 +294,13 @@ def cog_vae_decode_tiled(params: Params, z: torch.Tensor, cfg: CogVAEConfig = Co
 # ---------------------------------------------------------------- weights
 
 
-def load_cog_vae_params(sd: Dict[str, Any], cfg: CogVAEConfig = CogVAEConfig(), device="cpu") -> Params:
-    """The decoder's params (fp32, torch conv layouts; the 2D upsample convs
-    as (O, I, 1, 3, 3)) from a state dict with the diffusers keys."""
-    rev = list(reversed(cfg.block_out_channels))
+def load_cog_vae_params(sd: Dict[str, Any], cfg: CogVAEConfig = CogVAEConfig(), device="cpu",
+                        encoder: bool = False) -> Params:
+    """The decoder's params (fp32, torch conv layouts; the 2D upsample and
+    downsample convs as (O, I, 1, 3, 3)) from a state dict with the
+    diffusers keys; with ``encoder`` also the encoder's."""
+    boc = cfg.block_out_channels
+    rev = list(reversed(boc))
 
     def conv(key, two_d=False):
         w = to_tensor(sd[f"{key}.weight"], torch.float32, device)
@@ -265,12 +317,27 @@ def load_cog_vae_params(sd: Dict[str, Any], cfg: CogVAEConfig = CogVAEConfig(), 
         return {"norm": norm(f"{prefix}.norm_layer"), "conv_y": conv(f"{prefix}.conv_y.conv"),
                 "conv_b": conv(f"{prefix}.conv_b.conv")}
 
-    def resnet(prefix, cin, cout):
-        p = {"norm1": spat_norm(f"{prefix}.norm1"), "conv1": conv(f"{prefix}.conv1.conv"),
-             "norm2": spat_norm(f"{prefix}.norm2"), "conv2": conv(f"{prefix}.conv2.conv")}
+    def resnet(prefix, cin, cout, spatial=True):
+        nrm = spat_norm if spatial else norm
+        p = {"norm1": nrm(f"{prefix}.norm1"), "conv1": conv(f"{prefix}.conv1.conv"),
+             "norm2": nrm(f"{prefix}.norm2"), "conv2": conv(f"{prefix}.conv2.conv")}
         if cin != cout:
             p["shortcut"] = conv(f"{prefix}.conv_shortcut")
         return p
+
+    out = {}
+    if encoder:
+        enc = {"conv_in": conv("encoder.conv_in.conv"), "down": [],
+               "mid": [resnet(f"encoder.mid_block.resnets.{j}", boc[-1], boc[-1], False) for j in range(2)],
+               "norm_out": norm("encoder.norm_out"), "conv_out": conv("encoder.conv_out.conv")}
+        for i in range(len(boc)):
+            cin = boc[0] if i == 0 else boc[i - 1]
+            st = {"resnets": [resnet(f"encoder.down_blocks.{i}.resnets.{j}", cin if j == 0 else boc[i], boc[i],
+                                     False) for j in range(cfg.layers_per_block)]}
+            if f"encoder.down_blocks.{i}.downsamplers.0.conv.weight" in sd:
+                st["downsample"] = conv(f"encoder.down_blocks.{i}.downsamplers.0.conv", two_d=True)
+            enc["down"].append(st)
+        out["encoder"] = enc
 
     dec = {
         "conv_in": conv("decoder.conv_in.conv"),
@@ -286,7 +353,7 @@ def load_cog_vae_params(sd: Dict[str, Any], cfg: CogVAEConfig = CogVAEConfig(), 
         if f"decoder.up_blocks.{i}.upsamplers.0.conv.weight" in sd:
             st["upsample"] = conv(f"decoder.up_blocks.{i}.upsamplers.0.conv", two_d=True)
         dec["up"].append(st)
-    return {"decoder": dec}
+    return {**out, "decoder": dec}
 
 
 def init_random_cog_vae_state_dict(cfg: CogVAEConfig, seed: int = 0, scale: float = 0.1) -> Dict[str, np.ndarray]:

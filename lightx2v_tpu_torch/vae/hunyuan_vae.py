@@ -1,7 +1,9 @@
-"""HunyuanVideo causal 3D VAE decoder in PyTorch (counterpart of the decoder
-in ``lightx2v_tpu.vae.hunyuan_vae``, the diffusers-style
-AutoencoderKLCausal3D "884-16c"): block channels (128, 256, 512, 512)
-reversed, 3 resnets a decoder block, 16 latent channels, GroupNorm(32) +
+"""HunyuanVideo causal 3D VAE in PyTorch (counterpart of
+``lightx2v_tpu.vae.hunyuan_vae``, the diffusers-style AutoencoderKLCausal3D
+"884-16c"): the encoder (block channels (128, 256, 512, 512), 2 resnets a
+block, strided causal convs downsampling 2x in space at the first three
+stages and 2x in time at the second and third) and the decoder (the
+channels reversed, 3 resnets a block), 16 latent channels, GroupNorm(32) +
 SiLU, causal convs with replicate padding (kt - 1 frames on the left, k // 2
 on each spatial side), a frame-causal single-head attention (512 wide) in
 the mid block, nearest upsampling where the first frame upsamples in space
@@ -13,13 +15,14 @@ Public functions keep the JAX layout: latents (B, T, h, w, 16), pixels
 fp32; on CUDA the caller chooses TF32 for the convolutions
 (``torch.backends.cudnn.allow_tf32``). The mid-block attention is plain
 torch, as in the JAX package: quadratic in a tile's tokens, which is why
-long or large clips go through the tiled decodes. The encoder (i2v) is not
-ported."""
+long or large clips go through the tiled decodes. The encoder's posterior
+sample takes its noise from an explicit ``torch.Generator`` or injected
+noise (the JAX package draws it from a ``jax.random`` key)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,15 +65,15 @@ class HunyuanVAEConfig:
 # ---------------------------------------------------------------- primitives (channels-first)
 
 
-def causal_conv3d(p: Params, x: torch.Tensor) -> torch.Tensor:
+def causal_conv3d(p: Params, x: torch.Tensor, stride=(1, 1, 1)) -> torch.Tensor:
     """Causal conv, weight (O, I, kt, kh, kw): replicate padding of kt - 1
     frames on the left and k // 2 on each spatial side, then a conv with no
-    padding."""
+    padding (``stride``: the encoder's downsampling convs)."""
     w = p["w"]
     kt, kh, kw = w.shape[2:]
     if kt > 1 or kh > 1 or kw > 1:
         x = F.pad(x, (kw // 2, kw // 2, kh // 2, kh // 2, kt - 1, 0), mode="replicate")
-    return F.conv3d(x, w.to(x.dtype), p.get("b"))
+    return F.conv3d(x, w.to(x.dtype), p.get("b"), stride=stride)
 
 
 def resnet_block(p: Params, x: torch.Tensor, groups: int) -> torch.Tensor:
@@ -115,7 +118,35 @@ def upsample_causal(x: torch.Tensor, scale: Tuple[int, int, int]) -> torch.Tenso
     return torch.cat([first, rest], dim=2)
 
 
-# ---------------------------------------------------------------- decode
+# ---------------------------------------------------------------- encode / decode
+
+
+def hunyuan_vae_encode(params: Params, x: torch.Tensor, cfg: HunyuanVAEConfig = HunyuanVAEConfig(),
+                       scale: bool = True, generator: Optional[torch.Generator] = None,
+                       noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pixels x (B, T, H, W, 3) -> latents (B, (T - 1) / 4 + 1, H / 8, W / 8,
+    16) fp32: the posterior mean, or with ``noise`` (the latents' shape) or a
+    ``generator`` a sample mean + exp(logvar / 2) * noise (logvar clipped to
+    [-30, 20]); scaled by ``HUNYUAN_LATENT_SCALING`` with ``scale``."""
+    g = cfg.norm_num_groups
+    enc = params["encoder"]
+    h = causal_conv3d(enc["conv_in"], x.float().permute(0, 4, 1, 2, 3))
+    for stage, stride in zip(enc["down"], cfg.up_scales()):  # the encoder strides by the decoder's factors
+        for rb in stage["resnets"]:
+            h = resnet_block(rb, h, g)
+        if stride is not None:
+            h = causal_conv3d(stage["downsample"], h, stride=stride)
+    h = resnet_block(enc["mid"]["resnet1"], h, g)
+    h = causal_frame_attention(enc["mid"]["attn"], h, g)
+    h = resnet_block(enc["mid"]["resnet2"], h, g)
+    h = F.silu(group_norm(enc["norm_out"], h, g).float())
+    h = causal_conv3d(params["quant_conv"], causal_conv3d(enc["conv_out"], h))
+    mu, logvar = h.permute(0, 2, 3, 4, 1).chunk(2, dim=-1)
+    if noise is None and generator is not None:
+        noise = torch.randn(mu.shape, generator=generator, dtype=torch.float32, device=generator.device)
+    if noise is not None:
+        mu = mu + torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0)) * noise.to(mu.device, torch.float32)
+    return mu * HUNYUAN_LATENT_SCALING if scale else mu.contiguous()
 
 
 def hunyuan_vae_decode(params: Params, z: torch.Tensor, cfg: HunyuanVAEConfig = HunyuanVAEConfig(),
@@ -202,9 +233,11 @@ def hunyuan_vae_decode_tiled(params: Params, z: torch.Tensor, cfg: HunyuanVAECon
 # ---------------------------------------------------------------- weights
 
 
-def load_hunyuan_vae_params(sd: Dict[str, Any], cfg: HunyuanVAEConfig = HunyuanVAEConfig(), device="cpu") -> Params:
+def load_hunyuan_vae_params(sd: Dict[str, Any], cfg: HunyuanVAEConfig = HunyuanVAEConfig(), device="cpu",
+                            encoder: bool = False) -> Params:
     """The decoder's params (fp32, torch conv layouts) and
-    ``post_quant_conv`` from a state dict with the diffusers keys."""
+    ``post_quant_conv`` from a state dict with the diffusers keys; with
+    ``encoder`` also the encoder's and ``quant_conv``."""
 
     def conv(key):
         p = {"w": to_tensor(sd[f"{key}.weight"], torch.float32, device).contiguous()}
@@ -238,7 +271,30 @@ def load_hunyuan_vae_params(sd: Dict[str, Any], cfg: HunyuanVAEConfig = HunyuanV
             st["upsample"] = conv(f"decoder.up_blocks.{i}.upsamplers.0.conv.conv")
         return st
 
+    boc = cfg.block_out_channels
+
+    def down_stage(i):
+        cin = boc[0] if i == 0 else boc[i - 1]
+        st = {"resnets": [resnet(f"encoder.down_blocks.{i}.resnets.{j}", j == 0 and cin != boc[i])
+                          for j in range(cfg.layers_per_block)]}
+        if f"encoder.down_blocks.{i}.downsamplers.0.conv.conv.weight" in sd:
+            st["downsample"] = conv(f"encoder.down_blocks.{i}.downsamplers.0.conv.conv")
+        return st
+
+    params = {} if not encoder else {
+        "quant_conv": conv("quant_conv"),
+        "encoder": {
+            "conv_in": conv("encoder.conv_in.conv"),
+            "down": [down_stage(i) for i in range(len(boc))],
+            "mid": {"resnet1": resnet("encoder.mid_block.resnets.0", False),
+                    "attn": attn("encoder.mid_block.attentions.0"),
+                    "resnet2": resnet("encoder.mid_block.resnets.1", False)},
+            "norm_out": affine("encoder.conv_norm_out"),
+            "conv_out": conv("encoder.conv_out.conv"),
+        },
+    }
     return {
+        **params,
         "post_quant_conv": conv("post_quant_conv"),
         "decoder": {
             "conv_in": conv("decoder.conv_in.conv"),
@@ -252,15 +308,17 @@ def load_hunyuan_vae_params(sd: Dict[str, Any], cfg: HunyuanVAEConfig = HunyuanV
     }
 
 
-def load_hunyuan_vae_from_path(path: str, cfg: HunyuanVAEConfig = HunyuanVAEConfig(), device="cpu") -> Params:
+def load_hunyuan_vae_from_path(path: str, cfg: HunyuanVAEConfig = HunyuanVAEConfig(), device="cpu",
+                               encoder: bool = False) -> Params:
     """The reference's ``vae/pytorch_model.pt`` (a state dict, or one under
     ``"state_dict"``, keys optionally prefixed ``vae.``) or a
-    ``.safetensors`` -> decoder params on ``device``."""
+    ``.safetensors`` -> decoder params (and with ``encoder`` the encoder's)
+    on ``device``."""
     raw = read_state_dict(path)
     if "state_dict" in raw:
         raw = raw["state_dict"]
     sd = {k[len("vae."):] if k.startswith("vae.") else k: v for k, v in raw.items()}
-    return load_hunyuan_vae_params(sd, cfg, device=device)
+    return load_hunyuan_vae_params(sd, cfg, device=device, encoder=encoder)
 
 
 def init_random_hunyuan_vae_state_dict(cfg: HunyuanVAEConfig, seed: int = 0,

@@ -128,12 +128,15 @@ def test_xdpm_trajectory_vs_jax():
                                        ("scheduler_rescale_betas_zero_snr", False),
                                        ("scheduler_set_alpha_to_one", False)])
 def test_xdpm_refuses_other_schedules(key, value):
-    """The port fixes CogVideoX1.5-5B's schedule: every other value of a
-    schedule key, which the JAX scheduler takes, raises; the config's own
-    values build the same alphas as the JAX scheduler's."""
-    JXDPM(jset(dict(infer_steps=50, **{key: value})))
-    with pytest.raises(NotImplementedError, match=key):
-        TXDPM(tset(dict(infer_steps=50, **{key: value})))
+    """Every value of a schedule key that the JAX scheduler takes builds its
+    schedule (the name is from when the port refused these values): the
+    same alphas, final alpha, timesteps and prediction type; the config's
+    own values build the JAX scheduler's too. Trajectories under each value:
+    tests/test_torch_cogvideox_rest.py."""
+    js, ts = JXDPM(jset(dict(infer_steps=50, **{key: value}))), TXDPM(tset(dict(infer_steps=50, **{key: value})))
+    np.testing.assert_array_equal(ts.alphas_cumprod, js.alphas_cumprod)
+    np.testing.assert_array_equal(ts._ts_int, js._ts_int)
+    assert ts.final_alpha_cumprod == js.final_alpha_cumprod and ts.prediction_type == js.prediction_type
     np.testing.assert_array_equal(TXDPM(tset(dict(infer_steps=50))).alphas_cumprod,
                                   JXDPM(jset(dict(infer_steps=50))).alphas_cumprod)
 

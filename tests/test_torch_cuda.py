@@ -238,7 +238,11 @@ def _int8_w(g, dev, n, k, one_signed=False):
                                                   # ragged on all three axes: 128-row, 256-column, 128-deep tiles
                                                   (300, 266, 416, "gelu", False),
                                                   # i2v's image k / v: 257 CLIP tokens at the 14B width
-                                                  (257, 5120, 5120, None, False)])
+                                                  (257, 5120, 5120, None, False),
+                                                  # HunyuanVideo: a modulation projection at M = 1, the
+                                                  # single block's linear2 (K = 15,360), a ragged linear1
+                                                  (1, 18432, 3072, None, False), (300, 3072, 15360, None, False),
+                                                  (33, 21504, 3072, "gelu", False)])
 def test_fullk_kernel_vs_plain(dev, m, n, k, act, one_signed):
     from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
 
@@ -273,6 +277,34 @@ def test_ffn_kernel_vs_plain(dev, m, k, h):
     _close(wm.ffn_w8a8(x, w0, s0, b0, w2, s2, b2), wm.ffn_w8a8_plain(x, w0, s0, b0, w2, s2, b2), 2e-2, 0.0)
 
 
+@pytest.mark.parametrize("mm_type,key", [("W-int8-channel-sym-A-int8-channel-sym-dynamic-Tpu", "w8a8_matmul_fullk"),
+                                         ("W-fp8-channel-sym-A-fp8-channel-sym-dynamic-Tpu", "w8a8_matmul_fullk_fp8")])
+def test_narrow_8bit_linears_run_the_kernel(dev, monkeypatch, mm_type, key):
+    """Below the JAX package's 4096 threshold (a TPU measurement) an 8-bit
+    linear on the card runs the full-K kernel, never the float64 exact dot:
+    HunyuanVideo's and CogVideoX's 3072-wide linears at M = 1 and 300, and
+    K = 12,288 -> N = 3072; the result equals the kernel's plain version."""
+    from lightx2v_tpu_torch.ops import linear
+    from lightx2v_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
+
+    def refuse(*a, **kw):
+        raise AssertionError("the exact dot ran on the card")
+
+    monkeypatch.setattr(linear, "int_dot_exact", refuse)
+    kind = "fp8" if "fp8" in mm_type else "int8"
+    mm = linear.resolve_mm(mm_type)
+    g = torch.Generator(device=dev).manual_seed(2)
+    reset_launch_counts()
+    for m, k, n in ((1, 3072, 18432), (300, 3072, 3072), (300, 12288, 3072)):
+        x = torch.randn((1, m, k), generator=g, device=dev).to(torch.bfloat16)
+        w = _int8_w(g, dev, n, k, False) if kind == "int8" else _fp8_w(g, dev, n, k)
+        p = {"w": w, "w_scale": torch.full((n,), 1e-4, device=dev), "b": torch.randn((n,), generator=g, device=dev)}
+        # bar: the same codes and epilogue (rows 3 and 3f's bar)
+        _close(mm(p, x), wm.w8a8_matmul_fullk_plain(x, w, p["w_scale"], p["b"], kind=kind), 2 ** -7, 0.0)
+    assert {k_: v for k_, v in launch_counts().items() if v} == {key: 3}
+
+
 def test_int8_linear_dispatch_uses_kernel(dev):
     from lightx2v_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from lightx2v_tpu_torch.ops.linear import mm_ffn, resolve_mm
@@ -298,10 +330,12 @@ def _packed(g, dev, n, k, group):
 
 
 @pytest.mark.parametrize("m,n,k,group,bias", [(200, 136, 1024, 512, True), (37, 384, 13824, 512, False),
-                                              (513, 256, 384, 128, True), (1, 130, 768, 256, False)])
+                                              (513, 256, 384, 128, True), (1, 130, 768, 256, False),
+                                              (300, 3072, 15360, 512, True), (1, 18432, 3072, 512, True)])
 def test_w4a8_kernel_vs_plain(dev, m, n, k, group, bias):
     """Ragged M and N, odd group counts (27 at K = 13,824), groups of 128,
-    256 and 512."""
+    256 and 512; HunyuanVideo's single-block linear2 (30 groups) and a
+    modulation projection at M = 1."""
     from lightx2v_tpu_torch.ops.cuda import w4a8_matmul as w4
 
     g = torch.Generator(device=dev).manual_seed(m + n + k)
@@ -616,7 +650,9 @@ def test_sage_quantize_pass_is_exact(dev):
                                               # below one 128-token tile; N not a multiple of 64;
                                               # 27 groups; a single 128-column stage
                                               (1, 256, 1024, 512, True), (63, 200, 512, 128, False),
-                                              (300, 256, 13824, 512, True), (130, 200, 128, 128, True)])
+                                              (300, 256, 13824, 512, True), (130, 200, 128, 128, True),
+                                              # HunyuanVideo's single-block linear2 and a modulation at M = 1
+                                              (300, 3072, 15360, 512, True), (1, 9216, 3072, 512, True)])
 def test_int4_kernel_vs_plain(dev, m, n, k, group, bias):
     from lightx2v_tpu_torch.ops.cuda import int4_matmul as i4
 
@@ -673,7 +709,9 @@ def _fp8_w(g, dev, n, k, one_signed=False):
                                                   (512, 136, 96, None, False),
                                                   # below one 128-row tile, ragged N, K below one stage
                                                   (5, 66, 64, None, False), (300, 256, 5120, None, False),
-                                                  (300, 256, 5120, None, True), (300, 392, 416, "gelu", False)])
+                                                  (300, 256, 5120, None, True), (300, 392, 416, "gelu", False),
+                                                  # HunyuanVideo: M = 1 modulation, K = 15,360 linear2
+                                                  (1, 18432, 3072, None, False), (300, 3072, 15360, None, False)])
 def test_fullk_fp8_kernel_vs_plain(dev, m, n, k, act, one_signed):
     from lightx2v_tpu_torch.ops.cuda import w8a8_matmul as wm
 

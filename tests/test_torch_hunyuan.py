@@ -163,8 +163,7 @@ def test_small_synthetic_runner_vs_jax():
 
 
 @pytest.mark.parametrize("extra,err,match", [
-    (dict(task="i2v"), NotImplementedError, "item 16"),
-    (dict(feature_caching="Tea"), NotImplementedError, "item 16"),
+    (dict(feature_caching="TaylorSeer"), ValueError, "Tea only"),
     (dict(mesh_shape={"seq": 2}), NotImplementedError, "item 14"),
     (dict(text_encoder_path="/nonexistent"), NotImplementedError, "item 16"),
     (dict(text_encoder_crop_start=95), NotImplementedError, "item 16"),
@@ -174,10 +173,12 @@ def test_small_synthetic_runner_vs_jax():
 ])
 def test_runner_refusals(extra, err, match):
     """What the port's Hunyuan runner does not run raises before any weight
-    is made: i2v, Tea and the HF text encoders (``text_encoder_path``,
-    ``text_encoder_crop_start``; Queue 1 item 16), Ulysses (item 14), real weights
-    (the HF text encoders), a quantized mm_type (the JAX runner runs
-    Default whatever it says), a width other than HunyuanArch()'s."""
+    is made: a caching mode other than Tea (the JAX runner runs Tea only),
+    the HF text encoders (``text_encoder_path``, ``text_encoder_crop_start``;
+    Queue 1 item 16), Ulysses (item 14), real weights (the HF text
+    encoders), a quantized mm_type (the JAX runner runs Default whatever it
+    says), a width other than HunyuanArch()'s. i2v and Tea run
+    (tests/test_torch_hunyuan_rest.py)."""
     from lightx2v_tpu_torch import infer as tinfer
 
     with pytest.raises(err, match=match):
