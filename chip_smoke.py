@@ -17,6 +17,7 @@
     python3 chip_smoke.py --kernel rope_rotate --path serve   # slice 1, then its runner behind the HTTP server
     python3 chip_smoke.py --kernel w8a8_matmul_fullk --path hunyuan_quant --path cogvideox_quant   # quantized DiTs
     python3 chip_smoke.py --kernel flash_attention --path hunyuan_i2v_tea --path vae_encoders   # i2v Tea, encoders
+    python3 chip_smoke.py --kernel rope_rotate --path quant_schemes --path ptq   # the PTQ loop and the schemes
 
 1. Prints the card's name and power limit, builds every CUDA kernel of the
    port from ``lightx2v_tpu_torch/csrc`` (one nvcc per source, in parallel)
@@ -55,9 +56,9 @@
    port's ``WanRunner`` (``wan2.1``) on ``configs/bench/lightx2v_1.json`` at
    the 14B widths with ``W-int4-group-sym-A-bf16-Tpu`` linears: bf16
    UMT5-XXL on the prompt and the negative prompt -> UniPC with
-   classifier-free guidance as one forward at batch 2, cut to 3 steps (the
-   file's 40 would take minutes; 3 run both predictor and both corrector
-   orders) -> untiled decode.
+   classifier-free guidance as one forward at batch 2, cut to a 2-step
+   schedule (the file's 40 would take minutes; the time limit's cut, from 3
+   steps, which ran both corrector orders) -> untiled decode.
 6. Radial: the slice-1 config with ``radial_attn`` self-attention and a
    2-entry step list, once in the block-sparse execution (128 x 128 blocks)
    and once in ``two_pass`` (query tiles of min(sparse_block_q, 256) rows,
@@ -65,8 +66,9 @@
 7. fp8 distill (slice 4): one full-width fp8 block the same way; then the
    distill runner on ``configs/bench/lightx2v_3_distill.json`` (the
    reference's LightX2V_3-Distill row: fp8 e4m3 DiT linears, fused-RoPE
-   flash, its 4 distill steps, tiled decode) at the 14B widths with the fp8
-   UMT5-XXL (``t5_quantized``, ``t5_quant_scheme: "fp8"``).
+   flash, its distill steps, tiled decode) at the 14B widths with the fp8
+   UMT5-XXL (``t5_quantized``, ``t5_quant_scheme: "fp8"``). Cut: the first
+   ``FP8_STEPS`` of its 4 steps (the time limit's cut).
 8. i2v: one full-width int8 i2v block (36 input channels, the image
    cross-attention over 257 CLIP tokens) the same way; the full-width CLIP
    ViT-H/14 tower, bf16 and int8, on the card vs the CPU; the full Wan
@@ -85,9 +87,9 @@
    (42 joint blocks at full width, 768 x 1360, 81 frames, 45,106 tokens an
    attention call, CFG as one forward at batch 2 at scale 6): bf16 T5
    v1.1-XXL on the prompt and the negative prompt -> XDPM -> tiled,
-   frame-batched decode. Cut: the first 2 of the file's 50 XDPM steps (the
-   fewest that run both the first-order and the second-order update; the
-   50 would take minutes).
+   frame-batched decode. Cut: the first of the file's 50 XDPM steps (the
+   first-order update; the time limit's cut, from 2, which also ran the
+   second-order one: tests/test_torch_cogvideox.py runs 50 on the CPU).
 10. HunyuanVideo (slice 9): one full-width double-stream and one
    single-stream block (hidden 3072, 24 heads of 128) on a small input (2 x
    8 x 8 latents, 32 text tokens of which 20 are valid) the same way; the
@@ -185,11 +187,12 @@
 18. SkyReels-V2-DF (``skyreels_df``): ``configs/wan_skyreels_v2_df.json``
    at the 14B widths: 544 x 960, 97 frames (25 latent frames, 51,000
    tokens), CFG at 6 at batch 2, one timestep per latent frame. Cut: the
-   first 2 of its 30 timestep-matrix rows (one segment: no re-encode).
+   first of its 30 timestep-matrix rows (one segment: no re-encode; the
+   time limit's cut, from 2).
 19. Audio-driven i2v (``audio``): ``configs/audio_driven/wan_i2v_audio.json``
    at the i2v 14B widths with a seeded PNG and a seeded 16 kHz wav of
    157,000 samples: 157 frames, two 81-frame segments, each cut to the
-   first 2 of its 4 Euler steps, the second conditioned on the VAE latents of the first's last 5 frames,
+   first of its 4 Euler steps, the second conditioned on the VAE latents of the first's last 5 frames,
    the audio adapter's 40 fp32 injections (synthetic, made on the card),
    radial_attn without a mask (dense flash); the frames and the stitched
    audio muxed into an ``.av.mp4`` (PIL JPEGs, PCM16) and parsed back.
@@ -216,6 +219,27 @@
    their published configs on a seeded 17 x 480 x 832 clip, timed with
    their device peaks, and a 5 x 64 x 64 corner of it encoded on the card
    against the CPU.
+24. The quant schemes (``quant_schemes``, a phase): one full-width block
+   each at ``fp8_block128``, ``mxfp8`` and ``mxfp6`` (the synthesizer's
+   layouts) on the card against the CPU plain version, then each scheme's
+   linear at (32,760, 5120 -> 5120) timed beside row 3f on the same weights.
+25. The post-training-quantization loop (``ptq``, ``run_ptq``) on
+   ``configs/deploy/wan_t2v.json`` at the 14B widths, on a reference-key
+   bf16 dict made on the card: the runner with mm_type ``Default`` and
+   ``do_mm_calib`` calibrates at the first timestep (an empty step window:
+   400 stats, launches of rows 1 / 1r / 2 counted exactly); block 0 folded
+   against unfolded in bf16 (the fold-transparency gate); int8 of the
+   unsmoothed dict, then the fold and int8 block by block; the config as
+   it is (int8) on the smoothed dict, cut to 2 of its 4 distill steps and
+   the tiled decode, exact launch counts, with the PSNR of its step-0
+   prediction against the unsmoothed int8 one printed (no bar: synthetic
+   weights); then ``tools/tune_sparge``'s CLI (``--structured --preset
+   14b``: 21 x 60 x 104 latents, 40 layers, keep 0.3, the default grid) with
+   exact counts of rows 9 and 2 and the table's invariants as a gate.
+26. Checkpoint validation: after ``offload_lazy_i2v``, before its DiT
+   directory goes, ``tools/validate_ckpt`` on it (two-sided key coverage,
+   a 32-token forward on the card under its ``config.json``'s mm_type) and
+   on the Wan VAE ``.pth``.
 
 The kernel phases also hold and time the fused-RoPE flash kernel at
 changing resolution's phase A, (2, 18,018, 40, 128) with a 98-row last
@@ -267,6 +291,7 @@ Without a CUDA device, or without the package beside this file, it exits 2.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -300,7 +325,7 @@ COG_S, COG_HEADS, COG_HD = 11 * 48 * 85 + 226, 48, 64
 # exp2 a second on the special-function units: 16 a clock on each of 132 SMs at the 1,980 MHz boost clock
 PEAK_EX2 = 16 * 132 * 1.98e9
 COG_JSON = "configs/cogvideox_t2v.json"
-COG_STEPS = 2  # of the file's 50: step 0 first-order, step 1 second-order
+COG_STEPS = 1  # of the file's 50: step 0, first-order (the time limit's cut)
 # HunyuanVideo at 720x1280, 85 frames: 22 x 45 x 80 image tokens + 256 text tokens, 24 heads of 128
 HY_IMG, HY_TXT, HY_HEADS = 22 * 45 * 80, 256, 24
 HY_JSON = "configs/hunyuan_t2v.json"
@@ -328,12 +353,12 @@ CV_BLOCK_TOKENS, CV_WINDOW = 7 * 1560, 21 * 1560
 # SkyReels-V2-DF (configs/wan_skyreels_v2_df.json): 544x960, 97 frames -> 25 latent frames of 34 x 60 tokens
 DF_JSON = "configs/wan_skyreels_v2_df.json"
 DF_TOKENS = 25 * 34 * 60
-DF_ROWS = 2  # of the matrix's 30 rows (one segment: 30 UniPC steps)
+DF_ROWS = 1  # of the matrix's 30 rows (one segment: 30 UniPC steps; the time limit's cut)
 # audio-driven i2v (configs/audio_driven/wan_i2v_audio.json): a 16 kHz mono wav of 157,000 samples is 157 frames at
 # 16 fps, two 81-frame segments overlapping by 5
 AUDIO_JSON = "configs/audio_driven/wan_i2v_audio.json"
 AUDIO_SAMPLES = 157_000
-AUDIO_STEPS = 2  # of each segment's 4 Euler steps (the time limit's cut)
+AUDIO_STEPS = 1  # of each segment's 4 Euler steps (the time limit's cut)
 PROMPT = "a red panda climbing a bamboo tree in the rain"
 DEPLOY_JSON = "configs/deploy/wan_t2v.json"
 BASE_JSON = "configs/bench/lightx2v_1.json"
@@ -345,8 +370,8 @@ FLAGSHIP = dict(mm_config={"mm_type": INT4A8}, sparge=True, sparge_keep_ratio=0.
                 sparse_block_q=2048, sparse_block_k=1024, t5_quantized=True, use_tiling_vae=False)
 WAN14B = dict(dim=DIM, ffn_dim=FFN, num_heads=HEADS, num_layers=40, text_len=TXT)
 NEG = "blurry, low quality, distorted, static frame"
-# the base model: the upstream baseline bench config at the 14B widths, weight-only int4, 3 of its 40 steps
-BASE = dict(WAN14B, mm_config={"mm_type": INT4W}, infer_steps=3, negative_prompt=NEG)
+# the base model: the upstream baseline bench config at the 14B widths, weight-only int4, a 2-step schedule for its 40
+BASE = dict(WAN14B, mm_config={"mm_type": INT4W}, infer_steps=2, negative_prompt=NEG)
 # radial attention on the slice-1 config, two steps, in its two executions
 RADIAL_BSR = dict(self_attn_1_type="radial_attn", sparse_block_q=128, sparse_block_k=128,
                   denoising_step_list=[1000, 500], radial_sparsity_type="bsr")
@@ -354,6 +379,7 @@ RADIAL_TWO_PASS = dict(RADIAL_BSR, sparse_block_q=256, radial_sparsity_type="two
 # the reference's LightX2V_3-Distill row (fp8 DiT, fused-RoPE flash, its 4 distill steps, tiled decode) at the
 # 14B widths, with the fp8 UMT5-XXL
 FP8_DISTILL = dict(WAN14B, t5_quantized=True, t5_quant_scheme="fp8")
+FP8_STEPS = 2  # of the file's 4 distill steps (the time limit's cut)
 TEA_JSON = "configs/bench/lightx2v_4.json"
 CR_JSON = "configs/changing_resolution/wan_t2v.json"
 # Wan2.1-T2V-1.3B (PRESETS["wan2.1_1.3b"]) for the configs/caching files that name no width
@@ -384,11 +410,17 @@ STREAM_TEA = (TEA_JSON, "tea", 3)
 TINY_CHECK_FRAMES = 2  # latent frames of the lazy t2v path's latents decoded on the CPU against the card
 SERVE_PROMPT = "a paper boat drifting down a flooded street at dusk"
 SERVE_WAIT = 300  # seconds: the longest any one wait of the serve path may take
+# the post-training-quantization loop (calibrate, fold, int8, run, tune) on the deploy config at the 14B widths
+PTQ_STEPS = 2  # of the config's 4 distill steps
+BLOCK128 = "W-fp8-block128-sym-A-fp8-channel-group128-sym-dynamic-Tpu"
+# the schemes phase: (scheme, mm_type, the block gate's bar); e4m3 activations at the fp8 block's bar
+SCHEMES_PHASE = (("fp8_block128", BLOCK128, 6e-2), ("mxfp8", "W-mxfp8-A-mxfp8-dynamic-Tpu", 6e-2),
+                 ("mxfp6", "W-mxfp6-A-mxfp8-dynamic-Tpu", 3e-2))
 PATHS = ("slice", "serve", "flagship", "base", "radial_bsr", "radial_two_pass", "fp8_distill", "i2v", "cogvideox",
          "hunyuan", "tea_fp8", "changing_resolution", "taylorseer_1_3b", "taylorws_1_3b", "ada_1_3b", "custom_1_3b",
          "offload_stream_fp8", "offload_lazy_i2v", "offload_stream_tea", "offload_lazy_t2v_tiny",
          "offload_lazy_t2v_cfg_tiny", "causvid", "skyreels_df", "audio", "hunyuan_i2v_tea", "hunyuan_quant",
-         "cogvideox_quant", "vae_encoders")
+         "cogvideox_quant", "vae_encoders", "quant_schemes", "ptq")
 
 
 def card_line() -> str:
@@ -2341,6 +2373,31 @@ def write_i2v_checkpoint(root: Path, layers: int) -> dict:
     return written
 
 
+def validate_written(root: Path) -> None:
+    """``tools/validate_ckpt`` on the lazy i2v path's files: the int8 DiT
+    directory (two-sided key coverage, one 32-token forward on the card under
+    its ``config.json``'s mm_type) and the Wan VAE ``.pth``. Fails unless
+    every report passes."""
+    import torch
+
+    from lightx2v_tpu_torch.tools import validate_ckpt
+
+    t0 = time.perf_counter()
+    reports = []
+    for argv in (["--model_cls", "wan2.1", "--ckpt", str(root / "dit_int8_blocks"), "--device", "cuda"],
+                 ["--model_cls", "wan2.1", "--ckpt", str(root / "model" / "Wan2.1_VAE.pth"), "--component", "vae",
+                  "--device", "cuda"]):
+        reports += validate_ckpt.validate(validate_ckpt.build_parser().parse_args(argv))
+        torch.cuda.empty_cache()
+    line = {"validate_s": time.perf_counter() - t0,
+            "reports": [{k: v for k, v in r.items() if k not in ("missing", "unused")} | {
+                "missing": len(r.get("missing", [])), "unused": len(r.get("unused", []))} for r in reports]}
+    print(json.dumps({"validate_ckpt": line}), flush=True)
+    bad = [r for r in reports if not r.get("key_coverage_ok", r.get("ok", False))]
+    if bad:
+        raise AssertionError(f"validate_ckpt on the written checkpoint: {bad}")
+
+
 def pick_checkpoint_dir():
     """(a directory for the lazy path's files, the DiT depth that fits it):
     the system temp directory, or the repo's git-ignored ``build/``, the
@@ -2580,6 +2637,7 @@ def run_offload_lazy(paths, profile_dir=None) -> dict:
                 return {"write": written, **check}
 
             out["offload_lazy_i2v"] = run_path("offload_lazy_i2v", {}, profile_dir, cfg=cfg, before=before)
+            validate_written(root)
             shutil.rmtree(root / "dit_int8_blocks")
         t2v = [p for p in LAZY_T2V if p in paths]
         if t2v:
@@ -3004,6 +3062,240 @@ def run_vae_encoders() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     print(json.dumps({"vae_encoders": line}), flush=True)
+    return line
+
+
+@contextlib.contextmanager
+def synthetic_dit_from(wd):
+    """Within the block, a runner's synthetic DiT at a published width is
+    ``wd`` (a reference-key dict on the card) loaded as a checkpoint is,
+    in place of the synthesizer's own draws."""
+    from lightx2v_tpu_torch.models.wan.weights import load_wan_params
+    from lightx2v_tpu_torch.runners import wan_runner
+
+    made = wan_runner.init_random_params_on_device
+    wan_runner.init_random_params_on_device = lambda arch, scheme, **kw: load_wan_params(wd, arch, device="cuda")
+    try:
+        yield
+    finally:
+        wan_runner.init_random_params_on_device = made
+
+
+def step0_prediction(runner, params, enc) -> "torch.Tensor":
+    """The runner's step-0 DiT prediction (its seeded first latents and
+    timestep, the prompt's context) on ``params``, with its mm_type."""
+    import torch
+
+    from lightx2v_tpu_torch.models.wan.model import wan_forward
+    from lightx2v_tpu_torch.models.wan.pipeline import rope_for_shape
+
+    shape = runner.set_target_shape()
+    sched = runner.init_scheduler()
+    lat, t = sched.step_pre(runner._prepare(sched, shape, runner._generators(1)[0], 0))
+    cos, sin, _ = rope_for_shape(runner.arch, shape, device="cuda")
+    out = wan_forward(params, lat[None], t, enc["text_encoder_output"]["context"], cos, sin, runner.arch,
+                      mm_type=runner.mm_type)
+    torch.cuda.synchronize()
+    return out
+
+
+def fold_transparency_check(wd, stats) -> float:
+    """Block 0 of ``wd`` at full width, bf16 (Default), on a small input
+    (48 tokens): folded (``apply_smooth_quant``: q/k/v and ffn.0 columns
+    times s, the affine norms 1 / s) against unfolded, both on the card, at
+    the bf16 bar of the block gates: the fold is transparent before
+    quantization."""
+    import dataclasses
+
+    import torch
+
+    from lightx2v_tpu_torch.models.wan.config import PRESETS, WanArch
+    from lightx2v_tpu_torch.models.wan.model import wan_forward
+    from lightx2v_tpu_torch.models.wan.pipeline import rope_for_shape
+    from lightx2v_tpu_torch.models.wan.weights import build_block_params, build_non_block_params
+    from lightx2v_tpu_torch.tools.convert import apply_smooth_quant
+
+    arch = dataclasses.replace(WanArch(**PRESETS["wan2.1_14b"]), num_layers=1)
+    small = build_non_block_params(wd, arch, device="cuda")
+    block0 = {k: v for k, v in wd.items() if k.startswith("blocks.0.")}
+    folded = dict(block0)
+    if apply_smooth_quant(folded, stats) != 2:
+        raise AssertionError("block 0 has two smoothable sites")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    shape = (16, 2, 8, 12)
+    lat = torch.randn((1, *shape), generator=g, device="cuda")
+    ctx = (torch.randn((1, TXT, arch.text_dim), generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    cos, sin, _ = rope_for_shape(arch, shape, device="cuda")
+
+    def run(blk):
+        params = dict(small, blocks=[build_block_params(blk, 0, arch, device="cuda")])
+        return wan_forward(params, lat, torch.tensor([750.0], device="cuda"), ctx, cos, sin, arch)
+
+    ref = run(block0)
+    out = run(folded)
+    if "smooth_norm1" not in build_block_params(folded, 0, arch, device="cuda"):
+        raise AssertionError("the folded block carries no affine norm")
+    return check_close("one 14B bf16 block, smooth-quant folded vs unfolded (card)", out, ref, 3e-2, 1e-3)
+
+
+def run_ptq(profile_dir=None) -> dict:
+    """The post-training-quantization loop at the 14B widths, every step on
+    the card: ``configs/deploy/wan_t2v.json`` with mm_type Default and
+    ``do_mm_calib`` on a reference-key bf16 dict made on the card (the
+    runner's ``run_dit`` calibrates at the first timestep and runs no step:
+    its window is empty), the fold-transparency gate on block 0, the fold and
+    int8 block by block, then the config as it is (int8) on the smoothed
+    dict, cut to ``PTQ_STEPS`` of its 4 distill steps and the tiled decode,
+    with the PSNR of its step-0 prediction against the unsmoothed int8 one
+    (printed, no bar: the weights are synthetic). Then ``tune_sparge``'s CLI
+    on structured synthetic weights at 21 x 60 x 104 latents, 40 layers, keep
+    0.3 and its default grid, and the table's invariants."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from lightx2v_tpu_torch import infer
+    from lightx2v_tpu_torch.models.wan.config import PRESETS, WanArch
+    from lightx2v_tpu_torch.models.wan.weights import init_random_weight_dict_on_device, load_wan_params, \
+        permute_qk_half
+    from lightx2v_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from lightx2v_tpu_torch.tools import psnr, tune_sparge
+    from lightx2v_tpu_torch.tools.calibrate import load_stats
+    from lightx2v_tpu_torch.tools.convert import _BLOCK_RE, apply_smooth_quant, quantize_model
+    from lightx2v_tpu_torch.utils.config import set_config
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        arch = WanArch(**PRESETS["wan2.1_14b"])
+        t0 = time.perf_counter()
+        wd = init_random_weight_dict_on_device(arch, seed=21, device="cuda")
+        cfg = set_config(dict(model_cls="wan2.1_distill", task="t2v", device="cuda", synthetic_weights=True,
+                              config_json=str(ROOT / DEPLOY_JSON), prompt=PROMPT, seed=42))
+        cfg.update(mm_config={"mm_type": "Default"}, do_mm_calib=True, calib_output_path=str(Path(tmp) / "stats.npz"))
+        with synthetic_dit_from(wd):
+            runner = infer.init_runner(cfg)
+        enc = runner.run_input_encoder()
+        runner.step_window = (0, 0)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        runner.run_dit(enc)
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t1
+        calib_counts = launch_counts()
+        L = arch.num_layers
+        want = {**{k: 0 for k in calib_counts}, "flash_attention_fused_rope": L, "rope_rotate": L, "flash_attention": L}
+        if calib_counts != want:
+            raise AssertionError(f"ptq calibration: launch counts {calib_counts} != {want}")
+        stats = load_stats(cfg["calib_output_path"])
+        if len(stats) != 10 * L or any(not np.isfinite(v).all() for v in stats.values()):
+            raise AssertionError(f"ptq calibration: {len(stats)} stats, not {10 * L} finite ones")
+        del runner, enc
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["calibration"] = {"stats": len(stats), "calib_s": calib_s, "launch_counts": calib_counts,
+                              "act_absmax_max": float(max(v.max() for v in stats.values()))}
+        out["fold_gate_max_abs_err"] = fold_transparency_check(wd, stats)
+
+        # int8 of the unsmoothed dict, then the fold and int8 block by block (the bf16 blocks freed as they go)
+        t1 = time.perf_counter()
+        q_plain = quantize_model(wd, "int8")
+        q_smooth = {k: v for k, v in wd.items() if not _BLOCK_RE.match(k)}
+        for i in range(L):
+            sub = {k: wd.pop(k) for k in [k for k in wd if k.startswith(f"blocks.{i}.")]}
+            apply_smooth_quant(sub, stats)
+            q_smooth.update(quantize_model(sub, "int8"))
+            del sub
+        del wd
+        torch.cuda.synchronize()
+        out["fold_and_quantize_s"] = time.perf_counter() - t1
+        n_affine = sum("affine_norm" in k for k in q_smooth)
+        if n_affine != 4 * L:
+            raise AssertionError(f"ptq: {n_affine} affine-norm tensors, not {4 * L}")
+
+        psnr_db = {}
+
+        def before(runner):
+            enc = runner.run_input_encoder()
+            smooth = step0_prediction(runner, runner.model, enc)
+            plain = step0_prediction(runner, permute_qk_half(load_wan_params(q_plain, runner.arch, device="cuda"),
+                                                             runner.arch), enc)
+            q_plain.clear()
+            psnr_db["step0_psnr_db"] = psnr.psnr(plain.float().cpu().numpy(), smooth.float().cpu().numpy())
+            print(json.dumps({"ptq_step0": {**psnr_db, "note": "smoothed int8 vs unsmoothed int8, same weights; "
+                                            "synthetic weights, no bar"}}), flush=True)
+            torch.cuda.empty_cache()
+            return dict(psnr_db)
+
+        with synthetic_dit_from(q_smooth):
+            out["run"] = run_path("ptq", {}, profile_dir, steps=PTQ_STEPS, forwards=PTQ_STEPS, before=before)
+        del q_smooth
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["run_step0_psnr_db"] = psnr_db["step0_psnr_db"]
+
+        # the per-layer Sparge table, through the tool's entry point
+        table = str(Path(tmp) / "sparge_14b.npz")
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        tune_sparge.main(["--structured", "--preset", "14b", "--output", table, "--device", "cuda"])
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t1
+        tune_counts = launch_counts()
+        grid = len(set(tune_sparge.DEFAULT_L1_GRID) | {0.0})
+        want = {**{k: 0 for k in tune_counts}, "block_sparse_attention": grid * L, "flash_attention": 2 * L}
+        if tune_counts != want:
+            raise AssertionError(f"ptq tune: launch counts {tune_counts} != {want}")
+        d = np.load(table)
+        l1, passed = d["l1"], d["passed"]
+        # the invariants tests/test_tune_sparge.py::test_shipped_tuned_table_artifact pins, at 40 layers
+        gate = (l1.shape == (L,) and float(d["bar_db"]) > 0 and 0 < float(d["keep_ratio"]) <= 1
+                and bool(((l1 >= 0.0) & (l1 <= 0.3)).all()) and bool((l1[~passed] == 0.0).all())
+                and int(passed.sum()) >= L // 2)
+        out["tune"] = {"tune_s": tune_s, "launch_counts": tune_counts, "l1": [float(v) for v in l1],
+                       "snr_db": [float(v) for v in d["snr_db"]], "passed": int(passed.sum()),
+                       "bar_db": float(d["bar_db"]), "keep_ratio": float(d["keep_ratio"]), "gate": gate}
+        print(json.dumps({"ptq_tune": out["tune"]}), flush=True)
+        if not gate:
+            raise AssertionError(f"ptq tune: the table breaks its invariants: {out['tune']}")
+    out["ptq_s"] = time.perf_counter() - t0
+    print(json.dumps({"ptq": {k: v for k, v in out.items() if k != "run"}}), flush=True)
+    # the path's launches: the calibration's, the run's and the tune's, each held exact above
+    return {k: out["run"][k] + calib_counts[k] + tune_counts[k] for k in out["run"]}
+
+
+def run_quant_schemes() -> dict:
+    """The fp8_block128, mxfp8 and mxfp6 schemes at the 14B widths: one
+    full-width block each on the card against the CPU plain version (the
+    block gates' bars: the e4m3-activation schemes at the fp8 block's 6e-2,
+    mxfp6's bf16 activations at 3e-2), then each scheme's linear at (32,760,
+    5120 -> 5120) timed beside row 3f (the per-channel fp8 kernel) on the same
+    weights, CUDA-event medians."""
+    import torch
+
+    from lightx2v_tpu_torch.ops.linear import resolve_mm
+    from lightx2v_tpu_torch.tools.convert import quantize_weight
+
+    errs = {}
+    for scheme, mm_type, rtol in SCHEMES_PHASE:
+        errs[scheme] = block_reference_check(scheme, mm_type, rtol=rtol)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    w = (torch.randn((DIM, DIM), generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+    x = torch.randn((S, DIM), generator=g, device="cuda").to(torch.bfloat16)
+    b = torch.randn((DIM,), generator=g, device="cuda") * 0.02
+    ms = {}
+    for scheme, mm_type in (("fp8", FP8),) + tuple((s, m) for s, m, _ in SCHEMES_PHASE):
+        q, sc = quantize_weight(w, scheme)
+        p = {"w": q, "w_scale": sc, "b": b}
+        fn = resolve_mm(mm_type)
+        ms[scheme] = cuda_ms(lambda: fn(p, x), REPS)
+        del q, sc, p
+        torch.cuda.empty_cache()
+    line = {"card": card_line(), "shape": [S, DIM, DIM], "block_max_abs_err": errs, "linear_ms": ms,
+            "row_3f_ms": ms["fp8"], "fp8_block128_route": "torch._scaled_mm a 128-column k-group, fp32 partial "
+                                                          "rescaled and accumulated in place"}
+    print(json.dumps({"quant_schemes": line}), flush=True)
     return line
 
 
@@ -3464,7 +3756,8 @@ def main():
         # same bf16 noise ~3x the int8 block (the block_perturbation lines of
         # the two checks; PERF.md, PR 6)
         block_reference_check("fp8", FP8, rtol=6e-2, perturbation=True)
-        by_path["fp8_distill"] = run_path("fp8_distill", FP8_DISTILL, args.profile, config_json=FP8_JSON)
+        by_path["fp8_distill"] = run_path("fp8_distill", FP8_DISTILL, args.profile, config_json=FP8_JSON,
+                                          steps=FP8_STEPS, forwards=FP8_STEPS)
     if "i2v" in paths:
         block_reference_check("int8", INT8, i2v=True)
         clip_reference_check()
@@ -3514,6 +3807,10 @@ def main():
                                           forwards=DF_ROWS)
     if "audio" in paths:
         by_path["audio"] = run_audio(args.profile)
+    if "quant_schemes" in paths:
+        run_quant_schemes()
+    if "ptq" in paths:
+        by_path["ptq"] = run_ptq(args.profile)
     for r in rows:
         r["launches_by_path"] = {p: c.get(r["name"], 0) for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

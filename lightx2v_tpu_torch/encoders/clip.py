@@ -145,7 +145,8 @@ def quantize_clip_params(params: Params, scheme: str = "int8") -> Params:
     codes (the JAX package's ``quantize_clip_params``): each becomes
     ``{"w", "w_scale"}``."""
     if scheme not in ("int8", "fp8"):
-        raise NotImplementedError(f"CLIP quant scheme {scheme!r} is not ported yet (ROADMAP.md, Queue 1 item 12)")
+        raise ValueError(f"CLIP quant scheme {scheme!r}: the CLIP forward runs per-channel int8 and fp8 codes only, "
+                         f"as the JAX package's does (ROADMAP.md, Queue 3, difference aw)")
     blocks = []
     for blk in params["blocks"]:
         blk = dict(blk)

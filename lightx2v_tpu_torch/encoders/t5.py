@@ -227,7 +227,8 @@ def quantize_t5_params(params: Params, scheme: str = "int8", device=None) -> Par
     quantizing on the way, so params loaded on the host reach the card
     already quantized."""
     if scheme not in ("int8", "fp8"):
-        raise NotImplementedError(f"T5 quant scheme {scheme!r} is not ported yet (ROADMAP.md, Queue 1 item 12)")
+        raise ValueError(f"T5 quant scheme {scheme!r}: the T5 forward runs per-channel int8 and fp8 codes only, "
+                         f"as the JAX package's does (ROADMAP.md, Queue 3, difference aw)")
 
     def to(t):
         return t if device is None else t.to(device)

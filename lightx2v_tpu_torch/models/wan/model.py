@@ -95,6 +95,25 @@ def _modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor, eps: fl
     return modulated_layer_norm(_frames(x, shift), shift, scale, eps=eps).reshape(x.shape)
 
 
+def _smooth_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor, affine: Params,
+                     eps: float) -> torch.Tensor:
+    """An advanced_ptq block's norm: LayerNorm(x) without affine, rounded to
+    x's dtype, then in fp32 LN * ((1 + scale) * w) + shift * b with the
+    checkpoint's smooth-quant affine (w, b), rounded to x's dtype."""
+    xs = layer_norm(_frames(x, shift), eps=eps).float()
+    out = xs * ((1.0 + scale.float()) * affine["w"]) + shift.float() * affine["b"]
+    return out.to(x.dtype).reshape(x.shape)
+
+
+def _norm(block: Params, smooth: str, x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
+          eps: float) -> torch.Tensor:
+    """The modulated LayerNorm, or the smooth-quant affine one where the
+    block carries ``smooth`` (``smooth_norm1`` / ``smooth_norm2``)."""
+    if smooth in block:
+        return _smooth_modulate(x, shift, scale, block[smooth], eps)
+    return _modulate(x, shift, scale, eps)
+
+
 def _gated_add(x: torch.Tensor, y: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
     """x + y * gate in fp32, rounded to x's dtype."""
     return (_frames(x, gate).float() + _frames(y, gate).float() * gate.float()).to(x.dtype).reshape(x.shape)
@@ -105,13 +124,16 @@ def wan_block_parts(block: Params, x: torch.Tensor, embed0: torch.Tensor, contex
                     arch: WanArch, mm_fn, self_attn_fn, cross_attn_fn):
     """One DiT block; also returns the self-attention, cross-attention and
     FFN outputs. With ``context_img`` (i2v) the image cross-attention's
-    output is added to the text one's before the output projection."""
+    output is added to the text one's before the output projection. A block
+    of an advanced_ptq checkpoint (``smooth_norm1`` / ``smooth_norm2``)
+    normalizes the self-attention's and the FFN's inputs with its
+    smooth-quant affine (``_smooth_modulate``)."""
     b, s, d = x.shape
     n, hd = arch.num_heads, arch.head_dim
     shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = _split_modulation(block, embed0)
 
     sa = block["self_attn"]
-    norm1 = _modulate(x, shift_msa, scale_msa, arch.eps)
+    norm1 = _norm(block, "smooth_norm1", x, shift_msa, scale_msa, arch.eps)
     q = rms_norm(mm_fn(sa["q"], norm1), sa["norm_q"], eps=arch.eps).reshape(b, s, n, hd)
     k = rms_norm(mm_fn(sa["k"], norm1), sa["norm_k"], eps=arch.eps).reshape(b, s, n, hd)
     v = mm_fn(sa["v"], norm1).reshape(b, s, n, hd)
@@ -139,7 +161,7 @@ def wan_block_parts(block: Params, x: torch.Tensor, embed0: torch.Tensor, contex
     cross_proj = mm_fn(ca["o"], cross_out)
     x = x + cross_proj
 
-    norm2 = _modulate(x, c_shift, c_scale, arch.eps)
+    norm2 = _norm(block, "smooth_norm2", x, c_shift, c_scale, arch.eps)
     y_ffn = mm_ffn(mm_fn, block["ffn"]["0"], block["ffn"]["2"], norm2)
     x = _gated_add(x, y_ffn, c_gate)
     return x, y_sa, cross_proj, y_ffn

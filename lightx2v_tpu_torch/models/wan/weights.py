@@ -12,12 +12,13 @@ norm scales and modulation tables stay fp32.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from ...tools.convert import _pick_bk
+from ...tools.convert import _pick_bk, quantize_weight
 from ...utils.safetensors_io import as_tensor
 from .config import WanArch
 
@@ -43,8 +44,10 @@ def _is_quantized(w) -> bool:
 
 def _linear(wd: Dict[str, Any], prefix: str, compute_dtype=torch.bfloat16, device="cpu") -> Params:
     """torch Linear -> {"w": (out, in), "b": (out,) fp32 or None} plus
-    "w_scale": (out,) fp32 for int8 or float8_e4m3fn weights, (out, groups)
-    fp32 for int4 weights packed (out, in/2) uint8."""
+    "w_scale": (out,) fp32 for per-channel int8 or float8_e4m3fn weights,
+    the 2-D grid for block-128 (out/128, in/128) and mxfp8 (out, in/32)
+    e4m3 weights, (out, groups) fp32 for packed uint8 weights (int4 (out,
+    in/2), mxfp6 (out, 3 in/4))."""
     w = wd[f"{prefix}.weight"]
     scale_key = f"{prefix}.weight_scale"
     out: Params = {}
@@ -53,7 +56,9 @@ def _linear(wd: Dict[str, Any], prefix: str, compute_dtype=torch.bfloat16, devic
         out["w_scale"] = to_tensor(wd[scale_key], torch.float32, device).contiguous()
     elif _is_quantized(w) or scale_key in wd:
         out["w"] = to_tensor(w, None, device).contiguous()
-        out["w_scale"] = to_tensor(wd[scale_key], torch.float32, device).reshape(-1).contiguous()
+        ws = to_tensor(wd[scale_key], torch.float32, device)
+        # per-channel scales flatten to (out,); block-128 and mx scales keep their 2-D grid
+        out["w_scale"] = (ws.reshape(-1) if ws.numel() == out["w"].shape[0] else ws).contiguous()
     else:
         out["w"] = to_tensor(w, compute_dtype, device).contiguous()
     bkey = f"{prefix}.bias"
@@ -122,6 +127,11 @@ def build_block_params(wd: Dict[str, Any], i: int, arch: WanArch, compute_dtype=
         ca = block["cross_attn"]
         ca["k_img"], ca["v_img"] = lin(f"{p}.cross_attn.k_img"), lin(f"{p}.cross_attn.v_img")
         ca["norm_k_img"] = _f32(wd, f"{p}.cross_attn.norm_k_img.weight", device)
+    # advanced_ptq (smooth-quant) checkpoints: the affine norms the forward applies in place of the
+    # modulated LayerNorm before the self-attention (affine_norm1) and the FFN (affine_norm3)
+    for key, name in (("affine_norm1", "smooth_norm1"), ("affine_norm3", "smooth_norm2")):
+        if f"{p}.{key}.weight" in wd:
+            block[name] = {"w": _f32(wd, f"{p}.{key}.weight", device), "b": _f32(wd, f"{p}.{key}.bias", device)}
     return block
 
 
@@ -154,8 +164,12 @@ def permute_block_qk_half(blk: Params, arch: WanArch) -> Params:
                     else w[perm]).contiguous()
         if lin.get("b") is not None:
             lin["b"] = lin["b"][perm].contiguous()
-        if "w_scale" in lin:
-            lin["w_scale"] = lin["w_scale"][perm].contiguous()
+        ws = lin.get("w_scale")
+        if ws is not None and ws.shape[0] == w.shape[0]:  # per-row scales move with their rows
+            lin["w_scale"] = ws[perm].contiguous()
+        elif ws is not None and 128 % hd:
+            raise ValueError(f"block-128 scales under a permutation within {hd}-row heads")
+        # a block-128 grid stays: each head's rows permute inside one 128-row block
         sa[name] = lin
     sa["norm_q"] = sa["norm_q"][perm].contiguous()
     sa["norm_k"] = sa["norm_k"][perm].contiguous()
@@ -289,20 +303,23 @@ def init_random_params_on_device(arch: WanArch, scheme: str = "int8", seed: int 
                                  scale: float = 0.02, device="cuda", iter_blocks: bool = False) -> Params:
     """Synthesize the params directly on ``device`` from a seeded
     ``torch.Generator`` (host numpy at 14B would be a 56 GB fp32 array).
-    Layout as ``load_wan_params`` (+ ``quantize_model`` for
-    "int8"/"fp8"/"int4"): block linears carry int8 codes plus per-channel
+    Layout as ``load_wan_params`` (+ ``quantize_model`` for the quantized
+    schemes): block linears carry int8 codes plus per-channel
     ``w_scale`` (scale/127, so weights span +-scale), e4m3 codes of
     normal * 100 clipped to +-448 plus ``w_scale`` scale/100 (the JAX
     synthesizer's layout; it does not clip, and its cast turns the tail past
     464 into NaN), or int4 nibbles packed (out, in/2) as uint8 bytes in
     0..255 plus per-(channel, group) ``w_scale`` (scale/7, group from
-    ``_pick_bk``); pre/post weights stay bf16/fp32. An i2v arch adds the
+    ``_pick_bk``); "fp8_block128" and "mxfp8" the fp8 codes with (out/128,
+    in/128) scales scale/100 or (out, in/32) power-of-two scales near it,
+    "mxfp6" random packed e2m3 bytes (out, 3 in/4) with (out, in/32)
+    power-of-two scales near scale/4; pre/post weights stay bf16/fp32. An i2v arch adds the
     image embedding (bf16, like the other pre/post layers) and each block's
     ``k_img`` / ``v_img`` in the block linears' scheme. ``iter_blocks`` as
     in ``load_wan_params`` (the same values: the blocks draw from the
     generator in order either way)."""
-    if scheme not in ("int8", "fp8", "int4", "bf16"):
-        raise NotImplementedError(f"synthetic scheme {scheme!r} is not ported yet")
+    if scheme not in ("int8", "fp8", "int4", "bf16", "fp8_block128", "mxfp8", "mxfp6"):
+        raise ValueError(f"unknown synthetic scheme {scheme!r}")
     dev = torch.device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     d, f_, td, L = arch.dim, arch.ffn_dim, arch.text_dim, arch.num_layers
@@ -321,10 +338,17 @@ def init_random_params_on_device(arch: WanArch, scheme: str = "int8", seed: int 
             return {"w": torch.randint(0, 256, (out, kin // 2), generator=g, device=dev, dtype=torch.uint8),
                     "w_scale": torch.full((out, groups), scale / 7.0, dtype=torch.float32, device=dev),
                     "b": nrm((out,), torch.float32)}
-        if scheme == "fp8":
+        if scheme == "mxfp6":  # random e2m3 codes (|value| <= 7.5), power-of-two scales per 32 columns
+            return {"w": torch.randint(0, 256, (out, 3 * kin // 4), generator=g, device=dev, dtype=torch.uint8),
+                    "w_scale": torch.full((out, kin // 32), 2.0 ** round(math.log2(scale / 4.0)),
+                                          dtype=torch.float32, device=dev),
+                    "b": nrm((out,), torch.float32)}
+        if scheme in ("fp8", "fp8_block128", "mxfp8"):
             w = torch.randn((out, kin), generator=g, device=dev, dtype=torch.float32).mul_(100.0)
+            grid = {"fp8": (out,), "fp8_block128": (-(-out // 128), -(-kin // 128)), "mxfp8": (out, kin // 32)}
+            ws = scale / 100.0 if scheme != "mxfp8" else 2.0 ** round(math.log2(scale / 100.0))
             return {"w": w.clamp_(-448.0, 448.0).to(torch.float8_e4m3fn),
-                    "w_scale": torch.full((out,), scale / 100.0, dtype=torch.float32, device=dev),
+                    "w_scale": torch.full(grid[scheme], ws, dtype=torch.float32, device=dev),
                     "b": nrm((out,), torch.float32)}
         return {"w": torch.randint(-127, 128, (out, kin), generator=g, device=dev, dtype=torch.int8),
                 "w_scale": torch.full((out,), scale / 127.0, dtype=torch.float32, device=dev),
@@ -363,3 +387,57 @@ def init_random_params_on_device(arch: WanArch, scheme: str = "int8", seed: int 
     )
     params["blocks"] = blocks if iter_blocks else list(blocks)
     return params
+
+
+
+def structure_block(blk: Params, seed: int = 1, outlier_sigma: float = 0.8, rank: int = 8,
+                    spike: float = 3.0) -> Params:
+    """Trained-checkpoint-like structure on one synthetic bf16 block, in
+    place of flat gaussian block importance (the transform of the JAX
+    package's ``structure_params_on_device``, block by block, drawn from a
+    ``torch.Generator`` seeded ``seed`` on the block's device):
+
+    * every block linear's output channels get lognormal scales exp(sigma g);
+    * the self-attention's q and k share ``rank`` right-singular spike
+      directions (q += U_q S V^T amp, k += U_k S V^T amp, S = 2^-r, amp =
+      spike * std(q) * sqrt(in)), so the q.k logits carry a dominant
+      low-rank part and Sparge's block importance is not flat.
+
+    Returns a new block dict (bf16 weights)."""
+    dev = blk["modulation"].device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    blk = dict(blk)
+    for mod_name in ("self_attn", "cross_attn", "ffn"):
+        mod = dict(blk[mod_name])
+        for k, v in mod.items():
+            if isinstance(v, dict) and "w" in v:
+                w = v["w"]
+                sc = torch.exp(outlier_sigma * torch.randn(w.shape[0], generator=g, device=dev))
+                mod[k] = dict(v, w=(w.float() * sc[:, None]).to(w.dtype))
+        blk[mod_name] = mod
+    sa = dict(blk["self_attn"])
+    qw, kw = sa["q"]["w"], sa["k"]["w"]
+    d_out, d_in = qw.shape
+    amp = spike * float(qw.float().std()) * math.sqrt(d_in)
+    v_shared = torch.randn((rank, d_in), generator=g, device=dev) / math.sqrt(d_in)
+    s_decay = torch.exp2(-torch.arange(rank, dtype=torch.float32, device=dev))
+    for name, w in (("q", qw), ("k", kw)):
+        u = torch.randn((d_out, rank), generator=g, device=dev) / math.sqrt(d_out)
+        sa[name] = dict(sa[name], w=(w.float() + (u * s_decay) @ v_shared * amp).to(w.dtype))
+    blk["self_attn"] = sa
+    return blk
+
+
+def quantize_block(blk: Params, scheme: str) -> Params:
+    """A bf16 block's linears quantized where they lie
+    (``tools/convert.quantize_weight``, the loader's layout), norms and
+    biases as they are."""
+    out = dict(blk)
+    for mod_name in ("self_attn", "cross_attn", "ffn"):
+        mod = dict(blk[mod_name])
+        for k, v in mod.items():
+            if isinstance(v, dict) and "w" in v:
+                q, sc = quantize_weight(v["w"], scheme)
+                mod[k] = dict(v, w=q, w_scale=sc)
+        out[mod_name] = mod
+    return out

@@ -40,6 +40,14 @@ The weight-only int4 scheme (``W-int4-group-sym-A-bf16-Tpu`` and its aliases)
 runs ``int4_matmul`` at every size, as the JAX package does on its
 accelerator: the same packed weights and 2-D scales, bf16 activations, the
 bias added after the kernel's rounding. Its FFN is GEMM, GELU, GEMM.
+
+The block-scaled fp8 schemes (``W-fp8-block128-*``, ``W-mxfp8-*``) and
+mxfp6 (``W-mxfp6-*``) are XLA in the JAX package and torch ops here, no
+kernel: ``_mm_fp8_block128`` rescales each k-group's partial product by its
+token and channel scales before accumulating it (on the card one
+``torch._scaled_mm`` a group), ``_mm_mxfp6`` dequantizes the packed e2m3
+weights and runs the Default GEMM. ``Calib`` (``ops/calib.py``) records
+activation absmax around the Default GEMM.
 """
 
 from __future__ import annotations
@@ -182,6 +190,123 @@ for _alias in [
     MM_REGISTER.register(_alias, _mm_int4)
 
 
+def quantize_per_token_group_fp8(x: torch.Tensor, group: int = 128):
+    """Dynamic per-(token, k-group) e4m3 quantization (the JAX package's
+    ``quantize_per_token_group_fp8``): q (..., in) e4m3 and scales (...,
+    in / group) fp32, scale = max(absmax, 1e-8) / 448 per group."""
+    g = x.shape[-1] // group
+    xf = x.float().reshape(*x.shape[:-1], g, group)
+    scale = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-8) / 448.0
+    return (xf / scale).to(torch.float8_e4m3fn).reshape(x.shape), scale[..., 0]
+
+
+def _group_scaled_dot(q: torch.Tensor, x_scale: torch.Tensor, w: torch.Tensor, ws: torch.Tensor,
+                      group: int) -> torch.Tensor:
+    """sum over k-groups g of (q_g . w_g) * (x_scale_g * ws_g) in fp32, for
+    q (M, in) and w (out, in) e4m3, x_scale (M, G), ws (out, G). On the CPU,
+    as the JAX scan: fp32 products of the codes, the group's partial times
+    the outer product of its scales, added to the accumulator. On the card
+    each group's partial is one ``torch._scaled_mm`` of the codes with an
+    fp32 result (unit scales, no fast accumulation), scaled in place by the
+    token's and then the channel's scale and added in place: one (M, out)
+    fp32 accumulator and one partial, whatever the number of groups."""
+    m, n, g = q.shape[0], w.shape[0], x_scale.shape[-1]
+    if q.device.type == "cpu":
+        acc = torch.zeros((m, n), dtype=torch.float32, device=q.device)
+        for i in range(g):
+            sl = slice(i * group, (i + 1) * group)
+            part = torch.matmul(q[:, sl].float(), w[:, sl].float().t())
+            acc += part * (x_scale[:, i, None] * ws[None, :, i])
+        return acc
+    # group-major copies: each group's codes contiguous, as cuBLAS's fp8 GEMM wants them; out_features
+    # zero-padded to a multiple of 16, which it also wants
+    pad = (-n) % 16
+    wb = F.pad(w.view(torch.uint8), (0, 0, 0, pad)) if pad else w.view(torch.uint8)
+    qg = q.view(torch.uint8).reshape(m, g, group).transpose(0, 1).contiguous().view(torch.float8_e4m3fn)
+    wg = wb.reshape(n + pad, g, group).transpose(0, 1).contiguous().view(torch.float8_e4m3fn)
+    one = torch.ones((), dtype=torch.float32, device=q.device)
+    xs, wsc = x_scale.t().contiguous(), F.pad(ws, (0, 0, 0, pad)).t().contiguous()
+    acc = torch.zeros((m, n + pad), dtype=torch.float32, device=q.device)
+    for i in range(g):
+        part = torch._scaled_mm(qg[i], wg[i].t(), scale_a=one, scale_b=one, out_dtype=torch.float32,
+                                use_fast_accum=False)
+        acc.add_(part.mul_(xs[i][:, None]).mul_(wsc[i][None, :]))
+    return acc[:, :n]
+
+
+def _mm_fp8_block128(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Block-scaled fp8 (the JAX package's ``_mm_fp8_block128``): weights
+    e4m3 with (out/128, in/128) block scales, activations e4m3 with
+    per-(token, 128-group) scales, each k-group's partial product rescaled
+    before it is accumulated (``_group_scaled_dot``).
+
+    The mx layout (per-(channel, in/32) power-of-two scales, the ``mxfp8``
+    scheme) is told by ``w_scale`` rows == out_features; its activation
+    group follows the weight's. In the block-128 layout the group is 128 by
+    definition: where in_features % 128 != 0 x and w are zero-padded to the
+    block grid. A 1-D (per-channel) scale degrades to the per-channel fp8
+    path (row 3f)."""
+    ws = params["w_scale"]
+    if ws.ndim == 1:
+        return _mm_fp8(params, x)
+    w = params["w"]
+    out_f, in_f = w.shape
+    if ws.shape[0] == out_f:
+        group = in_f // ws.shape[1]
+        ws_full = ws.float()
+    else:
+        group = 128
+        pad = (-in_f) % group
+        if pad:
+            x = F.pad(x, (0, pad))
+            w = F.pad(w.view(torch.uint8), (0, pad)).view(torch.float8_e4m3fn)  # e4m3 0 is byte 0
+            in_f += pad
+        ws_full = torch.repeat_interleave(ws.float(), 128, dim=0)[:out_f]
+    *lead, _ = x.shape
+    q, x_scale = quantize_per_token_group_fp8(x.reshape(-1, in_f), group)
+    acc = _group_scaled_dot(q, x_scale, w, ws_full, group).reshape(*lead, out_f)
+    return _bias_add(acc, params.get("b"), x.dtype)
+
+
+for _alias in [
+    "W-fp8-block128-sym-A-fp8-channel-group128-sym-dynamic-Deepgemm",
+    "W-fp8-block128-sym-A-fp8-channel-group128-sym-dynamic-Deepgemm-ActSgl",
+    "W-fp8-block128-sym-A-fp8-channel-group128-sym-dynamic-Tpu",
+    "W-mxfp8-A-mxfp8-dynamic-Tpu",
+    "W-fp8-block128-A-fp8-block128-dynamic-Tpu",
+]:
+    MM_REGISTER.register(_alias, _mm_fp8_block128)
+
+
+def unpack_fp6_e2m3(packed: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """(rows, 3 n/4) uint8 -> (rows, n) fp32: four 6-bit codes a 3-byte
+    little-endian group, code s|ee|mmm -> (-1)^s (e == 0 ? m/8 : (1 + m/8)
+    2^(e-1))."""
+    rows = packed.shape[0]
+    trip = packed.reshape(rows, -1, 3).to(torch.int32)
+    bits = trip[..., 0] | (trip[..., 1] << 8) | (trip[..., 2] << 16)
+    codes = torch.stack([(bits >> (6 * i)) & 63 for i in range(4)], dim=-1).reshape(rows, n_cols)
+    sign = torch.where(codes & 32 != 0, -1.0, 1.0)
+    e = (codes >> 3) & 3
+    m = (codes & 7).float()
+    mag = torch.where(e == 0, m * 0.125, (1.0 + m * 0.125) * torch.exp2((e - 1).float()))
+    return sign * mag
+
+
+def _mm_mxfp6(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """mxfp6 weights (packed e2m3 codes, per-(channel, in/32) power-of-two
+    scales), dequantized to x's dtype, then the Default GEMM with fp32
+    accumulation: weight-only, as in the JAX package."""
+    w, ws = params["w"], params["w_scale"]
+    out_f, in_f = w.shape[0], x.shape[-1]
+    wf = unpack_fp6_e2m3(w, in_f).reshape(out_f, ws.shape[1], -1) * ws.float()[:, :, None]
+    return _bias_add(nt_dot_f32(x, wf.reshape(out_f, in_f)), params.get("b"), x.dtype)
+
+
+for _alias in ["W-mxfp6-A-mxfp8-dynamic-Tpu", "W-mxfp6-A-bf16-Tpu"]:
+    MM_REGISTER.register(_alias, _mm_mxfp6)
+
+
 def mm_gelu(mm_fn, params: Dict, x: torch.Tensor) -> torch.Tensor:
     """matmul + tanh-GELU (fused into the GEMM epilogue on the int8 and fp8
     paths)."""
@@ -208,9 +333,9 @@ def mm_ffn(mm_fn, p0: Dict, p2: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def resolve_mm(mm_type: str):
-    """Resolve an mm_type string to its apply function. Schemes of the JAX
-    package that this port has not reached yet raise here."""
-    if mm_type not in MM_REGISTER:
-        raise NotImplementedError(
-            f"mm_type {mm_type!r} is not ported yet (ROADMAP.md, Queue 1 item 2: ops/linear.py)")
+    """Resolve an mm_type string to its apply function (every key of the JAX
+    package's table; an unknown one raises ``KeyError``)."""
     return MM_REGISTER[mm_type]
+
+
+from . import calib  # noqa: E402,F401  (registers "Calib")

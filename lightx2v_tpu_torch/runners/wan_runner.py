@@ -63,8 +63,12 @@ JAX runner), ``TINY_VAE_CHUNK`` latent frames at a time, and ignores
 int8 codes (``quantize_vae_decoder_int8``).
 
 Config keys whose feature is not ported raise ``NotImplementedError`` naming
-their ROADMAP.md item rather than run as if absent: ``do_mm_calib`` and
-``mesh_shape``.
+their ROADMAP.md item rather than run as if absent: ``mesh_shape``.
+
+``do_mm_calib`` (mm_type ``Default`` only; a quantized one raises
+``ValueError``, as does the disk tier ``NotImplementedError``) runs one
+calibration forward before the denoise and writes the activation stats
+(``collect_calib_stats``, ``tools/calibrate.py``).
 
 ``feature_caching`` (Tea, Custom, TaylorSeer, TaylorWS, Ada) runs in the
 denoise loop (``models/wan/pipeline.py``), the config passed on as its
@@ -113,6 +117,7 @@ from ..models.wan.weights import (init_random_params_on_device, init_random_weig
 from ..ops.radial import MaskMap
 from ..schedulers.step_distill import WanStepDistillScheduler
 from ..schedulers.unipc import WanUniPCScheduler
+from ..tools.calibrate import collect_block_stats, save_stats
 from ..tools.convert import apply_lora, quantize_model
 from ..utils.image import resize_area, resize_trilinear
 from ..utils.logging_utils import logger
@@ -155,7 +160,17 @@ def _not_ported(what: str, item: str):
 
 
 # mm_type -> the weight scheme its synthetic weights are made in
-_SCHEMES = {"int8": "int8", "fp8": "fp8", "int4": "int4", "nvfp4": "int4"}
+_SCHEMES = {"int8": "int8", "fp8": "fp8", "int4": "int4", "nvfp4": "int4", "mxfp8": "mxfp8", "mxfp6": "mxfp6"}
+
+
+def scheme_of_mm_type(mm_type: str) -> Optional[str]:
+    """The weight scheme of an mm_type (None for a float one)."""
+    parts = mm_type.split("-")
+    if not mm_type.startswith("W-") or len(parts) < 2:
+        return None
+    return "fp8_block128" if parts[2:3] == ["block128"] else _SCHEMES.get(parts[1])
+
+
 OFFLOAD_KEYS = ("cpu_offload", "weight_streaming", "lazy_load")
 # the reference's file names under model_path
 T5_CKPT = "models_t5_umt5-xxl-enc-bf16.pth"
@@ -216,7 +231,13 @@ class WanRunner(DefaultRunner):
         if cfg.get("mesh_shape"):
             raise _not_ported("multi-device runs (mesh_shape)", "Queue 1 item 14")
         if cfg.get("do_mm_calib"):
-            raise _not_ported("do_mm_calib (activation calibration)", "Queue 1 item 12")
+            if (cfg.get("mm_config") or {}).get("mm_type", "Default") != "Default":
+                raise ValueError("do_mm_calib runs the Default GEMM on the checkpoint's weights, which under a "
+                                 "quantized mm_type are codes without their scales: calibrate the float "
+                                 "checkpoint with mm_type Default (ROADMAP.md, Queue 3, difference au)")
+            if cfg.get("lazy_load"):
+                raise NotImplementedError("do_mm_calib with lazy_load: the JAX runner holds no blocks to "
+                                          "calibrate on the disk tier (ROADMAP.md, Queue 3, difference au)")
         if self._offload() and cfg.get("changing_resolution"):
             raise NotImplementedError("changing_resolution under offload: the JAX runner runs it with resident "
                                       "weights, ignoring cpu_offload, weight_streaming and lazy_load (ROADMAP.md, "
@@ -229,8 +250,7 @@ class WanRunner(DefaultRunner):
                 cfg.setdefault(k, v)
         self.arch = arch_from_config(cfg)
         self.mm_type = (cfg.get("mm_config") or {}).get("mm_type", "Default")
-        parts = self.mm_type.split("-")
-        scheme = _SCHEMES.get(parts[1]) if self.mm_type.startswith("W-") and len(parts) > 1 else None
+        scheme = scheme_of_mm_type(self.mm_type)
         ckpt = cfg.get("dit_quantized_ckpt") or cfg.get("model_path")
         if cfg.get("lazy_load"):
             if not ckpt or not is_blocks_layout(ckpt):
@@ -452,10 +472,36 @@ class WanRunner(DefaultRunner):
                 store.close()
 
     def run_dit(self, encoder_out: Dict[str, Any], noises=None, renoise=None):
+        if self.config.get("do_mm_calib"):
+            self.collect_calib_stats(encoder_out)
         if self.config.get("changing_resolution"):
             return self._run_dit_changing_resolution(encoder_out, renoise)
         with self.dit_params() as (params, streamer):
             return self._run_dit(params, streamer, encoder_out, noises)
+
+    def collect_calib_stats(self, encoder_out: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        """``do_mm_calib``: one calibration forward at the first timestep
+        (the scheduler's first latents and timestep, every linear the
+        Default GEMM, self- and cross-attention ``self_attn_1_type``), the
+        stats written to ``calib_output_path`` (default calib_stats.npz) for
+        ``tools/convert.py --calib_stats``. On the host-RAM tier the blocks
+        stream through as in a step. Returns the stats."""
+        cfg = self.config
+        target_shape = self.set_target_shape()
+        scheduler = self.init_scheduler()
+        state = self._prepare(scheduler, target_shape, self._generators(1)[0], 0)
+        rope_cos, rope_sin, _ = rope_for_shape(self.arch, target_shape, device=self.device)
+        lat, t = scheduler.step_pre(state)
+        teo, ieo = encoder_out["text_encoder_output"], encoder_out.get("image_encoder_output") or {}
+        with self.dit_params() as (params, _):
+            stats = collect_block_stats(params, self.arch, lat[None], t.reshape(1).float(), teo["context"],
+                                        rope_cos, rope_sin, y=ieo.get("vae_encode_out"),
+                                        clip_fea=ieo.get("clip_encoder_out"),
+                                        self_attn_type=cfg.get("self_attn_1_type", "xla"))
+        out_path = cfg.get("calib_output_path", "calib_stats.npz")
+        save_stats(stats, out_path)
+        logger.info(f"calibration stats written to {out_path}")
+        return stats
 
     def _run_dit(self, params, streamer, encoder_out: Dict[str, Any], noises=None):
         target_shape = self.set_target_shape()

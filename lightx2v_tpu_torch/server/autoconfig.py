@@ -48,9 +48,10 @@ def model_matrix() -> List[Dict[str, Any]]:
 
 def available_quant_schemes() -> List[Tuple[str, bool]]:
     """int8 and fp8 W8A8 and the int4 schemes run hand-written kernels;
-    block-128 fp8 is refused by the port (ROADMAP.md, Queue 1 item 2)."""
+    block-128 fp8 runs the group-rescaled fp8 GEMMs in torch ops
+    (``ops/linear._mm_fp8_block128``)."""
     return [("bf16", True), ("int8", True), ("fp8", True),
-            ("fp8_block128", False), ("int4", True)]
+            ("fp8_block128", True), ("int4", True)]
 
 
 def device_info() -> Dict[str, Any]:

@@ -1,11 +1,15 @@
 """Checkpoint converter (counterpart of ``lightx2v_tpu.tools.convert``):
-LoRA folding, per-output-channel int8 or e4m3 quantization and
-nibble-packed int4 with per-(channel, group) scales, written as one file,
-chunks with an index, or one file per block (the disk tier's layout,
+LoRA folding, the smooth-quant fold (``--calib_stats``, advanced_ptq),
+per-output-channel int8 or e4m3 quantization, nibble-packed int4 with
+per-(channel, group) scales, e4m3 with 128 x 128 block scales
+(``fp8_block128``), and the mx formats (``mxfp8``: e4m3, ``mxfp6``: packed
+e2m3, with per-(channel, 32-column) power-of-two scales), written as one
+file, chunks with an index, or one file per block (the disk tier's layout,
 ``models/wan/lazy_offload.py``), with a ``config.json`` naming the mm_type.
 
     python -m lightx2v_tpu_torch.tools.convert --source CKPT_DIR --output OUT_DIR \
-        --quant int8 --layout blocks [--lora path.safetensors[:strength] ...] [--device cpu]
+        --quant int8 --layout blocks [--lora path.safetensors[:strength] ...] \
+        [--calib_stats stats.npz --smooth_alpha 0.5] [--device cpu]
 
 Quantization runs on the device (the card by default; 14B on the host in
 numpy takes minutes), tensor by tensor, each result back where its input
@@ -16,7 +20,9 @@ kernels scale their *activations* by ``absmax * (1/127)``; a weight's scale
 is the division.) An fp8 weight comes out as ``torch.float8_e4m3fn`` codes,
 cast by torch, which rounds to nearest even like ``ml_dtypes``; the two
 casts differ only past 448 (torch saturates, ``ml_dtypes`` gives NaN from
-464 up), where a per-channel scale of absmax / 448 never reaches.
+464 up), where a per-channel scale of absmax / 448 never reaches. The e2m3
+codes of ``mxfp6`` are rounded in torch (``encode_fp6_e2m3``): the card
+machine has no ``ml_dtypes``.
 
 LoRA folds only into float weights: the JAX ``apply_lora`` adds ``b @ a``
 to int8 or e4m3 *codes* without their scale; the port raises there and
@@ -30,7 +36,9 @@ import os
 import re
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..utils.logging_utils import logger
 from ..utils.safetensors_io import as_tensor, load_file, load_sharded, save_file
@@ -41,7 +49,7 @@ _SKIP_QUANT = re.compile(
 
 _BLOCK_RE = re.compile(r"^(blocks|double_blocks|single_blocks)\.(\d+)\.")
 _QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn, torch.uint8)
-SCHEMES = ("int8", "fp8", "int4")
+SCHEMES = ("int8", "fp8", "int4", "fp8_block128", "mxfp8", "mxfp6")
 INT4_GROUP = 512  # largest int4 quant group along in-features
 
 
@@ -68,15 +76,77 @@ def quantize_int4_weight(w: torch.Tensor, bk: Optional[int] = None) -> Tuple[tor
     return (lo | (hi << 4)).reshape(out, kin // 2), scale
 
 
+def quantize_fp8_block128(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """128 x 128 block scales: w (out, in) zero-padded to the block grid,
+    amax = max(block absmax, 1e-4), e4m3 codes of w * (448 / amax) cut back
+    to (out, in), scales amax / 448 of shape (ceil(out/128), ceil(in/128))."""
+    o, i = w.shape
+    po, pi = (-o) % 128, (-i) % 128
+    blocks = F.pad(w.float(), (0, pi, 0, po)).reshape((o + po) // 128, 128, (i + pi) // 128, 128)
+    amax = blocks.abs().amax(dim=(1, 3), keepdim=True).clamp_min(1e-4)
+    # a tensor numerator: torch computes scalar / tensor as scalar * (1 / tensor), rounding twice
+    q = (blocks * (amax.new_tensor(448.0) / amax)).to(torch.float8_e4m3fn).reshape(o + po, i + pi)[:o, :i]
+    return q.contiguous(), (amax[:, 0, :, 0] / 448.0).contiguous()
+
+
+def encode_fp6_e2m3(x: torch.Tensor) -> torch.Tensor:
+    """fp32 values in [-7.5, 7.5] -> uint8 e2m3 codes s|ee|mmm, rounded to
+    nearest with ties to the even code (``ml_dtypes.float6_e2m3fn``'s cast,
+    bit for bit). The grid's step is 1/8 below 2 (the subnormals 0..7/8 and
+    1..15/8), 1/4 below 4 and 1/2 up to 7.5; each step's multiples count the
+    codes in order, so rounding |x| / step half to even picks the even code."""
+    a = x.abs()
+    step = torch.where(a < 2.0, 0.125, torch.where(a < 4.0, 0.25, 0.5))
+    v = torch.round(a / step) * step
+    e = (v >= 1.0).to(torch.int32) + (v >= 2.0).to(torch.int32) + (v >= 4.0).to(torch.int32)
+    m = torch.where(e == 0, v * 8.0, (v / torch.exp2((e - 1).float()) - 1.0) * 8.0).to(torch.int32)
+    return ((torch.signbit(x).to(torch.int32) << 5) | (e << 3) | m).to(torch.uint8)
+
+
+def pack_fp6(codes: torch.Tensor) -> torch.Tensor:
+    """(rows, n) 6-bit codes -> (rows, 3 n / 4) uint8: four codes c0..c3 as
+    the 24 bits c0 | c1 << 6 | c2 << 12 | c3 << 18, little-endian."""
+    rows, n = codes.shape
+    c = codes.reshape(rows, n // 4, 4).to(torch.int32)
+    bits = c[..., 0] | (c[..., 1] << 6) | (c[..., 2] << 12) | (c[..., 3] << 18)
+    return torch.stack([bits & 255, (bits >> 8) & 255, (bits >> 16) & 255], dim=-1).to(torch.uint8).reshape(
+        rows, 3 * n // 4)
+
+
+def quantize_mx(w: torch.Tensor, scheme: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """mx formats: per-(channel, 32-column block) power-of-two scales, the
+    smallest with block absmax / scale <= fmax (448 for mxfp8, 7.5 for
+    mxfp6): scale = 2^ceil(log2(max(absmax, 1e-12) / fmax)), the log2
+    correctly rounded to fp32 as numpy's is (through fp64: the card's fp32
+    log2 is not). mxfp8: e4m3 codes (out, in); mxfp6: e2m3 codes packed
+    (out, 3 in / 4). in_features must be a multiple of 32."""
+    o, i = w.shape
+    if i % 32:
+        raise ValueError(f"mx formats need in_features % 32 == 0, got {i}")
+    g = w.float().reshape(o, i // 32, 32)
+    amax = g.abs().amax(dim=2).clamp_min(1e-12)
+    fmax = 448.0 if scheme == "mxfp8" else 7.5
+    scale = torch.exp2(torch.ceil(torch.log2((amax / fmax).double()).float()))
+    el = torch.clamp(g / scale[:, :, None], -fmax, fmax)
+    if scheme == "mxfp8":
+        return el.to(torch.float8_e4m3fn).reshape(o, i), scale
+    return pack_fp6(encode_fp6_e2m3(el).reshape(o, i)), scale
+
+
 def quantize_weight(w: torch.Tensor, scheme: str = "int8") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-output-channel symmetric quantization of w (out, in), on its
-    device. int8: scale = max(absmax, 1e-8) / 127, codes clip(round(w /
-    scale)). fp8: scale = max(absmax, 1e-8) / 448, float8_e4m3fn codes of w /
-    scale. int4: ``quantize_int4_weight``. Scales are fp32."""
+    """Quantization of w (out, in), on its device. int8: per output channel,
+    scale = max(absmax, 1e-8) / 127, codes clip(round(w / scale)). fp8: scale
+    = max(absmax, 1e-8) / 448, float8_e4m3fn codes of w / scale. int4:
+    ``quantize_int4_weight``; fp8_block128: ``quantize_fp8_block128``; mxfp8,
+    mxfp6: ``quantize_mx``. Scales are fp32."""
     if scheme == "int4":
         return quantize_int4_weight(w)
+    if scheme == "fp8_block128":
+        return quantize_fp8_block128(w)
+    if scheme in ("mxfp8", "mxfp6"):
+        return quantize_mx(w, scheme)
     if scheme not in ("int8", "fp8"):
-        raise NotImplementedError(f"quant scheme {scheme!r} is not ported yet (ROADMAP.md, Queue 1 item 12)")
+        raise ValueError(f"unknown quant scheme {scheme!r}")
     wf = w.float()
     absmax = wf.abs().amax(dim=1)
     if scheme == "fp8":
@@ -149,18 +219,62 @@ def apply_lora(weights: Dict[str, Any], lora: Dict[str, Any], strength: float = 
     return applied
 
 
+SMOOTH_SITES = (("self_attn.q", ("self_attn.q", "self_attn.k", "self_attn.v"), "affine_norm1"),
+                ("ffn.0", ("ffn.0",), "affine_norm3"))
+
+
+def apply_smooth_quant(weights: Dict[str, Any], stats: Dict[str, Any], alpha: float = 0.5, device=None) -> int:
+    """Fold SmoothQuant factors into float weights in place and return the
+    number of sites folded. At each block's two smoothable sites (the
+    self-attention's input: q, k, v; the FFN's: ffn.0), with the site's
+    activation absmax from ``stats`` (``tools/calibrate.py``) and the
+    column absmax over its weights, s = ``smooth_factors``: the weights'
+    columns are multiplied by s (fp32 results) and ``affine_norm1`` /
+    ``affine_norm3`` (weight and bias) become 1 / s, which the forward
+    applies on the normalized activations (``models/wan/model.py``), so the
+    fold is transparent before quantization. Runs on ``device`` (default:
+    where each weight lies); each result goes back where its weight lay."""
+    from .calibrate import smooth_factors
+
+    block_ids = sorted({int(k.split(".")[1]) for k in weights if k.startswith("blocks.")})
+    n_smoothed = 0
+    for i in block_ids:
+        for site, mods, affine in SMOOTH_SITES:
+            act = stats.get(f"blocks.{i}.{site}")
+            if act is None:
+                continue
+            ws = [as_tensor(weights[f"blocks.{i}.{m}.weight"]) for m in mods]
+            dev = device if device is not None else ws[0].device
+            wmax = None
+            for w in ws:
+                wm = w.to(dev, torch.float32).abs().amax(dim=0)
+                wmax = wm if wmax is None else torch.maximum(wmax, wm)
+            # the factors are one vector a site: numpy's power on the host, as the JAX converter computes them
+            s = smooth_factors(wmax.cpu().numpy(), np.asarray(as_tensor(act).float().cpu().numpy()), alpha)
+            st = torch.from_numpy(s).to(dev)
+            for m, w in zip(mods, ws):
+                weights[f"blocks.{i}.{m}.weight"] = (w.to(dev, torch.float32) * st[None, :]).to(w.device)
+            inv = torch.from_numpy((1.0 / s).astype(np.float32)).to(ws[0].device)
+            weights[f"blocks.{i}.{affine}.weight"] = inv
+            weights[f"blocks.{i}.{affine}.bias"] = inv.clone()
+            n_smoothed += 1
+    logger.info(f"smooth-quant folded at {n_smoothed} sites (alpha={alpha})")
+    return n_smoothed
+
+
 def _nbytes(v) -> int:
     t = as_tensor(v)
     return t.numel() * t.element_size()
 
 
 def save_quantized(weights: Dict[str, Any], out_dir: str, layout: str = "single", scheme: Optional[str] = None,
-                   chunk_gb: float = 4.0) -> None:
+                   chunk_gb: float = 4.0, advanced_ptq: bool = False) -> None:
     """Write ``weights`` to ``out_dir`` as ``model.safetensors``
     (``single``), ``model-NNNNN.safetensors`` files of about ``chunk_gb``
     with ``model.safetensors.index.json`` (``chunked``), or one
     ``block_{i}.safetensors`` per block plus ``non_block.safetensors``
-    (``blocks``); and ``config.json`` with the scheme's mm_type."""
+    (``blocks``); and ``config.json`` with the scheme's mm_type (and
+    ``quant_method: advanced_ptq`` for a smooth-quant fold)."""
     os.makedirs(out_dir, exist_ok=True)
     if layout == "single":
         save_file(weights, os.path.join(out_dir, "model.safetensors"))
@@ -193,8 +307,11 @@ def save_quantized(weights: Dict[str, Any], out_dir: str, layout: str = "single"
         save_file(non_block, os.path.join(out_dir, "non_block.safetensors"))
     else:
         raise ValueError(f"unknown layout {layout}")
+    cfg: Dict[str, Any] = {"mm_type": mm_type_for_scheme(scheme)}
+    if advanced_ptq:
+        cfg["quant_method"] = "advanced_ptq"
     with open(os.path.join(out_dir, "config.json"), "w") as f:
-        json.dump({"mm_type": mm_type_for_scheme(scheme)}, f, indent=2)
+        json.dump(cfg, f, indent=2)
 
 
 def mm_type_for_scheme(scheme: Optional[str]) -> str:
@@ -204,6 +321,12 @@ def mm_type_for_scheme(scheme: Optional[str]) -> str:
         return "Default"
     if scheme == "int4":
         return "W-int4-group-sym-A-bf16-Tpu"
+    if scheme == "fp8_block128":
+        return "W-fp8-block128-sym-A-fp8-channel-group128-sym-dynamic-Tpu"
+    if scheme == "mxfp8":
+        return "W-mxfp8-A-mxfp8-dynamic-Tpu"
+    if scheme == "mxfp6":
+        return "W-mxfp6-A-mxfp8-dynamic-Tpu"
     return f"W-{scheme}-channel-sym-A-{scheme}-channel-sym-dynamic-Tpu"
 
 
@@ -213,24 +336,29 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="fold LoRAs into, quantize and re-lay a checkpoint")
     p.add_argument("--source", required=True, help="source checkpoint dir (safetensors)")
     p.add_argument("--output", required=True)
-    p.add_argument("--quant", choices=["int8", "fp8", "int4", "none", "fp8_block128", "mxfp8", "mxfp6"],
-                   default="int8")
+    p.add_argument("--quant", choices=list(SCHEMES) + ["none"], default="int8")
+    p.add_argument("--calib_stats", default=None,
+                   help="activation-stats .npz from tools/calibrate.py; folds smooth-quant factors into the "
+                        "weights and writes affine_norm tensors (advanced_ptq)")
+    p.add_argument("--smooth_alpha", type=float, default=0.5)
     p.add_argument("--layout", choices=["single", "chunked", "blocks"], default="single")
     p.add_argument("--lora", action="append", default=[], help="path[:strength]")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where LoRAs fold and weights quantize (default cuda; cuda without a GPU raises)")
     args = p.parse_args(argv)
-    if args.quant not in SCHEMES + ("none",):
-        raise NotImplementedError(f"quant scheme {args.quant!r} is not ported yet (ROADMAP.md, Queue 1 item 12)")
     device = resolve_device(args.device)
     weights = load_sharded(args.source)
     for spec in args.lora:
         path, _, s = spec.partition(":")
         apply_lora(weights, load_file(path), float(s or 1.0), device=device)
+    if args.calib_stats:
+        from .calibrate import load_stats
+
+        apply_smooth_quant(weights, load_stats(args.calib_stats), args.smooth_alpha, device=device)
     scheme = None if args.quant == "none" else args.quant
     if scheme:
         weights = quantize_model(weights, scheme, device=device)
-    save_quantized(weights, args.output, args.layout, scheme)
+    save_quantized(weights, args.output, args.layout, scheme, advanced_ptq=bool(args.calib_stats))
     logger.info(f"saved to {args.output}")
 
 

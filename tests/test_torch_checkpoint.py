@@ -275,7 +275,7 @@ def test_converter_layouts_cross_read(tmp_path, int8_dicts, layout):
 
 def test_converter_cli_on_cpu(tmp_path):
     """``python -m lightx2v_tpu_torch.tools.convert``: a LoRA folded, int8,
-    the blocks layout; schemes not ported yet raise."""
+    the blocks layout; an mx scheme writes its codes, scales and mm_type."""
     arch = tcfg.WanArch(**dict(TINY, num_layers=1))
     wd = tweights.init_random_weight_dict(arch, seed=0)
     (tmp_path / "src").mkdir()
@@ -290,9 +290,12 @@ def test_converter_cli_on_cpu(tmp_path):
     w = torch.from_numpy(wd["blocks.0.ffn.0.weight"]).to(torch.bfloat16).float() + 2 * 2 * 0.01 * 0.01
     q, s = tconv.quantize_weight(w.to(torch.bfloat16), "int8")
     assert torch.equal(blk["blocks.0.ffn.0.weight"], q) and torch.equal(blk["blocks.0.ffn.0.weight_scale"], s)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tconv.main(["--source", str(tmp_path / "src"), "--output", str(tmp_path / "o2"), "--quant", "mxfp8",
-                    "--device", "cpu"])
+    tconv.main(["--source", str(tmp_path / "src"), "--output", str(tmp_path / "o2"), "--quant", "mxfp8",
+                "--device", "cpu"])
+    mx = tst.load_file(str(tmp_path / "o2" / "model.safetensors"))
+    assert mx["blocks.0.ffn.0.weight"].dtype == torch.float8_e4m3fn
+    assert mx["blocks.0.ffn.0.weight_scale"].shape == (512, 8)
+    assert json.loads((tmp_path / "o2" / "config.json").read_text()) == {"mm_type": "W-mxfp8-A-mxfp8-dynamic-Tpu"}
 
 
 @pytest.mark.parametrize("scheme", ["int8", "fp8", "int4"])

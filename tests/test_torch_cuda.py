@@ -1012,3 +1012,31 @@ def test_streamed_caching_on_card(dev, mode):
             assert st["h2d_bytes"] == (nbytes if c else 0) and (c or st["cache_h2d_bytes"] > 0), (calc, st)
     assert torch.isfinite(lats["cuda"]).all()
     assert float((lats["cuda"] - lats["cpu"]).norm() / lats["cpu"].norm()) < 2e-2
+
+
+@pytest.mark.parametrize("mm_type,scheme,m,o,i", [
+    ("W-fp8-block128-sym-A-fp8-channel-group128-sym-dynamic-Tpu", "fp8_block128", 300, 384, 256),
+    ("W-fp8-block128-sym-A-fp8-channel-group128-sym-dynamic-Tpu", "fp8_block128", 77, 200, 200),
+    ("W-mxfp8-A-mxfp8-dynamic-Tpu", "mxfp8", 129, 160, 320),
+    ("W-mxfp6-A-mxfp8-dynamic-Tpu", "mxfp6", 64, 96, 320),
+])
+def test_block_scaled_linears_vs_cpu(dev, mm_type, scheme, m, o, i):
+    """The block-128 fp8 linear (a ``torch._scaled_mm`` a k-group on the
+    card, fp32 partials rescaled in place; zero-padded at in = 200), the mx
+    fp8 one (groups of 32) and the mxfp6 one (dequantized, the Default GEMM)
+    against the same function on the CPU: the same codes and scales and exact
+    products, but Hopper's fp8 tensor cores sum a k-group's products in
+    partial sums narrower than fp32 (cuBLAS promotes between groups, as row
+    3f's kernel promotes every 256 of K), which the bf16 output shows as up
+    to two ulps at its max: 2e-2 of the max plus 1e-3."""
+    from lightx2v_tpu_torch.ops.linear import resolve_mm
+    from lightx2v_tpu_torch.tools.convert import quantize_weight
+
+    g = torch.Generator(device="cpu").manual_seed(m + o + i)
+    w = torch.randn((o, i), generator=g) * 0.02 * torch.exp(torch.randn((1, i), generator=g))
+    q, s = quantize_weight(w, scheme)
+    p = {"w": q, "w_scale": s, "b": torch.randn((o,), generator=g) * 0.1}
+    x = (torch.randn((2, m, i), generator=g) * torch.exp(torch.randn((i,), generator=g))).to(torch.bfloat16)
+    ref = resolve_mm(mm_type)(p, x)
+    out = resolve_mm(mm_type)({k: v.to(dev) for k, v in p.items()}, x.to(dev))
+    _close(out.cpu(), ref, 2e-2, 1e-3)

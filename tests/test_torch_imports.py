@@ -46,7 +46,9 @@ def test_every_module_imports_without_jax():
             "lightx2v_tpu_torch.server.service", "lightx2v_tpu_torch.server.webui",
             "lightx2v_tpu_torch.server.autoconfig", "lightx2v_tpu_torch.server.subservices",
             "lightx2v_tpu_torch.utils.prompt_enhancer", "lightx2v_tpu_torch.utils.async_io",
-            "lightx2v_tpu_torch.api_server", "lightx2v_tpu_torch.api_multi_servers"} <= set(mods)
+            "lightx2v_tpu_torch.api_server", "lightx2v_tpu_torch.api_multi_servers",
+            "lightx2v_tpu_torch.ops.calib", "lightx2v_tpu_torch.tools.calibrate", "lightx2v_tpu_torch.tools.psnr",
+            "lightx2v_tpu_torch.tools.validate_ckpt", "lightx2v_tpu_torch.tools.tune_sparge"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -88,6 +90,24 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("tool,argv", [
+    ("calibrate", ["--output", "stats.npz"]),
+    ("tune_sparge", ["--structured", "--preset", "tiny"]),
+    ("validate_ckpt", ["--model_cls", "wan2.1", "--ckpt", "ckpt"]),
+])
+def test_tools_run_on_the_card_by_default(monkeypatch, tmp_path, tool, argv):
+    """The offline tools' ``--device`` defaults to cuda: without a GPU they
+    raise before reading or writing anything."""
+    import importlib
+
+    mod = importlib.import_module(f"lightx2v_tpu_torch.tools.{tool}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mod.main(argv)
+    assert not any(tmp_path.iterdir())
 
 
 def test_cli_flags():

@@ -190,8 +190,8 @@ def test_mm_int8_large_dims_use_fullk_contract():
 def test_mm_int8_kblocked_not_ported_raises():
     """K = 8320 (> 8192, not a multiple of 1024) now takes the k-blocked
     w8a8_matmul with 128-wide k-blocks; the fp8 block-scaled scheme
-    (fp8_block128, an XLA scan in the JAX package) is still not ported and
-    raises."""
+    (fp8_block128, an XLA scan in the JAX package) resolves to its own
+    function (``test_torch_quant_schemes.py``)."""
     from lightx2v_tpu_torch.ops.cuda.w8a8_matmul import pick_kblock, w8a8_matmul_plain
 
     rng = np.random.default_rng(11)
@@ -201,8 +201,7 @@ def test_mm_int8_kblocked_not_ported_raises():
     out = tlin.resolve_mm("W-int8-channel-sym-A-int8-channel-sym-dynamic-Tpu")(p, x)
     assert pick_kblock(8320) == 128
     torch.testing.assert_close(out, w8a8_matmul_plain(x, w, p["w_scale"]), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
-        tlin.resolve_mm("W-fp8-block128-sym-A-fp8-channel-group128-sym-dynamic-Tpu")
+    assert tlin.resolve_mm("W-fp8-block128-sym-A-fp8-channel-group128-sym-dynamic-Tpu") is tlin._mm_fp8_block128
 
 
 def test_mm_ffn_dispatch():
@@ -314,18 +313,21 @@ def test_mm_fp8_ffn_dispatch():
 
 
 def test_unported_mm_type_raises():
-    """The mxfp6 scheme is not ported; both int4 schemes (weight-only with
-    bf16 activations, and int4 x int8) are, as different functions."""
-    with pytest.raises(NotImplementedError):
-        tlin.resolve_mm("W-mxfp6-A-bf16-Tpu")
+    """An mm_type outside the JAX table raises; both int4 schemes (weight-only
+    with bf16 activations, and int4 x int8) resolve, as different functions,
+    and so does mxfp6."""
+    with pytest.raises(KeyError):
+        tlin.resolve_mm("W-int2-group-sym-A-bf16-Tpu")
+    assert tlin.resolve_mm("W-mxfp6-A-bf16-Tpu") is tlin._mm_mxfp6
     assert tlin.resolve_mm("W-int4-group-sym-A-int8-token-dynamic-Tpu") is not None
     assert tlin.resolve_mm("W-int4-group-sym-A-bf16-Tpu") not in (
         None, tlin.resolve_mm("W-int4-group-sym-A-int8-token-dynamic-Tpu"))
 
 
 def test_attention_dispatch_plain_and_rope():
-    """The xla/torch_sdpa names: plain softmax attention; rope kwargs on a
-    non-flash type apply the half-split rotation first. bar: fp32 logits,
+    """The xla/torch_sdpa names: plain softmax attention (and xla_chunked, its
+    online-softmax form); rope kwargs on a non-flash type apply the
+    half-split rotation first; an unknown name raises. bar: fp32 logits,
     bf16 probabilities on both sides."""
     rng = np.random.default_rng(10)
     q, k, v = (rng.standard_normal((1, 40, 2, 128)).astype(np.float32) for _ in range(3))
@@ -338,8 +340,10 @@ def test_attention_dispatch_plain_and_rope():
     ref = jattn.attention("xla", jq, jk, jv, kv_len=30)
     out = tattn.attention("xla", tq, tk, tv, kv_len=30)
     np.testing.assert_allclose(_f(out), _f(ref), rtol=1e-2, atol=1e-2)
-    with pytest.raises(NotImplementedError):
-        tattn.attention("xla_chunked", tq, tk, tv)
+    np.testing.assert_allclose(_f(tattn.attention("xla_chunked", tq, tk, tv, kv_len=30)), _f(ref), rtol=1e-2,
+                               atol=1e-2)
+    with pytest.raises(KeyError):
+        tattn.attention("flash_attn9", tq, tk, tv)
     # sage and radial dispatch (radial without a mask map is dense flash)
     for name in ("radial_attn", "sage_attn2"):
         out = tattn.attention(name, tq, tk, tv)
