@@ -18,6 +18,7 @@
     python3 chip_smoke.py --kernel w8a8_matmul_fullk --path hunyuan_quant --path cogvideox_quant   # quantized DiTs
     python3 chip_smoke.py --kernel flash_attention --path hunyuan_i2v_tea --path vae_encoders   # i2v Tea, encoders
     python3 chip_smoke.py --kernel rope_rotate --path quant_schemes --path ptq   # the PTQ loop and the schemes
+    python3 chip_smoke.py --kernel flash_attention --path dist   # dist_ranks, then the config under torchrun
 
 1. Prints the card's name and power limit, builds every CUDA kernel of the
    port from ``lightx2v_tpu_torch/csrc`` (one nvcc per source, in parallel)
@@ -31,7 +32,9 @@
    plain versions on the CPU; then the port's ``WanDistillRunner`` on
    ``configs/deploy/wan_t2v.json`` with synthetic weights made on the card
    (14B int8 DiT, 40 blocks; bf16 UMT5-XXL; full Wan VAE): T5 encode ->
-   4-step distill denoise -> tiled VAE decode of 81x480x832.
+   distill denoise, cut to the first 2 of its 4 steps (``SLICE_STEPS``, the
+   time limit's cut since the dist path; flagship and offload_stream_fp8
+   too) -> tiled VAE decode of 81x480x832.
    Serve (``serve``, after slice 1 and on its runner; ``--path serve``
    runs slice 1 first): ``server/service.py`` and ``server/api.py`` on
    127.0.0.1, driven with ``urllib``: request 1 (slice 1's prompt and seed)
@@ -56,11 +59,12 @@
    port's ``WanRunner`` (``wan2.1``) on ``configs/bench/lightx2v_1.json`` at
    the 14B widths with ``W-int4-group-sym-A-bf16-Tpu`` linears: bf16
    UMT5-XXL on the prompt and the negative prompt -> UniPC with
-   classifier-free guidance as one forward at batch 2, cut to a 2-step
+   classifier-free guidance as one forward at batch 2, cut to a 1-step
    schedule (the file's 40 would take minutes; the time limit's cut, from 3
-   steps, which ran both corrector orders) -> untiled decode.
+   steps, which ran both corrector orders, then 2, then 1 since the dist
+   path) -> untiled decode.
 6. Radial: the slice-1 config with ``radial_attn`` self-attention and a
-   2-entry step list, once in the block-sparse execution (128 x 128 blocks)
+   1-entry step list (2 until the dist path's cuts), once in the block-sparse execution (128 x 128 blocks)
    and once in ``two_pass`` (query tiles of min(sparse_block_q, 256) rows,
    so ``sparse_block_q`` 256 gives the plan's 195-row tiles).
 7. fp8 distill (slice 4): one full-width fp8 block the same way; then the
@@ -77,8 +81,8 @@
    widths, int8 DiT, fused-RoPE flash) with a seeded 480 x 832 PNG: bf16
    UMT5-XXL -> area resize (the identity at this size) -> CLIP tower on the
    card (bicubic 224 x 224) -> VAE encode of [image, 80 zero frames] ->
-   4-step distill denoise with the image cross-attention -> tiled decode.
-   Its line gives the encode's parts (T5, CLIP, VAE encode) and the stage
+   distill denoise with the image cross-attention, cut to its first 2 of 4
+   steps (the dist path's cut) -> tiled decode. Its line gives the encode's parts (T5, CLIP, VAE encode) and the stage
    that set the peak device memory.
 9. CogVideoX (slice 6): one full-width CogVideoX1.5-5B block (48 heads of
    64, dim 3072) on a small input the same way; the full CogVideoX VAE's
@@ -164,8 +168,8 @@
 16. The low-memory tier (``offload_lazy_t2v_tiny``,
    ``offload_lazy_t2v_cfg_tiny``): ``configs/bench/lightx2v_6_distill.json``
    as it is (int8, ``lazy_load`` with 2 disk workers and a 4 GB pool, RoPE
-   in torch, 4 distill steps, the tiny VAE) and ``lightx2v_6.json`` (UniPC,
-   CFG at batch 2; cut to 2 of its 40 steps), from files the script writes
+   in torch, 2 of its 4 distill steps since the dist path, the tiny VAE) and ``lightx2v_6.json`` (UniPC,
+   CFG at batch 2; cut to 1 of its 40 steps, 2 until the dist path's cuts), from files the script writes
    beside the lazy i2v path's (the t2v int8 DiT in the blocks layout, the
    bf16 UMT5-XXL ``.pth``, shared, and a ``taew2_1.pth`` read through the
    tiny VAE's converter). The distill path holds its step-0 prediction bit
@@ -176,11 +180,12 @@
    int8 decoder against the float one (times, SNR > 15 dB).
 17. CausVid (``causvid``): ``configs/wan_t2v_causvid.json`` at the 14B
    widths (bf16 ``Default`` linears) with ``sample_shift`` 5, which the
-   file does not name, cut to 2 of its 3 fragments and to every other entry
-   of its 9-step distill list: 3 AR blocks of 7 latent frames (10,920
-   tokens) a fragment against a 21-frame (32,760-slot, 26.8 GB) bf16 KV
-   cache, 5 distill steps a block, the second fragment's first block
-   re-anchored: 25 block forwards and 1 re-anchor; the decode of 35 latent
+   file does not name, cut to 2 of its 3 fragments and to the first entry
+   of its 9-step distill list (every other one until the dist path's cuts):
+   3 AR blocks of 7 latent frames (10,920 tokens) a fragment against a
+   21-frame (32,760-slot, 26.8 GB) bf16 KV cache, 1 distill step a block,
+   the second fragment's first block re-anchored: 5 block forwards and 1
+   re-anchor; the decode of 35 latent
    frames (137 x 480 x 832). Its line adds each AR block's and re-anchor's seconds, the
    cache's GB, and the device memory in use when the denoise starts (the T5
    released).
@@ -207,8 +212,8 @@
    the JAX runner it encodes no image.
 21. The quantized HunyuanVideo DiT (``hunyuan_quant``, ``run_hunyuan_quant``)
    at bench.py's ``run_hunyuan`` shape, after one full-width int8 double +
-   single block on the card against the CPU: int8 end to end (2 Euler
-   steps, the tiled decode), fp8, weight-only int4 (row 11) and int4 x int8
+   single block on the card against the CPU: int8 end to end (1 Euler
+   step since the dist path, 2 before; the tiled decode), fp8, weight-only int4 (row 11) and int4 x int8
    (row 8) one forward each, each scheme's weights made and released in
    turn, each with exact launch counts.
 22. The quantized CogVideoX1.5-5B DiT (``cogvideox_quant``): one CFG forward
@@ -230,7 +235,7 @@
    400 stats, launches of rows 1 / 1r / 2 counted exactly); block 0 folded
    against unfolded in bf16 (the fold-transparency gate); int8 of the
    unsmoothed dict, then the fold and int8 block by block; the config as
-   it is (int8) on the smoothed dict, cut to 2 of its 4 distill steps and
+   it is (int8) on the smoothed dict, cut to 1 of its 4 distill steps and
    the tiled decode, exact launch counts, with the PSNR of its step-0
    prediction against the unsmoothed int8 one printed (no bar: synthetic
    weights); then ``tools/tune_sparge``'s CLI (``--structured --preset
@@ -240,6 +245,21 @@
    directory goes, ``tools/validate_ckpt`` on it (two-sided key coverage,
    a 32-token forward on the card under its ``config.json``'s mm_type) and
    on the Wan VAE ``.pth``.
+27. Multi-GPU (``dist``, ``run_dist``): ``configs/dist_infer/
+   wan_t2v_dist_ulysses.json`` (Ulysses over {"dp": 2, "sp": 4}, parallel
+   VAE) at the 14B widths through the user's launcher, ``python -m
+   torch.distributed.run --standalone --nproc_per_node 1 -m
+   lightx2v_tpu_torch.infer``: one rank on NCCL (the card machine has one
+   H100; NCCL refuses two ranks on one device), so the mesh is cut to {"dp":
+   1, "sp": 1}, and the schedule to the first of its 50 UniPC steps (CFG at
+   batch 2; the time limit's cut). Its latents must equal, bit for bit, those
+   of the single-device runner on the same config without ``mesh_shape``,
+   run through ``python -m lightx2v_tpu_torch.infer`` after it; only rank 0
+   writes the video. Its line gives the rank, world and backend the process
+   saw, its stage seconds and peak memory. The arithmetic across ranks is
+   held on the CPU (``tests/test_torch_parallel*.py``, gloo). Before it, in
+   the kernel phases, ``dist_ranks``: one rank's kernel work of the file's
+   own sp = 4 layout at full width (``kernel_phase_dist_ranks``).
 
 The kernel phases also hold and time the fused-RoPE flash kernel at
 changing resolution's phase A, (2, 18,018, 40, 128) with a 98-row last
@@ -342,13 +362,13 @@ BENCH_LAT = (16, 21, 60, 104)
 HY_Q_IMG, HY_Q_TXT = 21 * 30 * 52, 256
 COG_Q_S = 11 * 30 * 52 + 226
 HY_SCHEMES = (("int8", INT8), ("fp8", FP8), ("int4", INT4W), ("int4a8", INT4A8))
-HY_Q_STEPS = 2  # int8's Euler steps (a 2-step schedule, shift 7) before the tiled decode
+HY_Q_STEPS = 1  # int8's Euler steps (a 1-step schedule, shift 7; 2 until the dist path's cuts) before the tiled decode
 # the VAE encoders' clip: 17 frames of 480 x 832 -> 5 x 60 x 104 latents; the corner held against the CPU
 ENC_FRAMES, ENC_CORNER = 17, (5, 64, 64)
 # CausVid (configs/wan_t2v_causvid.json): AR blocks of 7 latent frames of 1560 tokens, a window of 21 frames
 CV_JSON = "configs/wan_t2v_causvid.json"
 CV_FRAGMENTS = 2  # of the file's 3: 5 AR blocks and one re-anchor (the time limit's cut)
-CV_STEP_STRIDE = 2  # every other entry of the file's 9-step denoising list: 5 steps a block (the same cut)
+CV_STEP_STRIDE = 9  # the first entry of the file's 9-step denoising list: 1 step a block (the same cut)
 CV_BLOCK_TOKENS, CV_WINDOW = 7 * 1560, 21 * 1560
 # SkyReels-V2-DF (configs/wan_skyreels_v2_df.json): 544x960, 97 frames -> 25 latent frames of 34 x 60 tokens
 DF_JSON = "configs/wan_skyreels_v2_df.json"
@@ -370,16 +390,20 @@ FLAGSHIP = dict(mm_config={"mm_type": INT4A8}, sparge=True, sparge_keep_ratio=0.
                 sparse_block_q=2048, sparse_block_k=1024, t5_quantized=True, use_tiling_vae=False)
 WAN14B = dict(dim=DIM, ffn_dim=FFN, num_heads=HEADS, num_layers=40, text_len=TXT)
 NEG = "blurry, low quality, distorted, static frame"
-# the base model: the upstream baseline bench config at the 14B widths, weight-only int4, a 2-step schedule for its 40
-BASE = dict(WAN14B, mm_config={"mm_type": INT4W}, infer_steps=2, negative_prompt=NEG)
-# radial attention on the slice-1 config, two steps, in its two executions
+# the base model: the upstream baseline bench config at the 14B widths, weight-only int4, a 1-step schedule for its 40
+BASE = dict(WAN14B, mm_config={"mm_type": INT4W}, infer_steps=1, negative_prompt=NEG)
+# radial attention on the slice-1 config, one step, in its two executions
 RADIAL_BSR = dict(self_attn_1_type="radial_attn", sparse_block_q=128, sparse_block_k=128,
-                  denoising_step_list=[1000, 500], radial_sparsity_type="bsr")
+                  denoising_step_list=[1000], radial_sparsity_type="bsr")
 RADIAL_TWO_PASS = dict(RADIAL_BSR, sparse_block_q=256, radial_sparsity_type="two_pass")
 # the reference's LightX2V_3-Distill row (fp8 DiT, fused-RoPE flash, its 4 distill steps, tiled decode) at the
 # 14B widths, with the fp8 UMT5-XXL
 FP8_DISTILL = dict(WAN14B, t5_quantized=True, t5_quant_scheme="fp8")
 FP8_STEPS = 2  # of the file's 4 distill steps (the time limit's cut)
+I2V_STEPS = 2  # of configs/deploy/wan_i2v.json's 4 distill steps (the time limit's cut, for the dist path)
+# slice 1, serve (on slice 1's runner), flagship and offload_stream_fp8: the first 2 of their 4 distill steps (the
+# time limit's cut, for the dist path)
+SLICE_STEPS = 2
 TEA_JSON = "configs/bench/lightx2v_4.json"
 CR_JSON = "configs/changing_resolution/wan_t2v.json"
 # Wan2.1-T2V-1.3B (PRESETS["wan2.1_1.3b"]) for the configs/caching files that name no width
@@ -401,9 +425,9 @@ LAZY_JSON = "configs/offload/wan_i2v_disk_lazy_480p.json"
 LAZY_STEPS = 2  # of the file's 40 UniPC steps
 LORA_RANK = 32
 # the low-memory rows of the bench ladder on the disk tier (int8, 2 workers, a 4 GB pool, the tiny VAE), from a
-# t2v blocks checkpoint and a taew2_1-style .pth this script writes; lightx2v_6 cut to 2 of its 40 UniPC steps
-LAZY_T2V = {"offload_lazy_t2v_tiny": ("configs/bench/lightx2v_6_distill.json", "wan2.1_distill", None),
-            "offload_lazy_t2v_cfg_tiny": ("configs/bench/lightx2v_6.json", "wan2.1", 2)}
+# t2v blocks checkpoint and a taew2_1-style .pth this script writes; lightx2v_6 cut to 1 of its 40 UniPC steps
+LAZY_T2V = {"offload_lazy_t2v_tiny": ("configs/bench/lightx2v_6_distill.json", "wan2.1_distill", 2),
+            "offload_lazy_t2v_cfg_tiny": ("configs/bench/lightx2v_6.json", "wan2.1", 1)}
 # lightx2v_4 (Tea 0.2, fp8, CFG at 5) on the host-RAM tier: a window of its host Tea series (one decision for the
 # CFG batch under offload) holding a calc and a skip step
 STREAM_TEA = (TEA_JSON, "tea", 3)
@@ -411,16 +435,25 @@ TINY_CHECK_FRAMES = 2  # latent frames of the lazy t2v path's latents decoded on
 SERVE_PROMPT = "a paper boat drifting down a flooded street at dusk"
 SERVE_WAIT = 300  # seconds: the longest any one wait of the serve path may take
 # the post-training-quantization loop (calibrate, fold, int8, run, tune) on the deploy config at the 14B widths
-PTQ_STEPS = 2  # of the config's 4 distill steps
+PTQ_STEPS = 1  # of the config's 4 distill steps (2 until the dist path's cuts)
 BLOCK128 = "W-fp8-block128-sym-A-fp8-channel-group128-sym-dynamic-Tpu"
 # the schemes phase: (scheme, mm_type, the block gate's bar); e4m3 activations at the fp8 block's bar
 SCHEMES_PHASE = (("fp8_block128", BLOCK128, 6e-2), ("mxfp8", "W-mxfp8-A-mxfp8-dynamic-Tpu", 6e-2),
                  ("mxfp6", "W-mxfp6-A-mxfp8-dynamic-Tpu", 3e-2))
+# multi-GPU (configs/dist_infer/wan_t2v_dist_ulysses.json: mesh {"dp": 2, "sp": 4}, 14B widths, CFG, UniPC): the card
+# machine has one H100, so the path runs the config under torchrun as a world of one NCCL rank with the mesh cut to
+# {"dp": 1, "sp": 1} and the schedule to its first DIST_STEPS of 50 steps; the dist_ranks phase runs one rank's
+# kernel work of the file's own sp = 4 layout at full width
+DIST_JSON = "configs/dist_infer/wan_t2v_dist_ulysses.json"
+DIST_STEPS = 1
+DIST_SP = 4
+DIST_PAD = 190  # ring: pad rows at the tail of the last rank's chunk, masked (kv_len 8,000 of its 8,190 keys)
+DIST_WAIT = 600  # seconds: the longest either of the path's two processes may take
 PATHS = ("slice", "serve", "flagship", "base", "radial_bsr", "radial_two_pass", "fp8_distill", "i2v", "cogvideox",
          "hunyuan", "tea_fp8", "changing_resolution", "taylorseer_1_3b", "taylorws_1_3b", "ada_1_3b", "custom_1_3b",
          "offload_stream_fp8", "offload_lazy_i2v", "offload_stream_tea", "offload_lazy_t2v_tiny",
          "offload_lazy_t2v_cfg_tiny", "causvid", "skyreels_df", "audio", "hunyuan_i2v_tea", "hunyuan_quant",
-         "cogvideox_quant", "vae_encoders", "quant_schemes", "ptq")
+         "cogvideox_quant", "vae_encoders", "quant_schemes", "ptq", "dist")
 
 
 def card_line() -> str:
@@ -1643,6 +1676,192 @@ def kernel_phase_wan_runners(peaks, reps: int, want):
     return out_rows
 
 
+def kernel_phase_dist_ranks(peaks, reps: int, want):
+    """One rank's kernel work in the dist configs' own sp = 4 layout at full
+    width (S = 32,760 tokens, 40 heads of 128, a batch of 1 per dp rank).
+    Ring: rank 0's queries, (1, 8,190, 40, 128), against the four 8,190-key
+    chunks in the ring's order (its own, then 3, 2, 1), each a row-5 partial
+    (flash with LSE); the last chunk masks a pad tail of ``DIST_PAD`` keys
+    whose V is 1e4; the partials merged by ``merge_partials`` and held against
+    row 2 over the whole key set at its kv_len, at row 2's bar. Ulysses: row
+    2 at (1, 32,760, 10, 128), one rank's head slice after the all-to-all,
+    held against its plain version on 2 heads. Each beside its library call
+    (SDPA; for row 5 ``aten._scaled_dot_product_flash_attention`` with its
+    logsumexp). Returns ``other_shapes`` entries."""
+    import torch
+    import torch.nn.functional as F
+
+    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+    from lightx2v_tpu_torch.parallel.ring import merge_partials
+
+    if not (want("flash_attention") or want("flash_attention_with_lse")):
+        return []
+    peak_bf16, _, peak_bw = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    randn = lambda *shape: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+    hs, out_rows, chunk = slice(0, 2), [], S // DIST_SP
+    src = "lightx2v_tpu_torch/csrc/flash_attention.cu"
+
+    # ---- ring: four row-5 partials of rank 0, merged, against row 2 over all keys ----
+    q, k, v = randn(1, chunk, HEADS, HD), randn(1, S, HEADS, HD), randn(1, S, HEADS, HD)
+    kv_len = S - DIST_PAD
+    v[:, kv_len:] = 1e4  # the pad rows: a partial that reads one fails by orders of magnitude
+    order = [(0 - t) % DIST_SP for t in range(DIST_SP)]  # the chunk rank 0 holds after t rotations
+
+    def part(c):
+        lim = chunk - DIST_PAD if c == DIST_SP - 1 else None
+        return fa.flash_attention_with_lse(q, k[:, c * chunk:(c + 1) * chunk], v[:, c * chunk:(c + 1) * chunk],
+                                           kv_len=lim)
+
+    def ring():
+        out, lse = part(order[0])
+        for c in order[1:]:
+            out, lse = merge_partials(out, lse, *part(c))
+        return out
+
+    merged = ring()
+    ref = fa.flash_attention(q, k, v, kv_len=kv_len)
+    torch.cuda.synchronize()
+    # bar: row 2's; each partial is rounded to bf16 before the fp32 merge, then once more
+    err = check_close("ring: 4 merged row-5 partials (pad tail masked) vs row 2 over all keys", merged, ref, 2e-2, 1e-3)
+    last = DIST_SP - 1
+    lo, ll = part(last)
+    plo, pll = fa.flash_attention_with_lse_plain(q[:, :, hs], k[:, last * chunk:, hs], v[:, last * chunk:, hs],
+                                                 kv_len=chunk - DIST_PAD)
+    check_close("ring: the masked partial vs its plain version (out)", lo[:, :, hs], plo, 2e-2, 1e-3)
+    check_close("ring: the masked partial vs its plain version (lse)", ll[:, :, hs], pll, 0.0, 1e-3)
+    del merged, ref, lo, ll, plo, pll
+    kc, vc = k[:, :chunk].contiguous(), v[:, :chunk].contiguous()
+    ms = cuda_ms(lambda: fa.flash_attention_with_lse(q, kc, vc), reps)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_with_lse_plain(q, kc, vc), 1, warmup=0)
+    lib_ms = library(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+        q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2))[:2], reps)
+    ring_ms = cuda_ms(ring, reps)
+    flops = 4.0 * HEADS * chunk * chunk * HD
+    b_ms, b_by = bound(flops, (2 * q.numel() + 2 * kc.numel()) * 2 + q.numel() // HD * 4, peak_bf16, peak_bw)
+    print(f"[dist_ranks ring] partial {ms:.3f} ms ({b_ms / ms:.0%} of its {b_ms:.2f} ms bound); 4 partials + 3 "
+          f"merges {ring_ms:.3f} ms; aten flash with lse {lib_ms} ms", flush=True)
+    out_rows.append(dict(name="flash_attention_with_lse", route="cuda", source=src,
+                         replaces="lightx2v_tpu/ops/pallas/flash_attention.py:432",
+                         shape=f"q,k,v ({1},{chunk},{HEADS},{HD}) bf16 (dist_ranks ring: one partial of rank 0 of "
+                               f"sp {DIST_SP})",
+                         max_abs_err=err, bar="merged vs row 2: 2e-2*max|ref| + 1e-3", ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                         library_call="aten._scaled_dot_product_flash_attention (output and logsumexp)",
+                         ring_step_ms=ring_ms, launches_per_forward=DIST_SP * 40))
+    del q, k, v, kc, vc
+
+    # ---- Ulysses: row 2 on one rank's head slice of the whole sequence ----
+    hu = HEADS // DIST_SP
+    q, k, v = randn(1, S, hu, HD), randn(1, S, hu, HD), randn(1, S, hu, HD)
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs])
+    err = check_close(f"flash_attention dist_ranks Ulysses (1,{S},{hu},{HD})", out[:, :, hs], ref, 2e-2, 1e-3)
+    del out, ref
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), reps)
+    lib_ms = library(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                            v.transpose(1, 2)), reps)
+    flops = 4.0 * hu * S * S * HD
+    b_ms, b_by = bound(flops, 4 * q.numel() * 2, peak_bf16, peak_bw)
+    print(f"[dist_ranks ulysses] {ms:.3f} ms ({b_ms / ms:.0%} of its {b_ms:.2f} ms bound); SDPA {lib_ms} ms",
+          flush=True)
+    out_rows.append(dict(name="flash_attention", route="cuda", source=src,
+                         replaces="lightx2v_tpu/ops/pallas/flash_attention.py:409",
+                         shape=f"q,k,v (1,{S},{hu},{HD}) bf16 (dist_ranks Ulysses: one rank's heads of sp {DIST_SP})",
+                         max_abs_err=err, bar="2e-2*max|ref| + 1e-3 (2 heads)", ms=ms,
+                         plain_ms=None, plain_note="not timed: its logits take 43 GB", bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms, library_call="F.scaled_dot_product_attention",
+                         launches_per_forward=2 * 40))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out_rows
+
+
+def run_dist() -> dict:
+    """``DIST_JSON`` at the 14B widths through the user's launcher and entry
+    point: ``python -m torch.distributed.run --standalone --nproc_per_node 1
+    -m lightx2v_tpu_torch.infer`` with the mesh cut to {"dp": 1, "sp": 1} and
+    the schedule to its first ``DIST_STEPS`` steps (``step_window``), bf16
+    UMT5-XXL on the prompt and the negative prompt, UniPC with CFG at batch 2,
+    the untiled decode (``parallel_vae`` over a mesh of 1 is the plain one),
+    the video written by rank 0. Then, in this process, the single-device
+    runner on the same config without ``mesh_shape``, built from the same
+    command line (``infer.build_parser``), through its encode and denoise.
+    Both run under ``PYTHONHASHSEED=0`` (``main`` re-executes the script
+    under it), so the synthetic tokenizer, which hashes words with Python's
+    ``hash()``, gives both the same ids. Gates: the process exits 0; it saw
+    rank 0 of a world of 1 on NCCL; its launch counts are exact (row 2: self
+    and cross attention, 80 a forward); its latents equal the single-device
+    run's bit for bit; rank 0 wrote the video. Returns the dist run's launch
+    counts."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from lightx2v_tpu_torch import infer
+    from lightx2v_tpu_torch.ops.cuda import launch_counts
+    from lightx2v_tpu_torch.utils.config import set_config
+
+    src = json.loads((ROOT / DIST_JSON).read_text())
+    want = {k: 0 for k in launch_counts()}
+    want["flash_attention"] = 2 * WAN14B["num_layers"] * DIST_STEPS  # RoPE in torch: self + cross a block
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        args = ["--model_cls", "wan2.1", "--synthetic_weights", "--prompt", PROMPT, "--negative_prompt", NEG]
+        for name, mesh in (("dist", {"dp": 1, "sp": 1}), ("single", None)):
+            cfg = dict(src, **WAN14B, step_window=[0, DIST_STEPS], mesh_shape=mesh)
+            (tmp / f"{name}.json").write_text(json.dumps(cfg))
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                            "-m", "lightx2v_tpu_torch.infer", "--config_json", str(tmp / "dist.json"),
+                            "--save_video_path", str(tmp / "dist.mp4"), "--save_latents_path", str(tmp / "dist.npy"),
+                            *args], cwd=ROOT, env=dict(os.environ, PYTHONHASHSEED="0"), capture_output=True, text=True,
+                           timeout=DIST_WAIT)
+        dist_wall = time.perf_counter() - t0
+        lines = [ln for ln in p.stdout.splitlines() if ln.startswith('{"run": ')]
+        print("\n".join(f"[dist] {ln}" for ln in (p.stdout + p.stderr).splitlines()
+                        if "[Profile]" in ln or ln.startswith('{"run": ') or "rror" in ln), flush=True)
+        if p.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"dist: the torchrun process exited {p.returncode}:\n{p.stderr[-4000:]}")
+        dist_run = json.loads(lines[0])["run"]
+        lat_d = np.load(tmp / "dist.npy")
+        video_mb = (tmp / "dist.mp4").stat().st_size / 1e6 if (tmp / "dist.mp4").exists() else None
+
+        t0 = time.perf_counter()
+        runner = infer.init_runner(set_config(infer.build_parser().parse_args(
+            ["--config_json", str(tmp / "single.json"), *args])))
+        lat_s = runner.run_dit(runner.run_input_encoder()).float().cpu().numpy()
+        single_s = time.perf_counter() - t0
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    if (dist_run["rank"], dist_run["world"], dist_run["backend"]) != (0, 1, "nccl"):
+        raise AssertionError(f"dist: the rank saw {dist_run['rank']} of {dist_run['world']} on {dist_run['backend']}")
+    if dist_run["launch_counts"] != want:
+        raise AssertionError(f"dist: launch counts {dist_run['launch_counts']} != {want}")
+    if lat_d.shape != (16, 21, 60, 104) or not np.isfinite(lat_d).all():
+        raise AssertionError(f"dist: bad latents {lat_d.shape}")
+    equal = bool(np.array_equal(lat_d, lat_s))
+    if not equal:
+        raise AssertionError(f"dist: latents differ from the single-device run's by up to "
+                             f"{float(np.abs(lat_d - lat_s).max())}")
+    if not video_mb:
+        raise AssertionError("dist: rank 0 wrote no video")
+    print(json.dumps({"path": "dist", "launch_counts": dist_run["launch_counts"], "expected": want}), flush=True)
+    print(json.dumps({"dist": {"rank": dist_run["rank"], "world": dist_run["world"], "backend": dist_run["backend"],
+                               "device": dist_run["device"], "mesh": dist_run["mesh"], "stage_s": dist_run["stage_s"],
+                               "peak_mem_gb": dist_run["peak_mem_gb"],
+                               "mem_gb_by_stage": dist_run["mem_gb_by_stage"], "process_s": dist_wall,
+                               "single_load_encode_dit_s": single_s, "latents_bitwise_equal": equal,
+                               "video_mb": video_mb, "steps": DIST_STEPS,
+                               "cuts": {"mesh_shape": [src["mesh_shape"], {"dp": 1, "sp": 1}],
+                                        "steps": [src["infer_steps"], DIST_STEPS]}}}), flush=True)
+    return dist_run["launch_counts"]
+
+
 # ---------------------------------------------------------------------------
 # slice phase
 
@@ -2862,7 +3081,7 @@ def run_hunyuan_quant() -> dict:
     embedded guidance 6. First one full-width double + single block at int8
     on the card against the CPU. Then each scheme's weights are made on the
     card, run and released before the next: int8 (bench.py's default) end to
-    end, 2 Euler steps of a 2-step schedule at shift 7, the DiT released, and
+    end, ``HY_Q_STEPS`` Euler steps of a schedule of as many at shift 7, the DiT released, and
     the full VAE's tiled decode to 81 x 480 x 832; fp8, weight-only int4
     (row 11) and int4 x int8 (row 8) one forward each at t = 500. Each
     scheme's launches are counted and must be exact: 320 quantized linears
@@ -3320,8 +3539,7 @@ def run_causvid(profile_dir=None):
     """``configs/wan_t2v_causvid.json`` at the 14B widths, cut to its first
     ``CV_FRAGMENTS`` fragments of 3 AR blocks of 7 latent frames (the second
     fragment's first block re-anchored) and to every ``CV_STEP_STRIDE``-th
-    entry of its distill step list (999 ... 74: 5 of 9), a 21-frame KV
-    cache."""
+    entry of its distill step list (1 of 9), a 21-frame KV cache."""
     cv = json.loads((ROOT / CV_JSON).read_text())
     step_list = cv["denoising_step_list"][::CV_STEP_STRIDE]
     nb, nf, fpb, steps = cv["num_blocks"], CV_FRAGMENTS, cv["num_frame_per_block"], len(step_list)
@@ -3685,6 +3903,10 @@ def main():
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="after each path, run it once more under torch.profiler; write DIR/profile_<path>.json")
     args = ap.parse_args()
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        # one hash seed for this process and the dist path's torchrun one: the synthetic tokenizers hash words
+        os.execve(sys.executable, [sys.executable, str(Path(__file__).resolve()), *sys.argv[1:]],
+                  dict(os.environ, PYTHONHASHSEED="0"))
 
     if not (ROOT / "lightx2v_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: the lightx2v_tpu_torch package is not beside this script", file=sys.stderr)
@@ -3720,8 +3942,10 @@ def main():
     extra6 = kernel_phase_hunyuan(peaks_for(card), REPS, want)
     extra7 = kernel_phase_wan_runners(peaks_for(card), REPS, want)
     extra8 = kernel_phase_quant_linears(peaks_for(card), REPS, want)
+    extra9 = kernel_phase_dist_ranks(peaks_for(card), REPS, want)
+    print(json.dumps({"dist_ranks": extra9}), flush=True)
     rows += rows2 + rows3 + rows4 + rows5
-    print(json.dumps({"other_shapes": extra + extra2 + extra3 + extra4 + extra5 + extra6 + extra7 + extra8}),
+    print(json.dumps({"other_shapes": extra + extra2 + extra3 + extra4 + extra5 + extra6 + extra7 + extra8 + extra9}),
           flush=True)
     kernel_phases_end = time.perf_counter() - t_start
     by_path = {}
@@ -3735,14 +3959,14 @@ def main():
             ref.update(runner=runner, frames=frames)
             return {}
 
-        by_path["slice"] = ref["counts"] = run_path("slice", {}, args.profile,
+        by_path["slice"] = ref["counts"] = run_path("slice", {}, args.profile, steps=SLICE_STEPS, forwards=SLICE_STEPS,
                                                     after=keep if "serve" in paths else None)
     if "serve" in paths:
         by_path["serve"] = run_serve(ref)
         del ref
     if "flagship" in paths:
         block_reference_check("int4", INT4A8)
-        by_path["flagship"] = run_path("flagship", FLAGSHIP, args.profile)
+        by_path["flagship"] = run_path("flagship", FLAGSHIP, args.profile, steps=SLICE_STEPS, forwards=SLICE_STEPS)
     if "base" in paths:
         block_reference_check("int4", INT4W, "sage_attn2")
         by_path["base"] = run_path("base", BASE, args.profile, model_cls="wan2.1", config_json=BASE_JSON)
@@ -3764,7 +3988,8 @@ def main():
         vae_encode_check()
         with tempfile.TemporaryDirectory() as tmp:
             image = write_image(str(Path(tmp) / "i2v_input.png"))
-            by_path["i2v"] = run_path("i2v", dict(task="i2v", image_path=image), args.profile, config_json=I2V_JSON)
+            by_path["i2v"] = run_path("i2v", dict(task="i2v", image_path=image), args.profile, config_json=I2V_JSON,
+                                      steps=I2V_STEPS, forwards=I2V_STEPS)
     if "cogvideox" in paths:
         cog_block_reference_check()
         cog_vae_decode_check()
@@ -3791,8 +4016,8 @@ def main():
         by_path[name] = run_path(name, dict(widths, negative_prompt=NEG), args.profile, model_cls="wan2.1",
                                  config_json=config_json, cut=True)
     if "offload_stream_fp8" in paths:
-        by_path["offload_stream_fp8"] = run_path("offload_stream_fp8", WAN14B, args.profile,
-                                                 config_json=STREAM_JSON, before=offload_step0_check)
+        by_path["offload_stream_fp8"] = run_path("offload_stream_fp8", WAN14B, args.profile, config_json=STREAM_JSON,
+                                                 before=offload_step0_check, steps=SLICE_STEPS, forwards=SLICE_STEPS)
     if "offload_stream_tea" in paths:
         by_path["offload_stream_tea"] = stream_tea(args.profile)
     if "offload_lazy_t2v_tiny" in paths:
@@ -3811,6 +4036,9 @@ def main():
         run_quant_schemes()
     if "ptq" in paths:
         by_path["ptq"] = run_ptq(args.profile)
+    if "dist" in paths:
+        torch.cuda.empty_cache()
+        by_path["dist"] = run_dist()
     for r in rows:
         r["launches_by_path"] = {p: c.get(r["name"], 0) for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

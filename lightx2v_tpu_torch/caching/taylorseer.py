@@ -52,16 +52,17 @@ def init_taylor_cache(arch: WanArch, batch: int, seq_len: int, dtype=torch.bfloa
 
 def taylor_calc_step(params, x, embed0, ctx, ctx_img, rope_cos, rope_sin, arch: WanArch, cache: Dict,
                      step_diff: float, mm_type: str = "Default", self_attn_fn=None, cross_attn_fn=None,
-                     primed: bool = True):
+                     primed: bool = True, block_parts=wan_block_parts):
     """Run every block, writing each module's output (f0) and its derivative
     against the previous calc step's output (f1, in fp32 before the store)
     into ``cache`` in place, layer by layer. ``primed=False`` (the first calc
     step) stores f1 = 0: a derivative against the zero cache would double
-    the residual on the first skip."""
+    the residual on the first skip. ``block_parts``: ``wan_block_parts`` or
+    a sharded form of it (``ShardedTransformer.block_parts``)."""
     mm_fn = resolve_mm(mm_type)
     for li, block in enumerate(params["blocks"]):
-        x, y_self, y_cross, y_ffn = wan_block_parts(block, x, embed0, ctx, ctx_img, rope_cos, rope_sin, arch,
-                                                    mm_fn, self_attn_fn, cross_attn_fn)
+        x, y_self, y_cross, y_ffn = block_parts(block, x, embed0, ctx, ctx_img, rope_cos, rope_sin, arch,
+                                                mm_fn, self_attn_fn, cross_attn_fn)
         for name, y in zip(MODULES, (y_self, y_cross, y_ffn)):
             f0, f1 = cache[name]["f0"], cache[name]["f1"]
             if primed:

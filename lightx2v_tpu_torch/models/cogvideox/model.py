@@ -68,8 +68,10 @@ def _ada_dual(p_lin: Params, temb: torch.Tensor, x: torch.Tensor, enc: torch.Ten
 
 
 def cog_block(block: Params, x: torch.Tensor, enc: torch.Tensor, temb: torch.Tensor, rope_cos: torch.Tensor,
-              rope_sin: torch.Tensor, arch: CogArch, mm_fn, attn_type: str):
-    """One joint block: video tokens x (B, Lv, D), text tokens enc (B, Lt, D)."""
+              rope_sin: torch.Tensor, arch: CogArch, mm_fn, attn_type):
+    """One joint block: video tokens x (B, Lv, D), text tokens enc (B, Lt, D).
+    ``attn_type``: an attention type, or a callable ``(q, k, v, txt_len=)``
+    over the joint stream (the sharded forward's Ulysses)."""
     b, lt = x.shape[0], enc.shape[1]
     n, hd = arch.num_heads, arch.head_dim
 
@@ -85,7 +87,7 @@ def cog_block(block: Params, x: torch.Tensor, enc: torch.Tensor, temb: torch.Ten
     k = layer_norm(k, block["norm_k"]["w"], block["norm_k"]["b"], eps=1e-6)
     q = torch.cat([q[:, :lt], apply_rope(q[:, lt:], rope_cos, rope_sin)], dim=1)
     k = torch.cat([k[:, :lt], apply_rope(k[:, lt:], rope_cos, rope_sin)], dim=1)
-    attn = attention(attn_type, q, k, v)
+    attn = attn_type(q, k, v, txt_len=lt) if callable(attn_type) else attention(attn_type, q, k, v)
     del q, k, v
     attn = mm_fn(block["to_out"], attn.reshape(b, attn.shape[1], n * hd))
     enc = enc + egate[:, None] * attn[:, :lt]
@@ -117,31 +119,41 @@ class CogTransformer(torch.nn.Module):
 
     def forward(self, latents: torch.Tensor, t: torch.Tensor, context: torch.Tensor, rope_cos: torch.Tensor,
                 rope_sin: torch.Tensor, mm_type: str = "Default") -> torch.Tensor:
-        params, arch = self.params, self.arch
-        mm, mm_blk = resolve_mm("Default"), resolve_mm(mm_type)
-        p, p_t = arch.patch_size, arch.patch_size_t
-        f_lat = latents.shape[2]
-        pad_f = (-f_lat) % p_t
-        if pad_f:  # CogVideoX1.5 repeats the last frames up to a p_t multiple
-            latents = torch.cat([latents, latents[:, :, -pad_f:]], dim=2)
-        grid = (latents.shape[2] // p_t, latents.shape[3] // p, latents.shape[4] // p)
+        mm_blk = resolve_mm(mm_type)
+        x, enc, temb, grid, f_lat = cog_pre_process(self.params, latents, t, context, self.arch)
+        for block in self.params["blocks"]:
+            x, enc = cog_block(block, x, enc, temb, rope_cos, rope_sin, self.arch, mm_blk, self.attn_type)
+        return cog_post_process(self.params, x, enc, temb, grid, f_lat, self.arch)
 
-        temb = mm(params["time_embedding"]["1"], timestep_embedding(t, arch.dim).to(torch.bfloat16))
-        temb = mm(params["time_embedding"]["2"], F.silu(temb.float()).to(torch.bfloat16))
-        enc = mm(params["text_proj"], context.to(torch.bfloat16))
-        x = mm(params["patch_proj"], cog_patchify(latents.to(torch.bfloat16), p, p_t))
 
-        for block in params["blocks"]:
-            x, enc = cog_block(block, x, enc, temb, rope_cos, rope_sin, arch, mm_blk, self.attn_type)
+def cog_pre_process(params: Params, latents: torch.Tensor, t: torch.Tensor, context: torch.Tensor, arch: CogArch):
+    """-> (video tokens x, text tokens enc, temb, token grid, latent frames
+    before the p_t padding)."""
+    mm = resolve_mm("Default")
+    p, p_t = arch.patch_size, arch.patch_size_t
+    f_lat = latents.shape[2]
+    pad_f = (-f_lat) % p_t
+    if pad_f:  # CogVideoX1.5 repeats the last frames up to a p_t multiple
+        latents = torch.cat([latents, latents[:, :, -pad_f:]], dim=2)
+    grid = (latents.shape[2] // p_t, latents.shape[3] // p, latents.shape[4] // p)
+    temb = mm(params["time_embedding"]["1"], timestep_embedding(t, arch.dim).to(torch.bfloat16))
+    temb = mm(params["time_embedding"]["2"], F.silu(temb.float()).to(torch.bfloat16))
+    enc = mm(params["text_proj"], context.to(torch.bfloat16))
+    x = mm(params["patch_proj"], cog_patchify(latents.to(torch.bfloat16), p, p_t))
+    return x, enc, temb, grid, f_lat
 
-        # the final norm over the joint stream, then the AdaLN head on the video tokens
-        joint = layer_norm(torch.cat([enc, x], dim=1), params["norm_final"]["w"], params["norm_final"]["b"],
-                           eps=1e-5)
-        x = joint[:, arch.text_len:]
-        del joint, enc
-        shift, scale = mm(params["norm_out_linear"], F.silu(temb.float()).to(x.dtype)).chunk(2, dim=-1)
-        x = layer_norm(x, params["norm_out_norm"]["w"], params["norm_out_norm"]["b"], eps=1e-5)
-        x = x * (1 + scale[:, None]) + shift[:, None]
-        out = resolve_mm("Default-Force-FP32")(params["proj_out"], x)
-        video = cog_unpatchify(out, grid, p, p_t, arch.out_channels)
-        return video[:, :, :f_lat] if pad_f else video
+
+def cog_post_process(params: Params, x: torch.Tensor, enc: torch.Tensor, temb: torch.Tensor, grid, f_lat: int,
+                     arch: CogArch) -> torch.Tensor:
+    """The final norm over the joint stream, then the AdaLN head on the
+    video tokens -> (B, C, F, H, W) fp32."""
+    mm = resolve_mm("Default")
+    joint = layer_norm(torch.cat([enc, x], dim=1), params["norm_final"]["w"], params["norm_final"]["b"], eps=1e-5)
+    x = joint[:, arch.text_len:]
+    del joint, enc
+    shift, scale = mm(params["norm_out_linear"], F.silu(temb.float()).to(x.dtype)).chunk(2, dim=-1)
+    x = layer_norm(x, params["norm_out_norm"]["w"], params["norm_out_norm"]["b"], eps=1e-5)
+    x = x * (1 + scale[:, None]) + shift[:, None]
+    out = resolve_mm("Default-Force-FP32")(params["proj_out"], x)
+    video = cog_unpatchify(out, grid, arch.patch_size, arch.patch_size_t, arch.out_channels)
+    return video[:, :, :f_lat]

@@ -168,9 +168,18 @@ def hunyuan_pre_process(params: Params, latents: torch.Tensor, t: torch.Tensor, 
     return img, txt, vec, tr_vec, grid
 
 
+def _attend(attn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int, img_len: int) -> torch.Tensor:
+    """``attn``: an attention type, or a callable ``(q, k, v, kv_len=,
+    img_len=)`` over the joint [image; text] stream (the sharded forward's
+    Ulysses)."""
+    if callable(attn):
+        return attn(q, k, v, kv_len=kv_len, img_len=img_len)
+    return attention(attn, q, k, v, kv_len=kv_len)
+
+
 def hunyuan_double_block(block: Params, img: torch.Tensor, txt: torch.Tensor, vec_silu: torch.Tensor,
                          rope_cos: torch.Tensor, rope_sin: torch.Tensor, kv_len: int, arch: HunyuanArch, mm,
-                         attn_type: str, tr_vec_silu: Optional[torch.Tensor] = None, tr_len: int = 0):
+                         attn_type, tr_vec_silu: Optional[torch.Tensor] = None, tr_len: int = 0):
     b, li, d = img.shape
     lt = txt.shape[1]
     n, hd = arch.heads_num, arch.head_dim
@@ -192,7 +201,7 @@ def hunyuan_double_block(block: Params, img: torch.Tensor, txt: torch.Tensor, ve
     k = torch.cat([ik, tk], dim=1)
     v = torch.cat([iv, tv], dim=1)
     del iq, ik, iv, tq, tk, tv
-    attn = attention(attn_type, q, k, v, kv_len=kv_len).reshape(b, li + lt, d)
+    attn = _attend(attn_type, q, k, v, kv_len, li).reshape(b, li + lt, d)
     del q, k, v
 
     img = img + _gate(mm(block["img_attn_proj"], attn[:, :li]), im1g, trs[2], tr_len)
@@ -207,7 +216,7 @@ def hunyuan_double_block(block: Params, img: torch.Tensor, txt: torch.Tensor, ve
 
 def hunyuan_single_block(block: Params, x: torch.Tensor, vec_silu: torch.Tensor, img_len: int,
                          rope_cos: torch.Tensor, rope_sin: torch.Tensor, kv_len: int, arch: HunyuanArch, mm,
-                         attn_type: str, tr_vec_silu: Optional[torch.Tensor] = None,
+                         attn_type, tr_vec_silu: Optional[torch.Tensor] = None,
                          tr_len: int = 0) -> torch.Tensor:
     b, L, d = x.shape
     n, hd = arch.heads_num, arch.head_dim
@@ -222,7 +231,7 @@ def hunyuan_single_block(block: Params, x: torch.Tensor, vec_silu: torch.Tensor,
     # RoPE on the image tokens only
     q = torch.cat([apply_rope(q[:, :img_len], rope_cos, rope_sin), q[:, img_len:]], dim=1)
     k = torch.cat([apply_rope(k[:, :img_len], rope_cos, rope_sin), k[:, img_len:]], dim=1)
-    attn = attention(attn_type, q, k, v, kv_len=kv_len).reshape(b, L, d)
+    attn = _attend(attn_type, q, k, v, kv_len, img_len).reshape(b, L, d)
     del q, k, v
     mlp = _gelu_tanh(h[..., 3 * d:], x.dtype)
     del h
@@ -250,7 +259,7 @@ class HunyuanTransformer(torch.nn.Module):
                 guidance: Optional[torch.Tensor] = None, mm_type: str = "Default",
                 token_replace: bool = False) -> torch.Tensor:
         params, arch = self.params, self.arch
-        mm, mm_blk = resolve_mm("Default"), resolve_mm(mm_type)
+        mm_blk = resolve_mm(mm_type)
         img, txt, vec, tr_vec, grid = hunyuan_pre_process(params, latents, t, text_states, text_mask,
                                                           text_states_2, guidance, arch, token_replace)
         b, li, _ = img.shape
@@ -266,15 +275,18 @@ class HunyuanTransformer(torch.nn.Module):
         for block in params["single_blocks"]:
             x = hunyuan_single_block(block, x, vec_silu, li, rope_cos, rope_sin, kv_len, arch, mm_blk,
                                      self.attn_type, tr_vec_silu, tr_len)
-        img = x[:, :li]
-        del x
+        return hunyuan_head(params, x[:, :li], vec_silu, grid, arch)
 
-        # the head: AdaLN, then an fp32 linear; its features are ordered (c, pt, ph, pw)
-        shift, scale = mm(params["final_layer"]["adaLN"], vec_silu).chunk(2, dim=-1)
-        out = _modulate(layer_norm(img, eps=1e-6), shift, scale)
-        out = resolve_mm("Default-Force-FP32")(params["final_layer"]["linear"], out)
-        f, h, w = grid
-        pt, ph, pw = arch.patch_size
-        c = arch.out_channels
-        out = out.reshape(b, f, h, w, c, pt, ph, pw).permute(0, 4, 1, 5, 2, 6, 3, 7)
-        return out.reshape(b, c, f * pt, h * ph, w * pw)
+
+def hunyuan_head(params: Params, img: torch.Tensor, vec_silu: torch.Tensor, grid, arch: HunyuanArch) -> torch.Tensor:
+    """AdaLN, then an fp32 linear whose features are ordered (c, pt, ph, pw)
+    -> (B, C, F, H, W)."""
+    b = img.shape[0]
+    shift, scale = resolve_mm("Default")(params["final_layer"]["adaLN"], vec_silu).chunk(2, dim=-1)
+    out = _modulate(layer_norm(img, eps=1e-6), shift, scale)
+    out = resolve_mm("Default-Force-FP32")(params["final_layer"]["linear"], out)
+    f, h, w = grid
+    pt, ph, pw = arch.patch_size
+    c = arch.out_channels
+    out = out.reshape(b, f, h, w, c, pt, ph, pw).permute(0, 4, 1, 5, 2, 6, 3, 7)
+    return out.reshape(b, c, f * pt, h * ph, w * pw)

@@ -30,6 +30,16 @@ the stack ran (a (cond, uncond) pair for per-side Tea). Schedules and
 moreg windows read ``scheduler.num_steps()``, Tea's cutoff ``infer_steps``;
 ``num_steps`` only cuts how many steps a call runs, from the state's
 ``step_index``.
+
+Over a mesh (``mesh``, ``models/wan/sharded.py``) each step's pre-process
+runs replicated on every rank, x and the conditioning are cut to the rank's
+(dp, sp) shard, the branch (the stack or its caching) runs on the shard, and
+x is all-gathered before the head; the scheduler state, the latents and every
+re-noise draw are the same on every rank (same seeds, same generator calls).
+The caching state (Tea's residual, the Taylor and Ada caches) lives on the
+shard, which is the same function; Ada's metric reads the gathered
+recording, cut to the true tokens. Tea decides once for the CFG pair over a
+mesh, as the JAX package does there.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ from ...ops.rope import build_wan_rope_grid
 from .config import WanArch
 from .model import _split_modulation, time_embeddings, wan_block_parts, wan_post_process, wan_pre_process, \
     wan_transformer
+from .sharded import ShardedTransformer
 from .streaming import StreamedCache
 
 CACHING_MODES = ("NoCaching", "Tea", "Custom", "TaylorSeer", "TaylorWS", "Ada")
@@ -92,7 +103,8 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
                     cross_attn_type: str = "flash_attn3", feature_caching: str = "NoCaching",
                     caching_config=None, num_steps: Optional[int] = None,
                     self_attn_kwargs: Optional[dict] = None, device="cpu",
-                    cfg_scale_embed: Optional[float] = None, streamed: bool = False):
+                    cfg_scale_embed: Optional[float] = None, streamed: bool = False, mesh=None,
+                    sp_size: int = 1, parallel_attn_type: str = "ulysses"):
     """Build ``denoise(params, state, context, generator, noises=None,
     on_step=None, context_null=None, y=None, clip_fea=None) -> final state``
     running ``num_steps`` steps (default: the rest of the schedule) from the
@@ -108,13 +120,27 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
     ``params["blocks"]`` may be any iterable of blocks with a length: a
     list, or an offload tier's streamer (``models/wan/streaming.py``), and
     then ``streamed`` selects the streamed caching; ``denoise.stream_cache``
-    is its ``StreamedCache`` during a run."""
+    is its ``StreamedCache`` during a run. ``mesh`` (a ``parallel.mesh.Mesh``)
+    runs the stack sharded (``parallel_attn_type`` "ulysses" or "ring" over
+    sp; ``params["blocks"]`` then hold this rank's tp shard), the tokens
+    padded to a multiple of ``sp_size``."""
     if feature_caching not in CACHING_MODES:
         raise ValueError(f"feature_caching {feature_caching!r} is not one of {CACHING_MODES}")
     if streamed and feature_caching not in STREAMED_CACHING_MODES:
         raise ValueError(f"feature_caching {feature_caching!r} has no streamed form ({STREAMED_CACHING_MODES})")
-    rope_cos, rope_sin, seq_len = rope_for_shape(arch, target_shape, device=device)
+    rope_cos, rope_sin, seq_len = rope_for_shape(arch, target_shape, sp_pad=sp_size, device=device)
     batch = 2 if enable_cfg else 1
+    _, f_, h_, w_ = target_shape
+    pt, ph, pw = arch.patch_size
+    s_tokens = (f_ // pt) * (h_ // ph) * (w_ // pw)
+    st = None
+    if mesh is not None:
+        if streamed:
+            raise ValueError("a streamed (offload) denoise runs on one device")
+        st = ShardedTransformer(mesh, arch, mm_type, self_attn_type, cross_attn_type, parallel_attn_type,
+                                kv_tokens=s_tokens if seq_len > s_tokens else None)
+    loc_batch = batch // (1 if st is None else st.dp)
+    loc_seq = seq_len // (1 if st is None else st.sp)
     cfg_vec = None
     if cfg_scale_embed is not None:
         cfg_vec = torch.full((batch,), float(cfg_scale_embed), dtype=torch.float32, device=device)
@@ -122,7 +148,7 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
     tea_cfg = None
     if feature_caching in ("Tea", "Custom"):
         tea_cfg = TeaCacheConfig.from_config(caching_config) if caching_config is not None else TeaCacheConfig()
-    per_side = feature_caching == "Tea" and enable_cfg and not streamed
+    per_side = feature_caching == "Tea" and enable_cfg and not streamed and mesh is None
     taylor_dtype = CACHE_DTYPES[str(cc.get("taylor_cache_dtype", "bf16"))]
     tea_dtype = CACHE_DTYPES[str(cc.get("tea_cache_dtype", "bf16"))]
     n_sched = scheduler.num_steps()
@@ -132,22 +158,31 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
                                                            else 4)
     mm_fn = resolve_mm(mm_type)
     self_fn, cross_fn = partial(attention, self_attn_type), partial(attention, cross_attn_type)
+    block_parts, blk_cos, blk_sin = wan_block_parts, rope_cos, rope_sin
+    if st is not None:
+        self_fn, cross_fn, block_parts = st.self_fn, st.cross_fn, st.block_parts
+        blk_cos, blk_sin = st.block_rope(rope_cos, rope_sin)
     mid = arch.num_layers // 2
-    tokens_per_frame = seq_len // max(target_shape[1] // arch.patch_size[0], 1)
+    tokens_per_frame = s_tokens // max(target_shape[1] // arch.patch_size[0], 1)
 
     def transformer(params, x, embed0, ctx, ctx_img):
+        if st is not None:
+            return st(params["blocks"], x, embed0, ctx, ctx_img, rope_cos, rope_sin)
         return wan_transformer(params["blocks"], x, embed0, ctx, ctx_img, rope_cos, rope_sin, arch, mm_type,
                                self_attn_type, cross_attn_type, self_attn_kwargs)
 
     def ada_compute(params, x, embed0, ctx, ctx_img):
         """The stack, recording the middle block's gated self-attention
-        output in fp32."""
+        output in fp32 (over a mesh gathered from every rank and cut to
+        the true tokens)."""
         tiny = None
         for li, block in enumerate(params["blocks"]):
-            x, y_self, _, _ = wan_block_parts(block, x, embed0, ctx, ctx_img, rope_cos, rope_sin, arch, mm_fn,
-                                              self_fn, cross_fn)
+            x, y_self, _, _ = block_parts(block, x, embed0, ctx, ctx_img, blk_cos, blk_sin, arch, mm_fn, self_fn,
+                                          cross_fn)
             if li == mid:
                 tiny = y_self.float() * _split_modulation(block, embed0)[2]
+        if st is not None:
+            tiny = st.gather_x(tiny)[:, :s_tokens]
         return x, tiny
 
     def init_cache():
@@ -163,20 +198,23 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
             return cache
         if feature_caching == "Tea":
             mod_shape = (batch, 6, d) if tea_cfg.use_ret_steps else (batch, d)
-            return init_tea_state((batch, seq_len, d), mod_shape, dtype=tea_dtype, device=device)
+            return init_tea_state((loc_batch, loc_seq, d), mod_shape, dtype=tea_dtype, device=device)
         if feature_caching in ("TaylorSeer", "Custom"):
-            need = taylor_cache_bytes(arch, batch, seq_len, taylor_dtype)
+            need = taylor_cache_bytes(arch, loc_batch, loc_seq, taylor_dtype)
             dev = torch.device(device)
             if dev.type == "cuda" and need > torch.cuda.mem_get_info(dev)[0]:
                 raise MemoryError(f"the per-module Taylor cache needs {need / 1e9:.1f} GB, more than the "
                                   f"{torch.cuda.mem_get_info(dev)[0] / 1e9:.1f} GB free on {dev}")
-            return {"taylor": init_taylor_cache(arch, batch, seq_len, dtype=taylor_dtype, device=device),
+            return {"taylor": init_taylor_cache(arch, loc_batch, loc_seq, dtype=taylor_dtype, device=device),
                     "last_calc": 0}
         if feature_caching == "TaylorWS":
-            return init_taylor_ws_cache(batch, seq_len, d, dtype=taylor_dtype, device=device)
+            return init_taylor_ws_cache(loc_batch, loc_seq, d, dtype=taylor_dtype, device=device)
         if feature_caching == "Ada":
-            return init_ada_state((batch, seq_len, d), metric_scale=float(cc.get("ada_metric_scale", 1.0)),
-                                  device=device)
+            state = init_ada_state((loc_batch, loc_seq, d), metric_scale=float(cc.get("ada_metric_scale", 1.0)),
+                                   device=device)
+            if st is not None:  # the recording is compared gathered
+                state["prev_tiny"] = torch.zeros((batch, s_tokens, d), dtype=torch.float32, device=device)
+            return state
         return {}
 
     def denoise(params, state, context: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -231,8 +269,8 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
                     calc, diff = bool(taylor_is_calc[i]), float(taylor_step_diff[i])
                 if not calc:
                     return taylor_skip_step(params, x, embed0, arch, cache["taylor"], diff), False
-                x, _ = taylor_calc_step(params, x, embed0, ctx_e, ctx_img, rope_cos, rope_sin, arch, cache["taylor"],
-                                        diff, mm_type, self_fn, cross_fn, primed=i > 0)
+                x, _ = taylor_calc_step(params, x, embed0, ctx_e, ctx_img, blk_cos, blk_sin, arch, cache["taylor"],
+                                        diff, mm_type, self_fn, cross_fn, primed=i > 0, block_parts=block_parts)
                 cache["last_calc"] = i
                 return x, True
             if feature_caching == "TaylorWS":
@@ -277,12 +315,17 @@ def make_denoise_fn(arch: WanArch, scheduler, target_shape, enable_cfg: bool = F
             lat, tb = lat[None], t
             if enable_cfg:
                 lat, tb = torch.cat([lat, lat]), torch.cat([t, t])
-            x, embed, embed0, ctx_e, ctx_img, grid, s_tokens = wan_pre_process(params, lat, tb, ctx2, arch, y=y2,
-                                                                                clip_fea=c2, seq_len=seq_len,
-                                                                                cfg_scale=cfg_vec)
+            x, embed, embed0, ctx_e, ctx_img, grid, n_tok = wan_pre_process(params, lat, tb, ctx2, arch, y=y2,
+                                                                             clip_fea=c2, seq_len=seq_len,
+                                                                             cfg_scale=cfg_vec)
+            if st is not None:
+                x, embed0, ctx_e, ctx_img = (st.shard_x(x), st.shard_batch(embed0), st.shard_batch(ctx_e),
+                                             st.shard_batch(ctx_img))
             x, calc = branch(j, i, x, embed0, ctx_e, ctx_img)
             calc_steps.append(calc)
-            out = wan_post_process(params, x, embed, grid, s_tokens, arch)
+            if st is not None:
+                x = st.gather_x(x)
+            out = wan_post_process(params, x, embed, grid, n_tok, arch)
             pred = out[1] + guide_scale * (out[0] - out[1]) if enable_cfg else out[0]
             state = scheduler.step_post(state, pred, generator, noise=None if noises is None else noises[j])
             if on_step is not None:

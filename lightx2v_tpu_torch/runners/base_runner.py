@@ -19,7 +19,19 @@ Serving (``server/service.py``) feeds a task through ``set_inputs`` and
 stops it through ``stop_event``: ``run_pipeline`` calls ``check_stop``
 after the encode and after the DiT, as the JAX runner does, and raises
 ``TaskStopped`` there. ``progress_callback(done, total)`` is called when
-the denoise ends."""
+the denoise ends.
+
+Under ``torchrun`` each rank builds its own runner on ``cuda:LOCAL_RANK``
+(``rank`` and ``world`` from the process group); a runner that runs
+``mesh_shape`` builds its ``mesh`` (``parallel/mesh.build_mesh``) from the
+config's ``mesh_shape``, over the global ranks ``mesh_devices`` names (a
+sub-group of the world, the JAX package's sub-mesh of devices) or the first
+ranks. Only rank 0 writes ``save_video_path`` and logs the stage timings;
+``save_latents_path`` makes rank 0 write the final latents (``.npy``, fp32).
+The encoder outputs are broadcast from the mesh's first rank, so every rank
+denoises from the same ones.
+A rank that the mesh leaves idle (a mesh smaller than the world) runs no
+stage."""
 
 from __future__ import annotations
 
@@ -29,6 +41,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import AXES, broadcast_from_first, build_mesh, rank_and_world, rank_device
 from ..utils.device import resolve_device
 from ..utils.logging_utils import logger
 from ..utils.media import cache_video, seed_all
@@ -38,12 +51,31 @@ class TaskStopped(Exception):
     """A task-stop request interrupted the pipeline between stages."""
 
 
+def check_mesh_shape(shape):
+    """A mesh shape the port runs: a mapping of the axes dp, sp, tp to sizes;
+    anything else raises ``NotImplementedError``."""
+    if not isinstance(shape, dict) or not set(shape) <= set(AXES):
+        raise NotImplementedError(f"mesh_shape {shape!r}: the port runs a mapping of the mesh axes {AXES} to sizes; "
+                                  "other layouts are not ported (ROADMAP.md, Queue 1 item 14)")
+    return shape
+
+
 class BaseRunner:
     def __init__(self, config):
         self.config = config
-        self.device = resolve_device(config.get("device") or "cuda")
+        self.device = resolve_device(rank_device(config.get("device") or "cuda"))
+        self.rank, self.world = rank_and_world()
+        self.mesh = None  # set by build_run_mesh where a runner runs mesh_shape
         self.progress_callback = None
         self.stop_event = None  # per-task threading.Event set by the service
+
+    def build_run_mesh(self):
+        """The run's mesh from ``mesh_shape`` (``check_mesh_shape``), over
+        ``mesh_devices`` (global ranks) or the first ranks of the world; a
+        mesh larger than those raises ``ValueError``."""
+        self.mesh = build_mesh(dict(check_mesh_shape(self.config.get("mesh_shape"))),
+                               ranks=self.config.get("mesh_devices"))
+        return self.mesh
 
     def load_transformer(self):
         raise NotImplementedError
@@ -163,16 +195,20 @@ class DefaultRunner(BaseRunner):
         t0 = time.perf_counter()
         out = fn(*args)
         self._mark(name, t0)
-        logger.info(f"[Profile] {name}: {self.timings[name]:.3f} s")
+        if self.rank == 0:
+            logger.info(f"[Profile] {name}: {self.timings[name]:.3f} s")
         return out
 
     def run_pipeline(self, save_video: bool = True) -> Optional[np.ndarray]:
+        if self.mesh is not None and not self.mesh.member:
+            logger.info(f"rank {self.rank} is outside the mesh {self.mesh.sizes}: idle")
+            return None
         release = bool(self.config.get("release_modules", False))
         self._begin_run()
         if self.text_encoder is None:
             self.text_encoder = self.load_text_encoder()
             self.image_encoder = self.load_image_encoder()
-        encoder_out = self._stage("encode_s", self.run_input_encoder)
+        encoder_out = broadcast_from_first(self._stage("encode_s", self.run_input_encoder), self.mesh)
         if release:
             self._release("text_encoder")
             self._release("image_encoder")
@@ -180,10 +216,12 @@ class DefaultRunner(BaseRunner):
         if self.model is None:
             self.model = self.load_transformer()
         latents = self._stage("dit_s", self.run_dit, encoder_out)
+        if self.config.get("save_latents_path") and self.rank == 0:
+            np.save(self.config["save_latents_path"], latents.float().cpu().numpy())
         if release:
             self._release("model")
         self.check_stop()
         frames = self._stage("decode_s", self.run_vae_decoder, latents)
-        if save_video:
+        if save_video and self.rank == 0:
             self._stage("save_s", self.save_video, frames, self.config.get("save_video_path", "./output.mp4"))
         return frames

@@ -4,6 +4,10 @@ T5 v1.1-XXL context for the prompt and the negative prompt -> the joint
 the XDPM scheduler (v-prediction, zero-terminal SNR, trailing spacing) ->
 the tiled, frame-batched CogVideoX VAE decode.
 
+``mesh_shape`` (under ``torchrun``) runs Ulysses over the joint stream on the
+mesh's sp axis (``models/cogvideox/sharded.py``), the CFG pair whole on
+every rank, as the JAX runner does.
+
 Synthetic weights only (checkpoint loading is Queue 1 item 8). A config
 that names no transformer width gets the JAX runner's small synthetic mode:
 the small ``CogArch`` (2 layers, 4 heads of 32), the small VAE, and a random
@@ -27,6 +31,7 @@ import torch
 from ..encoders.t5 import T5_V1_1_XXL, T5EncoderModel, init_random_t5_params_on_device
 from ..models.cogvideox.config import CogArch, build_cog_rope
 from ..models.cogvideox.model import CogTransformer
+from ..models.cogvideox.sharded import cog_forward_sharded
 from ..models.cogvideox.weights import init_random_cog_params_on_device, init_random_cog_state_dict, load_cog_params
 from ..schedulers.cogvideox import CogvideoxXDPMScheduler
 from ..utils.registry import RUNNER_REGISTER
@@ -50,7 +55,7 @@ class CogvideoxRunner(DefaultRunner):
         if not self.config.get("synthetic_weights"):
             raise _not_ported("checkpoint loading", "Queue 1 item 8")
         if self.config.get("mesh_shape"):
-            raise _not_ported("Ulysses over the joint stream (models/cogvideox/sharded.py)", "Queue 1 item 14")
+            self.build_run_mesh()
         if not self._full_width():
             self.arch = SMALL_ARCH
             return load_cog_params(init_random_cog_state_dict(self.arch, seed=0, scale=0.05), self.arch,
@@ -115,6 +120,9 @@ class CogvideoxRunner(DefaultRunner):
                     for a in build_cog_rope(arch, (lat_f + p_t - 1) // p_t, lat_h // p, lat_w // p))
         attn = self.config.get("attention_impl") or self.config.get("attention_type", "flash_attn3")
         model = CogTransformer(self.model, arch, attn_type=attn)
+        if self.mesh is not None:
+            def model(lat_b, t, ctx, cos, sin):
+                return cog_forward_sharded(self.model, lat_b, t, ctx, cos, sin, arch, self.mesh, attn_type=attn)
         enable_cfg = bool(self.config.get("enable_cfg", True))
         guide = float(self.config.get("guidance_scale", self.config.get("sample_guide_scale", 6.0)))
         teo = encoder_out["text_encoder_output"]

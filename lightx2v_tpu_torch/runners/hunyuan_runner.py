@@ -26,9 +26,15 @@ config that names ``hidden_size`` (3072, the only width it takes) gets
 behind synthetic tokenizers (the encoders a real-weights run runs, where the
 JAX runner's synthetic mode draws random states), and the full VAE.
 
+``mesh_shape`` (t2v, under ``torchrun``) runs Ulysses over the joint
+[image; text] stream on the mesh's sp axis (``models/hunyuan/sharded.py``).
+i2v with ``mesh_shape`` raises ``NotImplementedError`` (ROADMAP.md, Queue 3,
+difference ba): token replace needs the global index of the first frame's
+tokens, and the JAX runner then runs on one device without saying so.
+
 Refused: the HF text encoders (``text_encoder_path``,
-``text_encoder_crop_start``) and ``mesh_shape`` (``NotImplementedError``
-naming their Queue 1 item), real weights (the JAX runner's text encoders
+``text_encoder_crop_start``; ``NotImplementedError`` naming their Queue 1
+item), real weights (the JAX runner's text encoders
 run through ``transformers``, which the card machine lacks), a caching mode
 other than Tea (``ValueError``: the JAX runner runs Tea only), and a
 quantized ``mm_config`` (``ValueError``: the JAX runner runs every Hunyuan
@@ -39,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -50,13 +57,14 @@ from ..encoders.llama import LLAVA_LLAMA3_8B, PROMPT_TEMPLATE, LlamaArch, LlamaE
     init_random_llama_params_on_device
 from ..models.hunyuan.config import HunyuanArch
 from ..models.hunyuan.model import HunyuanTransformer, build_hunyuan_rope, riflex_k_for, text_kv_len
+from ..models.hunyuan.sharded import hunyuan_forward_sharded
 from ..models.hunyuan.weights import (init_random_hunyuan_params_on_device, init_random_hunyuan_state_dict,
                                       load_hunyuan_params)
 from ..schedulers.euler import FlowMatchEulerScheduler
 from ..utils.registry import RUNNER_REGISTER
 from ..vae.hunyuan_vae import (HunyuanVAEConfig, hunyuan_vae_decode, hunyuan_vae_decode_tiled,
                                init_random_hunyuan_vae_state_dict, load_hunyuan_vae_params)
-from .base_runner import DefaultRunner
+from .base_runner import DefaultRunner, check_mesh_shape
 from .wan_runner import _not_ported, _SyntheticTokenizer
 
 SMALL_ARCH = HunyuanArch(hidden_size=96, heads_num=4, double_blocks=2, single_blocks=2, mlp_hidden_dim=192,
@@ -114,7 +122,11 @@ class HunyuanRunner(DefaultRunner):
             raise ValueError(f"feature_caching {config['feature_caching']!r}: the HunyuanVideo runner runs Tea only, "
                              "as the JAX runner does")
         if config.get("mesh_shape"):
-            raise _not_ported("Ulysses over the joint stream (models/hunyuan/sharded.py)", "Queue 1 item 14")
+            if config.get("task") == "i2v":
+                raise NotImplementedError("HunyuanVideo i2v with mesh_shape: token replace needs the global index "
+                                          "of the first frame's tokens, and the JAX runner runs it on one device "
+                                          "(ROADMAP.md, Queue 3, difference ba)")
+            check_mesh_shape(config["mesh_shape"])
         for key in ("text_encoder_path", "text_encoder_crop_start"):
             if config.get(key) is not None:
                 raise _not_ported(f"HunyuanVideo's HF text encoders ({key})", "Queue 1 item 16")
@@ -130,6 +142,8 @@ class HunyuanRunner(DefaultRunner):
             raise ValueError(f"hidden_size {config['hidden_size']}: the synthetic HunyuanVideo DiT is made at "
                              f"HunyuanArch()'s width {width} only")
         super().__init__(config)
+        if config.get("mesh_shape"):
+            self.build_run_mesh()
 
     def _full_width(self) -> bool:
         return "hidden_size" in self.config
@@ -224,7 +238,10 @@ class HunyuanRunner(DefaultRunner):
         guidance = torch.tensor([float(self.config.get("embedded_guidance_scale", 6.0)) * 1000.0],
                                 dtype=torch.float32, device=self.device)
         attn = self.config.get("attention_impl") or self.config.get("attention_type", "flash_attn3")
-        model = HunyuanTransformer(self.model, arch, attn_type=attn)
+        if self.mesh is not None:
+            model = partial(hunyuan_forward_sharded, self.model, arch=arch, mesh=self.mesh, attn_type=attn)
+        else:
+            model = partial(HunyuanTransformer(self.model, arch, attn_type=attn), token_replace=self._i2v())
         plan = hunyuan_tea_plan(scheduler.timesteps, self.config) if self.config.get("feature_caching") == "Tea" \
             else np.ones(n, bool)
         if not plan[first]:
@@ -234,8 +251,7 @@ class HunyuanRunner(DefaultRunner):
         for i in range(first, min(n, first + count)):
             lat, t = scheduler.step_pre(state)
             if plan[i]:  # a skip step reuses the last computed prediction
-                pred = model(lat[None], t, states, mask, pooled, cos, sin, kv_len, guidance,
-                             token_replace=self._i2v())[0]
+                pred = model(lat[None], t, states, mask, pooled, cos, sin, kv_len, guidance=guidance)[0]
             state = scheduler.step_post(state, pred)
             self.sync()
             steps.append(time.perf_counter())

@@ -62,8 +62,14 @@ JAX runner), ``TINY_VAE_CHUNK`` latent frames at a time, and ignores
 ``use_tiling_vae``. ``vae_int8`` runs the Wan VAE decoder's convolutions on
 int8 codes (``quantize_vae_decoder_int8``).
 
-Config keys whose feature is not ported raise ``NotImplementedError`` naming
-their ROADMAP.md item rather than run as if absent: ``mesh_shape``.
+Multi-GPU (``mesh_shape``, one process per GPU under ``torchrun``, t2v and
+i2v): the denoise runs over the ``(dp, sp, tp)`` mesh (``models/wan/sharded.py``;
+``parallel_attn_type`` "ulysses" (default) or "ring" over sp), the blocks
+held as this rank's tp shard; ``parallel_vae`` decodes over the mesh
+(``parallel/vae_parallel.py``). Offload, ``changing_resolution`` and
+``do_mm_calib`` with ``mesh_shape`` raise ``NotImplementedError`` (ROADMAP.md,
+Queue 3, difference az): the JAX runner runs them on one device whatever
+``mesh_shape`` says, which on N ranks would be N identical runs.
 
 ``do_mm_calib`` (mm_type ``Default`` only; a quantized one raises
 ``ValueError``, as does the disk tier ``NotImplementedError``) runs one
@@ -79,10 +85,11 @@ forward at step k whose x0 prediction is resized trilinearly to the full
 latent and re-noised from the re-noise generator, then a fresh UniPC at
 shift + 2 from step k + 1 (``_run_dit_changing_resolution``).
 
-``step_window = (first, count)`` runs steps first..first + count - 1 of the
-file's schedule (every decision still sees the whole schedule; a UniPC run
-restarts its multistep history at ``first``). A changing-resolution window
-must hold step k; each phase runs its part of it.
+``step_window = (first, count)`` (an attribute, or the config key
+``step_window``) runs steps first..first + count - 1 of the file's schedule
+(every decision still sees the whole schedule; a UniPC run restarts its
+multistep history at ``first``). A changing-resolution window must hold
+step k; each phase runs its part of it.
 
 ``sparge: true`` runs the video self-attention as Sparge with the
 per-layer budgets of ``sparge_ckpt`` (or ``sparge_l1_per_layer``), the
@@ -111,10 +118,13 @@ from ..models.wan.config import arch_from_config, is_published_width
 from ..models.wan.lazy_offload import BlockPrefetcher, LazyBlockStore, is_blocks_layout
 from ..models.wan.model import wan_forward, wan_forward_cfg
 from ..models.wan.pipeline import make_denoise_fn, rope_for_shape
+from ..models.wan.sharded import tp_shard_blocks
 from ..models.wan.streaming import BlockStreamer, HostBlocks
 from ..models.wan.weights import (init_random_params_on_device, init_random_weight_dict, load_wan_params,
                                   permute_block_qk_half)
 from ..ops.radial import MaskMap
+from ..parallel.mesh import mesh_axis_size
+from ..parallel.vae_parallel import parallel_vae_decode
 from ..schedulers.step_distill import WanStepDistillScheduler
 from ..schedulers.unipc import WanUniPCScheduler
 from ..tools.calibrate import collect_block_stats, save_stats
@@ -195,7 +205,8 @@ def refuse_unrun_keys(cfg, model_cls: str):
     if cfg.get("changing_resolution"):
         raise NotImplementedError(f"changing_resolution on {model_cls}: the JAX runner denoises at one resolution")
     if cfg.get("mesh_shape"):
-        raise _not_ported(f"multi-device runs (mesh_shape) on {model_cls}", "Queue 1 item 14")
+        raise NotImplementedError(f"mesh_shape on {model_cls}: the JAX runner runs on one device (ROADMAP.md, "
+                                  "Queue 1 item 14)")
 
 
 @RUNNER_REGISTER.register("wan2.1")
@@ -205,6 +216,11 @@ class WanRunner(DefaultRunner):
     step_window: Optional[Tuple[int, int]] = None
     # t2v drops the VAE's encoder unless the runner encodes frames itself
     encodes_frames = False
+
+    def __init__(self, config):
+        super().__init__(config)
+        if config.get("step_window"):
+            self.step_window = tuple(int(v) for v in config["step_window"])
 
     def _synthetic(self) -> bool:
         return bool(self.config.get("synthetic_weights"))
@@ -229,7 +245,12 @@ class WanRunner(DefaultRunner):
     def load_transformer(self):
         cfg = self.config
         if cfg.get("mesh_shape"):
-            raise _not_ported("multi-device runs (mesh_shape)", "Queue 1 item 14")
+            for key in (*OFFLOAD_KEYS, "changing_resolution", "do_mm_calib"):
+                if cfg.get(key):
+                    raise NotImplementedError(f"{key} with mesh_shape: the JAX runner runs it on one device, which "
+                                              "on N ranks would be N identical runs (ROADMAP.md, Queue 3, difference "
+                                              "az; Queue 1 item 14)")
+            self.build_run_mesh()
         if cfg.get("do_mm_calib"):
             if (cfg.get("mm_config") or {}).get("mm_type", "Default") != "Default":
                 raise ValueError("do_mm_calib runs the Default GEMM on the checkpoint's weights, which under a "
@@ -285,7 +306,8 @@ class WanRunner(DefaultRunner):
         blocks = params["blocks"]
         if self.arch.rope_fused:
             blocks = (permute_block_qk_half(b, self.arch) for b in blocks)
-        params["blocks"] = HostBlocks(blocks, pin=self.device.type == "cuda") if offload else list(blocks)
+        params["blocks"] = HostBlocks(blocks, pin=self.device.type == "cuda") if offload else \
+            tp_shard_blocks(list(blocks), self.mesh)
         return params
 
     def load_text_encoder(self):
@@ -531,7 +553,9 @@ class WanRunner(DefaultRunner):
                                   self_attn_kwargs=self_attn_kwargs, device=self.device,
                                   cfg_scale_embed=(float(self.config.get("cfg_scale", 4.0))
                                                    if self.config.get("enable_dynamic_cfg") else None),
-                                  streamed=streamer is not None)
+                                  streamed=streamer is not None, mesh=self.mesh,
+                                  sp_size=mesh_axis_size(self.mesh, "sp"),
+                                  parallel_attn_type=self.config.get("parallel_attn_type") or "ulysses")
         on_step, ends = self._step_timer()
         if streamer is not None:
             stats = self.timings["offload"] = []
@@ -678,8 +702,11 @@ class WanRunner(DefaultRunner):
         z = latents.permute(1, 2, 3, 0)[None]  # (C, F, H, W) -> (1, F, H, W, C)
         scale = not self.config.get("synthetic_weights")
         chunk = int(self.config.get("vae_decode_chunk", 4))
-        decode = vae_decode_tiled if self.config.get("use_tiling_vae") else vae_decode
-        frames = decode(self.vae, z, self.vae_cfg, scale=scale, chunk=chunk)
+        if self.config.get("parallel_vae") and self.mesh is not None:
+            frames = parallel_vae_decode(self.vae, z, self.vae_cfg, self.mesh, scale=scale, chunk=chunk)
+        else:
+            decode = vae_decode_tiled if self.config.get("use_tiling_vae") else vae_decode
+            frames = decode(self.vae, z, self.vae_cfg, scale=scale, chunk=chunk)
         return self._crop_to_request(frames[0].clamp(-1.0, 1.0).cpu().numpy())
 
 

@@ -7,8 +7,10 @@ events, save-path containment and metrics keys as the JAX service.
 ``num_replicas > 1`` is data parallelism for serving: replica i's runner
 is built and run under ``torch.cuda.device(i)`` (the caller's factory gives
 it ``device: "cuda:i"``; ``api_server.py`` does), weights replicated, all
-replicas pulling from one queue. Multi-device runs of one task
-(``mesh_shape``) are not ported (ROADMAP.md, Queue 1 item 14)."""
+replicas pulling from one queue. A task runs over a mesh (``mesh_shape``)
+only in a world of one process (a mesh of 1); serving over a mesh of
+several processes, and replicas over meshes, are not ported (ROADMAP.md,
+Queue 1 item 14)."""
 
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..parallel.mesh import rank_and_world
 from ..runners.base_runner import TaskStopped
 from ..utils.logging_utils import logger
 from .schema import TaskRequest
@@ -64,6 +67,11 @@ class VideoGenerationService:
         if self.num_replicas > 1 and (server_config or {}).get("mesh_shape"):
             raise NotImplementedError("num_replicas > 1 over multi-device runs (mesh_shape) is not ported yet "
                                       "(ROADMAP.md, Queue 1 item 14)")
+        if (server_config or {}).get("mesh_shape") and rank_and_world()[1] > 1:
+            # each task would have to reach every rank of the mesh; rank 0 alone cannot run it
+            raise NotImplementedError("serving over a mesh (mesh_shape in a world of more than one process): rank 0 "
+                                      "would have to broadcast each task to its group; not ported yet (ROADMAP.md, "
+                                      "Queue 1 item 14)")
         self._runner_factory = runner_factory
         self._output_root = os.path.abspath(output_root)
         self.server_config = server_config  # exposed via /v1/service/metadata

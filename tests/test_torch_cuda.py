@@ -551,6 +551,31 @@ def test_flash_lse_all_keys_masked(dev):
     assert not out.any() and torch.isinf(lse).all() and (lse < 0).all()
 
 
+@pytest.mark.parametrize("sp,chunk,pad", [(4, 200, 30), (2, 390, 130)])
+def test_ring_merge_of_lse_partials_vs_dense(dev, sp, chunk, pad):
+    """The ring's arithmetic on one card: each rank's queries against the sp
+    key chunks in the order the ring hands them over ((d - t) % sp after t
+    rotations), one row-5 partial a chunk, the last chunk's pad tail masked
+    (V = 1e4 there), merged by merge_partials, equal row 2 over the whole key
+    set at its kv_len. Bar: row 2's; each partial is rounded to bf16 before
+    the fp32 merge."""
+    from lightx2v_tpu_torch.ops.cuda import flash_attention as fa
+    from lightx2v_tpu_torch.parallel.ring import merge_partials
+
+    g = torch.Generator(device=dev).manual_seed(chunk + pad)
+    s = sp * chunk
+    q, k, v = (torch.randn((1, s, 3, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    v[:, s - pad:] = 1e4
+    for d in range(sp):
+        qd, out, lse = q[:, d * chunk:(d + 1) * chunk], None, None
+        for t in range(sp):
+            c = (d - t) % sp
+            o, lo = fa.flash_attention_with_lse(qd, k[:, c * chunk:(c + 1) * chunk], v[:, c * chunk:(c + 1) * chunk],
+                                                kv_len=chunk - pad if c == sp - 1 else None)
+            out, lse = (o, lo) if out is None else merge_partials(out, lse, o, lo)
+        _close(out, fa.flash_attention(qd, k, v, kv_len=s - pad), 2e-2, 2e-3)
+
+
 @pytest.mark.parametrize("s,bq,bk", [(600, 128, 128), (1000, 256, 128), (2100, 1024, 512)])
 def test_block_sparse_shared_kernel_vs_plain(dev, s, bq, bk):
     """2-D tables read by every (batch, head), ascending lists whose tail
