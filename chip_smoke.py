@@ -9,7 +9,8 @@
     python3 chip_smoke.py --path fp8_distill   # the kernel phases and the fp8 path
     python3 chip_smoke.py --path i2v      # the kernel phases and the i2v path
     python3 chip_smoke.py --path cogvideox   # the kernel phases and the CogVideoX path
-    python3 chip_smoke.py --path hunyuan     # the kernel phases and the HunyuanVideo path
+    python3 chip_smoke.py --path hunyuan     # the kernel phases and the HunyuanVideo path (from files)
+    python3 chip_smoke.py --kernel flash_attention --path audio_encoder   # the wav2vec-class audio encoders
     python3 chip_smoke.py --path tea_fp8 --path changing_resolution   # caching, changing resolution
     python3 chip_smoke.py --path offload_stream_fp8 --path offload_lazy_i2v   # the offload tiers
     python3 chip_smoke.py --path offload_stream_tea --path offload_lazy_t2v_tiny   # offload x caching, lightx2v_6*
@@ -32,9 +33,10 @@
    plain versions on the CPU; then the port's ``WanDistillRunner`` on
    ``configs/deploy/wan_t2v.json`` with synthetic weights made on the card
    (14B int8 DiT, 40 blocks; bf16 UMT5-XXL; full Wan VAE): T5 encode ->
-   distill denoise, cut to the first 2 of its 4 steps (``SLICE_STEPS``, the
-   time limit's cut since the dist path; flagship and offload_stream_fp8
-   too) -> tiled VAE decode of 81x480x832.
+   distill denoise, cut to the first of its 4 steps (``SLICE_STEPS``, the
+   time limit's cut: 2 from the dist path until the hunyuan path read its
+   files; flagship and offload_stream_fp8 too) -> tiled VAE decode of
+   81x480x832.
    Serve (``serve``, after slice 1 and on its runner; ``--path serve``
    runs slice 1 first): ``server/service.py`` and ``server/api.py`` on
    127.0.0.1, driven with ``urllib``: request 1 (slice 1's prompt and seed)
@@ -81,8 +83,8 @@
    widths, int8 DiT, fused-RoPE flash) with a seeded 480 x 832 PNG: bf16
    UMT5-XXL -> area resize (the identity at this size) -> CLIP tower on the
    card (bicubic 224 x 224) -> VAE encode of [image, 80 zero frames] ->
-   distill denoise with the image cross-attention, cut to its first 2 of 4
-   steps (the dist path's cut) -> tiled decode. Its line gives the encode's parts (T5, CLIP, VAE encode) and the stage
+   distill denoise with the image cross-attention, cut to its first of 4
+   steps (2 until the hunyuan path read its files) -> tiled decode. Its line gives the encode's parts (T5, CLIP, VAE encode) and the stage
    that set the peak device memory.
 9. CogVideoX (slice 6): one full-width CogVideoX1.5-5B block (48 heads of
    64, dim 3072) on a small input the same way; the full CogVideoX VAE's
@@ -98,15 +100,28 @@
    single-stream block (hidden 3072, 24 heads of 128) on a small input (2 x
    8 x 8 latents, 32 text tokens of which 20 are valid) the same way; the
    full Hunyuan VAE's decode of 3 x 4 x 6 latents on the card vs the CPU;
-   then the port's ``HunyuanRunner`` on ``configs/hunyuan_t2v.json`` as it
-   is with ``hidden_size: 3072`` (``HunyuanArch()``: 20 double and 40
-   single blocks, 720 x 1280, 85 frames, 79,200 image tokens + 256 text
-   tokens an attention call, embedded guidance 6, no CFG): the bf16
+   then the path from files (``run_hunyuan_from_files``): a full-width
+   model directory in the reference's layout written from the device
+   synthesizers into a temporary directory (~45 GB; the temp directory or
+   ``build/``, whichever has room, else it fails): the DiT's
+   ``mp_rank_00_model_states.pt``, the VAE's ``pytorch_model.pt``, an HF
+   ``LlamaForCausalLM`` directory in 5 GB shards with its index (32 blocks,
+   the final norm and ``lm_head``: the reader must skip the last 2 blocks,
+   the norm and the head) and an HF ``CLIPTextModel`` directory; then the
+   port's ``HunyuanRunner`` on ``configs/hunyuan_t2v.json`` as it is with
+   ``model_path`` and ``text_encoder_path`` on it and no
+   ``synthetic_weights`` (``HunyuanArch()``: 20 double and 40 single
+   blocks, 720 x 1280, 85 frames, 79,200 image tokens + 256 text tokens an
+   attention call, embedded guidance 6, no CFG): every loaded tensor equal
+   to the synthesized one (checksums taken at write time), the bf16
    llava-llama-3-8b-class encoder (30 of 32 blocks) and CLIP-L text tower
-   behind synthetic tokenizers -> flow-match Euler -> the temporally and
-   spatially tiled decode to 85 x 720 x 1280. Cut: the first of the file's
-   50 Euler steps (``hunyuan_i2v_tea`` runs the same forward). Its line
-   gives the Llama and CLIP seconds and the joint attention's ``kv_len``.
+   behind the synthetic tokenizers (the card machine has no
+   ``transformers``: a test double this script sets) -> flow-match Euler ->
+   the temporally and spatially tiled decode to 85 x 720 x 1280. Cut: the
+   first of the file's 50 Euler steps (``hunyuan_i2v_tea`` runs the same
+   forward). Its line gives the write seconds and GB/s per component, the
+   load seconds and read GB/s per part, the Llama and CLIP seconds and the
+   joint attention's ``kv_len``.
 11. Feature caching: first the caching steps at the 1.3B width on a small
    input, card vs CPU (TaylorSeer's calc and skip, a one-sided per-side Tea
    step); then the ``wan2.1`` runner on each config as it is, at the widths
@@ -116,7 +131,7 @@
    ``taylorws_1_3b``, ``ada_1_3b`` and ``custom_1_3b``
    (``configs/caching/*``). Cuts, through the runner's ``step_window`` so
    that every decision sees the file's step count: Tea and Custom a window
-   of 4 and 7 steps that starts at a calc step and holds a skip step of the
+   of 4 and 2 steps that starts at a calc step and holds a skip step of the
    full-schedule host replay (printed first as a ``tea_series`` line with
    its calc count), the Taylor pattern's first 6 steps, Ada's first 4. A
    skip step launches no kernel: the counts are those of the forwards that
@@ -148,9 +163,10 @@
    fsynced and its pages dropped (``posix_fadvise``), and each block file's
    again after each read, so every step reads its blocks from the disk.
    The runner loads from those files (the T5 quantized to int8 at load),
-   with the synthetic tokenizer set on its encoder, and runs the first 2 of
-   the file's 40 UniPC steps (CFG at batch 2, sage, int8) through its step
-   window; the directory is deleted afterwards.
+   with the synthetic tokenizer set on its encoder, and runs the first of
+   the file's 40 UniPC steps (CFG at batch 2, sage, int8; 2 until the
+   hunyuan path read its files) through its step window; the directory is
+   deleted afterwards.
    Before each of the two paths' counted runs, the step-0 prediction of the
    offloaded forward is held bit for bit against the resident forward on
    the same weights and inputs. Their lines add the load seconds per
@@ -168,7 +184,8 @@
 16. The low-memory tier (``offload_lazy_t2v_tiny``,
    ``offload_lazy_t2v_cfg_tiny``): ``configs/bench/lightx2v_6_distill.json``
    as it is (int8, ``lazy_load`` with 2 disk workers and a 4 GB pool, RoPE
-   in torch, 2 of its 4 distill steps since the dist path, the tiny VAE) and ``lightx2v_6.json`` (UniPC,
+   in torch, 1 of its 4 distill steps since the hunyuan path read its files, the tiny VAE) and
+   ``lightx2v_6.json`` (UniPC,
    CFG at batch 2; cut to 1 of its 40 steps, 2 until the dist path's cuts), from files the script writes
    beside the lazy i2v path's (the t2v int8 DiT in the blocks layout, the
    bf16 UMT5-XXL ``.pth``, shared, and a ``taew2_1.pth`` read through the
@@ -201,6 +218,13 @@
    the audio adapter's 40 fp32 injections (synthetic, made on the card),
    radial_attn without a mask (dense flash); the frames and the stitched
    audio muxed into an ``.av.mp4`` (PIL JPEGs, PCM16) and parsed back.
+   The audio encoder (``audio_encoder``, a phase after ``audio``): a
+   wavlm-base-plus-width (768 wide, 12 layers) and a hubert-large-width
+   (1024 wide, 24 layers, in an ``audio_encoder/`` subfolder) HF directory
+   written from the device synthesizer; ``AudioEncoder(path)`` on the card
+   in fp32 on the audio config's 81-frame window of a seeded wav, held
+   against the same function on the CPU (max abs difference below 1e-5 of
+   the features' max abs), timed.
 20. HunyuanVideo i2v with TeaCache (``hunyuan_i2v_tea``):
    ``configs/hunyuan_t2v.json`` with ``task: "i2v"``, 193 frames at 480 x
    832 (49 x 30 x 52 = 76,440 image tokens + 256 text), ``feature_caching:
@@ -350,6 +374,8 @@ COG_STEPS = 1  # of the file's 50: step 0, first-order (the time limit's cut)
 HY_IMG, HY_TXT, HY_HEADS = 22 * 45 * 80, 256, 24
 HY_JSON = "configs/hunyuan_t2v.json"
 HY_STEPS = 1  # of the file's 50 Euler steps (hunyuan_i2v_tea runs the same forward)
+HY_FILES_GB = 48.0  # disk the hunyuan path's files take (~44.6 GB: DiT 25.4, Llama with lm_head 16.9, VAE, CLIP-L)
+HY_SHARD_GB = 5.0  # the Llama directory's shard size, as HF's save_pretrained default
 # HunyuanVideo i2v with TeaCache: 193 frames at 480 x 832 (49 x 30 x 52 = 76,440 image tokens; RIFLEx past 192
 # frames), a 4-step window of the host Tea series holding its calc and skip steps
 HY_I2V = dict(hidden_size=3072, task="i2v", target_video_length=193, target_height=480, target_width=832,
@@ -399,34 +425,35 @@ RADIAL_TWO_PASS = dict(RADIAL_BSR, sparse_block_q=256, radial_sparsity_type="two
 # the reference's LightX2V_3-Distill row (fp8 DiT, fused-RoPE flash, its 4 distill steps, tiled decode) at the
 # 14B widths, with the fp8 UMT5-XXL
 FP8_DISTILL = dict(WAN14B, t5_quantized=True, t5_quant_scheme="fp8")
-FP8_STEPS = 2  # of the file's 4 distill steps (the time limit's cut)
-I2V_STEPS = 2  # of configs/deploy/wan_i2v.json's 4 distill steps (the time limit's cut, for the dist path)
-# slice 1, serve (on slice 1's runner), flagship and offload_stream_fp8: the first 2 of their 4 distill steps (the
-# time limit's cut, for the dist path)
-SLICE_STEPS = 2
+FP8_STEPS = 1  # of the file's 4 distill steps (the time limit's cut; 2 until the hunyuan path read its files)
+I2V_STEPS = 1  # of configs/deploy/wan_i2v.json's 4 distill steps (the same cut)
+# slice 1, serve (on slice 1's runner), flagship and offload_stream_fp8: the first of their 4 distill steps (the time
+# limit's cut; 2 from the dist path until the hunyuan path read its files)
+SLICE_STEPS = 1
 TEA_JSON = "configs/bench/lightx2v_4.json"
 CR_JSON = "configs/changing_resolution/wan_t2v.json"
 # Wan2.1-T2V-1.3B (PRESETS["wan2.1_1.3b"]) for the configs/caching files that name no width
 WAN1_3B = dict(dim=1536, ffn_dim=8960, num_heads=12, num_layers=30, text_len=TXT)
 # the cached paths: (config file, widths, how its cut is planned, steps in the cut); the cuts run through the
 # runner's step_window, so every caching decision sees the file's step count. Custom's use_ret_steps warm-up
-# computes steps 0-4; the Taylor pattern is calc, skip, skip, skip, calc, skip.
+# computes steps 0-4, so its 2-step window is steps 4-5, a calc and a skip (steps 0-6 until the hunyuan path read its
+# files); the Taylor pattern is calc, skip, skip, skip, calc, skip.
 CACHED = {
     "tea_fp8": (TEA_JSON, WAN14B, "tea", 4),
     "taylorseer_1_3b": ("configs/caching/taylorseer/wan_t2v_taylorseer.json", WAN1_3B, "taylor", 6),
     "taylorws_1_3b": ("configs/caching/taylorws/wan_t2v_taylorws.json", WAN1_3B, "taylor", 6),
     "ada_1_3b": ("configs/caching/adacache/wan_t2v_ada.json", WAN1_3B, "ada", 4),
-    "custom_1_3b": ("configs/caching/custom/wan_t2v_custom_1_3b.json", WAN1_3B, "tea", 7),
+    "custom_1_3b": ("configs/caching/custom/wan_t2v_custom_1_3b.json", WAN1_3B, "tea", 2),
 }
 # the offload tiers: the host-RAM tier on the reference's LightX2V_5-Distill row (fp8, weight streaming) and the
 # disk tier on the lazy i2v config, run from checkpoint files this script writes (about 29 GB at 40 blocks)
 STREAM_JSON = "configs/bench/lightx2v_5_distill.json"
 LAZY_JSON = "configs/offload/wan_i2v_disk_lazy_480p.json"
-LAZY_STEPS = 2  # of the file's 40 UniPC steps
+LAZY_STEPS = 1  # of the file's 40 UniPC steps (2 until the hunyuan path read its files)
 LORA_RANK = 32
 # the low-memory rows of the bench ladder on the disk tier (int8, 2 workers, a 4 GB pool, the tiny VAE), from a
 # t2v blocks checkpoint and a taew2_1-style .pth this script writes; lightx2v_6 cut to 1 of its 40 UniPC steps
-LAZY_T2V = {"offload_lazy_t2v_tiny": ("configs/bench/lightx2v_6_distill.json", "wan2.1_distill", 2),
+LAZY_T2V = {"offload_lazy_t2v_tiny": ("configs/bench/lightx2v_6_distill.json", "wan2.1_distill", 1),
             "offload_lazy_t2v_cfg_tiny": ("configs/bench/lightx2v_6.json", "wan2.1", 1)}
 # lightx2v_4 (Tea 0.2, fp8, CFG at 5) on the host-RAM tier: a window of its host Tea series (one decision for the
 # CFG batch under offload) holding a calc and a skip step
@@ -452,8 +479,8 @@ DIST_WAIT = 600  # seconds: the longest either of the path's two processes may t
 PATHS = ("slice", "serve", "flagship", "base", "radial_bsr", "radial_two_pass", "fp8_distill", "i2v", "cogvideox",
          "hunyuan", "tea_fp8", "changing_resolution", "taylorseer_1_3b", "taylorws_1_3b", "ada_1_3b", "custom_1_3b",
          "offload_stream_fp8", "offload_lazy_i2v", "offload_stream_tea", "offload_lazy_t2v_tiny",
-         "offload_lazy_t2v_cfg_tiny", "causvid", "skyreels_df", "audio", "hunyuan_i2v_tea", "hunyuan_quant",
-         "cogvideox_quant", "vae_encoders", "quant_schemes", "ptq", "dist")
+         "offload_lazy_t2v_cfg_tiny", "causvid", "skyreels_df", "audio", "audio_encoder", "hunyuan_i2v_tea",
+         "hunyuan_quant", "cogvideox_quant", "vae_encoders", "quant_schemes", "ptq", "dist")
 
 
 def card_line() -> str:
@@ -2186,6 +2213,208 @@ def hunyuan_vae_decode_check():
                        hv.hunyuan_vae_decode(pc, z, cfg, scale=True), 2e-2, 1e-3)
 
 
+def tree_checksums(tree, prefix: str = "") -> dict:
+    """{leaf path: [sum, position-weighted sum]} of a params tree's tensors,
+    each over its elements' bits as integers (exact: a changed, moved or
+    truncated element changes them), on the tensors' device."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in tree_checksums(sub, f"{prefix}{key}.").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree) for k, v in tree_checksums(sub, f"{prefix}{i}.").items()}
+    if tree is None:
+        return {}
+    bits = tree.detach().contiguous().reshape(-1).view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        tree.element_size()])
+    total, weighted, off = 0, 0, 0
+    for part in bits.split(1 << 26):
+        x = part.to(torch.int64)
+        pos = torch.arange(off, off + x.numel(), device=x.device) % 65_521 + 1
+        total, weighted, off = total + int(x.sum()), weighted + int((x * pos).sum()), off + x.numel()
+    return {prefix[:-1]: [total, weighted, str(tree.dtype), list(tree.shape)]}
+
+
+def save_sharded(sd: dict, out: Path, shard_gb: float = HY_SHARD_GB) -> None:
+    """``sd`` as HF's sharded safetensors: ``model-0000i-of-0000n.safetensors``
+    of at most ``shard_gb`` each, in key order, and
+    ``model.safetensors.index.json``."""
+    from lightx2v_tpu_torch.utils.safetensors_io import save_file
+
+    shards, size = [[]], 0
+    for k, v in sd.items():
+        nbytes = v.numel() * v.element_size()
+        if shards[-1] and size + nbytes > shard_gb * 1e9:
+            shards.append([])
+            size = 0
+        shards[-1].append(k)
+        size += nbytes
+    names = [f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors" for i in range(len(shards))]
+    for name, keys in zip(names, shards):
+        save_file({k: sd[k] for k in keys}, str(out / name))
+    total = sum(v.numel() * v.element_size() for v in sd.values())
+    (out / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": {k: n for n, keys in zip(names, shards) for k in keys}}))
+
+
+def pick_dir(need_gb: float, what: str) -> Path:
+    """The system temp directory or the repo's git-ignored ``build/``,
+    the first with ``need_gb`` free; fails loudly when neither has it."""
+    import shutil
+
+    cands = [Path(tempfile.gettempdir()), ROOT / "build"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    free = {str(c): shutil.disk_usage(c).free / 1e9 for c in cands}
+    print(json.dumps({f"{what}_disk_free_gb": free, "need_gb": need_gb}), flush=True)
+    for c in cands:
+        if free[str(c)] >= need_gb:
+            return c
+    raise AssertionError(f"{what}: no directory has the {need_gb} GB its files need: free {free}")
+
+
+def write_hunyuan_model_dir(root: Path) -> dict:
+    """The full-width HunyuanVideo model directory of the reference layout
+    under ``root``, from the device synthesizers (the seeds the synthetic
+    runner uses): ``hunyuan-video-t2v-720p/transformers/
+    mp_rank_00_model_states.pt`` (the DiT, 25.4 GB bf16, under
+    ``"module"``), ``.../vae/pytorch_model.pt`` (the VAE, fp32, under
+    ``"state_dict"`` with ``vae.`` keys), ``text_encoder/`` (an HF
+    ``LlamaForCausalLM`` directory: ``config.json`` and safetensors shards
+    of at most ``HY_SHARD_GB`` with their index: the 30 blocks the encoder
+    runs, then the two it skips, the final norm and ``lm_head``, zeros,
+    which the reader must not read) and ``text_encoder_2/`` (an HF
+    ``CLIPTextModel`` directory). Each component is made on the card,
+    checksummed there (``tree_checksums`` of the params the runner should
+    load), written one tensor at a time and released before the next.
+    Returns the checksums, the write seconds and GB per component."""
+    import numpy as np
+    import torch
+
+    from lightx2v_tpu_torch.encoders.clip import (ClipTextArch, clip_text_hf_config,
+                                                  clip_text_params_to_hf_state_dict,
+                                                  init_random_clip_text_params_on_device)
+    from lightx2v_tpu_torch.encoders.llama import (LLAVA_LLAMA3_8B, init_random_llama_params_on_device,
+                                                   llama_hf_config, llama_params_to_hf_state_dict)
+    from lightx2v_tpu_torch.models.hunyuan.config import HunyuanArch
+    from lightx2v_tpu_torch.models.hunyuan.weights import (hunyuan_params_to_state_dict,
+                                                           init_random_hunyuan_params_on_device)
+    from lightx2v_tpu_torch.utils.safetensors_io import save_file
+    from lightx2v_tpu_torch.vae import hunyuan_vae as hv
+
+    sums, times, sizes = {}, {}, {}
+    base = root / "hunyuan-video-t2v-720p"
+
+    def timed(name, write, files):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        write()
+        times[name] = time.perf_counter() - t0
+        sizes[name] = sum(f.stat().st_size for d in files for f in (d.rglob("*") if d.is_dir() else [d])
+                          if f.is_file()) / 1e9
+
+    arch = HunyuanArch()
+    params = init_random_hunyuan_params_on_device(arch, seed=0, device="cuda")
+    sums["dit"] = tree_checksums(params)
+    (base / "transformers").mkdir(parents=True)
+    dit_pt = base / "transformers" / "mp_rank_00_model_states.pt"
+    timed("dit", lambda: torch.save({"module": hunyuan_params_to_state_dict(params, arch)}, dit_pt), [dit_pt])
+    del params
+    torch.cuda.empty_cache()
+
+    llama = LLAVA_LLAMA3_8B
+    params = init_random_llama_params_on_device(llama, seed=1, device="cuda")
+    sums["llama"] = tree_checksums(params)
+    zero = {k: torch.zeros_like(v) for k, v in params["blocks"][0].items()}
+    # the blocks past the crop layer, the final norm and lm_head: written, never read
+    sd = llama_params_to_hf_state_dict({**params, "blocks": params["blocks"] + [zero] * llama.hidden_state_skip_layer})
+    sd["model.norm.weight"] = torch.ones((llama.dim,), dtype=torch.bfloat16, device="cuda")
+    sd["lm_head.weight"] = torch.zeros((llama.vocab_size, llama.dim), dtype=torch.bfloat16, device="cuda")
+    te = root / "text_encoder"
+    te.mkdir()
+    (te / "config.json").write_text(json.dumps(llama_hf_config(llama)))
+    timed("llama", lambda: save_sharded(sd, te), [te])
+    del params, sd
+    torch.cuda.empty_cache()
+
+    clip = ClipTextArch()
+    params = init_random_clip_text_params_on_device(clip, seed=3, device="cuda")
+    sums["clip"] = tree_checksums(params)
+    te2 = root / "text_encoder_2"
+    te2.mkdir()
+    (te2 / "config.json").write_text(json.dumps(clip_text_hf_config(clip)))
+    timed("clip", lambda: save_file(clip_text_params_to_hf_state_dict(params), str(te2 / "model.safetensors")),
+          [te2])
+    del params
+
+    cfg = hv.HunyuanVAEConfig()
+    vsd = hv.init_random_hunyuan_vae_state_dict(cfg, seed=2)
+    sums["vae"] = tree_checksums(hv.load_hunyuan_vae_params(vsd, cfg, device="cuda"))
+    (base / "vae").mkdir()
+    vae_pt = base / "vae" / "pytorch_model.pt"
+    timed("vae", lambda: torch.save({"state_dict": {f"vae.{k}": torch.from_numpy(np.ascontiguousarray(v))
+                                                    for k, v in vsd.items()}}, vae_pt), [vae_pt])
+    del vsd
+    torch.cuda.empty_cache()
+    gb = sum(sizes.values())
+    written = {"write_s": times, "files_gb": sizes, "write_gb_s": gb / sum(times.values()),
+               "leaves": {k: len(v) for k, v in sums.items()}, "card": card_line()}
+    print(json.dumps({"hunyuan_write": written}), flush=True)
+    return {**written, "checksums": sums}
+
+
+def run_hunyuan_from_files(profile_dir=None):
+    """The HunyuanVideo path from files: ``write_hunyuan_model_dir`` into a
+    temporary directory (deleted afterwards), then ``configs/hunyuan_t2v.json``
+    through the runner with ``model_path`` and ``text_encoder_path`` on it and
+    no ``synthetic_weights``, cut to its first ``HY_STEPS`` Euler steps. After
+    loading, every tensor the runner holds must equal the synthesized one
+    (``tree_checksums``), and the encoders get the synthetic tokenizers
+    (difference ah: the card machine has no ``transformers``; a stated test
+    double, set here and on every reload). The line adds the write seconds
+    and GB/s per component, the load seconds and read GB/s per part."""
+    import torch
+
+    from lightx2v_tpu_torch.runners.hunyuan_runner import _SyntheticClipTokenizer, _SyntheticLlamaTokenizer
+    from lightx2v_tpu_torch.utils.config import set_config
+
+    with tempfile.TemporaryDirectory(dir=pick_dir(HY_FILES_GB, "hunyuan")) as tmp:
+        crc32 = torch.serialization.get_crc32_options()
+        torch.serialization.set_crc32_options(False)  # the .pt files without zip CRC32s: torch.load reads none
+        try:
+            written = write_hunyuan_model_dir(Path(tmp))
+        finally:
+            torch.serialization.set_crc32_options(crc32)
+        cfg = set_config(dict(model_cls="hunyuan", task="t2v", device="cuda", config_json=str(ROOT / HY_JSON),
+                              prompt=PROMPT, seed=42, release_modules=True, model_path=tmp,
+                              text_encoder_path=tmp))
+
+        def test_tokenizers(encoders):
+            encoders["llama"].tokenizer = _SyntheticLlamaTokenizer(encoders["llama"].arch)
+            encoders["clip"].tokenizer = _SyntheticClipTokenizer(encoders["clip"].arch)
+            return encoders
+
+        def before(runner):
+            got = {"dit": tree_checksums(runner.model), "llama": tree_checksums(runner.text_encoder["llama"].params),
+                   "clip": tree_checksums(runner.text_encoder["clip"].params), "vae": tree_checksums(runner.vae)}
+            for part, want in written["checksums"].items():
+                if got[part] != want:
+                    bad = sorted(k for k in set(got[part]) | set(want) if got[part].get(k) != want.get(k))
+                    raise AssertionError(f"hunyuan from files: {part} differs from the synthesized weights at "
+                                         f"{len(bad)} leaves, e.g. {bad[:4]}")
+            test_tokenizers(runner.text_encoder)
+            load = runner.load_text_encoder
+            runner.load_text_encoder = lambda: test_tokenizers(load())
+            parts = runner.timings["load_parts_s"]
+            files = written["files_gb"]
+            read = {"model": files["dit"], "text_encoder": files["llama"] + files["clip"], "vae": files["vae"]}
+            return {"write_s": written["write_s"], "files_gb": files, "write_gb_s": written["write_gb_s"],
+                    "load_s": runner.timings["load_s"], "load_parts_s": parts,
+                    "read_gb_s": {k: v / parts[k] for k, v in read.items()},
+                    "loaded_equal_synthesized": {k: len(v) for k, v in got.items()}}
+
+        return run_path("hunyuan", {}, profile_dir, model_cls="hunyuan", cfg=cfg, steps=HY_STEPS, before=before)
+
+
 def write_image(path: str, seed: int = 0) -> str:
     """A seeded 480 x 832 RGB PNG (smooth colour ramps plus noise)."""
     import numpy as np
@@ -2982,7 +3211,7 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
         cfg.update(overrides)
     print(f"[{name}] device memory in use before loading: {torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
+    t0 = t_entry = time.perf_counter()
     runner = infer.init_runner(cfg)
     load_peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"[{name}] loaded in {time.perf_counter() - t0:.1f} s, device peak while loading {load_peak:.2f} GB",
@@ -3056,6 +3285,7 @@ def run_path(name: str, overrides: dict, profile_dir=None, model_cls: str = "wan
     stats.update(extra)
     if after is not None:
         stats.update(after(runner, frames))
+    stats["wall_s"] = time.perf_counter() - t_entry  # load, hooks, run and checks: what the path adds to the script
     print(json.dumps({name: stats}), flush=True)
     if profile_dir:
         profile_run(runner, profile_dir, name)
@@ -3646,6 +3876,72 @@ def run_audio(profile_dir=None):
                         steps=AUDIO_STEPS, forwards=n_seg * AUDIO_STEPS, want_frames=frames, after=after)
 
 
+def run_audio_encoder() -> dict:
+    """The wav2vec-class audio encoder from HF directories
+    (``encoders/wav2vec.py``): a wavlm-base-plus-width one (768 wide, 12
+    post-LN layers, the gated relative position bias) and a
+    hubert-large-width one (1024 wide, 24 pre-LN layers, LayerNorm conv
+    features) in an ``audio_encoder/`` subfolder, written from the device
+    synthesizer into a temporary directory; ``AudioEncoder(path)`` on the
+    card (fp32, no TF32) on the audio config's 81-frame window of a seeded
+    16 kHz wav, timed, then the same function on the CPU from the same files.
+    Bar: max abs difference 1e-5 of the features' max abs (fp32 on both
+    sides, the convolutions and sums in another order: the fp32 runs read
+    about 2e-6 of it; TF32 left on in a matmul or convolution rounds its
+    inputs to 10 mantissa bits, about 5e-4 relative each)."""
+    import gc
+    import os
+
+    import numpy as np
+    import torch
+
+    from lightx2v_tpu_torch.encoders import wav2vec as w2v
+    from lightx2v_tpu_torch.encoders.audio import AudioEncoder
+
+    au = json.loads((ROOT / AUDIO_JSON).read_text())
+    fps, frames = float(au["target_fps"]), int(au["target_video_length"])
+    line = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = write_wav(str(Path(tmp) / "speech.wav"), int(frames / fps * au["audio_sr"]), sr=int(au["audio_sr"]),
+                        seed=4)
+        for name, arch, sub in (("wavlm_base_plus", w2v.WAVLM_BASE_PLUS, ""),
+                                ("hubert_large", w2v.HUBERT_LARGE, "audio_encoder")):
+            path = Path(tmp) / name
+            t0 = time.perf_counter()
+            w2v.write_random_wav2vec_dir(str(path / sub), arch, seed=6, device="cuda")
+            rec = {"write_s": time.perf_counter() - t0,
+                   "files_gb": sum(f.stat().st_size for f in path.rglob("*") if f.is_file()) / 1e9}
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            enc = AudioEncoder(str(path), device="cuda")
+            torch.cuda.synchronize()
+            rec["load_s"] = time.perf_counter() - t0
+            card = enc.infer(wav, frames, fps=fps)  # first call: cuDNN's algorithm choice
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = enc.infer(wav, frames, fps=fps)
+            torch.cuda.synchronize()
+            rec.update(encode_s=time.perf_counter() - t0, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       encoder_frames=int(enc.model(np.zeros(int(frames / fps * 16000), np.float32)).shape[0]))
+            del enc
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.set_num_threads(os.cpu_count() or 1)
+            t0 = time.perf_counter()
+            ref = AudioEncoder(str(path), device="cpu").infer(wav, frames, fps=fps)
+            rec["cpu_s"] = time.perf_counter() - t0
+            rec["max_abs_err"] = err = float(np.abs(card - ref).max())
+            rec["ref_max_abs"] = scale = float(np.abs(ref).max())
+            if not (card.shape == ref.shape == (1, frames, 1024) and np.isfinite(card).all() and err < 1e-5 * scale):
+                raise AssertionError(f"audio encoder {name}, card vs CPU: shape {card.shape}, max abs err {err} "
+                                     f"against the bar {1e-5 * scale}")
+            rec["hidden"] = arch.hidden_size
+            line[name] = rec
+    print(json.dumps({"audio_encoder": line}), flush=True)
+    return line
+
+
 def http_json(port: int, method: str, path: str, body=None, timeout: float = 60.0):
     """(status code, JSON body) of one request to the server on 127.0.0.1."""
     import urllib.error
@@ -3998,8 +4294,7 @@ def main():
     if "hunyuan" in paths:
         hunyuan_block_reference_check()
         hunyuan_vae_decode_check()
-        by_path["hunyuan"] = run_path("hunyuan", dict(hidden_size=3072), args.profile, model_cls="hunyuan",
-                                      config_json=HY_JSON, steps=HY_STEPS)
+        by_path["hunyuan"] = run_hunyuan_from_files(args.profile)
     if "hunyuan_i2v_tea" in paths:
         by_path["hunyuan_i2v_tea"] = run_path("hunyuan_i2v_tea", HY_I2V, args.profile, model_cls="hunyuan",
                                               config_json=HY_JSON, cut=HY_I2V_CUT, after=check_hunyuan_i2v)
@@ -4032,6 +4327,8 @@ def main():
                                           forwards=DF_ROWS)
     if "audio" in paths:
         by_path["audio"] = run_audio(args.profile)
+    if "audio_encoder" in paths:
+        run_audio_encoder()
     if "quant_schemes" in paths:
         run_quant_schemes()
     if "ptq" in paths:

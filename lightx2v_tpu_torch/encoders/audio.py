@@ -1,20 +1,27 @@
 """Audio features for audio-driven video (counterpart of
 ``lightx2v_tpu.encoders.audio``).
 
-Host numpy, as in the JAX package: a wav read with the standard library,
-a linear resample, and the waveform-envelope stand-in features (one
-1024-d row per video frame) that the synthetic mode feeds the audio
-adapter. The wav2vec-class encoder of a real checkpoint runs through
-``transformers``, which the port does not depend on: ``AudioEncoder``
-with a model path raises ``NotImplementedError`` (ROADMAP.md, Queue 1
-item 20)."""
+A wav read with the standard library and a linear resample on the host,
+as in the JAX package, then either the waveform-envelope stand-in
+features (one 1024-d row per video frame) that the synthetic mode feeds
+the audio adapter, or a wav2vec-class encoder read from an HF directory
+(``encoders/wav2vec.py``: ``wav2vec2``, ``hubert``, ``wavlm``; the
+directory's ``audio_encoder/`` subfolder where it has one) on the card
+unless the caller asks for the CPU: the waveform resampled to 16 kHz,
+trimmed or zero-padded to the video's ``16000 * num_frames / fps``
+samples, normalized as its ``preprocessor_config.json`` says, encoded in
+fp32; ``last_hidden_state`` zero-padded to 1024 features and resampled
+linearly to the frames."""
 
 from __future__ import annotations
 
+import os
 import wave
 from typing import Optional
 
 import numpy as np
+
+from .wav2vec import Wav2VecModel
 
 FEAT_DIM = 1024
 
@@ -64,17 +71,27 @@ def _interp_time(feats: np.ndarray, num_frames: int) -> np.ndarray:
 
 
 class AudioEncoder:
-    """wav -> (1, num_frames, 1024) features: the envelope stand-in. A
-    ``model_path`` (a wav2vec-class checkpoint) is refused."""
+    """wav -> (1, num_frames, 1024) features. ``model_path``: an HF
+    wav2vec-class directory, or one with an ``audio_encoder`` subfolder;
+    None gives the envelope stand-in."""
 
-    def __init__(self, model_path: Optional[str] = None):
+    def __init__(self, model_path: Optional[str] = None, device="cuda"):
+        self.model = None
         if model_path:
-            raise NotImplementedError("the wav2vec audio encoder (a transformers checkpoint) is not ported yet "
-                                      "(ROADMAP.md, Queue 1 item 20)")
+            sub = os.path.join(model_path, "audio_encoder")
+            self.model = Wav2VecModel(sub if os.path.isdir(sub) else model_path, device)
 
     def infer(self, audio_path: str, num_frames: int, fps: float = 16.0) -> np.ndarray:
         waveform, sr = read_wav(audio_path)
         return self.infer_array(waveform, sr, num_frames, fps=fps)
 
     def infer_array(self, waveform: np.ndarray, sr: int, num_frames: int, fps: float = 16.0) -> np.ndarray:
-        return envelope_features(waveform, sr, num_frames, fps=fps)
+        if self.model is None:
+            return envelope_features(waveform, sr, num_frames, fps=fps)
+        wav16 = resample_linear(waveform, sr, 16000)
+        need = int(round(16000 * num_frames / fps))
+        wav16 = np.pad(wav16[:need], (0, max(0, need - len(wav16))))
+        hidden = self.model(wav16)  # (frames at 50 Hz, hidden)
+        if hidden.shape[-1] < FEAT_DIM:
+            hidden = np.pad(hidden, ((0, 0), (0, FEAT_DIM - hidden.shape[-1])))
+        return _interp_time(hidden, num_frames)[None]

@@ -31,7 +31,7 @@ from ..models.wan.weights import to_tensor
 from ..ops.linear import nt_dot_f32, resolve_mm
 from ..ops.norms import layer_norm
 from ..tools.convert import quantize_weight
-from ..utils.safetensors_io import read_state_dict
+from ..utils.safetensors_io import load_dir, read_state_dict
 from ..utils.image import resize_bicubic
 
 Params = Dict[str, Any]
@@ -254,8 +254,10 @@ class CLIPVisionModel:
 # CLIP-L text tower (HunyuanVideo's second text encoder: the pooled prompt
 # vector). Learned positions, 12 pre-norm blocks (q scaled before the
 # product, causal and padding bias, quick-GELU MLP), a final LayerNorm; the
-# pooled vector is the row at the end-of-text token, the vocabulary's
-# highest id, so the argmax over the ids finds it.
+# pooled vector is the row HF's CLIPTextTransformer pools for the config's
+# ``eos_token_id``: with the legacy id 2 (CLIP-L's config) the row at the
+# argmax of the ids (the end-of-text token, the vocabulary's highest id),
+# else the row at the first ``eos_token_id``, row 0 where the ids lack it.
 
 
 @dataclass(frozen=True)
@@ -267,6 +269,51 @@ class ClipTextArch:
     num_layers: int = 12
     max_positions: int = 77
     norm_eps: float = 1e-5
+    eos_token_id: int = 2
+
+
+# HF CLIPTextConfig's defaults, for the keys a config.json leaves out
+_CLIP_TEXT_DEFAULTS = dict(vocab_size=49408, hidden_size=512, intermediate_size=2048, num_hidden_layers=12,
+                           num_attention_heads=8, max_position_embeddings=77, layer_norm_eps=1e-5,
+                           eos_token_id=49407, hidden_act="quick_gelu")
+
+
+def clip_text_arch_from_config(cfg: Dict[str, Any]) -> ClipTextArch:
+    """An HF ``CLIPTextModel`` ``config.json`` (or a ``CLIPModel`` one,
+    whose ``text_config`` it reads, as ``CLIPTextConfig.from_pretrained``
+    does) as a dict -> ``ClipTextArch``; an activation other than quick GELU
+    or a hidden width that does not divide the MLP's raises
+    ``NotImplementedError``."""
+    if cfg.get("model_type") == "clip":
+        cfg = cfg.get("text_config") or {}
+    c = {**_CLIP_TEXT_DEFAULTS, **{k: v for k, v in cfg.items() if v is not None}}
+    dim, ffn = int(c["hidden_size"]), int(c["intermediate_size"])
+    if c["hidden_act"] != "quick_gelu" or ffn % dim:
+        raise NotImplementedError(f"CLIP text config (hidden_act {c['hidden_act']!r}, intermediate_size {ffn}): the "
+                                  "port's tower runs a quick-GELU MLP of a whole multiple of the width "
+                                  "(ROADMAP.md, Queue 1 item 22)")
+    return ClipTextArch(vocab_size=int(c["vocab_size"]), dim=dim, mlp_ratio=ffn // dim,
+                        num_heads=int(c["num_attention_heads"]), num_layers=int(c["num_hidden_layers"]),
+                        max_positions=int(c["max_position_embeddings"]), norm_eps=float(c["layer_norm_eps"]),
+                        eos_token_id=int(c["eos_token_id"]))
+
+
+def clip_text_hf_config(arch: ClipTextArch) -> Dict[str, Any]:
+    """The HF ``CLIPTextModel`` ``config.json`` of ``arch``: the inverse of
+    ``clip_text_arch_from_config``."""
+    return {"model_type": "clip_text_model", "architectures": ["CLIPTextModel"], "vocab_size": arch.vocab_size,
+            "hidden_size": arch.dim, "intermediate_size": arch.mlp_ratio * arch.dim,
+            "num_hidden_layers": arch.num_layers, "num_attention_heads": arch.num_heads,
+            "max_position_embeddings": arch.max_positions, "hidden_act": "quick_gelu",
+            "layer_norm_eps": arch.norm_eps, "eos_token_id": arch.eos_token_id}
+
+
+def clip_pool_index(ids: torch.Tensor, eos_token_id: int) -> torch.Tensor:
+    """The row HF pools (B,): the argmax of the ids under the legacy
+    ``eos_token_id`` 2, else the first ``eos_token_id`` (0 where absent)."""
+    if eos_token_id == 2:
+        return ids.argmax(dim=-1)
+    return (ids == eos_token_id).int().argmax(dim=-1)
 
 
 def clip_text_forward(params: Params, ids: torch.Tensor, mask: torch.Tensor, arch: ClipTextArch):
@@ -293,8 +340,14 @@ def clip_text_forward(params: Params, ids: torch.Tensor, mask: torch.Tensor, arc
         h = h * torch.sigmoid(1.702 * h)  # quick GELU
         x = x + _lin(bp["fc2_w"], h.to(x.dtype), bp["fc2_b"]).to(x.dtype)
     x = layer_norm(x, params["final_norm"]["w"], params["final_norm"]["b"], eps=arch.norm_eps)
-    pooled = x[torch.arange(b, device=dev), ids.argmax(dim=-1)].float()
+    pooled = x[torch.arange(b, device=dev), clip_pool_index(ids, arch.eos_token_id)].float()
     return x, pooled
+
+
+# a text block's params -> its HF module names under ``text_model.encoder.layers.{i}``
+_HF_TEXT_LINEARS = (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"), ("v", "self_attn.v_proj"),
+                    ("proj", "self_attn.out_proj"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2"))
+_HF_TEXT_NORMS = (("norm1", "layer_norm1"), ("norm2", "layer_norm2"))
 
 
 def load_clip_text_params(sd: Dict[str, Any], arch: ClipTextArch, device="cpu") -> Params:
@@ -308,11 +361,10 @@ def load_clip_text_params(sd: Dict[str, Any], arch: ClipTextArch, device="cpu") 
     def block(i):
         p = f"encoder.layers.{i}"
         out = {}
-        for ours, theirs in (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"), ("v", "self_attn.v_proj"),
-                             ("proj", "self_attn.out_proj"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+        for ours, theirs in _HF_TEXT_LINEARS:
             out[f"{ours}_w"] = g(f"{p}.{theirs}.weight", torch.bfloat16)
             out[f"{ours}_b"] = g(f"{p}.{theirs}.bias")
-        for ours, theirs in (("norm1", "layer_norm1"), ("norm2", "layer_norm2")):
+        for ours, theirs in _HF_TEXT_NORMS:
             out[ours] = {"w": g(f"{p}.{theirs}.weight"), "b": g(f"{p}.{theirs}.bias")}
         return out
 
@@ -320,6 +372,29 @@ def load_clip_text_params(sd: Dict[str, Any], arch: ClipTextArch, device="cpu") 
             "pos": g("embeddings.position_embedding.weight"),
             "blocks": [block(i) for i in range(arch.num_layers)],
             "final_norm": {"w": g("final_layer_norm.weight"), "b": g("final_layer_norm.bias")}}
+
+
+def load_clip_text_dir(path: str, arch: ClipTextArch, device="cpu") -> Params:
+    """An HF ``CLIPTextModel`` (or ``CLIPModel``) directory's safetensors ->
+    text params on ``device``, reading only the ``text_model.`` tensors,
+    each moved to the device as it is read."""
+    return load_clip_text_params(load_dir(path, lambda k: k.startswith("text_model."), device), arch, device)
+
+
+def clip_text_params_to_hf_state_dict(params: Params) -> Dict[str, torch.Tensor]:
+    """The inverse of ``load_clip_text_params``: ``CLIPTextModel``'s
+    ``text_model.`` keys, each value a view of the params on their device."""
+    sd = {"text_model.embeddings.token_embedding.weight": params["token_embedding"],
+          "text_model.embeddings.position_embedding.weight": params["pos"],
+          "text_model.final_layer_norm.weight": params["final_norm"]["w"],
+          "text_model.final_layer_norm.bias": params["final_norm"]["b"]}
+    for i, b in enumerate(params["blocks"]):
+        p = f"text_model.encoder.layers.{i}"
+        for ours, theirs in _HF_TEXT_LINEARS:
+            sd[f"{p}.{theirs}.weight"], sd[f"{p}.{theirs}.bias"] = b[f"{ours}_w"], b[f"{ours}_b"]
+        for ours, theirs in _HF_TEXT_NORMS:
+            sd[f"{p}.{theirs}.weight"], sd[f"{p}.{theirs}.bias"] = b[ours]["w"], b[ours]["b"]
+    return sd
 
 
 def init_random_clip_text_params_on_device(arch: ClipTextArch = ClipTextArch(), seed: int = 0,

@@ -13,7 +13,10 @@ softmax statistics fp32, linears bf16 GEMMs with fp32 accumulation.
 
 Only the blocks that run are kept: the loader and the synthesizer drop the
 top ``hidden_state_skip_layer`` blocks and the final norm, which the
-encoder never reads."""
+encoder never reads. ``load_llama_dir`` reads an HF Llama directory
+(``config.json`` and safetensors, sharded with ``model.safetensors.index.json``
+or one file; keys with or without ``LlamaForCausalLM``'s ``model.``): only
+the embedding and those blocks, each straight to the device."""
 
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 
 from ..models.wan.weights import to_tensor
 from ..ops.linear import nt_dot_f32
+from ..utils.safetensors_io import load_dir
 
 Params = Dict[str, Any]
 
@@ -69,6 +73,37 @@ PROMPT_TEMPLATE = (
     "background environment, light, style and atmosphere.5. camera "
     "angles, movements, and transitions used in the video:<|eot_id|>"
     "<|start_header_id|>user<|end_header_id|>\n\n{}<|eot_id|>")
+
+
+def llama_arch_from_config(cfg: Dict[str, Any], crop_start: int = 95, hidden_state_skip_layer: int = 2) -> LlamaArch:
+    """An HF Llama ``config.json`` (as a dict) -> ``LlamaArch``. What the
+    tower does not run raises ``NotImplementedError`` instead of being
+    ignored: a ``rope_scaling``, a ``head_dim`` other than hidden / heads,
+    biased projections, an activation other than SiLU."""
+    unported = [k for k in ("rope_scaling", "attention_bias", "mlp_bias") if cfg.get(k)]
+    dim, heads = int(cfg["hidden_size"]), int(cfg["num_attention_heads"])
+    if cfg.get("head_dim") not in (None, dim // heads):
+        unported.append("head_dim")
+    if cfg.get("hidden_act", "silu") != "silu":
+        unported.append("hidden_act")
+    if unported:
+        raise NotImplementedError(f"Llama config {unported}: the port's Llama tower runs plain RoPE, unbiased "
+                                  "projections and a SiLU MLP (ROADMAP.md, Queue 1 item 22)")
+    return LlamaArch(vocab_size=int(cfg["vocab_size"]), dim=dim, num_layers=int(cfg["num_hidden_layers"]),
+                     num_heads=heads, num_kv_heads=int(cfg.get("num_key_value_heads") or heads),
+                     ffn_dim=int(cfg["intermediate_size"]), rope_theta=float(cfg.get("rope_theta", 10000.0)),
+                     rms_eps=float(cfg.get("rms_norm_eps", 1e-6)), hidden_state_skip_layer=hidden_state_skip_layer,
+                     crop_start=crop_start)
+
+
+def llama_hf_config(arch: LlamaArch) -> Dict[str, Any]:
+    """The HF ``LlamaForCausalLM`` ``config.json`` of ``arch`` (bf16): the
+    inverse of ``llama_arch_from_config``."""
+    return {"model_type": "llama", "architectures": ["LlamaForCausalLM"], "vocab_size": arch.vocab_size,
+            "hidden_size": arch.dim, "intermediate_size": arch.ffn_dim, "num_hidden_layers": arch.num_layers,
+            "num_attention_heads": arch.num_heads, "num_key_value_heads": arch.num_kv_heads,
+            "rms_norm_eps": arch.rms_eps, "rope_theta": arch.rope_theta, "rope_scaling": None,
+            "hidden_act": "silu", "torch_dtype": "bfloat16"}
 
 
 def _rms_norm(w: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -141,6 +176,12 @@ def llama_encode_cropped(params: Params, ids: torch.Tensor, mask: torch.Tensor,
     return x[:, arch.crop_start:], mask[:, arch.crop_start:]
 
 
+# a block's params -> its HF module names (``.weight`` each): norms fp32, matmuls bf16
+_HF_BLOCK_KEYS = (("norm1", "input_layernorm"), ("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+                  ("v", "self_attn.v_proj"), ("o", "self_attn.o_proj"), ("norm2", "post_attention_layernorm"),
+                  ("gate", "mlp.gate_proj"), ("up", "mlp.up_proj"), ("down", "mlp.down_proj"))
+
+
 def load_llama_params(sd: Dict[str, Any], arch: LlamaArch = LLAVA_LLAMA3_8B, device="cpu") -> Params:
     """HF LlamaModel state dict (keys with or without ``model.``) -> params:
     the bf16 embedding and the first ``arch.run_layers`` blocks."""
@@ -151,15 +192,30 @@ def load_llama_params(sd: Dict[str, Any], arch: LlamaArch = LLAVA_LLAMA3_8B, dev
         return to_tensor(sd[key], torch.bfloat16, device).contiguous()
 
     def block(i):
-        p = f"layers.{i}"
-        return {"norm1": to_tensor(sd[f"{p}.input_layernorm.weight"], torch.float32, device),
-                "q": w(f"{p}.self_attn.q_proj.weight"), "k": w(f"{p}.self_attn.k_proj.weight"),
-                "v": w(f"{p}.self_attn.v_proj.weight"), "o": w(f"{p}.self_attn.o_proj.weight"),
-                "norm2": to_tensor(sd[f"{p}.post_attention_layernorm.weight"], torch.float32, device),
-                "gate": w(f"{p}.mlp.gate_proj.weight"), "up": w(f"{p}.mlp.up_proj.weight"),
-                "down": w(f"{p}.mlp.down_proj.weight")}
+        return {ours: (to_tensor(sd[f"layers.{i}.{theirs}.weight"], torch.float32, device) if ours.startswith("norm")
+                       else w(f"layers.{i}.{theirs}.weight")) for ours, theirs in _HF_BLOCK_KEYS}
 
     return {"token_embedding": w("embed_tokens.weight"), "blocks": [block(i) for i in range(arch.run_layers)]}
+
+
+def load_llama_dir(path: str, arch: LlamaArch, device="cpu") -> Params:
+    """An HF Llama directory -> params on ``device``: reads only the
+    embedding and the first ``arch.run_layers`` blocks (never the other
+    blocks, the final norm or ``lm_head``), each tensor moved to the device
+    as it is read."""
+    keep = ("embed_tokens.",) + tuple(f"layers.{i}." for i in range(arch.run_layers))
+    sd = load_dir(path, lambda k: k.removeprefix("model.").startswith(keep), device)
+    return load_llama_params(sd, arch, device)
+
+
+def llama_params_to_hf_state_dict(params: Params) -> Dict[str, torch.Tensor]:
+    """The inverse of ``load_llama_params``: ``LlamaForCausalLM``'s keys
+    (``model.`` prefix) for the embedding and every block of
+    ``params["blocks"]``, each value a view of the params on their device."""
+    sd = {"model.embed_tokens.weight": params["token_embedding"]}
+    for i, b in enumerate(params["blocks"]):
+        sd.update({f"model.layers.{i}.{theirs}.weight": b[ours] for ours, theirs in _HF_BLOCK_KEYS})
+    return sd
 
 
 def init_random_llama_params_on_device(arch: LlamaArch = LLAVA_LLAMA3_8B, seed: int = 0, scale: float = 0.02,
@@ -184,17 +240,20 @@ def init_random_llama_params_on_device(arch: LlamaArch = LLAVA_LLAMA3_8B, seed: 
 
 class LlamaEncoderModel:
     """Prompt -> (states (B, max_length - crop_start, dim) bf16, mask (B,
-    max_length - crop_start) int32 numpy): the video template, the tokenizer
-    (injectable: a callable ``(texts, return_mask=True) -> (ids, mask)``
-    padding to ``arch.max_length``), the encoder, the crop."""
+    max_length - crop_start) int32 numpy): the prompt template (the video
+    one by default), the tokenizer (injectable: a callable ``(texts,
+    return_mask=True) -> (ids, mask)`` padding to ``arch.max_length``), the
+    encoder, the crop."""
 
-    def __init__(self, arch: LlamaArch = LLAVA_LLAMA3_8B, params: Optional[Params] = None, tokenizer=None):
+    def __init__(self, arch: LlamaArch = LLAVA_LLAMA3_8B, params: Optional[Params] = None, tokenizer=None,
+                 prompt_template: str = PROMPT_TEMPLATE):
         self.arch = arch
         self.params = params
         self.tokenizer = tokenizer
+        self.prompt_template = prompt_template
 
     def infer(self, texts) -> Tuple[torch.Tensor, np.ndarray]:
-        ids, mask = self.tokenizer([PROMPT_TEMPLATE.format(t) for t in texts], return_mask=True)
+        ids, mask = self.tokenizer([self.prompt_template.format(t) for t in texts], return_mask=True)
         states, _ = llama_encode_cropped(self.params, torch.from_numpy(np.asarray(ids)),
                                          torch.from_numpy(np.asarray(mask)), self.arch)
         return states, np.asarray(mask)[:, self.arch.crop_start:]

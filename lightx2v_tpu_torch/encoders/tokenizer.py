@@ -1,7 +1,9 @@
 """Prompt tokenization (counterpart of ``lightx2v_tpu.encoders.tokenizer``):
 whitespace and HTML clean-up of the prompt, then an HF ``AutoTokenizer``
 (imported when first used, from local files only) to fixed-length ids and
-mask."""
+mask. ``HFTokenizer`` is the HF text encoders' call (``encoders/hf_text.py``,
+as the JAX ``TextEncoderHF*`` models tokenize): the texts as given, padded on
+the right to ``max_length`` and truncated."""
 
 from __future__ import annotations
 
@@ -44,3 +46,26 @@ def encode_prompts(tokenizer_path: str, prompts: Union[str, Sequence[str]],
     out = _hf_tokenizer(tokenizer_path)([clean_prompt(p) for p in prompts], return_tensors="np",
                                         padding="max_length", truncation=True, max_length=seq_len)
     return np.asarray(out["input_ids"]), np.asarray(out["attention_mask"])
+
+
+def hf_tokenize(tokenizer_path: str, texts: Sequence[str], max_length: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Texts -> ``(ids, mask)`` numpy arrays (B, max_length): no clean-up,
+    ``padding="max_length"`` on the right, truncated."""
+    out = _hf_tokenizer(tokenizer_path)(list(texts), return_tensors="np", padding="max_length", truncation=True,
+                                        max_length=max_length, padding_side="right")
+    return np.asarray(out["input_ids"]), np.asarray(out["attention_mask"])
+
+
+class HFTokenizer:
+    """The tokenizer files of an HF model directory as the text encoders'
+    tokenizer callable, ``(texts, return_mask=False) -> ids`` or ``(ids,
+    mask)``; ``transformers`` is imported at the first call, and its absence
+    raises there."""
+
+    def __init__(self, path: str, max_length: int):
+        self.path = path
+        self.max_length = max_length
+
+    def __call__(self, texts, return_mask=False, **kw):
+        ids, mask = hf_tokenize(self.path, [texts] if isinstance(texts, str) else texts, self.max_length)
+        return (ids, mask) if return_mask else ids

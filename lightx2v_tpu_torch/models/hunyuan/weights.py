@@ -93,11 +93,69 @@ def load_hunyuan_params(sd: Dict[str, Any], arch: HunyuanArch, device="cpu") -> 
 
 def load_hunyuan_from_path(path: str, arch: HunyuanArch, device="cpu") -> Params:
     """The reference's ``mp_rank_00_model_states.pt`` (a state dict, or one
-    under a ``"module"`` key) -> params on ``device``."""
+    under a ``"module"`` key) -> params on ``device``. The file is
+    ``mmap``ed: each tensor goes from its pages to the device as
+    ``load_hunyuan_params`` reaches it (a dtype cast made on the host first
+    takes that one tensor's size), so the host never holds a second copy of
+    the 25.4 GB DiT."""
     sd = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
     if "module" in sd:
         sd = sd["module"]
     return load_hunyuan_params(sd, arch, device=device)
+
+
+def hunyuan_params_to_state_dict(params: Params, arch: HunyuanArch) -> Dict[str, torch.Tensor]:
+    """The inverse of ``load_hunyuan_params`` for bf16 params: the
+    reference's flat keys, each value a view of the params on their device
+    (``img_in.proj.weight`` back in its conv shape (D, C, pt, ph, pw))."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(key, p):
+        sd[f"{key}.weight"] = p["w"]
+        if p.get("b") is not None:
+            sd[f"{key}.bias"] = p["b"]
+
+    w = params["img_in"]["w"]
+    sd["img_in.proj.weight"] = w.reshape(w.shape[0], arch.in_channels, *arch.patch_size)
+    sd["img_in.proj.bias"] = params["img_in"]["b"]
+    for name, (a, b) in (("time_in", ("time_in.mlp.0", "time_in.mlp.2")),
+                         ("vector_in", ("vector_in.in_layer", "vector_in.out_layer")),
+                         ("guidance_in", ("guidance_in.mlp.0", "guidance_in.mlp.2"))):
+        if name in params:
+            put(a, params[name]["0"])
+            put(b, params[name]["2"])
+    t = params["txt_in"]
+    put("txt_in.input_embedder", t["input_embedder"])
+    put("txt_in.t_embedder.mlp.0", t["t_embedder"]["0"])
+    put("txt_in.t_embedder.mlp.2", t["t_embedder"]["2"])
+    put("txt_in.c_embedder.linear_1", t["c_embedder_1"])
+    put("txt_in.c_embedder.linear_2", t["c_embedder_2"])
+    for i, r in enumerate(t["refiner"]):
+        p = f"txt_in.individual_token_refiner.blocks.{i}"
+        for ours, theirs in (("norm1", "norm1"), ("qkv", "self_attn_qkv"), ("proj", "self_attn_proj"),
+                             ("norm2", "norm2"), ("mlp_fc1", "mlp.fc1"), ("mlp_fc2", "mlp.fc2"),
+                             ("adaLN", "adaLN_modulation.1")):
+            put(f"{p}.{theirs}", r[ours])
+    for i, blk in enumerate(params["double_blocks"]):
+        p = f"double_blocks.{i}"
+        for s in STREAMS:
+            put(f"{p}.{s}_mod.linear", blk[f"{s}_mod"])
+            put(f"{p}.{s}_attn_qkv", blk[f"{s}_attn_qkv"])
+            sd[f"{p}.{s}_attn_q_norm.weight"] = blk[f"{s}_attn_q_norm"]
+            sd[f"{p}.{s}_attn_k_norm.weight"] = blk[f"{s}_attn_k_norm"]
+            put(f"{p}.{s}_attn_proj", blk[f"{s}_attn_proj"])
+            put(f"{p}.{s}_mlp.fc1", blk[f"{s}_mlp_fc1"])
+            put(f"{p}.{s}_mlp.fc2", blk[f"{s}_mlp_fc2"])
+    for i, blk in enumerate(params["single_blocks"]):
+        p = f"single_blocks.{i}"
+        put(f"{p}.linear1", blk["linear1"])
+        put(f"{p}.linear2", blk["linear2"])
+        sd[f"{p}.q_norm.weight"] = blk["q_norm"]
+        sd[f"{p}.k_norm.weight"] = blk["k_norm"]
+        put(f"{p}.modulation.linear", blk["modulation"])
+    put("final_layer.linear", params["final_layer"]["linear"])
+    put("final_layer.adaLN_modulation.1", params["final_layer"]["adaLN"])
+    return sd
 
 
 def init_random_hunyuan_state_dict(arch: HunyuanArch, seed: int = 0, scale: float = 0.02) -> Dict[str, np.ndarray]:

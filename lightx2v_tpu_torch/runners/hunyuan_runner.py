@@ -16,15 +16,30 @@ holds it); ``timings["calc_steps"]`` records the decisions. ``step_window =
 (first, count)`` runs steps first..first + count - 1 of the schedule (the
 Tea plan still sees all of it; a cached window starts at a calc step).
 
-Synthetic weights only. A config that names no transformer width gets the
-JAX runner's small synthetic mode: the small ``HunyuanArch`` (96 wide, 4
-heads, 2 + 2 blocks), the small VAE, and random text states and pooled
-vector drawn from a numpy stream seeded with Python's salted ``hash()`` of
-the prompt, as there (so the two packages agree only within one process). A
-config that names ``hidden_size`` (3072, the only width it takes) gets
-``HunyuanArch()`` made on the device, the llava-llama-3-8b-class encoder and the CLIP-L text tower made on the device
-behind synthetic tokenizers (the encoders a real-weights run runs, where the
-JAX runner's synthetic mode draws random states), and the full VAE.
+Weights from a model directory, as the JAX runner reads them: the DiT
+from ``<model_path>/hunyuan-video-t2v-720p/transformers/
+mp_rank_00_model_states.pt`` (``HunyuanArch(task)``), the VAE from
+``.../vae/pytorch_model.pt`` (``HunyuanVAEConfig()``), and the HF Llama and
+CLIP-L text encoders from ``<base>/text_encoder`` and ``<base>/text_encoder_2``
+(``encoders/hf_text.py``), ``base`` being ``text_encoder_path`` or else
+``model_path``; ``text_encoder_crop_start`` sets the Llama crop. Each goes
+to the runner's device tensor by tensor. The tokenizers are the
+directories' own, through ``transformers``; without it the first encode
+raises (set the encoders' ``tokenizer`` to run without it).
+
+``synthetic_weights`` makes the DiT and the VAE from seeds, and still reads
+the HF text encoders where ``text_encoder_path`` names them, as the JAX
+runner does. A config that names no transformer width gets the JAX
+runner's small synthetic mode: the small ``HunyuanArch`` (96 wide, 4
+heads, 2 + 2 blocks), the small VAE, and, without ``text_encoder_path``,
+random text states and pooled vector drawn from a numpy stream seeded with
+Python's salted ``hash()`` of the prompt, as there (so the two packages
+agree only within one process). A config that names ``hidden_size`` (3072,
+the only width it takes) gets ``HunyuanArch()`` made on the device, and,
+without ``text_encoder_path``, the llava-llama-3-8b-class encoder and the
+CLIP-L text tower made on the device behind synthetic tokenizers (the
+encoders a real-weights run runs, where the JAX runner's synthetic mode
+draws random states), and the full VAE.
 
 ``mesh_shape`` (t2v, under ``torchrun``) runs Ulysses over the joint
 [image; text] stream on the mesh's sp axis (``models/hunyuan/sharded.py``).
@@ -32,18 +47,15 @@ i2v with ``mesh_shape`` raises ``NotImplementedError`` (ROADMAP.md, Queue 3,
 difference ba): token replace needs the global index of the first frame's
 tokens, and the JAX runner then runs on one device without saying so.
 
-Refused: the HF text encoders (``text_encoder_path``,
-``text_encoder_crop_start``; ``NotImplementedError`` naming their Queue 1
-item), real weights (the JAX runner's text encoders
-run through ``transformers``, which the card machine lacks), a caching mode
-other than Tea (``ValueError``: the JAX runner runs Tea only), and a
-quantized ``mm_config`` (``ValueError``: the JAX runner runs every Hunyuan
+Refused: a caching mode other than Tea (``ValueError``: the JAX runner runs
+Tea only), and a quantized ``mm_config`` (``ValueError``: the JAX runner runs every Hunyuan
 linear as ``Default`` whatever ``mm_config`` says; the quantized DiT is
 reached through ``HunyuanTransformer(..., mm_type=...)``)."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from functools import partial
 from typing import Any, Dict, Optional, Tuple
@@ -53,19 +65,21 @@ import torch
 
 from ..caching.teacache import hunyuan_tea_plan
 from ..encoders.clip import ClipTextArch, CLIPTextModel, init_random_clip_text_params_on_device
+from ..encoders.hf_text import TextEncoderHFClipModel, TextEncoderHFLlamaModel
 from ..encoders.llama import LLAVA_LLAMA3_8B, PROMPT_TEMPLATE, LlamaArch, LlamaEncoderModel, \
     init_random_llama_params_on_device
 from ..models.hunyuan.config import HunyuanArch
 from ..models.hunyuan.model import HunyuanTransformer, build_hunyuan_rope, riflex_k_for, text_kv_len
 from ..models.hunyuan.sharded import hunyuan_forward_sharded
 from ..models.hunyuan.weights import (init_random_hunyuan_params_on_device, init_random_hunyuan_state_dict,
-                                      load_hunyuan_params)
+                                      load_hunyuan_from_path, load_hunyuan_params)
 from ..schedulers.euler import FlowMatchEulerScheduler
 from ..utils.registry import RUNNER_REGISTER
 from ..vae.hunyuan_vae import (HunyuanVAEConfig, hunyuan_vae_decode, hunyuan_vae_decode_tiled,
-                               init_random_hunyuan_vae_state_dict, load_hunyuan_vae_params)
+                               init_random_hunyuan_vae_state_dict, load_hunyuan_vae_from_path,
+                               load_hunyuan_vae_params)
 from .base_runner import DefaultRunner, check_mesh_shape
-from .wan_runner import _not_ported, _SyntheticTokenizer
+from .wan_runner import _SyntheticTokenizer
 
 SMALL_ARCH = HunyuanArch(hidden_size=96, heads_num=4, double_blocks=2, single_blocks=2, mlp_hidden_dim=192,
                          text_states_dim=32, text_states_dim_2=16, rope_dim_list=(4, 10, 10))
@@ -127,12 +141,6 @@ class HunyuanRunner(DefaultRunner):
                                           "of the first frame's tokens, and the JAX runner runs it on one device "
                                           "(ROADMAP.md, Queue 3, difference ba)")
             check_mesh_shape(config["mesh_shape"])
-        for key in ("text_encoder_path", "text_encoder_crop_start"):
-            if config.get(key) is not None:
-                raise _not_ported(f"HunyuanVideo's HF text encoders ({key})", "Queue 1 item 16")
-        if not config.get("synthetic_weights"):
-            raise _not_ported("HunyuanVideo from real weights (the llava-llama-3-8b and CLIP-L text encoders "
-                              "through transformers)", "Queue 1 item 16")
         mm_type = (config.get("mm_config") or {}).get("mm_type", "Default")
         if mm_type != "Default":
             raise ValueError(f"mm_type {mm_type!r}: the HunyuanVideo DiT runs Default (bf16) linears only; the JAX "
@@ -145,14 +153,24 @@ class HunyuanRunner(DefaultRunner):
         if config.get("mesh_shape"):
             self.build_run_mesh()
 
+    def _synthetic(self) -> bool:
+        return bool(self.config.get("synthetic_weights"))
+
     def _full_width(self) -> bool:
         return "hidden_size" in self.config
 
     def _i2v(self) -> bool:
         return self.config.get("task", "t2v") == "i2v"
 
+    def _weights_dir(self, *parts) -> str:
+        return os.path.join(self.config["model_path"], "hunyuan-video-t2v-720p", *parts)
+
     def load_transformer(self):
         task = self.config.get("task", "t2v")
+        if not self._synthetic():
+            self.arch = HunyuanArch(task=task)
+            return load_hunyuan_from_path(self._weights_dir("transformers", "mp_rank_00_model_states.pt"), self.arch,
+                                          device=self.device)
         if not self._full_width():
             self.arch = dataclasses.replace(SMALL_ARCH, task=task)
             return load_hunyuan_params(init_random_hunyuan_state_dict(self.arch, seed=0, scale=0.05), self.arch,
@@ -161,6 +179,15 @@ class HunyuanRunner(DefaultRunner):
         return init_random_hunyuan_params_on_device(self.arch, seed=0, device=self.device)
 
     def load_text_encoder(self):
+        """The HF encoders from ``text_encoder_path`` (even under
+        ``synthetic_weights``) or ``model_path``; else None in the small
+        synthetic mode, the synthesized towers at full width."""
+        base = self.config.get("text_encoder_path") or (None if self._synthetic() else self.config["model_path"])
+        if base is not None:
+            crop = self.config.get("text_encoder_crop_start")
+            kw = {} if crop is None else {"crop_start": int(crop)}
+            return {"llama": TextEncoderHFLlamaModel(os.path.join(base, "text_encoder"), self.device, **kw),
+                    "clip": TextEncoderHFClipModel(os.path.join(base, "text_encoder_2"), self.device)}
         if not self._full_width():
             return None
         llama, clip = LLAVA_LLAMA3_8B, ClipTextArch()
@@ -170,6 +197,10 @@ class HunyuanRunner(DefaultRunner):
                                       _SyntheticClipTokenizer(clip))}
 
     def load_vae(self):
+        if not self._synthetic():
+            self.vae_cfg = HunyuanVAEConfig()
+            return load_hunyuan_vae_from_path(self._weights_dir("vae", "pytorch_model.pt"), self.vae_cfg,
+                                              device=self.device)
         self.vae_cfg = HunyuanVAEConfig() if self._full_width() else SMALL_VAE
         return load_hunyuan_vae_params(init_random_hunyuan_vae_state_dict(self.vae_cfg, seed=2), self.vae_cfg,
                                        device=self.device)
@@ -187,7 +218,7 @@ class HunyuanRunner(DefaultRunner):
 
     def run_input_encoder(self) -> Dict[str, Any]:
         """The Llama states and mask and the CLIP pooled vector; records
-        ``llama_s`` and ``clip_s`` at a published width."""
+        ``llama_s`` and ``clip_s`` where the encoders run."""
         prompt = self.config.get("prompt", "")
         if self.text_encoder is None:  # the small synthetic mode: random states per prompt
             rng = np.random.default_rng(abs(hash(prompt)) % 2 ** 31)

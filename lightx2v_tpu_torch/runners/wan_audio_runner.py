@@ -31,9 +31,11 @@ and every Euler step's ``step_s``.
 Synthetic weights: the JAX synthesizer's adapter from host numpy (seed 7)
 in the small mode, a device-drawn one of the same layout at a published
 width; else ``audio_adapter_path`` or ``model_path/audio_adapter.safetensors``
-(``.safetensors`` or a torch ``.pt`` / ``.pth``). A real audio encoder
-(``audio_encoder_path`` or ``model_path`` without ``synthetic_weights``)
-raises ``NotImplementedError`` (Queue 1 item 20). Refused as the JAX runner
+(``.safetensors`` or a torch ``.pt`` / ``.pth``). Without
+``synthetic_weights`` the audio features come from the wav2vec-class
+encoder of ``audio_encoder_path`` or ``model_path`` (``encoders/audio.py``),
+on the runner's device; with it, from the waveform's envelope, as in the
+JAX runner. Refused as the JAX runner
 does not run them: the offload keys, ``feature_caching``,
 ``changing_resolution`` and ``mesh_shape``."""
 
@@ -81,7 +83,7 @@ class WanAudioRunner(WanRunner):
         cfg = self.config
         refuse_unrun_keys(cfg, "wan2.1_audio")
         if cfg.get("audio_path"):
-            self._audio_encoder()  # a real (wav2vec) encoder raises here, before any weight is made
+            self._audio_encoder()  # an audio encoder the port does not run raises here, before the DiT is made
         params = super().load_transformer()
         interval, arch = int(cfg.get("audio_adapter_interval", 1)), self.arch
         if self._synthetic():
@@ -99,7 +101,7 @@ class WanAudioRunner(WanRunner):
         if not hasattr(self, "_encoder"):
             cfg = self.config
             self._encoder = AudioEncoder(None if self._synthetic() else
-                                         cfg.get("audio_encoder_path") or cfg.get("model_path"))
+                                         cfg.get("audio_encoder_path") or cfg.get("model_path"), self.device)
         return self._encoder
 
     def _features(self, feats: np.ndarray) -> torch.Tensor:

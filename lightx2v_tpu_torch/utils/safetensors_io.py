@@ -13,8 +13,10 @@ typed view over a map of the file would be misaligned. The reader therefore
 never views the file: it reads each tensor's bytes (``os.preadv``, which
 releases the GIL) into a buffer it allocates, or into one the caller gives
 (``read_into``, ``read_runs``: the offload tiers' pinned staging buffers),
-and views that buffer. ``load_sharded`` honours ``*.index.json`` and falls
-back to an ``original/`` subdirectory, as the JAX loader does.
+and views that buffer. ``load_sharded`` and ``load_dir`` (a key filter,
+each kept tensor moved to its device as it is read) honour
+``*.index.json`` and fall back to an ``original/`` subdirectory, as the JAX
+loader does. ``read_config`` reads the directory's ``config.json``.
 
 The JAX package also has a C++ thread-pool reader
 (``csrc/safetensors_reader.cpp``); the port reads with ``preadv`` from
@@ -25,7 +27,7 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -211,27 +213,49 @@ def save_file(tensors: Dict[str, Any], path: str, metadata: Optional[Dict[str, s
     os.replace(tmp, path)
 
 
-def load_sharded(ckpt_dir: str) -> Dict[str, torch.Tensor]:
-    """Every tensor of a checkpoint directory: the files of its
-    ``*.index.json`` if there is one, else every ``*.safetensors`` in name
-    order, else those of ``ckpt_dir/original``."""
+def checkpoint_files(ckpt_dir: str) -> List[str]:
+    """The safetensors files of a checkpoint directory: those its
+    ``*.index.json`` names if it has one, else every ``*.safetensors`` in
+    name order, else those of ``ckpt_dir/original``."""
     index_files = sorted(f for f in os.listdir(ckpt_dir) if f.endswith(".index.json"))
-    out: Dict[str, torch.Tensor] = {}
     if index_files:
         with open(os.path.join(ckpt_dir, index_files[0])) as f:
             index = json.load(f)
-        for fname in sorted(set(index["weight_map"].values())):
-            out.update(load_file(os.path.join(ckpt_dir, fname)))
-        return out
+        return [os.path.join(ckpt_dir, n) for n in sorted(set(index["weight_map"].values()))]
     files = sorted(f for f in os.listdir(ckpt_dir) if f.endswith(".safetensors"))
     if not files:
         orig = os.path.join(ckpt_dir, "original")
         if os.path.isdir(orig):
-            return load_sharded(orig)
+            return checkpoint_files(orig)
         raise FileNotFoundError(f"No .safetensors files found in: {ckpt_dir}")
-    for fname in files:
-        out.update(load_file(os.path.join(ckpt_dir, fname)))
+    return [os.path.join(ckpt_dir, n) for n in files]
+
+
+def load_dir(ckpt_dir: str, keep: Optional[Callable[[str], bool]] = None, device="cpu") -> Dict[str, torch.Tensor]:
+    """The tensors of a checkpoint directory (``checkpoint_files``) whose
+    names ``keep`` accepts (all without it), each read into its own host
+    buffer and moved to ``device`` in its stored dtype before the next is
+    read: a tensor the filter drops is never read, and no second full copy
+    of the kept ones is held on the host."""
+    out: Dict[str, torch.Tensor] = {}
+    for path in checkpoint_files(ckpt_dir):
+        with SafetensorsFile(path) as f:
+            for name in f.keys():
+                if keep is None or keep(name):
+                    out[name] = f.get_tensor(name).to(device)
     return out
+
+
+def read_config(path: str, name: str = "config.json") -> dict:
+    """A JSON file of an HF model directory (``config.json`` unless
+    ``name`` says otherwise)."""
+    with open(os.path.join(path, name)) as f:
+        return json.load(f)
+
+
+def load_sharded(ckpt_dir: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of a checkpoint directory, on the host."""
+    return load_dir(ckpt_dir)
 
 
 def read_state_dict(path: str) -> Dict[str, torch.Tensor]:

@@ -27,6 +27,7 @@ latents of each segment from the CPU torch stream on both sides
 and on the stitched frames (measured 1.5e-3 / 1.6e-3, 1.4e-4)."""
 
 import io
+import json
 import struct
 import wave
 
@@ -94,9 +95,19 @@ def test_features_bit_for_bit(tmp_path):
         np.testing.assert_array_equal(taudio._interp_time(hidden, n), jaudio._interp_time(hidden, n))
 
 
-def test_wav2vec_encoder_refused():
-    with pytest.raises(NotImplementedError, match="item 20"):
-        taudio.AudioEncoder("/nonexistent/wav2vec")
+def _unknown_audio_encoder(tmp_path) -> str:
+    """An HF directory of an audio model type the port does not run."""
+    (tmp_path / "enc").mkdir()
+    (tmp_path / "enc" / "config.json").write_text(json.dumps({"model_type": "data2vec-audio"}))
+    return str(tmp_path / "enc")
+
+
+def test_wav2vec_encoder_refused(tmp_path):
+    """The wav2vec-class encoder runs (tests/test_torch_wav2vec.py); a model
+    type other than wav2vec2, HuBERT and WavLM raises, naming its Queue 1
+    item."""
+    with pytest.raises(NotImplementedError, match="item 23"):
+        taudio.AudioEncoder(_unknown_audio_encoder(tmp_path), device="cpu")
 
 
 def _reference_state_dict(dim=64, kv_dim=16, feat=40, ntok=4, n_ca=2, freq=32):
@@ -274,12 +285,16 @@ def test_runner_mux(runs, tmp_path):
     (dict(changing_resolution=True), NotImplementedError, "one resolution"),
     (dict(mesh_shape={"seq": 2}), NotImplementedError, "item 14"),
     (dict(lazy_load=True), NotImplementedError, "resident"),
-    (dict(synthetic_weights=False, model_path="/nonexistent"), NotImplementedError, "item 20"),
+    (dict(synthetic_weights=False, model_path="<an unknown audio model type>"), NotImplementedError, "item 23"),
 ])
 def test_runner_refusals(extra, err, match, tmp_path):
     """What the JAX audio runner does not run raises before any weight is
-    made; so does a real (wav2vec) audio encoder, which the port lacks."""
+    made; so does an audio encoder of a model type the port does not run
+    (the wav2vec-class ones run: tests/test_torch_wav2vec.py)."""
     from lightx2v_tpu_torch import infer as tinfer
+
+    if str(extra.get("model_path", "")).startswith("<"):
+        extra = dict(extra, model_path=_unknown_audio_encoder(tmp_path))
 
     with pytest.raises(err, match=match):
         tinfer.init_runner(tset(dict(CFG, device="cpu", audio_path=_write_wav(tmp_path / "a.wav", 0.1), **extra)))

@@ -8,6 +8,8 @@ plain attention (``attn_type="xla"``); the port's DiT runs ``flash_attn3``,
 the dense flash kernel's plain version on the CPU, at head dim 128 with the
 real ``rope_dim_list`` (16, 56, 56)."""
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -165,21 +167,32 @@ def test_small_synthetic_runner_vs_jax():
 @pytest.mark.parametrize("extra,err,match", [
     (dict(feature_caching="TaylorSeer"), ValueError, "Tea only"),
     (dict(mesh_shape={"seq": 2}), NotImplementedError, "item 14"),
-    (dict(text_encoder_path="/nonexistent"), NotImplementedError, "item 16"),
-    (dict(text_encoder_crop_start=95), NotImplementedError, "item 16"),
-    (dict(synthetic_weights=False, model_path="/nonexistent"), NotImplementedError, "real weights"),
+    (dict(text_encoder_path="<a Llama with rope_scaling>"), NotImplementedError, "item 22"),
+    (dict(text_encoder_path="/nonexistent", text_encoder_crop_start=95), FileNotFoundError,
+     "/nonexistent/text_encoder"),
+    (dict(synthetic_weights=False, model_path="/nonexistent"), FileNotFoundError,
+     "hunyuan-video-t2v-720p/transformers/mp_rank_00_model_states.pt"),
     (dict(mm_config={"mm_type": "W-int8-channel-sym-A-int8-channel-sym-dynamic-Tpu"}), ValueError, "Default"),
     (dict(hidden_size=1536), ValueError, "3072"),
 ])
-def test_runner_refusals(extra, err, match):
-    """What the port's Hunyuan runner does not run raises before any weight
-    is made: a caching mode other than Tea (the JAX runner runs Tea only),
-    the HF text encoders (``text_encoder_path``, ``text_encoder_crop_start``;
-    Queue 1 item 16), Ulysses (item 14), real weights (the HF text
-    encoders), a quantized mm_type (the JAX runner runs Default whatever it
-    says), a width other than HunyuanArch()'s. i2v and Tea run
+def test_runner_refusals(extra, err, match, tmp_path):
+    """What the port's Hunyuan runner does not run raises: a caching mode
+    other than Tea (the JAX runner runs Tea only), Ulysses (Queue 1 item
+    14), a Llama directory whose config asks for ``rope_scaling`` (item 22),
+    a quantized mm_type (the JAX runner runs Default whatever it says), a
+    width other than HunyuanArch()'s. ``text_encoder_path`` with
+    ``text_encoder_crop_start``, and ``model_path`` without
+    ``synthetic_weights``, read the reference's directories (a missing one
+    raises ``FileNotFoundError`` naming it; they run in
+    tests/test_torch_hunyuan_dir.py). i2v and Tea run
     (tests/test_torch_hunyuan_rest.py)."""
     from lightx2v_tpu_torch import infer as tinfer
 
+    if extra.get("text_encoder_path", "").startswith("<"):
+        (tmp_path / "text_encoder").mkdir()
+        (tmp_path / "text_encoder" / "config.json").write_text(json.dumps(dict(
+            model_type="llama", vocab_size=64, hidden_size=32, num_attention_heads=4, num_hidden_layers=4,
+            intermediate_size=64, rope_scaling={"rope_type": "llama3", "factor": 8.0})))
+        extra = dict(extra, text_encoder_path=str(tmp_path))
     with pytest.raises(err, match=match):
         tinfer.init_runner(tset({**CFG, "synthetic_weights": True, "device": "cpu", **extra}))
